@@ -1,0 +1,41 @@
+"""Parameter initializers of the PyTorch port.
+
+Counterpart of ``mxnet_tpu/initializer.py``: the same default law and the
+same dispatch on the parameter name's suffix (``weight`` draws from the
+initializer, ``bias``/``beta`` are zeros, ``gamma`` ones).  Draws come
+from a ``numpy.random.RandomState``, so a seed gives the same weights on
+every device; they cannot match the JAX package's key-based draws.
+"""
+
+from __future__ import annotations
+
+__all__ = ["Initializer", "Uniform"]
+
+
+class Initializer:
+    """Fills a numpy array for a named parameter."""
+
+    def __call__(self, name, arr, rng):
+        name = name.lower()
+        if name.endswith("weight"):
+            self._init_weight(arr, rng)
+        elif name.endswith(("bias", "beta")):
+            arr[...] = 0.0
+        elif name.endswith("gamma"):
+            arr[...] = 1.0
+        else:
+            raise ValueError("Unknown initialization pattern for %s; name a "
+                             "known suffix (weight/bias/gamma/beta)" % name)
+
+    def _init_weight(self, arr, rng):
+        raise NotImplementedError()
+
+
+class Uniform(Initializer):
+    """U(-scale, scale), the framework default (scale 0.07)."""
+
+    def __init__(self, scale=0.07):
+        self.scale = scale
+
+    def _init_weight(self, arr, rng):
+        arr[...] = rng.uniform(-self.scale, self.scale, size=arr.shape)
