@@ -8,9 +8,11 @@ is present.  The Pallas kernels of the reference become hand-written
 Hopper kernels under ``csrc/``, built at first use (``_kernels``).
 """
 
-from . import context, convert, gluon, initializer, ndarray, ops, serving
+from . import (autograd, context, convert, gluon, initializer, ndarray, ops,
+               optimizer, random, serving)
 from .base import MXNetError
 from .context import cpu, gpu
 
-__all__ = ["MXNetError", "context", "convert", "cpu", "gpu", "gluon",
-           "initializer", "ndarray", "ops", "serving"]
+__all__ = ["MXNetError", "autograd", "context", "convert", "cpu", "gpu",
+           "gluon", "initializer", "ndarray", "ops", "optimizer", "random",
+           "serving"]

@@ -41,6 +41,17 @@ _SIGNATURES = {
                                   ctypes.c_int, ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "flash_attn_bwd": {
+        "mxt_flash_attn_bwd_dq": (ctypes.c_int, [ctypes.c_void_p] * 7
+                                  + [ctypes.c_int] * 4
+                                  + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]),
+        "mxt_flash_attn_bwd_dkv": (ctypes.c_int, [ctypes.c_void_p] * 8
+                                   + [ctypes.c_int] * 4
+                                   + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]),
+        "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,14 @@ other.
 
 Parameters are allocated on the block's device at construction (the
 default-device rule of :mod:`..context`) and filled by
-:meth:`Block.initialize` from a numpy seed.
+:meth:`Block.initialize` from a numpy seed.  Each is a :class:`Parameter`,
+an ``nn.Parameter`` that also carries the JAX package's ``grad_req``,
+``lr_mult`` and ``wd_mult``.
+
+A block runs with PyTorch's grad mode set to
+:func:`~mxnet_tpu_torch.autograd.is_recording`: called outside
+``autograd.record()`` it records no graph and keeps no activations, as
+only recorded work is differentiable in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +29,38 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import autograd as _autograd
 from .. import initializer as _init
 from .. import ndarray
 from ..context import resolve_device
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "Parameter"]
+
+class Parameter(nn.Parameter):
+    """A block's weight (reference: ``gluon/parameter.py`` Parameter).
+
+    ``grad_req``: ``'write'`` (the default:
+    :func:`~mxnet_tpu_torch.autograd.backward` replaces ``.grad``),
+    ``'add'`` (adds to it) or ``'null'`` (no gradient: ``requires_grad``
+    is False).  ``lr_mult`` and ``wd_mult``
+    scale the optimizer's learning rate and weight decay for this
+    parameter."""
+
+    lr_mult = 1.0
+    wd_mult = 1.0
+
+    @property
+    def grad_req(self):
+        return getattr(self, "_grad_req", "write")
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("invalid grad_req %r" % (req,))
+        self._grad_req = req
+        self.requires_grad_(req != "null")
+        if req == "null":
+            self.grad = None
 
 
 class Block(nn.Module):
@@ -42,8 +76,12 @@ class Block(nn.Module):
 
     def _param(self, name, shape):
         """Register a float32 parameter ``name`` of ``shape``."""
-        self.register_parameter(name, nn.Parameter(torch.zeros(
+        self.register_parameter(name, Parameter(torch.zeros(
             shape, dtype=torch.float32, device=self.device)))
+
+    def __call__(self, *args, **kwargs):
+        with torch.set_grad_enabled(_autograd.is_recording()):
+            return super().__call__(*args, **kwargs)
 
     def collect_params(self):
         """Structural name -> parameter, in registration order."""
@@ -62,6 +100,15 @@ class Block(nn.Module):
                 init(name, arr, rng)
                 p.copy_(torch.from_numpy(arr))
         return self
+
+    def zero_grad(self, set_to_none=False):
+        """Zero every parameter's gradient in place (the JAX package's
+        ``zero_grad``); a parameter with no gradient yet keeps none."""
+        del set_to_none  # gradients are zeroed, never dropped
+        with torch.no_grad():
+            for p in self.parameters():
+                if p.grad is not None:
+                    p.grad.zero_()
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for API compatibility; the port runs eagerly (CUDA

@@ -9,6 +9,7 @@ and layouts.  The JAX package infers an input width on the first call
 
 from __future__ import annotations
 
+from ... import autograd as _autograd
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
 from ..block import HybridBlock
@@ -55,15 +56,16 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout of rate ``rate``.  The port serves only, and dropout is the
-    identity at inference; the training slice adds the train mode."""
+    """Dropout of rate ``rate``: drops only in train mode
+    (:func:`~mxnet_tpu_torch.autograd.is_training`, on under
+    ``autograd.record()``), the identity otherwise."""
 
     def __init__(self, rate, device=None):
         super().__init__(device=device)
         self._rate = rate
 
     def forward(self, x):
-        return _ops.dropout(x, p=self._rate, training=False)
+        return _ops.dropout(x, p=self._rate, training=_autograd.is_training())
 
 
 class LayerNorm(HybridBlock):

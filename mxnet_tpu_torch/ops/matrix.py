@@ -1,7 +1,7 @@
 """Shape and indexing ops of the PyTorch port.
 
 Counterparts of ``mxnet_tpu/ops/matrix.py`` Reshape, transpose,
-slice_axis and Embedding, and of ``mxnet_tpu/ops/contrib.py``
+slice_axis, Embedding and pick, and of ``mxnet_tpu/ops/contrib.py``
 arange_like.
 """
 
@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["reshape", "transpose", "slice_axis", "embedding", "arange_like"]
+__all__ = ["reshape", "transpose", "slice_axis", "embedding", "arange_like",
+           "pick"]
 
 
 def reshape(data, shape):
@@ -59,3 +60,24 @@ def arange_like(data, axis):
     """``0, 1, ..., data.shape[axis] - 1`` in ``data``'s dtype."""
     return torch.arange(data.shape[axis], dtype=data.dtype,
                         device=data.device)
+
+
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data`` picked along ``axis`` at ``index`` (any numeric dtype,
+    shaped as ``data`` without ``axis``), as the JAX package's ``pick``:
+    an index is truncated toward zero, then clipped to ``[0, n-1]``
+    (``mode="clip"``) or taken modulo ``n`` (``"wrap"``).  The index is
+    brought into range before the gather (on CUDA an index out of range
+    would be a device-side assert); a NaN index picks element 0."""
+    if mode not in ("clip", "wrap"):
+        raise ValueError("pick mode must be 'clip' or 'wrap', not %r" % mode)
+    ax = axis % data.dim()
+    n = data.shape[ax]
+    t = torch.trunc(index) if index.is_floating_point() else index
+    t = t.clamp(0, n - 1) if mode == "clip" else torch.remainder(t, n)
+    if t.is_floating_point():
+        t = torch.nan_to_num(t, nan=0.0)
+    shape = [d for i, d in enumerate(data.shape) if i != ax]
+    idx = t.to(torch.int64).reshape(shape).unsqueeze(ax)
+    out = torch.gather(data, ax, idx)
+    return out if keepdims else out.squeeze(ax)

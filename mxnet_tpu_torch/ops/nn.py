@@ -1,7 +1,7 @@
 """Neural-network ops of the PyTorch port, as plain functions on tensors.
 
 Counterparts of ``mxnet_tpu/ops/nn.py`` FullyConnected, LeakyReLU (gelu),
-LayerNorm and Dropout.  The JAX package leaves these to XLA;
+LayerNorm, Dropout and log_softmax.  The JAX package leaves these to XLA;
 here they stay plain PyTorch (the matrix products go to cuBLAS).
 """
 
@@ -10,7 +10,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fully_connected", "leaky_relu", "layer_norm", "dropout"]
+from .. import random as _random
+
+__all__ = ["fully_connected", "leaky_relu", "layer_norm", "dropout",
+           "log_softmax"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -40,7 +43,22 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
 
 
 def dropout(data, p=0.5, training=False):
-    """Dropout; the identity unless ``training`` (inference never drops)."""
-    if not training or p == 0:
+    """Dropout (reference: src/operator/nn/dropout.cc); the identity
+    unless ``training`` (inference never drops).
+
+    In training, a Bernoulli keep mask of rate ``1 - p``, scaled by
+    ``1 / (1 - p)``, drawn from the port's generator of ``data``'s device
+    (:func:`~mxnet_tpu_torch.random.generator`)."""
+    if not training or p <= 0:
         return data
-    return F.dropout(data, p=p, training=True)
+    keep = 1.0 - p
+    prob = torch.full(data.shape, keep, dtype=torch.float32,
+                      device=data.device)
+    mask = torch.bernoulli(prob, generator=_random.generator(data.device))
+    return data * (mask.to(data.dtype) / keep)
+
+
+def log_softmax(data, axis=-1):
+    """``log(softmax(data))`` along ``axis``, computed stably (reference:
+    src/operator/nn/softmax.cc)."""
+    return torch.log_softmax(data, dim=axis)
