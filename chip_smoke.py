@@ -15,6 +15,15 @@ Phases (any failure raises, and the script exits non-zero):
    at the training shape and the same edge shapes, bitwise equal across
    two launches, with their times, the plain backward's, SDPA's backward
    and the bounds;
+3c. convolution and pooling kernels: the weight-gradient kernels K1a
+   (per tap) and K1b (im2col) at every distinct convolution shape of
+   ResNet-50 at batch 128 in bf16, at two of them in float32 too and at a
+   ragged shape, and the max-pool backward K2 at the stem pool's shape in
+   bf16 and float32, at an all-ties input and at an odd shape; each
+   against its plain version on the card (K1 within 1e-3 of the plain
+   result's largest magnitude, K2 bitwise), bitwise equal across two
+   launches, with its time, the plain version's, cuDNN's (or PyTorch's
+   max-pool backward) and the bound;
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -28,7 +37,16 @@ Phases (any failure raises, and the script exits non-zero):
    autograd.backward and gluon.Trainer: a finite loss that falls, and K3,
    K4a and K4b each launched once per layer per step; the step time, split
    into forward, backward and optimizer; then 3 more steps under
-   torch.profiler for the device's busy share and its time by kernel group.
+   torch.profiler for the device's busy share and its time by kernel group;
+6. ResNet-50 v1 training (NHWC): float32 gradients at (4, 64, 64, 3)
+   held against the same weights' gradients on the CPU plain path (in
+   predict mode every parameter's, in train mode all together against
+   the CPU's own rounding sensitivity), then the main path exactly as the
+   JAX package's bench: GluonTrainStep(lr 0.1, momentum 0.9, wd 1e-4,
+   compute_dtype bfloat16) for 10 steps on one fixed (128, 224, 224, 3)
+   batch: a finite loss whose last value lies below the first, and K1a
+   44, K1b 9 and K2 once per step; the step time, images per second and peak memory; then 3 more
+   steps under torch.profiler, by kernel group.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -531,18 +549,20 @@ def _train_step(net, loss_fn, trainer, x, y):
 
 
 # device kernels by what they do, matched on the kernel's name
-KERNEL_GROUPS = (("K4b flash_bwd_dkv", "flash_bwd_dkv"),
-                 ("K4a flash_bwd_dq", "flash_bwd_dq"),
-                 ("K3 flash_fwd", "flash_fwd"),
-                 ("matrix products", "gemm"),
-                 ("softmax", "softmax"))
+KERNEL_GROUPS = (("K4b flash_bwd_dkv", ("flash_bwd_dkv",)),
+                 ("K4a flash_bwd_dq", ("flash_bwd_dq",)),
+                 ("K3 flash_fwd", ("flash_fwd",)),
+                 ("matrix products", ("gemm",)),
+                 ("softmax", ("softmax",)))
 
 
-def profile_steps(step, smi, step_ms, steps=3):
+def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
+                  tag="train"):
     """Device time by kernel group and the device's busy share over a
     window of training steps, from a torch.profiler trace.  The profiler
     slows the host, so the device time per step is also given as a share
-    of ``step_ms``, the step time measured without it."""
+    of ``step_ms``, the step time measured without it.  ``groups``:
+    (group, substrings of the kernel's name), the first match wins."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -558,27 +578,414 @@ def profile_steps(step, smi, step_ms, steps=3):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         raise AssertionError("the profiler saw no device kernel")
-    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    totals = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
     busy, end = 0.0, None
     for t_start, t_end, name in spans:
-        group = next((g for g, key in KERNEL_GROUPS if key in name.lower()),
-                     "other")
-        groups[group] += t_end - t_start
+        group = next((g for g, keys in groups
+                      if any(k in name.lower() for k in keys)), "other")
+        totals[group] += t_end - t_start
         if end is None or t_start > end:
             busy += t_end - t_start
             end = t_end
         elif t_end > end:
             busy += t_end - end
             end = t_end
-    total = sum(groups.values())
-    log("train: profiled %d steps on %s: %.2f ms of wall, device busy "
+    total = sum(totals.values())
+    log("%s: profiled %d steps on %s: %.2f ms of wall, device busy "
         "%.1f %% of it (%d kernels); device time per step %.2f ms, %.1f %% "
         "of the unprofiled step (%.2f ms); by group: %s" % (
-            steps, smi, wall_us / 1e3, 100.0 * busy / wall_us, len(spans),
-            total / steps / 1e3, 100.0 * total / steps / 1e3 / step_ms,
-            step_ms, ", ".join("%s %.2f ms (%.1f %%)" % (
+            tag, steps, smi, wall_us / 1e3, 100.0 * busy / wall_us,
+            len(spans), total / steps / 1e3,
+            100.0 * total / steps / 1e3 / step_ms, step_ms,
+            ", ".join("%s %.2f ms (%.1f %%)" % (
                 g, t / steps / 1e3, 100.0 * t / total)
-                for g, t in groups.items())))
+                for g, t in totals.items())))
+
+
+# ---------------------------------------------------------------- ResNet-50
+
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+RESNET_STEPS, RESNET_WARMUP = 10, 2
+# ResNet-50's convolutions per training step by formulation, and its one
+# max pool (the stem's 3x3/s2/p1)
+RESNET_K1A, RESNET_K1B, RESNET_K2 = 44, 9, 1
+# K1 vs its plain version: long float32 sums in another order (the stem's
+# runs over 1.6 M positions)
+DW_TOL = 1e-3
+# the parameter gradients of a float32 step on the card vs the CPU plain
+# path in predict mode (BatchNorm by its running statistics), within
+# GRAD_TOL of each gradient's largest magnitude; a tensor's scale is at
+# least GRAD_FLOOR of the largest gradient, for the biases of the
+# convolutions that feed a BatchNorm, whose true gradient is 0
+GRAD_FLOOR = 1e-3
+# In train mode (batch statistics) the gradients at initialisation are
+# ill-conditioned: a relative perturbation of 1e-7 in the input moves some
+# of them by 10 % on the CPU.  There the card's deviation from the CPU
+# (L2 over all gradients) must stay within TRAIN_NOISE_RATIO times the
+# CPU's own deviation under such a perturbation (measured on the H100:
+# 0.68-0.95 times).
+INPUT_NOISE, TRAIN_NOISE_RATIO = 1e-7, 3.0
+
+
+def resnet_convs(batch=RESNET_BATCH, size=RESNET_SIZE):
+    """(x shape, kernel, stride, pad, O) of every convolution of
+    resnet50_v1 at (batch, size, size, 3), in forward order, from a
+    forward on the meta device."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn import Conv2D
+
+    net = resnet50_v1(layout="NHWC", device="meta")
+    convs = []
+
+    def hook(mod, args, _out):
+        kw = mod._kwargs
+        convs.append((tuple(args[0].shape), kw["kernel"], kw["stride"],
+                      kw["pad"], kw["num_filter"]))
+
+    for m in net.modules():
+        if isinstance(m, Conv2D):
+            m.register_forward_hook(hook)
+    net(torch.empty(batch, size, size, 3, device="meta"))
+    return convs
+
+
+def _out_size(size, k, s, p):
+    return (size + 2 * p - k) // s + 1
+
+
+def conv_dw_bound_ms(xs, k, s, p, o, dtype):
+    """Least time for dW: x and dy read once and dW (float32) written
+    once, against 2 flops per multiply-add at the card's peak for the
+    inputs' type (bf16: the tensor cores, which these CUDA-core kernels
+    do not use)."""
+    n, h, w, i = xs
+    oh, ow = _out_size(h, k[0], s[0], p[0]), _out_size(w, k[1], s[1], p[1])
+    flops = 2.0 * n * oh * ow * o * k[0] * k[1] * i
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (n * h * w * i + n * oh * ow * o) * esize + o * k[0] * k[1] * i * 4
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def conv_kernels(seed):
+    """Phase 3c, K1a and K1b: every distinct convolution shape of the main
+    path in bf16 (by the formulation rule), two of them in float32 and a
+    ragged shape in both formulations.  Returns, for each kernel, its
+    numbers summed over the convolutions of one training step."""
+    from mxnet_tpu_torch.ops import conv_dw as C
+
+    convs = resnet_convs()
+    counts = {}
+    for c in convs:
+        counts[c] = counts.get(c, 0) + 1
+    cases = [(c, torch.bfloat16, C.formulation(c[0][3]), n)
+             for c, n in counts.items()]
+    f32 = [convs[0], next(c for c in convs if c[0][3] >= 128)]
+    ragged = ((8, 15, 13, 200), (3, 3), (2, 2), (1, 1), 100)
+    cases += [(c, torch.float32, form, 0) for c in f32
+              for form in ("pertap", "im2col")]
+    cases += [(ragged, dt, form, 0) for dt in (torch.float32, torch.bfloat16)
+              for form in ("pertap", "im2col")]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=0.0, launches_per_step=0,
+                       bound_by=set()) for form in ("pertap", "im2col")}
+    for (xs, k, s, p, o), dt, form, per_step in cases:
+        n, h, w, _ = xs
+        dys = (n, _out_size(h, k[0], s[0], p[0]),
+               _out_size(w, k[1], s[1], p[1]), o)
+        x = torch.randn(xs, device="cuda", generator=gen).to(dt)
+        dy = torch.randn(dys, device="cuda", generator=gen).to(dt)
+        run = C.conv_dw_pertap if form == "pertap" else C.conv_dw_im2col
+
+        def fn():
+            return run(x, dy, k, s, p)
+
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        ref = C.conv_dw_reference(x, dy, k, s, p)
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        same = torch.equal(got, again)
+        del got, again, ref
+        ms = time_ms(fn)
+        plain_ms = time_ms(lambda: C.conv_dw_reference(x, dy, k, s, p),
+                           iters=3)
+        wt = torch.empty((o,) + k + xs[3:], dtype=dt, device="cuda")
+        lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+            _nchw(dy), _nchw(x), _nchw(wt), None, s, p, (1, 1), False,
+            (0, 0), 1, (False, True, False)))
+        bound, bound_by = conv_dw_bound_ms(xs, k, s, p, o, dt)
+        splits, _ = C.split_plan(form, k, xs[3], o, dys[0] * dys[1] * dys[2])
+        log("kernel conv_dw %s [x %s k %s s %s p %s O %d %s, %d a step]: "
+            "max_abs_err %.3g of max %.3g (tol %.0e of it), bitwise "
+            "repeatable %s, %d splits; kernel %.4f ms, plain %.4f ms, cuDNN "
+            "wgrad %.4f ms, bound %.4f ms (%s)" % (
+                form, xs, k, s, p, o, str(dt).split(".")[1], per_step, err,
+                scale, DW_TOL, same, splits, ms, plain_ms, lib_ms, bound,
+                bound_by))
+        if not err <= DW_TOL * scale:
+            raise AssertionError("conv_dw %s disagrees with its plain "
+                                 "version at x %s" % (form, xs))
+        if not same:
+            raise AssertionError("two launches of conv_dw %s differ at x %s"
+                                 % (form, xs))
+        row = rows[form]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if per_step:
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound), ("library_ms", lib_ms)):
+                row[key] += per_step * v
+            row["launches_per_step"] += per_step
+            row["bound_by"].add(bound_by)
+        del x, dy, wt
+    torch.cuda.empty_cache()
+    for form, row in rows.items():
+        row["bound_by"] = "+".join(sorted(row.pop("bound_by")))
+        log("kernel conv_dw %s over one ResNet-50 step (%d launches, bf16): "
+            "kernel %.3f ms, plain %.3f ms, cuDNN wgrad %.3f ms, bound "
+            "%.3f ms" % (form, row.pop("launches_per_step"), row["ms"],
+                         row["plain_ms"], row["library_ms"], row["bound_ms"]))
+    return rows
+
+
+def maxpool_bound_ms(xs, dys, dtype):
+    """Least time for max-pool dX: x and dy read once, dX written once."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (2 * int(np.prod(xs)) + int(np.prod(dys))) * esize
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def pool_kernels(seed):
+    """Phase 3c, K2: the stem pool's shape in bf16 (the main path's) and
+    float32, an all-ties input and an odd shape; returns the main path's
+    row."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    k, s, p = (3, 3), (2, 2), (1, 1)
+    stem = (RESNET_BATCH, 112, 112, 64)
+    cases = [("stem", stem, torch.bfloat16), ("stem", stem, torch.float32),
+             ("all ties", (4, 16, 16, 64), torch.float32),
+             ("odd", (3, 9, 11, 5), torch.bfloat16)]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    row = None
+    for name, xs, dt in cases:
+        n, h, w, c = xs
+        dys = (n, _out_size(h, 3, 2, 1), _out_size(w, 3, 2, 1), c)
+        x = (torch.ones(xs, device="cuda") if name == "all ties"
+             else torch.randn(xs, device="cuda", generator=gen)).to(dt)
+        dy = torch.randn(dys, device="cuda", generator=gen).to(dt)
+
+        def fn():
+            return P.maxpool_bwd(x, dy, k, s, p)
+
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        ref = P.maxpool_bwd_reference(x, dy, k, s, p)
+        err = (got.float() - ref.float()).abs().max().item()
+        equal, same = torch.equal(got, ref), torch.equal(got, again)
+        del got, again, ref
+        ms = time_ms(fn)
+        plain_ms = time_ms(lambda: P.maxpool_bwd_reference(x, dy, k, s, p),
+                           iters=3)
+        _, idx = F.max_pool2d(_nchw(x), k, s, p, return_indices=True)
+        lib_ms = time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            _nchw(dy), _nchw(x), k, s, p, (1, 1), False, idx))
+        bound, bound_by = maxpool_bound_ms(xs, dys, dt)
+        log("kernel maxpool_bwd [%s x %s %s]: bitwise equal to the plain "
+            "version %s (max abs err %.3g), bitwise repeatable %s; kernel "
+            "%.4f ms, plain %.4f ms, max_pool2d_with_indices_backward %.4f "
+            "ms, bound %.4f ms (%s)" % (name, xs, str(dt).split(".")[1],
+                                        equal, err, same, ms, plain_ms,
+                                        lib_ms, bound, bound_by))
+        if not (equal and same):
+            raise AssertionError("maxpool_bwd differs from its plain version "
+                                 "or between two launches at %s" % name)
+        if name == "stem" and dt == torch.bfloat16:
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+        del x, dy, idx
+    torch.cuda.empty_cache()
+    return row
+
+
+def _resnet(device, seed=None):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1(layout="NHWC", device=device)
+    return net if seed is None else net.initialize(seed=seed)
+
+
+def _resnet_grads(net, x, y, train):
+    """The float32 gradients of one forward and backward in train or
+    predict mode, by parameter name, on the CPU."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    params = {k: p for k, p in net.collect_params().items()
+              if p.grad_req != "null"}
+    with autograd.record(train_mode=train):
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
+    return {k: g.detach().cpu() for k, g in
+            zip(params, torch.autograd.grad(loss, list(params.values())))}
+
+
+def _l2_rel(got, want):
+    """|got - want| / |want| over all tensors together."""
+    num = sum(float(((got[k].double() - w.double()) ** 2).sum())
+              for k, w in want.items())
+    return (num / sum(float((w.double() ** 2).sum())
+                      for w in want.values())) ** 0.5
+
+
+def resnet_gradient_check(seed):
+    """Phase 6.1: float32 (TF32 off) gradients of ResNet-50 at
+    (4, 64, 64, 3) on the card against the same weights on the CPU plain
+    path, in predict mode (each within GRAD_TOL) and in train mode
+    (within TRAIN_NOISE_RATIO of the CPU's own rounding sensitivity)."""
+    from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+
+    rng = np.random.RandomState(seed + 5)
+    net = _resnet("cuda", seed)
+    state = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+    cpu_net = _resnet("cpu")
+    x = rng.rand(4, 64, 64, 3).astype(np.float32)
+    y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, (4,)).astype(np.int32))
+    x_noisy = (x * (1 + INPUT_NOISE * rng.randn(*x.shape))).astype(np.float32)
+    for train in (False, True):
+        load_mxnet_tpu_params(net, state)
+        load_mxnet_tpu_params(cpu_net, state)
+        got = _resnet_grads(net, torch.from_numpy(x).cuda(), y.cuda(), train)
+        want = _resnet_grads(cpu_net, torch.from_numpy(x), y, train)
+        big = max(g.abs().max().item() for g in want.values())
+        rel = {name: (got[name] - g).abs().max().item()
+               / max(g.abs().max().item(), GRAD_FLOOR * big)
+               for name, g in want.items()}
+        worst = max(rel, key=rel.get)
+        l2 = _l2_rel(got, want)
+        mode = "train" if train else "predict"
+        if not train:
+            log("resnet: float32 %s-mode gradients of %d parameters on the "
+                "card vs the CPU plain path on a (4, 64, 64, 3) batch: "
+                "worst %.3g of the gradient's largest magnitude (%s; tol "
+                "%.0e; each scale at least %.0e of the largest gradient, "
+                "%.3g); L2 over all %.3g" % (mode, len(want), rel[worst],
+                                             worst, GRAD_TOL, GRAD_FLOOR,
+                                             big, l2))
+            if rel[worst] > GRAD_TOL:
+                raise AssertionError("the card's ResNet-50 gradients "
+                                     "disagree with the CPU plain path")
+            continue
+        load_mxnet_tpu_params(cpu_net, state)
+        noise = _l2_rel(_resnet_grads(cpu_net, torch.from_numpy(x_noisy), y,
+                                      True), want)
+        log("resnet: float32 %s-mode gradients on the card vs the CPU: L2 "
+            "over all %.3g, worst tensor %.3g (%s); the CPU's own L2 change "
+            "under a %.0e input perturbation %.3g (ratio %.2f, limit %.1f)"
+            % (mode, l2, rel[worst], worst, INPUT_NOISE, noise, l2 / noise,
+               TRAIN_NOISE_RATIO))
+        if not l2 <= TRAIN_NOISE_RATIO * noise:
+            raise AssertionError("the card's train-mode ResNet-50 gradients "
+                                 "are farther from the CPU's than rounding "
+                                 "noise explains")
+
+
+# device kernels of the ResNet step by what they do, matched on the
+# kernel's name (the first group that matches wins)
+RESNET_GROUPS = (
+    ("K1a conv_dw pertap", ("conv_dw_kernel<false",)),
+    ("K1b conv_dw im2col", ("conv_dw_kernel<true",)),
+    ("K1 split-K sum", ("conv_dw_reduce",)),
+    ("K2 maxpool_bwd", ("maxpool_argmax", "maxpool_gather")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("loss softmax", ("softmax", "nll")),
+    ("cuDNN conv fwd/dgrad", ("conv", "cudnn", "xmma", "fprop", "dgrad",
+                              "implicit", "gemm", "cutlass", "sm90")),
+    ("pooling fwd", ("pool",)),
+    ("BN, ReLU, casts and other element-wise/reductions",
+     ("elementwise", "reduce", "vectorized", "copy", "fill", "cat")),
+)
+
+
+def resnet_train(seed, smi):
+    """Phase 6: the float32 gradient check against the CPU plain path,
+    then the main path (the bench's step), then a profiled window;
+    returns the kernels' launch counts on the main path."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+    from mxnet_tpu_torch.parallel import GluonTrainStep
+
+    resnet_gradient_check(seed)
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed + 6)
+
+    # the main path: the bench's step, 10 steps on one fixed batch
+    net = _resnet("cuda", seed)
+    step = GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                          lr=0.1, momentum=0.9, wd=1e-4,
+                          compute_dtype="bfloat16")
+    x = rng.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.int32)
+    xs, ys = step.put_batch(x, y)
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(RESNET_STEPS)]
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.conv_dw_pertap.launches = 0
+    C.conv_dw_im2col.launches = 0
+    P.maxpool_bwd.launches = 0
+    t0 = time.perf_counter()
+    for ev in events:
+        ev[0].record()
+        losses.append(step(xs, ys))
+        ev[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pertap": C.conv_dw_pertap.launches,
+                "im2col": C.conv_dw_im2col.launches,
+                "maxpool": P.maxpool_bwd.launches}
+    # ---- end of the main path
+    losses = [v.float().item() for v in losses]
+    log("resnet: %d GluonTrainStep steps (lr 0.1, momentum 0.9, wd 1e-4, "
+        "bf16 compute) on one (%d, %d, %d, 3) batch: loss %s; grad norm "
+        "%.4g" % (RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_SIZE,
+                  " ".join("%.4f" % v for v in losses),
+                  float(step.last_grad_norm)))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("the ResNet-50 loss is not finite or did not "
+                             "fall")
+    expected = {"pertap": RESNET_K1A * RESNET_STEPS,
+                "im2col": RESNET_K1B * RESNET_STEPS,
+                "maxpool": RESNET_K2 * RESNET_STEPS}
+    log("resnet: launches conv_dw pertap %d, im2col %d, maxpool_bwd %d; "
+        "expected %d, %d, %d" % (launches["pertap"], launches["im2col"],
+                                 launches["maxpool"], expected["pertap"],
+                                 expected["im2col"], expected["maxpool"]))
+    if launches != expected:
+        raise AssertionError("the ResNet-50 step did not run K1a, K1b and "
+                             "K2 as often as its convolutions and pool")
+
+    # the step time (CUDA events, after the warmup steps)
+    step_ms = float(np.mean([a.elapsed_time(b)
+                             for a, b in events[RESNET_WARMUP:]]))
+    log("resnet: step %.2f ms on %s (mean of %d after %d warmup), %.1f "
+        "images/s; %d steps in %.2f s wall; peak memory %.2f GB" % (
+            step_ms, smi, RESNET_STEPS - RESNET_WARMUP, RESNET_WARMUP,
+            RESNET_BATCH / step_ms * 1e3, RESNET_STEPS, wall,
+            torch.cuda.max_memory_allocated() / 1e9))
+    profile_steps(lambda: step(xs, ys), smi, step_ms, groups=RESNET_GROUPS,
+                  tag="resnet")
+    return launches
 
 
 def main():
@@ -589,8 +996,11 @@ def main():
     build()
     fwd_row = kernels(args.seed)
     bwd_rows = backward_kernels(args.seed)
+    dw_rows = conv_kernels(args.seed)
+    pool_row = pool_kernels(args.seed)
     serve_launches = serve(args.seed, smi)
     train_launches = train(args.seed, smi)
+    resnet_launches = resnet_train(args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     source="mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -604,6 +1014,17 @@ def main():
                             source="mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
                             replaces="mxnet_tpu/ops/attention.py:%d" % line,
                             launches=train_launches[kern], **bwd_rows[kern]))
+    for form, line in (("pertap", 111), ("im2col", 133)):
+        entries.append(dict(name="conv_dw_" + form, path="resnet_train",
+                            route="cuda",
+                            source="mxnet_tpu_torch/csrc/conv_dw.cu",
+                            replaces="mxnet_tpu/ops/pallas_conv.py:%d" % line,
+                            launches=resnet_launches[form], **dw_rows[form]))
+    entries.append(dict(name="maxpool_bwd", path="resnet_train",
+                        route="cuda",
+                        source="mxnet_tpu_torch/csrc/maxpool_bwd.cu",
+                        replaces="mxnet_tpu/ops/pallas_pool.py:55",
+                        launches=resnet_launches["maxpool"], **pool_row))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

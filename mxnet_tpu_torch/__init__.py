@@ -9,10 +9,10 @@ Hopper kernels under ``csrc/``, built at first use (``_kernels``).
 """
 
 from . import (autograd, context, convert, gluon, initializer, ndarray, ops,
-               optimizer, random, serving)
+               optimizer, parallel, random, serving)
 from .base import MXNetError
 from .context import cpu, gpu
 
 __all__ = ["MXNetError", "autograd", "context", "convert", "cpu", "gpu",
-           "gluon", "initializer", "ndarray", "ops", "optimizer", "random",
-           "serving"]
+           "gluon", "initializer", "ndarray", "ops", "optimizer", "parallel",
+           "random", "serving"]

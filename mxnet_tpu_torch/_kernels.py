@@ -24,7 +24,8 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["build_all", "library", "build_log", "CSRC", "NVCC_FLAGS"]
+__all__ = ["build_all", "library", "build_log", "launch", "CSRC",
+           "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -50,6 +51,18 @@ _SIGNATURES = {
                                    + [ctypes.c_int] * 4
                                    + [ctypes.c_float, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_void_p]),
+        "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "conv_dw": {
+        "mxt_conv_dw_pertap": (ctypes.c_int, [ctypes.c_void_p] * 4
+                               + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
+        "mxt_conv_dw_im2col": (ctypes.c_int, [ctypes.c_void_p] * 4
+                               + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
+        "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "maxpool_bwd": {
+        "mxt_maxpool_bwd": (ctypes.c_int, [ctypes.c_void_p] * 4
+                            + [ctypes.c_int] * 13 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }
@@ -153,3 +166,19 @@ def build_log(name):
     (registers, shared memory and spills of each kernel), or ``None``
     when the library was already built."""
     return _logs.get(name)
+
+
+def launch(lib, fn, *args):
+    """Call a kernel library's launcher ``fn`` with ``args`` (tensors are
+    passed as their data pointers) and the current stream of the first
+    tensor's device; raise :class:`MXNetError` if the launch was refused."""
+    import torch
+
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise MXNetError("%s launch failed: %s"
+                         % (fn.__name__, lib.mxt_error_string(err).decode()))

@@ -1,10 +1,13 @@
 """Layers of the PyTorch port."""
 
-from .basic_layers import Dense, Dropout, Embedding, HybridSequential, LayerNorm
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           HybridSequential, LayerNorm)
+from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderCell,
                           TransformerLM)
 
-__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm",
-           "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoder",
-           "TransformerEncoderCell", "TransformerLM"]
+__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense",
+           "Dropout", "Embedding", "GlobalAvgPool2D", "HybridSequential",
+           "LayerNorm", "MaxPool2D", "MultiHeadAttention", "PositionwiseFFN",
+           "TransformerEncoder", "TransformerEncoderCell", "TransformerLM"]

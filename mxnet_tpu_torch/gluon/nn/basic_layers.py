@@ -1,20 +1,23 @@
 """Basic layers of the PyTorch port.
 
 Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` HybridSequential,
-Dense, Dropout, LayerNorm and Embedding, with the same parameter names
-and layouts.  The JAX package infers an input width on the first call
-(deferred init); the port takes it at construction (``in_units``,
-``in_channels``).
+Dense, Activation, Dropout, BatchNorm, LayerNorm and Embedding, with the
+same parameter names and layouts.  The JAX package infers an input width
+on the first call (deferred init); the port takes it at construction
+(``in_units``, ``in_channels``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from ... import autograd as _autograd
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
 from ..block import HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Activation", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding"]
 
 
 def _width(value, what):
@@ -55,6 +58,23 @@ class Dense(HybridBlock):
                                     flatten=self._flatten)
 
 
+class Activation(HybridBlock):
+    """Element-wise activation (:func:`~mxnet_tpu_torch.ops.nn.activation`:
+    relu).  It holds no parameters and runs where its input lies, so it
+    takes no device."""
+
+    def __init__(self, activation):
+        torch.nn.Module.__init__(self)
+        self.device = None
+        self._act_type = activation
+
+    def forward(self, x):
+        return _ops.activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return "Activation(%s)" % self._act_type
+
+
 class Dropout(HybridBlock):
     """Dropout of rate ``rate``: drops only in train mode
     (:func:`~mxnet_tpu_torch.autograd.is_training`, on under
@@ -66,6 +86,55 @@ class Dropout(HybridBlock):
 
     def forward(self, x):
         return _ops.dropout(x, p=self._rate, training=_autograd.is_training())
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization over ``axis`` with ``gamma`` and ``beta`` and
+    the running statistics ``running_mean`` and ``running_var``
+    (``grad_req='null'``), float32 whatever the data's type.
+
+    In train mode (:func:`~mxnet_tpu_torch.autograd.is_training`, on
+    under ``autograd.record()``) and unless ``use_global_stats``, it
+    normalizes by the batch's statistics and updates the running ones in
+    place, without a gradient, as ``running * momentum + batch * (1 -
+    momentum)`` with the batch's biased variance; otherwise it normalizes
+    by the running statistics.  ``scale=False`` fixes gamma at 1
+    (``fix_gamma``) and ``center=False`` keeps beta out of training."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, in_channels=0,
+                 device=None):
+        super().__init__(device=device)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        c = _width(in_channels, "in_channels")
+        for name in ("gamma", "beta", "running_mean", "running_var"):
+            self._param(name, (c,))
+        self.gamma.grad_req = "write" if scale else "null"
+        self.beta.grad_req = "write" if center else "null"
+        self.running_mean.grad_req = "null"
+        self.running_var.grad_req = "null"
+
+    def forward(self, x):
+        train_stats = _autograd.is_training() and not self._use_global_stats
+        out, mean, var = _ops.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._epsilon, fix_gamma=not self._scale,
+            use_global_stats=not train_stats, axis=self._axis)
+        if train_stats:
+            m = self._momentum
+            with torch.no_grad():
+                self.running_mean.copy_(self.running_mean * m
+                                        + mean * (1 - m))
+                self.running_var.copy_(self.running_var * m + var * (1 - m))
+        return out
+
+    def __repr__(self):
+        return "BatchNorm(axis=%s, momentum=%s, eps=%s, in_channels=%s)" % (
+            self._axis, self._momentum, self._epsilon, self.gamma.shape[0])
 
 
 class LayerNorm(HybridBlock):

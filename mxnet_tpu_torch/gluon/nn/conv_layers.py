@@ -1,0 +1,116 @@
+"""Convolution and pooling layers of the PyTorch port.
+
+Counterparts of ``mxnet_tpu/gluon/nn/conv_layers.py`` ``_Conv``,
+``Conv2D``, ``_Pooling``, ``MaxPool2D`` and ``GlobalAvgPool2D``, with
+the same parameter names.  The port takes the
+channel-last layout only (``layout="NHWC"``, OHWI weights; any other
+layout raises :class:`~mxnet_tpu_torch.base.MXNetError`), groups 1 and
+dilation 1, and the input width at construction (``in_channels``).  On
+the card a convolution's weight-gradient runs kernels K1a/K1b and a max
+pool's input-gradient kernel K2 (:mod:`~mxnet_tpu_torch.ops.nn`).
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from ...base import MXNetError
+from ...ops import nn as _ops
+from ..block import HybridBlock
+from .basic_layers import Activation, _width
+
+__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+
+
+class _Conv(HybridBlock):
+    """A 2-D convolution with ``weight`` (channels, KH, KW, in_channels)
+    and, with ``use_bias``, ``bias`` (channels,); ``activation`` names an
+    :class:`Activation` applied after it."""
+
+    def __init__(self, channels, kernel_size, strides, padding, dilation,
+                 groups, layout, in_channels=0, activation=None,
+                 use_bias=True, device=None):
+        super().__init__(device=device)
+        _ops._check_nhwc(layout, type(self).__name__)
+        self._kwargs = {"kernel": _ops._pair(kernel_size, "kernel_size"),
+                        "stride": _ops._pair(strides, "strides"),
+                        "dilate": _ops._pair(dilation, "dilation"),
+                        "pad": _ops._pair(padding, "padding"),
+                        "num_filter": channels,
+                        "num_group": groups, "no_bias": not use_bias,
+                        "layout": layout}
+        if groups != 1 or self._kwargs["dilate"] != (1, 1):
+            raise MXNetError("%s: the port takes groups=1 and dilation=1"
+                             % type(self).__name__)
+        self._param("weight", (channels,) + self._kwargs["kernel"]
+                    + (_width(in_channels, "in_channels"),))
+        if use_bias:
+            self._param("bias", (channels,))
+        else:
+            self.bias = None
+        self.act = Activation(activation) if activation is not None else None
+
+    def forward(self, x):
+        out = _ops.convolution(x, self.weight, self.bias, **self._kwargs)
+        return self.act(out) if self.act is not None else out
+
+    def __repr__(self):
+        return "%s(channels=%s, kernel=%s, stride=%s)" % (
+            type(self).__name__, self._kwargs["num_filter"],
+            self._kwargs["kernel"], self._kwargs["stride"])
+
+
+class Conv2D(_Conv):
+    """2-D convolution over NHWC data (reference: conv_layers.py Conv2D)."""
+
+    def __init__(self, channels, kernel_size, strides=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), groups=1, layout="NCHW",
+                 activation=None, use_bias=True, in_channels=0,
+                 device=None):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         device)
+
+
+class _Pooling(HybridBlock):
+    """Pooling (:func:`~mxnet_tpu_torch.ops.nn.pooling`); it holds no
+    parameters and runs where its input lies, so it takes no device."""
+
+    def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
+                 pool_type, layout):
+        nn.Module.__init__(self)
+        self.device = None
+        _ops._check_nhwc(layout, type(self).__name__)
+        self._kwargs = {"kernel": _ops._pair(pool_size, "pool_size"),
+                        "stride": _ops._pair(pool_size if strides is None
+                                             else strides, "strides"),
+                        "pad": _ops._pair(padding, "padding"),
+                        "global_pool": global_pool,
+                        "pool_type": pool_type,
+                        "pooling_convention": "full" if ceil_mode
+                        else "valid", "layout": layout}
+
+    def forward(self, x):
+        return _ops.pooling(x, **self._kwargs)
+
+    def __repr__(self):
+        return "%s(size=%s, stride=%s, padding=%s)" % (
+            type(self).__name__, self._kwargs["kernel"],
+            self._kwargs["stride"], self._kwargs["pad"])
+
+
+class MaxPool2D(_Pooling):
+    """2-D max pooling over NHWC data."""
+
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False):
+        super().__init__(pool_size, strides, padding, ceil_mode, False,
+                         "max", layout)
+
+
+class GlobalAvgPool2D(_Pooling):
+    """Average over the whole plane, (N, H, W, C) -> (N, 1, 1, C), with
+    the ``full`` convention as the JAX package's layer."""
+
+    def __init__(self, layout="NCHW"):
+        super().__init__((1, 1), None, 0, True, True, "avg", layout)

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/initializer.py``: the same default law and the
 same dispatch on the parameter name's suffix (``weight`` draws from the
-initializer, ``bias``/``beta`` are zeros, ``gamma`` ones).  Draws come
+initializer, ``bias``/``beta`` and ``running_mean`` are zeros, ``gamma``
+and ``running_var`` ones).  Draws come
 from a ``numpy.random.RandomState``, so a seed gives the same weights on
 every device; they cannot match the JAX package's key-based draws.
 """
@@ -19,13 +20,14 @@ class Initializer:
         name = name.lower()
         if name.endswith("weight"):
             self._init_weight(arr, rng)
-        elif name.endswith(("bias", "beta")):
+        elif name.endswith(("bias", "beta", "running_mean")):
             arr[...] = 0.0
-        elif name.endswith("gamma"):
+        elif name.endswith(("gamma", "running_var")):
             arr[...] = 1.0
         else:
             raise ValueError("Unknown initialization pattern for %s; name a "
-                             "known suffix (weight/bias/gamma/beta)" % name)
+                             "known suffix (weight/bias/gamma/beta/"
+                             "running_mean/running_var)" % name)
 
     def _init_weight(self, arr, rng):
         raise NotImplementedError()

@@ -1,6 +1,7 @@
 """Ops of the PyTorch port: plain functions on tensors, and the wrappers
 of the hand-written kernels."""
 
-from . import attention, matrix, nn, optimizer_ops
+from . import attention, conv_dw, matrix, nn, optimizer_ops, pool_bwd
 
-__all__ = ["attention", "matrix", "nn", "optimizer_ops"]
+__all__ = ["attention", "conv_dw", "matrix", "nn", "optimizer_ops",
+           "pool_bwd"]

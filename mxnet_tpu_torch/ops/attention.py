@@ -149,19 +149,6 @@ def _check_bwd(q, k, do, lse, delta):
         raise MXNetError("the backward's operands lie on different devices")
 
 
-def _launch(lib, fn, *args):
-    """Call a kernel library's launcher on the current stream of the
-    first tensor's device; raise if the launch was refused."""
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream)
-    if err != 0:
-        raise MXNetError("%s launch failed: %s"
-                         % (fn.__name__, lib.mxt_error_string(err).decode()))
-
-
 def _fwd(q, k, v, causal, scale):
     """(out, lse): the kernel on CUDA tensors, the plain version on CPU."""
     if q.device.type == "cpu":
@@ -173,9 +160,9 @@ def _fwd(q, k, v, causal, scale):
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch(lib, lib.mxt_flash_attn_fwd, q, k, v, out, lse, b * h, sq,
-            k.shape[2], d, float(scale), int(bool(causal)),
-            _DTYPE_CODES[q.dtype])
+    _kernels.launch(lib, lib.mxt_flash_attn_fwd, q, k, v, out, lse, b * h,
+                    sq, k.shape[2], d, float(scale), int(bool(causal)),
+                    _DTYPE_CODES[q.dtype])
     flash_attention.launches += 1
     return out, lse
 
@@ -196,9 +183,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     lib = _kernels.library("flash_attn_bwd")
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
-    _launch(lib, lib.mxt_flash_attn_bwd_dq, q, k, v, do, lse, delta, dq,
-            b * h, sq, k.shape[2], d, float(scale), int(bool(causal)),
-            _DTYPE_CODES[q.dtype])
+    _kernels.launch(lib, lib.mxt_flash_attn_bwd_dq, q, k, v, do, lse, delta,
+                    dq, b * h, sq, k.shape[2], d, float(scale),
+                    int(bool(causal)), _DTYPE_CODES[q.dtype])
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -219,9 +206,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     b, h, sq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(lib, lib.mxt_flash_attn_bwd_dkv, q, k, v, do, lse, delta, dk, dv,
-            b * h, sq, k.shape[2], d, float(scale), int(bool(causal)),
-            _DTYPE_CODES[q.dtype])
+    _kernels.launch(lib, lib.mxt_flash_attn_bwd_dkv, q, k, v, do, lse,
+                    delta, dk, dv, b * h, sq, k.shape[2], d, float(scale),
+                    int(bool(causal)), _DTYPE_CODES[q.dtype])
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

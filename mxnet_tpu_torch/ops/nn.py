@@ -1,8 +1,18 @@
 """Neural-network ops of the PyTorch port, as plain functions on tensors.
 
-Counterparts of ``mxnet_tpu/ops/nn.py`` FullyConnected, LeakyReLU (gelu),
-LayerNorm, Dropout and log_softmax.  The JAX package leaves these to XLA;
-here they stay plain PyTorch (the matrix products go to cuBLAS).
+Counterparts of ``mxnet_tpu/ops/nn.py`` Convolution, FullyConnected,
+Activation, LeakyReLU (gelu), BatchNorm, LayerNorm, Pooling, Dropout and
+log_softmax.  The JAX package leaves most of these to XLA; here they stay
+plain PyTorch (matrix products go to cuBLAS, the convolutions' forward and
+data-gradient and the max-pool forward to cuDNN).  Two gradients are the
+port's own kernels, as the JAX package routes them to Pallas: a
+convolution's weight-gradient (:mod:`.conv_dw`, K1a/K1b) and a max pool's
+input-gradient (:mod:`.pool_bwd`, K2).  On the card they always run; there
+is no flag.
+
+Convolution and pooling take channel-last (NHWC) data and OHWI weights.
+They run cuDNN on the NHWC tensors viewed as NCHW with ``channels_last``
+strides, so nothing is copied.
 """
 
 from __future__ import annotations
@@ -11,9 +21,96 @@ import torch
 import torch.nn.functional as F
 
 from .. import random as _random
+from ..base import MXNetError
+from .conv_dw import conv_dw
+from .pool_bwd import maxpool_bwd
 
-__all__ = ["fully_connected", "leaky_relu", "layer_norm", "dropout",
-           "log_softmax"]
+__all__ = ["convolution", "fully_connected", "activation", "leaky_relu",
+           "batch_norm", "layer_norm", "pooling", "dropout", "log_softmax"]
+
+
+def _pair(v, what):
+    t = (int(v),) * 2 if isinstance(v, int) else tuple(int(a) for a in v)
+    if len(t) != 2:
+        raise MXNetError("%s must have 2 entries for a 2-D op, got %s"
+                         % (what, v))
+    return t
+
+
+def _nchw(t):
+    """The NCHW view (``channels_last`` strides) of an NHWC tensor."""
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    """The NHWC view of an NCHW tensor."""
+    return t.permute(0, 2, 3, 1)
+
+
+def _check_nhwc(layout, op):
+    if layout != "NHWC":
+        raise MXNetError("%s: the port takes layout='NHWC' (channel-last "
+                         "data, OHWI weights); got %r" % (op, layout))
+
+
+class _Convolution(torch.autograd.Function):
+    """NHWC/OHWI 2-D convolution.  Forward and data-gradient are cuDNN's
+    (``F.conv2d`` and ``aten.convolution_backward``) as the JAX package
+    leaves them to XLA; the weight-gradient is :func:`~.conv_dw.conv_dw`,
+    cast to the weight's dtype (``ops/nn.py:180-181`` of the JAX
+    package)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, pad):
+        out = F.conv2d(_nchw(x), _nchw(weight), None, stride, pad)
+        ctx.save_for_backward(x, weight)
+        ctx.stride, ctx.pad = stride, pad
+        return _nhwc(out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        # the kernels take contiguous NHWC; autograd may hand a view
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _nhwc(torch.ops.aten.convolution_backward(
+                _nchw(dy), _nchw(x), _nchw(weight), None, ctx.stride,
+                ctx.pad, (1, 1), False, (0, 0), 1, (True, False, False))[0])
+        if ctx.needs_input_grad[1]:
+            dw = conv_dw(x.contiguous(), dy, weight.shape[1:3], ctx.stride,
+                         ctx.pad).to(weight.dtype)
+        return dx, dw, None, None
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
+                dilate=(1, 1), pad=(0, 0), num_filter=None, num_group=1,
+                no_bias=False, layout="NHWC"):
+    """2-D convolution (reference: src/operator/nn/convolution.cc) of NHWC
+    ``data`` (N, H, W, I) with OHWI ``weight`` (O, KH, KW, I), plus
+    ``bias`` (O,) unless ``no_bias``.  Groups and dilation other than 1,
+    and other layouts, raise :class:`MXNetError`."""
+    _check_nhwc(layout, "Convolution")
+    if int(num_group) != 1 or _pair(dilate, "dilate") != (1, 1):
+        raise MXNetError("Convolution: the port takes num_group=1 and "
+                         "dilate=1 (got %s, %s)" % (num_group, dilate))
+    if data.dim() != 4 or weight.dim() != 4 \
+            or weight.shape[3] != data.shape[3]:
+        raise MXNetError("Convolution: data %s and weight %s are not NHWC "
+                         "and OHWI of one input width"
+                         % (tuple(data.shape), tuple(weight.shape)))
+    if kernel is not None and _pair(kernel, "kernel") != tuple(
+            weight.shape[1:3]):
+        raise MXNetError("Convolution: kernel %s disagrees with weight %s"
+                         % (kernel, tuple(weight.shape)))
+    if num_filter is not None and int(num_filter) != weight.shape[0]:
+        raise MXNetError("Convolution: num_filter %s disagrees with weight "
+                         "%s" % (num_filter, tuple(weight.shape)))
+    out = _Convolution.apply(data.contiguous(), weight.contiguous(),
+                             _pair(stride, "stride"), _pair(pad, "pad"))
+    if bias is not None and not no_bias:
+        out = out + bias
+    return out
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
@@ -21,6 +118,15 @@ def fully_connected(data, weight, bias=None, flatten=True):
     ``flatten`` folds every axis after the first into one."""
     x = data.reshape(data.shape[0], -1) if flatten else data
     return F.linear(x, weight, bias)
+
+
+def activation(data, act_type="relu"):
+    """Element-wise activation (reference: src/operator/nn/activation.cc);
+    the port has ``relu``."""
+    if act_type != "relu":
+        raise ValueError("act_type %r is not in the port; it has 'relu'"
+                         % (act_type,))
+    return F.relu(data)
 
 
 def leaky_relu(data, act_type="gelu"):
@@ -40,6 +146,122 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def _expand(v, axis, ndim):
+    shape = [1] * ndim
+    shape[axis] = -1
+    return v.reshape(shape)
+
+
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               fix_gamma=True, use_global_stats=False, axis=1):
+    """Batch normalization (reference: src/operator/nn/batch_norm.cc)
+    with the JAX package's arithmetic written out
+    (``mxnet_tpu/ops/nn.py:462``).  Returns ``(out, mean, var)``: the
+    statistics used, the batch's unless ``use_global_stats``.
+
+    float32 data: mean, then the biased variance in a second pass.
+    bf16/float16 data: one pass in float32 over ``E[x]`` and ``E[x^2]``,
+    ``var = max(E[x^2] - E[x]^2, 0)``, both cast back to the data's type.
+    The scale ``gamma * rsqrt(var + eps)`` is computed in float32 and
+    applied, with the shift, in the data's type.  ``fix_gamma`` uses 1
+    for ``gamma``.  The running statistics are the caller's to update."""
+    ax = axis % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if use_global_stats:
+        mean, var = moving_mean, moving_var
+    elif data.dtype in (torch.bfloat16, torch.float16):
+        xf = data.float()
+        mean = xf.mean(dim=red)
+        meansq = xf.square().mean(dim=red)
+        var = torch.clamp_min(meansq - mean.square(), 0.0)
+        mean, var = mean.to(data.dtype), var.to(data.dtype)
+    else:
+        mean = data.mean(dim=red)
+        var = (data - _expand(mean, ax, data.dim())).square().mean(dim=red)
+    inv = torch.rsqrt(var.float() + eps)
+    scale = (g.float() * inv).to(data.dtype)
+    shift = beta.to(data.dtype)
+    out = (data - _expand(mean.to(data.dtype), ax, data.dim())) \
+        * _expand(scale, ax, data.dim()) + _expand(shift, ax, data.dim())
+    return out, mean, var
+
+
+class _MaxPool(torch.autograd.Function):
+    """NHWC 2-D max pool.  Forward: cuDNN's max pool (the JAX package's is
+    XLA's ``reduce_window``); a padding it cannot express goes through an
+    explicit ``-inf`` pad.  Backward: :func:`~.pool_bwd.maxpool_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, pad_lo, pad_hi):
+        xv = _nchw(x)
+        if pad_lo == pad_hi and all(2 * p <= k for p, k in zip(pad_lo,
+                                                                kernel)):
+            out = F.max_pool2d(xv, kernel, stride, pad_lo)
+        else:
+            xv = F.pad(xv, (pad_lo[1], pad_hi[1], pad_lo[0], pad_hi[0]),
+                       value=float("-inf"))
+            out = F.max_pool2d(xv, kernel, stride, 0)
+        ctx.save_for_backward(x)
+        ctx.kernel, ctx.stride, ctx.pad = kernel, stride, pad_lo
+        return _nhwc(out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        dx = maxpool_bwd(x, dy.contiguous(), ctx.kernel, ctx.stride, ctx.pad)
+        return dx, None, None, None, None
+
+
+def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
+            global_pool=False, pooling_convention="valid",
+            count_include_pad=True, layout="NHWC"):
+    """2-D pooling of NHWC data (reference: src/operator/nn/pooling.cc):
+    max, avg or sum over ``kernel`` windows, ``valid`` (floor) or ``full``
+    (ceil) output sizes, ``global_pool`` over the whole plane.
+
+    As the JAX package (``ops/nn.py:580``): the ``full`` convention pads
+    the high side as far as the last window needs; max pads with
+    ``-inf``; avg divides by the kernel's area when ``count_include_pad``
+    and ``valid``, and otherwise by the count of real elements, at least
+    1 (a window wholly in the padding gives 0, never NaN)."""
+    _check_nhwc(layout, "Pooling")
+    if data.dim() != 4:
+        raise MXNetError("Pooling: the port takes 2-D NHWC data, got %s"
+                         % (tuple(data.shape),))
+    if global_pool:
+        kernel, stride, pad = tuple(data.shape[1:3]), (1, 1), (0, 0)
+    kernel = _pair(kernel, "kernel")
+    stride = _pair(stride, "stride") if stride else (1, 1)
+    pad = _pair(pad, "pad") if pad else (0, 0)
+    hi = []
+    for i in range(2):
+        lo = pad[i]
+        if pooling_convention == "full":
+            size = data.shape[1 + i]
+            out_sz = -(-(size + 2 * lo - kernel[i]) // stride[i]) + 1
+            needed = (out_sz - 1) * stride[i] + kernel[i] - size - lo
+            hi.append(max(needed, lo))
+        else:
+            hi.append(lo)
+    hi = tuple(hi)
+    if pool_type == "max":
+        return _MaxPool.apply(data.contiguous(), kernel, stride, pad, hi)
+    if pool_type not in ("avg", "sum"):
+        raise ValueError("unknown pool_type %r" % (pool_type,))
+    xv = F.pad(_nchw(data), (pad[1], hi[1], pad[0], hi[0]))
+    summed = _nhwc(F.avg_pool2d(xv, kernel, stride, 0, divisor_override=1))
+    if pool_type == "sum":
+        return summed
+    if count_include_pad and pooling_convention != "full":
+        return summed / float(kernel[0] * kernel[1])
+    ones = torch.ones((1, 1) + tuple(data.shape[1:3]), dtype=data.dtype,
+                      device=data.device)
+    counts = F.avg_pool2d(F.pad(ones, (pad[1], hi[1], pad[0], hi[0])),
+                          kernel, stride, 0, divisor_override=1)
+    return summed / _nhwc(counts).clamp_min(1.0)
 
 
 def dropout(data, p=0.5, training=False):

@@ -1,0 +1,232 @@
+"""The port's convolution (mxnet_tpu_torch/ops/nn.py convolution) and its
+weight-gradient (ops/conv_dw.py, kernels K1a/K1b) against the JAX package,
+on the CPU, where the wrappers take their plain version.
+
+Tolerances:
+- dW, float32 inputs: 2e-4 (rtol and atol), as tests/test_pallas_conv.py
+  holds the Pallas kernel to XLA's dW: sums of up to a few hundred float32
+  products in another order;
+- dW, bf16 inputs: 1e-3 of the largest magnitude: each product of two
+  bf16 values is exact in float32 in both packages, only the order of the
+  float32 sums differs;
+- convolution forward, dX and the bias gradient: 1e-5 (rtol and atol),
+  one float32 op each, summed in another order by each package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mxnet_tpu.ops import nn as jnn
+from mxnet_tpu.ops.pallas_conv import conv_dw_nhwc, conv_dw_xla
+from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.gluon import nn as tgnn
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+from mxnet_tpu_torch.ops import conv_dw as cdw
+from mxnet_tpu_torch.ops import nn as tnn
+
+# (N, H, W, I), kernel, stride, pad, O: tests/test_pallas_conv.py's CASES
+CASES = [
+    ((4, 8, 8, 16), (3, 3), (1, 1), (1, 1), 32),
+    ((4, 8, 8, 16), (1, 1), (1, 1), (0, 0), 32),
+    ((4, 9, 9, 8), (3, 3), (2, 2), (1, 1), 16),
+    ((2, 8, 8, 8), (7, 7), (2, 2), (3, 3), 16),
+    ((4, 8, 8, 8), (1, 1), (2, 2), (0, 0), 16),
+]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _out(size, k, s, p):
+    return (size + 2 * p - k) // s + 1
+
+
+def _inputs(xs, k, s, p, o, seed=0):
+    rs = np.random.RandomState(seed)
+    n, h, w, _ = xs
+    x = rs.rand(*xs).astype(np.float32)
+    dy = rs.rand(n, _out(h, k[0], s[0], p[0]), _out(w, k[1], s[1], p[1]),
+                 o).astype(np.float32)
+    return x, dy
+
+
+@pytest.mark.parametrize("xs,k,s,p,o", CASES)
+@pytest.mark.parametrize("form", ["pertap", "im2col"])
+def test_plain_dw_matches_pallas(xs, k, s, p, o, form):
+    x, dy = _inputs(xs, k, s, p, o)
+    want = conv_dw_nhwc(jnp.asarray(x), jnp.asarray(dy), k, s, p,
+                        interpret=True, formulation=form)
+    run = cdw.conv_dw_pertap if form == "pertap" else cdw.conv_dw_im2col
+    got = run(torch.from_numpy(x), torch.from_numpy(dy), k, s, p)
+    assert got.dtype == torch.float32 and got.shape == (o,) + k + xs[3:]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_plain_dw_stem_matches_xla():
+    """The ResNet stem's shape, I=3 7x7/s2/p3 with an odd input, which the
+    JAX package's supported() sends to XLA; on the card it runs K1b."""
+    x, dy = _inputs((2, 23, 21, 3), (7, 7), (2, 2), (3, 3), 16)
+    want = conv_dw_xla(jnp.asarray(x), jnp.asarray(dy), (7, 7), (2, 2),
+                       (3, 3))
+    got = cdw.conv_dw(torch.from_numpy(x), torch.from_numpy(dy), (7, 7),
+                      (2, 2), (3, 3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("form", ["pertap", "im2col"])
+def test_plain_dw_bf16_matches_pallas(form):
+    x, dy = _inputs((4, 9, 9, 8), (3, 3), (2, 2), (1, 1), 16, seed=1)
+    xb, dyb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, dy))
+    want = np.asarray(conv_dw_nhwc(xb, dyb, (3, 3), (2, 2), (1, 1),
+                                   interpret=True, formulation=form))
+    got = cdw.conv_dw(torch.from_numpy(x).bfloat16(),
+                      torch.from_numpy(dy).bfloat16(), (3, 3), (2, 2),
+                      (1, 1))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-3 * np.abs(want).max())
+
+
+def test_formulation_rule():
+    assert [cdw.formulation(i) for i in (3, 64, 127, 128, 2048)] == [
+        "im2col", "im2col", "im2col", "pertap", "pertap"]
+
+
+def _resnet50_convs(batch=128, size=224):
+    """(x shape, kernel, stride, pad, O) of every convolution of
+    resnet50_v1 at (batch, size, size, 3), in forward order."""
+    net = resnet50_v1(layout="NHWC", device="meta")
+    convs = []
+
+    def hook(mod, args, out):
+        convs.append((tuple(args[0].shape), mod._kwargs["kernel"],
+                      mod._kwargs["stride"], mod._kwargs["pad"],
+                      mod._kwargs["num_filter"]))
+
+    for m in net.modules():
+        if isinstance(m, tgnn.Conv2D):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        net(torch.empty(batch, size, size, 3, device="meta"))
+    return convs
+
+
+def test_resnet50_formulations_and_split_plan():
+    """44 convolutions of ResNet-50 take K1a and 9 take K1b; every one
+    puts at least 2 x 132 blocks on the card, and its split-K partition
+    covers the reduction exactly once."""
+    convs = _resnet50_convs()
+    forms = [cdw.formulation(xs[3]) for xs, *_ in convs]
+    assert len(convs) == 53
+    assert (forms.count("pertap"), forms.count("im2col")) == (44, 9)
+    for (xs, k, s, p, o), form in zip(convs, forms):
+        n, h, w, i = xs
+        positions = n * _out(h, k[0], s[0], p[0]) * _out(w, k[1], s[1], p[1])
+        splits, chunk = cdw.split_plan(form, k, i, o, positions)
+        rows = k[0] * k[1] * i if form == "im2col" else i
+        tiles = -(-rows // 64) * -(-o // 64)
+        if form == "pertap":
+            tiles *= k[0] * k[1]
+        assert tiles * splits >= 2 * 132, (xs, k, o)
+        assert (splits - 1) * chunk < positions <= splits * chunk
+
+
+def test_split_plan_small_reductions_are_not_cut_below_the_minimum():
+    assert cdw.split_plan("pertap", (1, 1), 128, 64, 100) == (1, 100)
+    splits, chunk = cdw.split_plan("im2col", (3, 3), 3, 8, 10_000)
+    assert splits == -(-10_000 // 256) and chunk == -(-10_000 // splits)
+
+
+@pytest.mark.parametrize("xs,k,s,p,o", CASES[:4] + [
+    ((2, 11, 10, 3), (7, 7), (2, 2), (3, 3), 8)])
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_convolution_forward_and_grads_match_jax(xs, k, s, p, o, use_bias):
+    rs = np.random.RandomState(2)
+    x = rs.normal(size=xs).astype(np.float32)
+    w = rs.normal(size=(o,) + k + xs[3:]).astype(np.float32)
+    b = rs.normal(size=(o,)).astype(np.float32)
+
+    def jfn(x_, w_, b_):
+        return jnn.convolution(x_, w_, b_ if use_bias else None, kernel=k,
+                               stride=s, pad=p, num_filter=o,
+                               no_bias=not use_bias, layout="NHWC")
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    dy = rs.normal(size=want.shape).astype(np.float32)
+    wdx, wdw, wdb = vjp(jnp.asarray(dy))
+
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    got = tnn.convolution(tx, tw, tb if use_bias else None, kernel=k,
+                          stride=s, pad=p, num_filter=o, layout="NHWC")
+    got.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(wdx), **TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(wdw), rtol=2e-4,
+                               atol=2e-4)
+    if use_bias:
+        np.testing.assert_allclose(tb.grad.numpy(), np.asarray(wdb), **TOL)
+    else:
+        assert tb.grad is None
+
+
+def test_conv_dw_through_autograd_is_the_plain_dw_in_the_weights_dtype():
+    x, dy = _inputs((2, 8, 8, 8), (3, 3), (1, 1), (1, 1), 16, seed=3)
+    tx = torch.from_numpy(x).bfloat16()
+    tw = torch.zeros(16, 3, 3, 8, dtype=torch.bfloat16, requires_grad=True)
+    out = tnn.convolution(tx, tw, stride=1, pad=1, layout="NHWC")
+    out.backward(torch.from_numpy(dy).bfloat16())
+    want = cdw.conv_dw_reference(tx, torch.from_numpy(dy).bfloat16(), (3, 3),
+                                 (1, 1), (1, 1)).bfloat16()
+    assert tw.grad.dtype == torch.bfloat16
+    assert torch.equal(tw.grad, want)
+
+
+def test_conv2d_layer_matches_jax_layer():
+    from mxnet_tpu import nd
+    from mxnet_tpu.gluon import nn as jgnn
+
+    rs = np.random.RandomState(4)
+    x = rs.normal(size=(2, 9, 9, 5)).astype(np.float32)
+    jl = jgnn.Conv2D(6, 3, strides=2, padding=1, in_channels=5,
+                     layout="NHWC", activation="relu")
+    jl.initialize()
+    want = jl(nd.array(x)).asnumpy()
+    tl = tgnn.Conv2D(6, 3, strides=2, padding=1, in_channels=5,
+                     layout="NHWC", activation="relu", device="cpu")
+    assert dict((k, tuple(v.shape)) for k, v in tl.state_dict().items()) == {
+        "weight": (6, 3, 3, 5), "bias": (6,)}
+    with torch.no_grad():
+        tl.weight.copy_(torch.from_numpy(jl.weight.data().asnumpy()))
+        tl.bias.copy_(torch.from_numpy(jl.bias.data().asnumpy()))
+    np.testing.assert_allclose(tl(torch.from_numpy(x)).detach().numpy(),
+                               want, **TOL)
+
+
+def test_what_the_port_does_not_take_raises():
+    x, w = torch.zeros(1, 5, 5, 4), torch.zeros(8, 3, 3, 4)
+    with pytest.raises(MXNetError, match="num_group=1"):
+        tnn.convolution(x, torch.zeros(8, 3, 3, 2), num_group=2)
+    with pytest.raises(MXNetError, match="dilate=1"):
+        tnn.convolution(x, w, dilate=(2, 2))
+    with pytest.raises(MXNetError, match="NHWC"):
+        tnn.convolution(x, w, layout="NCHW")
+    with pytest.raises(MXNetError, match="kernel"):
+        tnn.convolution(x, w, kernel=(1, 1))
+    with pytest.raises(MXNetError, match="groups=1"):
+        tgnn.Conv2D(8, 3, groups=2, in_channels=4, layout="NHWC",
+                    device="cpu")
+    with pytest.raises(MXNetError, match="NHWC"):
+        tgnn.Conv2D(8, 3, in_channels=4, device="cpu")
+    with pytest.raises(ValueError, match="relu"):
+        tnn.activation(x, act_type="sigmoid")
+    dy = torch.zeros(1, 3, 3, 8)
+    with pytest.raises(MXNetError, match="does not match"):
+        cdw.conv_dw(x, dy, (3, 3), (1, 1), (1, 1))
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        cdw.conv_dw(x.half(), dy.half(), (3, 3))
+    with pytest.raises(MXNetError, match="contiguous"):
+        cdw.conv_dw(x.transpose(1, 2), dy, (3, 3))

@@ -1,0 +1,122 @@
+"""The port's ResNet v1 (mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py)
+against the JAX package's, on the CPU: parameter names and shapes, the
+weights carried over by load_mxnet_tpu_params (BatchNorm running
+statistics included), and the logits.
+
+Tolerances for the logits, of their largest magnitude: 1e-5 in predict
+mode (measured about 1e-6 for ResNet-50 at (1, 32, 32, 3)): dozens of
+float32 convolutions and BatchNorms, each summed in another order by each
+package; 1e-4 in train mode (measured 2e-5), where BatchNorm divides by
+the spread of two samples at the deepest stages and so magnifies those
+differences.  The running statistics: 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mx
+from mxnet_tpu import autograd as jag
+from mxnet_tpu.gluon.model_zoo import vision as jvision
+from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import autograd as tag
+from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+
+
+def _jax_net(make, shape, seed=0):
+    mx.random.seed(seed)
+    net = make()
+    net.initialize()
+    x = np.random.RandomState(seed).rand(*shape).astype(np.float32)
+    out = net(mx.nd.array(x)).asnumpy()
+    params = {k: p.data().asnumpy()
+              for k, p in net._collect_params_with_prefix().items()}
+    return net, params, x, out
+
+
+def _close(got, want, tol=1e-5):
+    scale = float(np.abs(want).max())
+    assert got.shape == want.shape
+    assert float(np.abs(got - want).max()) <= tol * scale
+
+
+def test_resnet50_v1_loads_jax_parameters_and_gives_its_logits():
+    jnet, params, x, want = _jax_net(
+        lambda: jvision.resnet50_v1(layout="NHWC"), (1, 32, 32, 3))
+    net = tvision.resnet50_v1(layout="NHWC", device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    assert shapes == {k: v.shape for k, v in params.items()}
+    # 53 convolutions, each with a BatchNorm of four tensors; a bias on
+    # the two 1x1 convolutions of each of the 16 blocks; the classifier
+    assert len(shapes) == 53 + 53 * 4 + 2 * 16 + 2
+    for name in ("features.4.0.body.0.weight", "features.4.0.body.0.bias",
+                 "features.4.0.downsample.1.running_var", "output.weight"):
+        assert name in shapes
+    assert "features.4.0.body.3.bias" not in shapes  # the 3x3 has none
+    # the same parameters train; the running statistics do not
+    trains = {k for k, p in jnet._collect_params_with_prefix().items()
+              if p.grad_req != "null"}
+    assert trains == {k for k, p in net.collect_params().items()
+                      if p.requires_grad and p.grad_req != "null"}
+    assert not any("running" in k for k in trains)
+    load_mxnet_tpu_params(net, params)
+    assert torch.equal(
+        getattr(net.features, "1").running_var.detach(),
+        torch.from_numpy(params["features.1.running_var"]))
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("make,shape", [
+    (lambda v: v.ResNetV1(v.BottleneckV1, [1, 1, 1, 1],
+                          [16, 32, 64, 128, 256], classes=10,
+                          layout="NHWC"), (2, 32, 32, 3)),
+    (lambda v: v.ResNetV1(v.BasicBlockV1, [2, 1, 1, 1],
+                          [8, 8, 16, 32, 64], classes=5, thumbnail=True,
+                          layout="NHWC"), (2, 16, 16, 3)),
+])
+def test_small_resnets_match_jax_in_predict_and_train_mode(make, shape):
+    jnet, params, x, want = _jax_net(lambda: make(jvision), shape)
+    kwargs = {"device": "cpu"}
+    net = load_mxnet_tpu_params(make(_Device(tvision, kwargs)), params)
+    with torch.no_grad():
+        _close(net(torch.from_numpy(x)).numpy(), want)
+    # train mode: batch statistics, and the running ones updated
+    with jag.record():
+        want = jnet(mx.nd.array(x)).asnumpy()
+    with tag.record():
+        got = net(torch.from_numpy(x)).detach().numpy()
+    _close(got, want, 1e-4)
+    jstats = {k: p.data().asnumpy()
+              for k, p in jnet._collect_params_with_prefix().items()
+              if "running" in k}
+    for k, v in jstats.items():
+        np.testing.assert_allclose(net.state_dict()[k].numpy(), v,
+                                   rtol=1e-5, atol=1e-5)
+
+
+class _Device:
+    """``vision`` with ``kwargs`` added to every ResNetV1 made through it."""
+
+    def __init__(self, mod, kwargs):
+        self._mod, self._kwargs = mod, kwargs
+
+    def __getattr__(self, name):
+        attr = getattr(self._mod, name)
+        if name == "ResNetV1":
+            return lambda *a, **k: attr(*a, **k, **self._kwargs)
+        return attr
+
+
+def test_model_zoo_entry_points():
+    net = tvision.resnet18_v1(layout="NHWC", classes=4, device="cpu")
+    assert isinstance(net, tvision.ResNetV1)
+    assert net.output.weight.shape == (4, 512)
+    with pytest.raises(MXNetError, match="NHWC"):
+        tvision.resnet50_v1(device="cpu")
+    with pytest.raises(ValueError, match="v1 only"):
+        tvision.get_resnet(2, 50, layout="NHWC", device="cpu")
+    with pytest.raises(ValueError, match="no ResNet of 26 layers"):
+        tvision.get_resnet(1, 26, layout="NHWC", device="cpu")
