@@ -46,7 +46,23 @@ Phases (any failure raises, and the script exits non-zero):
    compute_dtype bfloat16) for 10 steps on one fixed (128, 224, 224, 3)
    batch: a finite loss whose last value lies below the first, and K1a
    44, K1b 9 and K2 once per step; the step time, images per second and peak memory; then 3 more
-   steps under torch.profiler, by kernel group.
+   steps under torch.profiler, by kernel group;
+7. imperative: (a) every registered op once through mx.nd on the card at a
+   small seeded shape, against the same call on the CPU, then the
+   TransformerLM's feed-forward written in mx.nd at full width ((8, 1024,
+   512) through FullyConnected, gelu LeakyReLU, FullyConnected, residual
+   and LayerNorm) under autograd.record with attach_grad on its weights:
+   every gradient within 1e-3 of the CPU run's largest magnitude; (b)
+   rtc.CudaModule through NVRTC: MXNet's axpy example verbatim, axpy
+   (csrc/rtc/axpy.cu) at the stem activation (128, 112, 112, 64), the main
+   path -- a user's sgd_mom kernel (csrc/rtc/sgd_mom.cu) updating all 193
+   trainable tensors of resnet50_v1 with real gradients, one launch per
+   tensor, 193 launches counted -- then sgd_mom against mx.nd.sgd_mom_update
+   over two updates, scale<float> (csrc/rtc/scale_tmpl.cu) through
+   exports, and the error cases (a compile error with NVRTC's log, a wrong
+   dtype, a CPU array); each kernel bitwise repeatable, with its time, the
+   plain version's, the library call's, the bound, the host time of a
+   launch and NVRTC's compile time, cold and cached.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -988,19 +1004,477 @@ def resnet_train(seed, smi):
     return launches
 
 
+# ---------------------------------------------------------------- imperative
+
+# mx.nd on the card vs the same call on the CPU: float results within this
+# share of the CPU result's largest magnitude (transcendental functions
+# and reductions differ by some ulps between the two devices' libraries)
+ND_TOL = 1e-5
+# a user's rtc kernels vs their plain versions: NVRTC may contract a
+# product and a sum into one FMA, one rounding of the result apart
+RTC_TOL = 1e-6
+FFN_SHAPE, FFN_HIDDEN = (TRAIN_BATCH, SEQ, UNITS), 4 * UNITS
+RESNET_TRAINABLE, RESNET_VALUES = 193, 25_575_912
+AXPY_SHAPE = (RESNET_BATCH, 112, 112, 64)  # the stem activation
+RTC_BLOCK = 256
+SGD_MOM = dict(lr=0.1, momentum=0.9, wd=1e-4)
+MXNET_AXPY_EXAMPLE = r'''
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+'''
+SGD_SIG = ("float *weight, const float *grad, float *mom, float lr, "
+           "float momentum, float wd, float rescale_grad, "
+           "float clip_gradient, int n")
+
+
+def _nd_outputs(case, ctx, seed):
+    """One op case of mxnet_tpu_torch.test_utils through mx.nd on ``ctx``;
+    the results (for the in-place updates: the weight and the states) as
+    numpy."""
+    from mxnet_tpu_torch import nd, test_utils as T
+
+    name = T.op_name(case)
+    attrs = dict(T.OP_CASES[case][1])
+    if name in T.NO_TENSOR_OPS:
+        attrs["ctx"] = ctx
+    inputs = [nd.array(a, ctx=ctx, dtype=a.dtype)
+              for a in T.make_inputs(case, seed)]
+    out = nd.imperative_invoke(name, inputs, attrs)
+    if name in T.INPLACE_OPS:
+        out = inputs[:1] + inputs[2:]
+    return [o.asnumpy() for o in out]
+
+
+def registry_on_card(seed):
+    """Phase 7a: every registered op once on the card against the CPU."""
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch import test_utils as T
+    from mxnet_tpu_torch.ops import registry
+
+    bad, worst = [], (0.0, None)
+    for case in sorted(T.OP_CASES):
+        name = T.op_name(case)
+        mx_random.seed(seed)
+        got = _nd_outputs(case, torch.device("cuda", 0), seed)
+        torch.cuda.synchronize()
+        if name in T.RANDOM_OPS:
+            want = _nd_outputs(case, torch.device("cpu"), seed)
+            ok = all(g.shape == w.shape and g.dtype == w.dtype and
+                     np.isfinite(g).all() and
+                     (name != "_shuffle" or np.array_equal(
+                         np.sort(g, axis=0), np.sort(w, axis=0)))
+                     and abs(float(g.mean()) - float(w.mean()))
+                     < 0.15 * max(1.0, float(np.abs(w).max()))
+                     for g, w in zip(got, want))
+            if not ok:
+                bad.append(case)
+            continue
+        want = _nd_outputs(case, torch.device("cpu"), seed)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                bad.append(case)
+                continue
+            if not np.issubdtype(w.dtype, np.floating):
+                if not np.array_equal(g, w):
+                    bad.append(case)
+                continue
+            fin = np.isfinite(w)
+            if not np.array_equal(fin, np.isfinite(g)) or not np.array_equal(
+                    np.isnan(g), np.isnan(w)):
+                bad.append(case)
+                continue
+            scale = max(1.0, float(np.abs(w[fin]).max(initial=0.0)))
+            err = float(np.abs(g[fin] - w[fin]).max(initial=0.0)) / scale
+            if err > worst[0]:
+                worst = (err, case)
+            if err > ND_TOL or not np.array_equal(g[~fin], w[~fin],
+                                                  equal_nan=True):
+                bad.append(case)
+    log("imperative: %d registered ops in %d cases through mx.nd on the card "
+        "vs the CPU: worst %.3g of the result's magnitude (%s; tol %.0e); "
+        "disagree: %s" % (len(registry.list_ops()), len(T.OP_CASES),
+                          worst[0], worst[1], ND_TOL, bad or "none"))
+    if bad:
+        raise AssertionError("mx.nd ops disagree between the card and the "
+                             "CPU: %s" % bad)
+
+
+def _ffn(ctx, vals):
+    """The feed-forward of a TransformerLM block in mx.nd, recorded, with
+    gradients of its weights; returns (output, loss, {name: grad})."""
+    from mxnet_tpu_torch import autograd, nd
+
+    x, r, w1, b1, w2, b2, gamma, beta = [nd.array(v, ctx=ctx) for v in vals]
+    params = {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "gamma": gamma,
+              "beta": beta}
+    for p in params.values():
+        p.attach_grad()
+    with autograd.record():
+        h = nd.FullyConnected(x, w1, b1, num_hidden=FFN_HIDDEN, flatten=False)
+        h = nd.LeakyReLU(h, act_type="gelu")
+        h = nd.FullyConnected(h, w2, b2, num_hidden=UNITS, flatten=False)
+        out = nd.LayerNorm(h + x, gamma, beta)
+        loss = nd.sum(out * r)
+    loss.backward()
+    return out, loss, {k: p.grad for k, p in params.items()}
+
+
+def ffn_full_width(seed, smi):
+    """Phase 7a: the full-width feed-forward on the card vs the CPU."""
+    rng = np.random.RandomState(seed + 7)
+    vals = [rng.randn(*FFN_SHAPE).astype(np.float32),
+            rng.randn(*FFN_SHAPE).astype(np.float32),
+            (rng.randn(FFN_HIDDEN, UNITS) / UNITS ** 0.5).astype(np.float32),
+            (0.02 * rng.randn(FFN_HIDDEN)).astype(np.float32),
+            (rng.randn(UNITS, FFN_HIDDEN) / FFN_HIDDEN ** 0.5)
+            .astype(np.float32),
+            (0.02 * rng.randn(UNITS)).astype(np.float32),
+            (1 + 0.1 * rng.randn(UNITS)).astype(np.float32),
+            (0.1 * rng.randn(UNITS)).astype(np.float32)]
+    cuda = torch.device("cuda", 0)
+    _ffn(cuda, vals)  # warm up cuBLAS
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out, loss, got = _ffn(cuda, vals)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    _, cpu_loss, want = _ffn(torch.device("cpu"), vals)
+    worst, worst_name = 0.0, None
+    for name, g in want.items():
+        gw = g.asnumpy()
+        rel = float(np.abs(got[name].asnumpy() - gw).max()) \
+            / max(float(np.abs(gw).max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log("imperative: feed-forward in mx.nd at (%d, %d, %d) -> %d -> %d, "
+        "record + backward on %s in %.2f ms; loss card %.6g cpu %.6g; "
+        "gradients of %d weights vs the CPU: worst %.3g of the gradient's "
+        "largest magnitude (%s; tol %.0e)" % (
+            FFN_SHAPE + (FFN_HIDDEN, UNITS, smi, ms, loss.asscalar(),
+                         cpu_loss.asscalar(), len(want), worst, worst_name,
+                         GRAD_TOL)))
+    if out.shape != FFN_SHAPE or not np.isfinite(out.asnumpy()).all() \
+            or worst > GRAD_TOL:
+        raise AssertionError("the imperative feed-forward disagrees with the "
+                             "CPU")
+
+
+def _rtc_source(name):
+    import os
+
+    with open(os.path.join("mxnet_tpu_torch", "csrc", "rtc", name)) as f:
+        return f.read()
+
+
+def _grid(n):
+    return (max(1, -(-n // RTC_BLOCK)), 1, 1)
+
+
+def _rel_err(got, want):
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-30)
+
+
+def _resnet_trainables(seed):
+    """resnet50_v1's trainable parameters on the card as NDArrays (the
+    Gluon parameters themselves, no copy) and their float32 gradients from
+    one train-mode backward at (4, 64, 64, 3), as phase 6 computes them."""
+    from mxnet_tpu_torch import nd
+
+    rng = np.random.RandomState(seed + 8)
+    net = _resnet("cuda", seed)
+    x = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, (4,))
+                         .astype(np.int32)).cuda()
+    grads = _resnet_grads(net, x, y, True)
+    params = {k: p for k, p in net.collect_params().items()
+              if p.grad_req != "null"}
+    return net, [nd.NDArray(p.data) for p in params.values()], \
+        [nd.NDArray(grads[k].cuda()) for k in params]
+
+
+def _host_us(fn, n=2000):
+    """Host time of one call of ``fn`` in microseconds, over ``n`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _push_pop():
+    from mxnet_tpu_torch import _nvrtc
+
+    with _nvrtc._current(0):
+        pass
+
+
+def rtc_phase(seed, smi):
+    """Phase 7b: rtc.CudaModule on the card; returns the row of the kernels
+    line and the launch count of the main path."""
+    from mxnet_tpu_torch import MXNetError, gpu, nd, rtc
+    from mxnet_tpu_torch import _nvrtc
+    from mxnet_tpu_torch.context import resolve_device
+    from mxnet_tpu_torch.parallel.gluon_step import sgd_momentum_update
+
+    ctx = gpu(0)
+    log("rtc: NVRTC %d.%d, include path %s" % (_nvrtc.nvrtc_version()
+                                                + (_nvrtc.include_dir(),)))
+    compile_ms = {}
+    mods = {}
+    for name, exports in (("axpy.cu", ()), ("sgd_mom.cu", ()),
+                          ("scale_tmpl.cu", ("ns::scale<float>",))):
+        src = _rtc_source(name)
+        t0 = time.perf_counter()
+        mods[name] = rtc.CudaModule(src, exports=exports)
+        t1 = time.perf_counter()
+        rtc.CudaModule(src, exports=exports)
+        compile_ms[name] = ((t1 - t0) * 1e3,
+                            (time.perf_counter() - t1) * 1e3)
+    log("rtc: NVRTC compile ms, cold / cached: %s" % ", ".join(
+        "%s %.1f / %.4f" % (n, c, w) for n, (c, w) in compile_ms.items()))
+
+    # 1. MXNet's documented example, verbatim
+    k = rtc.CudaModule(MXNET_AXPY_EXAMPLE).get_kernel(
+        "axpy", "const float *x, float *y, float alpha")
+    x = nd.ones((10,), ctx=ctx)
+    y = nd.zeros((10,), ctx=ctx)
+    k.launch([x, y, 3.0], ctx, (1, 1, 1), (10, 1, 1))
+    torch.cuda.synchronize()
+    log("rtc: MXNet's axpy example:\n%s" % y)
+    if y.asnumpy().tolist() != [3.0] * 10:
+        raise AssertionError("MXNet's axpy example did not give 3s")
+    # the host's cost of a launch: marshalling, checks, driver call
+    launch_us = _host_us(lambda: k.launch([x, y, 3.0], ctx, (1, 1, 1),
+                                          (10, 1, 1)), 200)
+    torch.cuda.synchronize()
+    log("rtc: host time per launch %.1f us (200 launches of 10 elements, "
+        "no sync)" % launch_us)
+
+    # 2. axpy at the stem activation
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    n = int(np.prod(AXPY_SHAPE))
+    xa = nd.NDArray(torch.randn(AXPY_SHAPE, device="cuda", generator=gen))
+    y0 = torch.randn(AXPY_SHAPE, device="cuda", generator=gen)
+    axpy = mods["axpy.cu"].get_kernel(
+        "axpy", "const float *x, float *y, float alpha, int n")
+    alpha = 0.75
+    runs = []
+    for _ in range(2):
+        ya = nd.NDArray(y0.clone())
+        axpy.launch([xa, ya, alpha, n], ctx, _grid(n), (RTC_BLOCK, 1, 1))
+        torch.cuda.synchronize()
+        runs.append(ya.data_torch)
+    want = (nd.NDArray(y0) + xa * alpha).data_torch
+    err = _rel_err(runs[0], want)
+    same = torch.equal(runs[0], runs[1])
+    ya = nd.NDArray(y0.clone())
+    ms = time_ms(lambda: axpy.launch([xa, ya, alpha, n], ctx, _grid(n),
+                                     (RTC_BLOCK, 1, 1)))
+    y0n = nd.NDArray(y0)
+    plain_ms = time_ms(lambda: y0n + xa * alpha)
+    yt = y0.clone()
+    lib_ms = time_ms(lambda: yt.add_(xa.data_torch, alpha=alpha))
+    bound = 12.0 * n / PEAK_BYTES * 1e3
+    log("rtc: axpy at %s float32 (%d elements): max err %.3g of the plain "
+        "result's magnitude (tol %.0e), bitwise repeatable %s; kernel %.4f "
+        "ms, plain %.4f ms, y.add_(x, alpha) %.4f ms, bound %.4f ms (bytes), "
+        "%.0f %% of it" % (AXPY_SHAPE, n, err, RTC_TOL, same, ms, plain_ms,
+                           lib_ms, bound, 100.0 * bound / ms))
+    if err > RTC_TOL or not same:
+        raise AssertionError("the axpy kernel disagrees with y + alpha * x "
+                             "or is not repeatable")
+    del xa, y0, ya, runs, want, y0n, yt
+    torch.cuda.empty_cache()
+
+    # 3. the main path: a user's sgd_mom update of ResNet-50's trainables
+    net, weights, grads = _resnet_trainables(seed)
+    values = sum(w.size for w in weights)
+    sgd = mods["sgd_mom.cu"].get_kernel("sgd_mom", SGD_SIG)
+    hp = (SGD_MOM["lr"], SGD_MOM["momentum"], SGD_MOM["wd"], 1.0, -1.0)
+
+    def update(ws, ms_, gs):
+        for w, g, m in zip(ws, gs, ms_):
+            sgd.launch([w, g, m, *hp, w.size], ctx, _grid(w.size),
+                       (RTC_BLOCK, 1, 1))
+
+    start = [w.copy() for w in weights]
+    moms = [nd.zeros(w.shape, ctx=ctx) for w in weights]
+    torch.cuda.synchronize()
+    rtc.CudaKernel.launches = 0
+    update(weights, moms, grads)
+    launches = rtc.CudaKernel.launches
+    torch.cuda.synchronize()
+    # ---- end of the main path
+    small = sum(1 for w in weights if w.size <= 2048)
+    log("rtc: sgd_mom over resnet50_v1's %d trainable tensors (%d values, "
+        "%d of them with 2048 or fewer): %d launches" % (
+            len(weights), values, small, launches))
+    if (len(weights), values, launches) != (RESNET_TRAINABLE, RESNET_VALUES,
+                                            RESNET_TRAINABLE):
+        raise AssertionError("the rtc update did not launch once per "
+                             "trainable tensor of ResNet-50")
+    # where a launch's host time goes: one sgd_mom launch (9 arguments)
+    # and its parts, each repeated alone
+    dev = torch.device("cuda", 0)
+    args = [weights[0].copy(), grads[0], moms[0].copy(), *hp,
+            weights[0].size]
+    parts = {
+        "launch": lambda: sgd.launch(args, ctx, (1, 1, 1),
+                                     (RTC_BLOCK, 1, 1)),
+        "checks and ctypes arguments": lambda: sgd._marshal(args, dev),
+        "current stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "device check": lambda: resolve_device(dev),
+        "context push and pop": _push_pop,
+    }
+    host = {name: _host_us(fn) for name, fn in parts.items()}
+    torch.cuda.synchronize()
+    log("rtc: host us of one sgd_mom launch: %s" % ", ".join(
+        "%s %.1f" % kv for kv in host.items()))
+    moved = max((w.data_torch - s.data_torch).abs().max().item()
+                for w, s in zip(weights, start))
+    if not moved > 0:
+        raise AssertionError("the rtc update did not move the parameters")
+    # two updates each: the kernel (twice, for repeatability) vs the plain
+    rows = []
+    for _ in range(2):
+        ws = [s.copy() for s in start]
+        ms_ = [nd.zeros(s.shape, ctx=ctx) for s in start]
+        for _ in range(2):
+            update(ws, ms_, grads)
+        torch.cuda.synchronize()
+        rows.append((ws, ms_))
+    wp = [s.copy() for s in start]
+    mp = [nd.zeros(s.shape, ctx=ctx) for s in start]
+    for _ in range(2):
+        for w, g, m in zip(wp, grads, mp):
+            nd.sgd_mom_update(w, g, m, **SGD_MOM)
+    torch.cuda.synchronize()
+    (wk, mk), (wk2, mk2) = rows
+    err = max(max(_rel_err(a.data_torch, b.data_torch)
+                  for a, b in zip(wk, wp)),
+              max(_rel_err(a.data_torch, b.data_torch)
+                  for a, b in zip(mk, mp)))
+    abs_err = max((a.data_torch - b.data_torch).abs().max().item()
+                  for a, b in zip(wk + mk, wp + mp))
+    same = all(torch.equal(a.data_torch, b.data_torch)
+               for a, b in zip(wk + mk, wk2 + mk2))
+    del rows, wk, mk, wk2, mk2
+    # times of one whole update (193 launches) on the stream
+    ws = [s.copy() for s in start]
+    ms_ = [nd.zeros(s.shape, ctx=ctx) for s in start]
+    t_ms = time_ms(lambda: update(ws, ms_, grads), iters=10)
+    t0 = time.perf_counter()
+    update(ws, ms_, grads)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    plain_ms = time_ms(lambda: [nd.sgd_mom_update(w, g, m, **SGD_MOM)
+                                for w, g, m in zip(wp, grads, mp)], iters=10)
+    fe = sgd_momentum_update(**SGD_MOM)
+    tw = [w.data_torch for w in ws]
+    tg = [g.data_torch for g in grads]
+    tm = [m.data_torch for m in ms_]
+    lib_ms = time_ms(lambda: fe(tw, tg, tm), iters=10)
+    bound = 20.0 * values / PEAK_BYTES * 1e3
+    log("rtc: sgd_mom vs mx.nd.sgd_mom_update over two updates of %d "
+        "tensors: max err %.3g relative to each tensor's magnitude (%.3g "
+        "abs; tol %.0e), bitwise repeatable %s; a whole update on %s: "
+        "kernel %.4f ms (host %.3f ms to issue its %d launches), plain "
+        "%.4f ms, foreach SGD-momentum %.4f ms, bound %.4f ms (bytes)" % (
+            len(weights), err, abs_err, RTC_TOL, same, smi, t_ms, host_ms,
+            len(weights), plain_ms, lib_ms, bound))
+    if err > RTC_TOL or not same:
+        raise AssertionError("the sgd_mom kernel disagrees with "
+                             "mx.nd.sgd_mom_update or is not repeatable")
+    row = {"max_abs_err": abs_err, "ms": t_ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+    del net, weights, grads, start, moms, ws, ms_, wp, mp, tw, tg, tm
+    torch.cuda.empty_cache()
+
+    # 4. a templated kernel in a namespace, through exports
+    scale = mods["scale_tmpl.cu"].get_kernel(
+        "ns::scale<float>", "const float *x, float *y, float s, int n")
+    xs = nd.NDArray(torch.randn(AXPY_SHAPE, device="cuda", generator=gen))
+    outs = []
+    for _ in range(2):
+        ys = nd.zeros(AXPY_SHAPE, ctx=ctx)
+        scale.launch([xs, ys, 2.5, n], ctx, _grid(n), (RTC_BLOCK, 1, 1))
+        torch.cuda.synchronize()
+        outs.append(ys.data_torch)
+    equal = torch.equal(outs[0], (xs * 2.5).data_torch)
+    same = torch.equal(outs[0], outs[1])
+    s_ms = time_ms(lambda: scale.launch([xs, ys, 2.5, n], ctx, _grid(n),
+                                        (RTC_BLOCK, 1, 1)))
+    log("rtc: ns::scale<float> through exports (lowered %s) at %s: equal to "
+        "x * s %s, bitwise repeatable %s; kernel %.4f ms, bound %.4f ms" % (
+            mods["scale_tmpl.cu"]._lowered["ns::scale<float>"], AXPY_SHAPE,
+            equal, same, s_ms, 8.0 * n / PEAK_BYTES * 1e3))
+    if not (equal and same):
+        raise AssertionError("scale<float> disagrees with x * s")
+    del xs, ys, outs
+    torch.cuda.empty_cache()
+
+    # 5. what must raise
+    errors = {}
+    try:
+        rtc.CudaModule('extern "C" __global__ void f(float *y) { y[0] = '
+                       'undeclared_name; }')
+    except MXNetError as e:
+        errors["compile"] = str(e)
+    try:
+        k.launch([x.astype("float16"), y, 3.0], ctx, (1, 1, 1), (10, 1, 1))
+    except MXNetError as e:
+        errors["dtype"] = str(e)
+    try:
+        k.launch([nd.ones((10,), ctx="cpu"), y, 3.0], ctx, (1, 1, 1),
+                 (10, 1, 1))
+    except MXNetError as e:
+        errors["cpu array"] = str(e)
+    torch.cuda.synchronize()
+    for case, msg in errors.items():
+        log("rtc: %s raises MXNetError: %s" % (case, msg.strip()[:400]))
+    if sorted(errors) != ["compile", "cpu array", "dtype"] \
+            or "undeclared_name" not in errors["compile"]:
+        raise AssertionError("an rtc error case did not raise as it should")
+    row["launch_host_us"] = host["launch"]
+    row["compile_ms_cold"] = compile_ms["sgd_mom.cu"][0]
+    return row, launches
+
+
+def imperative(seed, smi):
+    """Phase 7: the imperative path, mx.nd and rtc.CudaModule."""
+    registry_on_card(seed)
+    ffn_full_width(seed, smi)
+    torch.cuda.empty_cache()
+    return rtc_phase(seed, smi)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t0 = time.perf_counter()
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log("phase %s done in %.1f s (%.1f s in all)" % (
+            name, time.perf_counter() - t, time.perf_counter() - t0))
+        return out
+
     smi = environment()
-    build()
-    fwd_row = kernels(args.seed)
-    bwd_rows = backward_kernels(args.seed)
-    dw_rows = conv_kernels(args.seed)
-    pool_row = pool_kernels(args.seed)
-    serve_launches = serve(args.seed, smi)
-    train_launches = train(args.seed, smi)
-    resnet_launches = resnet_train(args.seed, smi)
+    phase("build", build)
+    fwd_row = phase("3 attention forward", kernels, args.seed)
+    bwd_rows = phase("3b attention backward", backward_kernels, args.seed)
+    dw_rows = phase("3c conv dW", conv_kernels, args.seed)
+    pool_row = phase("3c max-pool backward", pool_kernels, args.seed)
+    serve_launches = phase("4 serve", serve, args.seed, smi)
+    train_launches = phase("5 train", train, args.seed, smi)
+    resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
+    rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     source="mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1025,6 +1499,12 @@ def main():
                         source="mxnet_tpu_torch/csrc/maxpool_bwd.cu",
                         replaces="mxnet_tpu/ops/pallas_pool.py:55",
                         launches=resnet_launches["maxpool"], **pool_row))
+    entries.append(dict(
+        name="rtc_cuda_module", path="imperative", route="cuda",
+        compiled_by="nvrtc",
+        source="mxnet_tpu_torch/rtc.py, mxnet_tpu_torch/_nvrtc.py, "
+               "mxnet_tpu_torch/csrc/rtc/{axpy,sgd_mom,scale_tmpl}.cu",
+        replaces="mxnet_tpu/rtc.py:67", launches=rtc_launches, **rtc_row))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,13 @@ keeps MXNet's semantics on top of it:
   The :func:`record` and :func:`pause` scopes also set the grad mode for
   plain tensor code inside them.
 - :func:`backward` delivers gradients by each parameter's ``grad_req``:
-  ``write`` replaces ``.grad``, ``add`` adds to it (PyTorch's own
-  ``Tensor.backward`` always adds).  A head without a head gradient gets
-  ones, so a per-sample loss needs no ``.sum()``.
+  ``write`` overwrites ``.grad`` (in place, where a buffer exists, so
+  the buffer an ``NDArray.grad`` hands out stays current), ``add`` adds
+  to it (PyTorch's own ``Tensor.backward`` always adds).  A head without
+  a head gradient gets ones, so a per-sample loss needs no ``.sum()``.
+- Heads, head gradients and variables may be ``NDArray``s or tensors;
+  :func:`mark_variables` and :func:`grad` are first-order only
+  (``create_graph`` is not ported).
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training", "backward"]
+           "is_training", "set_recording", "set_training", "backward",
+           "mark_variables", "grad"]
 
 _STATE = threading.local()
 
@@ -109,10 +114,44 @@ def set_training(flag):
     return old
 
 
+def _tensor(x):
+    """The tensor of an ``NDArray`` (or the tensor itself)."""
+    return getattr(x, "data_torch", x)
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _heads(heads, head_grads):
+    """Heads and head gradients as tensors; raises for an unrecorded
+    head."""
+    heads = [_tensor(h) for h in _as_list(heads)]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    head_grads = [None if g is None else _tensor(g)
+                  for g in _as_list(head_grads)]
+    for h in heads:
+        if not h.requires_grad:
+            raise MXNetError("cannot differentiate: array is not in a "
+                             "recorded graph (is autograd.record() active?)")
+    return heads, [torch.ones_like(h) if g is None else g
+                   for h, g in zip(heads, head_grads)]
+
+
+def _autograd_grad(heads, inputs, head_grads, retain_graph):
+    try:
+        return torch.autograd.grad(heads, inputs, head_grads,
+                                   retain_graph=retain_graph,
+                                   allow_unused=True)
+    except RuntimeError as e:
+        raise MXNetError("backward failed: %s" % e) from e
+
+
 def _leaves(heads):
     """The leaf tensors (parameters) the heads' graphs reach, in first
-    reached order."""
-    seen, leaves = set(), []
+    reached order (a head that is itself a leaf included)."""
+    seen, leaves = set(), [h for h in heads if h.grad_fn is None]
     stack = [h.grad_fn for h in heads]
     while stack:
         fn = stack.pop()
@@ -134,26 +173,60 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     with ``grad_req='null'`` is not part of the graph.  Raises
     :class:`MXNetError` when a head was not recorded."""
     del train_mode  # the forward recorded the mode it ran in
-    if not isinstance(heads, (list, tuple)):
-        heads = [heads]
-    if head_grads is None:
-        head_grads = [None] * len(heads)
-    elif not isinstance(head_grads, (list, tuple)):
-        head_grads = [head_grads]
-    for h in heads:
-        if h.grad_fn is None:
-            raise MXNetError("cannot differentiate: array is not in a "
-                             "recorded graph (is autograd.record() active?)")
-    head_grads = [torch.ones_like(h) if g is None else g
-                  for h, g in zip(heads, head_grads)]
+    heads, head_grads = _heads(heads, head_grads)
     leaves = _leaves(heads)
-    grads = torch.autograd.grad(heads, leaves, head_grads,
-                                retain_graph=retain_graph, allow_unused=True)
+    grads = _autograd_grad(heads, leaves, head_grads, retain_graph)
     with torch.no_grad():
         for p, g in zip(leaves, grads):
             if g is None:
                 continue
-            if getattr(p, "grad_req", "write") == "add" and p.grad is not None:
+            if p.grad is None or p.grad.shape != g.shape:
+                p.grad = g
+            elif getattr(p, "grad_req", "write") == "add":
                 p.grad.add_(g)
             else:
-                p.grad = g
+                p.grad.copy_(g)
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each of ``variables`` a leaf that records gradients into its
+    buffer in ``gradients`` (reference: MXAutogradMarkVariables), by
+    ``grad_reqs`` (one or one per variable: write, add or null)."""
+    variables = _as_list(variables)
+    gradients = _as_list(gradients)
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be write, add or null, not %r"
+                             % (req,))
+        t, buf = _tensor(v), _tensor(g)
+        if not t.is_leaf:
+            raise MXNetError("mark_variables: an array computed in a "
+                             "recorded graph cannot be a variable; detach() "
+                             "it first")
+        t.requires_grad_(req != "null")
+        t.grad_req = req
+        t.grad = None if req == "null" else buf
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables``, returned
+    (as ``NDArray``s where the variables are, else tensors) and delivered
+    to no ``.grad`` (reference: autograd.grad).  First order only."""
+    from .ndarray.ndarray import NDArray
+
+    del train_mode
+    if create_graph:
+        raise MXNetError("autograd.grad(create_graph=True): higher-order "
+                         "gradients are not ported")
+    heads, head_grads = _heads(heads, head_grads)
+    variables = _as_list(variables)
+    grads = _autograd_grad(heads, [_tensor(v) for v in variables],
+                           head_grads, bool(retain_graph))
+    if any(g is None for g in grads):
+        raise MXNetError("one of the variables does not participate in the "
+                         "graph")
+    return [NDArray(g) if isinstance(v, NDArray) else g
+            for v, g in zip(variables, grads)]

@@ -1,4 +1,4 @@
-"""Shared plumbing of the PyTorch port: the framework error type.
+"""Shared plumbing of the PyTorch port: the framework error type and dtypes.
 
 Counterpart of ``mxnet_tpu/base.py`` (reference: python/mxnet/base.py).
 Only the parts the port uses live here.
@@ -6,8 +6,46 @@ Only the parts the port uses live here.
 
 from __future__ import annotations
 
-__all__ = ["MXNetError"]
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "numeric_types", "torch_dtype", "np_dtype"]
+
+numeric_types = (float, int, np.generic)
 
 
 class MXNetError(RuntimeError):
     """Framework error type (reference: python/mxnet/base.py MXNetError)."""
+
+
+_NP_TO_TORCH = {np.dtype(k): v for k, v in (
+    (np.float32, torch.float32), (np.float64, torch.float64),
+    (np.float16, torch.float16), (np.uint8, torch.uint8),
+    (np.int8, torch.int8), (np.int16, torch.int16),
+    (np.int32, torch.int32), (np.int64, torch.int64),
+    (np.bool_, torch.bool))}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+
+def torch_dtype(dtype):
+    """A dtype-ish (None for float32, a name such as ``"bfloat16"``, a
+    numpy dtype or type, a ``torch.dtype``) as a ``torch.dtype``."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return torch.bfloat16
+    try:
+        return _NP_TO_TORCH[np.dtype(dtype)]
+    except (KeyError, TypeError) as e:
+        raise MXNetError("dtype %r is not supported by the port" % (dtype,)) \
+            from e
+
+
+def np_dtype(dtype):
+    """The numpy dtype of a ``torch.dtype`` (or dtype-ish); bfloat16, which
+    numpy lacks, stays ``torch.bfloat16``."""
+    dt = torch_dtype(dtype)
+    return _TORCH_TO_NP.get(dt, dt)
+

@@ -1,7 +1,9 @@
-"""Ops of the PyTorch port: plain functions on tensors, and the wrappers
-of the hand-written kernels."""
+"""Ops of the PyTorch port: plain functions on tensors, registered under
+the JAX package's names (:mod:`.registry`), and the wrappers of the
+hand-written kernels."""
 
-from . import attention, conv_dw, matrix, nn, optimizer_ops, pool_bwd
+from . import (attention, conv_dw, elemwise, init_ops, matrix, nn,
+               optimizer_ops, pool_bwd, reduce, registry)
 
-__all__ = ["attention", "conv_dw", "matrix", "nn", "optimizer_ops",
-           "pool_bwd"]
+__all__ = ["attention", "conv_dw", "elemwise", "init_ops", "matrix", "nn",
+           "optimizer_ops", "pool_bwd", "reduce", "registry"]

@@ -20,13 +20,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import autograd as _autograd
 from .. import random as _random
 from ..base import MXNetError
 from .conv_dw import conv_dw
 from .pool_bwd import maxpool_bwd
+from .registry import register
 
 __all__ = ["convolution", "fully_connected", "activation", "leaky_relu",
-           "batch_norm", "layer_norm", "pooling", "dropout", "log_softmax"]
+           "batch_norm", "layer_norm", "pooling", "dropout", "softmax",
+           "log_softmax"]
 
 
 def _pair(v, what):
@@ -83,6 +86,25 @@ class _Convolution(torch.autograd.Function):
         return dx, dw, None, None
 
 
+def _or(v, default):
+    return default if v is None or v == () else v
+
+
+@register("Convolution", aliases=("conv",))
+def _convolution_op(data, weight, bias=None, kernel=(), stride=(),
+                    dilate=(), pad=(), num_filter=None, num_group=1,
+                    no_bias=False, layout=None, cudnn_off=False,
+                    cudnn_tune=None, workspace=1024, **_):
+    """The registered ``Convolution``: :func:`convolution` with the JAX
+    op's attributes (an empty ``stride``/``dilate``/``pad`` is the
+    default; ``cudnn_*`` and ``workspace`` are accepted and ignored)."""
+    del cudnn_off, cudnn_tune, workspace
+    return convolution(data, weight, bias, kernel=_or(kernel, None),
+                       stride=_or(stride, (1, 1)), dilate=_or(dilate, (1, 1)),
+                       pad=_or(pad, (0, 0)), num_filter=num_filter,
+                       num_group=num_group, no_bias=no_bias, layout=layout)
+
+
 def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
                 dilate=(1, 1), pad=(0, 0), num_filter=None, num_group=1,
                 no_bias=False, layout="NHWC"):
@@ -113,33 +135,66 @@ def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
     return out
 
 
-def fully_connected(data, weight, bias=None, flatten=True):
+@register("FullyConnected", aliases=("fc",))
+def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                    flatten=True, **_):
     """``data @ weight.T + bias`` (reference: fully_connected.cc:239);
-    ``flatten`` folds every axis after the first into one."""
+    ``flatten`` folds every axis after the first into one; ``no_bias``
+    drops the bias (``num_hidden`` is read from the weight)."""
+    del num_hidden
     x = data.reshape(data.shape[0], -1) if flatten else data
-    return F.linear(x, weight, bias)
+    return F.linear(x, weight, None if no_bias else bias)
 
 
-def activation(data, act_type="relu"):
-    """Element-wise activation (reference: src/operator/nn/activation.cc);
-    the port has ``relu``."""
-    if act_type != "relu":
-        raise ValueError("act_type %r is not in the port; it has 'relu'"
-                         % (act_type,))
-    return F.relu(data)
+_ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+                "softrelu": F.softplus, "softsign": F.softsign}
 
 
-def leaky_relu(data, act_type="gelu"):
-    """The LeakyReLU family member the port serves: ``gelu``, exact
-    through erf as ``jax.nn.gelu(approximate=False)``."""
-    if act_type != "gelu":
-        raise ValueError("act_type %r is not ported yet" % act_type)
-    return F.gelu(data, approximate="none")
+@register("Activation")
+def activation(data, act_type="relu", **_):
+    """Element-wise activation (reference: src/operator/nn/activation.cc):
+    relu, sigmoid, tanh, softrelu (softplus) or softsign."""
+    f = _ACTIVATIONS.get(act_type)
+    if f is None:
+        raise ValueError("act_type %r is not one of %s"
+                         % (act_type, ", ".join(_ACTIVATIONS)))
+    return f(data)
 
 
-def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, **_):
+    """The LeakyReLU family (reference: src/operator/leaky_relu.cc): leaky,
+    prelu (learned ``gamma`` along axis 1), elu, selu, gelu (exact,
+    through erf, as ``jax.nn.gelu(approximate=False)``) and rrelu at its
+    inference slope (the mean of the bounds)."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if data.dim() > 1 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * (torch.exp(data) - 1.0))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data > 0, data,
+                                   alpha * (torch.exp(data) - 1.0))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        return torch.where(data > 0, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
+    raise ValueError("unknown act_type %r" % (act_type,))
+
+
+@register("LayerNorm")
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
+               **_):
     """Layer normalization over ``axis`` with the biased variance and
-    ``eps`` inside the root (reference: src/operator/nn/layer_norm.cc)."""
+    ``eps`` inside the root (reference: src/operator/nn/layer_norm.cc);
+    ``output_mean_var`` is accepted and, as in the JAX package, ignored."""
+    del output_mean_var
     mean = data.mean(dim=axis, keepdim=True)
     var = (data - mean).square().mean(dim=axis, keepdim=True)
     out = (data - mean) * torch.rsqrt(var + eps)
@@ -189,6 +244,28 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, mean, var
 
 
+def _bn_nout(attrs):
+    return 3 if attrs.get("output_mean_var") else 1
+
+
+@register("BatchNorm", num_outputs=_bn_nout)
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False,
+                   axis_name=None, **_):
+    """The registered ``BatchNorm``: ``out``, or ``(out, mean, var)`` with
+    ``output_mean_var``; the running statistics are the caller's to
+    update (``momentum`` is read by the layer, not here)."""
+    del momentum, cudnn_off
+    if axis_name is not None:
+        raise MXNetError("BatchNorm: axis_name (cross-device statistics) "
+                         "is not ported")
+    out = batch_norm(data, gamma, beta, moving_mean, moving_var, eps=eps,
+                     fix_gamma=fix_gamma, use_global_stats=use_global_stats,
+                     axis=axis)
+    return out if output_mean_var else out[0]
+
+
 class _MaxPool(torch.autograd.Function):
     """NHWC 2-D max pool.  Forward: cuDNN's max pool (the JAX package's is
     XLA's ``reduce_window``); a padding it cannot express goes through an
@@ -213,6 +290,22 @@ class _MaxPool(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         dx = maxpool_bwd(x, dy.contiguous(), ctx.kernel, ctx.stride, ctx.pad)
         return dx, None, None, None, None
+
+
+@register("Pooling")
+def _pooling_op(data, kernel=(), pool_type="max", stride=(), pad=(),
+                global_pool=False, pooling_convention="valid",
+                count_include_pad=True, cudnn_off=False, p_value=2,
+                layout=None, **_):
+    """The registered ``Pooling``: :func:`pooling` with the JAX op's
+    attributes (empty ``stride``/``pad`` are the defaults; ``lp`` pooling
+    is not ported)."""
+    del cudnn_off, p_value
+    return pooling(data, kernel=_or(kernel, (1, 1)), pool_type=pool_type,
+                   stride=_or(stride, None), pad=_or(pad, (0, 0)),
+                   global_pool=global_pool,
+                   pooling_convention=pooling_convention,
+                   count_include_pad=count_include_pad, layout=layout)
 
 
 def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
@@ -264,23 +357,58 @@ def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
     return summed / _nhwc(counts).clamp_min(1.0)
 
 
-def dropout(data, p=0.5, training=False):
+def dropout(data, p=0.5, training=False, axes=()):
     """Dropout (reference: src/operator/nn/dropout.cc); the identity
     unless ``training`` (inference never drops).
 
     In training, a Bernoulli keep mask of rate ``1 - p``, scaled by
     ``1 / (1 - p)``, drawn from the port's generator of ``data``'s device
-    (:func:`~mxnet_tpu_torch.random.generator`)."""
+    (:func:`~mxnet_tpu_torch.random.generator`); the mask is shared along
+    ``axes``."""
     if not training or p <= 0:
         return data
     keep = 1.0 - p
-    prob = torch.full(data.shape, keep, dtype=torch.float32,
-                      device=data.device)
+    shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
+    prob = torch.full(shape, keep, dtype=torch.float32, device=data.device)
     mask = torch.bernoulli(prob, generator=_random.generator(data.device))
     return data * (mask.to(data.dtype) / keep)
 
 
-def log_softmax(data, axis=-1):
+@register("Dropout")
+def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+                **_):
+    """The registered ``Dropout``: drops in train mode
+    (:func:`~mxnet_tpu_torch.autograd.is_training`) or with
+    ``mode="always"``."""
+    del cudnn_off
+    return dropout(data, p=p, axes=tuple(axes),
+                   training=mode == "always" or _autograd.is_training())
+
+
+@register("softmax")
+def softmax(data, axis=-1, temperature=None, length=None, **_):
+    """Softmax along ``axis`` (reference: src/operator/nn/softmax.cc),
+    with ``temperature`` and, with ``length``, rows masked past their
+    length (masked places are exactly 0)."""
+    ax = int(axis)
+    x = data
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if length is None:
+        return torch.softmax(x, dim=ax)
+    steps = torch.arange(x.shape[ax], device=x.device)
+    shape = [1] * x.dim()
+    shape[ax] = -1
+    mask = steps.reshape(shape) < length.unsqueeze(ax)
+    out = torch.softmax(x.masked_fill(~mask, float("-inf")), dim=ax)
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+
+
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None, **_):
     """``log(softmax(data))`` along ``axis``, computed stably (reference:
-    src/operator/nn/softmax.cc)."""
-    return torch.log_softmax(data, dim=axis)
+    src/operator/nn/softmax.cc), with ``temperature``."""
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return torch.log_softmax(data, dim=int(axis))

@@ -1,0 +1,242 @@
+"""Small seeded cases of every registered op, for the port's tests.
+
+Counterpart, for the port, of ``mxnet_tpu/test_utils.py``'s role: the
+CPU tests hold each op against the JAX package's op of the same name, and
+``chip_smoke.py`` holds each op on the card against the same call on the
+CPU, both from :data:`OP_CASES` and :func:`make_inputs`.
+
+A case is ``(inputs, attrs)``.  Each input is a spec turned into a numpy
+array by :func:`make_inputs` from ``numpy.random.RandomState(seed)``:
+
+- ``("f", shape)``: float32 normal samples;
+- ``("u", shape, lo, hi)``: float32 uniform samples in ``[lo, hi)``;
+- ``("i", shape, lo, hi)``: int32 integers in ``[lo, hi)``;
+- ``("fi", shape, lo, hi)``: the same integers as float32 (ties, indices);
+- ``("v", values)`` or ``("v", values, dtype)``: the values themselves.
+
+A key ``"op/extra"`` is one more case of ``op`` (``"sum/int32"``).  :data:`RANDOM_OPS` draw from a generator, so only
+their laws can be compared; :data:`INPLACE_OPS` update their state inputs
+in place and return the weight.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["OP_CASES", "RANDOM_OPS", "INPLACE_OPS", "NO_TENSOR_OPS",
+           "make_inputs", "op_name"]
+
+_F = ("f", (3, 4))
+_HALVES = ("v", [[-2.5, -1.5, -0.5, 0.5], [1.5, 2.5, 0.3, -0.7]])
+_SPECIAL = ("v", [[0.0, 1.0, float("nan"), float("inf")],
+                  [-float("inf"), -2.0, 3.5, float("nan")]])
+_UNIT = ("u", (3, 4), -0.9, 0.9)
+_POS = ("u", (3, 4), 0.2, 3.0)
+
+_UNARY_INPUT = {
+    "sqrt": _POS, "rsqrt": _POS, "log": _POS, "log10": _POS, "log2": _POS,
+    "log1p": _POS, "gamma": _POS, "gammaln": _POS, "digamma": _POS,
+    "reciprocal": _POS, "rcbrt": _POS, "arcsin": _UNIT, "arccos": _UNIT,
+    "arctanh": _UNIT, "erfinv": _UNIT, "arccosh": ("u", (3, 4), 1.1, 4.0),
+    "round": _HALVES, "rint": _HALVES, "isnan": _SPECIAL, "isinf": _SPECIAL,
+    "isfinite": _SPECIAL, "logical_not": ("fi", (3, 4), 0, 2),
+    "abs": ("i", (3, 4), -5, 5),
+}
+_UNARY = ("abs sign rint ceil floor trunc fix round square sqrt rsqrt cbrt "
+          "rcbrt exp expm1 log log10 log2 log1p sin cos tan arcsin arccos "
+          "arctan sinh cosh tanh arcsinh arccosh arctanh degrees radians "
+          "sigmoid softsign relu erf erfinv gamma gammaln digamma reciprocal "
+          "negative logical_not isnan isinf isfinite").split()
+_BINARY = ("add sub mul div mod power maximum minimum hypot equal not_equal "
+           "greater greater_equal lesser lesser_equal logical_and logical_or "
+           "logical_xor").split()
+_BINARY_INPUTS = {
+    "div": (_F, ("u", (3, 4), 0.5, 2.0)),
+    "mod": (("f", (3, 4)), ("v", [[1.5, -1.5, 0.7, -0.7]] * 3)),
+    "power": (_POS, _F),
+}
+_CMP = {"equal", "not_equal", "greater", "greater_equal", "lesser",
+        "lesser_equal", "logical_and", "logical_or", "logical_xor"}
+_SCALAR = ("plus minus rminus mul div rdiv mod rmod power rpower maximum "
+           "minimum hypot equal not_equal greater greater_equal lesser "
+           "lesser_equal logical_and logical_or logical_xor").split()
+_SCALAR_INPUT = {"rdiv": _POS, "rmod": ("u", (3, 4), 0.5, 2.0),
+                 "power": _POS, "rpower": _F,
+                 "equal": ("fi", (3, 4), 0, 4),
+                 "not_equal": ("fi", (3, 4), 0, 4),
+                 "greater_equal": ("fi", (3, 4), 0, 4),
+                 "lesser_equal": ("fi", (3, 4), 0, 4),
+                 "logical_and": ("fi", (3, 4), 0, 2),
+                 "logical_or": ("fi", (3, 4), 0, 2),
+                 "logical_xor": ("fi", (3, 4), 0, 2)}
+_SCALAR_VALUE = {"mod": -1.5, "rmod": 1.5, "power": 2.5, "rpower": 1.5,
+                 "equal": 2.0, "not_equal": 2.0, "greater_equal": 2.0,
+                 "lesser_equal": 2.0, "logical_and": 1.0,
+                 "logical_or": 0.0, "logical_xor": 1.0}
+
+_X345 = ("f", (3, 4, 5))
+_NANS = ("v", [[0.5, 1.0, float("nan"), 2.0],
+               [-1.0, float("nan"), 3.5, 0.25]])
+_ROWS = ("fi", (3, 6), 0, 3)  # ties in every row
+
+OP_CASES = {}
+for _n in _UNARY:
+    OP_CASES[_n] = ([_UNARY_INPUT.get(_n, _F)], {})
+for _n in _BINARY:
+    _ins = _BINARY_INPUTS.get(_n)
+    if _ins is None:
+        _ins = (("fi", (3, 4), 0, 3),) * 2 if _n in _CMP else (_F, _F)
+    OP_CASES["elemwise_" + _n] = (list(_ins), {})
+    OP_CASES["broadcast_" + _n] = ([_ins[0], (_ins[1][0], (1, 4))
+                                    + tuple(_ins[1][2:])]
+                                   if _ins[1][0] != "v"
+                                   else [_ins[0], ("v", _ins[1][1][:1])], {})
+for _n in _SCALAR:
+    OP_CASES["_%s_scalar" % _n] = ([_SCALAR_INPUT.get(_n, _F)],
+                                   {"scalar": _SCALAR_VALUE.get(_n, 0.75)})
+OP_CASES.update({
+    # element-wise, the rest of the module
+    "softrelu": ([_F], {}),
+    "hard_sigmoid": ([("f", (3, 4))], {"alpha": 0.3, "beta": 0.4}),
+    "clip": ([_F], {"a_min": -0.5, "a_max": 0.5}),
+    "Cast": ([("v", [[-1.7, -0.5, 0.5, 2.9]])], {"dtype": "int32"}),
+    "_copy": ([_F], {}),
+    "BlockGrad": ([_F], {}),
+    "make_loss": ([_F], {}),
+    "_scatter_elemwise_div": ([_F, ("u", (3, 4), 0.5, 2.0)], {}),
+    "smooth_l1": ([("f", (3, 4))], {"scalar": 2.0}),
+    "add_n": ([_F, _F, _F], {}),
+    "where": ([("fi", (3,), 0, 2), _F, _F], {}),
+    "_plus_scalar/int32": ([("i", (3, 4), -5, 5)], {"scalar": 2.5}),
+    "elemwise_mul/int32": ([("i", (3, 4), -5, 5), ("i", (3, 4), -5, 5)], {}),
+    # reductions
+    "sum": ([_X345], {"axis": (0, 2)}),
+    "sum/int32": ([("i", (3, 4, 5), -9, 9)], {"axis": 1}),
+    "mean": ([_X345], {"axis": 1, "keepdims": True}),
+    "mean/int32": ([("i", (3, 4, 5), -9, 9)], {}),
+    "prod": ([("u", (3, 4, 5), 0.5, 1.5)], {"axis": 1}),
+    "max": ([_X345], {"axis": 1, "exclude": True}),
+    "min": ([_X345], {}),
+    "nansum": ([_NANS], {"axis": 1}),
+    "nanprod": ([_NANS], {"axis": 1}),
+    "norm": ([_X345], {"ord": 1, "axis": 1}),
+    "norm/l2": ([_X345], {"axis": (0, 2), "keepdims": True}),
+    "argmax": ([_ROWS], {"axis": 1}),
+    "argmin": ([_ROWS], {"keepdims": True}),
+    "argmax_channel": ([("f", (2, 3, 4))], {}),
+    "broadcast_to": ([("f", (1, 4))], {"shape": (3, 0)}),
+    "broadcast_axis": ([("f", (3, 1, 5))], {"axis": 1, "size": 4}),
+    "broadcast_like": ([("f", (1, 4)), ("f", (3, 4))], {}),
+    "cumsum": ([_X345], {"axis": 1}),
+    "cumsum/int32": ([("i", (3, 4), -5, 5)], {}),
+    # creation
+    "_zeros": ([], {"shape": (2, 3)}),
+    "_ones": ([], {"shape": (2, 3), "dtype": "int32"}),
+    "_full": ([], {"shape": (2, 3), "value": 7.5}),
+    "zeros_like": ([("i", (2, 3), 0, 9)], {}),
+    "ones_like": ([_F], {}),
+    "_arange": ([], {"start": 2, "stop": 11, "step": 1.5, "repeat": 2}),
+    "_linspace": ([], {"start": -1.0, "stop": 2.0, "num": 7,
+                       "endpoint": False}),
+    "_eye": ([], {"N": 4, "M": 5, "k": 1}),
+    "_random_uniform": ([], {"low": -1.0, "high": 3.0, "shape": (4000,)}),
+    "_random_normal": ([], {"loc": 1.0, "scale": 2.0, "shape": (4000,)}),
+    "_random_randint": ([], {"low": 3, "high": 9, "shape": (4000,)}),
+    "_shuffle": ([("v", np.arange(24.0).reshape(12, 2))], {}),
+    # shape, products, ordering, indexing
+    "Reshape": ([("f", (2, 3, 4))], {"shape": (0, -1)}),
+    "reshape_like": ([("f", (2, 6)), ("f", (3, 4))], {}),
+    "Flatten": ([("f", (2, 3, 4))], {}),
+    "transpose": ([("f", (2, 3, 4))], {"axes": (2, 0, 1)}),
+    "expand_dims": ([_F], {"axis": 1}),
+    "squeeze": ([("f", (2, 1, 3, 1))], {}),
+    "Concat": ([_F, ("f", (3, 2))], {"dim": 1}),
+    "stack": ([_F, _F], {"axis": 1}),
+    "SliceChannel": ([("f", (4, 6))], {"num_outputs": 3, "axis": 1}),
+    "slice": ([("f", (4, 6))], {"begin": (1, None), "end": (3, 5),
+                                "step": (1, 2)}),
+    "slice/negative-step": ([("f", (4, 6))], {"begin": (None, 5),
+                                              "end": (None, 0),
+                                              "step": (1, -2)}),
+    "slice_axis": ([("f", (4, 6))], {"axis": 1, "begin": 1, "end": -1}),
+    "tile": ([_F], {"reps": (2, 1)}),
+    "repeat": ([_F], {"repeats": 2, "axis": 0}),
+    "reverse": ([_F], {"axis": 1}),
+    "dot": ([("f", (4, 5)), ("f", (3, 5))], {"transpose_b": True}),
+    "dot/3d": ([("f", (2, 3, 4)), ("f", (4, 5))], {}),
+    "batch_dot": ([("f", (2, 4, 5)), ("f", (2, 3, 5))],
+                  {"transpose_b": True}),
+    "take": ([("f", (5, 3)), ("v", [0.0, 2.7, -1.0, 7.0])], {}),
+    "take/wrap": ([("f", (5, 3)), ("v", [[0, 6], [-1, 3]], "int32")],
+                  {"axis": 0, "mode": "wrap"}),
+    "one_hot": ([("v", [0.0, 2.0, 5.0, -1.0, 3.9])], {"depth": 4,
+                                                       "on_value": 2.0,
+                                                       "off_value": -1.0}),
+    "pick": ([_F, ("v", [0.0, 3.0, 5.0])], {"axis": 1}),
+    "sort": ([_ROWS], {"axis": 1, "is_ascend": False}),
+    "argsort": ([_ROWS], {"axis": 1}),
+    "argsort/descending": ([_ROWS], {"axis": 1, "is_ascend": False}),
+    "topk": ([_ROWS], {"axis": 1, "k": 3, "ret_typ": "both"}),
+    "topk/mask": ([_ROWS], {"axis": 1, "k": 2, "ret_typ": "mask",
+                            "is_ascend": True}),
+    "_basic_index": ([("f", (4, 5, 6))], {"key": (("i", 1), ("s", None, None,
+                                                            2), ("n",),
+                                                   ("s", 1, 5, None))}),
+    "Embedding": ([("fi", (2, 3), 0, 6), ("f", (6, 4))],
+                  {"input_dim": 6, "output_dim": 4}),
+    # neural-network ops
+    "FullyConnected": ([("f", (2, 3, 4)), ("f", (5, 12)), ("f", (5,))],
+                       {"num_hidden": 5}),
+    "Activation": ([_F], {"act_type": "sigmoid"}),
+    "LeakyReLU": ([_F], {"act_type": "elu", "slope": 0.3}),
+    "LeakyReLU/gelu": ([_F], {"act_type": "gelu"}),
+    "LayerNorm": ([("f", (2, 3, 8)), ("f", (8,)), ("f", (8,))], {}),
+    "Dropout": ([_F], {"p": 0.5}),
+    "softmax": ([("f", (3, 5))], {"axis": 1, "temperature": 2.0}),
+    "log_softmax": ([("f", (3, 5))], {"axis": 0}),
+    "Convolution": ([("f", (2, 6, 6, 3)), ("f", (4, 3, 3, 3)), ("f", (4,))],
+                    {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                     "num_filter": 4, "layout": "NHWC"}),
+    "Pooling": ([("f", (2, 6, 6, 3))], {"kernel": (3, 3), "stride": (2, 2),
+                                        "pad": (1, 1), "pool_type": "max",
+                                        "layout": "NHWC"}),
+    "BatchNorm": ([("f", (2, 3, 4, 5)), ("f", (3,)), ("f", (3,)),
+                   ("f", (3,)), ("u", (3,), 0.5, 2.0)],
+                  {"fix_gamma": False, "output_mean_var": True}),
+    # optimizer updates
+    "sgd_update": ([_F, _F], {"lr": 0.1, "wd": 1e-3, "clip_gradient": 0.5}),
+    "sgd_mom_update": ([_F, _F, _F], {"lr": 0.1, "momentum": 0.9,
+                                      "wd": 1e-4}),
+    "adam_update": ([_F, _F, _F, ("u", (3, 4), 0.1, 1.0)],
+                    {"lr": 0.01, "wd": 1e-3, "rescale_grad": 0.5}),
+})
+RANDOM_OPS = {"_random_uniform", "_random_normal", "_random_randint",
+              "_shuffle"}
+INPLACE_OPS = {"sgd_update", "sgd_mom_update", "adam_update"}
+NO_TENSOR_OPS = {"_zeros", "_ones", "_full", "_arange", "_linspace", "_eye",
+                 "_random_uniform", "_random_normal", "_random_randint"}
+
+
+def op_name(case):
+    """The registered op of a case key (``"sum/int32"`` -> ``"sum"``)."""
+    return case.split("/")[0]
+
+
+def make_inputs(case, seed=0):
+    """The numpy inputs of ``OP_CASES[case]``, from ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for spec in OP_CASES[case][0]:
+        kind = spec[0]
+        if kind == "f":
+            out.append(rng.randn(*spec[1]).astype(np.float32))
+        elif kind == "u":
+            out.append(rng.uniform(spec[2], spec[3], spec[1])
+                       .astype(np.float32))
+        elif kind in ("i", "fi"):
+            a = rng.randint(spec[2], spec[3], spec[1])
+            out.append(a.astype(np.int32 if kind == "i" else np.float32))
+        else:
+            dtype = spec[2] if len(spec) > 2 else np.float32
+            out.append(np.asarray(spec[1], dtype=dtype))
+    return out

@@ -222,7 +222,7 @@ def test_what_the_port_does_not_take_raises():
     with pytest.raises(MXNetError, match="NHWC"):
         tgnn.Conv2D(8, 3, in_channels=4, device="cpu")
     with pytest.raises(ValueError, match="relu"):
-        tnn.activation(x, act_type="sigmoid")
+        tnn.activation(x, act_type="bogus")
     dy = torch.zeros(1, 3, 3, 8)
     with pytest.raises(MXNetError, match="does not match"):
         cdw.conv_dw(x, dy, (3, 3), (1, 1), (1, 1))

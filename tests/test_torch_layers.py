@@ -138,13 +138,13 @@ def test_ndarray_files_cross_packages(fmt, tmp_path):
                if fmt == "dict" else [mx.nd.array(v) for v in data])
     tnd.save(tpath, {k: _t(v) for k, v in data.items()} if fmt == "dict"
              else [_t(v) for v in data])
-    got_t = tnd.load(jpath, device="cpu")
+    got_t = tnd.load(jpath, ctx="cpu")
     got_j = mx.nd.load(tpath)
     if fmt == "dict":
         for k, v in data.items():
-            np.testing.assert_array_equal(got_t[k].numpy(), v)
+            np.testing.assert_array_equal(got_t[k].asnumpy(), v)
             np.testing.assert_array_equal(got_j[k].asnumpy(), v)
     else:
         for i, v in enumerate(data):
-            np.testing.assert_array_equal(got_t[i].numpy(), v)
+            np.testing.assert_array_equal(got_t[i].asnumpy(), v)
             np.testing.assert_array_equal(got_j[i].asnumpy(), v)
