@@ -6,7 +6,10 @@ and hold its kernels against their plain versions.
 Phases (any failure raises, and the script exits non-zero):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: every kernel under mxnet_tpu_torch/csrc, compiled by nvcc;
+2. build: every kernel under mxnet_tpu_torch/csrc, compiled by nvcc, with
+   ptxas's report (registers, spills) and, where cuobjdump exists, the
+   count of tensor-core instructions (HGMMA) in the SASS of each bf16
+   conv dW kernel, which must not be 0;
 3. kernels: the attention forward (K3) against its plain PyTorch version
    on the card at the shapes the serving path gives it and at edge shapes,
    with its time, the plain version's, one PyTorch library call's, and the
@@ -17,13 +20,15 @@ Phases (any failure raises, and the script exits non-zero):
    and the bounds;
 3c. convolution and pooling kernels: the weight-gradient kernels K1a
    (per tap) and K1b (im2col) at every distinct convolution shape of
-   ResNet-50 at batch 128 in bf16, at two of them in float32 too and at a
-   ragged shape, and the max-pool backward K2 at the stem pool's shape in
-   bf16 and float32, at an all-ties input and at an odd shape; each
-   against its plain version on the card (K1 within 1e-3 of the plain
-   result's largest magnitude, K2 bitwise), bitwise equal across two
-   launches, with its time, the plain version's, cuDNN's (or PyTorch's
-   max-pool backward) and the bound;
+   ResNet-50 at batch 128 in bf16 (the tensor-core kernel), at two of
+   them in float32 too (the CUDA-core kernel) and at a ragged shape in
+   both, and the max-pool backward K2 at the stem pool's shape in bf16
+   and float32, at an all-ties input and at an odd shape; each against
+   its plain version on the card (K1 within 1e-3 of the plain result's
+   largest magnitude, K2 bitwise), bitwise equal across two launches,
+   with its time, the plain version's, cuDNN's (or PyTorch's max-pool
+   backward) and the bound, and for K1 its launch plan, workspace,
+   TFLOP/s and share of the bound;
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -131,6 +136,9 @@ def environment():
 
 
 def build():
+    """Every kernel library, built by nvcc; the ptxas report of each
+    (registers, spills), and for the conv dW library every line of it and
+    the count of tensor-core instructions in each kernel's SASS."""
     from mxnet_tpu_torch import _kernels
 
     t0 = time.perf_counter()
@@ -138,8 +146,46 @@ def build():
     log("build: %s in %.1f s" % (names, time.perf_counter() - t0))
     for name in names:
         for line in (_kernels.build_log(name) or "").splitlines():
-            if "registers" in line or "spill" in line:
+            if name == "conv_dw" and line.strip() or "registers" in line \
+                    or "spill" in line:
                 log("  %s: %s" % (name, line.strip()))
+    sass_counts("conv_dw", "conv_dw_wgmma_kernel", "HGMMA")
+
+
+def sass_counts(name, kernel, opcode):
+    """Log how many ``opcode`` instructions the SASS of each function of
+    library ``name`` holds (cuobjdump); fail if a function whose name
+    holds ``kernel`` has none.  Without cuobjdump, say so."""
+    import os
+    import re
+    import shutil
+
+    from mxnet_tpu_torch import _kernels
+
+    tool = shutil.which("cuobjdump") or next(
+        (p for p in ("/usr/local/cuda/bin/cuobjdump",) if os.path.exists(p)),
+        None)
+    if tool is None:
+        log("  %s: cuobjdump not found, SASS not inspected" % name)
+        return
+    sass = subprocess.run([tool, "-sass", _kernels.library_path(name)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            counts[func] = {"HGMMA": 0, "HMMA": 0}
+        elif func is not None:
+            for op in counts[func]:
+                counts[func][op] += len(re.findall(r"\b%s\b" % op, line))
+    for func, c in sorted(counts.items()):
+        log("  %s SASS %s: %s" % (name, func, ", ".join(
+            "%s %d" % kv for kv in c.items())))
+    missing = [f for f, c in counts.items() if kernel in f and not c[opcode]]
+    if missing or not any(kernel in f for f in counts):
+        raise AssertionError("no %s instruction in the SASS of %s"
+                             % (opcode, missing or kernel))
 
 
 def time_ms(fn, iters=20):
@@ -669,16 +715,27 @@ def _out_size(size, k, s, p):
     return (size + 2 * p - k) // s + 1
 
 
+def _taps_read(size, k, s, p, out):
+    """How many of ``size`` input positions along one axis a convolution
+    reads: those some output position's tap lands on."""
+    return len({y * s + r - p for y in range(out) for r in range(k)}
+               & set(range(size)))
+
+
 def conv_dw_bound_ms(xs, k, s, p, o, dtype):
-    """Least time for dW: x and dy read once and dW (float32) written
-    once, against 2 flops per multiply-add at the card's peak for the
-    inputs' type (bf16: the tensor cores, which these CUDA-core kernels
-    do not use)."""
+    """Least time for dW: the pixels of x that the convolution reads (all
+    of them unless a stride skips some, as a 1x1 stride-2 convolution
+    does) and dy read once and dW (float32) written once, against 2 flops
+    per multiply-add at the card's peak for the inputs' type (bf16: the
+    tensor cores)."""
     n, h, w, i = xs
     oh, ow = _out_size(h, k[0], s[0], p[0]), _out_size(w, k[1], s[1], p[1])
     flops = 2.0 * n * oh * ow * o * k[0] * k[1] * i
     esize = torch.finfo(dtype).bits // 8
-    nbytes = (n * h * w * i + n * oh * ow * o) * esize + o * k[0] * k[1] * i * 4
+    pixels = _taps_read(h, k[0], s[0], p[0], oh) * _taps_read(
+        w, k[1], s[1], p[1], ow)
+    nbytes = (n * pixels * i + n * oh * ow * o) * esize \
+        + o * k[0] * k[1] * i * 4
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -712,6 +769,7 @@ def conv_kernels(seed):
     rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                        library_ms=0.0, launches_per_step=0,
                        bound_by=set()) for form in ("pertap", "im2col")}
+    ws_most = 0
     for (xs, k, s, p, o), dt, form, per_step in cases:
         n, h, w, _ = xs
         dys = (n, _out_size(h, k[0], s[0], p[0]),
@@ -738,14 +796,21 @@ def conv_kernels(seed):
             _nchw(dy), _nchw(x), _nchw(wt), None, s, p, (1, 1), False,
             (0, 0), 1, (False, True, False)))
         bound, bound_by = conv_dw_bound_ms(xs, k, s, p, o, dt)
-        splits, _ = C.split_plan(form, k, xs[3], o, dys[0] * dys[1] * dys[2])
+        plan = C.launch_plan(form, tuple(k), tuple(s), tuple(p), xs, o, dt)
+        flops = 2.0 * dys[0] * dys[1] * dys[2] * o * k[0] * k[1] * xs[3]
+        if per_step:
+            ws_most = max(ws_most, plan.ws_elems * 4)
         log("kernel conv_dw %s [x %s k %s s %s p %s O %d %s, %d a step]: "
             "max_abs_err %.3g of max %.3g (tol %.0e of it), bitwise "
-            "repeatable %s, %d splits; kernel %.4f ms, plain %.4f ms, cuDNN "
-            "wgrad %.4f ms, bound %.4f ms (%s)" % (
+            "repeatable %s; %s kernel, x %s, dy %s, %d splits of %d, "
+            "workspace %d bytes; kernel %.4f ms (%.1f TFLOP/s, %.1f %% of "
+            "the bound), plain %.4f ms, cuDNN wgrad %.4f ms, bound %.4f ms "
+            "(%s)" % (
                 form, xs, k, s, p, o, str(dt).split(".")[1], per_step, err,
-                scale, DW_TOL, same, splits, ms, plain_ms, lib_ms, bound,
-                bound_by))
+                scale, DW_TOL, same, plan.kernel, plan.x_loads,
+                plan.dy_loads, plan.splits, plan.chunk, plan.ws_elems * 4,
+                ms, flops / ms / 1e9, 100.0 * bound / ms, plain_ms, lib_ms,
+                bound, bound_by))
         if not err <= DW_TOL * scale:
             raise AssertionError("conv_dw %s disagrees with its plain "
                                  "version at x %s" % (form, xs))
@@ -762,6 +827,8 @@ def conv_kernels(seed):
             row["bound_by"].add(bound_by)
         del x, dy, wt
     torch.cuda.empty_cache()
+    log("kernel conv_dw: the largest workspace at a ResNet-50 shape, %d "
+        "bytes" % ws_most)
     for form, row in rows.items():
         row["bound_by"] = "+".join(sorted(row.pop("bound_by")))
         log("kernel conv_dw %s over one ResNet-50 step (%d launches, bf16): "
@@ -917,8 +984,10 @@ def resnet_gradient_check(seed):
 # device kernels of the ResNet step by what they do, matched on the
 # kernel's name (the first group that matches wins)
 RESNET_GROUPS = (
-    ("K1a conv_dw pertap", ("conv_dw_kernel<false",)),
-    ("K1b conv_dw im2col", ("conv_dw_kernel<true",)),
+    ("K1a conv_dw pertap", ("conv_dw_wgmma_kernel<false",
+                            "conv_dw_kernel<false")),
+    ("K1b conv_dw im2col", ("conv_dw_wgmma_kernel<true",
+                            "conv_dw_kernel<true")),
     ("K1 split-K sum", ("conv_dw_reduce",)),
     ("K2 maxpool_bwd", ("maxpool_argmax", "maxpool_gather")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),

@@ -24,8 +24,8 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["build_all", "library", "build_log", "launch", "CSRC",
-           "NVCC_FLAGS"]
+__all__ = ["build_all", "library", "library_path", "build_log", "launch",
+           "CSRC", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -55,9 +55,9 @@ _SIGNATURES = {
     },
     "conv_dw": {
         "mxt_conv_dw_pertap": (ctypes.c_int, [ctypes.c_void_p] * 4
-                               + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
+                               + [ctypes.c_int] * 17 + [ctypes.c_void_p]),
         "mxt_conv_dw_im2col": (ctypes.c_int, [ctypes.c_void_p] * 4
-                               + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
+                               + [ctypes.c_int] * 17 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "maxpool_bwd": {
@@ -70,6 +70,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _libs: dict = {}
 _logs: dict = {}
+_paths: dict = {}
 
 
 def _nvcc():
@@ -137,6 +138,7 @@ def _build_locked(names=None):
                          + "\n".join(failed))
     for name, _src, so in todo:
         _libs[name] = _load(name, so)
+        _paths[name] = so
 
 
 def build_all():
@@ -159,6 +161,12 @@ def library(name):
         if lib is None:
             raise MXNetError("no kernel source csrc/%s.cu" % name)
     return lib
+
+
+def library_path(name):
+    """The path of the loaded shared library of ``csrc/<name>.cu``, or
+    ``None`` before it is loaded."""
+    return _paths.get(name)
 
 
 def build_log(name):

@@ -1,5 +1,4 @@
-// Convolution backward-filter (dW) for Hopper (sm_90a), CUDA C++ on the
-// CUDA cores.
+// Convolution backward-filter (dW) for Hopper (sm_90a), CUDA C++.
 //
 // Replaces mxnet_tpu/ops/pallas_conv.py::_dw_kernel_pertap (K1a) and
 // ::_dw_kernel_im2col (K1b), the Pallas TPU kernels behind conv_dw_nhwc.
@@ -8,60 +7,102 @@
 //   dW[o, r, s, i] = sum_{n,y,x} X[n, y*sy + r - py, x*sx + s - px, i]
 //                                * dY[n, y, x, o]
 // with taps outside the image reading as 0, so nothing is padded in device
-// memory (the JAX wrapper pads x with jnp.pad).  Inputs are float32 or
-// bf16, the sum runs in float32 and dW is written in float32; the caller
-// casts it to the weight's type.
+// memory (the JAX wrapper pads x with jnp.pad).  The sum runs in float32
+// and dW is written in float32; the caller casts it to the weight's type.
 //
-// Design.  dW^T is an implicit GEMM, C[m, o] = sum_p A[p, m] * B[p, o],
-// over the reduction axis p = (n, y, x), K = N*OH*OW (1.6 M at the ResNet
-// stem, 6,272 at stage 4); B is dY read row by row, A is gathered from X.
-// The two formulations differ in what a block's 64 rows m are:
-//   - per-tap (K1a, the rule for I >= 128): one tap (r, s), 64 input
-//     channels i of it; blockIdx.z carries the tap;
-//   - im2col (K1b, I < 128): 64 consecutive rows of the flattened (r, s, i)
+// The algebra.  dW is an implicit GEMM, dW[o, m] = sum_p dY[p, o] *
+// X^[p, m], over the reduction axis p = (n, y, x), K = N*OH*OW (1.6 M at
+// the ResNet stem, 6,272 at stage 4); dY is read as a plain [P, O]
+// row-major matrix, X^ is gathered from X.  The two formulations differ
+// in what the rows m of a tile are:
+//   - per-tap (K1a, the rule for I >= 128): input channels i of one tap
+//     (r, s); the grid's z axis carries the tap;
+//   - im2col (K1b, I < 128): consecutive rows of the flattened (r, s, i)
 //     axis, so a narrow layer (I=3 at the stem: 147 rows; I=64 at 3x3: 576
 //     rows) fills whole tiles.
-// A block computes a 64 x 64 (m, o) tile with 256 threads, 4 x 4 outputs
-// each, over stages of 16 reduction positions held in shared memory as
-// float32 (bf16 is widened on the way in), double-buffered through
-// registers.  Every thread loads one column (m or o) of 4 consecutive
-// positions p, so a warp reads 32 consecutive channels; the position's
-// (n, y, x) is advanced incrementally, never divided out per load.
+// Both operands are MN-major in device memory: the channel axis is
+// contiguous and p is outermost.
 //
-// The Pallas kernels carry the accumulator across a sequential image
-// grid.  Hopper blocks run in no order, and the stem has 64 x 147 outputs
-// over a 1.6 M-term sum, so the reduction is split: split-K with a fixed
-// partition.  Block (tile, split) sums its chunk of p in order and writes
-// a float32 partial to a workspace laid out as [split][o][m]; a second
-// kernel sums the partials of each output in split order and writes dW.
-// No atomics, so dW repeats bit for bit.  The split count comes from the
-// caller (ops/conv_dw.py split_plan), chosen so that every conv of
-// ResNet-50 puts at least 4 x 132 blocks in flight.  Ragged edges (I=3,
-// O not a multiple of 64, 7x7 taps at the border, a partial last chunk)
-// are masked in the kernel.
+// bf16 x and dy (the training path) run on the tensor cores,
+// conv_dw_wgmma_kernel, as the Pallas kernels run on the MXU: bf16
+// products accumulated in float32.
+//   - A block computes a tile of 128 output channels o (wgmma's M) by 128
+//     rows m (wgmma's N) with two consumer warpgroups, each holding its
+//     float32 accumulator in registers: stacked along M, 64 x 128 each
+//     (wgmma.mma_async.m64n128k16, 64 registers a thread), or, when O <=
+//     64, a 64-channel tile with the warpgroups side by side along N, 64 x
+//     64 each (m64n64k16).  Both operands come from shared memory: dY as
+//     wgmma's A, M-major, X^ as its B, N-major, so both transpose flags
+//     are set.
+//   - Shared memory is a ring of 5 stages of 64 positions, 32 KB each: dY
+//     as [2 atoms of 64 o][64 p][64 o] and X^ as [2 atoms of 64 m][64 p]
+//     [64 m], each atom row 128 bytes with the 128-byte swizzle (16-byte
+//     chunk c of row p stored at c ^ (p & 7)).  The wgmma descriptors say:
+//     start address, LBO = 8 KB (the next 64-wide atom along M or N), SBO
+//     = 1 KB (the next 8 positions), swizzle 128 B; one k16 step is +2 KB.
+//   - Loads.  Thread t owns the 16-byte chunk t % 16 of the 128 columns
+//     of both tiles and positions t / 16 + 16 j (j < 4) of a stage, so its
+//     columns' channel and tap offsets are fixed for the whole reduction
+//     and only the positions' (n, y, x) advance, incrementally, by 64 a
+//     stage.  Where the channel count is a multiple of 8 (every ResNet-50
+//     dY, X at I >= 8), a chunk is 8 channels of one tap and loads by
+//     cp.async.cg 16 bytes with the src-size zero-fill form for taps in the
+//     padding, channels past I or O and positions past the chunk.  Where
+//     it is not (the stem's I = 3: a (p, r) row of 21 bf16 at any
+//     alignment; O = 100), the same chunk is filled from registers, one
+//     bf16 per element, also masked; X's elements are loaded a stage ahead
+//     of their store, so their latency hides behind a stage (loaded and
+//     stored in one step, or gathered a warp per tap row with 2-byte
+//     stores, the stem ran about twice as long in trials on an H100).
+//     The wrapper picks the variant by the shape (ops/conv_dw.py
+//     launch_plan).
+//   - The pipeline.  Stage k is loaded into slot k % 5 three stages ahead;
+//     each step waits for its own copies (cp.async.wait_group), fences
+//     them to the async proxy (fence.proxy.async.shared::cta), syncs the
+//     block, issues the load of stage k + 3 into the slot that stage k - 2
+//     used, then four wgmmas on stage k, and waits until only those are in
+//     flight (wgmma.wait_group 1), so the tensor cores always have the
+//     next product queued while the loads of three stages are in flight.
+//     No branch encloses a wgmma: ptxas serializes wgmmas in a divergent
+//     path (its warning C7518).
+//   - Bound on the H100: about 1 TFLOP of bf16 products a ResNet-50 step
+//     (989 TFLOP/s: 1 ms) against 0.1-0.4 GB of x and dy a convolution
+//     (3.35 TB/s); stage 1's 1x1 and 3x3 convolutions at 64 channels and
+//     the stem are bound by bytes, the rest by operations.  This kernel
+//     reaches 120-330 TFLOP/s at ResNet-50's K1a shapes: a 128 x 128
+//     tile does 64 flops for every byte it loads from L2, x is loaded
+//     again for every tap (9 times at 3x3), and the split-K partials,
+//     the second pass and the per-stage barrier cost about as much as
+//     the products (conv_dw_probe.py --parts; PERF.md).  A ring of 4 or
+//     6 stages, two blocks an SM with 3 stages, and 128-position stages
+//     were each no faster in trials on an H100.
 //
-// Bound on the H100.  dW of ResNet-50 is about 4 GMAC per image, about
-// 1 TFLOP a step at batch 128.  These kernels run float32 FMAs on the CUDA
-// cores (67 TFLOP/s), not the tensor cores (989 TFLOP/s bf16), so they are
-// bound by operations; the bytes (x and dy once, 0.1-0.4 GB a conv) are
-// far below.  Reading both operands of every FMA from shared memory (2
-// vector loads per 16 FMAs) holds this first version to a fraction of the
-// CUDA-core peak; tensor cores (mma/wgmma on bf16) and TMA are later work.
+// float32 x and dy (the card's gradient check) keep the CUDA-core kernel,
+// conv_dw_kernel: tensor cores would need TF32, which a float32 tolerance
+// of 2e-4 does not allow.  A block computes a 64 x 64 (m, o) tile with 256
+// threads, 4 x 4 outputs each, over stages of 16 positions held in shared
+// memory as float32, double-buffered through registers; every thread
+// loads one column of 4 consecutive positions.
+//
+// Split-K.  The Pallas kernels carry the accumulator across a sequential
+// image grid.  Hopper blocks run in no order, and the stem has 64 x 147
+// outputs over a 1.6 M-term sum, so the reduction is split with a fixed
+// partition: block (tile, split) sums its chunk of p in order (for bf16 a
+// multiple of the 64-position stage, only the last chunk shorter) and
+// writes a float32 partial to a workspace laid out as [split][o][m]; a
+// second kernel sums the partials of each output in split order and
+// writes dW.  With one split the bf16 kernel writes dW itself and the
+// second launch is skipped.  No atomics, so dW repeats bit for bit.  The
+// split count comes from the caller (ops/conv_dw.py launch_plan), chosen
+// to fill the 132 SMs in whole waves.  Ragged edges (I=3, O not a
+// multiple of the tile, 7x7 taps at the border, a partial last chunk)
+// are masked in the kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kBM = 64;        // rows m of a tile
-constexpr int kBN = 64;        // output channels o of a tile
-constexpr int kBK = 16;        // reduction positions p per stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kRowsPerThread = kBK * kBM / kThreads;  // 4 positions
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 struct Shape {
   int n, h, w, ci;        // x
@@ -74,6 +115,13 @@ struct Shape {
 // A running reduction position: p and its (n, y, x).
 struct Pos {
   int p, n, y, x;
+  __device__ __forceinline__ void start(int at, const Shape& s) {
+    p = at;
+    n = at / (s.oh * s.ow);
+    const int rem = at % (s.oh * s.ow);
+    y = rem / s.ow;
+    x = rem % s.ow;
+  }
   __device__ __forceinline__ void advance(int by, const Shape& s) {
     p += by;
     x += by;
@@ -86,6 +134,399 @@ struct Pos {
     }
   }
 };
+
+// ------------------------------------------------ bf16: the tensor cores
+
+namespace tc {
+
+constexpr int kBM = 128;                     // output channels o of a tile
+constexpr int kBN = 128;                     // rows m of a tile
+constexpr int kBK = 64;                      // positions p of a stage
+constexpr int kStages = 5;                   // slots of the ring
+constexpr int kAhead = kStages - 2;          // stages loaded ahead
+constexpr int kThreads = 256;                // two warpgroups
+constexpr int kRowsPerThread = kBK * 16 / kThreads;  // 4 positions
+constexpr int kAtomBytes = kBK * 128;        // 64 positions x 64 bf16
+constexpr int kTileBytes = 2 * kAtomBytes;   // one operand of a stage
+constexpr int kStageBytes = 2 * kTileBytes;  // dY, then X
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment
+
+// positions per stage, split as whole rows (step_y) and the rest (step_x)
+struct Step {
+  int y, x;
+};
+
+__device__ __forceinline__ void step(Pos& q, const Step& st, const Shape& s) {
+  q.p += kBK;
+  q.x += st.x;
+  q.y += st.y;
+  if (q.x >= s.ow) {
+    q.x -= s.ow;
+    ++q.y;
+  }
+  while (q.y >= s.oh) {
+    q.y -= s.oh;
+    ++q.n;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+// what cp.async and st.shared wrote becomes visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory matrix descriptor of an MN-major operand in 128-byte
+// swizzled atoms of 64 (M or N) x 8 (K) bf16
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kAtomBytes >> 4) << 16) |  // LBO
+         (static_cast<uint64_t>(1024 >> 4) << 32) |        // SBO
+         (1ull << 62);                                     // 128-byte swizzle
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], bf16 in, float32 accumulate;
+// A (dY) M-major and B (X) N-major: transpose flags 1, 1
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], the same with N = 64
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_m64n128k16(d, da, db);
+}
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_m64n64k16(d, da, db);
+}
+
+// a bf16 load that the compiler keeps where it is written: the gather of
+// a stage is issued a whole stage before its stores, and a plain __ldg
+// may be sunk to its use
+__device__ __forceinline__ uint32_t ldg_u16(const uint16_t* p, bool ok) {
+  uint16_t v = 0;
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %2, 0;\n"
+      "@q ld.global.nc.u16 %0, [%1];\n"
+      "}\n"
+      : "+h"(v)
+      : "l"(p), "r"((int)ok));
+  return v;
+}
+
+// a tap's offsets (r - py, s - px) packed as the halves of one int
+__device__ __forceinline__ int tap_dy(int dyx) { return dyx >> 16; }
+__device__ __forceinline__ int tap_dx(int dyx) { return (int)(short)(dyx & 0xffff); }
+
+// kVecA: dY by 16-byte cp.async (O % 8 == 0), else from registers;
+// kVecB: X the same (I % 8 == 0); kWideO: a tile of 128 output channels,
+// the two warpgroups stacked along M (64 each, N = 128), else of 64
+// (O <= 64), the warpgroups side by side along N (N = 64 each).  Grid: x
+// row tiles, y o tiles, z split-major (split, tap) for per-tap, split for
+// im2col.
+template <bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ dy,
+                     float* __restrict__ out, Shape s, Step st) {
+  constexpr int kM = kWideO ? 128 : 64;  // output channels of the tile
+  constexpr int kN = kWideO ? 128 : 64;  // rows of a warpgroup's product
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint16_t* xr = reinterpret_cast<const uint16_t*>(x);
+  const uint16_t* dyr = reinterpret_cast<const uint16_t*>(dy);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int taps = s.kh * s.kw;
+  const int split = kIm2col ? blockIdx.z : blockIdx.z / taps;
+  const int tap = kIm2col ? 0 : blockIdx.z % taps;
+  const int o0 = blockIdx.y * kM;
+  const int m0 = blockIdx.x * kBN;  // im2col: on the flattened axis;
+                                    // per-tap: a channel of the tap
+  const int k_total = s.n * s.oh * s.ow;
+  const int p_begin = split * s.chunk;
+  const int p_end = min(p_begin + s.chunk, k_total);
+  const int stages = (p_end - p_begin + kBK - 1) / kBK;
+
+  // this thread's chunk column and first position of a stage
+  const int cc = tid & 15;
+  const int row0 = tid >> 4;
+  const uint32_t chunk_off = (cc >> 3) * kAtomBytes + row0 * 128 +
+                             (((cc & 7) ^ (row0 & 7)) << 4);
+  const int oc = o0 + cc * 8;  // its first output channel
+  const bool a_mine = kWideO || cc < 8;  // a 64-channel tile has one atom
+
+  // the X rows of its chunk (per element when read from registers): tap
+  // offsets (dyo, dxo) packed as 16-bit halves and the channel, fixed for
+  // the whole reduction; a row past the tile's edge gets dyo = -16384
+  // (never in the image)
+  constexpr int kElems = kVecB ? 1 : 8;
+  int b_dyx[kElems], b_i[kElems];
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) {
+    const int m = m0 + cc * 8 + e;
+    int t = tap, i = m;
+    bool ok = m < s.ci;
+    if (kIm2col) {
+      ok = m < s.mt;
+      t = ok ? m / s.ci : 0;
+      i = ok ? m % s.ci : 0;
+    }
+    const int dyo = ok ? t / s.kw - s.py : -16384;
+    const int dxo = t % s.kw - s.px;
+    b_dyx[e] = (int)(((unsigned)dyo << 16) | ((unsigned)dxo & 0xffffu));
+    b_i[e] = ok ? i : 0;
+  }
+
+  Pos pos[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    pos[j].start(p_begin + row0 + 16 * j, s);
+
+  // X from registers: each thread loads its chunk's 8 rows at its 4
+  // positions of a stage one stage ahead of their stores (xe), from
+  // positions xpos, so the loads' latency hides behind a stage
+  Pos xpos[kRowsPerThread];
+  uint32_t xe[kRowsPerThread][8];
+  auto gather_elems = [&]() {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const Pos& q = xpos[j];
+      const bool pv = q.p < p_end;
+      const int yb = q.y * s.sy, xb = q.x * s.sx;
+      const int64_t pix = (int64_t)(q.n * s.h + yb) * s.w + xb;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int dyo = tap_dy(b_dyx[e]), dxo = tap_dx(b_dyx[e]);
+        const bool ok = pv && (unsigned)(yb + dyo) < (unsigned)s.h &&
+                        (unsigned)(xb + dxo) < (unsigned)s.w;
+        xe[j][e] = ldg_u16(xr + (pix + dyo * s.w + dxo) * s.ci + b_i[e], ok);
+      }
+      step(xpos[j], st, s);
+    }
+  };
+  if constexpr (!kVecB) {
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) xpos[j] = pos[j];
+    gather_elems();
+  }
+
+  // load this thread's part of a stage into slot `slot`, then step the
+  // positions to the next stage
+  auto fill = [&](int slot) {
+    const uint32_t a_base = sbase + slot * kStageBytes + chunk_off;
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const Pos& q = pos[j];
+      const bool pv = q.p < p_end;
+      const uint32_t dst_a = a_base + j * 16 * 128;
+      const uint32_t dst_b = dst_a + kTileBytes;
+      if constexpr (kVecA) {
+        const bool ok = pv && oc < s.co;
+        if (a_mine)
+          cp_async16(dst_a, ok ? dy + (int64_t)q.p * s.co + oc : dy, ok);
+      } else if (a_mine) {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const int64_t at = (int64_t)q.p * s.co + oc + e;
+          const uint32_t lo = pv && oc + e < s.co ? __ldg(dyr + at) : 0u;
+          const uint32_t hi = pv && oc + e + 1 < s.co ? __ldg(dyr + at + 1) : 0u;
+          v[e >> 1] = lo | (hi << 16);
+        }
+        st_shared_v4(dst_a, v);
+      }
+      if constexpr (kVecB) {
+        const int yy = q.y * s.sy + tap_dy(b_dyx[0]);
+        const int xx = q.x * s.sx + tap_dx(b_dyx[0]);
+        const bool ok = pv && (unsigned)yy < (unsigned)s.h &&
+                        (unsigned)xx < (unsigned)s.w;
+        cp_async16(dst_b,
+                   ok ? x + ((int64_t)(q.n * s.h + yy) * s.w + xx) * s.ci + b_i[0]
+                      : x,
+                   ok);
+      } else {
+        const uint32_t v[4] = {xe[j][0] | xe[j][1] << 16, xe[j][2] | xe[j][3] << 16,
+                               xe[j][4] | xe[j][5] << 16, xe[j][6] | xe[j][7] << 16};
+        st_shared_v4(dst_b, v);
+      }
+    }
+    if constexpr (!kVecB) gather_elems();
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) step(pos[j], st, s);
+  };
+
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < kAhead; ++t) {
+    if (t < stages) fill(t);
+    cp_async_commit();
+  }
+  // A: the warpgroup's 64 channels of dY (kWideO) or the one atom; B: all
+  // 128 rows (kWideO) or the warpgroup's 64
+  const uint32_t a_off = kWideO ? wg * kAtomBytes : 0;
+  const uint32_t b_off = kTileBytes + (kWideO ? 0 : wg * kAtomBytes);
+#pragma unroll 1
+  for (int k = 0; k < stages; ++k) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    fence_proxy_async();
+    // the slot of stage k - 2: every warpgroup has waited for its products
+    if (k + kAhead < stages) fill((k + kAhead) % kStages);
+    cp_async_commit();
+    const uint32_t slot = sbase + (k % kStages) * kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma(acc, desc(slot + a_off + kk * 2048), desc(slot + b_off + kk * 2048));
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the partial of this split in OHWI order, out[o][m]: thread (warp w,
+  // lane l) of warpgroup g holds rows w*16 + l/4 (+8) and columns
+  // 8j + 2(l%4) (+1) of g's product
+  float* dst = out + (int64_t)split * s.co * s.mt;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int m_lim = kIm2col ? s.mt : s.ci;
+  const int m_abs = kIm2col ? m0 : tap * s.ci + m0;
+  const int o_first = o0 + (kWideO ? wg * 64 : 0) + warp * 16 + (lane >> 2);
+  const int c_first = (kWideO ? 0 : wg * 64) + (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = o_first + 8 * h;
+    if (o >= s.co) continue;
+    float* row = dst + (int64_t)o * s.mt + m_abs;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = c_first + j * 8 + c;
+        if (m0 + col < m_lim) row[col] = acc[j * 4 + h * 2 + c];
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// ------------------------------------------- float32: the CUDA cores
+
+constexpr int kBM = 64;        // rows m of a tile
+constexpr int kBN = 64;        // output channels o of a tile
+constexpr int kBK = 16;        // reduction positions p per stage
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kRowsPerThread = kBK * kBM / kThreads;  // 4 positions
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <bool kIm2col, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -230,6 +671,15 @@ __global__ void conv_dw_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+int launch_reduce(const float* ws, float* dw, const Shape& s,
+                  cudaStream_t stream) {
+  const int64_t elems = (int64_t)s.co * s.mt;
+  const int64_t blocks = (elems + 255) / 256;
+  conv_dw_reduce_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0,
+                          stream>>>(ws, dw, elems, s.splits);
+  return cudaGetLastError();
+}
+
 template <bool kIm2col, typename T>
 int launch(const void* x, const void* dy, float* ws, float* dw, const Shape& s,
            cudaStream_t stream) {
@@ -243,52 +693,104 @@ int launch(const void* x, const void* dy, float* ws, float* dw, const Shape& s,
       static_cast<const T*>(x), static_cast<const T*>(dy), ws, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t elems = (int64_t)s.co * s.mt;
-  const int64_t blocks = (elems + 255) / 256;
-  conv_dw_reduce_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0,
-                          stream>>>(ws, dw, elems, s.splits);
-  return cudaGetLastError();
+  return launch_reduce(ws, dw, s, stream);
 }
 
+template <bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
+int launch_tc(const void* x, const void* dy, float* ws, float* dw,
+              const Shape& s, cudaStream_t stream) {
+  constexpr int kM = kWideO ? 128 : 64;
+  const int m_rows = kIm2col ? s.mt : s.ci;
+  const int64_t gz = kIm2col ? (int64_t)s.splits
+                             : (int64_t)s.kh * s.kw * s.splits;
+  if (gz > 65535 || (s.co + kM - 1) / kM > 65535 || s.chunk % tc::kBK != 0)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = tc::conv_dw_wgmma_kernel<kIm2col, kVecA, kVecB, kWideO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((m_rows + tc::kBN - 1) / tc::kBN, (s.co + kM - 1) / kM,
+            (unsigned)gz);
+  kernel<<<grid, tc::kThreads, tc::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), s.splits == 1 ? dw : ws, s,
+      tc::Step{tc::kBK / s.ow, tc::kBK % s.ow});
+  err = cudaGetLastError();
+  if (err != cudaSuccess || s.splits == 1) return err;
+  return launch_reduce(ws, dw, s, stream);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <bool kIm2col, bool kVecA, bool kVecB>
+int launch_tc_o(const void* x, const void* dy, float* ws, float* dw,
+                const Shape& s, bool wide_o, cudaStream_t stream) {
+  return wide_o ? launch_tc<kIm2col, kVecA, kVecB, true>(x, dy, ws, dw, s, stream)
+                : launch_tc<kIm2col, kVecA, kVecB, false>(x, dy, ws, dw, s, stream);
+}
+
+// variant (bf16 only; the float32 kernel takes 0): bit 0 reads dy and
+// bit 1 reads x by 16-byte copies, bit 2 takes tiles of 64 output
+// channels (O <= 64) instead of 128
 template <bool kIm2col>
 int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
              int w, int ci, int oh, int ow, int co, int kh, int kw, int sy,
              int sx, int py, int px, int splits, int chunk, int dtype,
-             void* stream) {
+             int variant, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || ci <= 0 || oh <= 0 || ow <= 0 || co <= 0 ||
       kh <= 0 || kw <= 0 || sy <= 0 || sx <= 0 || splits <= 0 || chunk <= 0 ||
-      (int64_t)splits * chunk < (int64_t)n * oh * ow)
+      (int64_t)splits * chunk < (int64_t)n * oh * ow || variant < 0 ||
+      variant > 7)
     return cudaErrorInvalidValue;
   Shape s{n, h, w, ci, oh, ow, co, kh, kw, sy, sx, py, px, kh * kw * ci,
           splits, chunk};
   auto st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   float* dwf = static_cast<float*>(dw);
-  if (dtype == 0) return launch<kIm2col, float>(x, dy, wsf, dwf, s, st);
-  if (dtype == 1) return launch<kIm2col, __nv_bfloat16>(x, dy, wsf, dwf, s, st);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (variant != 0) return cudaErrorInvalidValue;
+    return launch<kIm2col, float>(x, dy, wsf, dwf, s, st);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const bool vec_dy = variant & 1, vec_x = variant & 2, wide_o = !(variant & 4);
+  if ((vec_dy && (co % 8 != 0 || !aligned16(dy))) ||
+      (vec_x && (ci % 8 != 0 || !aligned16(x))))
+    return cudaErrorMisalignedAddress;
+  if (!wide_o && co > 64) return cudaErrorInvalidValue;
+  if (vec_dy && vec_x)
+    return launch_tc_o<kIm2col, true, true>(x, dy, wsf, dwf, s, wide_o, st);
+  if (vec_dy)
+    return launch_tc_o<kIm2col, true, false>(x, dy, wsf, dwf, s, wide_o, st);
+  if (vec_x)
+    return launch_tc_o<kIm2col, false, true>(x, dy, wsf, dwf, s, wide_o, st);
+  return launch_tc_o<kIm2col, false, false>(x, dy, wsf, dwf, s, wide_o, st);
 }
 
 }  // namespace
 
 // x (N, H, W, I) and dy (N, OH, OW, O) contiguous, of one dtype (0 float32,
-// 1 bf16); ws float32 [splits][O][KH*KW*I]; dw float32 (O, KH, KW, I).
+// 1 bf16); ws float32 [splits][O][KH*KW*I] (unused by bf16 with one
+// split); dw float32 (O, KH, KW, I); variant as dispatch() says.
 extern "C" int mxt_conv_dw_pertap(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,
                                   int oh, int ow, int co, int kh, int kw,
                                   int sy, int sx, int py, int px, int splits,
-                                  int chunk, int dtype, void* stream) {
+                                  int chunk, int dtype, int variant,
+                                  void* stream) {
   return dispatch<false>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy,
-                         sx, py, px, splits, chunk, dtype, stream);
+                         sx, py, px, splits, chunk, dtype, variant, stream);
 }
 
 extern "C" int mxt_conv_dw_im2col(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,
                                   int oh, int ow, int co, int kh, int kw,
                                   int sy, int sx, int py, int px, int splits,
-                                  int chunk, int dtype, void* stream) {
+                                  int chunk, int dtype, int variant,
+                                  void* stream) {
   return dispatch<true>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy,
-                        sx, py, px, splits, chunk, dtype, stream);
+                        sx, py, px, splits, chunk, dtype, variant, stream);
 }
 
 extern "C" const char* mxt_error_string(int err) {

@@ -18,12 +18,19 @@ with ``Xp`` the input zero-padded by ``pad`` on both sides.
   its launches in ``.launches``.
 - :func:`conv_dw` picks the formulation by the JAX package's rule
   (:func:`formulation`: im2col below 128 input channels) and runs it.
+- :func:`launch_plan` says, from the shapes alone, what a launch runs:
+  bf16 the tensor-core kernel (16-byte or register-staged loads of x and
+  dy), float32 the CUDA-core kernel, with the split-K partition
+  (:func:`split_plan`) and the workspace.
 
 Every result is float32 (O, KH, KW, I); the caller casts it to the
 weight's dtype.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +39,50 @@ from .. import _kernels
 from ..base import MXNetError
 
 __all__ = ["conv_dw", "conv_dw_reference", "conv_dw_pertap",
-           "conv_dw_im2col", "formulation", "split_plan"]
+           "conv_dw_im2col", "formulation", "split_plan", "launch_plan",
+           "LaunchPlan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64              # rows and output channels of a kernel block
-_TARGET_BLOCKS = 4 * 132  # blocks in flight: four per SM of an H100
-_MIN_CHUNK = 256        # fewest reduction positions a split sums
+_SMS = 132              # streaming multiprocessors of an H100
+# float32, the CUDA-core kernel: 64 x 64 tiles, about four blocks per SM
+_F32_TILE = 64
+_F32_TARGET_BLOCKS = 4 * _SMS
+_F32_MIN_CHUNK = 256    # fewest reduction positions a split sums
+# bf16, the tensor-core kernel: 128 (o; 64 when O <= 64) x 128 (rows)
+# tiles over stages of 64 positions, one resident block per SM (its ring
+# takes 161 KB of shared memory)
+TC_TILE_ROWS, TC_STAGE = 128, 64
+_TC_MIN_CHUNK = 4 * TC_STAGE
+_TC_MAX_WAVES = 8       # the most waves of blocks a split plan may ask
+_TC_BLOCK_STAGES = 8    # a block's own cost (pipeline fill, epilogue), in
+                        # stages
+
+
+class LaunchPlan(NamedTuple):
+    """What one dW launch runs: the C entry point, the kernel (``"tensor-
+    core"`` for bf16, ``"cuda-core"`` for float32), how the tensor-core
+    kernel loads x and dy (``"16-byte"`` cp.async or ``"register-
+    staged"``; ``None`` for the CUDA-core kernel), the output channels of
+    its tile (128, or 64 when O <= 64), the split-K partition (``splits``
+    chunks of ``chunk`` positions, the last one shorter) and the float32
+    workspace it needs, in elements (0: dW written directly)."""
+    entry: str
+    kernel: str
+    x_loads: str | None
+    dy_loads: str | None
+    tile_o: int
+    splits: int
+    chunk: int
+    ws_elems: int
+
+    @property
+    def variant(self):
+        """The C entry's variant argument: bit 0 dy and bit 1 x by
+        16-byte copies, bit 2 tiles of 64 output channels."""
+        if self.kernel == "cuda-core":
+            return 0
+        return ((self.dy_loads == "16-byte") | (self.x_loads == "16-byte") << 1
+                | (self.tile_o == 64) << 2)
 
 
 def formulation(in_channels):
@@ -46,21 +91,74 @@ def formulation(in_channels):
     return "im2col" if in_channels < 128 else "pertap"
 
 
-def split_plan(form, kernel, in_channels, out_channels, positions):
-    """(splits, chunk) of the split-K partition: the reduction over
-    ``positions`` = N*OH*OW is cut into ``splits`` chunks of ``chunk``
-    positions (the last one shorter), enough that the tiles of
-    ``form`` times the splits put about :data:`_TARGET_BLOCKS` blocks in
-    flight, and no chunk shorter than :data:`_MIN_CHUNK` positions."""
+def _tiles(form, kernel, in_channels, out_channels, tile_rows, tile_o):
     kh, kw = kernel
     rows = kh * kw * in_channels if form == "im2col" else in_channels
-    tiles = -(-rows // _TILE) * -(-out_channels // _TILE)
-    if form == "pertap":
-        tiles *= kh * kw
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles),
-                        -(-positions // _MIN_CHUNK)))
-    chunk = -(-positions // splits)
-    return -(-positions // chunk), chunk
+    tiles = -(-rows // tile_rows) * -(-out_channels // tile_o)
+    return tiles * (kh * kw if form == "pertap" else 1)
+
+
+def split_plan(form, kernel, in_channels, out_channels, positions,
+               dtype=torch.float32):
+    """(splits, chunk) of the split-K partition: the reduction over
+    ``positions`` = N*OH*OW is cut into ``splits`` chunks of ``chunk``
+    positions (the last one shorter).
+
+    float32 (64 x 64 tiles): enough splits that the tiles of ``form``
+    times the splits put about four blocks per SM in flight, no chunk
+    shorter than 256 positions.  bf16 (128 x 128 tiles, one block per
+    SM): chunks are whole 64-position stages, at least four, and the
+    split count is the one, up to eight waves of blocks, that the cost
+    model waves x (stages a chunk + 8) puts lowest, so that the blocks
+    fill the 132 SMs in whole waves."""
+    if dtype == torch.float32:
+        tiles = _tiles(form, kernel, in_channels, out_channels, _F32_TILE,
+                       _F32_TILE)
+        splits = max(1, min(-(-_F32_TARGET_BLOCKS // tiles),
+                            -(-positions // _F32_MIN_CHUNK)))
+        chunk = -(-positions // splits)
+        return -(-positions // chunk), chunk
+    tiles = _tiles(form, kernel, in_channels, out_channels, TC_TILE_ROWS,
+                   _tc_tile_o(out_channels))
+    stages = -(-positions // TC_STAGE)
+    most = max(1, min(-(-_TC_MAX_WAVES * _SMS // tiles),
+                      stages // (_TC_MIN_CHUNK // TC_STAGE)))
+    best = None
+    for cut in range(1, most + 1):
+        per = -(-stages // cut)          # stages a chunk
+        splits = -(-stages // per)
+        cost = -(-tiles * splits // _SMS) * (per + _TC_BLOCK_STAGES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per * TC_STAGE)
+    return best[1], best[2]
+
+
+def _tc_tile_o(out_channels):
+    """Output channels of a tensor-core tile: 64 when O <= 64 (the
+    warpgroups then split the rows), else 128."""
+    return 64 if out_channels <= 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(form, kernel, stride, pad, x_shape, o, dtype):
+    """The :class:`LaunchPlan` of dW by ``form`` for an NHWC ``x_shape``,
+    ``kernel``, ``stride``, ``pad`` and ``o`` output channels in
+    ``dtype`` (float32 or bfloat16): a pure function of the shapes."""
+    n, h, w, ci = x_shape
+    kh, kw = kernel
+    positions = (n * _out_size(h, kh, stride[0], pad[0])
+                 * _out_size(w, kw, stride[1], pad[1]))
+    splits, chunk = split_plan(form, kernel, ci, o, positions, dtype)
+    entry = "mxt_conv_dw_" + form
+    dw_elems = o * kh * kw * ci
+    if dtype == torch.float32:
+        return LaunchPlan(entry, "cuda-core", None, None, _F32_TILE, splits,
+                          chunk, splits * dw_elems)
+    return LaunchPlan(entry, "tensor-core",
+                      "16-byte" if ci % 8 == 0 else "register-staged",
+                      "16-byte" if o % 8 == 0 else "register-staged",
+                      _tc_tile_o(o), splits, chunk,
+                      splits * dw_elems if splits > 1 else 0)
 
 
 def _out_size(size, k, s, p):
@@ -110,6 +208,11 @@ def conv_dw_reference(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
     return dw
 
 
+def _aligned(t):
+    """``t`` itself if its data lies on a 16-byte boundary, else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _run(form, x, dy, kernel, stride, pad):
     _check(x, dy, kernel, stride, pad)
     if x.device.type == "cpu":
@@ -118,14 +221,18 @@ def _run(form, x, dy, kernel, stride, pad):
     n, h, w, ci = x.shape
     _, oh, ow, co = dy.shape
     kh, kw = kernel
-    splits, chunk = split_plan(form, kernel, ci, co, n * oh * ow)
-    ws = torch.empty(splits * co * kh * kw * ci, dtype=torch.float32,
-                     device=x.device)
+    plan = launch_plan(form, tuple(kernel), tuple(stride), tuple(pad),
+                       tuple(x.shape), co, x.dtype)
+    if plan.dy_loads == "16-byte":
+        dy = _aligned(dy)
+    if plan.x_loads == "16-byte":
+        x = _aligned(x)
+    ws = torch.empty(plan.ws_elems, dtype=torch.float32, device=x.device)
     dw = torch.empty((co, kh, kw, ci), dtype=torch.float32, device=x.device)
-    fn = lib.mxt_conv_dw_im2col if form == "im2col" else lib.mxt_conv_dw_pertap
-    _kernels.launch(lib, fn, x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw,
-                    stride[0], stride[1], pad[0], pad[1], splits, chunk,
-                    _DTYPE_CODES[x.dtype])
+    _kernels.launch(lib, getattr(lib, plan.entry), x, dy, ws, dw, n, h, w, ci,
+                    oh, ow, co, kh, kw, stride[0], stride[1], pad[0], pad[1],
+                    plan.splits, plan.chunk, _DTYPE_CODES[x.dtype],
+                    plan.variant)
     return dw
 
 

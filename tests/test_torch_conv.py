@@ -115,30 +115,120 @@ def _resnet50_convs(batch=128, size=224):
     return convs
 
 
-def test_resnet50_formulations_and_split_plan():
-    """44 convolutions of ResNet-50 take K1a and 9 take K1b; every one
-    puts at least 2 x 132 blocks on the card, and its split-K partition
-    covers the reduction exactly once."""
+RAGGED = ((8, 15, 13, 200), (3, 3), (2, 2), (1, 1), 100)
+
+
+def _positions(xs, k, s, p):
+    n, h, w, _ = xs
+    return n * _out(h, k[0], s[0], p[0]) * _out(w, k[1], s[1], p[1])
+
+
+def _tiles(plan, form, xs, k, o):
+    """The kernel's blocks per split: row tiles x output-channel tiles
+    (x taps for per-tap)."""
+    rows = k[0] * k[1] * xs[3] if form == "im2col" else xs[3]
+    tile_rows = 64 if plan.kernel == "cuda-core" else cdw.TC_TILE_ROWS
+    tiles = -(-rows // tile_rows) * -(-o // plan.tile_o)
+    return tiles * (k[0] * k[1] if form == "pertap" else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet50_formulations_and_split_plan(dtype):
+    """44 convolutions of ResNet-50 take K1a and 9 take K1b; each plan
+    covers the reduction exactly once, in whole 64-position stages but
+    the last for bf16, and fills the card: float32 at least 2 x 132
+    blocks, bf16 (one resident block per SM) at least 95 % of the 132
+    SMs, unless the smallest chunk stops it.  bf16 runs on the tensor cores, the stem's x (I = 3)
+    register-staged; float32 on the CUDA cores."""
     convs = _resnet50_convs()
     forms = [cdw.formulation(xs[3]) for xs, *_ in convs]
     assert len(convs) == 53
     assert (forms.count("pertap"), forms.count("im2col")) == (44, 9)
     for (xs, k, s, p, o), form in zip(convs, forms):
-        n, h, w, i = xs
-        positions = n * _out(h, k[0], s[0], p[0]) * _out(w, k[1], s[1], p[1])
-        splits, chunk = cdw.split_plan(form, k, i, o, positions)
-        rows = k[0] * k[1] * i if form == "im2col" else i
-        tiles = -(-rows // 64) * -(-o // 64)
-        if form == "pertap":
-            tiles *= k[0] * k[1]
-        assert tiles * splits >= 2 * 132, (xs, k, o)
-        assert (splits - 1) * chunk < positions <= splits * chunk
+        positions = _positions(xs, k, s, p)
+        plan = cdw.launch_plan(form, k, s, p, xs, o, dtype)
+        assert plan.entry == "mxt_conv_dw_" + form
+        assert (plan.splits - 1) * plan.chunk < positions \
+            <= plan.splits * plan.chunk, (xs, k, o)
+        blocks = _tiles(plan, form, xs, k, o) * plan.splits
+        if dtype == torch.float32:
+            assert plan.kernel == "cuda-core" and plan.x_loads is None
+            assert blocks >= 2 * 132, (xs, k, o)
+            assert plan.ws_elems == plan.splits * o * k[0] * k[1] * xs[3]
+            continue
+        assert plan.kernel == "tensor-core"
+        assert plan.chunk % cdw.TC_STAGE == 0
+        assert blocks >= 0.95 * 132 or plan.chunk == 4 * cdw.TC_STAGE, \
+            (xs, k, o)
+        assert plan.tile_o == (64 if o <= 64 else 128)
+        assert plan.dy_loads == "16-byte"
+        assert plan.x_loads == ("register-staged" if xs[3] == 3
+                                else "16-byte"), xs
+        assert plan.ws_elems == (0 if plan.splits == 1 else
+                                 plan.splits * o * k[0] * k[1] * xs[3])
 
 
-def test_split_plan_small_reductions_are_not_cut_below_the_minimum():
-    assert cdw.split_plan("pertap", (1, 1), 128, 64, 100) == (1, 100)
-    splits, chunk = cdw.split_plan("im2col", (3, 3), 3, 8, 10_000)
-    assert splits == -(-10_000 // 256) and chunk == -(-10_000 // splits)
+@pytest.mark.parametrize("form", ["pertap", "im2col"])
+def test_launch_plan_of_the_ragged_case_and_its_variant(form):
+    """I = 200, O = 100: x by 16-byte copies, dy (200-byte rows)
+    register-staged; the C variant packs dy, x and the 64-channel tile
+    as bits 0, 1 and 2."""
+    xs, k, s, p, o = RAGGED
+    plan = cdw.launch_plan(form, k, s, p, xs, o, torch.bfloat16)
+    assert (plan.x_loads, plan.dy_loads, plan.tile_o) == (
+        "16-byte", "register-staged", 128)
+    assert plan.variant == 2
+    stem = cdw.launch_plan("im2col", (7, 7), (2, 2), (3, 3),
+                           (128, 224, 224, 3), 64, torch.bfloat16)
+    assert stem.variant == 1 | 4
+    assert cdw.launch_plan(form, k, s, p, xs, o, torch.float32).variant == 0
+
+
+@pytest.mark.parametrize("xs,k,s,p,o", [
+    ((2, 40, 40, 3), (7, 7), (2, 2), (3, 3), 16),      # a shrunk stem
+    ((4, 14, 14, 128), (3, 3), (1, 1), (1, 1), 32),    # a per-tap shape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_k_partial_sums_in_split_order_make_dw(xs, k, s, p, o, dtype):
+    """The plan's chunks, each summed by the plain version on its own
+    positions and added in split order as the second pass does, give the
+    whole dW within 1e-5 of its largest magnitude (only the float32
+    order of the sums differs)."""
+    form = cdw.formulation(xs[3])
+    x, dy = _inputs(xs, k, s, p, o, seed=5)
+    tx, tdy = (torch.from_numpy(a).to(dtype) for a in (x, dy))
+    plan = cdw.launch_plan(form, k, s, p, xs, o, dtype)
+    assert plan.splits > 1, "a shape the plan splits"
+    n, h, w, _ = xs
+    oh, ow = _out(h, k[0], s[0], p[0]), _out(w, k[1], s[1], p[1])
+    # positions p = (n, y, x) in order; a chunk is a run of them, so the
+    # plain version sums it as dy with every other position zeroed
+    flat = tdy.reshape(n * oh * ow, o)
+    total = torch.zeros((o,) + k + xs[3:])
+    for sp in range(plan.splits):
+        part = torch.zeros_like(flat)
+        part[sp * plan.chunk:(sp + 1) * plan.chunk] = \
+            flat[sp * plan.chunk:(sp + 1) * plan.chunk]
+        total += cdw.conv_dw_reference(tx, part.reshape(tdy.shape), k, s, p)
+    want = cdw.conv_dw_reference(tx, tdy, k, s, p)
+    np.testing.assert_allclose(total.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_plan_small_reductions_are_not_cut_below_the_minimum(dtype):
+    splits, chunk = cdw.split_plan("pertap", (1, 1), 128, 64, 100, dtype)
+    assert splits == 1 and chunk >= 100
+    assert (splits, chunk) == ((1, 100) if dtype == torch.float32
+                               else (1, 128))
+    splits, chunk = cdw.split_plan("im2col", (3, 3), 3, 8, 10_000, dtype)
+    if dtype == torch.float32:
+        assert splits == -(-10_000 // 256) and chunk == -(-10_000 // splits)
+    else:
+        # one tile: cut as finely as whole stages allow, not below four
+        assert chunk % cdw.TC_STAGE == 0
+        assert 4 * cdw.TC_STAGE <= chunk < 8 * cdw.TC_STAGE
+        assert splits == -(-10_000 // chunk)
 
 
 @pytest.mark.parametrize("xs,k,s,p,o", CASES[:4] + [
