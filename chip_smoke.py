@@ -7,13 +7,15 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel under mxnet_tpu_torch/csrc, compiled by nvcc, with
-   ptxas's report (registers, spills) and, where cuobjdump exists, the
-   count of tensor-core instructions (HGMMA) in the SASS of each bf16
-   conv dW kernel, which must not be 0;
+   ptxas's report (registers, spills; the instances that spill are
+   listed) and, where cuobjdump exists, the count of tensor-core
+   instructions (HGMMA) in the SASS of each bf16 and float16 conv dW
+   kernel, which must not be 0, over 16 instances of each type;
 3. kernels: the attention forward (K3) against its plain PyTorch version
-   on the card at the shapes the serving path gives it and at edge shapes,
-   with its time, the plain version's, one PyTorch library call's, and the
-   bound;
+   on the card at the shapes the serving path gives it and at edge shapes
+   (float16, head dims 96, 128 and 256 in float32 and float16), with its
+   time, the plain version's, one PyTorch library call's, and the bound;
+   a head dim of 264 raises;
 3b. backward kernels: dQ (K4a) and dK/dV (K4b) against the plain backward
    at the training shape and the same edge shapes, bitwise equal across
    two launches, with their times, the plain backward's, SDPA's backward
@@ -21,14 +23,18 @@ Phases (any failure raises, and the script exits non-zero):
 3c. convolution and pooling kernels: the weight-gradient kernels K1a
    (per tap) and K1b (im2col) at every distinct convolution shape of
    ResNet-50 at batch 128 in bf16 (the tensor-core kernel), at two of
-   them in float32 too (the CUDA-core kernel) and at a ragged shape in
-   both, and the max-pool backward K2 at the stem pool's shape in bf16
-   and float32, at an all-ties input and at an odd shape; each against
-   its plain version on the card (K1 within 1e-3 of the plain result's
-   largest magnitude, K2 bitwise), bitwise equal across two launches,
-   with its time, the plain version's, cuDNN's (or PyTorch's max-pool
-   backward) and the bound, and for K1 its launch plan, workspace,
-   TFLOP/s and share of the bound;
+   them in float32 too (the CUDA-core kernel), at three in float16 (the
+   tensor-core kernel's f16 instances) and at a ragged shape in bf16 and
+   float32; the max-pool backward K2 at the stem pool's shape in bf16,
+   float32 and float16, at an all-ties input, an odd shape (C = 5, the
+   scalar path), 2x2/s2, 3x3/s1/p1 and 7x7 windows, NaN inputs and
+   windows wholly in the padding; each against its plain version on the
+   card (K1 within 1e-3 of the plain result's largest magnitude, K2
+   bitwise), bitwise equal across two launches, with its time, the plain
+   version's, cuDNN's (or PyTorch's max-pool backward) and the bound, for
+   K1 its launch plan, workspace, TFLOP/s and share of the bound, for K2
+   its tile plan; one K2 call at the stem shape launches one kernel and
+   allocates only dX;
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -97,14 +103,16 @@ REQUEST_SAMPLES = (1, 2, 3, 4, 5, 6, 7, 8, 3, 5, 2, 7)
 
 # kernel vs plain: float32 sums run in another order (~1e-6 at S=1024);
 # bf16 output is rounded in both and the plain version also rounds the
-# probabilities to bf16, so they may differ by about two bf16 steps
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# probabilities to bf16, so they may differ by about two bf16 steps;
+# float16 is held to bf16's tolerance (a finer type, the same rounding
+# points)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 # backward kernels vs the plain backward: f32 as tests/test_attention.py
 # holds JAX's backward kernels; bf16 gradients are rounded in both, so a
 # float32 sum in another order may land one bf16 step (2**-8 relative)
 # away (measured on the H100: 0 at the training shape, 2.4e-4 at a small
 # one)
-BWD_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
+BWD_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 # served rows vs an unbatched forward, and card vs CPU plain path: the
 # matrix products pick other algorithms per batch size and device
 SERVE_TOL = 1e-4
@@ -144,18 +152,36 @@ def build():
     t0 = time.perf_counter()
     names = _kernels.build_all()
     log("build: %s in %.1f s" % (names, time.perf_counter() - t0))
+    spills = []
     for name in names:
+        func = None
         for line in (_kernels.build_log(name) or "").splitlines():
+            if "Compiling entry function" in line:
+                func = line.split("'")[1] if "'" in line else line
             if name == "conv_dw" and line.strip() or "registers" in line \
                     or "spill" in line:
                 log("  %s: %s" % (name, line.strip()))
-    sass_counts("conv_dw", "conv_dw_wgmma_kernel", "HGMMA")
+            if "spill" in line and not line.strip().endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                spills.append("%s %s" % (name, func))
+    log("build: %d kernel instances report spills%s" % (
+        len(spills), (": " + "; ".join(spills)) if spills else ""))
+    counts = sass_counts("conv_dw", "conv_dw_wgmma_kernel", "HGMMA")
+    # the tensor-core kernel's instances: 2 types (template argument kF16:
+    # Lb0 bf16, Lb1 float16) x 2 formulations x 2 x 2 load paths x 2 tiles
+    by_type = {t: sum(1 for f in counts if "conv_dw_wgmma_kernelILb%d" % i
+                      in f) for i, t in enumerate(("bf16", "float16"))}
+    log("build: conv_dw tensor-core instances with HGMMA: %s" % by_type)
+    if counts and by_type != {"bf16": 16, "float16": 16}:
+        raise AssertionError("expected 16 bf16 and 16 float16 tensor-core "
+                             "instances of conv_dw, found %s" % by_type)
 
 
 def sass_counts(name, kernel, opcode):
     """Log how many ``opcode`` instructions the SASS of each function of
     library ``name`` holds (cuobjdump); fail if a function whose name
-    holds ``kernel`` has none.  Without cuobjdump, say so."""
+    holds ``kernel`` has none.  Returns the counts of those functions by
+    (mangled) name; without cuobjdump, says so and returns {}."""
     import os
     import re
     import shutil
@@ -167,7 +193,7 @@ def sass_counts(name, kernel, opcode):
         None)
     if tool is None:
         log("  %s: cuobjdump not found, SASS not inspected" % name)
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", _kernels.library_path(name)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -186,6 +212,7 @@ def sass_counts(name, kernel, opcode):
     if missing or not any(kernel in f for f in counts):
         raise AssertionError("no %s instruction in the SASS of %s"
                              % (opcode, missing or kernel))
+    return {f: c[opcode] for f, c in counts.items() if kernel in f}
 
 
 def time_ms(fn, iters=20):
@@ -239,8 +266,18 @@ EDGE_CASES = [
     ("ragged S=1000", 8, 8, 1000, 1000, 64, True, torch.float32),
     ("Sq=256 Sk=512", 8, 8, 256, 512, 64, True, torch.float32),
     ("bf16", 8, 8, SEQ, SEQ, 64, True, torch.bfloat16),
+    ("f16", 8, 8, SEQ, SEQ, 64, True, torch.float16),
     ("D=128", 8, 4, SEQ, SEQ, 128, True, torch.float32),
+    # head dims between and at the kernels' buckets (D=96 runs the 128
+    # bucket with its last 32 columns zero; D=256 the largest bucket, with
+    # 32 x 32 tiles in the backward)
+    ("D=96", 4, 4, SEQ, SEQ, 96, True, torch.float32),
+    ("D=96 f16", 4, 4, SEQ, SEQ, 96, True, torch.float16),
+    ("D=256", 2, 4, SEQ, SEQ, 256, True, torch.float32),
+    ("D=256 f16", 2, 4, SEQ, SEQ, 256, True, torch.float16),
 ]
+# a head dim past the largest bucket raises on the card
+TOO_WIDE_HEAD_DIM = 264
 
 
 def kernels(seed):
@@ -284,6 +321,17 @@ def kernels(seed):
                          "library_ms": lib_ms}
         del q, k, v, out, lse, ref, ref_lse
     torch.cuda.empty_cache()
+    from mxnet_tpu_torch.base import MXNetError
+
+    q = torch.zeros(1, 1, 8, TOO_WIDE_HEAD_DIM, device="cuda")
+    try:
+        flash_attention(q, q, q)
+    except MXNetError as e:
+        log("kernel flash_attn_fwd: D=%d raises MXNetError: %s"
+            % (TOO_WIDE_HEAD_DIM, e))
+    else:
+        raise AssertionError("flash_attention took D=%d on the card"
+                             % TOO_WIDE_HEAD_DIM)
     return slice_row
 
 
@@ -748,8 +796,8 @@ def _nchw(t):
 
 def conv_kernels(seed):
     """Phase 3c, K1a and K1b: every distinct convolution shape of the main
-    path in bf16 (by the formulation rule), two of them in float32 and a
-    ragged shape in both formulations.  Returns, for each kernel, its
+    path in bf16 (by the formulation rule), two of them in float32, three
+    in float16 and a ragged shape in both formulations.  Returns, for each kernel, its
     numbers summed over the convolutions of one training step."""
     from mxnet_tpu_torch.ops import conv_dw as C
 
@@ -765,6 +813,11 @@ def conv_kernels(seed):
               for form in ("pertap", "im2col")]
     cases += [(ragged, dt, form, 0) for dt in (torch.float32, torch.bfloat16)
               for form in ("pertap", "im2col")]
+    # float16, the tensor-core kernel's f16 instances: the stem and the
+    # 3x3 convolutions of 64 and 512 channels
+    f16 = [convs[0]] + [c for c in counts if c[1] == (3, 3)
+                        and c[0][3] in (64, 512) and c[2] == (1, 1)]
+    cases += [(c, torch.float16, C.formulation(c[0][3]), 0) for c in f16]
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                        library_ms=0.0, launches_per_step=0,
@@ -845,26 +898,68 @@ def maxpool_bound_ms(xs, dys, dtype):
     return nbytes / PEAK_BYTES * 1e3, "bytes"
 
 
+def _one_call_kernels(fn):
+    """The device kernels one call of ``fn`` launches (torch.profiler),
+    and the bytes it allocates on top of what is already allocated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names, extra, out
+
+
+# the cases at which K2 is held bitwise to its plain version: (name, x
+# shape, kernel, stride, pad, dtype); x is random normal unless the name
+# says otherwise
+POOL_CASES = [
+    ("stem", (RESNET_BATCH, 112, 112, 64), (3, 3), (2, 2), (1, 1),
+     torch.bfloat16),
+    ("stem", (RESNET_BATCH, 112, 112, 64), (3, 3), (2, 2), (1, 1),
+     torch.float32),
+    ("stem", (RESNET_BATCH, 112, 112, 64), (3, 3), (2, 2), (1, 1),
+     torch.float16),
+    ("all ties", (4, 16, 16, 64), (3, 3), (2, 2), (1, 1), torch.float32),
+    ("odd", (3, 9, 11, 5), (3, 3), (2, 2), (1, 1), torch.bfloat16),
+    ("2x2/s2", (32, 56, 56, 64), (2, 2), (2, 2), (0, 0), torch.bfloat16),
+    ("3x3/s1/p1", (32, 56, 56, 64), (3, 3), (1, 1), (1, 1), torch.bfloat16),
+    ("7x7/s2/p3", (8, 56, 56, 128), (7, 7), (2, 2), (3, 3), torch.float32),
+    ("NaN input", (16, 56, 56, 64), (3, 3), (2, 2), (1, 1), torch.bfloat16),
+    # pad 2 >= kernel 2: the first window of each axis lies wholly in the
+    # padding, so its dy reaches no pixel
+    ("window in padding", (4, 8, 8, 16), (2, 2), (2, 2), (2, 2),
+     torch.float16),
+]
+
+
 def pool_kernels(seed):
-    """Phase 3c, K2: the stem pool's shape in bf16 (the main path's) and
-    float32, an all-ties input and an odd shape; returns the main path's
-    row."""
+    """Phase 3c, K2: the stem pool's shape in bf16 (the main path's),
+    float32 and float16, an all-ties input, an odd shape, windows 2x2/s2,
+    3x3/s1 and 7x7, NaN inputs and windows wholly in the padding; each
+    bitwise equal to the plain version and to itself across two launches.
+    At the stem shape one call launches one kernel and allocates nothing
+    but dX.  Returns the main path's row."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import pool_bwd as P
 
-    k, s, p = (3, 3), (2, 2), (1, 1)
-    stem = (RESNET_BATCH, 112, 112, 64)
-    cases = [("stem", stem, torch.bfloat16), ("stem", stem, torch.float32),
-             ("all ties", (4, 16, 16, 64), torch.float32),
-             ("odd", (3, 9, 11, 5), torch.bfloat16)]
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     row = None
-    for name, xs, dt in cases:
+    for name, xs, k, s, p, dt in POOL_CASES:
         n, h, w, c = xs
-        dys = (n, _out_size(h, 3, 2, 1), _out_size(w, 3, 2, 1), c)
+        dys = (n, _out_size(h, k[0], s[0], p[0]),
+               _out_size(w, k[1], s[1], p[1]), c)
         x = (torch.ones(xs, device="cuda") if name == "all ties"
-             else torch.randn(xs, device="cuda", generator=gen)).to(dt)
+             else torch.randn(xs, device="cuda", generator=gen))
+        if name == "NaN input":  # NaN at some taps, the first among them
+            x[:, ::3, ::2, ::5] = float("nan")
+        x = x.to(dt)
         dy = torch.randn(dys, device="cuda", generator=gen).to(dt)
 
         def fn():
@@ -876,27 +971,46 @@ def pool_kernels(seed):
         err = (got.float() - ref.float()).abs().max().item()
         equal, same = torch.equal(got, ref), torch.equal(got, again)
         del got, again, ref
+        plan = P.launch_plan(xs, dys, k, s, dt)
         ms = time_ms(fn)
         plain_ms = time_ms(lambda: P.maxpool_bwd_reference(x, dy, k, s, p),
                            iters=3)
-        _, idx = F.max_pool2d(_nchw(x), k, s, p, return_indices=True)
-        lib_ms = time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-            _nchw(dy), _nchw(x), k, s, p, (1, 1), False, idx))
+        lib_ms = None
+        if 2 * p[0] <= k[0] and 2 * p[1] <= k[1]:  # what max_pool2d takes
+            _, idx = F.max_pool2d(_nchw(x), k, s, p, return_indices=True)
+            lib_ms = time_ms(
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    _nchw(dy), _nchw(x), k, s, p, (1, 1), False, idx))
+            del idx
         bound, bound_by = maxpool_bound_ms(xs, dys, dt)
-        log("kernel maxpool_bwd [%s x %s %s]: bitwise equal to the plain "
-            "version %s (max abs err %.3g), bitwise repeatable %s; kernel "
-            "%.4f ms, plain %.4f ms, max_pool2d_with_indices_backward %.4f "
-            "ms, bound %.4f ms (%s)" % (name, xs, str(dt).split(".")[1],
-                                        equal, err, same, ms, plain_ms,
-                                        lib_ms, bound, bound_by))
+        log("kernel maxpool_bwd [%s x %s k %s s %s p %s %s]: bitwise equal "
+            "to the plain version %s (max abs err %.3g), bitwise repeatable "
+            "%s; %s, tile %dx%dx%d, %d tiles, %d bytes of shared memory; "
+            "kernel %.4f ms (%.1f %% of the bound), plain %.4f ms, "
+            "max_pool2d_with_indices_backward %s ms, bound %.4f ms (%s)" % (
+                name, xs, k, s, p, str(dt).split(".")[1], equal, err, same,
+                plan.access, plan.tile_h, plan.tile_w, plan.tile_c,
+                plan.tiles(n), plan.smem_bytes, ms, 100.0 * bound / ms,
+                plain_ms, "%.4f" % lib_ms if lib_ms is not None else "n/a",
+                bound, bound_by))
         if not (equal and same):
             raise AssertionError("maxpool_bwd differs from its plain version "
-                                 "or between two launches at %s" % name)
+                                 "or between two launches at %s %s"
+                                 % (name, dt))
         if name == "stem" and dt == torch.bfloat16:
+            names, extra, out = _one_call_kernels(fn)
+            dx_bytes = out.numel() * out.element_size()
+            log("kernel maxpool_bwd [stem bf16]: one call launches %s and "
+                "allocates %d bytes (dX: %d)" % (names, extra, dx_bytes))
+            if len(names) != 1 or "maxpool_bwd_kernel" not in names[0] \
+                    or extra > dx_bytes + (2 << 20):
+                raise AssertionError("maxpool_bwd is not one launch that "
+                                     "allocates only dX")
+            del out
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound, "bound_by": bound_by,
                    "library_ms": lib_ms}
-        del x, dy, idx
+        del x, dy
     torch.cuda.empty_cache()
     return row
 
@@ -984,12 +1098,16 @@ def resnet_gradient_check(seed):
 # device kernels of the ResNet step by what they do, matched on the
 # kernel's name (the first group that matches wins)
 RESNET_GROUPS = (
-    ("K1a conv_dw pertap", ("conv_dw_wgmma_kernel<false",
+    # template arguments: the type (false bf16, true float16), then the
+    # formulation (false per-tap, true im2col)
+    ("K1a conv_dw pertap", ("conv_dw_wgmma_kernel<false, false",
+                            "conv_dw_wgmma_kernel<true, false",
                             "conv_dw_kernel<false")),
-    ("K1b conv_dw im2col", ("conv_dw_wgmma_kernel<true",
+    ("K1b conv_dw im2col", ("conv_dw_wgmma_kernel<false, true",
+                            "conv_dw_wgmma_kernel<true, true",
                             "conv_dw_kernel<true")),
     ("K1 split-K sum", ("conv_dw_reduce",)),
-    ("K2 maxpool_bwd", ("maxpool_argmax", "maxpool_gather")),
+    ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("loss softmax", ("softmax", "nll")),
     ("cuDNN conv fwd/dgrad", ("conv", "cudnn", "xmma", "fprop", "dgrad",

@@ -26,7 +26,7 @@ from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch.ops import conv_dw as C
 
 # text of csrc/conv_dw.cu that each variant takes out
-PRODUCTS = ("      wgmma(acc, desc(slot + a_off + kk * 2048), "
+PRODUCTS = ("      wgmma<kF16>(acc, desc(slot + a_off + kk * 2048), "
             "desc(slot + b_off + kk * 2048));")
 LOADS = ('  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" '
          '::"r"(dst),\n               "l"(src), "r"(ok ? 16 : 0)\n'

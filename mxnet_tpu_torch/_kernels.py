@@ -61,8 +61,8 @@ _SIGNATURES = {
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "maxpool_bwd": {
-        "mxt_maxpool_bwd": (ctypes.c_int, [ctypes.c_void_p] * 4
-                            + [ctypes.c_int] * 13 + [ctypes.c_void_p]),
+        "mxt_maxpool_bwd": (ctypes.c_int, [ctypes.c_void_p] * 3
+                            + [ctypes.c_int] * 17 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

@@ -23,9 +23,11 @@
 // Both operands are MN-major in device memory: the channel axis is
 // contiguous and p is outermost.
 //
-// bf16 x and dy (the training path) run on the tensor cores,
-// conv_dw_wgmma_kernel, as the Pallas kernels run on the MXU: bf16
-// products accumulated in float32.
+// bf16 x and dy (the training path) and float16 x and dy run on the tensor
+// cores, conv_dw_wgmma_kernel, as the Pallas kernels run on the MXU: bf16
+// (f16) products accumulated in float32.  The two types share the layout,
+// the descriptors and the swizzle; only the wgmma's types differ
+// (.f32.bf16.bf16 or .f32.f16.f16).
 //   - A block computes a tile of 128 output channels o (wgmma's M) by 128
 //     rows m (wgmma's N) with two consumer warpgroups, each holding its
 //     float32 accumulator in registers: stacked along M, 64 x 128 each
@@ -135,7 +137,7 @@ struct Pos {
   }
 };
 
-// ------------------------------------------------ bf16: the tensor cores
+// ------------------------------------ bf16 and float16: the tensor cores
 
 namespace tc {
 
@@ -231,70 +233,77 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
          (1ull << 62);                                     // 128-byte swizzle
 }
 
-// D[64 x 128] += A[64 x 16] * B[16 x 128], bf16 in, float32 accumulate;
-// A (dY) M-major and B (X) N-major: transpose flags 1, 1
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
+// D[64 x 128] += A[64 x 16] * B[16 x 128], bf16 (or f16) in, float32
+// accumulate; A (dY) M-major and B (X) N-major: transpose flags 1, 1.
+// TYPES names the input type pair of the instruction.
+#define MXT_WGMMA_M64N128K16(TYPES)                                          \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %66, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPES " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                             \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                             \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                             \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                             \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                            \
+      "%64, %65, p, 1, 1, 1, 1;\n"                                           \
+      "}\n"                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                   \
+      : "l"(da), "l"(db), "r"(1))
 
 // D[64 x 64] += A[64 x 16] * B[16 x 64], the same with N = 64
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
+#define MXT_WGMMA_M64N64K16(TYPES)                                           \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %34, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPES " {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                            \
+      "%32, %33, p, 1, 1, 1, 1;\n"                                           \
+      "}\n"                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "l"(da), "l"(db), "r"(1))
 
+// kF16: the operands are float16, else bf16 (the same 2-byte layout, the
+// same descriptors and swizzle; only the instruction's types differ)
+template <bool kF16>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
-  wgmma_m64n128k16(d, da, db);
+  if constexpr (kF16)
+    MXT_WGMMA_M64N128K16("f16.f16");
+  else
+    MXT_WGMMA_M64N128K16("bf16.bf16");
 }
+template <bool kF16>
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) {
-  wgmma_m64n64k16(d, da, db);
+  if constexpr (kF16)
+    MXT_WGMMA_M64N64K16("f16.f16");
+  else
+    MXT_WGMMA_M64N64K16("bf16.bf16");
 }
 
 // a bf16 load that the compiler keeps where it is written: the gather of
@@ -317,23 +326,24 @@ __device__ __forceinline__ uint32_t ldg_u16(const uint16_t* p, bool ok) {
 __device__ __forceinline__ int tap_dy(int dyx) { return dyx >> 16; }
 __device__ __forceinline__ int tap_dx(int dyx) { return (int)(short)(dyx & 0xffff); }
 
-// kVecA: dY by 16-byte cp.async (O % 8 == 0), else from registers;
+// kF16: float16 operands, else bf16; kVecA: dY by 16-byte cp.async (O %
+// 8 == 0), else from registers;
 // kVecB: X the same (I % 8 == 0); kWideO: a tile of 128 output channels,
 // the two warpgroups stacked along M (64 each, N = 128), else of 64
 // (O <= 64), the warpgroups side by side along N (N = 64 each).  Grid: x
 // row tiles, y o tiles, z split-major (split, tap) for per-tap, split for
 // im2col.
-template <bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
+template <bool kF16, bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ dy,
+conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
+                     const uint16_t* __restrict__ dy,
                      float* __restrict__ out, Shape s, Step st) {
   constexpr int kM = kWideO ? 128 : 64;  // output channels of the tile
   constexpr int kN = kWideO ? 128 : 64;  // rows of a warpgroup's product
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint16_t* xr = reinterpret_cast<const uint16_t*>(x);
-  const uint16_t* dyr = reinterpret_cast<const uint16_t*>(dy);
+  const uint16_t* xr = x;
+  const uint16_t* dyr = dy;
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -482,7 +492,7 @@ conv_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma(acc, desc(slot + a_off + kk * 2048), desc(slot + b_off + kk * 2048));
+      wgmma<kF16>(acc, desc(slot + a_off + kk * 2048), desc(slot + b_off + kk * 2048));
     wgmma_commit();
     wgmma_wait<1>();
   }
@@ -696,7 +706,7 @@ int launch(const void* x, const void* dy, float* ws, float* dw, const Shape& s,
   return launch_reduce(ws, dw, s, stream);
 }
 
-template <bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
+template <bool kF16, bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
 int launch_tc(const void* x, const void* dy, float* ws, float* dw,
               const Shape& s, cudaStream_t stream) {
   constexpr int kM = kWideO ? 128 : 64;
@@ -705,15 +715,15 @@ int launch_tc(const void* x, const void* dy, float* ws, float* dw,
                              : (int64_t)s.kh * s.kw * s.splits;
   if (gz > 65535 || (s.co + kM - 1) / kM > 65535 || s.chunk % tc::kBK != 0)
     return cudaErrorInvalidConfiguration;
-  auto kernel = tc::conv_dw_wgmma_kernel<kIm2col, kVecA, kVecB, kWideO>;
+  auto kernel = tc::conv_dw_wgmma_kernel<kF16, kIm2col, kVecA, kVecB, kWideO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((m_rows + tc::kBN - 1) / tc::kBN, (s.co + kM - 1) / kM,
             (unsigned)gz);
   kernel<<<grid, tc::kThreads, tc::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), s.splits == 1 ? dw : ws, s,
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
+      s.splits == 1 ? dw : ws, s,
       tc::Step{tc::kBK / s.ow, tc::kBK % s.ow});
   err = cudaGetLastError();
   if (err != cudaSuccess || s.splits == 1) return err;
@@ -724,14 +734,28 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kIm2col, bool kVecA, bool kVecB>
+template <bool kF16, bool kIm2col, bool kVecA, bool kVecB>
 int launch_tc_o(const void* x, const void* dy, float* ws, float* dw,
                 const Shape& s, bool wide_o, cudaStream_t stream) {
-  return wide_o ? launch_tc<kIm2col, kVecA, kVecB, true>(x, dy, ws, dw, s, stream)
-                : launch_tc<kIm2col, kVecA, kVecB, false>(x, dy, ws, dw, s, stream);
+  return wide_o
+      ? launch_tc<kF16, kIm2col, kVecA, kVecB, true>(x, dy, ws, dw, s, stream)
+      : launch_tc<kF16, kIm2col, kVecA, kVecB, false>(x, dy, ws, dw, s, stream);
 }
 
-// variant (bf16 only; the float32 kernel takes 0): bit 0 reads dy and
+template <bool kF16, bool kIm2col>
+int launch_tc_variant(const void* x, const void* dy, float* ws, float* dw,
+                      const Shape& s, bool vec_dy, bool vec_x, bool wide_o,
+                      cudaStream_t st) {
+  if (vec_dy && vec_x)
+    return launch_tc_o<kF16, kIm2col, true, true>(x, dy, ws, dw, s, wide_o, st);
+  if (vec_dy)
+    return launch_tc_o<kF16, kIm2col, true, false>(x, dy, ws, dw, s, wide_o, st);
+  if (vec_x)
+    return launch_tc_o<kF16, kIm2col, false, true>(x, dy, ws, dw, s, wide_o, st);
+  return launch_tc_o<kF16, kIm2col, false, false>(x, dy, ws, dw, s, wide_o, st);
+}
+
+// variant (bf16 and float16; the float32 kernel takes 0): bit 0 reads dy and
 // bit 1 reads x by 16-byte copies, bit 2 takes tiles of 64 output
 // channels (O <= 64) instead of 128
 template <bool kIm2col>
@@ -753,25 +777,23 @@ int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
     if (variant != 0) return cudaErrorInvalidValue;
     return launch<kIm2col, float>(x, dy, wsf, dwf, s, st);
   }
-  if (dtype != 1) return cudaErrorInvalidValue;
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
   const bool vec_dy = variant & 1, vec_x = variant & 2, wide_o = !(variant & 4);
   if ((vec_dy && (co % 8 != 0 || !aligned16(dy))) ||
       (vec_x && (ci % 8 != 0 || !aligned16(x))))
     return cudaErrorMisalignedAddress;
   if (!wide_o && co > 64) return cudaErrorInvalidValue;
-  if (vec_dy && vec_x)
-    return launch_tc_o<kIm2col, true, true>(x, dy, wsf, dwf, s, wide_o, st);
-  if (vec_dy)
-    return launch_tc_o<kIm2col, true, false>(x, dy, wsf, dwf, s, wide_o, st);
-  if (vec_x)
-    return launch_tc_o<kIm2col, false, true>(x, dy, wsf, dwf, s, wide_o, st);
-  return launch_tc_o<kIm2col, false, false>(x, dy, wsf, dwf, s, wide_o, st);
+  if (dtype == 2)
+    return launch_tc_variant<true, kIm2col>(x, dy, wsf, dwf, s, vec_dy, vec_x,
+                                            wide_o, st);
+  return launch_tc_variant<false, kIm2col>(x, dy, wsf, dwf, s, vec_dy, vec_x,
+                                           wide_o, st);
 }
 
 }  // namespace
 
 // x (N, H, W, I) and dy (N, OH, OW, O) contiguous, of one dtype (0 float32,
-// 1 bf16); ws float32 [splits][O][KH*KW*I] (unused by bf16 with one
+// 1 bf16, 2 float16); ws float32 [splits][O][KH*KW*I] (unused by bf16 with one
 // split); dw float32 (O, KH, KW, I); variant as dispatch() says.
 extern "C" int mxt_conv_dw_pertap(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,

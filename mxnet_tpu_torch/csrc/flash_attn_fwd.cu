@@ -36,6 +36,7 @@
 // (wgmma on bf16, or 3xTF32) and TMA are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +51,8 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -60,7 +63,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, int num_q,
+                 float* __restrict__ lse, int sq, int sk, int d, int num_q,
                  float sm_scale, int causal) {
   constexpr int LD = D + 1;      // padded row of Q and K
   constexpr int LDP = kBK + 1;   // padded row of P
@@ -78,14 +81,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = num_q - 1 - (int)(blockIdx.x % num_q);
   const int64_t bh = blockIdx.x / num_q;
   const int q0 = qt * kBQ;
-  const T* qb = q + bh * sq * D;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const T* qb = q + bh * sq * d;
+  const T* kb = k + bh * sk * d;
+  const T* vb = v + bh * sk * d;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = q0 + r;
-    sQ[r * LD + c] = gr < sq ? to_f32(qb[(int64_t)gr * D + c]) : 0.f;
+    sQ[r * LD + c] = gr < sq && c < d ? to_f32(qb[(int64_t)gr * d + c]) : 0.f;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -106,9 +109,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
       const int gr = k0 + r;
-      const bool in = gr < sk;
-      sK[r * LD + c] = in ? to_f32(kb[(int64_t)gr * D + c]) : 0.f;
-      sV[r * D + c] = in ? to_f32(vb[(int64_t)gr * D + c]) : 0.f;
+      const bool in = gr < sk && c < d;
+      sK[r * LD + c] = in ? to_f32(kb[(int64_t)gr * d + c]) : 0.f;
+      sV[r * D + c] = in ? to_f32(vb[(int64_t)gr * d + c]) : 0.f;
     }
     __syncthreads();
 
@@ -118,12 +121,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int dd = 0; dd < D; ++dd) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * LD + d];
+      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * LD + dd];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LD + dd];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -184,18 +187,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= sq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];  // fully-masked rows
-    T* orow = o + (bh * sq + row) * D;
+    T* orow = o + (bh * sq + row) * d;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(orow + tx + 16 * c, acc[i][c] / li);
+    for (int c = 0; c < DC; ++c)
+      if (tx + 16 * c < d) store(orow + tx + 16 * c, acc[i][c] / li);
     if (tx == 0) lse[bh * sq + row] = m[i] + logf(li);
   }
 }
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int sk, float sm_scale,
+                   void* lse, int bh, int sq, int sk, int d, float sm_scale,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
+  static_assert(smem <= 232448, "a block may have 227 KB of shared memory");
   auto kern = flash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -205,7 +210,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), sq, sk, num_q, sm_scale, causal);
+      static_cast<float*>(lse), sq, sk, d, num_q, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -213,19 +218,20 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int sq, int sk, int d,
                        float sm_scale, int causal, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<16, T>(q, k, v, o, lse, bh, sq, sk, sm_scale, causal, stream);
-    case 32: return launch<32, T>(q, k, v, o, lse, bh, sq, sk, sm_scale, causal, stream);
-    case 64: return launch<64, T>(q, k, v, o, lse, bh, sq, sk, sm_scale, causal, stream);
-    case 128: return launch<128, T>(q, k, v, o, lse, bh, sq, sk, sm_scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  // the smallest head-dim bucket that holds d (ops/attention.py
+  // head_dim_bucket picks the same)
+  if (d >= 1 && d <= 32) return launch<32, T>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, stream);
+  if (d > 32 && d <= 64) return launch<64, T>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, stream);
+  if (d > 64 && d <= 128) return launch<128, T>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, stream);
+  if (d > 128 && d <= 256) return launch<256, T>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous (bh, s, d) arrays of one type; lse: (bh, sq) float32.
-// dtype 0 is float32, 1 is bfloat16.  Returns the launch's cudaError_t.
+// dtype 0 is float32, 1 is bfloat16, 2 is float16; 1 <= d <= 256.
+// Returns the launch's cudaError_t.
 extern "C" int mxt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int bh, int sq, int sk,
                                   int d, float sm_scale, int causal, int dtype,
@@ -235,6 +241,8 @@ extern "C" int mxt_flash_attn_fwd(const void* q, const void* k, const void* v,
     return (int)dispatch_d<float>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, s);
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, s);
+  if (dtype == 2)
+    return (int)dispatch_d<__half>(q, k, v, o, lse, bh, sq, sk, d, sm_scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

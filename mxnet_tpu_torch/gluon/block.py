@@ -74,10 +74,14 @@ class Block(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
 
-    def _param(self, name, shape):
-        """Register a float32 parameter ``name`` of ``shape``."""
-        self.register_parameter(name, Parameter(torch.zeros(
-            shape, dtype=torch.float32, device=self.device)))
+    def _param(self, name, shape, dtype="float32", init=None):
+        """Register a parameter ``name`` of ``shape`` and ``dtype``;
+        ``init`` (an initializer or its name) fills it in
+        :meth:`initialize` in place of the block-wide one."""
+        p = Parameter(torch.zeros(shape, dtype=getattr(torch, str(dtype)),
+                                  device=self.device))
+        p.init = init
+        self.register_parameter(name, p)
 
     def __call__(self, *args, **kwargs):
         with torch.set_grad_enabled(_autograd.is_recording()):
@@ -88,16 +92,22 @@ class Block(nn.Module):
         return collections.OrderedDict(self.named_parameters())
 
     def initialize(self, init=None, seed=0):
-        """Fill every parameter on its device by its name's suffix:
-        weights from ``init`` (default ``Uniform()``), biases and betas
-        with zeros, gammas with ones.  The draws come from
+        """Fill every parameter on its device: by its own initializer
+        where its layer was given one (``weight_initializer``, ...), else
+        by its name's suffix: weights from ``init`` (default
+        ``Uniform()``), biases and betas with zeros, gammas with ones.
+        The draws come from
         ``numpy.random.RandomState(seed)`` in registration order."""
         rng = np.random.RandomState(seed)
         init = init or _init.Uniform()
         with torch.no_grad():
             for name, p in self.named_parameters():
                 arr = np.zeros(tuple(p.shape), dtype=np.float32)
-                init(name, arr, rng)
+                own = getattr(p, "init", None)
+                if own is None:
+                    init(name, arr, rng)
+                else:
+                    _init.create(own)._init_weight(arr, rng)
                 p.copy_(torch.from_numpy(arr))
         return self
 

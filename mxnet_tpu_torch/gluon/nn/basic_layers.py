@@ -2,8 +2,9 @@
 
 Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` HybridSequential,
 Dense, Activation, Dropout, BatchNorm, LayerNorm and Embedding, with the
-same parameter names and layouts.  The JAX package infers an input width
-on the first call (deferred init); the port takes it at construction
+same parameter names, layouts and positional argument order (``device``
+comes last, as a keyword).  The JAX package infers an input width on the
+first call (deferred init); the port takes it at construction
 (``in_units``, ``in_channels``).
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ... import autograd as _autograd
+from ...base import MXNetError
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
 from ..block import HybridBlock
@@ -41,22 +43,29 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """``x @ weight.T + bias``, weight (units, in_units)."""
+    """``act(x @ weight.T + bias)``, weight (units, in_units), in the
+    reference's argument order (``basic_layers.py:85``): ``activation``
+    names an :class:`Activation` applied after the bias; ``dtype`` is the
+    parameters' type; ``weight_initializer`` and ``bias_initializer``
+    fill them in :meth:`~mxnet_tpu_torch.gluon.Block.initialize`."""
 
-    def __init__(self, units, use_bias=True, flatten=True, in_units=0,
-                 device=None):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, *, device=None):
         super().__init__(device=device)
         self._flatten = flatten
-        self._param("weight", (units, _width(in_units, "in_units")))
+        self._param("weight", (units, _width(in_units, "in_units")), dtype,
+                    weight_initializer)
         if use_bias:
-            self._param("bias", (units,))
+            self._param("bias", (units,), dtype, bias_initializer)
         else:
             self.bias = None
+        self.act = Activation(activation) if activation is not None else None
 
     def forward(self, x):
-        return _ops.fully_connected(x, self.weight, self.bias,
-                                    flatten=self._flatten)
-
+        out = _ops.fully_connected(x, self.weight, self.bias,
+                                   flatten=self._flatten)
+        return self.act(out) if self.act is not None else out
 
 class Activation(HybridBlock):
     """Element-wise activation (:func:`~mxnet_tpu_torch.ops.nn.activation`:
@@ -78,14 +87,17 @@ class Activation(HybridBlock):
 class Dropout(HybridBlock):
     """Dropout of rate ``rate``: drops only in train mode
     (:func:`~mxnet_tpu_torch.autograd.is_training`, on under
-    ``autograd.record()``), the identity otherwise."""
+    ``autograd.record()``), the identity otherwise; the mask is shared
+    along ``axes``."""
 
-    def __init__(self, rate, device=None):
+    def __init__(self, rate, axes=(), *, device=None):
         super().__init__(device=device)
         self._rate = rate
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        return _ops.dropout(x, p=self._rate, training=_autograd.is_training())
+        return _ops.dropout(x, p=self._rate, training=_autograd.is_training(),
+                            axes=self._axes)
 
 
 class BatchNorm(HybridBlock):
@@ -102,7 +114,9 @@ class BatchNorm(HybridBlock):
     (``fix_gamma``) and ``center=False`` keeps beta out of training."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, use_global_stats=False, in_channels=0,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0, *,
                  device=None):
         super().__init__(device=device)
         self._axis = axis
@@ -111,8 +125,11 @@ class BatchNorm(HybridBlock):
         self._scale = scale
         self._use_global_stats = use_global_stats
         c = _width(in_channels, "in_channels")
-        for name in ("gamma", "beta", "running_mean", "running_var"):
-            self._param(name, (c,))
+        for name, init in (("gamma", gamma_initializer),
+                           ("beta", beta_initializer),
+                           ("running_mean", running_mean_initializer),
+                           ("running_var", running_variance_initializer)):
+            self._param(name, (c,), init=init)
         self.gamma.grad_req = "write" if scale else "null"
         self.beta.grad_req = "write" if center else "null"
         self.running_mean.grad_req = "null"
@@ -138,26 +155,42 @@ class BatchNorm(HybridBlock):
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalization over the last axis with ``gamma`` and ``beta``."""
+    """Layer normalization over ``axis`` with ``gamma`` and ``beta`` of
+    ``in_channels``, the reference's argument order (``basic_layers.py:263``);
+    ``center=False`` and ``scale=False`` keep beta and gamma out of
+    training."""
 
-    def __init__(self, epsilon=1e-5, in_channels=0, device=None):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, *, device=None):
         super().__init__(device=device)
+        self._axis = axis
         self._epsilon = epsilon
         c = _width(in_channels, "in_channels")
-        self._param("gamma", (c,))
-        self._param("beta", (c,))
+        self._param("gamma", (c,), init=gamma_initializer)
+        self._param("beta", (c,), init=beta_initializer)
+        self.gamma.grad_req = "write" if scale else "null"
+        self.beta.grad_req = "write" if center else "null"
 
     def forward(self, x):
-        return _ops.layer_norm(x, self.gamma, self.beta, eps=self._epsilon)
+        return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                               eps=self._epsilon)
 
 
 class Embedding(HybridBlock):
-    """Id -> row of ``weight`` (input_dim, output_dim), with the JAX
-    package's index semantics (:func:`~mxnet_tpu_torch.ops.matrix.embedding`)."""
+    """Id -> row of ``weight`` (input_dim, output_dim) of ``dtype``, with
+    the JAX package's index semantics
+    (:func:`~mxnet_tpu_torch.ops.matrix.embedding`).  ``sparse_grad`` (a
+    row-sparse gradient) is not ported and raises."""
 
-    def __init__(self, input_dim, output_dim, device=None):
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, *, device=None):
         super().__init__(device=device)
-        self._param("weight", (input_dim, output_dim))
+        if sparse_grad:
+            raise MXNetError("Embedding: sparse_grad (row-sparse gradients) "
+                             "is not ported")
+        self._param("weight", (input_dim, output_dim), dtype,
+                    weight_initializer)
 
     def forward(self, x):
         return _matrix.embedding(x, self.weight)

@@ -29,7 +29,8 @@ class _Conv(HybridBlock):
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
-                 use_bias=True, device=None):
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", *, device=None):
         super().__init__(device=device)
         _ops._check_nhwc(layout, type(self).__name__)
         self._kwargs = {"kernel": _ops._pair(kernel_size, "kernel_size"),
@@ -43,9 +44,10 @@ class _Conv(HybridBlock):
             raise MXNetError("%s: the port takes groups=1 and dilation=1"
                              % type(self).__name__)
         self._param("weight", (channels,) + self._kwargs["kernel"]
-                    + (_width(in_channels, "in_channels"),))
+                    + (_width(in_channels, "in_channels"),),
+                    init=weight_initializer)
         if use_bias:
-            self._param("bias", (channels,))
+            self._param("bias", (channels,), init=bias_initializer)
         else:
             self.bias = None
         self.act = Activation(activation) if activation is not None else None
@@ -61,15 +63,16 @@ class _Conv(HybridBlock):
 
 
 class Conv2D(_Conv):
-    """2-D convolution over NHWC data (reference: conv_layers.py Conv2D)."""
+    """2-D convolution over NHWC data, in the reference's argument order
+    (conv_layers.py Conv2D, ``:111``)."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1),
                  padding=(0, 0), dilation=(1, 1), groups=1, layout="NCHW",
-                 activation=None, use_bias=True, in_channels=0,
-                 device=None):
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, *, device=None):
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, layout, in_channels, activation, use_bias,
-                         device)
+                         weight_initializer, bias_initializer, device=device)
 
 
 class _Pooling(HybridBlock):

@@ -5,12 +5,14 @@ same dispatch on the parameter name's suffix (``weight`` draws from the
 initializer, ``bias``/``beta`` and ``running_mean`` are zeros, ``gamma``
 and ``running_var`` ones).  Draws come
 from a ``numpy.random.RandomState``, so a seed gives the same weights on
-every device; they cannot match the JAX package's key-based draws.
+every device; they cannot match the JAX package's key-based draws.  A
+layer's own initializer (``weight_initializer``, ``bias_initializer``,
+...) fills its parameter whatever the name, as in the JAX package.
 """
 
 from __future__ import annotations
 
-__all__ = ["Initializer", "Uniform"]
+__all__ = ["Initializer", "Uniform", "Zero", "One", "create"]
 
 
 class Initializer:
@@ -41,3 +43,33 @@ class Uniform(Initializer):
 
     def _init_weight(self, arr, rng):
         arr[...] = rng.uniform(-self.scale, self.scale, size=arr.shape)
+
+
+class Zero(Initializer):
+    """Zeros (reference name ``'zeros'``)."""
+
+    def _init_weight(self, arr, rng):
+        arr[...] = 0.0
+
+
+class One(Initializer):
+    """Ones (reference name ``'ones'``)."""
+
+    def _init_weight(self, arr, rng):
+        arr[...] = 1.0
+
+
+_BY_NAME = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,
+            "uniform": Uniform}
+
+
+def create(init):
+    """``init`` itself if it is an :class:`Initializer`, else the
+    initializer of that name (``'zeros'``, ``'ones'``, ``'uniform'``)."""
+    if isinstance(init, Initializer):
+        return init
+    cls = _BY_NAME.get(str(init).lower())
+    if cls is None:
+        raise ValueError("unknown initializer %r; the port has %s"
+                         % (init, ", ".join(sorted(_BY_NAME))))
+    return cls()

@@ -28,11 +28,27 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["mha_reference", "flash_attention", "flash_attention_bwd_reference",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "HEAD_DIMS"]
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "head_dim_bucket", "HEAD_DIM_BUCKETS", "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels are built for these head dims; a head dim runs in the
+# smallest bucket that holds it, its columns past D loaded as zeros and
+# never stored.  The plain versions take any D.
+HEAD_DIM_BUCKETS = (32, 64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIM_BUCKETS[-1]
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def head_dim_bucket(d):
+    """The head-dim bucket whose kernel instance runs head dim ``d`` on
+    the card (the C launchers pick the same one); raises
+    :class:`MXNetError` past :data:`MAX_HEAD_DIM`."""
+    for bucket in HEAD_DIM_BUCKETS:
+        if 1 <= d <= bucket:
+            return bucket
+    raise MXNetError("flash_attention on the card takes head_dim 1 to %d, "
+                     "not %d" % (MAX_HEAD_DIM, d))
 
 
 def _scale(q, sm_scale):
@@ -116,22 +132,21 @@ def _check(q, k, v):
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise MXNetError("flash_attention shapes disagree: q %s, k %s, v %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    if d not in HEAD_DIMS:
-        raise MXNetError("flash_attention supports head_dim %s, not %d"
-                         % (HEAD_DIMS, d))
     if sq == 0 or k.shape[2] == 0:
         raise MXNetError("flash_attention needs non-empty sequences")
     if not (q.device == k.device == v.device):
         raise MXNetError("q, k and v lie on different devices")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise MXNetError("flash_attention takes q, k, v of one dtype, "
-                         "float32 or bfloat16 (got %s, %s, %s)"
+                         "float32, bfloat16 or float16 (got %s, %s, %s)"
                          % (q.dtype, k.dtype, v.dtype))
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise MXNetError("flash_attention takes contiguous q, k, v")
     if q.device.type not in ("cpu", "cuda"):
         raise MXNetError("flash_attention runs on CPU or CUDA tensors, "
                          "not %s" % q.device)
+    if q.device.type == "cuda":
+        head_dim_bucket(d)
 
 
 def _check_bwd(q, k, do, lse, delta):
@@ -245,7 +260,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, return_lse=False):
     """Fused attention over contiguous (B, H, S, D) tensors of one dtype
-    (float32 or bfloat16), D in :data:`HEAD_DIMS`, any sequence lengths.
+    (float32, bfloat16 or float16), any sequence lengths, any D on the
+    CPU and D up to :data:`MAX_HEAD_DIM` on the card.
 
     Returns O in ``q``'s dtype, and with ``return_lse`` also the rows'
     log-sum-exp, (B, H, Sq) float32 (not differentiable).  ``sm_scale``

@@ -19,8 +19,8 @@ with ``Xp`` the input zero-padded by ``pad`` on both sides.
 - :func:`conv_dw` picks the formulation by the JAX package's rule
   (:func:`formulation`: im2col below 128 input channels) and runs it.
 - :func:`launch_plan` says, from the shapes alone, what a launch runs:
-  bf16 the tensor-core kernel (16-byte or register-staged loads of x and
-  dy), float32 the CUDA-core kernel, with the split-K partition
+  bf16 and float16 the tensor-core kernel (16-byte or register-staged
+  loads of x and dy), float32 the CUDA-core kernel, with the split-K partition
   (:func:`split_plan`) and the workspace.
 
 Every result is float32 (O, KH, KW, I); the caller casts it to the
@@ -42,7 +42,7 @@ __all__ = ["conv_dw", "conv_dw_reference", "conv_dw_pertap",
            "conv_dw_im2col", "formulation", "split_plan", "launch_plan",
            "LaunchPlan"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMS = 132              # streaming multiprocessors of an H100
 # float32, the CUDA-core kernel: 64 x 64 tiles, about four blocks per SM
 _F32_TILE = 64
@@ -60,7 +60,7 @@ _TC_BLOCK_STAGES = 8    # a block's own cost (pipeline fill, epilogue), in
 
 class LaunchPlan(NamedTuple):
     """What one dW launch runs: the C entry point, the kernel (``"tensor-
-    core"`` for bf16, ``"cuda-core"`` for float32), how the tensor-core
+    core"`` for bf16 and float16, ``"cuda-core"`` for float32), how the tensor-core
     kernel loads x and dy (``"16-byte"`` cp.async or ``"register-
     staged"``; ``None`` for the CUDA-core kernel), the output channels of
     its tile (128, or 64 when O <= 64), the split-K partition (``splits``
@@ -143,7 +143,8 @@ def _tc_tile_o(out_channels):
 def launch_plan(form, kernel, stride, pad, x_shape, o, dtype):
     """The :class:`LaunchPlan` of dW by ``form`` for an NHWC ``x_shape``,
     ``kernel``, ``stride``, ``pad`` and ``o`` output channels in
-    ``dtype`` (float32 or bfloat16): a pure function of the shapes."""
+    ``dtype`` (float32, bfloat16 or float16): a pure function of the
+    shapes."""
     n, h, w, ci = x_shape
     kh, kw = kernel
     positions = (n * _out_size(h, kh, stride[0], pad[0])
@@ -182,8 +183,9 @@ def _check(x, dy, kernel, stride, pad):
     if x.device != dy.device:
         raise MXNetError("x and dy lie on different devices")
     if x.dtype != dy.dtype or x.dtype not in _DTYPE_CODES:
-        raise MXNetError("conv_dw takes x and dy of one dtype, float32 or "
-                         "bfloat16 (got %s, %s)" % (x.dtype, dy.dtype))
+        raise MXNetError("conv_dw takes x and dy of one dtype, float32, "
+                         "bfloat16 or float16 (got %s, %s)"
+                         % (x.dtype, dy.dtype))
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise MXNetError("conv_dw takes contiguous NHWC x and dy")
     if x.device.type not in ("cpu", "cuda"):
@@ -256,8 +258,8 @@ def conv_dw_im2col(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
 
 def conv_dw(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
     """dW of an NHWC/OHWI convolution: x (N, H, W, I) and dy (N, OH, OW,
-    O), contiguous, one dtype (float32 or bfloat16).  Returns float32 (O,
-    KH, KW, I) through K1b when I < 128, else K1a."""
+    O), contiguous, one dtype (float32, bfloat16 or float16).  Returns
+    float32 (O, KH, KW, I) through K1b when I < 128, else K1a."""
     run = conv_dw_im2col if formulation(x.shape[-1]) == "im2col" \
         else conv_dw_pertap
     return run(x, dy, tuple(kernel), tuple(stride), tuple(pad))

@@ -7,7 +7,9 @@ CUDA kernel against it on the card.
 
 Tolerance: rtol = atol = 2e-4 in float32, as tests/test_attention.py
 holds the Pallas kernel against its reference (the sums run in another
-order in each package).
+order in each package); 2e-2 for bfloat16 and float16, as the bf16 test
+below (the probabilities are rounded to the input type before the second
+product in both).
 """
 
 import numpy as np
@@ -121,8 +123,8 @@ def test_bf16_plain_version_matches_jax_reference():
                                  "noncontig", "shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 32, 32, 16, 14))
-    if bad == "head_dim":
-        q, k, v = (t[..., :8].contiguous() for t in (q, k, v))
+    if bad == "head_dim":  # q's head dim differs from k's and v's
+        k, v = (t[..., :8].contiguous() for t in (k, v))
     elif bad == "dtype":
         q, k, v = (t.double() for t in (q, k, v))
     elif bad == "mixed_dtype":
@@ -141,3 +143,48 @@ def test_cpu_path_launches_no_kernel():
     before = tatt.flash_attention.launches
     _port(*_inputs(1, 1, 32, 32, 16, 15), causal=True)
     assert tatt.flash_attention.launches == before == 0
+
+
+HEAD_DIMS = (8, 24, 96, 160, 256)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_any_head_dim_matches_jax_kernel(d):
+    """Head dims off the card's buckets (8, 24, 96, 160) and the largest
+    bucket (256): the plain version takes any D, as the Pallas kernel does
+    in interpret mode."""
+    q, k, v = _inputs(1, 2, 128, 128, d, seed=20 + d)
+    want = att.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True, interpret=True, block_q=64,
+                               block_k=64)
+    got, lse = _port(q, k, v, causal=True, return_lse=True)
+    assert got.shape == (1, 2, 128, d) and lse.shape == (1, 2, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_head_dim_buckets_of_the_card():
+    """The kernels' bucket for each head dim, and the limit that raises on
+    the card (checked there by chip_smoke.py phase 3)."""
+    assert [tatt.head_dim_bucket(d) for d in (1, 8, 32, 33, 64, 96, 128,
+                                              129, 160, 256)] \
+        == [32, 32, 32, 64, 64, 128, 128, 256, 256, 256]
+    assert tatt.MAX_HEAD_DIM == 256
+    for d in (0, 257, 264):
+        with pytest.raises(MXNetError, match="head_dim 1 to 256"):
+            tatt.head_dim_bucket(d)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_float16_plain_version_matches_jax_kernel(causal):
+    """float16 in: scores and softmax in float32, probabilities cast to
+    float16 before the second product, float16 out."""
+    q, k, v = _inputs(1, 2, 128, 128, 32, seed=16)
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.float16) for a in (q, k, v))
+    want = np.asarray(att.flash_attention(
+        jq, jk, jv, causal=causal, interpret=True, block_q=64,
+        block_k=64).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).half() for a in (q, k, v))
+    got = tatt.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)

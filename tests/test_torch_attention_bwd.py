@@ -9,7 +9,9 @@ chip_smoke.py holds the CUDA kernels against the plain versions on the card.
 Tolerances: 2e-4 where the same q, k, v, o, lse and dO go through both
 backward functions (float32 sums in another order); 2e-3 for gradients
 through the whole forward and backward, as tests/test_attention.py holds
-the Pallas kernels against ``jax.grad`` of the reference.
+the Pallas kernels against ``jax.grad`` of the reference; 2e-2 for
+bfloat16 and float16 gradients, which are rounded to the input type in
+both.
 """
 
 import numpy as np
@@ -212,3 +214,39 @@ def test_bwd_wrappers_reject_what_the_kernels_do_not_take(bad):
     for fn in (tatt.flash_attention_bwd_dq, tatt.flash_attention_bwd_dkv):
         with pytest.raises(MXNetError):
             fn(q, k, v, do, lse, delta)
+
+
+@pytest.mark.parametrize("d", (8, 24, 96, 160, 256))
+def test_grads_any_head_dim_match_jax_flash_kernels(d):
+    """Gradients at head dims off the card's buckets and at the largest
+    one, against jax.grad of the Pallas kernels in interpret mode."""
+    q, k, v = _qkv(1, 2, 128, 128, d, seed=90 + d)
+
+    def flash(q, k, v):
+        return att.flash_attention(q, k, v, causal=True, interpret=True,
+                                   block_q=64, block_k=64)
+
+    want = _jax_grads(flash, q, k, v)
+    got = _port_grads(q, k, v, causal=True)
+    assert all(g.shape == (1, 2, 128, d) for g in got)
+    _assert_all_close(got, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_float16_grads_match_jax_flash_kernels(causal):
+    """float16 q, k, v: the gradients in float16 against jax.grad of the
+    JAX package's float16 flash attention (Pallas, interpret mode)."""
+    q, k, v = _qkv(1, 2, 128, 128, 32, seed=95)
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.float16) for a in (q, k, v))
+
+    def loss(q, k, v):
+        o = att.flash_attention(q, k, v, causal=causal, interpret=True,
+                                block_q=64, block_k=64).astype(jnp.float32)
+        return jnp.sum(o * jnp.cos(o))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    ts = [torch.from_numpy(a).half().requires_grad_() for a in (q, k, v)]
+    o = tatt.flash_attention(*ts, causal=causal).float()
+    got = torch.autograd.grad((o * torch.cos(o)).sum(), ts)
+    assert all(g.dtype == torch.float16 for g in got)
+    _assert_all_close(got, want, dict(rtol=2e-2, atol=2e-2))

@@ -6,9 +6,12 @@ Tolerances:
 - dW, float32 inputs: 2e-4 (rtol and atol), as tests/test_pallas_conv.py
   holds the Pallas kernel to XLA's dW: sums of up to a few hundred float32
   products in another order;
-- dW, bf16 inputs: 1e-3 of the largest magnitude: each product of two
-  bf16 values is exact in float32 in both packages, only the order of the
-  float32 sums differs;
+- dW, bf16 and float16 inputs: 1e-3 of the largest magnitude: each
+  product of two bf16 (or float16) values is exact in float32 in both
+  packages, only the order of the float32 sums differs;
+- the float16 convolution's gradients against jax.grad of the JAX
+  package's float16 convolution: one float16 step (2**-10) of the largest
+  magnitude, both rounded to float16 once;
 - convolution forward, dX and the bias gradient: 1e-5 (rtol and atol),
   one float32 op each, summed in another order by each package.
 """
@@ -316,7 +319,65 @@ def test_what_the_port_does_not_take_raises():
     dy = torch.zeros(1, 3, 3, 8)
     with pytest.raises(MXNetError, match="does not match"):
         cdw.conv_dw(x, dy, (3, 3), (1, 1), (1, 1))
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        cdw.conv_dw(x.half(), dy.half(), (3, 3))
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        cdw.conv_dw(x.double(), dy.double(), (3, 3))
     with pytest.raises(MXNetError, match="contiguous"):
         cdw.conv_dw(x.transpose(1, 2), dy, (3, 3))
+
+
+@pytest.mark.parametrize("form", ["pertap", "im2col"])
+def test_plain_dw_float16_matches_pallas(form):
+    """float16 x and dy: the plain dW in float32 against the Pallas kernel
+    in interpret mode; on the card the tensor-core kernel's f16 instances
+    run (chip_smoke.py phase 3c)."""
+    x, dy = _inputs((4, 9, 9, 8), (3, 3), (2, 2), (1, 1), 16, seed=5)
+    xh, dyh = (jnp.asarray(a, dtype=jnp.float16) for a in (x, dy))
+    want = np.asarray(conv_dw_nhwc(xh, dyh, (3, 3), (2, 2), (1, 1),
+                                   interpret=True, formulation=form))
+    run = cdw.conv_dw_pertap if form == "pertap" else cdw.conv_dw_im2col
+    got = run(torch.from_numpy(x).half(), torch.from_numpy(dy).half(),
+              (3, 3), (2, 2), (1, 1))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("xs,k,s,p,o", [CASES[0], CASES[2],
+                                        ((2, 11, 10, 3), (7, 7), (2, 2),
+                                         (3, 3), 8)])
+def test_float16_convolution_grads_match_jax_grad(xs, k, s, p, o):
+    """The backward of a float16 Convolution, which raised before the port
+    took float16: dX and dW in float16 against jax.grad of the JAX
+    package's float16 convolution."""
+    rs = np.random.RandomState(6)
+    x = rs.normal(size=xs).astype(np.float16)
+    w = rs.normal(size=(o,) + k + xs[3:]).astype(np.float16)
+
+    def jfn(x_, w_):
+        return jnn.convolution(x_, w_, None, kernel=k, stride=s, pad=p,
+                               num_filter=o, no_bias=True, layout="NHWC")
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w))
+    dy = rs.normal(size=want.shape).astype(np.float16)
+    wdx, wdw = vjp(jnp.asarray(dy))
+    tx, tw = (torch.from_numpy(a).requires_grad_() for a in (x, w))
+    got = tnn.convolution(tx, tw, None, kernel=k, stride=s, pad=p,
+                          num_filter=o, layout="NHWC")
+    got.backward(torch.from_numpy(dy))
+    assert tw.grad.dtype == tx.grad.dtype == torch.float16
+    for g, want_g in ((tx.grad, wdx), (tw.grad, wdw)):
+        want_g = np.asarray(want_g, np.float32)
+        np.testing.assert_allclose(g.float().numpy(), want_g, rtol=0,
+                                   atol=2.0 ** -10 * np.abs(want_g).max())
+
+
+def test_float16_launch_plan_is_the_tensor_core_kernel():
+    """float16 runs the bf16 plan: the tensor-core kernel, the same load
+    paths, tiles and split-K partition."""
+    for conv in ((128, 224, 224, 3), (7, 7), (2, 2), (3, 3), 64), \
+            ((128, 7, 7, 512), (3, 3), (1, 1), (1, 1), 512):
+        xs, k, s, p, o = conv
+        form = cdw.formulation(xs[3])
+        half = cdw.launch_plan(form, k, s, p, xs, o, torch.float16)
+        assert half.kernel == "tensor-core"
+        assert half == cdw.launch_plan(form, k, s, p, xs, o, torch.bfloat16)

@@ -148,3 +148,104 @@ def test_ndarray_files_cross_packages(fmt, tmp_path):
         for i, v in enumerate(data):
             np.testing.assert_array_equal(got_t[i].asnumpy(), v)
             np.testing.assert_array_equal(got_j[i].asnumpy(), v)
+
+
+def _jax_layer(cls, args, kwargs, x):
+    """A JAX package layer built with ``args`` and ``kwargs``, initialised
+    and run once on ``x`` (its parameters by structural name, its
+    output)."""
+    import mxnet_tpu as mx
+    from mxnet_tpu.gluon import nn as jgnn
+
+    mx.random.seed(21)
+    layer = getattr(jgnn, cls)(*args, **kwargs)
+    layer.initialize()
+    out = layer(mx.nd.array(x)).asnumpy()
+    return {k: p.data().asnumpy()
+            for k, p in layer._collect_params_with_prefix().items()}, out
+
+
+# the same positional arguments in both packages: (layer, positional
+# arguments, keywords, input shape)
+POSITIONAL = [
+    ("Dense", (4, "relu"), {"in_units": 3}, (5, 3)),
+    ("Dense", (4, "tanh", False), {"in_units": 6}, (5, 6)),
+    ("Dense", (4, None, True, False), {"in_units": 6}, (2, 5, 6)),
+    ("Dense", (4, "sigmoid", True, True, "float32", None, "zeros", 6), {},
+     (2, 3, 2)),
+    ("LayerNorm", (1, 1e-3, True, True, "zeros", "ones", 8), {}, (2, 8, 5)),
+    ("LayerNorm", (-1, 1e-5, False, False), {"in_channels": 7}, (3, 7)),
+    ("Embedding", (10, 3, "float32", None), {}, (2, 4)),
+    ("Conv2D", (6, 3, 1, 1, 1, 1, "NHWC", "relu", True, None, "zeros", 5), {},
+     (2, 7, 7, 5)),
+    ("BatchNorm", (3, 0.9, 1e-5, True, True, False, "zeros", "ones", "zeros",
+                   "ones", 4), {}, (2, 5, 5, 4)),
+]
+
+
+@pytest.mark.parametrize("cls,args,kwargs,shape", POSITIONAL,
+                         ids=[c[0] + str(i) for i, c in enumerate(POSITIONAL)])
+def test_positional_arguments_build_the_jax_layer(cls, args, kwargs, shape):
+    """Each port layer takes the JAX package's positional order
+    (``device`` last, a keyword only): the same arguments build the same
+    layer, whose output matches within 1e-6 with the JAX weights."""
+    from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+
+    rs = np.random.RandomState(22)
+    x = (rs.randint(0, 10, size=shape).astype(np.float32) if cls ==
+         "Embedding" else rs.normal(size=shape).astype(np.float32))
+    params, want = _jax_layer(cls, args, kwargs, x)
+    layer = load_mxnet_tpu_params(
+        getattr(tgnn, cls)(*args, device="cpu", **kwargs), params)
+    with torch.inference_mode():
+        got = layer(_t(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    if args[1:2] == ("relu",):  # Dense(4, 'relu'): the activation applies
+        assert got.min() >= 0 and want.min() >= 0 and (got == 0).any()
+
+
+def test_dropout_takes_axes_second():
+    """Dropout(rate, axes): the mask is shared along ``axes`` in train
+    mode; at inference both packages pass the input through."""
+    import mxnet_tpu as mx
+    from mxnet_tpu.gluon import nn as jgnn
+    from mxnet_tpu_torch import autograd as tautograd
+
+    x = np.ones((4, 6, 5), np.float32)
+    jl, tl = jgnn.Dropout(0.5, (1,)), tgnn.Dropout(0.5, (1,), device="cpu")
+    np.testing.assert_array_equal(tl(_t(x)).numpy(),
+                                  jl(mx.nd.array(x)).asnumpy())
+    with tautograd.record():
+        y = tl(_t(x)).numpy()
+    assert set(np.unique(y)) <= {0.0, 2.0}
+    assert (y == y[:, :1]).all()  # one mask for every index along axis 1
+
+
+def test_layer_initializers_fill_as_jax():
+    """A layer's own initializers fill its parameters whatever the name,
+    as in the JAX package."""
+    from mxnet_tpu.gluon import nn as jgnn
+
+    jd = jgnn.Dense(3, None, True, True, "float32", "ones", "ones", 2)
+    jd.initialize()
+    td = tgnn.Dense(3, None, True, True, "float32", "ones", "ones", 2,
+                    device="cpu").initialize(seed=1)
+    for name in ("weight", "bias"):
+        np.testing.assert_array_equal(getattr(td, name).detach().numpy(),
+                                      getattr(jd, name).data().asnumpy())
+    ln = tgnn.LayerNorm(-1, 1e-5, True, True, "ones", "zeros",
+                        4, device="cpu").initialize()
+    assert ln.beta.detach().tolist() == [1.0] * 4
+    assert ln.gamma.detach().tolist() == [0.0] * 4
+
+
+def test_layer_arguments_the_port_does_not_take_raise():
+    from mxnet_tpu_torch.base import MXNetError
+
+    with pytest.raises(TypeError):  # device is a keyword only
+        tgnn.Dense(3, None, True, True, "float32", None, "zeros", 2, "cpu")
+    with pytest.raises(MXNetError, match="sparse_grad"):
+        tgnn.Embedding(10, 3, "float32", None, True, device="cpu")
+    with pytest.raises(ValueError, match="unknown initializer"):
+        tgnn.Dense(3, in_units=2, weight_initializer="orthogonal",
+                   device="cpu").initialize()

@@ -111,3 +111,42 @@ def test_initialize_is_seeded_and_follows_name_rules():
                        torch.zeros(3 * U))
     assert torch.equal(a["ln_f.gamma"], torch.ones(U))
     assert a["logits.weight"].abs().max() <= 0.07
+
+
+def test_head_dim_96_model_matches_jax():
+    """TransformerLM(units=192, num_heads=2): head dim 96, which the JAX
+    package serves (through its reference attention off the TPU) and the
+    port's plain attention takes on the CPU; logits and the loss's
+    gradient of every parameter against the JAX model's, each within 1e-4
+    of its largest magnitude."""
+    from mxnet_tpu import autograd as jautograd
+    from mxnet_tpu_torch import autograd as tautograd
+
+    mx.random.seed(9)
+    net = JaxLM(V, units=192, num_layers=1, num_heads=2, max_length=32)
+    net.initialize()
+    ids = np.random.RandomState(4).randint(0, V, size=(2, 32)) \
+        .astype(np.float32)
+    want = net(mx.nd.array(ids)).asnumpy()
+    params = {k: p.data().asnumpy()
+              for k, p in net._collect_params_with_prefix().items()}
+    port = load_mxnet_tpu_params(
+        TransformerLM(V, units=192, num_layers=1, num_heads=2, max_length=32,
+                      device="cpu"), params)
+    got = _forward(port, ids)
+    assert got.shape == (2, 32, V)
+    np.testing.assert_allclose(got, want, **TOL)
+
+    jparams = net._collect_params_with_prefix()
+    with jautograd.record():
+        jloss = (net(mx.nd.array(ids)) ** 2).mean()
+    jloss.backward()
+    want_g = {k: p.grad().asnumpy() for k, p in jparams.items()}
+    with tautograd.record():
+        loss = (port(torch.from_numpy(ids)) ** 2).mean()
+    grads = dict(zip(port.state_dict(), torch.autograd.grad(
+        loss, list(port.parameters()))))
+    for k, w in want_g.items():
+        scale = max(float(np.abs(w).max()), 1e-6)
+        np.testing.assert_allclose(grads[k].numpy() / scale, w / scale,
+                                   rtol=0, atol=1e-4, err_msg=k)
