@@ -8,18 +8,23 @@ Phases (any failure raises, and the script exits non-zero):
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel under mxnet_tpu_torch/csrc, compiled by nvcc, with
    ptxas's report (registers, spills; the instances that spill are
-   listed) and, where cuobjdump exists, the count of tensor-core
-   instructions (HGMMA) in the SASS of each bf16 and float16 conv dW
-   kernel, which must not be 0, over 16 instances of each type;
+   listed; a wgmma-serialization warning C7518 fails) and, where
+   cuobjdump exists, the count of tensor-core instructions in the SASS of
+   each tensor-core kernel, which must not be 0: HGMMA in each bf16 and
+   float16 conv dW kernel (16 instances of each type) and in each wgmma
+   instance of the attention backward (12), HMMA in each of its 3xTF32
+   instances (6);
 3. kernels: the attention forward (K3) against its plain PyTorch version
    on the card at the shapes the serving path gives it and at edge shapes
    (float16, head dims 96, 128 and 256 in float32 and float16), with its
-   time, the plain version's, one PyTorch library call's, and the bound;
-   a head dim of 264 raises;
+   time, the plain version's, one PyTorch library call's, and the bound
+   with the kernel's share of it (over 100 % fails: the bound would be
+   wrong); a head dim of 264 raises;
 3b. backward kernels: dQ (K4a) and dK/dV (K4b) against the plain backward
    at the training shape and the same edge shapes, bitwise equal across
-   two launches, with their times, the plain backward's, SDPA's backward
-   and the bounds;
+   two launches, with their route, tiles and shared memory
+   (ops/attention.py bwd_launch_plan), their times, the plain backward's,
+   SDPA's backward and the bounds with each kernel's share of its own;
 3c. convolution and pooling kernels: the weight-gradient kernels K1a
    (per tap) and K1b (im2col) at every distinct convolution shape of
    ResNet-50 at batch 128 in bf16 (the tensor-core kernel), at two of
@@ -95,6 +100,9 @@ import torch
 # peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12        # bf16 tensor cores
+# float32-accurate work on the tensor cores: 3xTF32 spends three TF32
+# products (495 TFLOP/s) on each float32 one
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12            # HBM3
 
 VOCAB, UNITS, LAYERS, HEADS, SEQ = 32000, 512, 4, 8, 1024
@@ -143,30 +151,47 @@ def environment():
     return smi
 
 
+# the tensor-core libraries: every line of their ptxas report is logged
+TENSOR_CORE_LIBS = ("conv_dw", "flash_attn_bwd")
+# the attention backward's tensor-core instances by route: the marker in
+# the mangled kernel name, the instruction each must hold, and how many
+# there are (wgmma: buckets 32, 64, 128 x bf16, float16 x K4a, K4b;
+# tf32x3: the same buckets in float32)
+BWD_TC_INSTANCES = {"wgmma": ("Wgmma", "HGMMA", 12),
+                    "tf32x3": ("Tf32x3", "HMMA", 6)}
+
+
 def build():
     """Every kernel library, built by nvcc; the ptxas report of each
-    (registers, spills), and for the conv dW library every line of it and
-    the count of tensor-core instructions in each kernel's SASS."""
+    (registers, spills), every line of it for the tensor-core libraries
+    (none may hold ptxas's wgmma-serialization warning C7518), and the
+    count of tensor-core instructions in each kernel's SASS."""
     from mxnet_tpu_torch import _kernels
 
     t0 = time.perf_counter()
     names = _kernels.build_all()
     log("build: %s in %.1f s" % (names, time.perf_counter() - t0))
-    spills = []
+    spills, serialized = [], []
     for name in names:
         func = None
         for line in (_kernels.build_log(name) or "").splitlines():
             if "Compiling entry function" in line:
                 func = line.split("'")[1] if "'" in line else line
-            if name == "conv_dw" and line.strip() or "registers" in line \
-                    or "spill" in line:
+            if name in TENSOR_CORE_LIBS and line.strip() \
+                    or "registers" in line or "spill" in line:
                 log("  %s: %s" % (name, line.strip()))
             if "spill" in line and not line.strip().endswith(
                     "0 bytes spill stores, 0 bytes spill loads"):
                 spills.append("%s %s" % (name, func))
+            if "C7518" in line:
+                serialized.append("%s %s" % (name, func))
     log("build: %d kernel instances report spills%s" % (
         len(spills), (": " + "; ".join(spills)) if spills else ""))
-    counts = sass_counts("conv_dw", "conv_dw_wgmma_kernel", "HGMMA")
+    if serialized:
+        raise AssertionError("ptxas serialized the wgmmas of %s (C7518)"
+                             % "; ".join(serialized))
+    counts = require_opcode(sass_counts("conv_dw"), "conv_dw",
+                            "conv_dw_wgmma_kernel", "HGMMA")
     # the tensor-core kernel's instances: 2 types (template argument kF16:
     # Lb0 bf16, Lb1 float16) x 2 formulations x 2 x 2 load paths x 2 tiles
     by_type = {t: sum(1 for f in counts if "conv_dw_wgmma_kernelILb%d" % i
@@ -175,13 +200,33 @@ def build():
     if counts and by_type != {"bf16": 16, "float16": 16}:
         raise AssertionError("expected 16 bf16 and 16 float16 tensor-core "
                              "instances of conv_dw, found %s" % by_type)
+    bwd = sass_counts("flash_attn_bwd")
+    for route, (marker, opcode, want) in BWD_TC_INSTANCES.items():
+        found = require_opcode(bwd, "flash_attn_bwd", marker, opcode)
+        log("build: flash_attn_bwd %s instances with %s: %d" % (
+            route, opcode, len(found)))
+        if bwd and len(found) != want:
+            raise AssertionError("expected %d %s instances of flash_attn_bwd,"
+                                 " found %d" % (want, route, len(found)))
 
 
-def sass_counts(name, kernel, opcode):
-    """Log how many ``opcode`` instructions the SASS of each function of
-    library ``name`` holds (cuobjdump); fail if a function whose name
-    holds ``kernel`` has none.  Returns the counts of those functions by
-    (mangled) name; without cuobjdump, says so and returns {}."""
+def require_opcode(counts, name, kernel, opcode):
+    """Fail if a function of ``counts`` (of library ``name``) whose name
+    holds ``kernel`` has no ``opcode`` instruction, or if there is none;
+    returns those functions' counts of it.  Empty without a SASS listing."""
+    if not counts:
+        return {}
+    missing = [f for f, c in counts.items() if kernel in f and not c[opcode]]
+    if missing or not any(kernel in f for f in counts):
+        raise AssertionError("no %s instruction in the SASS of %s %s"
+                             % (opcode, name, missing or kernel))
+    return {f: c[opcode] for f, c in counts.items() if kernel in f}
+
+
+def sass_counts(name):
+    """Log how many tensor-core instructions (HGMMA, HMMA) the SASS of
+    each function of library ``name`` holds (cuobjdump) and return them by
+    (mangled) name; without cuobjdump, say so and return {}."""
     import os
     import re
     import shutil
@@ -208,11 +253,7 @@ def sass_counts(name, kernel, opcode):
     for func, c in sorted(counts.items()):
         log("  %s SASS %s: %s" % (name, func, ", ".join(
             "%s %d" % kv for kv in c.items())))
-    missing = [f for f, c in counts.items() if kernel in f and not c[opcode]]
-    if missing or not any(kernel in f for f in counts):
-        raise AssertionError("no %s instruction in the SASS of %s"
-                             % (opcode, missing or kernel))
-    return {f: c[opcode] for f, c in counts.items() if kernel in f}
+    return counts
 
 
 def time_ms(fn, iters=20):
@@ -228,17 +269,22 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def attention_flops_rate(dtype):
+    """The card's least-time rate for attention's products in ``dtype``:
+    bf16 and float16 on the tensor cores, float32 at float32 accuracy on
+    the tensor cores (3xTF32)."""
+    return PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
 def attention_bound_ms(b, h, sq, sk, d, causal, dtype):
     """Least time for the work: each of q, k, v, o read or written once
-    (and lse), against 4*D flops per unmasked (row, col) pair at the
-    card's rate for the kernel's arithmetic (float32 on the CUDA cores;
-    bf16 inputs could run on the tensor cores)."""
+    (and lse), against 4*D flops per unmasked (row, col) pair at
+    :func:`attention_flops_rate`."""
     pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
     flops = 4.0 * b * h * d * pairs
     esize = torch.finfo(dtype).bits // 8
     nbytes = b * h * d * (2 * sq + 2 * sk) * esize + b * h * sq * 4
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / attention_flops_rate(dtype), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -247,14 +293,13 @@ def attention_bwd_bound_ms(kernel, b, h, sq, sk, d, causal, dtype):
     """Least time for one backward kernel: q, k, v, dO, lse and delta
     read once and its gradients written once, against its flops per
     unmasked (row, col) pair: 6*D for dQ (s, dp, dQ), 8*D for dK/dV (s,
-    dV, dp, dK)."""
+    dV, dp, dK), at :func:`attention_flops_rate`."""
     pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
     flops = (6.0 if kernel == "dq" else 8.0) * b * h * d * pairs
     esize = torch.finfo(dtype).bits // 8
     written = sq if kernel == "dq" else 2 * sk
     nbytes = b * h * (d * (2 * sq + 2 * sk + written) * esize + 2 * sq * 4)
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / attention_flops_rate(dtype), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -309,12 +354,15 @@ def kernels(seed):
         bound, bound_by = attention_bound_ms(b, h, sq, sk, d, causal, dt)
         log("kernel flash_attn_fwd [%s] B=%d H=%d Sq=%d Sk=%d D=%d causal=%s "
             "%s: max_abs_err %.3g (tol %.0e abs+rel), lse err %.3g; "
-            "kernel %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s)"
-            % (name, b, h, sq, sk, d, causal, str(dt).split(".")[1], err,
-               tol, lse_err, ms, plain_ms, lib_ms, bound, bound_by))
+            "kernel %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s, "
+            "%.1f %%)" % (name, b, h, sq, sk, d, causal,
+                          str(dt).split(".")[1], err, tol, lse_err, ms,
+                          plain_ms, lib_ms, bound, bound_by,
+                          100.0 * bound / ms))
         if not ok:
             raise AssertionError("flash_attn_fwd disagrees with its plain "
                                  "version at %s" % name)
+        check_share("flash_attn_fwd", name, ms, bound)
         if name == "bucket 8":  # the slice's largest attention shape
             slice_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": bound_by,
@@ -333,6 +381,14 @@ def kernels(seed):
         raise AssertionError("flash_attention took D=%d on the card"
                              % TOO_WIDE_HEAD_DIM)
     return slice_row
+
+
+def check_share(kernel, case, ms, bound):
+    """A kernel cannot beat the least time the card needs: a share of the
+    bound over 100 % means the bound is wrong."""
+    if ms < bound:
+        raise AssertionError("%s ran in %.4f ms at %s, under its bound of "
+                             "%.4f ms" % (kernel, ms, case, bound))
 
 
 def backward_kernels(seed):
@@ -382,13 +438,19 @@ def backward_kernels(seed):
         del ql, kl, vl, out
         bounds = {kern: attention_bwd_bound_ms(kern, b, h, sq, sk, d, causal,
                                                dt) for kern in ("dq", "dkv")}
+        plan = A.bwd_launch_plan(d, dt)
         log("kernel flash_attn_bwd [%s] B=%d H=%d Sq=%d Sk=%d D=%d causal=%s "
-            "%s: max_abs_err dq %.3g dk %.3g dv %.3g (tol %.0e abs+rel), "
-            "bitwise repeatable %s; dq %.4f ms (bound %.4f, %s), dkv %.4f ms "
-            "(bound %.4f, %s), plain backward %.4f ms, sdpa backward %.4f ms"
+            "%s: route %s (bucket %d, tiles dq %s dkv %s, smem %d + %d B); "
+            "max_abs_err dq %.3g dk %.3g dv %.3g (tol %.0e abs+rel), "
+            "bitwise repeatable %s; dq %.4f ms (bound %.4f, %s, %.1f %%), "
+            "dkv %.4f ms (bound %.4f, %s, %.1f %%), plain backward %.4f ms, "
+            "sdpa backward %.4f ms"
             % (name, b, h, sq, sk, d, causal, str(dt).split(".")[1],
-               errs[0], errs[1], errs[2], tol, same, dq_ms, bounds["dq"][0],
-               bounds["dq"][1], dkv_ms, bounds["dkv"][0], bounds["dkv"][1],
+               plan.route, plan.bucket, plan.dq_tile, plan.dkv_tile,
+               plan.dq_smem, plan.dkv_smem, errs[0], errs[1], errs[2], tol,
+               same, dq_ms, bounds["dq"][0], bounds["dq"][1],
+               100.0 * bounds["dq"][0] / dq_ms, dkv_ms, bounds["dkv"][0],
+               bounds["dkv"][1], 100.0 * bounds["dkv"][0] / dkv_ms,
                plain_ms, lib_ms))
         if not ok:
             raise AssertionError("the backward kernels disagree with the "
@@ -396,6 +458,8 @@ def backward_kernels(seed):
         if not same:
             raise AssertionError("two launches of the backward kernels gave "
                                  "different gradients at %s" % name)
+        check_share("flash_attn_bwd_dq", name, dq_ms, bounds["dq"][0])
+        check_share("flash_attn_bwd_dkv", name, dkv_ms, bounds["dkv"][0])
         if name == "train":
             for kern, ms, err in (("dq", dq_ms, errs[0]),
                                   ("dkv", dkv_ms, max(errs[1:]))):

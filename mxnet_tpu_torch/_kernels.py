@@ -25,7 +25,7 @@ import threading
 from .base import MXNetError
 
 __all__ = ["build_all", "library", "library_path", "build_log", "launch",
-           "CSRC", "NVCC_FLAGS"]
+           "build_variants", "CSRC", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -147,6 +147,36 @@ def build_all():
     with _lock:
         _build_locked()
         return sorted(_libs)
+
+
+def build_variants(name, paths):
+    """Build each source of ``paths``, another version of
+    ``csrc/<name>.cu`` with its C interface, into its own library (one
+    ``nvcc`` each, all started together, ``csrc`` on the include path) and
+    load it with ``name``'s signatures; returns the libraries by file
+    name.  The probes time a kernel beside such variants."""
+    if not paths:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    for i, path in enumerate(paths):
+        out_dir = os.path.join(BUILD_ROOT, "variant%d" % i)
+        os.makedirs(out_dir, exist_ok=True)
+        so = os.path.join(out_dir, "lib%s.so" % name)
+        procs[path] = (so, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, failed = {}, []
+    for path, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("%s (nvcc exit %d):\n%s" % (path, proc.returncode,
+                                                      log))
+            continue
+        libs[os.path.basename(path)] = _load(name, so)
+    if failed:
+        raise MXNetError("building the variants failed: " + "\n".join(failed))
+    return libs
 
 
 def library(name):

@@ -104,6 +104,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 struct Shape {
@@ -172,65 +174,11 @@ __device__ __forceinline__ void step(Pos& q, const Step& st, const Shape& s) {
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_v4(uint32_t dst, const uint32_t (&v)[4]) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
-               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
-               : "memory");
-}
-
-// what cp.async and st.shared wrote becomes visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // shared-memory matrix descriptor of an MN-major operand in 128-byte
-// swizzled atoms of 64 (M or N) x 8 (K) bf16
+// swizzled atoms of 64 (M or N) x 8 (K) bf16: LBO the next atom along M
+// or N, SBO the next 8 positions
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kAtomBytes >> 4) << 16) |  // LBO
-         (static_cast<uint64_t>(1024 >> 4) << 32) |        // SBO
-         (1ull << 62);                                     // 128-byte swizzle
+  return wgmma_desc(addr, kAtomBytes, 1024);
 }
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128], bf16 (or f16) in, float32

@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++ on the CUDA cores.
+// Flash-attention backward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces mxnet_tpu/ops/attention.py::_bwd_dq_kernel (K4a) and
 // ::_bwd_dkv_kernel (K4b), the Pallas TPU kernels behind _bwd_pallas.  They
@@ -8,40 +8,77 @@
 //   p  = exp(s - lse)                  (0 where masked)
 //   dp = dO V^T,  ds = p * (dp - delta) * sm_scale
 //   K4a: dQ = ds K            K4b: dV = p^T dO,  dK = ds^T Q
-// with every product and sum in float32 whatever the input type, and dQ,
-// dK, dV written in the input type.  The causal mask is top-left aligned
-// on absolute indices (col > row), also when Sq != Sk.
+// with float32 sums whatever the input type, and dQ, dK, dV written in the
+// input type.  The causal mask is top-left aligned on absolute indices
+// (col > row), also when Sq != Sk.
 //
-// Design.  The Pallas grids walk one axis sequentially and carry the
-// accumulator across grid steps in VMEM.  Here one thread block owns one
-// output tile and runs that loop itself, with the accumulator in registers,
-// so every output element is written by exactly one block: there are no
-// atomics and the gradients are the same bit for bit from run to run.
+// One thread block owns one output tile and walks the other axis itself,
+// with the accumulator in registers (the Pallas grids carry it across a
+// sequential grid axis), so every output element is written by exactly one
+// block: no atomics, and the gradients are the same bit for bit from run to
+// run.  That keeps the two-kernel split: K4a recomputes S and dP over
+// q-tiles, K4b over k-tiles.
 //  - K4a: one block per (64-row q-tile, batch*head).  Q and dO stay in
 //    shared memory; the block walks the K/V tiles, up to the diagonal when
-//    causal, and accumulates dQ in registers.
-//  - K4b: one block per (64-row k-tile, batch*head).  K and V stay in
-//    shared memory; the block walks the Q/dO tiles, from the first one that
-//    reaches the diagonal when causal, and accumulates dK and dV in
-//    registers.  The score tile is computed transposed (keys down, queries
-//    across) so that each thread's rows of P^T and dS^T are the rows of dK
-//    and dV it owns.
-// The thread grain is the forward's (flash_attn_fwd.cu): 256 threads as a
-// 16 x 16 grid, a (BQ/16) x (BK/16) micro-tile of the BQ x BK score tile
-// per thread, float32 tiles with rows padded by one float so that the
-// strided reads of the dot-product loops hit 32 distinct banks.  One P/dS
-// tile is shared; K4b writes P, accumulates dV, then overwrites it with dS.
-// Shared memory: 4 tiles of rows x (DB+1) plus the P/dS tile (plus 2 x BQ
-// row scalars in K4b), set with cudaFuncSetAttribute.  Tiles are 64 x 64
-// (83 KB at DB=64, 149 KB at DB=128); at DB=256 they would take 273 KB,
-// past the 227 KB a block may have, so that bucket runs 32 x 32 tiles
-// (133 KB), a 2 x 2 micro-tile per thread.
+//    causal, the longest q-tiles first.
+//  - K4b: one block per (64-row k-tile, batch*head).  K and V stay; the
+//    block walks the Q/dO tiles from the first one that reaches the
+//    diagonal.  Its scores are computed transposed (keys down, queries
+//    across), S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T come out
+//    of the products in the accumulator layout of the rows of dV and dK the
+//    thread owns, and feed dV += P^T dO and dK += dS^T Q from registers.
 //
-// Head dims.  The kernels are instantiated for the head-dim buckets DB in
-// {32, 64, 128, 256} and take the runtime head dim d <= DB: columns d..DB
-// are loaded as zeros (they add exactly 0) and never stored, and the rows
-// of the device arrays have pitch d.  Loads and stores are scalar, so any
-// d and row pitch is aligned.  The input type is float32, bf16 or float16.
+// Routes (ops/attention.py bwd_launch_plan names the same for each head
+// dim and type).  The kernels are instantiated for the head-dim buckets DB
+// in {32, 64, 128, 256} and take the runtime head dim d <= DB: columns
+// d..DB are loaded as zeros (they add exactly 0) and never stored.
+//  - "wgmma": bf16 and float16 at DB <= 128, on the tensor cores.  One
+//    warpgroup of 128 threads; S and dP (K4a), S^T and dP^T (K4b) are
+//    wgmma.mma_async m64nNk16 with both operands in shared memory, K-major;
+//    their float32 accumulators become P and dS in registers, are rounded
+//    to the input type (as FA2/FA3 round P, and the forward's plain
+//    version rounds it before P V) and feed the second products as wgmma's
+//    A operand from registers: the accumulator layout of two n8 column
+//    blocks is the A fragment of one k16 step.  The B operand of a second
+//    product (K in dS K; dO and Q in P^T dO and dS^T Q) is MN-major, read
+//    through the 16-bit types' transpose flag from the same tile that the
+//    first product reads K-major: a tile is [DB/64 atoms][rows][64] with
+//    128-byte swizzled rows (16-byte chunk c of row r at c ^ (r & 7)),
+//    which is both the K-major layout of (rows, d) and the MN-major layout
+//    of (d, rows).  No P or dS tile goes through shared memory.  At DB = 32
+//    the tiles keep 64 columns (the 128-byte swizzle), the upper 32 zero.
+//  - "tf32x3": float32 at DB <= 128, on the tensor cores with float32
+//    accuracy: each operand x is split into hi, x rounded to tf32 (to
+//    nearest, ties away), and lo = x - hi, and each product is lo*hi +
+//    hi*lo + hi*hi into float32 accumulators (what the lo*lo term and the
+//    tf32 reading of lo drop is below 2^-20 of a product).  Four warps,
+//    each owning 16 rows, run
+//    mma.sync.m16n8k8.tf32 (PyTorch's memory-efficient attention takes
+//    the same route, CUTLASS's OpMultiplyAddFastF32 on m16n8k8) on the same
+//    tiling as the wgmma route.  Not tf32 wgmma: it takes a shared-memory
+//    operand K-major only (the transpose flag exists for 16-bit types
+//    only), so K4a's K and K4b's dO and Q would need transposed copies,
+//    and the hi/lo split doubles every tile, past the shared memory that
+//    keeps several blocks on an SM.  mma.sync reads its fragments from float32
+//    tiles padded to rows of DB + 4 floats in any layout without bank
+//    conflicts, and splits them in registers; P and dS, also split, feed
+//    the second products from registers: the C fragment of an n8 block is
+//    the A fragment of one k8 step with its k indices permuted (logical k
+//    t and t + 4 are columns 2t and 2t + 1), the B rows read in the same
+//    order.
+//  - "cuda_cores": every type at DB = 256, the design of the first port.
+//    With a 64-row warpgroup tile, K4b's dK and dV accumulators alone
+//    would take 256 registers a thread at DB = 256, and K4a's 128 beside
+//    the scores', so that bucket keeps the CUDA-core kernels: 256 threads
+//    as a 16 x 16 grid, float32 tiles of 32 x 32 rows padded by one float.
+// The tensor-core kernels fill a ring of two stages by cp.async (16-byte
+// copies where d is a multiple of a 16-byte chunk and the rows are
+// aligned, else element by element through registers): the next tile
+// loads while the block computes on the current one.  A block's products,
+// its exponentials and its second products wait on each other in turn;
+// the blocks on an SM (three or four) overlap them.  No branch encloses
+// a wgmma (ptxas would serialize them, its warning C7518); the ragged edge
+// and the causal mask are selects on the scores.
 //
 // The ragged edge is masked here: rows past Sq and columns past Sk are
 // loaded as zeros, get p = 0 (a zero-padded key has s = 0 and would
@@ -50,22 +87,25 @@
 //
 // Bound on the H100.  At the training shape (B=8, H=8, S=1024, D=64,
 // causal) there are 33.6 M unmasked (row, col) pairs.  K4a does 6*D flops
-// per pair (s, dp, dQ): 12.9 GFLOP; K4b 8*D (s, dV, dp, dK): 17.2 GFLOP.
-// TF32 stays off, so this is float32 work on the CUDA cores: at 67 TFLOP/s
-// the bounds are 0.193 ms and 0.257 ms, against about 84 MB of traffic for
-// each kernel, 0.025 ms at 3.35 TB/s.  Both are bound by operations.  This
-// first version reads both operands of every multiply-add from shared
-// memory (1 load per 2 FMAs); tensor cores (wgmma on bf16, or 3xTF32) and
-// TMA are later work.
+// per pair (s, dp, dQ): 12.9 GFLOP; K4b 8*D (s, dV, dp, dK): 17.2 GFLOP,
+// against about 84 MB of traffic for each kernel (0.025 ms at 3.35 TB/s).
+// float32-accurate work on the tensor cores runs at most at 495 / 3 = 165
+// TFLOP/s: 0.078 and 0.104 ms; bf16 and f16 at 989 TFLOP/s: 0.013 and
+// 0.017 ms.  All are bound by operations.  On an H100 at 700 W the
+// kernels take about 21 % of these bounds in float32 and 15 % in bf16 and
+// float16 (PERF.md): in float32 the first two products with their hi/lo
+// splits take 72 % of the time, in bf16 the second products 6 %.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int kThreads = 256;
+#include "hopper.cuh"
+
+namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -73,6 +113,627 @@ __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
+
+// ------------------------------------------------ the tensor cores
+
+namespace tc {
+
+constexpr int kThreads = 128;  // one warpgroup: four warps of 16 rows
+constexpr int kRows = 64;      // rows of the block's own tile
+// slots of the cp.async ring: 3 or 4 were no faster (attn_bwd_probe.py),
+// so the loads are not what holds the kernels back
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 16-bit tiles: rows of kCols = max(DB, 64) elements in 128-byte swizzled
+// atoms of 64 columns, [kCols / 64][rows][64]; each tile starts on a
+// 1024-byte boundary
+template <int DB>
+struct Swizzled {
+  static constexpr int kCols = DB < 64 ? 64 : DB;
+  static constexpr int kElems = 8;  // elements per 16-byte chunk
+  template <int R>
+  __host__ __device__ static constexpr int bytes() { return R * kCols * 2; }
+  // byte offset of 16-byte chunk c of row r in a tile of R rows
+  template <int R>
+  __device__ static uint32_t chunk(int r, int c) {
+    return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  }
+};
+
+// float32 tiles: rows of DB floats padded to DB + 4, so that the fragment
+// reads of mma.sync (8 rows x 4 columns, or 4 row pairs x 8 columns) fall
+// in 32 distinct banks
+template <int DB>
+struct Padded {
+  static constexpr int kCols = DB;
+  static constexpr int kLd = DB + 4;
+  static constexpr int kElems = 4;
+  template <int R>
+  __host__ __device__ static constexpr int bytes() { return R * kLd * 4; }
+  template <int R>
+  __device__ static uint32_t chunk(int r, int c) { return (r * kLd + c * 4) * 4; }
+};
+
+// rows [r0, r0 + R) of a contiguous (rows, d) array into the tile at dst:
+// 16-byte cp.async copies where `vec`, else element by element through
+// registers; zeros past `rows` and past column d
+template <class L, int R, typename U>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const U* __restrict__ src,
+                                          int r0, int rows, int d, bool vec) {
+  constexpr int E = L::kElems;
+  constexpr int C = L::kCols / E;  // chunks a row
+  const uint32_t base = smem_u32(dst);
+  for (int i = threadIdx.x; i < R * C; i += kThreads) {
+    const int r = i / C, c = i % C, gr = r0 + r;
+    const uint32_t at = base + L::template chunk<R>(r, c);
+    if (vec) {
+      const bool ok = gr < rows && c * E < d;
+      cp_async16(at, ok ? src + (int64_t)gr * d + c * E : src, ok);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int col = c * E + e;
+        const uint32_t x = gr < rows && col < d ? (uint32_t)src[(int64_t)gr * d + col] : 0u;
+        if constexpr (sizeof(U) == 2)
+          w[e >> 1] |= x << (16 * (e & 1));
+        else
+          w[e] = x;
+      }
+      st_shared_v4(at, w);
+    }
+  }
+}
+
+// R float32 row scalars from src[r0..] into dst, zeros past `rows`
+template <int R>
+__device__ __forceinline__ void load_row_scalars(float* dst, const float* __restrict__ src,
+                                                 int r0, int rows) {
+  for (int i = threadIdx.x; i < R; i += kThreads) {
+    const bool ok = r0 + i < rows;
+    cp_async4(smem_u32(dst + i), ok ? src + r0 + i : src, ok);
+  }
+}
+
+// ---- the wgmma route: bf16 (kF16 false) and float16
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]: A and B K-major in shared memory
+#define MXT_WGMMA_SS_N64(TYPES)                                              \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %34, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPES " {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                      \
+      "}\n"                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "l"(da), "l"(db), "r"(1))
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], the same with N = 32
+#define MXT_WGMMA_SS_N32(TYPES)                                              \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %18, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPES " {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"                                     \
+      "}\n"                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15])                                                          \
+      : "l"(da), "l"(db), "r"(1))
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers, B MN-major in
+// shared memory (transpose flag 1)
+#define MXT_WGMMA_RS_N64(TYPES)                                              \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %37, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPES " {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"        \
+      "}\n"                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <bool kF16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (kF16)
+    MXT_WGMMA_SS_N64("f16.f16");
+  else
+    MXT_WGMMA_SS_N64("bf16.bf16");
+}
+template <bool kF16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  if constexpr (kF16)
+    MXT_WGMMA_SS_N32("f16.f16");
+  else
+    MXT_WGMMA_SS_N32("bf16.bf16");
+}
+template <bool kF16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kF16)
+    MXT_WGMMA_RS_N64("f16.f16");
+  else
+    MXT_WGMMA_RS_N64("bf16.bf16");
+}
+
+template <int DB, bool kF16>
+struct Wgmma {
+  using T = std::conditional_t<kF16, __half, __nv_bfloat16>;
+  using U = uint16_t;
+  using L = Swizzled<DB>;
+  static constexpr int kCols = L::kCols;  // accumulator columns along d
+  // the rows a step walks: K4a 64 keys; K4b 64 queries, or 32 at DB = 128,
+  // where its dK and dV accumulators take 128 registers a thread
+  static constexpr int kDqStep = 64;
+  static constexpr int kDkvStep = DB > 64 ? 32 : 64;
+
+  // acc[64 x N] += A B^T over DB columns: A the 64 rows of tile a, B the N
+  // rows of tile b, both K-major; a k16 step is 32 bytes into a row, and
+  // every 4 steps the next atom
+  template <int N>
+  __device__ static void nt(float (&acc)[N / 2], const uint8_t* a, const uint8_t* b) {
+    const uint32_t sa = smem_u32(a), sb = smem_u32(b);
+#pragma unroll
+    for (int kk = 0; kk < DB / 16; ++kk)
+      wgmma_ss<kF16>(acc, wgmma_desc(sa + (kk >> 2) * (kRows * 128) + (kk & 3) * 32, 16, 1024),
+                     wgmma_desc(sb + (kk >> 2) * (N * 128) + (kk & 3) * 32, 16, 1024));
+  }
+
+  // S = Q K^T and dP = dO V^T (or their transposes), issued together
+  template <int N>
+  __device__ static void nt2(float (&s)[N / 2], const uint8_t* a1, const uint8_t* b1,
+                             float (&t)[N / 2], const uint8_t* a2, const uint8_t* b2) {
+    wgmma_fence();
+    nt<N>(s, a1, b1);
+    nt<N>(t, a2, b2);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(t);
+  }
+
+  // the A fragments of acc-layout values p[64 x KB], rounded to T: the
+  // accumulator of n8 blocks 2c and 2c + 1 is the A fragment of k16 step c
+  template <int KB>
+  __device__ static void pack(uint32_t (&a)[KB / 16][4], const float (&p)[KB / 2]) {
+#pragma unroll
+    for (int c = 0; c < KB / 16; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = p[8 * c + 2 * i], hi = p[8 * c + 2 * i + 1];
+        if constexpr (kF16) {
+          const __half2 h = __floats2half2_rn(lo, hi);
+          a[c][i] = *reinterpret_cast<const uint32_t*>(&h);
+        } else {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+          a[c][i] = *reinterpret_cast<const uint32_t*>(&h);
+        }
+      }
+  }
+
+  // acc[64 x kCols] += A B: A from registers (KB deep), B the KB rows of
+  // tile b read MN-major, one 64-column atom per wgmma (LBO: the next
+  // atom; SBO: the next 8 rows; a k16 step is 16 rows)
+  template <int KB>
+  __device__ static void nn(float (&acc)[kCols / 2], const uint32_t (&a)[KB / 16][4],
+                            const uint8_t* b) {
+    const uint32_t sb = smem_u32(b);
+#pragma unroll
+    for (int h = 0; h < kCols / 64; ++h)
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk)
+        wgmma_rs<kF16>(*reinterpret_cast<float(*)[32]>(acc + 32 * h), a[kk],
+                       wgmma_desc(sb + h * (KB * 128) + kk * 2048, KB * 128, 1024));
+  }
+
+  template <int KB>
+  __device__ static void pv(float (&acc)[kCols / 2], const float (&p)[KB / 2], const uint8_t* b) {
+    uint32_t a[KB / 16][4];
+    pack<KB>(a, p);
+    wgmma_fence();
+    nn<KB>(acc, a, b);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+
+  template <int KB>
+  __device__ static void pv2(float (&acc1)[kCols / 2], const float (&p1)[KB / 2], const uint8_t* b1,
+                             float (&acc2)[kCols / 2], const float (&p2)[KB / 2], const uint8_t* b2) {
+    uint32_t a1[KB / 16][4], a2[KB / 16][4];
+    pack<KB>(a1, p1);
+    pack<KB>(a2, p2);
+    wgmma_fence();
+    nn<KB>(acc1, a1, b1);
+    nn<KB>(acc2, a2, b2);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc1);
+    fence_acc(acc2);
+  }
+};
+
+// ---- the tf32x3 route: float32
+
+// x = hi + lo: hi is x rounded to tf32 on its bits, to nearest with ties
+// away from zero (what cvt.rna.tf32.f32 gives for a finite x, but on the
+// integer pipe: with cvt for both halves the kernels took 1.38 times as
+// long); lo = x - hi is exact in float32, and the tensor core reads it as
+// tf32 by ignoring its low 13 bits (|lo| <= 2^-11 |x|, so the truncation
+// drops less than 2^-21 |x|; rounding lo on the integer pipe too took 12 %
+// longer).  Times: attn_bwd_probe.py at the training shape, PERF.md.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8] in tf32, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b as three tf32 products, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+template <int DB>
+struct Tf32x3 {
+  using T = float;
+  using U = uint32_t;
+  using L = Padded<DB>;
+  static constexpr int kCols = DB;
+  static constexpr int kLd = L::kLd;
+  // 32 rows a step in both kernels: at DB = 64 a block then takes 70 KB of
+  // shared memory and three fit on an SM (64-row steps, 105 KB and two
+  // blocks an SM, took 6 % longer at the training shape)
+  static constexpr int kDqStep = 32;
+  static constexpr int kDkvStep = 32;
+
+  // acc[64 x N] += A B^T over DB columns, the warp's 16 rows of tile a
+  // against the N rows of tile b (fragments: rows g, g + 8 of A and
+  // columns t, t + 4 of a k8 step; B row 8j + g)
+  template <int N>
+  __device__ static void nt(float (&acc)[N / 2], const uint8_t* a, const uint8_t* b) {
+    const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+    const float* A = reinterpret_cast<const float*>(a) + (warp * 16 + g) * kLd + t;
+    const float* B = reinterpret_cast<const float*>(b) + g * kLd + t;
+#pragma unroll
+    for (int kk = 0; kk < DB / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(A[kk * 8], ah[0], al[0]);
+      split_tf32(A[8 * kLd + kk * 8], ah[1], al[1]);
+      split_tf32(A[kk * 8 + 4], ah[2], al[2]);
+      split_tf32(A[8 * kLd + kk * 8 + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+        mma_3xtf32(acc + 4 * j, ah, al, B[j * 8 * kLd + kk * 8], B[j * 8 * kLd + kk * 8 + 4]);
+    }
+  }
+
+  template <int N>
+  __device__ static void nt2(float (&s)[N / 2], const uint8_t* a1, const uint8_t* b1,
+                             float (&t)[N / 2], const uint8_t* a2, const uint8_t* b2) {
+    nt<N>(s, a1, b1);
+    nt<N>(t, a2, b2);
+  }
+
+  // acc[64 x DB] += P B: P (KB deep) in the accumulator layout, B the KB
+  // rows of tile b.  k8 step c takes P's n8 block c with logical k t and
+  // t + 4 standing for columns 2t and 2t + 1, so B's rows are read in the
+  // same order: 8c + 2t and 8c + 2t + 1
+  template <int KB>
+  __device__ static void pv(float (&acc)[kCols / 2], const float (&p)[KB / 2], const uint8_t* b) {
+    const int g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+    const float* B = reinterpret_cast<const float*>(b) + 2 * t * kLd + g;
+#pragma unroll
+    for (int c = 0; c < KB / 8; ++c) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[4 * c], ah[0], al[0]);
+      split_tf32(p[4 * c + 2], ah[1], al[1]);
+      split_tf32(p[4 * c + 1], ah[2], al[2]);
+      split_tf32(p[4 * c + 3], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j)
+        mma_3xtf32(acc + 4 * j, ah, al, B[8 * c * kLd + 8 * j], B[(8 * c + 1) * kLd + 8 * j]);
+    }
+  }
+
+  template <int KB>
+  __device__ static void pv2(float (&acc1)[kCols / 2], const float (&p1)[KB / 2], const uint8_t* b1,
+                             float (&acc2)[kCols / 2], const float (&p2)[KB / 2], const uint8_t* b2) {
+    pv<KB>(acc1, p1, b1);
+    pv<KB>(acc2, p2, b2);
+  }
+};
+
+// dynamic shared memory: K4a holds Q and dO and a ring of kStages (K,
+// V) stages; K4b K and V and a ring of (Q, dO, lse, delta) stages; plus
+// 1024 bytes to align the tiles
+template <class R, int BK>
+constexpr int dq_smem() {
+  return 2 * R::L::template bytes<kRows>() + 2 * kStages * R::L::template bytes<BK>() +
+         1024;
+}
+template <class R, int BQ>
+constexpr int dkv_smem() {
+  return 2 * R::L::template bytes<kRows>() + 2 * kStages * R::L::template bytes<BQ>() +
+         8 * kStages * BQ + 1024;
+}
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// K4a: dQ for one (64-row q-tile, batch*head); BK keys a step.  Thread
+// (warp w, lane 4g + t) holds rows 16w + g (+8) and, of each n8 column
+// block j, columns 8j + 2t (+1) of every product.
+template <class R, int BK>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_tc_kernel(const typename R::U* __restrict__ q,
+                       const typename R::U* __restrict__ k,
+                       const typename R::U* __restrict__ v,
+                       const typename R::U* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       typename R::T* __restrict__ dq, int sq, int sk, int d,
+                       int num_q, float sm_scale, int causal, int vec) {
+  using L = typename R::L;
+  constexpr int TQ = L::template bytes<kRows>();
+  constexpr int TK = L::template bytes<BK>();
+  constexpr int S = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sQ = aligned_smem(smem_raw);
+  uint8_t* const sO = sQ + TQ;
+  uint8_t* const ring = sO + TQ;  // slot s: K at ring + 2 s TK, then V
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+  // the longest causal rows first: q-tiles run from the last to the first
+  const int qt = num_q - 1 - (int)(blockIdx.x % num_q);
+  const int64_t bh = blockIdx.x / num_q;
+  const int q0 = qt * kRows;
+  const int q_last = min(q0 + kRows, sq) - 1;
+  // causal: K tiles that start past the tile's last row are wholly masked
+  const int k_end = causal ? min(sk, q_last + 1) : sk;
+  const int nk = (k_end + BK - 1) / BK;
+  const typename R::U* kb = k + bh * sk * d;
+  const typename R::U* vb = v + bh * sk * d;
+
+  // K and V tiles j into slot j % S
+  auto load_stage = [&](int j) {
+    uint8_t* st = ring + (j % S) * 2 * TK;
+    load_tile<L, BK>(st, kb, j * BK, sk, d, vec);
+    load_tile<L, BK>(st + TK, vb, j * BK, sk, d, vec);
+  };
+  load_tile<L, kRows>(sQ, q + bh * sq * d, q0, sq, d, vec);
+  load_tile<L, kRows>(sO, dout + bh * sq * d, q0, sq, d, vec);
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < nk) load_stage(j);
+    cp_async_commit();
+  }
+
+  int row[2];
+  float row_lse[2], row_delta[2];  // lse and delta in log2 units
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = q0 + warp * 16 + g + 8 * h;
+    row_lse[h] = row[h] < sq ? lse[bh * sq + row[h]] * kLog2e : 0.f;
+    row_delta[h] = row[h] < sq ? delta[bh * sq + row[h]] : 0.f;
+  }
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float acc[R::kCols / 2];
+#pragma unroll
+  for (int i = 0; i < R::kCols / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll 1
+  for (int j = 0; j < nk; ++j) {
+    // into the slot of stage j - 1, which every thread has finished with
+    if (j + S - 1 < nk) load_stage(j + S - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();  // stage j (and Q, dO) has landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* sK = ring + (j % S) * 2 * TK;
+    const uint8_t* sV = sK + TK;
+
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    R::template nt2<BK>(s, sQ, sK, dp, sO, sV);
+
+    const int k0 = j * BK;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * h + e;
+          const int col = k0 + 8 * jj + 2 * t + e;
+          const bool ok = row[h] < sq && col < sk && !(causal && col > row[h]);
+          // masked, or past the ragged edge: p = 0
+          const float p = ok ? exp2f(fmaf(s[i], scale_log2, -row_lse[h])) : 0.f;
+          dp[i] = p * (dp[i] - row_delta[h]) * sm_scale;
+        }
+    R::template pv<BK>(acc, dp, sK);  // dQ += dS K
+    __syncthreads();  // the stage is consumed before the next load into it
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= sq) continue;
+    typename R::T* out = dq + (bh * sq + row[h]) * d;
+#pragma unroll
+    for (int jj = 0; jj < R::kCols / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jj + 2 * t + e;
+        if (col < d) store(out + col, acc[4 * jj + 2 * h + e]);
+      }
+  }
+}
+
+// K4b: dK and dV for one (64-row k-tile, batch*head); BQ queries a step.
+// The products are transposed: thread (warp w, lane 4g + t) holds keys
+// 16w + g (+8) and, of each n8 block j, queries 8j + 2t (+1).
+template <class R, int BQ>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_tc_kernel(const typename R::U* __restrict__ q,
+                        const typename R::U* __restrict__ k,
+                        const typename R::U* __restrict__ v,
+                        const typename R::U* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        typename R::T* __restrict__ dk, typename R::T* __restrict__ dv,
+                        int sq, int sk, int d, int num_k, float sm_scale, int causal,
+                        int vec) {
+  using L = typename R::L;
+  constexpr int TK = L::template bytes<kRows>();
+  constexpr int TQ = L::template bytes<BQ>();
+  constexpr int S = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sK = aligned_smem(smem_raw);
+  uint8_t* const sV = sK + TK;
+  uint8_t* const ring = sV + TK;  // slot s: Q at ring + 2 s TQ, then dO
+  // slot s: lse and delta of its BQ query rows
+  float* const scalars = reinterpret_cast<float*>(ring + 2 * S * TQ);
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+  // k-tiles in ascending order: when causal the first ones walk the most
+  // q-tiles, so the longest blocks start first
+  const int kt = (int)(blockIdx.x % num_k);
+  const int64_t bh = blockIdx.x / num_k;
+  const int k0 = kt * kRows;
+  // causal: query rows before k0 see no column of this tile
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int nq = q_begin < sq ? (sq - q_begin + BQ - 1) / BQ : 0;
+  const typename R::U* qb = q + bh * sq * d;
+  const typename R::U* ob = dout + bh * sq * d;
+  const float* lb = lse + bh * sq;
+  const float* db = delta + bh * sq;
+
+  load_tile<L, kRows>(sK, k + bh * sk * d, k0, sk, d, vec);
+  load_tile<L, kRows>(sV, v + bh * sk * d, k0, sk, d, vec);
+  // Q, dO, lse and delta tiles i into slot i % S
+  auto load_stage = [&](int i) {
+    const int s = i % S, r0 = q_begin + i * BQ;
+    load_tile<L, BQ>(ring + 2 * s * TQ, qb, r0, sq, d, vec);
+    load_tile<L, BQ>(ring + (2 * s + 1) * TQ, ob, r0, sq, d, vec);
+    load_row_scalars<BQ>(scalars + 2 * s * BQ, lb, r0, sq);
+    load_row_scalars<BQ>(scalars + (2 * s + 1) * BQ, db, r0, sq);
+  };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nq) load_stage(i);
+    cp_async_commit();
+  }
+
+  int key[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) key[h] = k0 + warp * 16 + g + 8 * h;
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float dk_acc[R::kCols / 2], dv_acc[R::kCols / 2];
+#pragma unroll
+  for (int i = 0; i < R::kCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+#pragma unroll 1
+  for (int i = 0; i < nq; ++i) {
+    // into the slot of stage i - 1, which every thread has finished with
+    if (i + S - 1 < nq) load_stage(i + S - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();  // stage i (and K, V) has landed
+    fence_proxy_async();
+    __syncthreads();
+    const int s_ = i % S;
+    const uint8_t* sQ = ring + 2 * s_ * TQ;
+    const uint8_t* sO = sQ + TQ;
+    const float* sL = scalars + 2 * s_ * BQ;
+    const float* sD = sL + BQ;
+
+    float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+    for (int n = 0; n < BQ / 2; ++n) s[n] = dp[n] = 0.f;
+    R::template nt2<BQ>(s, sK, sQ, dp, sV, sO);  // S^T = K Q^T, dP^T = V dO^T
+
+    const int q0 = q_begin + i * BQ;
+#pragma unroll
+    for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * jj + 2 * t + e;  // this thread's query column
+        const int qrow = q0 + c;
+        const float l2 = sL[c] * kLog2e, dl = sD[c];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = 4 * jj + 2 * h + e;
+          const bool ok = qrow < sq && key[h] < sk && !(causal && key[h] > qrow);
+          const float p = ok ? exp2f(fmaf(s[n], scale_log2, -l2)) : 0.f;
+          dp[n] = p * (dp[n] - dl) * sm_scale;
+          s[n] = p;
+        }
+      }
+    R::template pv2<BQ>(dv_acc, s, sO, dk_acc, dp, sQ);  // dV += P^T dO, dK += dS^T Q
+    __syncthreads();  // the stage is consumed before the next load into it
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= sk) continue;
+    typename R::T* dkr = dk + (bh * sk + key[h]) * d;
+    typename R::T* dvr = dv + (bh * sk + key[h]) * d;
+#pragma unroll
+    for (int jj = 0; jj < R::kCols / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jj + 2 * t + e;
+        if (col >= d) continue;
+        store(dkr + col, dk_acc[4 * jj + 2 * h + e]);
+        store(dvr + col, dv_acc[4 * jj + 2 * h + e]);
+      }
+  }
+}
+
+}  // namespace tc
+
+// ------------------------------------------ the CUDA cores: DB = 256
+
+namespace cc {
+
+constexpr int kThreads = 256;
 
 // Rows [r0, r0 + ROWS) and columns [0, D) of a contiguous (rows, d) array
 // into dst as float32, with a row stride of D + 1; zeros for rows past
@@ -98,7 +759,9 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BK * (BQ + 1) + 2 * BQ);
 }
 
-// K4a: dQ for one (q-tile, batch*head).
+// K4a: dQ for one (q-tile, batch*head).  256 threads as a 16 x 16 grid,
+// a (BQ/16) x (BK/16) micro-tile of the score tile per thread; both
+// operands of every multiply-add are read from shared memory.
 template <int D, int BQ, int BK, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -121,7 +784,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  // the longest causal rows first: q-tiles run from the last to the first
   const int qt = num_q - 1 - (int)(blockIdx.x % num_q);
   const int64_t bh = blockIdx.x / num_q;
   const int q0 = qt * BQ;
@@ -139,7 +801,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int q_last = min(q0 + BQ, sq) - 1;
-  // causal: K tiles that start past the tile's last row are wholly masked
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const T* kb = k + bh * sk * d;
   const T* vb = v + bh * sk * d;
@@ -217,7 +878,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K4b: dK and dV for one (k-tile, batch*head).
+// K4b: dK and dV for one (k-tile, batch*head), the score tile transposed
+// (keys down, queries across); one P/dS tile in shared memory takes P,
+// then dS.
 template <int D, int BQ, int BK, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -242,8 +905,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  // k-tiles in ascending order: when causal the first ones walk the most
-  // q-tiles, so the longest blocks start first
   const int kt = (int)(blockIdx.x % num_k);
   const int64_t bh = blockIdx.x / num_k;
   const int k0 = kt * BK;
@@ -256,7 +917,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  // causal: query rows before k0 see no column of this tile
   const int q_begin = causal ? (k0 / BQ) * BQ : 0;
   const T* qb = q + bh * sq * d;
   const T* ob = dout + bh * sq * d;
@@ -366,6 +1026,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+}  // namespace cc
+
+// ------------------------------------------------------- the launches
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -375,59 +1039,117 @@ struct Args {
   cudaStream_t stream;
 };
 
-// the tile edge of a head-dim bucket: 64, or 32 at DB = 256, where 64 x 64
-// tiles would not fit in shared memory
-template <int D>
-constexpr int tile_rows() { return D > 128 ? 32 : 64; }
+// the tensor-core route of a type: wgmma for bf16 and float16, 3xTF32 for
+// float32
+template <int DB, typename T>
+struct Route {
+  using type = tc::Wgmma<DB, std::is_same<T, __half>::value>;
+};
+template <int DB>
+struct Route<DB, float> {
+  using type = tc::Tf32x3<DB>;
+};
 
-template <int D, typename T>
-cudaError_t launch_dq(const Args& a) {
-  constexpr int B = tile_rows<D>();
-  constexpr size_t smem = dq_smem_bytes<D, B, B>();
+// the 16-byte copies need d a multiple of a chunk and aligned rows
+template <class R>
+int vec_loads(const Args& a) {
+  const auto al = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  return a.d % R::L::kElems == 0 && al(a.q) && al(a.k) && al(a.v) && al(a.dout);
+}
+
+template <class R, int BK>
+cudaError_t launch_dq_tc(const Args& a) {
+  constexpr int smem = tc::dq_smem<R, BK>();
   static_assert(smem <= 232448, "a block may have 227 KB of shared memory");
-  auto kern = flash_bwd_dq_kernel<D, B, B, T>;
+  auto kern = tc::flash_bwd_dq_tc_kernel<R, BK>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int num_q = (a.sq + B - 1) / B;
+  using U = typename R::U;
+  const int num_q = (a.sq + tc::kRows - 1) / tc::kRows;
   const unsigned grid = (unsigned)((int64_t)num_q * a.bh);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  kern<<<grid, tc::kThreads, smem, a.stream>>>(
+      static_cast<const U*>(a.q), static_cast<const U*>(a.k),
+      static_cast<const U*>(a.v), static_cast<const U*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.sq, a.sk, a.d, num_q, a.sm_scale, a.causal);
+      static_cast<typename R::T*>(a.dq), a.sq, a.sk, a.d, num_q, a.sm_scale,
+      a.causal, vec_loads<R>(a));
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-cudaError_t launch_dkv(const Args& a) {
-  constexpr int B = tile_rows<D>();
-  constexpr size_t smem = dkv_smem_bytes<D, B, B>();
+template <class R, int BQ>
+cudaError_t launch_dkv_tc(const Args& a) {
+  constexpr int smem = tc::dkv_smem<R, BQ>();
   static_assert(smem <= 232448, "a block may have 227 KB of shared memory");
-  auto kern = flash_bwd_dkv_kernel<D, B, B, T>;
+  auto kern = tc::flash_bwd_dkv_tc_kernel<R, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int num_k = (a.sk + B - 1) / B;
+  using U = typename R::U;
+  const int num_k = (a.sk + tc::kRows - 1) / tc::kRows;
   const unsigned grid = (unsigned)((int64_t)num_k * a.bh);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  kern<<<grid, tc::kThreads, smem, a.stream>>>(
+      static_cast<const U*>(a.q), static_cast<const U*>(a.k),
+      static_cast<const U*>(a.v), static_cast<const U*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.d, num_k,
-      a.sm_scale, a.causal);
+      static_cast<typename R::T*>(a.dk), static_cast<typename R::T*>(a.dv),
+      a.sq, a.sk, a.d, num_k, a.sm_scale, a.causal, vec_loads<R>(a));
   return cudaGetLastError();
+}
+
+// the CUDA-core kernels at DB = 256: 32 x 32 tiles (64 x 64 would take
+// 273 KB of shared memory)
+template <bool DQ, typename T>
+cudaError_t launch_cc(const Args& a) {
+  constexpr int D = 256, B = 32;
+  constexpr size_t smem = DQ ? cc::dq_smem_bytes<D, B, B>() : cc::dkv_smem_bytes<D, B, B>();
+  static_assert(smem <= 232448, "a block may have 227 KB of shared memory");
+  const int tiles = ((DQ ? a.sq : a.sk) + B - 1) / B;
+  const unsigned grid = (unsigned)((int64_t)tiles * a.bh);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  cudaError_t err;
+  if constexpr (DQ) {
+    auto kern = cc::flash_bwd_dq_kernel<D, B, B, T>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, cc::kThreads, smem, a.stream>>>(q, k, v, dout, lse, delta,
+                                                 static_cast<T*>(a.dq), a.sq, a.sk, a.d,
+                                                 tiles, a.sm_scale, a.causal);
+  } else {
+    auto kern = cc::flash_bwd_dkv_kernel<D, B, B, T>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, cc::kThreads, smem, a.stream>>>(q, k, v, dout, lse, delta,
+                                                 static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+                                                 a.sq, a.sk, a.d, tiles, a.sm_scale, a.causal);
+  }
+  return cudaGetLastError();
+}
+
+// one bucket of the tensor-core routes, with its route's steps
+template <bool DQ, int DB, typename T>
+cudaError_t launch_tc(const Args& a) {
+  using R = typename Route<DB, T>::type;
+  if constexpr (DQ)
+    return launch_dq_tc<R, R::kDqStep>(a);
+  else
+    return launch_dkv_tc<R, R::kDkvStep>(a);
 }
 
 template <bool DQ, typename T>
 cudaError_t dispatch_d(const Args& a) {
-  // the smallest head-dim bucket that holds d (ops/attention.py
-  // head_dim_bucket picks the same)
+  // the smallest head-dim bucket that holds d, and its route
+  // (ops/attention.py bwd_launch_plan picks the same)
   const int d = a.d;
-  if (d >= 1 && d <= 32) return DQ ? launch_dq<32, T>(a) : launch_dkv<32, T>(a);
-  if (d > 32 && d <= 64) return DQ ? launch_dq<64, T>(a) : launch_dkv<64, T>(a);
-  if (d > 64 && d <= 128) return DQ ? launch_dq<128, T>(a) : launch_dkv<128, T>(a);
-  if (d > 128 && d <= 256) return DQ ? launch_dq<256, T>(a) : launch_dkv<256, T>(a);
+  if (d >= 1 && d <= 32) return launch_tc<DQ, 32, T>(a);
+  if (d > 32 && d <= 64) return launch_tc<DQ, 64, T>(a);
+  if (d > 64 && d <= 128) return launch_tc<DQ, 128, T>(a);
+  if (d > 128 && d <= 256) return launch_cc<DQ, T>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -17,11 +17,17 @@ seq, head_dim) throughout.
 - The kernel wrappers count their launches: ``flash_attention.launches``
   (forward), ``flash_attention_bwd_dq.launches`` and
   ``flash_attention_bwd_dkv.launches``.
+- :func:`bwd_launch_plan` says how the card runs the backward at a head
+  dim and type: the route (bf16 and float16 on ``wgmma``, float32 as
+  3xTF32 on the tensor cores, the 256 bucket on the CUDA cores), the
+  tiles and the shared memory of each kernel.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +35,8 @@ from ..base import MXNetError
 
 __all__ = ["mha_reference", "flash_attention", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "head_dim_bucket", "HEAD_DIM_BUCKETS", "MAX_HEAD_DIM"]
+           "head_dim_bucket", "HEAD_DIM_BUCKETS", "MAX_HEAD_DIM",
+           "bwd_launch_plan", "BwdLaunchPlan"]
 
 _NEG_INF = -1e30
 # the kernels are built for these head dims; a head dim runs in the
@@ -49,6 +56,55 @@ def head_dim_bucket(d):
             return bucket
     raise MXNetError("flash_attention on the card takes head_dim 1 to %d, "
                      "not %d" % (MAX_HEAD_DIM, d))
+
+
+class BwdLaunchPlan(NamedTuple):
+    """How the card runs the backward kernels K4a and K4b at one head dim
+    and type (``csrc/flash_attn_bwd.cu`` dispatches the same)."""
+
+    route: str       # "wgmma", "tf32x3" or "cuda_cores"
+    bucket: int      # the head-dim bucket of the kernel instances
+    threads: int     # threads of a block
+    dq_tile: tuple   # K4a: (query rows a block owns, key rows a step)
+    dkv_tile: tuple  # K4b: (key rows a block owns, query rows a step)
+    dq_smem: int     # dynamic shared memory of a K4a block, bytes
+    dkv_smem: int    # the same for K4b
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_plan(d, dtype):
+    """The :class:`BwdLaunchPlan` of head dim ``d`` in ``dtype``.
+
+    Buckets 32, 64 and 128 run on the tensor cores with one warpgroup a
+    block owning 64 rows: bf16 and float16 through ``wgmma`` (tiles of
+    ``max(bucket, 64)`` 16-bit columns, 128-byte swizzled), float32 as
+    3xTF32 ``mma.sync`` (rows of ``bucket + 4`` floats).  On ``wgmma`` K4a
+    walks 64 keys a step and K4b 64 queries, or 32 at bucket 128, where
+    its dK and dV accumulators take 128 registers a thread; on 3xTF32 both
+    walk 32, so that three blocks fit on an SM.  Each kernel holds its own
+    two tiles and a ring of two stages of the other two (K4b's stages also
+    hold lse and delta), plus 1024 bytes of alignment.  The 256 bucket
+    keeps the CUDA-core kernels in every type: 256 threads, 32 x 32 float32
+    tiles padded by one float."""
+    bucket = head_dim_bucket(d)
+    if dtype not in _DTYPE_CODES:
+        raise MXNetError("flash_attention takes float32, bfloat16 or "
+                         "float16, not %s" % dtype)
+    if bucket == 256:
+        b, ld = 32, bucket + 1
+        tiles = 4 * (4 * b * ld + b * (b + 1))
+        return BwdLaunchPlan("cuda_cores", bucket, 256, (b, b), (b, b),
+                             tiles, tiles + 4 * 2 * b)
+    if dtype == torch.float32:
+        route, row_bytes, step_k, step_q = "tf32x3", (bucket + 4) * 4, 32, 32
+    else:
+        route, row_bytes = "wgmma", max(bucket, 64) * 2
+        step_k, step_q = 64, (32 if bucket > 64 else 64)
+    rows = 64
+    dq = 2 * rows * row_bytes + 4 * step_k * row_bytes + 1024
+    dkv = 2 * rows * row_bytes + 4 * step_q * row_bytes + 16 * step_q + 1024
+    return BwdLaunchPlan(route, bucket, 128, (rows, step_k), (rows, step_q),
+                         dq, dkv)
 
 
 def _scale(q, sm_scale):

@@ -18,8 +18,6 @@ name and power limit.  Without a CUDA device the script exits 1.
 from __future__ import annotations
 
 import argparse
-import os
-import subprocess
 
 import torch
 import torch.nn.functional as F
@@ -36,27 +34,6 @@ TILES = [(16, 16, 1), (16, 8, 1), (8, 16, 1), (8, 8, 1), (32, 16, 1),
          (16, 32, 1), (32, 32, 1), (4, 32, 1), (16, 16, 2), (8, 8, 2)]
 
 
-def _variants(paths):
-    """Build each source into its own library, one nvcc each, all started
-    together; return the loaded libraries by file name."""
-    procs = {}
-    for i, path in enumerate(paths):
-        d = os.path.join(_kernels.BUILD_ROOT, "probe_variant%d" % i)
-        os.makedirs(d, exist_ok=True)
-        so = os.path.join(d, "libmaxpool_bwd.so")
-        procs[path] = (so, subprocess.Popen(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for path, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit("pool_bwd_probe: building %s failed:\n%s"
-                             % (path, log))
-        libs[os.path.basename(path)] = _kernels._load("maxpool_bwd", so)
-    return libs
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16")
@@ -65,7 +42,7 @@ def main():
     dt = getattr(torch, args.dtype)
     smi = cs.environment()
     libs = {"committed": _kernels.library("maxpool_bwd")}
-    libs.update(_variants(args.variant))
+    libs.update(_kernels.build_variants("maxpool_bwd", args.variant))
     gen = torch.Generator(device="cuda").manual_seed(0)
     n, h, w, c = STEM
     dys = (n, cs._out_size(h, 3, 2, 1), cs._out_size(w, 3, 2, 1), c)

@@ -250,3 +250,162 @@ def test_float16_grads_match_jax_flash_kernels(causal):
     got = torch.autograd.grad((o * torch.cos(o)).sum(), ts)
     assert all(g.dtype == torch.float16 for g in got)
     _assert_all_close(got, want, dict(rtol=2e-2, atol=2e-2))
+
+
+# -- the card's backward kernels: launch plan and rounding points ----------
+#
+# chip_smoke.py holds the kernels to the plain backward within these
+# (its BWD_TOL, abs + rel); the emulations below are held to them against
+# the JAX package's backward kernels before the card.
+CARD_BWD_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2,
+                torch.float16: 1e-2}
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+        torch.float16: jnp.float16}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bwd_launch_plan_agrees_with_head_dim_buckets(dtype):
+    """Every head dim the card takes gets its bucket's plan, on the route
+    of its bucket and type, in a block's 227 KB of shared memory."""
+    for d in range(1, tatt.MAX_HEAD_DIM + 1):
+        plan = tatt.bwd_launch_plan(d, dtype)
+        assert plan.bucket == tatt.head_dim_bucket(d)
+        want = ("cuda_cores" if plan.bucket == 256 else
+                "tf32x3" if dtype == torch.float32 else "wgmma")
+        assert plan.route == want
+        assert max(plan.dq_smem, plan.dkv_smem) <= 232448
+        assert plan.threads == (256 if plan.route == "cuda_cores" else 128)
+    with pytest.raises(MXNetError):
+        tatt.bwd_launch_plan(tatt.MAX_HEAD_DIM + 1, dtype)
+
+
+def _tf32_split(x):
+    """(hi, lo) as the 3xTF32 kernels split float32 ``x``: hi rounded to
+    tf32 on the bits (+ half an ulp of tf32, then the low 13 bits cleared:
+    to nearest, ties away from zero, as cvt.rna.tf32.f32), lo = x - hi as
+    the tensor core reads it, its low 13 bits dropped."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -8192).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & -8192).view(torch.float32)
+    return hi, lo
+
+
+def _mm_3xtf32(spec, a, b):
+    """``einsum(spec, a, b)`` as lo*hi + hi*lo + hi*hi over tf32 halves,
+    each product exact and summed in float32."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    return (torch.einsum(spec, al, bh) + torch.einsum(spec, ah, bl)
+            + torch.einsum(spec, ah, bh))
+
+
+def _kernel_rounding_bwd(q, k, v, o, lse, do, causal, scale):
+    """The card's backward with the kernels' rounding points: float32 with
+    every product 3xTF32; bf16 and float16 with every product in float32
+    from the 16-bit inputs and P and dS rounded to the input type before
+    the second products.  Gradients in the input type."""
+    dt = q.dtype
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    mm = _mm_3xtf32 if dt == torch.float32 else torch.einsum
+    s = mm("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        sq, sk = s.shape[-2:]
+        s = s.masked_fill(torch.arange(sk) > torch.arange(sq)[:, None],
+                          -1e30)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    delta = (dof * o.float()).sum(-1)
+    dp = mm("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    if dt != torch.float32:
+        p, ds = p.to(dt).float(), ds.to(dt).float()
+    dq = mm("bhqk,bhkd->bhqd", ds, kf)
+    dk = mm("bhqk,bhqd->bhkd", ds, qf)
+    dv = mm("bhqk,bhqd->bhkd", p, dof)
+    return tuple(g.to(dt) for g in (dq, dk, dv))
+
+
+def _emulation_against_pallas(b, h, sq, sk, d, causal, dtype, block, seed):
+    q, k, v, do = (a.astype(np.float32) for a in _arrays(
+        [(b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d)], seed))
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype=_JNP[dtype])
+                       for a in (q, k, v, do))
+    scale = 1.0 / np.sqrt(d)
+    o, lse = att._fwd_pallas(jq, jk, jv, scale, causal, block, block, True)
+    want = att._bwd_pallas(jq, jk, jv, o, lse, jdo, scale, causal, block,
+                           block, True)
+
+    def port(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
+
+    got = _kernel_rounding_bwd(port(jq), port(jk), port(jv), port(o),
+                               torch.from_numpy(np.asarray(lse)), port(jdo),
+                               causal, scale)
+    tol = CARD_BWD_TOL[dtype]
+    _assert_all_close(got, [np.asarray(w, dtype=np.float32) for w in want],
+                      dict(rtol=tol, atol=tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(1, 2, 128, 128, 32, False, 64),
+                                   (1, 2, 128, 128, 32, True, 64),
+                                   (1, 1, 100, 100, 24, True, 20)],
+                         ids=["non-causal", "causal", "ragged"])
+def test_kernel_rounding_points_match_jax_bwd_kernels(dtype, shape):
+    """The rounding points of the card's kernels (3xTF32 products in
+    float32; P and dS rounded to bf16 or float16 before the second
+    products) against _bwd_pallas in interpret mode, within the card's
+    tolerance: the accuracy of the tensor-core routes, checked on the CPU.
+    S = 100 is ragged for the card's 64-row tiles (Pallas runs it in
+    blocks of 20)."""
+    b, h, sq, sk, d, causal, block = shape
+    _emulation_against_pallas(b, h, sq, sk, d, causal, dtype, block,
+                              seed=110 + sq + causal)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_3xtf32_rounding_points_wide_heads_match_jax_bwd_kernels(d):
+    """3xTF32 at a head dim between buckets and at the largest, held to the
+    card's float32 tolerance (2e-3) against _bwd_pallas."""
+    _emulation_against_pallas(1, 2, 128, 128, d, True, torch.float32, 64,
+                              seed=120 + d)
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_backward_is_float32_accurate(d, causal):
+    """The 3xTF32 route against the float32 plain backward on the same
+    operands, at 2e-5: its products are within 2^-20 of float32's, where
+    one TF32 pass (which the card does not take) is about 1e-3 off here."""
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(
+        [(1, 2, 128, d)] * 4, seed=140 + d + causal))
+    o, lse = tatt.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = tatt.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    got = _kernel_rounding_bwd(q, k, v, o, lse, do, causal, 1 / np.sqrt(d))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def test_3xtf32_split_is_float32_accurate():
+    """hi + lo reproduces float32 values to 2^-20 relative, and hi is
+    rounded to nearest with ties away from zero on tf32's 10 bits."""
+    x = torch.from_numpy(np.random.RandomState(130).normal(
+        size=4096).astype(np.float32) * 100)
+    hi, lo = _tf32_split(x)
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((lo.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((x - hi - lo).abs() <= x.abs() * 2.0 ** -20)
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert _tf32_split(tie)[0].tolist() == [1.0 + 2.0 ** -10,
+                                            -(1.0 + 2.0 ** -10)]
+
+
+def test_variant_build_raises_without_a_kernel_to_build(tmp_path):
+    """The probes' variant build raises MXNetError, naming the cause, when
+    nvcc is missing (as on this CPU host) or the source does not build."""
+    from mxnet_tpu_torch import _kernels
+
+    assert _kernels.build_variants("flash_attn_bwd", []) == {}
+    with pytest.raises(MXNetError):
+        _kernels.build_variants("flash_attn_bwd",
+                                [str(tmp_path / "missing.cu")])
