@@ -13,13 +13,21 @@ Phases (any failure raises, and the script exits non-zero):
    each tensor-core kernel, which must not be 0: HGMMA in each bf16 and
    float16 conv dW kernel (16 instances of each type) and in each wgmma
    instance of the attention backward (12), HMMA in each of its 3xTF32
-   instances (6);
+   instances (6); HGMMA in each wgmma instance of the attention forward
+   (6) and in each of its 3xTF32 instances on tf32 wgmma (2), HMMA in
+   its 3xTF32 instance on mma.sync (1); and the forward's launch plan at
+   every head-dim bucket and type, as its C dispatch reports it, equal to
+   ops/attention.py fwd_launch_plan;
 3. kernels: the attention forward (K3) against its plain PyTorch version
    on the card at the shapes the serving path gives it and at edge shapes
-   (float16, head dims 96, 128 and 256 in float32 and float16), with its
-   time, the plain version's, one PyTorch library call's, and the bound
-   with the kernel's share of it (over 100 % fails: the bound would be
-   wrong); a head dim of 264 raises;
+   (float16, head dims 96, 128 and 256 in float32 and float16), bitwise
+   equal across two launches, with its launch plan (ops/attention.py
+   fwd_launch_plan: route, tiles, ring stages, shared memory; each row's
+   equal to the plan its C dispatch reports), its time
+   (and launched alone through its C entry point), the plain version's, one
+   PyTorch library call's, and the bound with the kernel's share of it
+   (over 100 % fails: the bound would be wrong); a head dim of 264
+   raises;
 3b. backward kernels: dQ (K4a) and dK/dV (K4b) against the plain backward
    at the training shape and the same edge shapes, bitwise equal across
    two launches, with their route, tiles and shared memory
@@ -152,13 +160,22 @@ def environment():
 
 
 # the tensor-core libraries: every line of their ptxas report is logged
-TENSOR_CORE_LIBS = ("conv_dw", "flash_attn_bwd")
+TENSOR_CORE_LIBS = ("conv_dw", "flash_attn_bwd", "flash_attn_fwd")
 # the attention backward's tensor-core instances by route: the marker in
 # the mangled kernel name, the instruction each must hold, and how many
 # there are (wgmma: buckets 32, 64, 128 x bf16, float16 x K4a, K4b;
 # tf32x3: the same buckets in float32)
 BWD_TC_INSTANCES = {"wgmma": ("Wgmma", "HGMMA", 12),
                     "tf32x3": ("Tf32x3", "HMMA", 6)}
+# the attention forward's tensor-core instances by the route's type: the
+# marker in its mangled name, the instruction each must hold, and how many
+# there are (wgmma: buckets 32, 64, 128 x bf16, float16; tf32x3 on tf32
+# wgmma: float32 at buckets 32, 64; on mma.sync: float32 at bucket 128)
+FWD_TC_INSTANCES = {"wgmma": ("5WgmmaI", "HGMMA", 6),
+                    "tf32x3 wgmma": ("11Tf32x3WgmmaI", "HGMMA", 2),
+                    "tf32x3 mma.sync": ("6Tf32x3I", "HMMA", 1)}
+# the route codes of mxt_flash_attn_fwd_plan
+FWD_ROUTES = ("cuda_cores", "wgmma", "tf32x3")
 
 
 def build():
@@ -208,6 +225,51 @@ def build():
         if bwd and len(found) != want:
             raise AssertionError("expected %d %s instances of flash_attn_bwd,"
                                  " found %d" % (want, route, len(found)))
+    fwd = sass_counts("flash_attn_fwd")
+    for route, (marker, opcode, want) in FWD_TC_INSTANCES.items():
+        found = require_opcode(fwd, "flash_attn_fwd", marker, opcode)
+        log("build: flash_attn_fwd %s instances with %s: %d" % (
+            route, opcode, len(found)))
+        if fwd and len(found) != want:
+            raise AssertionError("expected %d %s instances of flash_attn_fwd,"
+                                 " found %d" % (want, route, len(found)))
+    check_fwd_plans()
+
+
+def fwd_kernel_plan(d, dtype):
+    """The FwdLaunchPlan that the built K3's C dispatch launches at head
+    dim ``d`` in ``dtype`` (mxt_flash_attn_fwd_plan)."""
+    import ctypes
+
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.ops import attention as A
+
+    out = (ctypes.c_int * 7)()
+    err = _kernels.library("flash_attn_fwd").mxt_flash_attn_fwd_plan(
+        d, A._DTYPE_CODES[dtype], out)
+    if err:
+        raise AssertionError("mxt_flash_attn_fwd_plan(%d, %s) failed: %d"
+                             % (d, dtype, err))
+    return A.FwdLaunchPlan(FWD_ROUTES[out[0]], *out[1:])
+
+
+def check_fwd_plans():
+    """ops/attention.py fwd_launch_plan equals what the C dispatch
+    launches, at the edges of every head-dim bucket in every type."""
+    from mxnet_tpu_torch.ops import attention as A
+
+    dims = sorted({e for b in A.HEAD_DIM_BUCKETS for e in (b // 2 + 1, b)}
+                  | {1})
+    for dt in A._DTYPE_CODES:
+        for d in dims:
+            plan, kernel = A.fwd_launch_plan(d, dt), fwd_kernel_plan(d, dt)
+            if plan != kernel:
+                raise AssertionError(
+                    "fwd_launch_plan(%d, %s) is %s, the C dispatch launches "
+                    "%s" % (d, dt, tuple(plan), tuple(kernel)))
+        log("build: flash_attn_fwd %s plans at head dims %s equal the C "
+            "dispatch's: %s" % (str(dt).split(".")[1], dims, sorted(
+                {tuple(A.fwd_launch_plan(d, dt)) for d in dims})))
 
 
 def require_opcode(counts, name, kernel, opcode):
@@ -269,6 +331,33 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def fwd_launch(q, k, v, causal, lib=None):
+    """A function that launches K3 on q, k, v through the C entry point of
+    ``lib`` (the built ``flash_attn_fwd`` by default) alone, into buffers
+    made here (``.outputs``: O and lse): the kernel's time without the
+    wrapper's host work, which ``time_ms`` of the wrapper also sees when
+    the kernel is shorter than it.  Such launches are not counted."""
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.ops import attention as A
+
+    lib = lib or _kernels.library("flash_attn_fwd")
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    args = [t.data_ptr() for t in (q, k, v, out, lse)] + [
+        b * h, sq, k.shape[2], d, 1.0 / d ** 0.5, int(causal),
+        A._DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        err = lib.mxt_flash_attn_fwd(*args)
+        if err:
+            raise AssertionError("flash_attn_fwd launch failed: %s"
+                                 % lib.mxt_error_string(err).decode())
+
+    run.outputs = (out, lse)
+    return run
+
+
 def attention_flops_rate(dtype):
     """The card's least-time rate for attention's products in ``dtype``:
     bf16 and float16 on the tensor cores, float32 at float32 accuracy on
@@ -328,7 +417,8 @@ TOO_WIDE_HEAD_DIM = 264
 def kernels(seed):
     import torch.nn.functional as F
 
-    from mxnet_tpu_torch.ops.attention import flash_attention, mha_reference
+    from mxnet_tpu_torch.ops.attention import (flash_attention,
+                                               fwd_launch_plan, mha_reference)
 
     cases = [("bucket %d" % b, b, 8, SEQ, SEQ, 64, True, torch.float32)
              for b in BUCKETS] + EDGE_CASES
@@ -339,7 +429,9 @@ def kernels(seed):
         k = torch.randn(b, h, sk, d, device="cuda", generator=gen).to(dt)
         v = torch.randn(b, h, sk, d, device="cuda", generator=gen).to(dt)
         out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        out2, lse2 = flash_attention(q, k, v, causal=causal, return_lse=True)
         torch.cuda.synchronize()
+        same = torch.equal(out, out2) and torch.equal(lse, lse2)
         ref, ref_lse = mha_reference(q, k, v, causal=causal, return_lse=True)
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
@@ -347,27 +439,40 @@ def kernels(seed):
         ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) \
             and lse_err <= 1e-4
         ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+        launch_ms = time_ms(fwd_launch(q, k, v, causal))
+        plan = fwd_launch_plan(d, dt)
+        if plan != fwd_kernel_plan(d, dt):
+            raise AssertionError("fwd_launch_plan(%d, %s) is not the plan "
+                                 "the C dispatch launches" % (d, dt))
         plain_ms = time_ms(lambda: mha_reference(q, k, v, causal=causal))
         # SDPA's causal mask is top-left aligned too
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal))
         bound, bound_by = attention_bound_ms(b, h, sq, sk, d, causal, dt)
         log("kernel flash_attn_fwd [%s] B=%d H=%d Sq=%d Sk=%d D=%d causal=%s "
-            "%s: max_abs_err %.3g (tol %.0e abs+rel), lse err %.3g; "
-            "kernel %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s, "
-            "%.1f %%)" % (name, b, h, sq, sk, d, causal,
-                          str(dt).split(".")[1], err, tol, lse_err, ms,
-                          plain_ms, lib_ms, bound, bound_by,
-                          100.0 * bound / ms))
+            "%s: route %s (bucket %d, %d threads, q-tile %d, %d keys a step, "
+            "%d stages, smem %d B); max_abs_err %.3g (tol %.0e abs+rel), lse "
+            "err %.3g, bitwise repeatable %s; kernel %.4f ms (launched "
+            "alone %.4f ms), plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s, "
+            "%.1f %%; launched alone %.1f %%)" % (
+                name, b, h, sq, sk, d, causal, str(dt).split(".")[1],
+                plan.route, plan.bucket, plan.threads, plan.q_tile,
+                plan.k_step, plan.stages, plan.smem, err, tol, lse_err, same,
+                ms, launch_ms, plain_ms, lib_ms, bound, bound_by,
+                100.0 * bound / ms, 100.0 * bound / launch_ms))
         if not ok:
             raise AssertionError("flash_attn_fwd disagrees with its plain "
                                  "version at %s" % name)
+        if not same:
+            raise AssertionError("two launches of flash_attn_fwd gave "
+                                 "different results at %s" % name)
         check_share("flash_attn_fwd", name, ms, bound)
+        check_share("flash_attn_fwd", name, launch_ms, bound)
         if name == "bucket 8":  # the slice's largest attention shape
             slice_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": bound_by,
                          "library_ms": lib_ms}
-        del q, k, v, out, lse, ref, ref_lse
+        del q, k, v, out, lse, out2, lse2, ref, ref_lse
     torch.cuda.empty_cache()
     from mxnet_tpu_torch.base import MXNetError
 
@@ -1728,6 +1833,8 @@ def main():
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
+                    plan_route=fwd_kernel_plan(UNITS // HEADS,
+                                               torch.float32).route,
                     source="mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
                     replaces="mxnet_tpu/ops/attention.py:63",
                     launches=n, **fwd_row)

@@ -40,6 +40,8 @@ _SIGNATURES = {
                                + [ctypes.c_int] * 4
                                + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p]),
+        "mxt_flash_attn_fwd_plan": (ctypes.c_int, [ctypes.c_int] * 2
+                                    + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "flash_attn_bwd": {

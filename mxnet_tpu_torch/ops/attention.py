@@ -17,10 +17,11 @@ seq, head_dim) throughout.
 - The kernel wrappers count their launches: ``flash_attention.launches``
   (forward), ``flash_attention_bwd_dq.launches`` and
   ``flash_attention_bwd_dkv.launches``.
-- :func:`bwd_launch_plan` says how the card runs the backward at a head
-  dim and type: the route (bf16 and float16 on ``wgmma``, float32 as
-  3xTF32 on the tensor cores, the 256 bucket on the CUDA cores), the
-  tiles and the shared memory of each kernel.
+- :func:`fwd_launch_plan` and :func:`bwd_launch_plan` say how the card
+  runs the forward and the backward at a head dim and type: the route
+  (bf16 and float16 on ``wgmma``, float32 as 3xTF32 on the tensor cores,
+  the 256 bucket on the CUDA cores), the tiles and the shared memory of
+  each kernel.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from ..base import MXNetError
 __all__ = ["mha_reference", "flash_attention", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "head_dim_bucket", "HEAD_DIM_BUCKETS", "MAX_HEAD_DIM",
-           "bwd_launch_plan", "BwdLaunchPlan"]
+           "fwd_launch_plan", "FwdLaunchPlan", "bwd_launch_plan",
+           "BwdLaunchPlan"]
 
 _NEG_INF = -1e30
 # the kernels are built for these head dims; a head dim runs in the
@@ -56,6 +58,71 @@ def head_dim_bucket(d):
             return bucket
     raise MXNetError("flash_attention on the card takes head_dim 1 to %d, "
                      "not %d" % (MAX_HEAD_DIM, d))
+
+
+def _check_dtype(dtype):
+    if dtype not in _DTYPE_CODES:
+        raise MXNetError("flash_attention takes float32, bfloat16 or "
+                         "float16, not %s" % dtype)
+
+
+class FwdLaunchPlan(NamedTuple):
+    """How the card runs the forward kernel K3 at one head dim and type
+    (``csrc/flash_attn_fwd.cu`` dispatches the same)."""
+
+    route: str    # "wgmma", "tf32x3" or "cuda_cores"
+    bucket: int   # the head-dim bucket of the kernel instance
+    threads: int  # threads of a block
+    q_tile: int   # query rows a block owns
+    k_step: int   # key rows a step of its loop walks
+    stages: int   # slots of the K/V ring (1: loaded in place each step)
+    smem: int     # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_launch_plan(d, dtype):
+    """The :class:`FwdLaunchPlan` of head dim ``d`` in ``dtype``.
+
+    Buckets 32, 64 and 128 run on the tensor cores; every plan adds 1024
+    bytes to align the tiles.  bf16 and float16 through ``wgmma``: a
+    128-row q-tile owned by two warpgroups (256 threads), 64 keys a step,
+    tiles of ``max(bucket, 64)`` 16-bit columns, 128-byte swizzled, and a
+    ``cp.async`` ring of four (K, V) stages (a step reads K of its own
+    stage and V of the one before, while the next two load).  float32 as
+    3xTF32: at buckets 32 and 64 on tf32 ``wgmma`` with the same tiling,
+    in float32 tiles of ``bucket`` columns: Q with its lo part, two slots
+    each holding K and its lo part and V transposed with its lo part, and
+    one staging tile for V as it lands (one block an SM at bucket 64); at
+    bucket 128, where that does not fit, on ``mma.sync``: a 64-row q-tile
+    of four warps (128 threads), 32 keys a step, rows of ``bucket + 4``
+    floats, a ring of two (K, V) stages, each tile followed by its lo
+    part.  The 256 bucket keeps the CUDA-core kernel in every type: a
+    ``wgmma`` 64-row tile would hold O's 128 float32 accumulators a thread
+    beside S's 32 and P's 16 fragment registers and the row state, past
+    what a thread keeps in 255 registers; 256 threads over 64 x 64 float32
+    tiles padded by one float (Q, K, V and P in shared memory, loaded in
+    place)."""
+    bucket = head_dim_bucket(d)
+    _check_dtype(dtype)
+    if bucket == 256:
+        b = 64
+        smem = 4 * (2 * b * (bucket + 1) + b * bucket + b * (b + 1))
+        return FwdLaunchPlan("cuda_cores", bucket, 256, b, b, 1, smem)
+    if dtype == torch.float32 and bucket == 128:
+        rows, step, stages, row_bytes = 64, 32, 2, (bucket + 4) * 4
+        tiles = 2 * (rows + 2 * stages * step)  # each with its lo part
+        return FwdLaunchPlan("tf32x3", bucket, 128, rows, step, stages,
+                             tiles * row_bytes + 1024)
+    rows, step = 128, 64
+    if dtype == torch.float32:
+        # Q and lo; two slots of K, lo, V^T, lo; the staging tile
+        stages, row_bytes = 2, bucket * 4
+        return FwdLaunchPlan("tf32x3", bucket, 256, rows, step, stages,
+                             (2 * rows + (4 * stages + 1) * step) * row_bytes
+                             + 1024)
+    stages, row_bytes = 4, max(bucket, 64) * 2
+    return FwdLaunchPlan("wgmma", bucket, 256, rows, step, stages,
+                         (rows + 2 * stages * step) * row_bytes + 1024)
 
 
 class BwdLaunchPlan(NamedTuple):
@@ -87,9 +154,7 @@ def bwd_launch_plan(d, dtype):
     keeps the CUDA-core kernels in every type: 256 threads, 32 x 32 float32
     tiles padded by one float."""
     bucket = head_dim_bucket(d)
-    if dtype not in _DTYPE_CODES:
-        raise MXNetError("flash_attention takes float32, bfloat16 or "
-                         "float16, not %s" % dtype)
+    _check_dtype(dtype)
     if bucket == 256:
         b, ld = 32, bucket + 1
         tiles = 4 * (4 * b * ld + b * (b + 1))

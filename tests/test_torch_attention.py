@@ -188,3 +188,130 @@ def test_float16_plain_version_matches_jax_kernel(causal):
     assert got.dtype == torch.float16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                atol=2e-2)
+
+
+# -- the card's forward kernel: launch plan and rounding points ------------
+#
+# chip_smoke.py holds the kernel to the plain version within its TOL (abs +
+# rel) and the lse within 1e-4; the emulation below is held to them
+# against the JAX package's forward kernel before the card.
+from tests.test_torch_attention_bwd import _mm_3xtf32  # noqa: E402
+
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+CARD_LSE_TOL = 1e-4
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+        torch.float16: jnp.float16}
+_LOG2E = np.float32(1.4426950408889634)
+_LN2 = np.float32(0.6931471805599453)
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_fwd_launch_plan_agrees_with_head_dim_buckets(dtype):
+    """Every head dim the card takes gets its bucket's plan, on the route
+    of its bucket and type, in a block's 227 KB of shared memory, with the
+    tiles of its products: ``wgmma`` for bf16 and float16 and for float32
+    up to bucket 64 (two warpgroups of 64 rows), ``mma.sync`` for float32
+    at bucket 128 (four warps of 16 rows)."""
+    for d in range(1, tatt.MAX_HEAD_DIM + 1):
+        plan = tatt.fwd_launch_plan(d, dtype)
+        assert plan.bucket == tatt.head_dim_bucket(d)
+        want = ("cuda_cores" if plan.bucket == 256 else
+                "tf32x3" if dtype == torch.float32 else "wgmma")
+        assert plan.route == want
+        assert plan.smem <= 232448
+        products = ("fma" if plan.route == "cuda_cores" else "mma.sync"
+                    if dtype == torch.float32 and plan.bucket == 128
+                    else "wgmma")
+        assert (plan.threads, plan.q_tile, plan.k_step, plan.stages) == {
+            "wgmma": (256, 128, 64, 2 if dtype == torch.float32 else 4),
+            "mma.sync": (128, 64, 32, 2),
+            "fma": (256, 64, 64, 1)}[products]
+    with pytest.raises(MXNetError):
+        tatt.fwd_launch_plan(tatt.MAX_HEAD_DIM + 1, dtype)
+
+
+def _kernel_rounding_fwd(q, k, v, causal, scale, step):
+    """The card's forward with the kernel's rounding points: scores in
+    float32 (3xTF32 for float32 inputs) scaled into log2 units, the online
+    softmax over key steps of ``step`` with exp2 (the running maximum
+    starting at -1e30), P rounded to the input type before P V for bf16 and
+    float16 (3xTF32 with P split for float32); O in the input type, lse in
+    the natural log."""
+    dt = q.dtype
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    mm = _mm_3xtf32 if dt == torch.float32 else torch.einsum
+    s = mm("bhqd,bhkd->bhqk", qf, kf) * (np.float32(scale) * _LOG2E)
+    sq, sk = s.shape[-2:]
+    if causal:
+        s = s.masked_fill(torch.arange(sk) > torch.arange(sq)[:, None],
+                          -1e30)
+    m = torch.full(s.shape[:-1], -1e30)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, sk, step):
+        mx = torch.maximum(m, s[..., k0:k0 + step].amax(-1))
+        corr = torch.exp2(m - mx)
+        p = torch.exp2(s[..., k0:k0 + step] - mx.unsqueeze(-1))
+        l = l * corr + p.sum(-1)
+        if dt != torch.float32:
+            p = p.to(dt).float()
+        acc = acc * corr.unsqueeze(-1) + mm("bhqk,bhkd->bhqd", p,
+                                            vf[..., k0:k0 + step, :])
+        m = mx
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l.unsqueeze(-1)).to(dt), m * _LN2 + torch.log(l)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("shape", [(1, 2, 128, 128, 32, False, 64),
+                                   (1, 2, 128, 128, 32, True, 64),
+                                   (1, 1, 100, 100, 24, True, 20),
+                                   (1, 2, 64, 128, 32, True, 64),
+                                   (1, 2, 128, 64, 40, True, 32)],
+                         ids=["non-causal", "causal", "ragged",
+                              "Sq<Sk", "Sq>Sk"])
+def test_fwd_kernel_rounding_points_match_jax_fwd_kernel(dtype, shape):
+    """The rounding points of the card's forward (3xTF32 products in
+    float32; exp2 over the kernel's key step; P rounded to bf16 or float16
+    before P V) against _fwd_pallas in interpret mode, O within the card's
+    tolerance and lse within 1e-4.  S = 100 is ragged for the card's tiles
+    and key steps (Pallas runs it in blocks of 20); D = 24 and 40 fill no
+    bucket."""
+    b, h, sq, sk, d, causal, block = shape
+    q, k, v = _inputs(b, h, sq, sk, d, seed=200 + sq + sk + d + causal)
+    jq, jk, jv = (jnp.asarray(a, dtype=_JNP[dtype]) for a in (q, k, v))
+    scale = 1.0 / np.sqrt(d)
+    want_o, want_lse = att._fwd_pallas(jq, jk, jv, scale, causal, block,
+                                       block, True)
+
+    def port(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
+
+    got_o, got_lse = _kernel_rounding_fwd(
+        port(jq), port(jk), port(jv), causal, scale,
+        tatt.fwd_launch_plan(d, dtype).k_step)
+    assert got_o.dtype == dtype
+    tol = CARD_TOL[dtype]
+    np.testing.assert_allclose(got_o.float().numpy(),
+                               np.asarray(want_o, dtype=np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=0, atol=CARD_LSE_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_forward_is_float32_accurate(d, causal):
+    """The 3xTF32 route (32 keys a step) against the float32 plain version
+    on the same operands, at 2e-5: its products are within 2^-20 of
+    float32's, where one TF32 pass (which the card does not take) is about
+    1e-3 off here."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 128, 128, d,
+                                                     seed=240 + d + causal))
+    want_o, want_lse = tatt.mha_reference(q, k, v, causal=causal,
+                                          return_lse=True)
+    got_o, got_lse = _kernel_rounding_fwd(q, k, v, causal, 1 / np.sqrt(d),
+                                          32)
+    torch.testing.assert_close(got_o, want_o, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_lse, want_lse, rtol=2e-5, atol=2e-5)
