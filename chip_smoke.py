@@ -48,6 +48,17 @@ Phases (any failure raises, and the script exits non-zero):
    K1 its launch plan, workspace, TFLOP/s and share of the bound, for K2
    its tile plan; one K2 call at the stem shape launches one kernel and
    allocates only dX;
+3d. BatchNorm kernels: the forward K6a and the backward K6b at every
+   distinct BatchNorm shape of ResNet-50 at batch 128 in bf16 (bf16 gamma
+   and beta, as the step casts them), at the stem's and layer 4's in
+   float32 and float16, at C = 5 (the scalar path) and at M = 3; each
+   against its plain version on the card (y, the statistics, the running
+   statistics, dx, dgamma and dbeta within two steps of the type of the
+   plain result's largest magnitude, 1e-4 in float32), bitwise equal
+   across two launches, with its launch plan, time, the plain version's,
+   aten's native_batch_norm (and its backward) on the same tensors, the
+   bound and the share of it (over 100 % fails); axis=1 on the card
+   raises;
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -56,7 +67,10 @@ Phases (any failure raises, and the script exits non-zero):
    CPU; the kernel's launch count must match the batches served;
 5. train: the same model on the card, first one record/backward on a
    (2, 128) batch whose every parameter gradient is held against the same
-   weights' gradients on the CPU plain path, then 10 Adam steps on one
+   weights' gradients on the CPU plain path, then two record/backward
+   calls of a hybridized copy (captured forward and backward graphs, K3,
+   K4a and K4b inside them) against the eager ones within 1e-5 of each
+   largest magnitude, then 10 Adam steps on one
    fixed (8, 1024) batch through autograd.record, SoftmaxCrossEntropyLoss,
    autograd.backward and gluon.Trainer: a finite loss that falls, and K3,
    K4a and K4b each launched once per layer per step; the step time, split
@@ -65,14 +79,22 @@ Phases (any failure raises, and the script exits non-zero):
 6. ResNet-50 v1 training (NHWC): float32 gradients at (4, 64, 64, 3)
    held against the same weights' gradients on the CPU plain path (in
    predict mode every parameter's, in train mode all together against
-   the CPU's own rounding sensitivity), then the main path exactly as the
-   JAX package's bench: GluonTrainStep(lr 0.1, momentum 0.9, wd 1e-4,
-   compute_dtype bfloat16) for 10 steps on one fixed (128, 224, 224, 3)
-   batch: a finite loss whose last value lies below the first, and K1a
-   44, K1b 9 and K2 once per step; the step time, images per second and peak memory; then 3 more
-   steps under torch.profiler, by kernel group;
+   the CPU's own rounding sensitivity); 3 captured steps against 3 eager
+   steps from the same state, bitwise, and the eager step's time; then
+   the main path exactly as the JAX package's bench:
+   GluonTrainStep(lr 0.1, momentum 0.9, wd 1e-4, compute_dtype bfloat16),
+   captured as a CUDA graph, for 10 steps on one fixed (128, 224, 224, 3)
+   batch: a finite loss whose last value lies below the first, and the
+   wrappers' counts over the eager warm-up and the capture, K1a 44, K1b
+   9, K2 1, K6a 53 and K6b 53 each a step; the step time, images per
+   second and peak memory; then 3 more steps (replays) under
+   torch.profiler, by kernel group, with each kernel's launches over
+   them counted in the trace (3 x a step; these go in the kernels line,
+   as null where the trace holds no device kernel); then one
+   make_chained(10) launch, timed;
 7. imperative: (a) every registered op once through mx.nd on the card at a
-   small seeded shape, against the same call on the CPU, then the
+   small seeded shape, against the same call on the CPU (BatchNorm over
+   axis 1 raises there; over the last axis it runs K6a), then the
    TransformerLM's feed-forward written in mx.nd at full width ((8, 1024,
    512) through FullyConnected, gelu LeakyReLU, FullyConnected, residual
    and LayerNorm) under autograd.record with attach_grad on its weights:
@@ -329,6 +351,33 @@ def time_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, replays=3):
+    """The device time of one call of ``fn``: ``iters`` calls captured in
+    one CUDA graph (after warm-up calls on the capture stream) and
+    replayed, so no host work lies between the launches, as in the
+    captured step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def fwd_launch(q, k, v, causal, lib=None):
@@ -753,7 +802,9 @@ def train(seed, smi):
     if worst > GRAD_TOL or qkv == 0:
         raise AssertionError("the card's gradients disagree with the CPU "
                              "plain path")
-    del cpu_net, got, want
+    del cpu_net, want
+    hybrid_check(net, x.cuda(), y.cuda(), got)
+    del got
     net.zero_grad()
 
     # 2. the main path: 10 Adam steps on one fixed batch
@@ -818,6 +869,69 @@ def train(seed, smi):
     return launches
 
 
+# the hybridized model vs eager on the card: the same kernels, cuBLAS
+# products outside and inside a captured graph
+HYBRID_TOL = 1e-5
+
+
+def hybrid_check(net, x, y, want):
+    """Phase 5.1: two record/backward calls of a hybridized copy of
+    ``net`` (the first warms up, captures the forward and backward graphs
+    and replays them; the second replays) against ``want``, the eager
+    gradients of the same weights on the card: logits and every
+    gradient within HYBRID_TOL of its largest magnitude.  K3, K4a and K4b
+    run inside the captured graphs."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+    from mxnet_tpu_torch.ops import attention as A
+
+    hyb = load_mxnet_tpu_params(_lm("cuda"), {
+        k: v.detach().cpu().numpy() for k, v in net.state_dict().items()})
+    hyb.hybridize()
+    with torch.no_grad():
+        logits = net(x)
+    counts = [A.flash_attention.launches, A.flash_attention_bwd_dq.launches,
+              A.flash_attention_bwd_dkv.launches]
+    worst, bitwise = 0.0, True
+    t0 = time.perf_counter()
+    for call in range(2):
+        with autograd.record():
+            out = hyb(x)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, y)
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        if call == 0:
+            first_s = time.perf_counter() - t0
+        errs = {"logits": _bn_err(out.detach(), logits)[1]}
+        for name, p in hyb.collect_params().items():
+            if name in want:
+                errs[name] = _bn_err(p.grad, want[name])[1]
+                bitwise = bitwise and torch.equal(p.grad, want[name])
+        bitwise = bitwise and torch.equal(out.detach(), logits)
+        name = max(errs, key=errs.get)
+        worst = max(worst, errs[name])
+        hyb.zero_grad()
+    (graph,) = hyb._cached_graphs.values()
+    launched = [A.flash_attention.launches, A.flash_attention_bwd_dq.launches,
+                A.flash_attention_bwd_dkv.launches]
+    log("train: hybridized TransformerLM, 2 record/backward calls at (2, "
+        "128) vs eager on the card: worst %.3g of the largest magnitude "
+        "(%s; tol %.0e), bitwise %s; %d cached graph(s), %d calls, %d "
+        "forward replays; the first call (warm-up, capture of both graphs, "
+        "replay) %.2f s; K3, K4a, K4b launched %s times at warm-up and "
+        "capture" % (worst, name, HYBRID_TOL, bitwise,
+                     len(hyb._cached_graphs), graph.calls, graph.replays,
+                     first_s, [b - a for a, b in zip(counts, launched)]))
+    if worst > HYBRID_TOL or graph.replays != 2 or graph.bwd is None:
+        raise AssertionError("the hybridized TransformerLM disagrees with "
+                             "eager execution or did not replay its graphs")
+    if any(b - a != 2 * LAYERS for a, b in zip(counts, launched)):
+        raise AssertionError("the attention kernels were not in the "
+                             "captured graphs")
+    del hyb
+    torch.cuda.empty_cache()
+
+
 def _train_step(net, loss_fn, trainer, x, y):
     from mxnet_tpu_torch import autograd
 
@@ -836,12 +950,17 @@ KERNEL_GROUPS = (("K4b flash_bwd_dkv", ("flash_bwd_dkv",)),
 
 
 def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
-                  tag="train"):
+                  tag="train", count=None):
     """Device time by kernel group and the device's busy share over a
     window of training steps, from a torch.profiler trace.  The profiler
     slows the host, so the device time per step is also given as a share
     of ``step_ms``, the step time measured without it.  ``groups``:
-    (group, substrings of the kernel's name), the first match wins."""
+    (group, substrings of the kernel's name), the first match wins.
+    ``count``: (key, substrings, _) of kernels to count; then the steps
+    are graph replays, the launches of each over the window are returned,
+    and a
+    trace without device kernels (a CUPTI that does not see inside
+    graphs) is reported and gives ``None``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -855,6 +974,11 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans and count is not None:
+        log("%s: the profiler saw no device kernel in %d graph replays "
+            "(%.2f ms of wall): busy share and time by group not measured"
+            % (tag, steps, wall_us / 1e3))
+        return None
     if not spans:
         raise AssertionError("the profiler saw no device kernel")
     totals = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
@@ -879,6 +1003,11 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
             ", ".join("%s %.2f ms (%.1f %%)" % (
                 g, t / steps / 1e3, 100.0 * t / total)
                 for g, t in totals.items())))
+    if count is None:
+        return None
+    return {key: sum(1 for _, _, name in spans
+                     if any(k in name.lower() for k in keys))
+            for key, keys, _ in count}
 
 
 # ---------------------------------------------------------------- ResNet-50
@@ -1184,6 +1313,187 @@ def pool_kernels(seed):
     return row
 
 
+def resnet_bns(batch=RESNET_BATCH, size=RESNET_SIZE):
+    """The (N, H, W, C) input of every BatchNorm of resnet50_v1 at
+    (batch, size, size, 3), in forward order, from a forward on the meta
+    device."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+
+    net = resnet50_v1(layout="NHWC", device="meta")
+    shapes = []
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_hook(
+                lambda _m, args, _o: shapes.append(tuple(args[0].shape)))
+    net(torch.empty(batch, size, size, 3, device="meta"))
+    return shapes
+
+
+# K6a/K6b vs their plain versions on the card, of the plain result's
+# largest magnitude: two steps of the type for bf16 and float16 (a float32
+# sum in another order may move a rounded mean, var or scale by one step);
+# float32 sums over up to 1.6 M rows in another order
+BN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6,
+          torch.float16: 2.0 ** -9}
+BN_EPS, BN_MOMENTUM = 1e-5, 0.9
+# ResNet-50's BatchNorms per training step (its convolutions': 53)
+RESNET_BN = 53
+# the stem's and layer 4's (M, C) at batch 128
+BN_STEM, BN_LAST = (RESNET_BATCH * 112 * 112, 64), (RESNET_BATCH * 49, 2048)
+
+
+def bn_bound_ms(m, c, dtype, passes):
+    """Least time for ``passes`` tensors of (m, c) elements read or written
+    once (the forward reads x and writes y: 2; the backward reads x and dy
+    and writes dx: 3); the per-channel vectors are left out."""
+    esize = torch.finfo(dtype).bits // 8
+    return passes * m * c * esize / PEAK_BYTES * 1e3, "bytes"
+
+
+def _bn_err(got, ref):
+    """max |got - ref| and the share of ref's largest magnitude."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def bn_kernels(seed):
+    """Phase 3d, K6a and K6b: every distinct BatchNorm shape of the main
+    path in bf16 (bf16 gamma and beta, as the step's casts make them), the
+    stem and layer 4 in float32 and float16, C = 5 (the scalar path) and a
+    tiny M; each against its plain version on the card (within BN_TOL of
+    its largest magnitude) and bitwise equal across two launches, with its
+    plan, time, the plain version's, the library call's and the bound;
+    axis=1 on the card raises.  Returns, for each kernel, its numbers
+    summed over the BatchNorms of one training step."""
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.ops import batch_norm as B
+    from mxnet_tpu_torch.ops import nn as N
+
+    counts = {}
+    for n, h, w, c in resnet_bns():
+        counts[(n * h * w, c)] = counts.get((n * h * w, c), 0) + 1
+    cases = [(m, c, torch.bfloat16, k) for (m, c), k in counts.items()]
+    cases += [(m, c, dt, 0) for m, c in (BN_STEM, BN_LAST)
+              for dt in (torch.float32, torch.float16)]
+    cases += [(792, 5, torch.bfloat16, 0), (792, 5, torch.float32, 0),
+              (3, 64, torch.bfloat16, 0)]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    library_ms=0.0, bound_by="bytes")
+            for k in ("fwd", "bwd")}
+    for m, c, dt, per_step in cases:
+        pdt = dt  # gamma and beta in the data's type, as the step casts them
+        x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dt)
+        dy = torch.randn(m, c, device="cuda", generator=gen).to(dt)
+        gamma = (1 + 0.1 * torch.randn(c, device="cuda", generator=gen)).to(
+            pdt)
+        beta = (0.1 * torch.randn(c, device="cuda", generator=gen)).to(pdt)
+        rm = torch.zeros(c, device="cuda")
+        rv = torch.ones(c, device="cuda")
+
+        def fwd(run=B.batch_norm_fwd):
+            m_, v_ = rm.clone(), rv.clone()
+            out = run(x, gamma, beta, m_, v_, BN_EPS, False, False,
+                      BN_MOMENTUM)
+            return out + (m_, v_)
+
+        got, again = fwd(), fwd()
+        ref = fwd(B.batch_norm_fwd_plain)
+        stats = got[3]
+
+        def bwd(run=B.batch_norm_bwd):
+            return run(x, dy, stats, gamma, beta, False, True)
+
+        gotb, againb = bwd(), bwd()
+        refb = bwd(B.batch_norm_bwd_plain)
+        torch.cuda.synchronize()
+        tol = BN_TOL[dt]
+        # y, mean, var, the running mean and var; dx, dgamma, dbeta
+        errs = [_bn_err(got[i], ref[i]) for i in (0, 1, 2, 4, 5)]
+        errsb = [_bn_err(g, r) for g, r in zip(gotb, refb)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again)) and all(
+            torch.equal(a, b) for a, b in zip(gotb, againb))
+        equal_y = (got[0] == ref[0]).float().mean().item()
+        del again, ref, againb, refb
+        plan = B.launch_plan(m, c, dt)
+
+        def fwd_k():
+            return B.batch_norm_fwd(x, gamma, beta, rm, rv, BN_EPS, False,
+                                    False, BN_MOMENTUM)
+
+        # the kernels and the library call in graph replays (device time,
+        # as in the captured step); the wrappers eagerly, for the record
+        ms, ms_b = graph_ms(fwd_k), graph_ms(bwd)
+        eager_ms, eager_b = time_ms(fwd_k), time_ms(bwd)
+        plain_ms = time_ms(lambda: fwd(B.batch_norm_fwd_plain), iters=3)
+        plain_b = time_ms(lambda: bwd(B.batch_norm_bwd_plain), iters=3)
+        # the library: aten's batch norm on the same (M, C) tensors, float32
+        # weights and running statistics (other rounding points: a
+        # yardstick of time only)
+        w32, b32 = gamma.float(), beta.float()
+        lrm, lrv = rm.clone(), rv.clone()
+        _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(
+            x, w32, b32, lrm, lrv, True, 1 - BN_MOMENTUM, BN_EPS)
+        lib_ms = graph_ms(lambda: torch.ops.aten.native_batch_norm(
+            x, w32, b32, lrm, lrv, True, 1 - BN_MOMENTUM, BN_EPS))
+        lib_b = graph_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+            dy, x, w32, lrm, lrv, save_mean, save_invstd, True, BN_EPS,
+            [True, True, True]))
+        bound, _ = bn_bound_ms(m, c, dt, 2)
+        bound_b, _ = bn_bound_ms(m, c, dt, 3)
+        log("kernel batch_norm [M %d C %d %s, %d a step]: %s, %d threads a "
+            "row, %d channel tiles of %d, %d splits of %d rows; fwd errs "
+            "(share of the largest magnitude) y %.3g mean %.3g var %.3g "
+            "running mean %.3g var %.3g, y bitwise equal to the plain "
+            "version at %.4f of its elements; bwd errs dx %.3g dgamma %.3g "
+            "dbeta %.3g (tol %.3g); bitwise repeatable %s; in graph "
+            "replays K6a %.4f ms (%.1f %% of the bound %.4f), "
+            "native_batch_norm %.4f, K6b %.4f ms (%.1f %% of the bound "
+            "%.4f), native_batch_norm_backward %.4f; eager wrapper calls "
+            "K6a %.4f, K6b %.4f; plain %.4f and %.4f" % (
+                m, c, str(dt).split(".")[1], per_step, plan.access,
+                plan.tpr, plan.channel_tiles, plan.tile_c, plan.splits,
+                plan.rows, *(e[1] for e in errs), equal_y,
+                *(e[1] for e in errsb), tol, same, ms, 100.0 * bound / ms,
+                bound, lib_ms, ms_b, 100.0 * bound_b / ms_b, bound_b, lib_b,
+                eager_ms, eager_b, plain_ms, plain_b))
+        if any(e[1] > tol for e in errs + errsb):
+            raise AssertionError("batch_norm disagrees with its plain version "
+                                 "at M %d C %d %s" % (m, c, dt))
+        if not same:
+            raise AssertionError("two launches of batch_norm differ at M %d "
+                                 "C %d %s" % (m, c, dt))
+        check_share("batch_norm_fwd", (m, c, dt), ms, bound)
+        check_share("batch_norm_bwd", (m, c, dt), ms_b, bound_b)
+        for key, row, vals, err in (
+                ("fwd", rows["fwd"], (ms, plain_ms, bound, lib_ms),
+                 errs[0][0]),
+                ("bwd", rows["bwd"], (ms_b, plain_b, bound_b, lib_b),
+                 errsb[0][0])):
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            for name, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                               vals):
+                row[name] += per_step * v
+        del x, dy, got, gotb
+    torch.cuda.empty_cache()
+    for key, row in rows.items():
+        log("kernel batch_norm %s over one ResNet-50 step (%d BatchNorms, "
+            "bf16; kernel and library in graph replays): kernel %.3f ms, "
+            "plain %.3f ms, library %.3f ms, bound %.3f ms" % (
+                key, sum(counts.values()), row["ms"], row["plain_ms"],
+                row["library_ms"], row["bound_ms"]))
+    x = torch.zeros(2, 3, 4, 4, device="cuda")
+    ones = torch.ones(3, device="cuda")
+    try:
+        N.batch_norm(x, ones, ones, ones, ones, axis=1)
+    except MXNetError as e:
+        log("kernel batch_norm: axis=1 on the card raises MXNetError: %s" % e)
+    else:
+        raise AssertionError("batch_norm took axis=1 on the card")
+    return rows
+
+
 def _resnet(device, seed=None):
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 
@@ -1267,6 +1577,10 @@ def resnet_gradient_check(seed):
 # device kernels of the ResNet step by what they do, matched on the
 # kernel's name (the first group that matches wins)
 RESNET_GROUPS = (
+    ("K6a batch_norm fwd", ("bn_stat_sums", "bn_fwd_finish",
+                            "bn_apply_fwd")),
+    ("K6b batch_norm bwd", ("bn_grad_sums", "bn_bwd_finish",
+                            "bn_apply_bwd")),
     # template arguments: the type (false bf16, true float16), then the
     # formulation (false per-tap, true im2col)
     ("K1a conv_dw pertap", ("conv_dw_wgmma_kernel<false, false",
@@ -1282,40 +1596,121 @@ RESNET_GROUPS = (
     ("cuDNN conv fwd/dgrad", ("conv", "cudnn", "xmma", "fprop", "dgrad",
                               "implicit", "gemm", "cutlass", "sm90")),
     ("pooling fwd", ("pool",)),
-    ("BN, ReLU, casts and other element-wise/reductions",
+    ("ReLU, casts and other element-wise/reductions",
      ("elementwise", "reduce", "vectorized", "copy", "fill", "cat")),
 )
+# one kernel of each wrapper's launch, by name, to count launches per step
+# in a trace of graph replays: (wrapper, name substrings, launches a step)
+RESNET_LAUNCH_KERNELS = (
+    ("batch_norm_fwd", ("bn_apply_fwd",), RESNET_BN),
+    ("batch_norm_bwd", ("bn_apply_bwd",), RESNET_BN),
+    ("pertap", ("conv_dw_wgmma_kernel<false, false",
+                "conv_dw_wgmma_kernel<true, false", "conv_dw_kernel<false"),
+     RESNET_K1A),
+    ("im2col", ("conv_dw_wgmma_kernel<false, true",
+                "conv_dw_wgmma_kernel<true, true", "conv_dw_kernel<true"),
+     RESNET_K1B),
+    ("maxpool", ("maxpool_bwd_kernel",), RESNET_K2),
+)
+
+
+def _resnet_counters():
+    from mxnet_tpu_torch.ops import batch_norm as B
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    return {"pertap": C.conv_dw_pertap, "im2col": C.conv_dw_im2col,
+            "maxpool": P.maxpool_bwd, "batch_norm_fwd": B.batch_norm_fwd,
+            "batch_norm_bwd": B.batch_norm_bwd}
+
+
+def _step_state(net, step):
+    return [t.detach().clone() for t in list(net.state_dict().values())
+            + step.opt_state]
+
+
+def captured_vs_eager(seed, x, y):
+    """Phase 6.2: 3 captured steps against 3 eager steps from the same
+    state, bitwise (losses, weights, running statistics, momentum); then
+    3 more eager steps, timed.  Returns the eager step's time."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.parallel import GluonTrainStep
+
+    runs = {}
+    eager_ms = None
+    for capture in (False, True):
+        net = _resnet("cuda", seed)
+        step = GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              lr=0.1, momentum=0.9, wd=1e-4,
+                              compute_dtype="bfloat16")
+        xs, ys = step.put_batch(x, y)
+        # the eager side runs the code that the graph captures
+        run = step if capture else step._eager
+        out = [run(xs, ys) for _ in range(3)]
+        if capture:
+            losses, norms = out, step.last_grad_norm
+        else:
+            losses, norms = [o[0] for o in out], out[-1][1]
+        runs[capture] = (torch.stack(losses).float(), norms,
+                         _step_state(net, step))
+        if not capture:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            for e in ev[1:]:
+                step._eager(xs, ys)
+                e.record()
+            torch.cuda.synchronize()
+            eager_ms = float(np.mean([a.elapsed_time(b)
+                                      for a, b in zip(ev, ev[1:])]))
+        else:
+            graphs = len(step.graphs)
+        del net, step, xs, ys
+        torch.cuda.empty_cache()
+    (le, ne, se), (lc, nc, sc) = runs[False], runs[True]
+    diff = [i for i, (a, b) in enumerate(zip(se, sc)) if not torch.equal(a, b)]
+    log("resnet: 3 captured steps (%d graph) vs 3 eager steps from the same "
+        "state: losses %s vs %s, grad norm %.6g vs %.6g; %d of %d state "
+        "tensors differ (weights, running statistics, momentum)" % (
+            graphs, lc.tolist(), le.tolist(), float(nc), float(ne),
+            len(diff), len(se)))
+    if diff or not torch.equal(le, lc) or not torch.equal(ne, nc):
+        worst = max((_bn_err(sc[i], se[i])[1] for i in diff), default=0.0)
+        raise AssertionError("the captured step differs from the eager step "
+                             "(worst state tensor %.3g of its largest "
+                             "magnitude)" % worst)
+    return eager_ms
 
 
 def resnet_train(seed, smi):
     """Phase 6: the float32 gradient check against the CPU plain path,
-    then the main path (the bench's step), then a profiled window;
+    captured vs eager steps, then the main path (the bench's step,
+    captured), a profiled window of replays, and make_chained(10);
     returns the kernels' launch counts on the main path."""
     from mxnet_tpu_torch import gluon
-    from mxnet_tpu_torch.ops import conv_dw as C
-    from mxnet_tpu_torch.ops import pool_bwd as P
     from mxnet_tpu_torch.parallel import GluonTrainStep
 
     resnet_gradient_check(seed)
     torch.cuda.empty_cache()
     rng = np.random.RandomState(seed + 6)
+    x = rng.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.int32)
+    eager_ms = captured_vs_eager(seed, x, y)
 
-    # the main path: the bench's step, 10 steps on one fixed batch
+    # the main path: the bench's step, captured, 10 steps on one fixed
+    # batch (the first call warms up eagerly, captures and replays)
     net = _resnet("cuda", seed)
     step = GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
                           lr=0.1, momentum=0.9, wd=1e-4,
                           compute_dtype="bfloat16")
-    x = rng.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
-    y = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.int32)
     xs, ys = step.put_batch(x, y)
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
               for _ in range(RESNET_STEPS)]
     losses = []
+    counters = _resnet_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    C.conv_dw_pertap.launches = 0
-    C.conv_dw_im2col.launches = 0
-    P.maxpool_bwd.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     for ev in events:
         ev[0].record()
@@ -1323,41 +1718,83 @@ def resnet_train(seed, smi):
         ev[1].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pertap": C.conv_dw_pertap.launches,
-                "im2col": C.conv_dw_im2col.launches,
-                "maxpool": P.maxpool_bwd.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     # ---- end of the main path
+    (graph,) = step.graphs.values()
     losses = [v.float().item() for v in losses]
     log("resnet: %d GluonTrainStep steps (lr 0.1, momentum 0.9, wd 1e-4, "
-        "bf16 compute) on one (%d, %d, %d, 3) batch: loss %s; grad norm "
-        "%.4g" % (RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_SIZE,
-                  " ".join("%.4f" % v for v in losses),
-                  float(step.last_grad_norm)))
+        "bf16 compute, captured) on one (%d, %d, %d, 3) batch: loss %s; "
+        "grad norm %.4g" % (RESNET_STEPS, RESNET_BATCH, RESNET_SIZE,
+                            RESNET_SIZE, " ".join("%.4f" % v for v in losses),
+                            float(step.last_grad_norm)))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("the ResNet-50 loss is not finite or did not "
                              "fall")
-    expected = {"pertap": RESNET_K1A * RESNET_STEPS,
-                "im2col": RESNET_K1B * RESNET_STEPS,
-                "maxpool": RESNET_K2 * RESNET_STEPS}
-    log("resnet: launches conv_dw pertap %d, im2col %d, maxpool_bwd %d; "
-        "expected %d, %d, %d" % (launches["pertap"], launches["im2col"],
-                                 launches["maxpool"], expected["pertap"],
-                                 expected["im2col"], expected["maxpool"]))
-    if launches != expected:
-        raise AssertionError("the ResNet-50 step did not run K1a, K1b and "
-                             "K2 as often as its convolutions and pool")
+    # the wrappers count where they launch: in the eager warm-up and into
+    # the graph at capture; the replays run the captured launches again
+    per_step = {"pertap": RESNET_K1A, "im2col": RESNET_K1B,
+                "maxpool": RESNET_K2, "batch_norm_fwd": RESNET_BN,
+                "batch_norm_bwd": RESNET_BN}
+    log("resnet: wrapper counts over the main path (1 eager warm-up step + "
+        "1 capture; then %d graph replays) %s; expected 2 x %s" % (
+            graph.replays, launches, per_step))
+    if launches != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError("the ResNet-50 step did not launch K1a, K1b, K2, "
+                             "K6a and K6b once per convolution, pool and "
+                             "BatchNorm")
 
     # the step time (CUDA events, after the warmup steps)
     step_ms = float(np.mean([a.elapsed_time(b)
                              for a, b in events[RESNET_WARMUP:]]))
-    log("resnet: step %.2f ms on %s (mean of %d after %d warmup), %.1f "
-        "images/s; %d steps in %.2f s wall; peak memory %.2f GB" % (
+    log("resnet: step %.2f ms on %s (captured; mean of %d after %d "
+        "warmup), %.1f images/s; the eager step %.2f ms (%.1f images/s); "
+        "%d steps in %.2f s wall (the first: warm-up, capture, replay); "
+        "peak memory %.2f GB" % (
             step_ms, smi, RESNET_STEPS - RESNET_WARMUP, RESNET_WARMUP,
-            RESNET_BATCH / step_ms * 1e3, RESNET_STEPS, wall,
+            RESNET_BATCH / step_ms * 1e3, eager_ms,
+            RESNET_BATCH / eager_ms * 1e3, RESNET_STEPS, wall,
             torch.cuda.max_memory_allocated() / 1e9))
-    profile_steps(lambda: step(xs, ys), smi, step_ms, groups=RESNET_GROUPS,
-                  tag="resnet")
-    return launches
+    traced = 3
+    seen = profile_steps(lambda: step(xs, ys), smi, step_ms, steps=traced,
+                         groups=RESNET_GROUPS, tag="resnet",
+                         count=RESNET_LAUNCH_KERNELS)
+    if seen is not None:
+        want = {k: n * traced for k, _, n in RESNET_LAUNCH_KERNELS}
+        log("resnet: kernel launches in the trace of %d replays: %s; "
+            "expected %s" % (traced, seen, want))
+        if seen != want:
+            raise AssertionError("the replayed step does not launch each "
+                                 "kernel once per layer")
+
+    # n steps as one graph, launched once
+    chained = step.make_chained(RESNET_STEPS)
+    t0 = time.perf_counter()
+    chained(xs, ys)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    last = chained(xs, ys)
+    end.record()
+    torch.cuda.synchronize()
+    chain_ms = start.elapsed_time(end)
+    log("resnet: make_chained(%d): one graph launch of %d steps in %.2f ms, "
+        "%.2f ms a step (%.1f images/s) on %s; last loss %.4f (%s); its "
+        "first call (warm-up, capture, replay) %.1f s" % (
+            RESNET_STEPS, RESNET_STEPS, chain_ms, chain_ms / RESNET_STEPS,
+            RESNET_BATCH * RESNET_STEPS / chain_ms * 1e3, smi,
+            float(last), last.dtype, first_s))
+    if last.dtype != torch.float32 or not np.isfinite(float(last)):
+        raise AssertionError("make_chained did not return a finite float32 "
+                             "loss")
+    del step, net, chained
+    torch.cuda.empty_cache()
+    # each kernel's launches as the trace of replays saw them, or None
+    # where the trace saw no device kernel (then nothing is inferred)
+    return {k: dict(launches=n, traced_replays=traced,
+                    launches_in_traced_replays=None if seen is None
+                    else seen[k])
+            for k, n in launches.items()}
 
 
 # ---------------------------------------------------------------- imperative
@@ -1403,16 +1840,32 @@ def _nd_outputs(case, ctx, seed):
     return [o.asnumpy() for o in out]
 
 
+# op cases the card refuses by design: BatchNorm over axis 1 (K6a and K6b
+# take the channels last; "BatchNorm/nhwc" runs them)
+CARD_REFUSES = {"BatchNorm"}
+
+
 def registry_on_card(seed):
     """Phase 7a: every registered op once on the card against the CPU."""
     from mxnet_tpu_torch import random as mx_random
     from mxnet_tpu_torch import test_utils as T
     from mxnet_tpu_torch.ops import registry
 
+    from mxnet_tpu_torch import MXNetError
+
     bad, worst = [], (0.0, None)
     for case in sorted(T.OP_CASES):
         name = T.op_name(case)
         mx_random.seed(seed)
+        if case in CARD_REFUSES:  # a limit of the card's kernels
+            try:
+                _nd_outputs(case, torch.device("cuda", 0), seed)
+            except MXNetError as e:
+                log("imperative: %s raises on the card as it should: %s"
+                    % (case, e))
+            else:
+                bad.append(case)
+            continue
         got = _nd_outputs(case, torch.device("cuda", 0), seed)
         torch.cuda.synchronize()
         if name in T.RANDOM_OPS:
@@ -1827,6 +2280,7 @@ def main():
     bwd_rows = phase("3b attention backward", backward_kernels, args.seed)
     dw_rows = phase("3c conv dW", conv_kernels, args.seed)
     pool_row = phase("3c max-pool backward", pool_kernels, args.seed)
+    bn_rows = phase("3d batch norm", bn_kernels, args.seed)
     serve_launches = phase("4 serve", serve, args.seed, smi)
     train_launches = phase("5 train", train, args.seed, smi)
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
@@ -1846,17 +2300,31 @@ def main():
                             source="mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
                             replaces="mxnet_tpu/ops/attention.py:%d" % line,
                             launches=train_launches[kern], **bwd_rows[kern]))
+    # the ResNet step is captured: "launches" is the wrappers' count over
+    # the main path, which launches in the eager warm-up step and into the
+    # graph at capture (2 x a step); the replays launch no wrapper, so the
+    # kernels that ran are counted in the profiler's trace of replays
+    # ("launches_in_traced_replays" over "traced_replays" replays, null if
+    # the trace saw no kernel)
+    def resnet_entry(name, key, source, replaces, row):
+        return dict(name=name, path="resnet_train", route="cuda",
+                    source=source, replaces=replaces,
+                    launches_counted_over="eager warm-up step + capture",
+                    **resnet_launches[key], **row)
+
     for form, line in (("pertap", 111), ("im2col", 133)):
-        entries.append(dict(name="conv_dw_" + form, path="resnet_train",
-                            route="cuda",
-                            source="mxnet_tpu_torch/csrc/conv_dw.cu",
-                            replaces="mxnet_tpu/ops/pallas_conv.py:%d" % line,
-                            launches=resnet_launches[form], **dw_rows[form]))
-    entries.append(dict(name="maxpool_bwd", path="resnet_train",
-                        route="cuda",
-                        source="mxnet_tpu_torch/csrc/maxpool_bwd.cu",
-                        replaces="mxnet_tpu/ops/pallas_pool.py:55",
-                        launches=resnet_launches["maxpool"], **pool_row))
+        entries.append(resnet_entry(
+            "conv_dw_" + form, form, "mxnet_tpu_torch/csrc/conv_dw.cu",
+            "mxnet_tpu/ops/pallas_conv.py:%d" % line, dw_rows[form]))
+    entries.append(resnet_entry(
+        "maxpool_bwd", "maxpool", "mxnet_tpu_torch/csrc/maxpool_bwd.cu",
+        "mxnet_tpu/ops/pallas_pool.py:55", pool_row))
+    # no Pallas kernel: the JAX op, which XLA fuses inside the step
+    for kern in ("fwd", "bwd"):
+        entries.append(resnet_entry(
+            "batch_norm_" + kern, "batch_norm_" + kern,
+            "mxnet_tpu_torch/csrc/batch_norm.cu", "mxnet_tpu/ops/nn.py:462",
+            bn_rows[kern]))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

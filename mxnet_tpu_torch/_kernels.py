@@ -62,6 +62,14 @@ _SIGNATURES = {
                                + [ctypes.c_int] * 17 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "batch_norm": {
+        "mxt_bn_fwd": (ctypes.c_int, [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 11 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p]),
+        "mxt_bn_bwd": (ctypes.c_int, [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+        "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
     "maxpool_bwd": {
         "mxt_maxpool_bwd": (ctypes.c_int, [ctypes.c_void_p] * 3
                             + [ctypes.c_int] * 17 + [ctypes.c_void_p]),

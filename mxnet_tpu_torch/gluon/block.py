@@ -18,6 +18,13 @@ A block runs with PyTorch's grad mode set to
 :func:`~mxnet_tpu_torch.autograd.is_recording`: called outside
 ``autograd.record()`` it records no graph and keeps no activations, as
 only recorded work is differentiable in the JAX package.
+
+``HybridBlock.hybridize()`` caches one program per input signature, as
+the JAX package's ``_CachedGraph`` (``mxnet_tpu/gluon/block.py:433-523``)
+stages a jitted forward and backward pair: on the card a captured CUDA
+graph of the forward, and of the backward when the call records
+(:mod:`.._capture`); on the CPU the block runs eagerly under the same
+keys and bookkeeping.
 """
 
 from __future__ import annotations
@@ -29,12 +36,24 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _capture
 from .. import autograd as _autograd
 from .. import initializer as _init
 from .. import ndarray
+from ..base import MXNetError
 from ..context import resolve_device
 
 __all__ = ["Block", "HybridBlock", "Parameter"]
+
+_cast_generation = 0  # Block.cast calls so far
+
+
+def cast_generation():
+    """How many :meth:`Block.cast` calls have run.  A cast replaces the
+    storage of parameters that captured programs read, so every cache of
+    them (a hybridized block's, a training step's) is dropped when this
+    moves."""
+    return _cast_generation
 
 class Parameter(nn.Parameter):
     """A block's weight (reference: ``gluon/parameter.py`` Parameter).
@@ -70,6 +89,8 @@ class Block(nn.Module):
     raises :class:`~mxnet_tpu_torch.base.MXNetError` when no CUDA device is
     present."""
 
+    _active = False  # hybridized (HybridBlock.hybridize)
+
     def __init__(self, device=None):
         super().__init__()
         self.device = resolve_device(device)
@@ -85,6 +106,8 @@ class Block(nn.Module):
 
     def __call__(self, *args, **kwargs):
         with torch.set_grad_enabled(_autograd.is_recording()):
+            if self._active and not _capture.is_staging():
+                return self._call_cached(*args, **kwargs)
             return super().__call__(*args, **kwargs)
 
     def collect_params(self):
@@ -121,9 +144,27 @@ class Block(nn.Module):
                     p.grad.zero_()
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API compatibility; the port runs eagerly (CUDA
-        graphs take this place in a later version)."""
-        del active, kwargs
+        """Hybridize every :class:`HybridBlock` among the children (a
+        plain block has no program of its own)."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        """Cast every parameter of the block and its children to
+        ``dtype`` in place (the Parameter objects stay; gradients are
+        dropped).  Every captured program of the port is dropped: its
+        parent blocks' and training steps' too."""
+        global _cast_generation
+        _cast_generation += 1
+        dt = _dtype(dtype)
+        for child in self.children():
+            if isinstance(child, Block):
+                child.cast(dt)
+        for p in self._parameters.values():
+            if p is not None and p.dtype != dt:
+                p.data = p.data.to(dt)
+                p.grad = None
 
     def save_parameters(self, filename):
         """Write the parameters by structural name in the npz format the
@@ -141,6 +182,219 @@ class Block(nn.Module):
         load_mxnet_tpu_params(self, filename)
 
 
+def _dtype(dtype):
+    dt = dtype if isinstance(dtype, torch.dtype) else getattr(
+        torch, str(np.dtype(dtype)) if str(dtype) != "bfloat16"
+        else "bfloat16", None)
+    if not isinstance(dt, torch.dtype):
+        raise MXNetError("cannot cast to %r" % (dtype,))
+    return dt
+
+
+def _flatten(out):
+    if isinstance(out, torch.Tensor):
+        return [out], None
+    if isinstance(out, (list, tuple)):
+        flat, tree = [], []
+        for o in out:
+            f, t = _flatten(o)
+            flat.extend(f)
+            tree.append(t)
+        return flat, tree
+    raise MXNetError("a hybridized block returns tensors or (nested) lists "
+                     "of them, not %s" % type(out).__name__)
+
+
+def _unflatten(flat, tree):
+    it = iter(flat)
+
+    def build(t):
+        return next(it) if t is None else [build(c) for c in t]
+
+    return build(tree)
+
+
+class _Replay(torch.autograd.Function):
+    """A recording call of a :class:`_CachedGraph`: the forward graph's
+    replay, whose backward is the backward graph's.  Inputs: the graph,
+    the call's arguments, then the parameters that take a gradient."""
+
+    @staticmethod
+    def forward(ctx, graph, *tensors):
+        outs = graph.replay_forward(tensors[:len(graph.static_in)])
+        ctx.graph, ctx.generation = graph, graph.generation
+        ctx.mark_non_differentiable(*(o for i, o in enumerate(outs)
+                                      if i not in graph.grad_out))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + ctx.graph.replay_backward(ctx.generation, grads)
+
+
+class _CachedGraph:
+    """One input signature of a hybridized block (reference: CachedOp's
+    per-signature graph, ``src/imperative/cached_op.cc:266``; the JAX
+    package's ``_CachedGraph``).
+
+    On the card, the first call warms up eagerly (its effects undone),
+    then captures the forward, and when the call records, the backward
+    (``autograd.grad`` of the outputs with respect to the trainable
+    parameters and the arguments that take a gradient), each as a CUDA
+    graph on one private memory pool.  Every call, the first included,
+    copies its arguments into the graph's static inputs and replays; a
+    recording call returns outputs whose backward replays the backward
+    graph, so ``autograd.backward`` and ``.grad`` behave as they do
+    eagerly.  The outputs and gradients handed back are copies (a replay
+    overwrites the graph's own): one device copy of each a call.  A
+    recorded call's backward must come before the next call at the same
+    signature replays the forward (its activations live in the graph):
+    else it raises.  On the CPU the block runs eagerly.  ``calls`` counts
+    the calls, ``replays`` the forward replays."""
+
+    def __init__(self, block, args, recording):
+        self.block, self.recording = block, recording
+        self.device = args[0].device
+        self.calls = self.replays = self.generation = 0
+        self.fwd = self.bwd = None
+
+    def _forward(self, args):
+        with _capture.staging():
+            return nn.Module.__call__(self.block, *args)
+
+    def __call__(self, args):
+        self.calls += 1
+        if self.device.type != "cuda":
+            return self._forward(args)
+        if self.fwd is None:
+            self._capture(args)
+        if self.recording:
+            outs = _Replay.apply(self, *args, *self.params)
+        else:
+            outs = self.replay_forward(args)
+        return _unflatten(list(outs), self.tree)
+
+    def _capture(self, args):
+        block, dev = self.block, self.device
+        self.params = [p for p in block.parameters() if p.requires_grad] \
+            if self.recording else []
+        state = [p for p in block.parameters() if not p.requires_grad] \
+            + list(block.buffers())
+
+        def grads_of(outs, ins):
+            req = [o for o in outs if o.requires_grad]
+            targets = self.params + [a for a in ins if a.requires_grad]
+            if not req or not targets:
+                return []
+            return torch.autograd.grad(
+                req, targets, [torch.ones_like(o) for o in req],
+                allow_unused=True)
+
+        def warm():
+            outs, _ = _flatten(self._forward(args))
+            if self.recording:
+                grads_of(outs, args)
+
+        _capture.warm_up(warm, state, dev)
+        self.static_in = [a.detach().clone().requires_grad_(
+            self.recording and a.requires_grad) for a in args]
+        self.fwd, out = _capture.capture(
+            lambda: self._forward(self.static_in), dev)
+        self.static_out, self.tree = _flatten(out)
+        if not self.recording:
+            return
+        self.grad_out = [i for i, o in enumerate(self.static_out)
+                         if o.requires_grad]
+        self.grad_in = [i for i, a in enumerate(self.static_in)
+                        if a.requires_grad]
+        self.static_gout = [torch.zeros_like(self.static_out[i])
+                            for i in self.grad_out]
+        targets = self.params + [self.static_in[i] for i in self.grad_in]
+        if self.grad_out and targets:
+            self.bwd, grads = _capture.capture(
+                lambda: torch.autograd.grad(
+                    [self.static_out[i] for i in self.grad_out], targets,
+                    self.static_gout, allow_unused=True),
+                dev, pool=self.fwd.pool())
+        else:
+            grads = [None] * len(targets)
+        self.static_grads = list(grads)
+        # keep the buffers, not the captured autograd graph (its nodes
+        # would outlive it on the capture stream)
+        self.static_out = [o.detach() for o in self.static_out]
+
+    def replay_forward(self, args):
+        with torch.no_grad():
+            for s, a in zip(self.static_in, args):
+                if s.data_ptr() != a.data_ptr():
+                    s.copy_(a)
+            self.fwd.replay()
+            self.replays += 1
+            self.generation += 1
+            return [o.detach().clone() for o in self.static_out]
+
+    def replay_backward(self, generation, grads):
+        if generation != self.generation:
+            raise MXNetError(
+                "a hybridized %s was called again at the same input "
+                "signature before the backward of an earlier recorded call; "
+                "its activations were overwritten (run backward first)"
+                % type(self.block).__name__)
+        with torch.no_grad():
+            for buf, i in zip(self.static_gout, self.grad_out):
+                g = grads[i]
+                if g is None:
+                    buf.zero_()
+                else:
+                    buf.copy_(g)
+            if self.bwd is not None:
+                self.bwd.replay()
+            out = [None if g is None else g.clone()
+                   for g in self.static_grads]
+        n = len(self.params)
+        by_arg = dict(zip(self.grad_in, out[n:]))
+        return tuple(by_arg.get(i) for i in range(len(self.static_in))) \
+            + tuple(out[:n])
+
+
 class HybridBlock(Block):
-    """A block whose forward the JAX package can stage into one XLA
-    graph; in the port it is a plain eager ``nn.Module``."""
+    """A block that :meth:`hybridize` turns into a cached program per
+    input signature (reference: ``gluon/block.py:671``; the JAX package's
+    ``HybridBlock``).  Until then, a plain eager ``nn.Module``."""
+
+    def hybridize(self, active=True, **flags):
+        """Cache one :class:`_CachedGraph` per (argument shapes, dtypes
+        and gradient flags, device, train mode, recording); ``active=False``
+        runs eagerly again.  Calling it again, or :meth:`cast`, clears the
+        cache.  The flags (``static_alloc``, ``static_shape``, ...) are
+        accepted and change nothing: a captured graph is static in both."""
+        self._active = bool(active)
+        self._cached_graphs = {}
+        self._graphs_cast = _cast_generation
+        super().hybridize(active, **flags)
+
+    def cast(self, dtype):
+        self._cached_graphs = {}
+        super().cast(dtype)
+
+    def _graphs(self):
+        """The cache, emptied after a cast of this or any other block
+        (a child's cast frees storage that this block's graphs read)."""
+        if self._graphs_cast != _cast_generation:
+            self._cached_graphs, self._graphs_cast = {}, _cast_generation
+        return self._cached_graphs
+
+    def _call_cached(self, *args, **kwargs):
+        if kwargs or not args or not all(isinstance(a, torch.Tensor)
+                                         for a in args):
+            raise MXNetError("a hybridized %s takes tensors as positional "
+                             "arguments only" % type(self).__name__)
+        recording = _autograd.is_recording()
+        key = (tuple((tuple(a.shape), a.dtype, recording and a.requires_grad)
+                     for a in args),
+               args[0].device, _autograd.is_training(), recording)
+        graphs = self._graphs()
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = _CachedGraph(self, args, recording)
+        return graph(args)

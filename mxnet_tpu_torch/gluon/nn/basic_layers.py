@@ -17,6 +17,7 @@ from ...base import MXNetError
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
 from ..block import HybridBlock
+from ..block import _dtype as _block_dtype
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Dropout", "BatchNorm",
            "LayerNorm", "Embedding"]
@@ -108,9 +109,10 @@ class BatchNorm(HybridBlock):
     In train mode (:func:`~mxnet_tpu_torch.autograd.is_training`, on
     under ``autograd.record()``) and unless ``use_global_stats``, it
     normalizes by the batch's statistics and updates the running ones in
-    place, without a gradient, as ``running * momentum + batch * (1 -
-    momentum)`` with the batch's biased variance; otherwise it normalizes
-    by the running statistics.  ``scale=False`` fixes gamma at 1
+    place, without a gradient, once a call, as ``running * momentum +
+    batch * (1 - momentum)`` with the batch's biased variance (K6a writes
+    them on the card); otherwise it normalizes by the running
+    statistics.  ``scale=False`` fixes gamma at 1
     (``fix_gamma``) and ``center=False`` keeps beta out of training."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
@@ -137,17 +139,18 @@ class BatchNorm(HybridBlock):
 
     def forward(self, x):
         train_stats = _autograd.is_training() and not self._use_global_stats
-        out, mean, var = _ops.batch_norm(
+        return _ops.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             eps=self._epsilon, fix_gamma=not self._scale,
-            use_global_stats=not train_stats, axis=self._axis)
-        if train_stats:
-            m = self._momentum
-            with torch.no_grad():
-                self.running_mean.copy_(self.running_mean * m
-                                        + mean * (1 - m))
-                self.running_var.copy_(self.running_var * m + var * (1 - m))
-        return out
+            use_global_stats=not train_stats, axis=self._axis,
+            momentum=self._momentum if train_stats else None)[0]
+
+    def cast(self, dtype):
+        """Cast the layer's parameters; to a half type they stay float32,
+        as in the JAX package."""
+        if _block_dtype(dtype) in (torch.float16, torch.bfloat16):
+            dtype = torch.float32
+        super().cast(dtype)
 
     def __repr__(self):
         return "BatchNorm(axis=%s, momentum=%s, eps=%s, in_channels=%s)" % (

@@ -7,8 +7,10 @@ plain PyTorch (matrix products go to cuBLAS, the convolutions' forward and
 data-gradient and the max-pool forward to cuDNN).  Two gradients are the
 port's own kernels, as the JAX package routes them to Pallas: a
 convolution's weight-gradient (:mod:`.conv_dw`, K1a/K1b) and a max pool's
-input-gradient (:mod:`.pool_bwd`, K2).  On the card they always run; there
-is no flag.
+input-gradient (:mod:`.pool_bwd`, K2).  BatchNorm, which XLA fuses inside
+the JAX package's step, is the port's own forward and backward kernels
+(:mod:`.batch_norm`, K6a/K6b).  On the card they always run; there is no
+flag.
 
 Convolution and pooling take channel-last (NHWC) data and OHWI weights.
 They run cuDNN on the NHWC tensors viewed as NCHW with ``channels_last``
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from .. import autograd as _autograd
 from .. import random as _random
 from ..base import MXNetError
+from .batch_norm import batch_norm
 from .conv_dw import conv_dw
 from .pool_bwd import maxpool_bwd
 from .registry import register
@@ -201,47 +204,6 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
     return out * gamma.reshape(shape) + beta.reshape(shape)
-
-
-def _expand(v, axis, ndim):
-    shape = [1] * ndim
-    shape[axis] = -1
-    return v.reshape(shape)
-
-
-def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
-               fix_gamma=True, use_global_stats=False, axis=1):
-    """Batch normalization (reference: src/operator/nn/batch_norm.cc)
-    with the JAX package's arithmetic written out
-    (``mxnet_tpu/ops/nn.py:462``).  Returns ``(out, mean, var)``: the
-    statistics used, the batch's unless ``use_global_stats``.
-
-    float32 data: mean, then the biased variance in a second pass.
-    bf16/float16 data: one pass in float32 over ``E[x]`` and ``E[x^2]``,
-    ``var = max(E[x^2] - E[x]^2, 0)``, both cast back to the data's type.
-    The scale ``gamma * rsqrt(var + eps)`` is computed in float32 and
-    applied, with the shift, in the data's type.  ``fix_gamma`` uses 1
-    for ``gamma``.  The running statistics are the caller's to update."""
-    ax = axis % data.dim()
-    red = tuple(i for i in range(data.dim()) if i != ax)
-    g = torch.ones_like(gamma) if fix_gamma else gamma
-    if use_global_stats:
-        mean, var = moving_mean, moving_var
-    elif data.dtype in (torch.bfloat16, torch.float16):
-        xf = data.float()
-        mean = xf.mean(dim=red)
-        meansq = xf.square().mean(dim=red)
-        var = torch.clamp_min(meansq - mean.square(), 0.0)
-        mean, var = mean.to(data.dtype), var.to(data.dtype)
-    else:
-        mean = data.mean(dim=red)
-        var = (data - _expand(mean, ax, data.dim())).square().mean(dim=red)
-    inv = torch.rsqrt(var.float() + eps)
-    scale = (g.float() * inv).to(data.dtype)
-    shift = beta.to(data.dtype)
-    out = (data - _expand(mean.to(data.dtype), ax, data.dim())) \
-        * _expand(scale, ax, data.dim()) + _expand(shift, ax, data.dim())
-    return out, mean, var
 
 
 def _bn_nout(attrs):

@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/parallel/gluon_step.py`` ``GluonTrainStep``
 (its classic path, on one device) and ``sgd_momentum_update``.  The JAX
 package traces forward, loss, backward, the update and the BatchNorm
-running-stat update into one program over a device mesh; the port runs
-the same step eagerly on one device:
+running-stat update into one jitted program over a device mesh
+(``:407-417``), and ``make_chained(n)`` runs n of them with one dispatch
+(``:563-625``).  The port's step on one device:
 
 1. with ``compute_dtype`` set, the float32 trainables and the input are
    cast to it (``.to``, differentiable); the running statistics
@@ -19,10 +20,18 @@ the same step eagerly on one device:
 5. the running statistics, updated in place by the BatchNorm layers
    during the forward.
 
+On the card the step is one captured CUDA graph per batch signature
+(:mod:`.._capture`), the counterpart of the jitted ``_step``: the first
+call at a signature warms up eagerly (its effects undone), captures the
+step and replays it; every later call copies the batch into the graph's
+static inputs and replays.  ``make_chained(n)`` captures n steps into one
+graph, launched once.  A :meth:`~..gluon.Block.cast` of the block drops
+every captured graph (they read the parameters' old storage).  On the CPU
+the step runs eagerly.
+
 The float32 masters stay the block's own Parameters, so
-:meth:`GluonTrainStep.sync_to_params` has nothing to do.  ``make_chained``
-(as CUDA-graph replay), ``zero=True``, ``optimizer=`` and
-``param_spec_fn`` are not ported yet.
+:meth:`GluonTrainStep.sync_to_params` has nothing to do.  ``zero=True``,
+``optimizer=`` and ``param_spec_fn`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,9 +39,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _capture
 from .. import autograd as _autograd
 from ..base import MXNetError
 from ..context import resolve_device
+from ..gluon.block import cast_generation
 
 __all__ = ["GluonTrainStep", "sgd_momentum_update"]
 
@@ -59,6 +70,42 @@ def _dtype(name):
     if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
         raise MXNetError("compute_dtype %r is not a floating type" % (name,))
     return dt
+
+
+class _StepGraph:
+    """``n`` training steps at one batch signature, captured as one CUDA
+    graph after an eager warm-up whose effects are undone.  ``x`` and
+    ``y`` are the graph's static inputs; ``loss`` and ``grad_norm`` (the
+    last step's) its static outputs."""
+
+    def __init__(self, step, x, y, n):
+        dev = step.device
+        _capture.warm_up(lambda: step._eager(x, y),
+                         step.trainable + step.opt_state + step.aux, dev)
+        self.x, self.y = x.clone(), y.clone()
+
+        def body():
+            for _ in range(n):
+                loss, gnorm = step._eager(self.x, self.y)
+            return loss, gnorm
+
+        self.graph, (self.loss, self.grad_norm) = _capture.capture(body, dev)
+        self.replays = 0
+
+    def load(self, x, y):
+        """Copy a batch into the static inputs; returns them."""
+        for s, v in ((self.x, x), (self.y, y)):
+            if s.data_ptr() != v.data_ptr():
+                s.copy_(v)
+        return self.x, self.y
+
+    def run(self, x, y):
+        """Replay on ``(x, y)``: fresh copies of the loss and the grad
+        norm."""
+        self.load(x, y)
+        self.graph.replay()
+        self.replays += 1
+        return self.loss.clone(), self.grad_norm.clone()
 
 
 class GluonTrainStep:
@@ -88,11 +135,12 @@ class GluonTrainStep:
         self._loss = loss_block
         self._update = sgd_momentum_update(lr, momentum, wd)
         self._compute_dtype = _dtype(compute_dtype)
+        self._capture = self.device.type == "cuda"
+        self.graphs = {}  # (steps, x and y signature) -> _StepGraph
+        self._graphs_cast = cast_generation()
         self.last_grad_norm = None
 
-    def put_batch(self, x, y):
-        """The batch as tensors on the step's device."""
-
+    def _to_device(self, x, y):
         def put(v):
             if not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(np.ascontiguousarray(v))
@@ -100,13 +148,36 @@ class GluonTrainStep:
 
         return put(x), put(y)
 
-    def __call__(self, x, y):
-        """One training step; returns the mean loss (a device tensor in
-        the compute dtype, not synchronised).  ``last_grad_norm`` becomes
-        the global L2 norm of the float32 gradients."""
-        x, y = self.put_batch(x, y)
+    @staticmethod
+    def _key(x, y, steps):
+        return (steps,) + tuple((tuple(v.shape), v.dtype) for v in (x, y))
+
+    def _graphs(self):
+        """The captured graphs, dropped after a cast of any block."""
+        if self._graphs_cast != cast_generation():
+            self.graphs, self._graphs_cast = {}, cast_generation()
+        return self.graphs
+
+    def _graph(self, x, y, steps):
+        key = self._key(x, y, steps)
+        self._graphs()
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = _StepGraph(self, x, y, steps)
+        return graph
+
+    def put_batch(self, x, y):
+        """The batch as tensors on the step's device: once a step at this
+        signature has been captured, its graph's static inputs, filled
+        with the batch (a later ``put_batch`` or step overwrites them)."""
+        x, y = self._to_device(x, y)
+        graph = self._graphs().get(self._key(x, y, 1))
+        return graph.load(x, y) if graph is not None else (x, y)
+
+    def _eager(self, x, y):
+        """One step, eagerly: ``(loss, grad norm)``."""
         cast = self._compute_dtype
-        with _autograd.record():
+        with _capture.staging(), _autograd.record():
             override = {}
             if cast is not None:
                 override = {n: p.to(cast) for n, p in zip(self._names,
@@ -119,10 +190,48 @@ class GluonTrainStep:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.trainable, grads)]
         with torch.no_grad():
-            self.last_grad_norm = torch.linalg.vector_norm(
+            gnorm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
             self._update(self.trainable, grads, self.opt_state)
-        return loss.detach()
+        return loss.detach(), gnorm
+
+    def __call__(self, x, y):
+        """One training step; returns the mean loss (a device tensor in
+        the compute dtype, not synchronised).  ``last_grad_norm`` becomes
+        the global L2 norm of the float32 gradients.  Both are fresh
+        tensors."""
+        x, y = self._to_device(x, y)
+        if self._capture:
+            loss, self.last_grad_norm = self._graph(x, y, 1).run(x, y)
+        else:
+            loss, self.last_grad_norm = self._eager(x, y)
+        return loss
+
+    def make_chained(self, n_steps):
+        """``run(x, y, key=None)``: ``n_steps`` training steps on one
+        batch, exactly as many ``__call__`` steps, returning the last
+        loss in float32.  On the card the n steps are one captured graph,
+        launched once (one ``cudaGraphLaunch``) a call; on the CPU they
+        run eagerly.  ``key`` is accepted for the JAX package's signature:
+        the port's random stream is its generator
+        (:func:`~mxnet_tpu_torch.random.generator`)."""
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise MXNetError("make_chained takes at least one step, not %d"
+                             % n_steps)
+
+        def run(x, y, key=None):
+            del key
+            x, y = self._to_device(x, y)
+            if self._capture:
+                loss, self.last_grad_norm = self._graph(x, y,
+                                                        n_steps).run(x, y)
+                return loss.float()
+            for _ in range(n_steps):
+                loss, self.last_grad_norm = self._eager(x, y)
+            return loss.float()
+
+        return run
 
     def sync_to_params(self):
         """Nothing to do: the step updates the block's own Parameters in

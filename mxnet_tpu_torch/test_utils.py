@@ -203,6 +203,10 @@ OP_CASES.update({
     "BatchNorm": ([("f", (2, 3, 4, 5)), ("f", (3,)), ("f", (3,)),
                    ("f", (3,)), ("u", (3,), 0.5, 2.0)],
                   {"fix_gamma": False, "output_mean_var": True}),
+    # channel-last, the axis the card's kernels (K6a) take
+    "BatchNorm/nhwc": ([("f", (2, 4, 5, 3)), ("f", (3,)), ("f", (3,)),
+                        ("f", (3,)), ("u", (3,), 0.5, 2.0)],
+                       {"fix_gamma": False, "axis": -1}),
     # optimizer updates
     "sgd_update": ([_F, _F], {"lr": 0.1, "wd": 1e-3, "clip_gradient": 0.5}),
     "sgd_mom_update": ([_F, _F, _F], {"lr": 0.1, "momentum": 0.9,

@@ -1,5 +1,6 @@
-"""The port's BatchNorm (mxnet_tpu_torch/ops/nn.py batch_norm and the
-gluon.nn.BatchNorm layer) against the JAX package, on the CPU.
+"""The port's BatchNorm (mxnet_tpu_torch/ops/nn.py batch_norm, the plain
+versions of K6a and K6b in ops/batch_norm.py, and the gluon.nn.BatchNorm
+layer) against the JAX package, on the CPU.
 
 Tolerances:
 - float32: 1e-5 (rtol and atol), the mean and the two-pass variance
@@ -8,8 +9,20 @@ Tolerances:
   outputs near 0) for the output, the mean and the variance: both
   packages sum E[x] and E[x^2] in float32 and round the results to bf16,
   and a float32 sum in another order may land one bf16 step away;
-- the running statistics (float32 in both): 1e-5, and one bf16 step
-  times (1 - momentum) where the batch statistics are bf16.
+- the running statistics (float32 in both): 1e-5, and one step of the
+  data's type times (1 - momentum) where the batch statistics are bf16
+  or float16;
+- the plain forward of K6a (NHWC, C = 5, M = 792, a multiple of no
+  tile): float32 1e-5; bf16 and float16 one step of the type (measured:
+  equal);
+- the plain backward of K6b against jax.vjp of the JAX op: float32 within
+  1e-5 of each gradient's largest magnitude (measured: 3e-7); bf16 and
+  float16, which K6b rounds once where JAX's autodiff rounds each
+  intermediate (and sums dy in the data's type), dx within one step of
+  the type and dgamma, dbeta within sixteen steps, of the largest
+  magnitude (measured: 0.7 and 10.5 steps, the latter JAX's bf16 sum
+  over 792 rows), and every gradient at least as close to the float64
+  gradient of the same inputs as JAX's.
 """
 
 import numpy as np
@@ -23,12 +36,16 @@ from mxnet_tpu import autograd as jag
 from mxnet_tpu import nd
 from mxnet_tpu.gluon import nn as jgnn
 from mxnet_tpu.ops import nn as jnn
+from mxnet_tpu_torch import MXNetError as tmx_error
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch.gluon import nn as tgnn
+from mxnet_tpu_torch.ops import batch_norm as tbn
 from mxnet_tpu_torch.ops import nn as tnn
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2.0 ** -7, atol=1e-2)
+# the spacing of each half type at 1.0
+STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 
 def _inputs(shape, axis, seed=0):
@@ -99,7 +116,7 @@ def _layers(c):
     return jl, tl
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_layer_updates_running_stats_in_train_mode_as_jax(dtype):
     """Two train-mode calls fold the batch statistics into the running
     ones (momentum 0.9, biased variance); predict mode then normalises
@@ -118,6 +135,7 @@ def test_layer_updates_running_stats_in_train_mode_as_jax(dtype):
         tol = F32 if dtype == "float32" else BF16
         np.testing.assert_allclose(got.detach().float().numpy(),
                                    want.astype("float32").asnumpy(), **tol)
+        assert got.dtype == getattr(torch, dtype)
     batch = {"running_mean": [x.mean(axis=(0, 1, 2)) for x in xs],
              "running_var": [x.var(axis=(0, 1, 2)) for x in xs]}
     for name in ("running_mean", "running_var"):
@@ -126,8 +144,8 @@ def test_layer_updates_running_stats_in_train_mode_as_jax(dtype):
         want = getattr(jl, name).data().asnumpy()
         if dtype == "float32":
             np.testing.assert_allclose(got.detach().numpy(), want, **F32)
-        else:  # one bf16 step of each batch statistic, times 1 - momentum
-            bound = sum(0.1 * 2.0 ** -7 * np.abs(b) for b in batch[name])
+        else:  # one step of each batch statistic, times 1 - momentum
+            bound = sum(0.1 * STEP[dtype] * np.abs(b) for b in batch[name])
             assert (np.abs(got.detach().numpy() - want) <= bound + 1e-6).all()
     # the running variance folded in the biased batch variance
     if dtype == "float32":
@@ -162,3 +180,158 @@ def test_layer_use_global_stats_and_fixed_gamma():
         out = tl(x)
     assert torch.equal(tl.running_mean.detach(), torch.zeros(4))
     torch.testing.assert_close(out, x / torch.sqrt(torch.tensor(4.0 + 1e-5)))
+
+
+# NHWC with C = 5 (the kernels' scalar path) and M = 8 * 9 * 11 = 792 rows,
+# a multiple of no tile of the launch plan
+NHWC = (8, 9, 11, 5)
+
+
+def _nhwc_case(dtype, seed):
+    x, (gamma, beta, mm, mv) = _inputs(NHWC, 3, seed=seed)
+    dy = np.random.RandomState(seed + 100).normal(size=NHWC).astype(
+        np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    jdy = jnp.asarray(dy).astype(dtype)
+    tdt = getattr(torch, dtype)
+
+    def port(a):  # the JAX-rounded values, as (M, C) in the port's type
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(
+            tdt).reshape(-1, NHWC[3])
+
+    return (jx, jdy, port(jx), port(jdy),
+            [torch.from_numpy(a) for a in (gamma, beta, mm, mv)],
+            [jnp.asarray(a) for a in (gamma, beta, mm, mv)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("fix_gamma", [False, True])
+@pytest.mark.parametrize("use_global_stats", [False, True])
+def test_plain_forward_matches_jax(dtype, fix_gamma, use_global_stats):
+    jx, _, tx, _, tp, jp = _nhwc_case(dtype, 5)
+    want = jnn.batch_norm(jx, *jp, eps=1e-5, fix_gamma=fix_gamma,
+                          use_global_stats=use_global_stats,
+                          output_mean_var=True, axis=3)
+    y, mean, var, stats = tbn.batch_norm_fwd_plain(
+        tx, *tp, 1e-5, fix_gamma, use_global_stats)
+    assert y.dtype == tx.dtype and stats.shape == (4, NHWC[3])
+    tol = F32 if dtype == "float32" else dict(rtol=STEP[dtype], atol=1e-2)
+    for g, w in zip((y.reshape(NHWC), mean, var), want):
+        assert str(g.dtype).split(".")[1] == str(w.dtype)
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)), **tol)
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64).reshape(want.shape)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("fix_gamma", [False, True])
+@pytest.mark.parametrize("train", [True, False])
+def test_plain_backward_matches_jax_grad(dtype, fix_gamma, train):
+    jx, jdy, tx, tdy, tp, jp = _nhwc_case(dtype, 6)
+
+    def jfn(x_, g_, b_):
+        return jnn.batch_norm(x_, g_, b_, jp[2], jp[3], eps=1e-5,
+                              fix_gamma=fix_gamma,
+                              use_global_stats=not train, axis=3)
+
+    _, vjp = jax.vjp(jfn, jx, jp[0], jp[1])
+    want = [np.asarray(w.astype(jnp.float32)) for w in vjp(jdy)]
+    _, _, _, stats = tbn.batch_norm_fwd_plain(tx, *tp, 1e-5, fix_gamma,
+                                              not train)
+    got = tbn.batch_norm_bwd_plain(tx, tdy, stats, tp[0], tp[1], fix_gamma,
+                                   train)
+    assert [g.dtype for g in got] == [tx.dtype, torch.float32, torch.float32]
+    got = [g.float().numpy() for g in got]
+    if dtype == "float32":
+        for g, w in zip(got, want):
+            assert _rel(g, w) <= 1e-5
+        return
+    step = STEP[dtype]
+    assert _rel(got[0], want[0]) <= step
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel(g, w) <= 16 * step
+    # the float64 gradient of the same inputs: the derivative of the
+    # forward, without rounding
+    x = tx.double().numpy()
+    dy = tdy.double().numpy()
+    gamma = np.ones(NHWC[3]) if fix_gamma else tp[0].double().numpy()
+    if train:
+        mu, var = x.mean(0), x.var(0)
+    else:
+        mu, var = tp[2].double().numpy(), tp[3].double().numpy()
+    inv = 1.0 / np.sqrt(var + 1e-5)
+    xhat = (x - mu) * inv
+    if train:
+        dx = gamma * inv * (dy - dy.mean(0) - xhat * (dy * xhat).mean(0))
+    else:
+        dx = gamma * inv * dy
+    exact = [dx, (0.0 if fix_gamma else 1.0) * (dy * xhat).sum(0),
+             dy.sum(0)]
+    for g, w, e in zip(got, want, exact):
+        assert _rel(g, e) <= _rel(w, e) + 1e-7
+
+
+@pytest.mark.parametrize("m,c,dtype,want", [
+    # the stem's BatchNorm of ResNet-50 at batch 128: 16-byte loads, one
+    # channel tile, 528 row splits
+    (1605632, 64, torch.bfloat16, ("16-byte", 8, 8, 64, 1, 528)),
+    # layer 4's: 8 channel tiles of 256, 66 splits
+    (6272, 2048, torch.bfloat16, ("16-byte", 8, 32, 256, 8, 66)),
+    (6272, 2048, torch.float32, ("16-byte", 4, 32, 128, 16, 33)),
+    # C = 5: the scalar path, 8 threads a row (3 idle)
+    (792, 5, torch.float16, ("scalar", 1, 8, 8, 1, 25)),
+    # a tiny M: one split
+    (3, 64, torch.bfloat16, ("16-byte", 8, 8, 64, 1, 1)),
+])
+def test_launch_plan(m, c, dtype, want):
+    plan = tbn.launch_plan(m, c, dtype)
+    assert (plan.access, plan.vec, plan.tpr, plan.tile_c,
+            plan.channel_tiles, plan.splits) == want
+    assert plan.splits * plan.rows >= m > (plan.splits - 1) * plan.rows
+    assert plan.tpr * plan.rows_at_once == tbn.THREADS
+    assert plan.channel_tiles * plan.tile_c >= c
+    assert plan.fwd_ws == 2 * c * plan.splits
+    assert plan.bwd_ws == plan.fwd_ws + 3 * c
+    if m >= 6272:  # both ends of ResNet-50 keep the 132 SMs busy
+        assert plan.splits * plan.channel_tiles >= 4 * 132 - \
+            plan.channel_tiles
+    # a misaligned pointer takes the scalar path
+    assert tbn.launch_plan(m, c, dtype, aligned=False).vec == 1
+
+
+def test_launch_plan_refuses_empty():
+    with pytest.raises(tmx_error):
+        tbn.launch_plan(0, 4, torch.float32)
+
+
+def test_cpu_runs_the_plain_versions_and_launches_nothing():
+    before = (tbn.batch_norm_fwd.launches, tbn.batch_norm_bwd.launches)
+    x = torch.randn(4, 3, 5, 6, requires_grad=True)
+    gamma = torch.rand(6, requires_grad=True)
+    beta = torch.rand(6, requires_grad=True)
+    rm, rv = torch.zeros(6), torch.ones(6)
+    out, mean, var = tnn.batch_norm(x, gamma, beta, rm, rv, eps=1e-5,
+                                    fix_gamma=False, axis=3, momentum=0.9)
+    out.sum().backward()
+    assert not mean.requires_grad and not var.requires_grad
+    assert all(t.grad is not None for t in (x, gamma, beta))
+    # momentum moves the running statistics once, in place
+    torch.testing.assert_close(rm, 0.1 * mean.detach())
+    assert (tbn.batch_norm_fwd.launches,
+            tbn.batch_norm_bwd.launches) == before
+
+
+def test_other_axes_on_the_cpu_match_the_last_axis():
+    """axis=1 moves the channels last around the same op."""
+    x, (gamma, beta, mm, mv) = _inputs((4, 6, 3, 5), 1, seed=9)
+    args = [torch.from_numpy(a) for a in (gamma, beta, mm, mv)]
+    t = torch.from_numpy(x)
+    got = tnn.batch_norm(t, *args, eps=1e-5, fix_gamma=False, axis=1)[0]
+    want = tnn.batch_norm(t.movedim(1, -1).contiguous(), *args, eps=1e-5,
+                          fix_gamma=False, axis=-1)[0].movedim(-1, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

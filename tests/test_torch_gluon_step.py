@@ -38,6 +38,13 @@ Tolerances:
   0.024): they average activations that carry bf16 noise, and the port
   rounds the batch statistics to bf16 as the JAX code is written, where
   XLA's compiled step keeps them in float32 (its excess precision);
+- make_chained(1) from the JAX package's initial state against the JAX
+  package's make_chained(1), and make_chained(2) against the JAX
+  package's make_chained(1) run from the port's own state after its
+  first step (the state its chained second step starts from, as above):
+  the tolerances of the float32 steps above;
+- make_chained(n) against n __call__ steps of the port on the CPU: equal
+  bit for bit (the same eager code);
 - float16 compute, one step from the JAX package's initial state (the
   step that raised before the port took float16): the loss within 1e-2
   of the JAX package's (measured: 0.002, one float16 step at 3.1); the
@@ -232,3 +239,106 @@ def test_step_rejects_parameters_on_another_device():
     with pytest.raises(MXNetError, match="floating"):
         GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
                        device="cpu", compute_dtype="int8")
+
+
+def _state(net, step):
+    return ({k: v.detach().clone() for k, v in net.state_dict().items()},
+            [s.clone() for s in step.opt_state])
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_make_chained_equals_sequential_steps(batch, compute_dtype):
+    """The contract of tests/test_bench_gate.py::
+    test_make_chained_matches_sequential_steps: chained(n) computes the
+    losses of n __call__ steps and advances training as they do; the loss
+    comes back in float32."""
+    x, y = batch
+    _, params = _jax_params()
+    net_a, step_a = _port_step(params, compute_dtype)
+    net_b, step_b = _port_step(params, compute_dtype)
+    for _ in range(3):
+        want = step_a(x, y)
+    chained = step_b.make_chained(3)
+    got = chained(x, y, key=None)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert torch.equal(got, want.float())
+    assert torch.equal(step_b.last_grad_norm, step_a.last_grad_norm)
+    (va, sa), (vb, sb) = _state(net_a, step_a), _state(net_b, step_b)
+    assert all(torch.equal(vb[k], v) for k, v in va.items())
+    assert all(torch.equal(b, a) for a, b in zip(sa, sb))
+    # repeat calls keep advancing
+    chained(x, y)
+    for _ in range(3):
+        step_a(x, y)
+    assert all(torch.equal(net_b.state_dict()[k], v)
+               for k, v in net_a.state_dict().items())
+    with pytest.raises(MXNetError, match="at least one step"):
+        step_b.make_chained(0)
+
+
+def _jax_chained(monkeypatch, x, y, n, state=None):
+    """The JAX package's make_chained(n) from its initial state, or from
+    ``state`` (weights with running statistics, and momentum, by name):
+    the loss, then the weights with running statistics, and the momentum,
+    by name; and the initial parameters."""
+    import jax
+
+    monkeypatch.setenv("MXTPU_PALLAS_CONV_DW", "1")
+    monkeypatch.setenv("MXTPU_PALLAS_POOL_BWD", "1")
+    net, params = _jax_params()
+    by_name = net._collect_params_with_prefix()
+    if state is not None:
+        for k, v in state[0].items():
+            by_name[k].set_data(mx.nd.array(v))
+    mesh = create_mesh({"dp": 1}, devices=jax.devices("cpu")[:1])
+    jstep = JStep(net, jgl.loss.SoftmaxCrossEntropyLoss(), mesh=mesh,
+                  **HYPER)
+    names = {id(p): k for k, p in by_name.items()}
+    train_names = [names[id(p)] for p in jstep.trainable]
+    aux_names = [names[id(p)] for p in jstep.aux]
+    if state is not None:
+        jstep.opt_state = tuple(
+            jax.device_put(state[1][k], s.sharding)
+            for k, s in zip(train_names, jstep.opt_state))
+    xs, ys = jstep.put_batch(x, y)
+    loss = float(np.asarray(jstep.make_chained(n)(
+        xs, ys, jax.random.PRNGKey(0))))
+    vals = dict(zip(train_names + aux_names,
+                    (np.asarray(v) for v in jstep.train_vals
+                     + jstep.aux_vals)))
+    mom = dict(zip(train_names, (np.asarray(s) for s in jstep.opt_state)))
+    return (loss, vals, mom), params
+
+
+def _port_chained(params, x, y, n):
+    net, step = _port_step(params, None)
+    loss = float(step.make_chained(n)(x, y))
+    names = {id(p): k for k, p in net.collect_params().items()}
+    return (loss, {k: v.detach().numpy() for k, v in net.state_dict().items()},
+            {names[id(p)]: s.numpy() for p, s in zip(step.trainable,
+                                                     step.opt_state)})
+
+
+def _assert_float32_step(got, want):
+    (loss, vals, mom), (want_loss, want_vals, want_mom) = got, want
+    big = max(float(np.abs(m).max()) for m in want_mom.values())
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert _worst(vals, want_vals, 1e-3) < 1e-3
+    assert _worst(mom, want_mom, 1e-3 * big) < 1e-3
+
+
+def test_make_chained_one_step_matches_jax(monkeypatch, batch):
+    x, y = batch
+    want, params = _jax_chained(monkeypatch, x, y, 1)
+    _assert_float32_step(_port_chained(params, x, y, 1), want)
+
+
+def test_make_chained_two_steps_match_jax(monkeypatch, batch):
+    """The port's second chained step against the JAX package's step from
+    the same state: the port's after one step, which its two-step chain
+    passes through (test_make_chained_equals_sequential_steps)."""
+    x, y = batch
+    _, params = _jax_params()
+    _, first_vals, first_mom = _port_chained(params, x, y, 1)
+    want, _ = _jax_chained(monkeypatch, x, y, 1, (first_vals, first_mom))
+    _assert_float32_step(_port_chained(params, x, y, 2), want)
