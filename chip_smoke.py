@@ -50,15 +50,19 @@ Phases (any failure raises, and the script exits non-zero):
    allocates only dX;
 3d. BatchNorm kernels: the forward K6a and the backward K6b at every
    distinct BatchNorm shape of ResNet-50 at batch 128 in bf16 (bf16 gamma
-   and beta, as the step casts them), at the stem's and layer 4's in
-   float32 and float16, at C = 5 (the scalar path) and at M = 3; each
+   and beta, as the step casts them), at every one in float32 and
+   float16 too (timed at the stem's and layer 4's), at C = 5 (the scalar
+   path) and at M = 3; each
    against its plain version on the card (y, the statistics, the running
    statistics, dx, dgamma and dbeta within two steps of the type of the
    plain result's largest magnitude, 1e-4 in float32), bitwise equal
    across two launches, with its launch plan, time, the plain version's,
    aten's native_batch_norm (and its backward) on the same tensors, the
-   bound and the share of it (over 100 % fails); axis=1 on the card
-   raises;
+   bound and the share of it (over 100 % fails); K6b's route ("resident"
+   or "streamed"), grid and shared memory, as launch_plan makes them for
+   the card's SMs, with the occupancy API allowing the blocks an SM that
+   the plan assumes co-resident; one K6b call at each case is one device
+   kernel in a profiler trace; axis=1 on the card raises;
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -104,11 +108,14 @@ Phases (any failure raises, and the script exits non-zero):
    path -- a user's sgd_mom kernel (csrc/rtc/sgd_mom.cu) updating all 193
    trainable tensors of resnet50_v1 with real gradients, one launch per
    tensor, 193 launches counted -- then sgd_mom against mx.nd.sgd_mom_update
-   over two updates, scale<float> (csrc/rtc/scale_tmpl.cu) through
+   over two updates, the update captured in a CUDA graph and replayed
+   (bitwise equal to the eager update; its device time against the
+   bound), scale<float> (csrc/rtc/scale_tmpl.cu) through
    exports, and the error cases (a compile error with NVRTC's log, a wrong
    dtype, a CPU array); each kernel bitwise repeatable, with its time, the
    plain version's, the library call's, the bound, the host time of a
-   launch and NVRTC's compile time, cold and cached.
+   launch by part (beside the parts of the earlier launch path that the
+   launch template replaced) and NVRTC's compile time, cold and cached.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -119,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -1357,11 +1365,75 @@ def _bn_err(got, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
+def bn_bwd_occupancy(plan, m, c, dtype):
+    """The blocks an SM that the occupancy API allows K6b's kernel of
+    ``plan`` (mxt_bn_bwd_occupancy), held to what the plan assumes
+    co-resident: at least its blocks an SM, its grid within them on the
+    card's SMs."""
+    import ctypes
+
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.ops import batch_norm as B
+
+    lib = _kernels.library("batch_norm")
+    blocks = ctypes.c_int()
+    err = lib.mxt_bn_bwd_occupancy(B._DTYPE_CODES[dtype], plan.vec,
+                                   int(plan.route == "resident"),
+                                   plan.bwd_smem, ctypes.byref(blocks))
+    if err:
+        raise AssertionError("mxt_bn_bwd_occupancy failed: %s"
+                             % lib.mxt_error_string(err).decode())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if blocks.value < plan.blocks_per_sm \
+            or plan.bwd_grid > sms * plan.blocks_per_sm:
+        raise AssertionError("K6b's plan %s is not co-resident on %d SMs at "
+                             "M %d C %d %s: the occupancy API allows %d "
+                             "blocks an SM" % (plan, sms, m, c, dtype,
+                                               blocks.value))
+    return blocks.value
+
+
+def bwd_one_launch_a_call(cases, gen):
+    """One call of K6b at each case, in one torch.profiler session: each
+    call is one device kernel, bn_bwd_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.ops import batch_norm as B
+
+    calls = []
+    for m, c, dt, _ in cases:
+        x = torch.randn(m, c, device="cuda", generator=gen).to(dt)
+        gamma = torch.ones(c, device="cuda", dtype=dt)
+        stats = B.batch_norm_fwd(x, gamma, gamma, torch.zeros(c, device="cuda"),
+                                 torch.ones(c, device="cuda"), BN_EPS, False,
+                                 False)[3]
+        calls.append((x, torch.randn_like(x), stats, gamma))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, dy, stats, gamma in calls:
+            B.batch_norm_bwd(x, dy, stats, gamma, gamma, False, True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ok = len(names) == len(calls) and all("bn_bwd_kernel" in n
+                                          for n in names)
+    log("kernel batch_norm_bwd: %d calls at %d shapes in one profiler "
+        "session launch %d device kernels (%s)" % (
+            len(calls), len(calls), len(names),
+            ", ".join(sorted(set(re.search(r"bn_bwd_kernel<[^>]*>", n)[0]
+                                 if "bn_bwd_kernel<" in n else n
+                                 for n in names)))))
+    if not ok:
+        raise AssertionError("a K6b call is not one device kernel")
+    del calls
+    torch.cuda.empty_cache()
+
+
 def bn_kernels(seed):
     """Phase 3d, K6a and K6b: every distinct BatchNorm shape of the main
-    path in bf16 (bf16 gamma and beta, as the step's casts make them), the
-    stem and layer 4 in float32 and float16, C = 5 (the scalar path) and a
-    tiny M; each against its plain version on the card (within BN_TOL of
+    path in bf16 (bf16 gamma and beta, as the step's casts make them), each
+    in float32 and float16 too (timed at the stem and layer 4), C = 5 (the
+    scalar path) and a tiny M; each against its plain version on the card (within BN_TOL of
     its largest magnitude) and bitwise equal across two launches, with its
     plan, time, the plain version's, the library call's and the bound;
     axis=1 on the card raises.  Returns, for each kernel, its numbers
@@ -1374,7 +1446,7 @@ def bn_kernels(seed):
     for n, h, w, c in resnet_bns():
         counts[(n * h * w, c)] = counts.get((n * h * w, c), 0) + 1
     cases = [(m, c, torch.bfloat16, k) for (m, c), k in counts.items()]
-    cases += [(m, c, dt, 0) for m, c in (BN_STEM, BN_LAST)
+    cases += [(m, c, dt, 0) for m, c in counts
               for dt in (torch.float32, torch.float16)]
     cases += [(792, 5, torch.bfloat16, 0), (792, 5, torch.float32, 0),
               (3, 64, torch.bfloat16, 0)]
@@ -1382,6 +1454,7 @@ def bn_kernels(seed):
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     library_ms=0.0, bound_by="bytes")
             for k in ("fwd", "bwd")}
+    bwd_times = []
     for m, c, dt, per_step in cases:
         pdt = dt  # gamma and beta in the data's type, as the step casts them
         x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dt)
@@ -1416,7 +1489,25 @@ def bn_kernels(seed):
             torch.equal(a, b) for a, b in zip(gotb, againb))
         equal_y = (got[0] == ref[0]).float().mean().item()
         del again, ref, againb, refb
-        plan = B.launch_plan(m, c, dt)
+        plan = B.launch_plan(
+            m, c, dt, True,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        occupancy = bn_bwd_occupancy(plan, m, c, dt)
+        tol = BN_TOL[dt]
+        if not (per_step or (m, c) in (BN_STEM, BN_LAST)):
+            # checked, not timed: the other shapes in float32 and float16
+            log("kernel batch_norm [M %d C %d %s]: K6b %s, %d blocks; errs "
+                "(share of the largest magnitude) y %.3g mean %.3g var %.3g "
+                "running mean %.3g var %.3g, dx %.3g dgamma %.3g dbeta %.3g "
+                "(tol %.3g); bitwise repeatable %s" % (
+                    m, c, str(dt).split(".")[1], plan.route, plan.bwd_grid,
+                    *(e[1] for e in errs + errsb), tol, same))
+            if any(e[1] > tol for e in errs + errsb) or not same:
+                raise AssertionError("batch_norm disagrees with its plain "
+                                     "version or does not repeat at M %d C "
+                                     "%d %s" % (m, c, dt))
+            del x, dy, got, gotb
+            continue
 
         def fwd_k():
             return B.batch_norm_fwd(x, gamma, beta, rm, rv, BN_EPS, False,
@@ -1443,7 +1534,10 @@ def bn_kernels(seed):
         bound, _ = bn_bound_ms(m, c, dt, 2)
         bound_b, _ = bn_bound_ms(m, c, dt, 3)
         log("kernel batch_norm [M %d C %d %s, %d a step]: %s, %d threads a "
-            "row, %d channel tiles of %d, %d splits of %d rows; fwd errs "
+            "row, %d channel tiles of %d, %d splits of %d rows; K6b %s, %d "
+            "splits a block, one launch of %d blocks, %d bytes of dynamic "
+            "shared memory, %d blocks an SM by plan (occupancy API: %d); "
+            "fwd errs "
             "(share of the largest magnitude) y %.3g mean %.3g var %.3g "
             "running mean %.3g var %.3g, y bitwise equal to the plain "
             "version at %.4f of its elements; bwd errs dx %.3g dgamma %.3g "
@@ -1454,7 +1548,9 @@ def bn_kernels(seed):
             "K6a %.4f, K6b %.4f; plain %.4f and %.4f" % (
                 m, c, str(dt).split(".")[1], per_step, plan.access,
                 plan.tpr, plan.channel_tiles, plan.tile_c, plan.splits,
-                plan.rows, *(e[1] for e in errs), equal_y,
+                plan.rows, plan.route, plan.splits_per_block,
+                plan.bwd_grid, plan.bwd_smem, plan.blocks_per_sm,
+                occupancy, *(e[1] for e in errs), equal_y,
                 *(e[1] for e in errsb), tol, same, ms, 100.0 * bound / ms,
                 bound, lib_ms, ms_b, 100.0 * bound_b / ms_b, bound_b, lib_b,
                 eager_ms, eager_b, plain_ms, plain_b))
@@ -1466,6 +1562,9 @@ def bn_kernels(seed):
                                  "C %d %s" % (m, c, dt))
         check_share("batch_norm_fwd", (m, c, dt), ms, bound)
         check_share("batch_norm_bwd", (m, c, dt), ms_b, bound_b)
+        if per_step or (m, c) in (BN_STEM, BN_LAST):
+            bwd_times.append((m, c, str(dt).split(".")[1], plan.route, ms_b,
+                              bound_b, lib_b))
         for key, row, vals, err in (
                 ("fwd", rows["fwd"], (ms, plain_ms, bound, lib_ms),
                  errs[0][0]),
@@ -1477,6 +1576,11 @@ def bn_kernels(seed):
                 row[name] += per_step * v
         del x, dy, got, gotb
     torch.cuda.empty_cache()
+    log("kernel batch_norm_bwd (K6b) by shape, in graph replays: %s" % "; ".join(
+        "M %d C %d %s %s %.4f ms (%.1f %% of %.4f), aten %.4f" % (
+            m, c, dt, route, ms_b, 100.0 * bound_b / ms_b, bound_b, lib_b)
+        for m, c, dt, route, ms_b, bound_b, lib_b in bwd_times))
+    bwd_one_launch_a_call(cases, gen)
     for key, row in rows.items():
         log("kernel batch_norm %s over one ResNet-50 step (%d BatchNorms, "
             "bf16; kernel and library in graph replays): kernel %.3f ms, "
@@ -1579,8 +1683,7 @@ def resnet_gradient_check(seed):
 RESNET_GROUPS = (
     ("K6a batch_norm fwd", ("bn_stat_sums", "bn_fwd_finish",
                             "bn_apply_fwd")),
-    ("K6b batch_norm bwd", ("bn_grad_sums", "bn_bwd_finish",
-                            "bn_apply_bwd")),
+    ("K6b batch_norm bwd", ("bn_bwd_kernel",)),
     # template arguments: the type (false bf16, true float16), then the
     # formulation (false per-tap, true im2col)
     ("K1a conv_dw pertap", ("conv_dw_wgmma_kernel<false, false",
@@ -1603,7 +1706,7 @@ RESNET_GROUPS = (
 # in a trace of graph replays: (wrapper, name substrings, launches a step)
 RESNET_LAUNCH_KERNELS = (
     ("batch_norm_fwd", ("bn_apply_fwd",), RESNET_BN),
-    ("batch_norm_bwd", ("bn_apply_bwd",), RESNET_BN),
+    ("batch_norm_bwd", ("bn_bwd_kernel",), RESNET_BN),
     ("pertap", ("conv_dw_wgmma_kernel<false, false",
                 "conv_dw_wgmma_kernel<true, false", "conv_dw_kernel<false"),
      RESNET_K1A),
@@ -2014,11 +2117,136 @@ def _host_us(fn, n=2000):
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def _push_pop():
-    from mxnet_tpu_torch import _nvrtc
+def _earlier_arguments(args, params):
+    """The per-launch argument work of the earlier launch path:
+    a formatted name for every argument, a numpy array and a ctypes object
+    for every scalar, a c_void_p for every pointer, then a fresh void*[]."""
+    import ctypes
 
-    with _nvrtc._current(0):
-        pass
+    from mxnet_tpu_torch import rtc
+
+    cts = {"float": ctypes.c_float, "int": ctypes.c_int32}
+    out = []
+    for i, (arg, (is_ptr, _c, ctype)) in enumerate(zip(args, params)):
+        tdt, ndt, _ = rtc._C_TYPES[ctype]
+        what = "CudaKernel(%s): argument %d (%s%s)" % (
+            "sgd_mom", i, ctype, " *" if is_ptr else "")
+        if not is_ptr:
+            out.append(cts[ctype].from_buffer_copy(
+                np.array(arg, ndt).tobytes()))
+            continue
+        t = arg.data_torch
+        if t.dtype != tdt or not t.is_contiguous() or not what:
+            raise AssertionError(what)
+        out.append(ctypes.c_void_p(t.data_ptr()))
+    return (ctypes.c_void_p * len(out))(*[ctypes.addressof(p) for p in out])
+
+
+def launch_host_parts(sgd, w, g, m, hp):
+    """Where the host time of one sgd_mom launch (9 arguments) goes, each
+    part repeated alone: the launch as it is and its parts, then the parts
+    of the earlier path that the launch template replaced; and the
+    stream candidates, the raw one checked under torch.cuda.stream."""
+    import contextlib
+    import ctypes
+
+    from mxnet_tpu_torch import _nvrtc, gpu
+    from mxnet_tpu_torch.context import resolve_device
+
+    ctx, dev = gpu(0), torch.device("cuda", 0)
+    args = [w.copy(), g, m.copy(), *hp, w.size]
+    cu = _nvrtc._cuda()
+    get_current, launch_kernel = _nvrtc._calls
+    func = sgd._module._function(0, sgd._symbol)
+    values = sgd._values(args, 0)
+    ptrs = sgd._pack(values)
+    stream = _nvrtc.current_stream(0)
+    cur = ctypes.c_void_p()
+    pcur = ctypes.pointer(cur)
+    # the driver call as the earlier path declared it, for comparison
+    vp, u = ctypes.c_void_p, ctypes.c_uint
+    proto = cu["cuLaunchKernel"]
+    proto.restype = ctypes.c_int
+    proto.argtypes = [vp, u, u, u, u, u, u, u, vp, ctypes.POINTER(vp),
+                      ctypes.POINTER(vp)]
+
+    @contextlib.contextmanager
+    def pushed():
+        cu.cuCtxPushCurrent_v2(_nvrtc._primary_context(0))
+        try:
+            yield
+        finally:
+            cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+
+    def push_pop():
+        with pushed():
+            pass
+
+    parts = {
+        "launch": lambda: sgd.launch(args, ctx, (1, 1, 1), (RTC_BLOCK, 1, 1)),
+        "checks (attribute reads)": lambda: sgd._values(args, 0),
+        "pack (one struct call)": lambda: sgd._pack(values),
+        "raw current stream": lambda: _nvrtc.current_stream(0),
+        "cuCtxGetCurrent": lambda: get_current(pcur),
+        "cuLaunchKernel alone": lambda: launch_kernel(
+            func, 1, 1, 1, RTC_BLOCK, 1, 1, 0, ctypes.c_void_p(stream), ptrs,
+            None),
+        "earlier: cuLaunchKernel through argtypes": lambda: proto(
+            func, 1, 1, 1, RTC_BLOCK, 1, 1, 0, stream, ptrs, None),
+        "earlier: checks and ctypes arguments": lambda: _earlier_arguments(
+            args, sgd._params),
+        "earlier: torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "earlier: resolve_device": lambda: resolve_device(dev),
+        "earlier: context push and pop (contextmanager)": push_pop,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    host = {name: _host_us(fn) for name, fn in parts.items()}
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        raw_ok = _nvrtc.current_stream(0) == side.cuda_stream
+    log("rtc: host us of one sgd_mom launch: %s; the raw stream follows "
+        "torch.cuda.stream %s" % (", ".join("%s %.2f" % kv
+                                            for kv in host.items()), raw_ok))
+    if not raw_ok:
+        raise AssertionError("the raw current stream does not follow "
+                             "torch.cuda.stream")
+    return host
+
+
+def captured_update(update, start, grads, replays=20):
+    """The rtc update of the 193 tensors captured in one CUDA graph: two
+    replays from the start state against two eager updates (bitwise), then
+    the device time of a replay."""
+    from mxnet_tpu_torch import nd
+
+    ctx = torch.device("cuda", 0)
+    we = [s.copy() for s in start]
+    me = [nd.zeros(s.shape, ctx=ctx) for s in start]
+    for _ in range(2):
+        update(we, me, grads)
+    wc = [s.copy() for s in start]
+    mc = [nd.zeros(s.shape, ctx=ctx) for s in start]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # capture only: nothing runs
+        update(wc, mc, grads)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.data_torch, b.data_torch)
+               for a, b in zip(we + me, wc + mc))
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    for _ in range(replays):
+        graph.replay()
+    end_ev.record()
+    torch.cuda.synchronize()
+    del graph
+    return start_ev.elapsed_time(end_ev) / replays, same
 
 
 def rtc_phase(seed, smi):
@@ -2026,7 +2254,6 @@ def rtc_phase(seed, smi):
     line and the launch count of the main path."""
     from mxnet_tpu_torch import MXNetError, gpu, nd, rtc
     from mxnet_tpu_torch import _nvrtc
-    from mxnet_tpu_torch.context import resolve_device
     from mxnet_tpu_torch.parallel.gluon_step import sgd_momentum_update
 
     ctx = gpu(0)
@@ -2126,23 +2353,7 @@ def rtc_phase(seed, smi):
                                             RESNET_TRAINABLE):
         raise AssertionError("the rtc update did not launch once per "
                              "trainable tensor of ResNet-50")
-    # where a launch's host time goes: one sgd_mom launch (9 arguments)
-    # and its parts, each repeated alone
-    dev = torch.device("cuda", 0)
-    args = [weights[0].copy(), grads[0], moms[0].copy(), *hp,
-            weights[0].size]
-    parts = {
-        "launch": lambda: sgd.launch(args, ctx, (1, 1, 1),
-                                     (RTC_BLOCK, 1, 1)),
-        "checks and ctypes arguments": lambda: sgd._marshal(args, dev),
-        "current stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "device check": lambda: resolve_device(dev),
-        "context push and pop": _push_pop,
-    }
-    host = {name: _host_us(fn) for name, fn in parts.items()}
-    torch.cuda.synchronize()
-    log("rtc: host us of one sgd_mom launch: %s" % ", ".join(
-        "%s %.1f" % kv for kv in host.items()))
+    host = launch_host_parts(sgd, weights[0], grads[0], moms[0], hp)
     moved = max((w.data_torch - s.data_torch).abs().max().item()
                 for w, s in zip(weights, start))
     if not moved > 0:
@@ -2182,6 +2393,7 @@ def rtc_phase(seed, smi):
     torch.cuda.synchronize()
     plain_ms = time_ms(lambda: [nd.sgd_mom_update(w, g, m, **SGD_MOM)
                                 for w, g, m in zip(wp, grads, mp)], iters=10)
+    cap_ms, cap_same = captured_update(update, start, grads)
     fe = sgd_momentum_update(**SGD_MOM)
     tw = [w.data_torch for w in ws]
     tg = [g.data_torch for g in grads]
@@ -2192,14 +2404,19 @@ def rtc_phase(seed, smi):
         "tensors: max err %.3g relative to each tensor's magnitude (%.3g "
         "abs; tol %.0e), bitwise repeatable %s; a whole update on %s: "
         "kernel %.4f ms (host %.3f ms to issue its %d launches), plain "
-        "%.4f ms, foreach SGD-momentum %.4f ms, bound %.4f ms (bytes)" % (
-            len(weights), err, abs_err, RTC_TOL, same, smi, t_ms, host_ms,
-            len(weights), plain_ms, lib_ms, bound))
-    if err > RTC_TOL or not same:
+        "%.4f ms, foreach SGD-momentum %.4f ms, bound %.4f ms (bytes); "
+        "captured in a CUDA graph and replayed: %.4f ms of device time an "
+        "update (%.1f %% of the bound), bitwise equal to the eager update "
+        "%s" % (len(weights), err, abs_err, RTC_TOL, same, smi, t_ms,
+                host_ms, len(weights), plain_ms, lib_ms, bound, cap_ms,
+                100.0 * bound / cap_ms, cap_same))
+    if err > RTC_TOL or not same or not cap_same:
         raise AssertionError("the sgd_mom kernel disagrees with "
-                             "mx.nd.sgd_mom_update or is not repeatable")
+                             "mx.nd.sgd_mom_update, is not repeatable or "
+                             "differs when captured")
     row = {"max_abs_err": abs_err, "ms": t_ms, "plain_ms": plain_ms,
-           "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+           "captured_ms": cap_ms}
     del net, weights, grads, start, moms, ws, ms_, wp, mp, tw, tg, tm
     torch.cuda.empty_cache()
 

@@ -67,7 +67,9 @@ _SIGNATURES = {
                        + [ctypes.c_int] * 11 + [ctypes.c_float] * 3
                        + [ctypes.c_void_p]),
         "mxt_bn_bwd": (ctypes.c_int, [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+                       + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
+        "mxt_bn_bwd_occupancy": (ctypes.c_int, [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "maxpool_bwd": {
@@ -107,9 +109,13 @@ def _build_dir(sources):
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
 
-def _load(name, so_path):
+def _load(name, so_path, strict=True):
+    """Load a kernel library and declare its functions; a variant
+    (``strict`` False) may lack a query function of the committed source."""
     lib = ctypes.CDLL(so_path)
     for fn, (restype, argtypes) in _SIGNATURES.get(name, {}).items():
+        if not strict and not hasattr(lib, fn):
+            continue
         f = getattr(lib, fn)
         f.restype = restype
         f.argtypes = argtypes
@@ -183,7 +189,7 @@ def build_variants(name, paths):
             failed.append("%s (nvcc exit %d):\n%s" % (path, proc.returncode,
                                                       log))
             continue
-        libs[os.path.basename(path)] = _load(name, so)
+        libs[os.path.basename(path)] = _load(name, so, strict=False)
     if failed:
         raise MXNetError("building the variants failed: " + "\n".join(failed))
     return libs

@@ -33,11 +33,13 @@
 //
 // Bound on the H100: bytes.  The work is a few flops an element; each
 // pass streams the tensor.  K6a reads x twice (statistics, apply) and
-// writes y once (float32: reads x three times); K6b reads x and dy twice
-// and writes dx once.
+// writes y once (float32: reads x three times).  K6b's bound is x and dy
+// read once and dx written once; it moves that where its slab stays on
+// the chip, else x and dy twice but for what shared memory and the L2
+// keep.
 //
 // Design: every launch runs on the caller's stream, allocates nothing,
-// and uses no atomics, so every result is bitwise repeatable.
+// and uses no atomics in its sums, so every result is bitwise repeatable.
 //   - A block of 256 threads covers a tile of channels: tpr threads a
 //     row, each on VEC channels (16-byte vector loads: 8 of bf16/f16, 4
 //     of float32, where C and the pointers allow; else one scalar), and
@@ -47,27 +49,64 @@
 //     layer 4's M = 6,272 x C = 2,048); each thread keeps its sums in
 //     registers over four rows in flight, then the block adds its rows
 //     in a fixed tree in shared memory and writes one partial a channel.
-//   - A finishing launch gives each channel a warp: its lanes add the
-//     partials of the splits in order, a fixed shuffle tree adds the
-//     lanes, and lane 0 works out the per-channel coefficients (and the
-//     running statistics); nothing else is ordered by timing.
-//   - An apply launch, on the same row partition, reads the per-channel
-//     coefficients once a thread and streams the rows.
+//   - K6a: a finishing launch gives each channel a warp: its lanes add
+//     the partials of the splits in order, a fixed shuffle tree adds the
+//     lanes, and lane 0 works out the per-channel state and the running
+//     statistics; an apply launch, on the same row partition, reads the
+//     state once a thread and streams the rows.
+//   - K6b is one cooperative launch of co-resident blocks (bn_bwd_kernel):
+//     the partial sums, a grid barrier, each channel finished by one warp
+//     of the grid in the same order and tree as K6a's finish (dgamma,
+//     dbeta and three coefficients a channel into the workspace), a second
+//     barrier, then dx.  It keeps the forward's row partition, so its
+//     partial sums, and its results, are those of the earlier three-launch
+//     design bit for bit.  Where every block's rows of x and dy fit in
+//     shared memory with all blocks co-resident ("resident": groups of
+//     consecutive splits a block; ResNet-50's (25088, 256) and (6272, 512)
+//     in bf16), phase 1 copies them there by cp.async, eight rounds in
+//     flight, and phase 2 reads them from there: x and dy cross HBM once.
+//     Elsewhere ("streamed", four blocks an SM walking the splits) each
+//     thread keeps the first rounds of its rows (five in bf16 and float16,
+//     six in float32) in the shared memory that four blocks an SM leave
+//     (where a block has one split), and phase 2
+//     reads the rest again, last row first, so that what phase 1 read last
+//     is still in the 50 MB L2.  The route, the grid and the shared
+//     memory are ops/batch_norm.py launch_plan's, passed in with the
+//     geometry; mxt_bn_bwd_occupancy lets the wrapper hold a plan to the
+//     occupancy API.  The barriers are cooperative_groups' grid sync; the
+//     launch is refused, and the wrapper raises, where the grid is not
+//     co-resident.
 // The arithmetic of the apply passes uses the _rn intrinsics, so nothing
 // is contracted into an FMA and each operation rounds where the plain
 // version's does: y and dx equal the plain version wherever the
 // statistics agree.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;        // rows a thread keeps in flight
+// rows in flight in K6b's streamed phase 2, whose coefficients take 32
+// registers (a thread's 64, at four blocks an SM) beside them
+constexpr int kApplyUnroll = 2;
 constexpr int kWarps = kThreads / 32;
+// K6b: the co-resident blocks an SM that ops/batch_norm.py launch_plan
+// assumes for the streamed route (the launch bounds keep the registers to
+// 64 a thread for it; the wrapper holds each plan to the occupancy API,
+// mxt_bn_bwd_occupancy), and a round of a thread's slab: x and dy, 16
+// bytes each
+constexpr int kBwdBlocksPerSm = 4;
+constexpr int kRoundBytes = 2 * kThreads * 16;
+constexpr int kStages = 8;                      // rounds of cp.async in flight
 
 __device__ __forceinline__ float tof(float v) { return v; }
 __device__ __forceinline__ float tof(__nv_bfloat16 v) {
@@ -139,21 +178,64 @@ enum SumKind {
   kGrad = 3,      // sum dy, sum dy (x - center) (backward)
 };
 
+// The block's per-thread sums s1 (and s2 where kTwo) added over its rows
+// in a fixed tree in shared memory, and written as the partial of split
+// `split`: part[(k * C + c) * splits + split].
+template <int VEC, bool kTwo>
+__device__ __forceinline__ void block_partials(const float (&s1)[VEC],
+                                               const float (&s2)[VEC],
+                                               float* __restrict__ part,
+                                               const Geometry& g, int split,
+                                               int c0) {
+  __shared__ float red[kTwo ? 2 : 1][kThreads * VEC];
+  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
+  const int rpi = kThreads / g.tpr;
+  const int slot = row0 * (g.tpr * VEC) + col * VEC;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    red[0][slot + j] = s1[j];
+    if (kTwo) red[kTwo ? 1 : 0][slot + j] = s2[j];
+  }
+  for (int s = rpi / 2; s > 0; s >>= 1) {
+    __syncthreads();
+    if (row0 < s) {
+      const int other = slot + s * (g.tpr * VEC);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        red[0][slot + j] += red[0][other + j];
+        if (kTwo) red[kTwo ? 1 : 0][slot + j] += red[kTwo ? 1 : 0][other + j];
+      }
+    }
+  }
+  if (row0 == 0 && c0 < g.c) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int64_t c = c0 + j;
+      part[c * g.splits + split] = red[0][slot + j];
+      if (kTwo)
+        part[(g.c + c) * g.splits + split] = red[kTwo ? 1 : 0][slot + j];
+    }
+  }
+  __syncthreads();  // red is free for the block's next item
+}
+
 // Partial sums of one row split and channel tile, into
 // part[(k * C + c) * splits + split] for k = 0 (and 1 where the kind has
-// a second sum).
+// a second sum).  K6b's streamed route keeps the thread's first `keep`
+// rounds of rows of x and dy in its slots of `slab` (copied by cp.async,
+// summed first: the row order stays), for phase 2 to read from there.
 template <typename T, int VEC, int KIND>
 __device__ __forceinline__ void sums_body(const T* __restrict__ a,
                                           const T* __restrict__ b,
                                           const float* __restrict__ center,
                                           float* __restrict__ part,
-                                          const Geometry& g) {
-  constexpr bool kTwo = KIND == kSumSq || KIND == kGrad;
-  __shared__ float red[kTwo ? 2 : 1][kThreads * VEC];
+                                          const Geometry& g, int split,
+                                          int tile, int keep = 0,
+                                          uint4* slab = nullptr) {
   const int rpi = kThreads / g.tpr;
   const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
-  const int c0 = (blockIdx.y * g.tpr + col) * VEC;
-  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * g.rows;
+  const int c0 = (tile * g.tpr + col) * VEC;
+  const int64_t r_begin = static_cast<int64_t>(split) * g.rows;
   const int64_t r_end = row_end(g, r_begin);
   float s1[VEC], s2[VEC], mu[VEC];
 #pragma unroll
@@ -183,6 +265,20 @@ __device__ __forceinline__ void sums_body(const T* __restrict__ a,
       }
     };
     int64_t r = r_begin + row0;
+    if constexpr (KIND == kGrad && sizeof(T) * VEC == 16) {
+      uint4* sa = slab + threadIdx.x;
+      uint4* sb = slab + keep * kThreads + threadIdx.x;
+      for (int i = 0; i < keep && r + i * rpi < r_end; ++i) {
+        const int64_t off = (r + i * rpi) * g.c + c0;
+        cp_async16(smem_u32(sa + i * kThreads), a + off, true);
+        cp_async16(smem_u32(sb + i * kThreads), b + off, true);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      for (int i = 0; i < keep && r < r_end; ++i, r += rpi)
+        add(*reinterpret_cast<const Pack<T, VEC>*>(sa + i * kThreads),
+            *reinterpret_cast<const Pack<T, VEC>*>(sb + i * kThreads));
+    }
     for (; r + (kUnroll - 1) * rpi < r_end; r += kUnroll * rpi) {
       Pack<T, VEC> pa[kUnroll], pb[kUnroll];
 #pragma unroll
@@ -203,51 +299,18 @@ __device__ __forceinline__ void sums_body(const T* __restrict__ a,
       add(pa, pb);
     }
   }
-  // the block's rows, added in a fixed tree
-  const int slot = row0 * (g.tpr * VEC) + col * VEC;
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    red[0][slot + j] = s1[j];
-    if (kTwo) red[kTwo ? 1 : 0][slot + j] = s2[j];
-  }
-  for (int s = rpi / 2; s > 0; s >>= 1) {
-    __syncthreads();
-    if (row0 < s) {
-      const int other = slot + s * (g.tpr * VEC);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        red[0][slot + j] += red[0][other + j];
-        if (kTwo) red[kTwo ? 1 : 0][slot + j] += red[kTwo ? 1 : 0][other + j];
-      }
-    }
-  }
-  if (row0 == 0 && c0 < g.c) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int64_t c = c0 + j;
-      part[c * g.splits + blockIdx.x] = red[0][slot + j];
-      if (kTwo)
-        part[(g.c + c) * g.splits + blockIdx.x] = red[kTwo ? 1 : 0][slot + j];
-    }
-  }
+  block_partials<VEC, KIND == kSumSq || KIND == kGrad>(s1, s2, part, g,
+                                                       split, c0);
 }
 
-// the forward's statistics (K6a) and the backward's sums (K6b), as two
-// kernels so that a trace tells them apart by name
+// the forward's statistics (K6a)
 template <typename T, int VEC, int KIND>
 __global__ void __launch_bounds__(kThreads)
     bn_stat_sums_kernel(const T* __restrict__ x,
                         const float* __restrict__ center,
                         float* __restrict__ part, Geometry g) {
-  sums_body<T, VEC, KIND>(x, nullptr, center, part, g);
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    bn_grad_sums_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                        const float* __restrict__ center,
-                        float* __restrict__ part, Geometry g) {
-  sums_body<T, VEC, kGrad>(x, dy, center, part, g);
+  sums_body<T, VEC, KIND>(x, nullptr, center, part, g, blockIdx.x,
+                          blockIdx.y);
 }
 
 // The sum over the splits of partial k of channel c, on every lane of
@@ -258,7 +321,7 @@ __device__ __forceinline__ float split_sum(const float* part, int k, int c,
   const int lane = threadIdx.x % 32;
   const float* p = part + (static_cast<int64_t>(k) * cs + c) * splits;
   float v = 0.f;
-  for (int s = lane; s < splits; s += 32) v += p[s];
+  for (int s = lane; s < splits; s += 32) v += __ldcg(p + s);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -389,14 +452,13 @@ struct BwdArgs {
   int train, fix_gamma, gamma_code, beta_code;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bn_bwd_finish_kernel(const float* __restrict__ part,
-                         const float* __restrict__ stats,
-                         const void* __restrict__ gamma, void* dgamma,
-                         void* dbeta, float* __restrict__ coef, BwdArgs a) {
-  const int c = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (c >= a.c) return;
+// The finish of channel c, by one whole warp: the sums of its partials
+// over the splits (the fixed order and tree of split_sum), then, on lane
+// 0, dgamma, dbeta and the channel's coefficients.
+__device__ __forceinline__ void bwd_finish_channel(
+    const float* part, const float* __restrict__ stats,
+    const void* __restrict__ gamma, void* dgamma, void* dbeta, float* coef,
+    const BwdArgs& a, int c) {
   const float sdy = split_sum(part, 0, c, a.c, a.splits);
   const float sdxm = split_sum(part, 1, c, a.c, a.splits);
   if (threadIdx.x % 32) return;
@@ -419,57 +481,245 @@ __global__ void __launch_bounds__(kThreads)
   coef[kK3 * a.c + c] = k3;
 }
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    bn_apply_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                        const float* __restrict__ stats,
-                        const float* __restrict__ coef, T* __restrict__ dx,
-                        Geometry g) {
-  const int rpi = kThreads / g.tpr;
-  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
-  const int c0 = (blockIdx.y * g.tpr + col) * VEC;
-  if (c0 >= g.c) return;
+// the coefficients of a thread's VEC channels, and dx of one element pack,
+// rounded once to T.  The coefficients are read after the grid barrier,
+// whose acquire orders these loads after the finish's stores.  They are
+// plain loads, which the compiler vectorizes: L2-only __ldcg loads of
+// them cost 1.0 of the 6.4 ms that K6b took over a ResNet-50 step on an
+// H100.
+template <int VEC>
+struct BwdCoefs {
   float mu[VEC], k1[VEC], k2[VEC], k3[VEC];
+
+  __device__ __forceinline__ void load(const float* __restrict__ stats,
+                                       const float* coef, int c, int c0) {
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    mu[j] = stats[kMean * g.c + c0 + j];
-    k1[j] = coef[kK1 * g.c + c0 + j];
-    k2[j] = coef[kK2 * g.c + c0 + j];
-    k3[j] = coef[kK3 * g.c + c0 + j];
+    for (int j = 0; j < VEC; ++j) {
+      mu[j] = stats[kMean * c + c0 + j];
+      k1[j] = coef[kK1 * c + c0 + j];
+      k2[j] = coef[kK2 * c + c0 + j];
+      k3[j] = coef[kK3 * c + c0 + j];
+    }
   }
-  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * g.rows;
-  const int64_t r_end = row_end(g, r_begin);
-  auto apply = [&](const Pack<T, VEC>& px, const Pack<T, VEC>& pd,
-                   Pack<T, VEC>& out) {
+
+  template <typename T>
+  __device__ __forceinline__ Pack<T, VEC> dx(const Pack<T, VEC>& px,
+                                             const Pack<T, VEC>& pd) const {
+    Pack<T, VEC> out;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const float t = __fmul_rn(k1[j], __fsub_rn(tof(pd.v[j]), k2[j]));
       const float u = __fmul_rn(k3[j], __fsub_rn(tof(px.v[j]), mu[j]));
       out.v[j] = fromf<T>(__fsub_rn(t, u));
     }
-  };
-  int64_t r = r_begin + row0;
-  for (; r + (kUnroll - 1) * rpi < r_end; r += kUnroll * rpi) {
-    Pack<T, VEC> px[kUnroll], pd[kUnroll];
+    return out;
+  }
+};
+
+// The "resident" route: a block owns `spb` consecutive row splits of one
+// channel tile (a group), `rps` rounds of rows a split for each thread.
+// Phase 1 copies the thread's rows of x and dy by cp.async into its own
+// slots of the block's slab (x rounds first, then dy rounds; slot i * 256
+// + thread of each, round i = split * rps + k), kStages rounds in flight,
+// sums them as they land in row order as sums_body does, and writes each
+// split's partial: the same partials, in the same order, as the streamed
+// route.  Each thread reads only the slots it copied itself, so the slab
+// needs no block barrier; it stays for phase 2.
+struct Group {
+  int s0, nsplit, tile;
+};
+
+__device__ __forceinline__ Group resident_group(const Geometry& g, int spb) {
+  const int groups = (g.splits + spb - 1) / spb;
+  Group gr;
+  gr.s0 = (blockIdx.x % groups) * spb;
+  gr.nsplit = min(spb, g.splits - gr.s0);
+  gr.tile = blockIdx.x / groups;
+  return gr;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void resident_sums(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ mean, float* __restrict__ part,
+    const Geometry& g, const Group& gr, int rps, int rounds, uint4* slab) {
+  const int rpi = kThreads / g.tpr;
+  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
+  const int c0 = (gr.tile * g.tpr + col) * VEC;
+  const bool active = c0 < g.c;
+  const int total = gr.nsplit * rps;
+  uint4* sx = slab + threadIdx.x;
+  uint4* sd = slab + rounds * kThreads + threadIdx.x;
+  float s1[VEC], s2[VEC], mu[VEC];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t off = (r + u * rpi) * g.c + c0;
+  for (int j = 0; j < VEC; ++j) {
+    s1[j] = s2[j] = 0.f;
+    mu[j] = active ? mean[c0 + j] : 0.f;
+  }
+  // the row of round i, or -1 where the thread has none
+  auto row = [&](int i) -> int64_t {
+    const int64_t begin = static_cast<int64_t>(gr.s0 + i / rps) * g.rows;
+    const int64_t r = begin + row0 + static_cast<int64_t>(i % rps) * rpi;
+    return active && i < total && r < row_end(g, begin) ? r : -1;
+  };
+  auto issue = [&](int i) {
+    const int64_t r = row(i);
+    if (r >= 0) {
+      const int64_t off = r * g.c + c0;
+      cp_async16(smem_u32(sx + i * kThreads), x + off, true);
+      cp_async16(smem_u32(sd + i * kThreads), dy + off, true);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < total; ++i) {
+    issue(i + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    if (row(i) >= 0) {
+      const Pack<T, VEC> px =
+          *reinterpret_cast<const Pack<T, VEC>*>(sx + i * kThreads);
+      const Pack<T, VEC> pd =
+          *reinterpret_cast<const Pack<T, VEC>*>(sd + i * kThreads);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float d = tof(pd.v[j]);
+        s1[j] += d;
+        s2[j] = __fmaf_rn(d, __fsub_rn(tof(px.v[j]), mu[j]), s2[j]);
+      }
+    }
+    if (i % rps == rps - 1) {  // the split's last round: its partial
+      block_partials<VEC, true>(s1, s2, part, g, gr.s0 + i / rps, c0);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s1[j] = s2[j] = 0.f;
+    }
+  }
+}
+
+// The "resident" phase 2: dx of the group's rows from the slab.
+template <typename T, int VEC>
+__device__ __forceinline__ void resident_apply(
+    const float* __restrict__ stats, const float* coef, T* __restrict__ dx,
+    const Geometry& g, const Group& gr, int rps, int rounds,
+    const uint4* slab) {
+  const int rpi = kThreads / g.tpr;
+  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
+  const int c0 = (gr.tile * g.tpr + col) * VEC;
+  if (c0 >= g.c) return;
+  BwdCoefs<VEC> k;
+  k.load(stats, coef, g.c, c0);
+  const uint4* sx = slab + threadIdx.x;
+  const uint4* sd = slab + rounds * kThreads + threadIdx.x;
+  for (int i = 0; i < gr.nsplit * rps; ++i) {
+    const int64_t begin = static_cast<int64_t>(gr.s0 + i / rps) * g.rows;
+    const int64_t r = begin + row0 + static_cast<int64_t>(i % rps) * rpi;
+    if (r >= row_end(g, begin)) continue;
+    *reinterpret_cast<Pack<T, VEC>*>(dx + r * g.c + c0) = k.template dx<T>(
+        *reinterpret_cast<const Pack<T, VEC>*>(sx + i * kThreads),
+        *reinterpret_cast<const Pack<T, VEC>*>(sd + i * kThreads));
+  }
+}
+
+// The "streamed" phase 2: dx of the item's rows read again from device
+// memory, last row first, so that the rows phase 1 read last, still in the
+// L2, are read first; then the first `keep` rounds from the slab.
+template <typename T, int VEC>
+__device__ __forceinline__ void streamed_apply(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ stats, const float* coef, T* __restrict__ dx,
+    const Geometry& g, int split, int tile, int keep, const uint4* slab) {
+  const int rpi = kThreads / g.tpr;
+  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
+  const int c0 = (tile * g.tpr + col) * VEC;
+  const int64_t first = static_cast<int64_t>(split) * g.rows + row0;
+  const int64_t r_end = row_end(g, static_cast<int64_t>(split) * g.rows);
+  if (c0 >= g.c || first >= r_end) return;
+  BwdCoefs<VEC> k;
+  k.load(stats, coef, g.c, c0);
+  const int n = static_cast<int>((r_end - first + rpi - 1) / rpi);
+  const int kept = n < keep ? n : keep;
+  int i = n - 1;
+  for (; i >= kept + kApplyUnroll - 1; i -= kApplyUnroll) {
+    Pack<T, VEC> px[kApplyUnroll], pd[kApplyUnroll];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const int64_t off = (first + static_cast<int64_t>(i - u) * rpi) * g.c +
+                          c0;
       px[u] = *reinterpret_cast<const Pack<T, VEC>*>(x + off);
       pd[u] = *reinterpret_cast<const Pack<T, VEC>*>(dy + off);
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      Pack<T, VEC> out;
-      apply(px[u], pd[u], out);
-      *reinterpret_cast<Pack<T, VEC>*>(dx + (r + u * rpi) * g.c + c0) = out;
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const int64_t off = (first + static_cast<int64_t>(i - u) * rpi) * g.c +
+                          c0;
+      *reinterpret_cast<Pack<T, VEC>*>(dx + off) =
+          k.template dx<T>(px[u], pd[u]);
     }
   }
-  for (; r < r_end; r += rpi) {
-    const int64_t off = r * g.c + c0;
-    Pack<T, VEC> out;
-    apply(*reinterpret_cast<const Pack<T, VEC>*>(x + off),
-          *reinterpret_cast<const Pack<T, VEC>*>(dy + off), out);
-    *reinterpret_cast<Pack<T, VEC>*>(dx + off) = out;
+  for (; i >= kept; --i) {
+    const int64_t off = (first + static_cast<int64_t>(i) * rpi) * g.c + c0;
+    *reinterpret_cast<Pack<T, VEC>*>(dx + off) = k.template dx<T>(
+        *reinterpret_cast<const Pack<T, VEC>*>(x + off),
+        *reinterpret_cast<const Pack<T, VEC>*>(dy + off));
+  }
+  const uint4* sx = slab + threadIdx.x;
+  const uint4* sd = slab + keep * kThreads + threadIdx.x;
+  for (; i >= 0; --i) {
+    const int64_t off = (first + static_cast<int64_t>(i) * rpi) * g.c + c0;
+    *reinterpret_cast<Pack<T, VEC>*>(dx + off) = k.template dx<T>(
+        *reinterpret_cast<const Pack<T, VEC>*>(sx + i * kThreads),
+        *reinterpret_cast<const Pack<T, VEC>*>(sd + i * kThreads));
+  }
+}
+
+// K6b: one cooperative launch of co-resident blocks over the row
+// partition.  Phase 1 writes the partial sums of each (split, channel
+// tile); a grid barrier; each channel is finished by one warp of the grid;
+// a second barrier; phase 2 writes dx.  "resident" (kResident): a block
+// owns a group of `spb` splits of a tile (`rps` rounds each), its slab
+// kept in shared memory between the phases; "streamed": the (split, tile)
+// items, item = tile * splits + split, strided over the blocks, phase 2
+// walking them (and their rows) backwards, the first `keep` rounds of
+// each thread's rows kept in shared memory where a block has one item.
+template <typename T, int VEC, bool kResident>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+    bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                  const float* __restrict__ stats,
+                  const void* __restrict__ gamma, T* __restrict__ dx,
+                  void* dgamma, void* dbeta, float* ws, Geometry g,
+                  BwdArgs a, int tiles, int spb, int rps, int keep) {
+  extern __shared__ __align__(16) uint4 slab[];
+  cg::grid_group grid = cg::this_grid();
+  float* part = ws;
+  float* coef = ws + static_cast<int64_t>(2) * g.c * g.splits;
+  const int items = g.splits * tiles;
+  const float* mean = stats + kMean * g.c;
+  if constexpr (kResident) {
+    resident_sums<T, VEC>(x, dy, mean, part, g, resident_group(g, spb), rps,
+                          spb * rps, slab);
+  } else {
+    for (int it = blockIdx.x; it < items; it += gridDim.x)
+      sums_body<T, VEC, kGrad>(x, dy, mean, part, g, it % g.splits,
+                               it / g.splits, keep, slab);
+  }
+  grid.sync();
+  for (int c = blockIdx.x * kWarps + threadIdx.x / 32; c < g.c;
+       c += gridDim.x * kWarps)
+    bwd_finish_channel(part, stats, gamma, dgamma, dbeta, coef, a, c);
+  grid.sync();
+  if constexpr (kResident) {
+    resident_apply<T, VEC>(stats, coef, dx, g, resident_group(g, spb), rps,
+                           spb * rps, slab);
+  } else {
+    if (blockIdx.x >= items) return;
+    for (int it = blockIdx.x + (items - 1 - blockIdx.x) / gridDim.x *
+                                   gridDim.x;
+         it >= 0; it -= gridDim.x)
+      streamed_apply<T, VEC>(x, dy, stats, coef, dx, g, it % g.splits,
+                             it / g.splits, keep, slab);
   }
 }
 
@@ -533,36 +783,120 @@ int fwd_dispatch(const void* x, const void* gamma, const void* beta,
   return cudaErrorInvalidValue;
 }
 
+// Raise K6b's dynamic shared memory limit to `smem`, once for each device
+// and size (the limit belongs to the function on a device).
+template <typename T, int VEC, bool kResident>
+cudaError_t allow_smem(int smem) {
+  static int allowed[64];
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    const cudaError_t f = cudaFuncSetAttribute(
+        bn_bwd_kernel<T, VEC, kResident>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (f != cudaSuccess) return f;
+    allowed[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
+// K6b's launch as ops/batch_norm.py launch_plan makes it: the route, the
+// grid of co-resident blocks, the dynamic shared memory, the splits a
+// resident block and the rounds a streamed block keeps.  tiles and rps
+// follow from the geometry.
+struct BwdPlan {
+  bool resident;
+  int grid, smem, spb, keep, tiles, rps;
+};
+
+// whether the plan covers the geometry and its slab fits its shared memory
+bool valid_plan(const BwdPlan& p, const Geometry& g, int vec) {
+  if (p.grid < 1 || p.spb < 1 || p.keep < 0) return false;
+  const int64_t items = static_cast<int64_t>(g.splits) * p.tiles;
+  if (p.resident)  // one block a group of spb splits, its slab all kept
+    return vec > 1 && p.keep == p.spb * p.rps &&
+           p.grid == (g.splits + p.spb - 1) / p.spb * p.tiles &&
+           static_cast<int64_t>(p.smem) >=
+               static_cast<int64_t>(p.keep) * kRoundBytes;
+  // a streamed block keeps rounds only where it has one item
+  return p.spb == 1 && p.smem >= 0 &&
+         (p.keep == 0 || (vec > 1 && p.grid >= items &&
+                          static_cast<int64_t>(p.smem) >=
+                              static_cast<int64_t>(p.keep) * kRoundBytes));
+}
+
+template <typename T, int VEC, bool kResident>
+int bwd_launch(const BwdPlan& p, const T* x, const T* dy, const float* stats,
+               const void* gamma, void* dx, void* dgamma, void* dbeta,
+               float* ws, const Geometry& g, const BwdArgs& a,
+               cudaStream_t st) {
+  const cudaError_t e = allow_smem<T, VEC, kResident>(p.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, bn_bwd_kernel<T, VEC, kResident>, x, dy,
+                            stats, gamma, static_cast<T*>(dx), dgamma, dbeta,
+                            ws, g, a, p.tiles, p.spb, p.rps, p.keep);
+}
+
 template <typename T, int VEC>
-int bwd_typed(const void* x, const void* dy, const float* stats,
-              const void* gamma, void* dx, void* dgamma, void* dbeta,
-              float* ws, const Geometry& g, const BwdArgs& a,
+int bwd_typed(const BwdPlan& p, const void* x, const void* dy,
+              const float* stats, const void* gamma, void* dx, void* dgamma,
+              void* dbeta, float* ws, const Geometry& g, const BwdArgs& a,
               cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
-  float* coef = ws + static_cast<int64_t>(2) * g.c * g.splits;
-  const dim3 grid = row_grid(g, VEC);
-  bn_grad_sums_kernel<T, VEC><<<grid, kThreads, 0, st>>>(
-      xt, dyt, stats + kMean * g.c, ws, g);
-  bn_bwd_finish_kernel<T><<<channel_grid(g.c), kThreads, 0, st>>>(
-      ws, stats, gamma, dgamma, dbeta, coef, a);
-  bn_apply_bwd_kernel<T, VEC><<<grid, kThreads, 0, st>>>(
-      xt, dyt, stats, coef, static_cast<T*>(dx), g);
-  return cudaGetLastError();
+  if constexpr (VEC > 1) {
+    if (p.resident)
+      return bwd_launch<T, VEC, true>(p, xt, dyt, stats, gamma, dx, dgamma,
+                                      dbeta, ws, g, a, st);
+  }
+  return bwd_launch<T, VEC, false>(p, xt, dyt, stats, gamma, dx, dgamma,
+                                   dbeta, ws, g, a, st);
 }
 
 template <typename T>
-int bwd_dispatch(const void* x, const void* dy, const float* stats,
-                 const void* gamma, void* dx, void* dgamma, void* dbeta,
-                 float* ws, const Geometry& g, int vec, const BwdArgs& a,
-                 cudaStream_t st) {
+int bwd_dispatch(const BwdPlan& p, const void* x, const void* dy,
+                 const float* stats, const void* gamma, void* dx,
+                 void* dgamma, void* dbeta, float* ws, const Geometry& g,
+                 int vec, const BwdArgs& a, cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec == kVec)
-    return bwd_typed<T, kVec>(x, dy, stats, gamma, dx, dgamma, dbeta, ws, g,
-                              a, st);
+    return bwd_typed<T, kVec>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws,
+                              g, a, st);
   if (vec == 1)
-    return bwd_typed<T, 1>(x, dy, stats, gamma, dx, dgamma, dbeta, ws, g, a,
-                           st);
+    return bwd_typed<T, 1>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws, g,
+                           a, st);
+  return cudaErrorInvalidValue;
+}
+
+// the blocks an SM that the occupancy API allows K6b's kernel of a route
+// and dynamic shared memory
+template <typename T, int VEC, bool kResident>
+int bwd_occupancy(int smem, int* blocks) {
+  const cudaError_t e = allow_smem<T, VEC, kResident>(smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, bn_bwd_kernel<T, VEC, kResident>, kThreads, smem);
+}
+
+template <typename T>
+int bwd_occupancy_typed(int vec, int resident, int smem, int* blocks) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec)
+    return resident ? bwd_occupancy<T, kVec, true>(smem, blocks)
+                    : bwd_occupancy<T, kVec, false>(smem, blocks);
+  if (vec == 1 && !resident) return bwd_occupancy<T, 1, false>(smem, blocks);
   return cudaErrorInvalidValue;
 }
 
@@ -606,27 +940,49 @@ extern "C" int mxt_bn_fwd(const void* x, const void* gamma, const void* beta,
 // K6b.  x, dy and dx (M, C) of dtype code `dtype`; stats (4, C) from
 // K6a; gamma (C,) of gamma_code; dgamma and dbeta (C,) of the codes of
 // gamma and beta, or null where no gradient is wanted; ws holds
-// 2 * C * splits + 3 * C floats.
+// 2 * C * splits + 3 * C floats.  One cooperative launch of the plan that
+// ops/batch_norm.py launch_plan makes: route (1 resident, 0 streamed),
+// grid, dynamic shared memory, splits a resident block, rounds kept.
 extern "C" int mxt_bn_bwd(const void* x, const void* dy, const float* stats,
                           const void* gamma, void* dx, void* dgamma,
                           void* dbeta, float* ws, int m, int c, int vec,
                           int tpr, int splits, int rows, int dtype,
                           int gamma_code, int beta_code, int train,
-                          int fix_gamma, void* stream) {
+                          int fix_gamma, int resident, int grid, int smem,
+                          int spb, int keep, void* stream) {
   const Geometry g{m, c, tpr, splits, rows};
   if (!valid(g, vec) || !valid_code(gamma_code) || !valid_code(beta_code))
     return cudaErrorInvalidValue;
+  const int rpi = kThreads / tpr;
+  const BwdPlan p{resident != 0, grid, smem, spb, keep,
+                  (c + tpr * vec - 1) / (tpr * vec), (rows + rpi - 1) / rpi};
+  if (!valid_plan(p, g, vec)) return cudaErrorInvalidValue;
   const BwdArgs a{m, c, splits, train, fix_gamma, gamma_code, beta_code};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd_dispatch<float>(x, dy, stats, gamma, dx, dgamma, dbeta, ws, g,
-                               vec, a, st);
+    return bwd_dispatch<float>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws,
+                               g, vec, a, st);
   if (dtype == 1)
-    return bwd_dispatch<__nv_bfloat16>(x, dy, stats, gamma, dx, dgamma, dbeta,
-                                       ws, g, vec, a, st);
+    return bwd_dispatch<__nv_bfloat16>(p, x, dy, stats, gamma, dx, dgamma,
+                                       dbeta, ws, g, vec, a, st);
   if (dtype == 2)
-    return bwd_dispatch<__half>(x, dy, stats, gamma, dx, dgamma, dbeta, ws, g,
-                                vec, a, st);
+    return bwd_dispatch<__half>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws,
+                                g, vec, a, st);
+  return cudaErrorInvalidValue;
+}
+
+// The blocks an SM that the occupancy API allows K6b's kernel of dtype
+// code `dtype`, `vec` channels an access, the route (1 resident, 0
+// streamed) and `smem` bytes of dynamic shared memory, into *blocks, on the
+// current device.
+extern "C" int mxt_bn_bwd_occupancy(int dtype, int vec, int resident,
+                                    int smem, int* blocks) {
+  if (dtype == 0)
+    return bwd_occupancy_typed<float>(vec, resident, smem, blocks);
+  if (dtype == 1)
+    return bwd_occupancy_typed<__nv_bfloat16>(vec, resident, smem, blocks);
+  if (dtype == 2)
+    return bwd_occupancy_typed<__half>(vec, resident, smem, blocks);
   return cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,11 @@
 // once: 20 bytes an element.  Design: one element per thread in a
 // grid-stride loop with a 64-bit index; a small tensor is one small launch,
 // so an update of many small tensors is bound by the host's launches, not by
-// the card.
+// the card.  It stays scalar: ResNet-50's 193-tensor update, captured in a
+// CUDA graph on an H100 SXM, took 0.470 ms of device time with it and
+// 0.478 ms with 16-byte loads of four elements a thread (its bound is
+// 0.153 ms); each launch's fixed cost in the graph, about 2.4 us, sets it,
+// not the loads.
 extern "C" __global__ void sgd_mom(float *weight, const float *grad,
                                    float *mom, float lr, float momentum,
                                    float wd, float rescale_grad,

@@ -36,6 +36,7 @@ over the last axis (NHWC) on the card.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -52,6 +53,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMS = 132              # streaming multiprocessors of an H100
 THREADS = 256           # a block of the row passes
 TARGET_BLOCKS = 4 * _SMS
+# K6b: the co-resident blocks an SM of the streamed route (the kernel's
+# launch bounds allow them); an H100's shared memory, an SM, a block and
+# reserved a block; a round of a thread's slab, x and dy, 16 bytes each
+BWD_BLOCKS_PER_SM = 4
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+ROUND_BYTES = 2 * THREADS * 16
 # rows of the per-channel state ``stats`` (float32, (4, C)): the mean,
 # the scale and shift as the apply pass uses them, and rsqrt(var + eps)
 MEAN, SCALE, SHIFT, INV = range(4)
@@ -67,7 +74,21 @@ class LaunchPlan(NamedTuple):
     ``splits`` blocks the rows, ``rows`` rows each (the last one
     shorter).  The forward's workspace holds ``fwd_ws`` float32 partial
     sums, the backward's ``bwd_ws`` (the partial sums and three
-    coefficients a channel)."""
+    coefficients a channel).
+
+    K6b is one cooperative launch of ``bwd_grid`` co-resident blocks over
+    the same splits and channel tiles, launched as the plan says (the
+    kernel takes the route, grid, shared memory, splits a block and
+    rounds kept from it).  ``route`` ``"resident"``: a block takes
+    ``splits_per_block`` consecutive splits of a tile (``rounds`` rows a
+    thread), whose x and dy rows stay in ``bwd_smem`` bytes of dynamic
+    shared memory between its two phases, ``blocks_per_sm`` blocks an SM;
+    ``"streamed"``: at most ``blocks_per_sm`` (4) blocks an SM walk the
+    (split, tile) items (``rounds`` rows a thread each), reading x and dy
+    again for dx but for the first ``kept_rounds`` of each thread's rows,
+    which stay in ``bwd_smem`` bytes where a block has one item.  Both
+    write the same partial sums as the forward's partition, so K6b's
+    results do not depend on the route."""
     access: str
     vec: int
     tpr: int
@@ -78,16 +99,73 @@ class LaunchPlan(NamedTuple):
     rows: int
     fwd_ws: int
     bwd_ws: int
+    route: str
+    splits_per_block: int
+    rounds: int
+    kept_rounds: int
+    bwd_grid: int
+    bwd_smem: int
+    blocks_per_sm: int
+
+
+def _red_bytes(vec):
+    """A block's static shared memory: 2 * 256 * ``vec`` float32 sums."""
+    return 2 * THREADS * vec * 4
+
+
+def _resident_blocks_per_sm(rounds, vec):
+    """Blocks an SM that a resident slab of ``rounds`` rounds leaves room
+    for, at most :data:`BWD_BLOCKS_PER_SM`; 0 where one does not fit."""
+    block = rounds * ROUND_BYTES + _red_bytes(vec)
+    if block > SMEM_PER_BLOCK:
+        return 0
+    return min(BWD_BLOCKS_PER_SM, SMEM_PER_SM // (block + SMEM_RESERVED))
+
+
+def _resident_route(splits, rps, vec, tiles, sms):
+    """K6b's resident launch over ``splits`` splits of ``rps`` rounds a
+    thread and ``tiles`` channel tiles on ``sms`` SMs: a block takes the
+    fewest consecutive splits whose slabs fit with every block
+    co-resident; None where no such grouping fits (or ``vec`` is 1:
+    cp.async copies 16 bytes)."""
+    spb = 1
+    while vec > 1:
+        bps = _resident_blocks_per_sm(spb * rps, vec)
+        if bps == 0:
+            return None
+        groups = -(-splits // spb)
+        if groups * tiles <= sms * bps:
+            kept = spb * rps
+            return ("resident", spb, kept, kept, groups * tiles,
+                    kept * ROUND_BYTES, bps)
+        if groups == 1:
+            return None
+        spb += 1
+    return None
+
+
+def _streamed_route(splits, rps, vec, tiles, sms):
+    """K6b's streamed launch: at most :data:`BWD_BLOCKS_PER_SM` blocks an
+    SM; a block of one item keeps the first rounds that fit beside three
+    others."""
+    cap = BWD_BLOCKS_PER_SM * sms
+    keep = (SMEM_PER_SM // BWD_BLOCKS_PER_SM - SMEM_RESERVED
+            - _red_bytes(vec)) // ROUND_BYTES
+    kept = min(rps, keep) if vec > 1 and splits * tiles <= cap else 0
+    return ("streamed", 1, rps, kept, min(splits * tiles, cap),
+            kept * ROUND_BYTES, BWD_BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(m, c, dtype, aligned=True):
+def launch_plan(m, c, dtype, aligned=True, sms=_SMS):
     """The :class:`LaunchPlan` of an (``m``, ``c``) tensor in ``dtype``
-    (``aligned``: the tensors lie on 16-byte boundaries): a pure function
-    of the shapes.  The channels go to as few threads a row as hold them,
-    at most 32; the rows are cut into as many splits as put about
-    :data:`TARGET_BLOCKS` blocks (four an SM) in flight, no split shorter
-    than one round of rows."""
+    (``aligned``: the tensors lie on 16-byte boundaries) on a card of
+    ``sms`` SMs: a pure function of the shapes.  The channels go to as
+    few threads a row as hold them, at most 32; the rows are cut into as
+    many splits as put about :data:`TARGET_BLOCKS` blocks (four an SM of
+    an H100) in flight, no split shorter than one round of rows.  K6b's
+    route is resident where a grouping of the splits fits, else
+    streamed."""
     if m < 1 or c < 1:
         raise MXNetError("batch_norm takes at least one row and one channel "
                          "(got M=%d, C=%d)" % (m, c))
@@ -104,9 +182,12 @@ def launch_plan(m, c, dtype, aligned=True):
     rows = -(-m // splits)
     splits = -(-m // rows)
     part = 2 * c * splits
+    rps = -(-rows // rows_at_once)
+    route = (_resident_route(splits, rps, vec, tiles, sms)
+             or _streamed_route(splits, rps, vec, tiles, sms))
     return LaunchPlan("16-byte" if vec > 1 else "scalar", vec, tpr,
                       rows_at_once, tpr * vec, tiles, splits, rows, part,
-                      part + 3 * c)
+                      part + 3 * c, *route)
 
 
 def batch_norm_fwd_plain(x, gamma, beta, running_mean, running_var, eps,
@@ -183,10 +264,44 @@ def _check_params(x, gamma, beta, running_mean, running_var):
                                      t.device))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _plan_for(x, *tensors):
     m, c = x.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (x,) + tensors)
-    return launch_plan(m, c, x.dtype, aligned)
+    if x.device.type != "cuda":
+        return launch_plan(m, c, x.dtype, aligned)
+    return launch_plan(m, c, x.dtype, aligned, _sm_count(x.device.index))
+
+
+_held: set = set()  # K6b's plans held to the occupancy API, by device
+
+
+def _hold_to_occupancy(lib, plan, code, device):
+    """Raise unless the occupancy API lets ``plan``'s blocks an SM of K6b
+    be co-resident on ``device``; asked once for each device, type,
+    access, route and shared memory."""
+    key = (device.index, code, plan.vec, plan.route, plan.bwd_smem,
+           plan.blocks_per_sm)
+    if key in _held:
+        return
+    blocks = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.mxt_bn_bwd_occupancy(code, plan.vec,
+                                       int(plan.route == "resident"),
+                                       plan.bwd_smem, ctypes.byref(blocks))
+    if err:
+        raise MXNetError("batch_norm_bwd: the occupancy query failed: %s"
+                         % lib.mxt_error_string(err).decode())
+    if blocks.value < plan.blocks_per_sm:
+        raise MXNetError(
+            "batch_norm_bwd: the %s plan puts %d blocks of %d bytes of "
+            "dynamic shared memory on an SM; the occupancy API allows %d"
+            % (plan.route, plan.blocks_per_sm, plan.bwd_smem, blocks.value))
+    _held.add(key)
 
 
 def batch_norm_fwd(x, gamma, beta, running_mean, running_var, eps,
@@ -264,11 +379,14 @@ def batch_norm_bwd(x, dy, stats, gamma, beta, fix_gamma, train):
     plan = _plan_for(x, dy, dx)
     ws = torch.empty(plan.bwd_ws, dtype=torch.float32, device=x.device)
     lib = _kernels.library("batch_norm")
+    _hold_to_occupancy(lib, plan, code, x.device)
     _kernels.launch(lib, lib.mxt_bn_bwd, x, dy, stats, gamma, dx, dgamma,
                     dbeta, ws, m, c, plan.vec, plan.tpr, plan.splits,
                     plan.rows, code, _code(gamma, "gamma"),
                     _code(beta, "beta"), int(bool(train)),
-                    int(bool(fix_gamma)))
+                    int(bool(fix_gamma)), int(plan.route == "resident"),
+                    plan.bwd_grid, plan.bwd_smem, plan.splits_per_block,
+                    plan.kept_rounds)
     batch_norm_bwd.launches += 1
     return dx, dgamma, dbeta
 

@@ -25,6 +25,8 @@ Tolerances:
   gradient of the same inputs as JAX's.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -335,3 +337,146 @@ def test_other_axes_on_the_cpu_match_the_last_axis():
     want = tnn.batch_norm(t.movedim(1, -1).contiguous(), *args, eps=1e-5,
                           fix_gamma=False, axis=-1)[0].movedim(-1, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# K6b at every BatchNorm shape of ResNet-50 at batch 128 (M = N*H*W, C, the
+# BatchNorms of a step) in bf16: the route launch_plan takes
+RESNET_BWD = [
+    (1605632, 64, 1, "streamed"), (401408, 64, 6, "streamed"),
+    (401408, 256, 4, "streamed"), (100352, 128, 8, "streamed"),
+    (100352, 512, 5, "streamed"), (25088, 256, 12, "resident"),
+    (25088, 1024, 7, "streamed"), (6272, 512, 6, "resident"),
+    (6272, 2048, 4, "streamed"),
+]
+
+
+@pytest.mark.parametrize("m,c,per_step,route", RESNET_BWD)
+def test_bwd_launch_plan_at_resnet_shapes(m, c, per_step, route):
+    """K6b's one launch: its route, a grid no larger than the blocks it
+    assumes co-resident on the 132 SMs, the forward's row partition (so
+    the same partial sums and workspace), and for "resident" slabs that
+    hold each block's rows of x and dy within the shared memory of a
+    block and of an SM."""
+    plan = tbn.launch_plan(m, c, torch.bfloat16)
+    assert plan.route == route
+    assert plan.bwd_grid <= 132 * plan.blocks_per_sm
+    assert plan.bwd_ws == 2 * c * plan.splits + 3 * c
+    rps = -(-plan.rows // plan.rows_at_once)  # rounds a split
+    if route == "resident":
+        spb = plan.splits_per_block
+        static = 2 * tbn.THREADS * plan.vec * 4  # the block's sums
+        assert plan.bwd_grid == -(-plan.splits // spb) * plan.channel_tiles
+        assert plan.rounds == plan.kept_rounds == spb * rps
+        assert plan.bwd_smem == plan.rounds * tbn.THREADS * 2 * 16
+        assert plan.bwd_smem >= spb * plan.rows * plan.tile_c * 2 * 2
+        assert plan.bwd_smem + static <= tbn.SMEM_PER_BLOCK
+        assert plan.blocks_per_sm * (plan.bwd_smem + static
+                                     + tbn.SMEM_RESERVED) <= tbn.SMEM_PER_SM
+        # the fewest splits a block that fit: one fewer does not
+        if spb > 1:
+            fewer = tbn._resident_blocks_per_sm((spb - 1) * rps, plan.vec)
+            assert -(-plan.splits // (spb - 1)) * plan.channel_tiles \
+                > 132 * fewer
+        # x and dy of the whole tensor lie in the card's shared memory
+        assert 2 * 2 * m * c <= 132 * tbn.SMEM_PER_SM
+    else:
+        assert plan.blocks_per_sm == 4
+        assert plan.splits_per_block == 1 and plan.rounds == rps
+        assert plan.bwd_grid == plan.splits * plan.channel_tiles <= 4 * 132
+        # one item a block: the first 5 rounds of its rows stay on the
+        # chip, in the shared memory that 4 blocks an SM leave
+        assert plan.kept_rounds == 5
+        assert plan.bwd_smem == 5 * tbn.THREADS * 2 * 16
+        assert 4 * (plan.bwd_smem + 2 * tbn.THREADS * plan.vec * 4
+                    + tbn.SMEM_RESERVED) <= tbn.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("m,c,dtype,aligned,route", [
+    (6272, 512, torch.float32, True, "resident"),
+    (25088, 256, torch.float32, True, "streamed"),   # 51 MB of x and dy
+    (1605632, 64, torch.float16, True, "streamed"),
+    (3, 64, torch.bfloat16, True, "resident"),
+    (792, 5, torch.bfloat16, True, "streamed"),      # scalar access
+    (6272, 512, torch.bfloat16, False, "streamed"),  # a misaligned pointer
+])
+def test_bwd_route_by_type_and_access(m, c, dtype, aligned, route):
+    """cp.async copies 16 bytes, so a scalar access streams; float32's
+    slab is twice bf16's."""
+    plan = tbn.launch_plan(m, c, dtype, aligned)
+    assert plan.route == route
+    assert plan.bwd_grid <= 132 * plan.blocks_per_sm
+    if plan.vec == 1:  # nothing on the chip without cp.async
+        assert plan.kept_rounds == plan.bwd_smem == 0
+
+
+@pytest.mark.parametrize("m,c,per_step,route", RESNET_BWD)
+def test_bwd_plan_fits_a_card_of_fewer_sms(m, c, per_step, route):
+    """On a card of 114 SMs the row partition, and so K6b's sums, stay
+    those of the 132-SM plan; only the route and grid adapt, every block
+    still co-resident."""
+    plan = tbn.launch_plan(m, c, torch.bfloat16)
+    small = tbn.launch_plan(m, c, torch.bfloat16, True, 114)
+    assert small[:10] == plan[:10]  # the forward's geometry and workspaces
+    assert small.bwd_grid <= 114 * small.blocks_per_sm
+    if small.route == "streamed" and small.kept_rounds:
+        assert small.bwd_grid == small.splits * small.channel_tiles
+
+
+def test_bwd_plan_is_held_to_the_occupancy_api(monkeypatch):
+    """Each (device, type, access, route, shared memory) is asked of the
+    occupancy API once; a plan of more blocks an SM than it allows
+    raises before any launch."""
+    class Lib:
+        def __init__(self, blocks):
+            self.blocks, self.asked = blocks, []
+
+        def mxt_bn_bwd_occupancy(self, code, vec, resident, smem, out):
+            self.asked.append((code, vec, resident, smem))
+            out._obj.value = self.blocks
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(tbn, "_held", set())
+    plan = tbn.launch_plan(25088, 256, torch.bfloat16)
+    assert plan.route == "resident"
+    lib = Lib(plan.blocks_per_sm)
+    for _ in range(2):
+        tbn._hold_to_occupancy(lib, plan, 1, torch.device("cuda", 0))
+    assert lib.asked == [(1, 8, 1, plan.bwd_smem)]
+    few = Lib(plan.blocks_per_sm - 1)
+    with pytest.raises(tmx_error, match="occupancy API allows 1"):
+        tbn._hold_to_occupancy(few, plan, 1, torch.device("cuda", 1))
+
+
+@pytest.mark.parametrize("m,c", [(25088, 256), (6272, 2048), (792, 5)])
+def test_bwd_launches_the_plan(monkeypatch, m, c):
+    """batch_norm_bwd hands mxt_bn_bwd the geometry and the route, grid,
+    shared memory, splits a block and rounds kept of launch_plan's plan,
+    after holding the plan to the occupancy API (shapes only: meta
+    tensors, the library and the launch replaced)."""
+    seen = {}
+
+    class Kernels:
+        @staticmethod
+        def library(name):
+            return type("Lib", (), {"mxt_bn_bwd": "mxt_bn_bwd"})
+
+        @staticmethod
+        def launch(lib, fn, *args):
+            seen.update(fn=fn, args=args)
+
+    monkeypatch.setattr(tbn, "_kernels", Kernels)
+    monkeypatch.setattr(tbn, "_hold_to_occupancy",
+                        lambda lib, plan, code, dev: seen.update(held=plan))
+    x = torch.empty(m, c, dtype=torch.bfloat16, device="meta")
+    g = torch.empty(c, dtype=torch.bfloat16, device="meta")
+    stats = torch.empty(4, c, device="meta")
+    tbn.batch_norm_bwd(x, torch.empty_like(x), stats, g, g, False, True)
+    plan = tbn.launch_plan(m, c, torch.bfloat16)
+    assert seen["held"] == plan and seen["fn"] == "mxt_bn_bwd"
+    assert seen["args"][7].numel() == plan.bwd_ws
+    assert seen["args"][8:] == (
+        m, c, plan.vec, plan.tpr, plan.splits, plan.rows, 1, 1, 1, 1, 0,
+        int(plan.route == "resident"), plan.bwd_grid, plan.bwd_smem,
+        plan.splits_per_block, plan.kept_rounds)
