@@ -58,11 +58,14 @@ Phases (any failure raises, and the script exits non-zero):
    plain result's largest magnitude, 1e-4 in float32), bitwise equal
    across two launches, with its launch plan, time, the plain version's,
    aten's native_batch_norm (and its backward) on the same tensors, the
-   bound and the share of it (over 100 % fails); K6b's route ("resident"
-   or "streamed"), grid and shared memory, as launch_plan makes them for
-   the card's SMs, with the occupancy API allowing the blocks an SM that
-   the plan assumes co-resident; one K6b call at each case is one device
-   kernel in a profiler trace; axis=1 on the card raises;
+   bound and the share of it (over 100 % fails); K6a's grid and shared
+   memory (streamed at every shape) and K6b's route ("resident" or
+   "streamed"), grid and shared memory, as launch_plan makes them for the
+   card's SMs, with the occupancy API allowing the blocks an SM that each
+   plan assumes co-resident; one K6a call (in
+   train mode at each case, in predict mode in each type) and one K6b
+   call at each case is one device kernel each in one profiler trace;
+   axis=1 on the card raises;
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -86,7 +89,8 @@ Phases (any failure raises, and the script exits non-zero):
    the CPU's own rounding sensitivity); 3 captured steps against 3 eager
    steps from the same state, bitwise, and the eager step's time; then
    the main path exactly as the JAX package's bench:
-   GluonTrainStep(lr 0.1, momentum 0.9, wd 1e-4, compute_dtype bfloat16),
+   GluonTrainStep(mesh None, lr 0.1, momentum 0.9, wd 1e-4, compute_dtype
+   bfloat16),
    captured as a CUDA graph, for 10 steps on one fixed (128, 224, 224, 3)
    batch: a finite loss whose last value lies below the first, and the
    wrappers' counts over the eager warm-up and the capture, K1a 44, K1b
@@ -98,7 +102,9 @@ Phases (any failure raises, and the script exits non-zero):
    make_chained(10) launch, timed;
 7. imperative: (a) every registered op once through mx.nd on the card at a
    small seeded shape, against the same call on the CPU (BatchNorm over
-   axis 1 raises there; over the last axis it runs K6a), then the
+   axis 1 raises there; over the last axis it runs K6a; integers that
+   wrap, float-to-integer casts that saturate, NaN, the infinities, an
+   integer divisor of 0 and signed zeros among the cases), then the
    TransformerLM's feed-forward written in mx.nd at full width ((8, 1024,
    512) through FullyConnected, gelu LeakyReLU, FullyConnected, residual
    and LayerNorm) under autograd.record with attach_grad on its weights:
@@ -1365,67 +1371,79 @@ def _bn_err(got, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def bn_bwd_occupancy(plan, m, c, dtype):
-    """The blocks an SM that the occupancy API allows K6b's kernel of
-    ``plan`` (mxt_bn_bwd_occupancy), held to what the plan assumes
-    co-resident: at least its blocks an SM, its grid within them on the
-    card's SMs."""
+def bn_occupancy(occ, m, c, dtype):
+    """The blocks an SM that the occupancy API allows the kernel of
+    ``occ`` (a plan's ops/batch_norm.py Occupancy: K6a's or K6b's), held
+    to what the plan assumes co-resident: at least its blocks an SM, its
+    grid within them on the card's SMs."""
     import ctypes
 
     from mxnet_tpu_torch import _kernels
-    from mxnet_tpu_torch.ops import batch_norm as B
 
     lib = _kernels.library("batch_norm")
     blocks = ctypes.c_int()
-    err = lib.mxt_bn_bwd_occupancy(B._DTYPE_CODES[dtype], plan.vec,
-                                   int(plan.route == "resident"),
-                                   plan.bwd_smem, ctypes.byref(blocks))
+    err = getattr(lib, occ.entry)(*occ.args, ctypes.byref(blocks))
     if err:
-        raise AssertionError("mxt_bn_bwd_occupancy failed: %s"
-                             % lib.mxt_error_string(err).decode())
+        raise AssertionError("%s failed: %s"
+                             % (occ.entry, lib.mxt_error_string(err).decode()))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if blocks.value < plan.blocks_per_sm \
-            or plan.bwd_grid > sms * plan.blocks_per_sm:
-        raise AssertionError("K6b's plan %s is not co-resident on %d SMs at "
+    if blocks.value < occ.blocks_per_sm or occ.grid > sms * occ.blocks_per_sm:
+        raise AssertionError("the plan %s is not co-resident on %d SMs at "
                              "M %d C %d %s: the occupancy API allows %d "
-                             "blocks an SM" % (plan, sms, m, c, dtype,
+                             "blocks an SM" % (occ, sms, m, c, dtype,
                                                blocks.value))
     return blocks.value
 
 
-def bwd_one_launch_a_call(cases, gen):
-    """One call of K6b at each case, in one torch.profiler session: each
-    call is one device kernel, bn_bwd_kernel."""
+def one_launch_a_call(cases, gen):
+    """One call of K6a (train mode at each case; predict mode at the first
+    case of each type) and one of K6b at each case, in one torch.profiler
+    session: each call is one device kernel, bn_fwd_kernel or
+    bn_bwd_kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.ops import batch_norm as B
 
-    calls = []
+    calls, predict, types = [], [], set()
     for m, c, dt, _ in cases:
         x = torch.randn(m, c, device="cuda", generator=gen).to(dt)
         gamma = torch.ones(c, device="cuda", dtype=dt)
-        stats = B.batch_norm_fwd(x, gamma, gamma, torch.zeros(c, device="cuda"),
-                                 torch.ones(c, device="cuda"), BN_EPS, False,
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        stats = B.batch_norm_fwd(x, gamma, gamma, rm, rv, BN_EPS, False,
                                  False)[3]
-        calls.append((x, torch.randn_like(x), stats, gamma))
+        calls.append((x, torch.randn_like(x), stats, gamma, rm, rv))
+        if dt not in types:
+            types.add(dt)
+            predict.append(calls[-1])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x, dy, stats, gamma in calls:
+        for x, _, _, gamma, rm, rv in calls:
+            B.batch_norm_fwd(x, gamma, gamma, rm, rv, BN_EPS, False, False,
+                             BN_MOMENTUM)
+        for x, _, _, gamma, rm, rv in predict:
+            B.batch_norm_fwd(x, gamma, gamma, rm, rv, BN_EPS, False, True)
+        for x, dy, stats, gamma, _, _ in calls:
             B.batch_norm_bwd(x, dy, stats, gamma, gamma, False, True)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    ok = len(names) == len(calls) and all("bn_bwd_kernel" in n
-                                          for n in names)
-    log("kernel batch_norm_bwd: %d calls at %d shapes in one profiler "
-        "session launch %d device kernels (%s)" % (
-            len(calls), len(calls), len(names),
-            ", ".join(sorted(set(re.search(r"bn_bwd_kernel<[^>]*>", n)[0]
-                                 if "bn_bwd_kernel<" in n else n
-                                 for n in names)))))
+    n_fwd = len(calls) + len(predict)
+    ok = (len(names) == n_fwd + len(calls)
+          and all("bn_fwd_kernel" in n for n in names[:n_fwd])
+          and all("bn_bwd_kernel" in n for n in names[n_fwd:]))
+    for kernel, part, n in (("fwd", names[:n_fwd], n_fwd),
+                            ("bwd", names[n_fwd:], len(calls))):
+        log("kernel batch_norm_%s: %d calls at %d shapes in one profiler "
+            "session launch %d device kernels (%s)" % (
+                kernel, n, len(calls), len(part),
+                ", ".join(sorted(set(
+                    re.search(r"bn_%s_kernel<[^>]*>" % kernel, x)[0]
+                    if "bn_%s_kernel<" % kernel in x else x for x in part)))))
     if not ok:
-        raise AssertionError("a K6b call is not one device kernel")
-    del calls
+        raise AssertionError("a K6a or K6b call is not one device kernel: "
+                             "%d kernels for %d calls" % (
+                                 len(names), n_fwd + len(calls)))
+    del calls, predict
     torch.cuda.empty_cache()
 
 
@@ -1454,7 +1472,7 @@ def bn_kernels(seed):
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     library_ms=0.0, bound_by="bytes")
             for k in ("fwd", "bwd")}
-    bwd_times = []
+    fwd_times, bwd_times = [], []
     for m, c, dt, per_step in cases:
         pdt = dt  # gamma and beta in the data's type, as the step casts them
         x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dt)
@@ -1492,15 +1510,19 @@ def bn_kernels(seed):
         plan = B.launch_plan(
             m, c, dt, True,
             torch.cuda.get_device_properties(0).multi_processor_count)
-        occupancy = bn_bwd_occupancy(plan, m, c, dt)
+        code = B._DTYPE_CODES[dt]
+        occupancy = bn_occupancy(plan.bwd_occupancy(code), m, c, dt)
+        occ_fwd = bn_occupancy(plan.fwd_occupancy(code), m, c, dt)
         tol = BN_TOL[dt]
         if not (per_step or (m, c) in (BN_STEM, BN_LAST)):
             # checked, not timed: the other shapes in float32 and float16
-            log("kernel batch_norm [M %d C %d %s]: K6b %s, %d blocks; errs "
+            log("kernel batch_norm [M %d C %d %s]: K6a %d blocks, %d "
+                "rounds kept, K6b %s, %d blocks; errs "
                 "(share of the largest magnitude) y %.3g mean %.3g var %.3g "
                 "running mean %.3g var %.3g, dx %.3g dgamma %.3g dbeta %.3g "
                 "(tol %.3g); bitwise repeatable %s" % (
-                    m, c, str(dt).split(".")[1], plan.route, plan.bwd_grid,
+                    m, c, str(dt).split(".")[1], plan.fwd_grid,
+                    plan.fwd_kept_rounds, plan.route, plan.bwd_grid,
                     *(e[1] for e in errs + errsb), tol, same))
             if any(e[1] > tol for e in errs + errsb) or not same:
                 raise AssertionError("batch_norm disagrees with its plain "
@@ -1534,7 +1556,11 @@ def bn_kernels(seed):
         bound, _ = bn_bound_ms(m, c, dt, 2)
         bound_b, _ = bn_bound_ms(m, c, dt, 3)
         log("kernel batch_norm [M %d C %d %s, %d a step]: %s, %d threads a "
-            "row, %d channel tiles of %d, %d splits of %d rows; K6b %s, %d "
+            "row, %d channel tiles of %d, %d splits of %d rows; K6a "
+            "streamed, %d rounds kept, one launch of %d blocks, %d bytes of "
+            "dynamic shared memory, %d blocks an SM by plan (occupancy API: "
+            "%d); "
+            "K6b %s, %d "
             "splits a block, one launch of %d blocks, %d bytes of dynamic "
             "shared memory, %d blocks an SM by plan (occupancy API: %d); "
             "fwd errs "
@@ -1548,7 +1574,9 @@ def bn_kernels(seed):
             "K6a %.4f, K6b %.4f; plain %.4f and %.4f" % (
                 m, c, str(dt).split(".")[1], per_step, plan.access,
                 plan.tpr, plan.channel_tiles, plan.tile_c, plan.splits,
-                plan.rows, plan.route, plan.splits_per_block,
+                plan.rows, plan.fwd_kept_rounds, plan.fwd_grid,
+                plan.fwd_smem, plan.fwd_blocks_per_sm, occ_fwd, plan.route,
+                plan.splits_per_block,
                 plan.bwd_grid, plan.bwd_smem, plan.blocks_per_sm,
                 occupancy, *(e[1] for e in errs), equal_y,
                 *(e[1] for e in errsb), tol, same, ms, 100.0 * bound / ms,
@@ -1563,6 +1591,8 @@ def bn_kernels(seed):
         check_share("batch_norm_fwd", (m, c, dt), ms, bound)
         check_share("batch_norm_bwd", (m, c, dt), ms_b, bound_b)
         if per_step or (m, c) in (BN_STEM, BN_LAST):
+            fwd_times.append((m, c, str(dt).split(".")[1], "streamed", ms,
+                              bound, lib_ms))
             bwd_times.append((m, c, str(dt).split(".")[1], plan.route, ms_b,
                               bound_b, lib_b))
         for key, row, vals, err in (
@@ -1576,11 +1606,13 @@ def bn_kernels(seed):
                 row[name] += per_step * v
         del x, dy, got, gotb
     torch.cuda.empty_cache()
-    log("kernel batch_norm_bwd (K6b) by shape, in graph replays: %s" % "; ".join(
-        "M %d C %d %s %s %.4f ms (%.1f %% of %.4f), aten %.4f" % (
-            m, c, dt, route, ms_b, 100.0 * bound_b / ms_b, bound_b, lib_b)
-        for m, c, dt, route, ms_b, bound_b, lib_b in bwd_times))
-    bwd_one_launch_a_call(cases, gen)
+    for name, times in (("batch_norm_fwd (K6a)", fwd_times),
+                        ("batch_norm_bwd (K6b)", bwd_times)):
+        log("kernel %s by shape, in graph replays: %s" % (name, "; ".join(
+            "M %d C %d %s %s %.4f ms (%.1f %% of %.4f), aten %.4f" % (
+                m, c, dt, route, t, 100.0 * bound / t, bound, lib)
+            for m, c, dt, route, t, bound, lib in times)))
+    one_launch_a_call(cases, gen)
     for key, row in rows.items():
         log("kernel batch_norm %s over one ResNet-50 step (%d BatchNorms, "
             "bf16; kernel and library in graph replays): kernel %.3f ms, "
@@ -1681,8 +1713,7 @@ def resnet_gradient_check(seed):
 # device kernels of the ResNet step by what they do, matched on the
 # kernel's name (the first group that matches wins)
 RESNET_GROUPS = (
-    ("K6a batch_norm fwd", ("bn_stat_sums", "bn_fwd_finish",
-                            "bn_apply_fwd")),
+    ("K6a batch_norm fwd", ("bn_fwd_kernel",)),
     ("K6b batch_norm bwd", ("bn_bwd_kernel",)),
     # template arguments: the type (false bf16, true float16), then the
     # formulation (false per-tap, true im2col)
@@ -1705,7 +1736,7 @@ RESNET_GROUPS = (
 # one kernel of each wrapper's launch, by name, to count launches per step
 # in a trace of graph replays: (wrapper, name substrings, launches a step)
 RESNET_LAUNCH_KERNELS = (
-    ("batch_norm_fwd", ("bn_apply_fwd",), RESNET_BN),
+    ("batch_norm_fwd", ("bn_fwd_kernel",), RESNET_BN),
     ("batch_norm_bwd", ("bn_bwd_kernel",), RESNET_BN),
     ("pertap", ("conv_dw_wgmma_kernel<false, false",
                 "conv_dw_wgmma_kernel<true, false", "conv_dw_kernel<false"),
@@ -1744,7 +1775,7 @@ def captured_vs_eager(seed, x, y):
     for capture in (False, True):
         net = _resnet("cuda", seed)
         step = GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
-                              lr=0.1, momentum=0.9, wd=1e-4,
+                              mesh=None, lr=0.1, momentum=0.9, wd=1e-4,
                               compute_dtype="bfloat16")
         xs, ys = step.put_batch(x, y)
         # the eager side runs the code that the graph captures
@@ -1803,7 +1834,7 @@ def resnet_train(seed, smi):
     # batch (the first call warms up eagerly, captures and replays)
     net = _resnet("cuda", seed)
     step = GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
-                          lr=0.1, momentum=0.9, wd=1e-4,
+                          mesh=None, lr=0.1, momentum=0.9, wd=1e-4,
                           compute_dtype="bfloat16")
     xs, ys = step.put_batch(x, y)
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1946,6 +1977,8 @@ def _nd_outputs(case, ctx, seed):
 # op cases the card refuses by design: BatchNorm over axis 1 (K6a and K6b
 # take the channels last; "BatchNorm/nhwc" runs them)
 CARD_REFUSES = {"BatchNorm"}
+# op cases whose zeros must keep their sign on the card as on the CPU
+SIGNED_ZERO_CASES = {"sign/nan-and-zeros"}
 
 
 def registry_on_card(seed):
@@ -2003,6 +2036,9 @@ def registry_on_card(seed):
                 worst = (err, case)
             if err > ND_TOL or not np.array_equal(g[~fin], w[~fin],
                                                   equal_nan=True):
+                bad.append(case)
+            elif case in SIGNED_ZERO_CASES and not np.array_equal(
+                    np.signbit(g[w == 0]), np.signbit(w[w == 0])):
                 bad.append(case)
     log("imperative: %d registered ops in %d cases through mx.nd on the card "
         "vs the CPU: worst %.3g of the result's magnitude (%s; tol %.0e); "

@@ -65,7 +65,9 @@ _SIGNATURES = {
     "batch_norm": {
         "mxt_bn_fwd": (ctypes.c_int, [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 11 + [ctypes.c_float] * 3
-                       + [ctypes.c_void_p]),
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+        "mxt_bn_fwd_occupancy": (ctypes.c_int, [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p]),
         "mxt_bn_bwd": (ctypes.c_int, [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
         "mxt_bn_bwd_occupancy": (ctypes.c_int, [ctypes.c_int] * 4

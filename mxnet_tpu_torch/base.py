@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "numeric_types", "torch_dtype", "np_dtype"]
+__all__ = ["MXNetError", "numeric_types", "torch_dtype", "np_dtype",
+           "saturating_cast"]
 
 numeric_types = (float, int, np.generic)
 
@@ -21,6 +22,7 @@ class MXNetError(RuntimeError):
 _NP_TO_TORCH = {np.dtype(k): v for k, v in (
     (np.float32, torch.float32), (np.float64, torch.float64),
     (np.float16, torch.float16), (np.uint8, torch.uint8),
+    (np.uint32, torch.uint32),
     (np.int8, torch.int8), (np.int16, torch.int16),
     (np.int32, torch.int32), (np.int64, torch.int64),
     (np.bool_, torch.bool))}
@@ -49,3 +51,20 @@ def np_dtype(dtype):
     dt = torch_dtype(dtype)
     return _TORCH_TO_NP.get(dt, dt)
 
+
+
+def saturating_cast(t, dtype):
+    """``t`` converted to ``dtype`` as the JAX package converts
+    (``lax.convert_element_type``): a float becomes an integer by
+    truncation, saturated at the integer type's limits, and NaN becomes
+    0, on every device (a plain ``Tensor.to`` wraps out-of-range values on
+    the CPU).  Other conversions are ``Tensor.to``'s."""
+    if not t.is_floating_point() or dtype.is_floating_point \
+            or dtype in (torch.bool, torch.complex64, torch.complex128):
+        return t.to(dtype)
+    info = torch.iinfo(dtype)
+    # the limits compare in t's type: a float32 2**31 - 1 rounds up to
+    # 2**31, the first value that overflows int32
+    top, bottom = t >= info.max, t <= info.min
+    safe = torch.where(top | bottom | torch.isnan(t), 0, t).to(dtype)
+    return torch.where(top, info.max, torch.where(bottom, info.min, safe))

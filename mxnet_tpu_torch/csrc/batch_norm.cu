@@ -32,51 +32,58 @@
 //                     rounds each intermediate to bf16 instead.
 //
 // Bound on the H100: bytes.  The work is a few flops an element; each
-// pass streams the tensor.  K6a reads x twice (statistics, apply) and
-// writes y once (float32: reads x three times).  K6b's bound is x and dy
-// read once and dx written once; it moves that where its slab stays on
-// the chip, else x and dy twice but for what shared memory and the L2
-// keep.
+// pass streams the tensor.  K6a's bound is x read once and y written
+// once, K6b's x and dy read once and dx written once; each moves that
+// where its slab stays on the chip, else reads its inputs again but for
+// what shared memory and the L2 keep (K6a in float32 reads x a third
+// time, for the centered sums).
 //
 // Design: every launch runs on the caller's stream, allocates nothing,
 // and uses no atomics in its sums, so every result is bitwise repeatable.
 //   - A block of 256 threads covers a tile of channels: tpr threads a
 //     row, each on VEC channels (16-byte vector loads: 8 of bf16/f16, 4
 //     of float32, where C and the pointers allow; else one scalar), and
-//     256 / tpr rows at a time.  A row split gives each block a fixed
-//     range of rows (ops/batch_norm.py launch_plan: about four blocks an
-//     SM at both ends of ResNet-50, the stem's M = 1,605,632 x C = 64 and
-//     layer 4's M = 6,272 x C = 2,048); each thread keeps its sums in
-//     registers over four rows in flight, then the block adds its rows
-//     in a fixed tree in shared memory and writes one partial a channel.
-//   - K6a: a finishing launch gives each channel a warp: its lanes add
-//     the partials of the splits in order, a fixed shuffle tree adds the
-//     lanes, and lane 0 works out the per-channel state and the running
-//     statistics; an apply launch, on the same row partition, reads the
-//     state once a thread and streams the rows.
-//   - K6b is one cooperative launch of co-resident blocks (bn_bwd_kernel):
-//     the partial sums, a grid barrier, each channel finished by one warp
-//     of the grid in the same order and tree as K6a's finish (dgamma,
-//     dbeta and three coefficients a channel into the workspace), a second
-//     barrier, then dx.  It keeps the forward's row partition, so its
-//     partial sums, and its results, are those of the earlier three-launch
-//     design bit for bit.  Where every block's rows of x and dy fit in
-//     shared memory with all blocks co-resident ("resident": groups of
-//     consecutive splits a block; ResNet-50's (25088, 256) and (6272, 512)
-//     in bf16), phase 1 copies them there by cp.async, eight rounds in
-//     flight, and phase 2 reads them from there: x and dy cross HBM once.
-//     Elsewhere ("streamed", four blocks an SM walking the splits) each
-//     thread keeps the first rounds of its rows (five in bf16 and float16,
-//     six in float32) in the shared memory that four blocks an SM leave
-//     (where a block has one split), and phase 2
-//     reads the rest again, last row first, so that what phase 1 read last
-//     is still in the 50 MB L2.  The route, the grid and the shared
-//     memory are ops/batch_norm.py launch_plan's, passed in with the
-//     geometry; mxt_bn_bwd_occupancy lets the wrapper hold a plan to the
-//     occupancy API.  The barriers are cooperative_groups' grid sync; the
-//     launch is refused, and the wrapper raises, where the grid is not
-//     co-resident.
-// The arithmetic of the apply passes uses the _rn intrinsics, so nothing
+//     256 / tpr rows at a time.  A row split gives each (split, channel
+//     tile) item a fixed range of rows (ops/batch_norm.py launch_plan:
+//     about four items an SM of an H100 at both ends of ResNet-50, the
+//     stem's M = 1,605,632 x C = 64 and layer 4's M = 6,272 x C = 2,048);
+//     each thread keeps its sums in registers over four rows in flight,
+//     then the block adds its rows in a fixed tree in shared memory and
+//     writes one partial a channel.
+//   - K6a and K6b are each one cooperative launch of co-resident blocks
+//     (bn_fwd_kernel, bn_bwd_kernel) over that partition: the partial
+//     sums, a grid barrier, each channel finished by one warp of the grid
+//     (its lanes add the partials of the splits in order, a fixed shuffle
+//     tree adds the lanes, lane 0 works out the channel's state), a
+//     second barrier, then y or dx.  K6a finishes the per-channel state
+//     and the running statistics, K6b dgamma, dbeta and three
+//     coefficients a channel; K6a in float32 finishes the mean first and
+//     sums (x - mean)^2 between two more barriers.  Both keep the row
+//     partition, order and tree of the earlier three-launch designs, so
+//     their results are those designs' bit for bit.
+//   - Routes, from the shapes alone (ops/batch_norm.py launch_plan, passed
+//     in with the geometry).  "streamed": at most four blocks an SM walk
+//     the items; where a block has one item, each thread keeps the first
+//     rounds of its rows (K6a: ten of x in bf16 and float16, thirteen in
+//     float32; K6b: five or six of x and dy) in the shared memory that
+//     four blocks an SM leave, and the last phase reads the rest again,
+//     last row first, so that what phase 1 read last is still in the 50 MB
+//     L2.  K6a streams at every shape.  K6b takes "resident" where every
+//     block's rows of x and dy fit in shared memory with all blocks
+//     co-resident: a block takes a group of consecutive splits of one
+//     tile, phase 1 copies its rows there by cp.async, eight rounds in
+//     flight, and phase 2 reads them from there, so the inputs cross HBM
+//     once.  K6a's x alone would fit at more shapes, but every such tensor
+//     also fits in the L2, which the streamed second read hits: on an H100
+//     a resident K6a moved the ResNet-50 step by less than its spread
+//     between turns.  At the small shapes the two grid barriers, about
+//     2 us each at 524 blocks, cost more than the kernel boundaries of the
+//     three-launch design.
+//     mxt_bn_fwd_occupancy and mxt_bn_bwd_occupancy let the wrapper hold
+//     a plan to the occupancy API.  The barriers are cooperative_groups'
+//     grid sync; the launch is refused, and the wrapper raises, where the
+//     grid is not co-resident.
+// The arithmetic of the apply phases uses the _rn intrinsics, so nothing
 // is contracted into an FMA and each operation rounds where the plain
 // version's does: y and dx equal the plain version wherever the
 // statistics agree.
@@ -99,13 +106,13 @@ constexpr int kUnroll = 4;        // rows a thread keeps in flight
 // registers (a thread's 64, at four blocks an SM) beside them
 constexpr int kApplyUnroll = 2;
 constexpr int kWarps = kThreads / 32;
-// K6b: the co-resident blocks an SM that ops/batch_norm.py launch_plan
-// assumes for the streamed route (the launch bounds keep the registers to
-// 64 a thread for it; the wrapper holds each plan to the occupancy API,
-// mxt_bn_bwd_occupancy), and a round of a thread's slab: x and dy, 16
-// bytes each
-constexpr int kBwdBlocksPerSm = 4;
-constexpr int kRoundBytes = 2 * kThreads * 16;
+// the co-resident blocks an SM that ops/batch_norm.py launch_plan assumes
+// for the streamed routes (the launch bounds keep the registers to 64 a
+// thread for it; the wrapper holds each plan to the occupancy API), and a
+// round of a block's slab: 16 bytes a thread of x (K6a), of x and dy (K6b)
+constexpr int kBlocksPerSm = 4;
+constexpr int kFwdRoundBytes = kThreads * 16;
+constexpr int kBwdRoundBytes = 2 * kThreads * 16;
 constexpr int kStages = 8;                      // rounds of cp.async in flight
 
 __device__ __forceinline__ float tof(float v) { return v; }
@@ -219,11 +226,39 @@ __device__ __forceinline__ void block_partials(const float (&s1)[VEC],
   __syncthreads();  // red is free for the block's next item
 }
 
+// A pack of x (and of dy, for kGrad) added into the thread's sums, in
+// the order the rows come.
+template <typename T, int VEC, int KIND>
+__device__ __forceinline__ void accumulate(float (&s1)[VEC], float (&s2)[VEC],
+                                           const float (&mu)[VEC],
+                                           const Pack<T, VEC>& pa,
+                                           const Pack<T, VEC>& pb) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float v = tof(pa.v[j]);
+    if (KIND == kSumSq) {
+      s1[j] += v;
+      s2[j] = __fmaf_rn(v, v, s2[j]);
+    } else if (KIND == kSum) {
+      s1[j] += v;
+    } else if (KIND == kCentered) {
+      const float d = __fsub_rn(v, mu[j]);
+      s1[j] = __fmaf_rn(d, d, s1[j]);
+    } else {
+      const float dy = tof(pb.v[j]);
+      s1[j] += dy;
+      s2[j] = __fmaf_rn(dy, __fsub_rn(v, mu[j]), s2[j]);
+    }
+  }
+}
+
 // Partial sums of one row split and channel tile, into
 // part[(k * C + c) * splits + split] for k = 0 (and 1 where the kind has
-// a second sum).  K6b's streamed route keeps the thread's first `keep`
-// rounds of rows of x and dy in its slots of `slab` (copied by cp.async,
-// summed first: the row order stays), for phase 2 to read from there.
+// a second sum).  The streamed routes keep the thread's first `keep`
+// rounds of rows of x (and dy, for kGrad) in its slots of `slab`: copied
+// there by cp.async and summed first where `copy` (the row order stays),
+// else (K6a's centered float32 sums) summed from there, for the last
+// phase to read from there too.
 template <typename T, int VEC, int KIND>
 __device__ __forceinline__ void sums_body(const T* __restrict__ a,
                                           const T* __restrict__ b,
@@ -231,7 +266,8 @@ __device__ __forceinline__ void sums_body(const T* __restrict__ a,
                                           float* __restrict__ part,
                                           const Geometry& g, int split,
                                           int tile, int keep = 0,
-                                          uint4* slab = nullptr) {
+                                          uint4* slab = nullptr,
+                                          bool copy = true) {
   const int rpi = kThreads / g.tpr;
   const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
   const int c0 = (tile * g.tpr + col) * VEC;
@@ -245,39 +281,26 @@ __device__ __forceinline__ void sums_body(const T* __restrict__ a,
 #pragma unroll
       for (int j = 0; j < VEC; ++j) mu[j] = center[c0 + j];
     }
-    auto add = [&](const Pack<T, VEC>& pa, const Pack<T, VEC>& pb) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float v = tof(pa.v[j]);
-        if (KIND == kSumSq) {
-          s1[j] += v;
-          s2[j] = __fmaf_rn(v, v, s2[j]);
-        } else if (KIND == kSum) {
-          s1[j] += v;
-        } else if (KIND == kCentered) {
-          const float d = __fsub_rn(v, mu[j]);
-          s1[j] = __fmaf_rn(d, d, s1[j]);
-        } else {
-          const float dy = tof(pb.v[j]);
-          s1[j] += dy;
-          s2[j] = __fmaf_rn(dy, __fsub_rn(v, mu[j]), s2[j]);
-        }
-      }
-    };
     int64_t r = r_begin + row0;
-    if constexpr (KIND == kGrad && sizeof(T) * VEC == 16) {
+    if constexpr (sizeof(T) * VEC == 16) {
       uint4* sa = slab + threadIdx.x;
       uint4* sb = slab + keep * kThreads + threadIdx.x;
-      for (int i = 0; i < keep && r + i * rpi < r_end; ++i) {
-        const int64_t off = (r + i * rpi) * g.c + c0;
-        cp_async16(smem_u32(sa + i * kThreads), a + off, true);
-        cp_async16(smem_u32(sb + i * kThreads), b + off, true);
+      if (copy) {
+        for (int i = 0; i < keep && r + i * rpi < r_end; ++i) {
+          const int64_t off = (r + i * rpi) * g.c + c0;
+          cp_async16(smem_u32(sa + i * kThreads), a + off, true);
+          if (KIND == kGrad)
+            cp_async16(smem_u32(sb + i * kThreads), b + off, true);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
       }
-      cp_async_commit();
-      cp_async_wait<0>();
       for (int i = 0; i < keep && r < r_end; ++i, r += rpi)
-        add(*reinterpret_cast<const Pack<T, VEC>*>(sa + i * kThreads),
-            *reinterpret_cast<const Pack<T, VEC>*>(sb + i * kThreads));
+        accumulate<T, VEC, KIND>(
+            s1, s2, mu,
+            *reinterpret_cast<const Pack<T, VEC>*>(sa + i * kThreads),
+            *reinterpret_cast<const Pack<T, VEC>*>(
+                (KIND == kGrad ? sb : sa) + i * kThreads));
     }
     for (; r + (kUnroll - 1) * rpi < r_end; r += kUnroll * rpi) {
       Pack<T, VEC> pa[kUnroll], pb[kUnroll];
@@ -289,28 +312,20 @@ __device__ __forceinline__ void sums_body(const T* __restrict__ a,
           pb[u] = *reinterpret_cast<const Pack<T, VEC>*>(b + off);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) add(pa[u], pb[u]);
+      for (int u = 0; u < kUnroll; ++u)
+        accumulate<T, VEC, KIND>(s1, s2, mu, pa[u],
+                                 KIND == kGrad ? pb[u] : pa[u]);
     }
     for (; r < r_end; r += rpi) {
       const int64_t off = r * g.c + c0;
       Pack<T, VEC> pa = *reinterpret_cast<const Pack<T, VEC>*>(a + off);
-      Pack<T, VEC> pb;
+      Pack<T, VEC> pb = pa;
       if (KIND == kGrad) pb = *reinterpret_cast<const Pack<T, VEC>*>(b + off);
-      add(pa, pb);
+      accumulate<T, VEC, KIND>(s1, s2, mu, pa, pb);
     }
   }
   block_partials<VEC, KIND == kSumSq || KIND == kGrad>(s1, s2, part, g,
                                                        split, c0);
-}
-
-// the forward's statistics (K6a)
-template <typename T, int VEC, int KIND>
-__global__ void __launch_bounds__(kThreads)
-    bn_stat_sums_kernel(const T* __restrict__ x,
-                        const float* __restrict__ center,
-                        float* __restrict__ part, Geometry g) {
-  sums_body<T, VEC, KIND>(x, nullptr, center, part, g, blockIdx.x,
-                          blockIdx.y);
 }
 
 // The sum over the splits of partial k of channel c, on every lane of
@@ -328,37 +343,44 @@ __device__ __forceinline__ float split_sum(const float* part, int k, int c,
 }
 
 // per-channel state of the forward, float32 (4, C): the mean and the
-// scale and shift as the apply pass uses them (each a value of the data's
+// scale and shift as the apply phase uses them (each a value of the data's
 // type), and inv = rsqrt(var + eps)
 enum StatRow { kMean = 0, kScale = 1, kShift = 2, kInv = 3 };
 
 struct FwdArgs {
   int m, c, splits;
-  int phase;        // 0: float32 mean only; 1: everything
   int mode;         // 0 train, 1 train and update the running statistics,
                     // 2 predict (running statistics)
   int fix_gamma, gamma_code, beta_code;
   float eps, momentum, one_minus_m;
 };
 
+// K6a in float32: the mean of channel c, by one whole warp, into stats
+// (the centered sums read it after a grid barrier).
+__device__ __forceinline__ void fwd_mean_channel(const float* part,
+                                                 float* __restrict__ stats,
+                                                 const FwdArgs& a, int c) {
+  const float s1 = split_sum(part, 0, c, a.c, a.splits);
+  if (threadIdx.x % 32 == 0)
+    stats[kMean * a.c + c] = __fdiv_rn(s1, static_cast<float>(a.m));
+}
+
+// The finish of channel c, by one whole warp: the sums of its partials
+// over the splits (the fixed order and tree of split_sum; in predict mode
+// the running statistics), then, on lane 0, the channel's state, its
+// mean and var, and the running statistics.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bn_fwd_finish_kernel(const float* __restrict__ part,
-                         const void* __restrict__ gamma,
-                         const void* __restrict__ beta, float* rmean,
-                         float* rvar, T* __restrict__ mean_out,
-                         T* __restrict__ var_out, float* __restrict__ stats,
-                         FwdArgs a) {
-  const int c = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (c >= a.c) return;
-  const bool half = sizeof(T) == 2;
+__device__ __forceinline__ void fwd_finish_channel(
+    const float* part, const void* __restrict__ gamma,
+    const void* __restrict__ beta, float* rmean, float* rvar, T* mean_out,
+    T* var_out, float* __restrict__ stats, const FwdArgs& a, int c) {
   const float fm = static_cast<float>(a.m);
   float mean_d, var_d;
   if (a.mode == 2) {
     if (threadIdx.x % 32) return;
     mean_d = rnd<T>(rmean[c]);
     var_d = rvar[c];  // used as it is, not rounded
-  } else if (half) {
+  } else if (sizeof(T) == 2) {
     const float s1 = split_sum(part, 0, c, a.c, a.splits);
     const float s2 = split_sum(part, 1, c, a.c, a.splits);
     if (threadIdx.x % 32) return;
@@ -368,14 +390,10 @@ __global__ void __launch_bounds__(kThreads)
     if (var < 0.f) var = 0.f;  // a NaN stays NaN, as torch.clamp_min keeps it
     mean_d = rnd<T>(mean);
     var_d = rnd<T>(var);
-  } else if (a.phase == 0) {
-    const float s1 = split_sum(part, 0, c, a.c, a.splits);
-    if (threadIdx.x % 32 == 0) stats[kMean * a.c + c] = __fdiv_rn(s1, fm);
-    return;
   } else {
     const float s2 = split_sum(part, 0, c, a.c, a.splits);
     if (threadIdx.x % 32) return;
-    mean_d = stats[kMean * a.c + c];
+    mean_d = stats[kMean * a.c + c];  // this lane's fwd_mean_channel
     var_d = __fdiv_rn(s2, fm);
   }
   const float inv = rsqrtf(__fadd_rn(var_d, a.eps));
@@ -395,53 +413,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// y = ((x - mean) * scale) + shift, each operation rounded to T
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    bn_apply_fwd_kernel(const T* __restrict__ x,
-                        const float* __restrict__ stats, T* __restrict__ y,
-                        Geometry g) {
-  const int rpi = kThreads / g.tpr;
-  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
-  const int c0 = (blockIdx.y * g.tpr + col) * VEC;
-  if (c0 >= g.c) return;
+// the state of a thread's VEC channels, and y = ((x - mean) * scale) +
+// shift of one element pack, each operation rounded to T.  Read after the
+// grid barrier with plain loads, as K6b's coefficients are (BwdCoefs).
+template <int VEC>
+struct FwdState {
   float mu[VEC], sc[VEC], sh[VEC];
+
+  __device__ __forceinline__ void load(const float* stats, int c, int c0) {
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    mu[j] = stats[kMean * g.c + c0 + j];
-    sc[j] = stats[kScale * g.c + c0 + j];
-    sh[j] = stats[kShift * g.c + c0 + j];
+    for (int j = 0; j < VEC; ++j) {
+      mu[j] = stats[kMean * c + c0 + j];
+      sc[j] = stats[kScale * c + c0 + j];
+      sh[j] = stats[kShift * c + c0 + j];
+    }
   }
-  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * g.rows;
-  const int64_t r_end = row_end(g, r_begin);
-  auto apply = [&](const Pack<T, VEC>& in, Pack<T, VEC>& out) {
+
+  template <typename T>
+  __device__ __forceinline__ Pack<T, VEC> y(const Pack<T, VEC>& in) const {
+    Pack<T, VEC> out;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       const float t = rnd<T>(__fsub_rn(tof(in.v[j]), mu[j]));
       const float s = rnd<T>(__fmul_rn(t, sc[j]));
       out.v[j] = fromf<T>(__fadd_rn(s, sh[j]));
     }
-  };
-  int64_t r = r_begin + row0;
-  for (; r + (kUnroll - 1) * rpi < r_end; r += kUnroll * rpi) {
-    Pack<T, VEC> in[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      in[u] = *reinterpret_cast<const Pack<T, VEC>*>(x + (r + u * rpi) * g.c +
-                                                     c0);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      Pack<T, VEC> out;
-      apply(in[u], out);
-      *reinterpret_cast<Pack<T, VEC>*>(y + (r + u * rpi) * g.c + c0) = out;
-    }
+    return out;
   }
-  for (; r < r_end; r += rpi) {
-    Pack<T, VEC> out;
-    apply(*reinterpret_cast<const Pack<T, VEC>*>(x + r * g.c + c0), out);
-    *reinterpret_cast<Pack<T, VEC>*>(y + r * g.c + c0) = out;
-  }
-}
+};
 
 // per-channel coefficients of the backward, float32 (3, C):
 // dx = k1 (dy - k2) - k3 (x - mean)
@@ -516,15 +515,15 @@ struct BwdCoefs {
   }
 };
 
-// The "resident" route: a block owns `spb` consecutive row splits of one
-// channel tile (a group), `rps` rounds of rows a split for each thread.
-// Phase 1 copies the thread's rows of x and dy by cp.async into its own
-// slots of the block's slab (x rounds first, then dy rounds; slot i * 256
-// + thread of each, round i = split * rps + k), kStages rounds in flight,
-// sums them as they land in row order as sums_body does, and writes each
-// split's partial: the same partials, in the same order, as the streamed
-// route.  Each thread reads only the slots it copied itself, so the slab
-// needs no block barrier; it stays for phase 2.
+// K6b's "resident" route: a block owns `spb` consecutive row splits of
+// one channel tile (a group), `rps` rounds of rows a split for each
+// thread.  Phase 1 copies the thread's rows of x and dy by cp.async into
+// its own slots of the block's slab (x rounds first, then dy rounds; slot
+// i * 256 + thread of each, round i = split * rps + k), kStages rounds in
+// flight, sums them as they land in row order as sums_body does, and
+// writes each split's partial: the same partials, in the same order, as
+// the streamed route.  Each thread reads only the slots it copied itself,
+// so the slab needs no block barrier; it stays for phase 2.
 struct Group {
   int s0, nsplit, tile;
 };
@@ -579,18 +578,10 @@ __device__ __forceinline__ void resident_sums(
     issue(i + kStages - 1);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
-    if (row(i) >= 0) {
-      const Pack<T, VEC> px =
-          *reinterpret_cast<const Pack<T, VEC>*>(sx + i * kThreads);
-      const Pack<T, VEC> pd =
-          *reinterpret_cast<const Pack<T, VEC>*>(sd + i * kThreads);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float d = tof(pd.v[j]);
-        s1[j] += d;
-        s2[j] = __fmaf_rn(d, __fsub_rn(tof(px.v[j]), mu[j]), s2[j]);
-      }
-    }
+    if (row(i) >= 0)
+      accumulate<T, VEC, kGrad>(
+          s1, s2, mu, *reinterpret_cast<const Pack<T, VEC>*>(sx + i * kThreads),
+          *reinterpret_cast<const Pack<T, VEC>*>(sd + i * kThreads));
     if (i % rps == rps - 1) {  // the split's last round: its partial
       block_partials<VEC, true>(s1, s2, part, g, gr.s0 + i / rps, c0);
 #pragma unroll
@@ -685,7 +676,7 @@ __device__ __forceinline__ void streamed_apply(
 // walking them (and their rows) backwards, the first `keep` rounds of
 // each thread's rows kept in shared memory where a block has one item.
 template <typename T, int VEC, bool kResident>
-__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ stats,
                   const void* __restrict__ gamma, T* __restrict__ dx,
@@ -723,6 +714,103 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
   }
 }
 
+// K6a's apply: y of the item's rows, x read again from device
+// memory, last row first, so that the rows phase 1 read last, still in
+// the L2, are read first; then the first `keep` rounds from the slab.
+template <typename T, int VEC>
+__device__ __forceinline__ void streamed_fwd_apply(
+    const T* __restrict__ x, const float* stats, T* __restrict__ y,
+    const Geometry& g, int split, int tile, int keep, const uint4* slab) {
+  const int rpi = kThreads / g.tpr;
+  const int col = threadIdx.x % g.tpr, row0 = threadIdx.x / g.tpr;
+  const int c0 = (tile * g.tpr + col) * VEC;
+  const int64_t first = static_cast<int64_t>(split) * g.rows + row0;
+  const int64_t r_end = row_end(g, static_cast<int64_t>(split) * g.rows);
+  if (c0 >= g.c || first >= r_end) return;
+  FwdState<VEC> st;
+  st.load(stats, g.c, c0);
+  const int n = static_cast<int>((r_end - first + rpi - 1) / rpi);
+  const int kept = n < keep ? n : keep;
+  int i = n - 1;
+  for (; i >= kept + kUnroll - 1; i -= kUnroll) {
+    Pack<T, VEC> in[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      in[u] = *reinterpret_cast<const Pack<T, VEC>*>(
+          x + (first + static_cast<int64_t>(i - u) * rpi) * g.c + c0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      *reinterpret_cast<Pack<T, VEC>*>(
+          y + (first + static_cast<int64_t>(i - u) * rpi) * g.c + c0) =
+          st.template y<T>(in[u]);
+  }
+  for (; i >= kept; --i) {
+    const int64_t off = (first + static_cast<int64_t>(i) * rpi) * g.c + c0;
+    const Pack<T, VEC> in = *reinterpret_cast<const Pack<T, VEC>*>(x + off);
+    *reinterpret_cast<Pack<T, VEC>*>(y + off) = st.template y<T>(in);
+  }
+  const uint4* sx = slab + threadIdx.x;
+  for (; i >= 0; --i) {
+    const int64_t off = (first + static_cast<int64_t>(i) * rpi) * g.c + c0;
+    const Pack<T, VEC> in =
+        *reinterpret_cast<const Pack<T, VEC>*>(sx + i * kThreads);
+    *reinterpret_cast<Pack<T, VEC>*>(y + off) = st.template y<T>(in);
+  }
+}
+
+// K6a: one cooperative launch of co-resident blocks over the row
+// partition, on K6b's streamed route.  In train mode phase 1 writes the
+// partial sums of each (split, channel tile) (bf16/f16: x and x^2;
+// float32: x), and a grid barrier follows; float32 then finishes each
+// channel's mean (a warp a channel), a barrier, the centered sums (the
+// kept rounds from the slab), a barrier.  Each channel is finished by one
+// warp of the grid (predict mode: from the running statistics); a last
+// barrier; then the apply writes y.  The items are strided over the
+// blocks, the apply walking them (and their rows) backwards, the first
+// `keep` rounds of each thread's rows kept in shared memory where a block
+// has one item.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    bn_fwd_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
+                  const void* __restrict__ beta, float* rmean, float* rvar,
+                  T* __restrict__ y, T* mean_out, T* var_out, float* stats,
+                  float* part, Geometry g, FwdArgs a, int tiles, int keep) {
+  extern __shared__ __align__(16) uint4 slab[];
+  cg::grid_group grid = cg::this_grid();
+  constexpr bool kHalf = sizeof(T) == 2;
+  const int items = g.splits * tiles;
+  const bool train = a.mode != 2;
+  const int warp = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int warps = gridDim.x * kWarps;
+  if (train) {
+    for (int it = blockIdx.x; it < items; it += gridDim.x)
+      sums_body<T, VEC, kHalf ? kSumSq : kSum>(
+          x, nullptr, nullptr, part, g, it % g.splits, it / g.splits, keep,
+          slab);
+    grid.sync();
+    if constexpr (!kHalf) {
+      for (int c = warp; c < g.c; c += warps)
+        fwd_mean_channel(part, stats, a, c);
+      grid.sync();
+      const float* mean = stats + kMean * g.c;
+      for (int it = blockIdx.x; it < items; it += gridDim.x)
+        sums_body<T, VEC, kCentered>(x, nullptr, mean, part, g,
+                                     it % g.splits, it / g.splits, keep, slab,
+                                     false);
+      grid.sync();
+    }
+  }
+  for (int c = warp; c < g.c; c += warps)
+    fwd_finish_channel<T>(part, gamma, beta, rmean, rvar, mean_out, var_out,
+                          stats, a, c);
+  grid.sync();
+  if (blockIdx.x >= items) return;
+  for (int it = blockIdx.x + (items - 1 - blockIdx.x) / gridDim.x * gridDim.x;
+       it >= 0; it -= gridDim.x)
+    streamed_fwd_apply<T, VEC>(x, stats, y, g, it % g.splits, it / g.splits,
+                               train ? keep : 0, slab);
+}
+
 bool valid(const Geometry& g, int vec) {
   if (g.m < 1 || g.c < 1 || g.splits < 1 || g.rows < 1) return false;
   if (static_cast<int64_t>(g.splits) * g.rows < g.m) return false;
@@ -730,62 +818,20 @@ bool valid(const Geometry& g, int vec) {
   return vec == 1 || g.c % vec == 0;
 }
 
-dim3 row_grid(const Geometry& g, int vec) {
-  const int per_tile = g.tpr * vec;
-  return dim3(g.splits, (g.c + per_tile - 1) / per_tile);
-}
-
-dim3 channel_grid(int c) { return dim3((c + kWarps - 1) / kWarps); }
-
-template <typename T, int VEC>
-int fwd_typed(const void* x, const void* gamma, const void* beta,
-              float* rmean, float* rvar, void* y, void* mean_out,
-              void* var_out, float* stats, float* ws, const Geometry& g,
-              FwdArgs a, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const dim3 grid = row_grid(g, VEC);
-  if (a.mode != 2) {
-    if constexpr (sizeof(T) == 2) {
-      bn_stat_sums_kernel<T, VEC, kSumSq><<<grid, kThreads, 0, st>>>(
-          xt, nullptr, ws, g);
-    } else {
-      bn_stat_sums_kernel<T, VEC, kSum><<<grid, kThreads, 0, st>>>(
-          xt, nullptr, ws, g);
-      a.phase = 0;
-      bn_fwd_finish_kernel<T><<<channel_grid(g.c), kThreads, 0, st>>>(
-          ws, gamma, beta, rmean, rvar, static_cast<T*>(mean_out),
-          static_cast<T*>(var_out), stats, a);
-      bn_stat_sums_kernel<T, VEC, kCentered><<<grid, kThreads, 0, st>>>(
-          xt, stats + kMean * g.c, ws, g);
-    }
+// K6a's kernel (streamed; kResident false) and K6b's kernel of a route
+template <bool kFwd, typename T, int VEC, bool kResident>
+auto kernel_of() {
+  if constexpr (kFwd) {
+    static_assert(!kResident, "K6a has the streamed route alone");
+    return bn_fwd_kernel<T, VEC>;
+  } else {
+    return bn_bwd_kernel<T, VEC, kResident>;
   }
-  a.phase = 1;
-  bn_fwd_finish_kernel<T><<<channel_grid(g.c), kThreads, 0, st>>>(
-      ws, gamma, beta, rmean, rvar, static_cast<T*>(mean_out),
-      static_cast<T*>(var_out), stats, a);
-  bn_apply_fwd_kernel<T, VEC><<<grid, kThreads, 0, st>>>(
-      xt, stats, static_cast<T*>(y), g);
-  return cudaGetLastError();
 }
 
-template <typename T>
-int fwd_dispatch(const void* x, const void* gamma, const void* beta,
-                 float* rmean, float* rvar, void* y, void* mean_out,
-                 void* var_out, float* stats, float* ws, const Geometry& g,
-                 int vec, const FwdArgs& a, cudaStream_t st) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (vec == kVec)
-    return fwd_typed<T, kVec>(x, gamma, beta, rmean, rvar, y, mean_out,
-                              var_out, stats, ws, g, a, st);
-  if (vec == 1)
-    return fwd_typed<T, 1>(x, gamma, beta, rmean, rvar, y, mean_out, var_out,
-                           stats, ws, g, a, st);
-  return cudaErrorInvalidValue;
-}
-
-// Raise K6b's dynamic shared memory limit to `smem`, once for each device
-// and size (the limit belongs to the function on a device).
-template <typename T, int VEC, bool kResident>
+// Raise a kernel's dynamic shared memory limit to `smem`, once for each
+// device and size (the limit belongs to the function on a device).
+template <bool kFwd, typename T, int VEC, bool kResident>
 cudaError_t allow_smem(int smem) {
   static int allowed[64];
   int dev = 0;
@@ -794,7 +840,7 @@ cudaError_t allow_smem(int smem) {
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (smem > allowed[dev]) {
     const cudaError_t f = cudaFuncSetAttribute(
-        bn_bwd_kernel<T, VEC, kResident>,
+        kernel_of<kFwd, T, VEC, kResident>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (f != cudaSuccess) return f;
     allowed[dev] = smem;
@@ -802,37 +848,42 @@ cudaError_t allow_smem(int smem) {
   return cudaSuccess;
 }
 
-// K6b's launch as ops/batch_norm.py launch_plan makes it: the route, the
+// A launch as ops/batch_norm.py launch_plan makes it: the route, the
 // grid of co-resident blocks, the dynamic shared memory, the splits a
 // resident block and the rounds a streamed block keeps.  tiles and rps
 // follow from the geometry.
-struct BwdPlan {
+struct Plan {
   bool resident;
   int grid, smem, spb, keep, tiles, rps;
 };
 
-// whether the plan covers the geometry and its slab fits its shared memory
-bool valid_plan(const BwdPlan& p, const Geometry& g, int vec) {
+Plan make_plan(const Geometry& g, int vec, int resident, int grid, int smem,
+               int spb, int keep) {
+  const int rpi = kThreads / g.tpr;
+  return Plan{resident != 0, grid, smem, spb, keep,
+              (g.c + g.tpr * vec - 1) / (g.tpr * vec),
+              (g.rows + rpi - 1) / rpi};
+}
+
+// whether the plan covers the geometry and its slab, of `round_bytes` a
+// round, fits its shared memory
+bool valid_plan(const Plan& p, const Geometry& g, int vec, int round_bytes) {
   if (p.grid < 1 || p.spb < 1 || p.keep < 0) return false;
   const int64_t items = static_cast<int64_t>(g.splits) * p.tiles;
+  const int64_t slab = static_cast<int64_t>(p.keep) * round_bytes;
   if (p.resident)  // one block a group of spb splits, its slab all kept
     return vec > 1 && p.keep == p.spb * p.rps &&
            p.grid == (g.splits + p.spb - 1) / p.spb * p.tiles &&
-           static_cast<int64_t>(p.smem) >=
-               static_cast<int64_t>(p.keep) * kRoundBytes;
+           p.smem >= slab;
   // a streamed block keeps rounds only where it has one item
   return p.spb == 1 && p.smem >= 0 &&
-         (p.keep == 0 || (vec > 1 && p.grid >= items &&
-                          static_cast<int64_t>(p.smem) >=
-                              static_cast<int64_t>(p.keep) * kRoundBytes));
+         (p.keep == 0 || (vec > 1 && p.grid >= items && p.smem >= slab));
 }
 
-template <typename T, int VEC, bool kResident>
-int bwd_launch(const BwdPlan& p, const T* x, const T* dy, const float* stats,
-               const void* gamma, void* dx, void* dgamma, void* dbeta,
-               float* ws, const Geometry& g, const BwdArgs& a,
-               cudaStream_t st) {
-  const cudaError_t e = allow_smem<T, VEC, kResident>(p.smem);
+// one cooperative launch of the route's kernel
+template <bool kFwd, typename T, int VEC, bool kResident, typename... Args>
+int coop_launch(const Plan& p, cudaStream_t st, Args... args) {
+  const cudaError_t e = allow_smem<kFwd, T, VEC, kResident>(p.smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.grid);
@@ -844,59 +895,99 @@ int bwd_launch(const BwdPlan& p, const T* x, const T* dy, const float* stats,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, bn_bwd_kernel<T, VEC, kResident>, x, dy,
-                            stats, gamma, static_cast<T*>(dx), dgamma, dbeta,
-                            ws, g, a, p.tiles, p.spb, p.rps, p.keep);
+  return cudaLaunchKernelEx(&cfg, kernel_of<kFwd, T, VEC, kResident>(),
+                            args...);
 }
 
 template <typename T, int VEC>
-int bwd_typed(const BwdPlan& p, const void* x, const void* dy,
-              const float* stats, const void* gamma, void* dx, void* dgamma,
-              void* dbeta, float* ws, const Geometry& g, const BwdArgs& a,
-              cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  if constexpr (VEC > 1) {
-    if (p.resident)
-      return bwd_launch<T, VEC, true>(p, xt, dyt, stats, gamma, dx, dgamma,
-                                      dbeta, ws, g, a, st);
-  }
-  return bwd_launch<T, VEC, false>(p, xt, dyt, stats, gamma, dx, dgamma,
-                                   dbeta, ws, g, a, st);
+int fwd_launch(const Plan& p, const void* x, const void* gamma,
+               const void* beta, float* rmean, float* rvar, void* y,
+               void* mean_out, void* var_out, float* stats, float* ws,
+               const Geometry& g, const FwdArgs& a, cudaStream_t st) {
+  return coop_launch<true, T, VEC, false>(
+      p, st, static_cast<const T*>(x), gamma, beta, rmean, rvar,
+      static_cast<T*>(y), static_cast<T*>(mean_out), static_cast<T*>(var_out),
+      stats, ws, g, a, p.tiles, p.keep);
 }
 
+template <typename T, int VEC, bool kResident>
+int bwd_launch(const Plan& p, const void* x, const void* dy,
+               const float* stats, const void* gamma, void* dx, void* dgamma,
+               void* dbeta, float* ws, const Geometry& g, const BwdArgs& a,
+               cudaStream_t st) {
+  return coop_launch<false, T, VEC, kResident>(
+      p, st, static_cast<const T*>(x), static_cast<const T*>(dy), stats,
+      gamma, static_cast<T*>(dx), dgamma, dbeta, ws, g, a, p.tiles, p.spb,
+      p.rps, p.keep);
+}
+
+// The access's instance of a launch of dtype T: 16 bytes (kVec) or
+// scalar; K6b's resident route takes the 16-byte access only (cp.async
+// copies 16 bytes; valid_plan refuses a scalar resident plan).
 template <typename T>
-int bwd_dispatch(const BwdPlan& p, const void* x, const void* dy,
-                 const float* stats, const void* gamma, void* dx,
-                 void* dgamma, void* dbeta, float* ws, const Geometry& g,
-                 int vec, const BwdArgs& a, cudaStream_t st) {
+int fwd_dispatch(const Plan& p, int vec, const void* x, const void* gamma,
+                 const void* beta, float* rmean, float* rvar, void* y,
+                 void* mean_out, void* var_out, float* stats, float* ws,
+                 const Geometry& g, const FwdArgs& a, cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec == kVec)
-    return bwd_typed<T, kVec>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws,
-                              g, a, st);
+    return fwd_launch<T, kVec>(p, x, gamma, beta, rmean, rvar, y, mean_out,
+                               var_out, stats, ws, g, a, st);
   if (vec == 1)
-    return bwd_typed<T, 1>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws, g,
-                           a, st);
+    return fwd_launch<T, 1>(p, x, gamma, beta, rmean, rvar, y, mean_out,
+                            var_out, stats, ws, g, a, st);
   return cudaErrorInvalidValue;
 }
 
-// the blocks an SM that the occupancy API allows K6b's kernel of a route
-// and dynamic shared memory
-template <typename T, int VEC, bool kResident>
-int bwd_occupancy(int smem, int* blocks) {
-  const cudaError_t e = allow_smem<T, VEC, kResident>(smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, bn_bwd_kernel<T, VEC, kResident>, kThreads, smem);
+template <typename T>
+int bwd_dispatch(const Plan& p, int vec, const void* x, const void* dy,
+                 const float* stats, const void* gamma, void* dx,
+                 void* dgamma, void* dbeta, float* ws, const Geometry& g,
+                 const BwdArgs& a, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec == kVec && p.resident)
+    return bwd_launch<T, kVec, true>(p, x, dy, stats, gamma, dx, dgamma,
+                                     dbeta, ws, g, a, st);
+  if (vec == kVec)
+    return bwd_launch<T, kVec, false>(p, x, dy, stats, gamma, dx, dgamma,
+                                      dbeta, ws, g, a, st);
+  if (vec == 1 && !p.resident)
+    return bwd_launch<T, 1, false>(p, x, dy, stats, gamma, dx, dgamma, dbeta,
+                                   ws, g, a, st);
+  return cudaErrorInvalidValue;
 }
 
-template <typename T>
-int bwd_occupancy_typed(int vec, int resident, int smem, int* blocks) {
+// the blocks an SM that the occupancy API allows a route's kernel with
+// `smem` bytes of dynamic shared memory
+template <bool kFwd, typename T, int VEC, bool kResident>
+int occupancy_of(int smem, int* blocks) {
+  const cudaError_t e = allow_smem<kFwd, T, VEC, kResident>(smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_of<kFwd, T, VEC, kResident>(), kThreads, smem);
+}
+
+template <bool kFwd, typename T>
+int occupancy_typed(int vec, int resident, int smem, int* blocks) {
   constexpr int kVec = 16 / sizeof(T);
-  if (vec == kVec)
-    return resident ? bwd_occupancy<T, kVec, true>(smem, blocks)
-                    : bwd_occupancy<T, kVec, false>(smem, blocks);
-  if (vec == 1 && !resident) return bwd_occupancy<T, 1, false>(smem, blocks);
+  if (resident) {  // K6b's, of the 16-byte access
+    if constexpr (!kFwd)
+      if (vec == kVec) return occupancy_of<false, T, kVec, true>(smem, blocks);
+    return cudaErrorInvalidValue;
+  }
+  if (vec == kVec) return occupancy_of<kFwd, T, kVec, false>(smem, blocks);
+  if (vec == 1) return occupancy_of<kFwd, T, 1, false>(smem, blocks);
+  return cudaErrorInvalidValue;
+}
+
+template <bool kFwd>
+int occupancy(int dtype, int vec, int resident, int smem, int* blocks) {
+  if (dtype == 0) return occupancy_typed<kFwd, float>(vec, resident, smem,
+                                                      blocks);
+  if (dtype == 1)
+    return occupancy_typed<kFwd, __nv_bfloat16>(vec, resident, smem, blocks);
+  if (dtype == 2)
+    return occupancy_typed<kFwd, __half>(vec, resident, smem, blocks);
   return cudaErrorInvalidValue;
 }
 
@@ -908,32 +999,35 @@ bool valid_code(int code) { return code >= 0 && code <= 2; }
 // their own codes; rmean and rvar (C,) float32, read in predict mode
 // (mode 2) and updated in place in mode 1; mean_out and var_out (C,) of
 // x's type, written in train mode; stats (4, C) float32, written for the
-// backward; ws holds 2 * C * splits floats of partial sums.
+// backward; ws holds 2 * C * splits floats of partial sums (train mode).
+// One cooperative launch of the plan that ops/batch_norm.py launch_plan
+// makes: grid, dynamic shared memory, rounds kept.
 extern "C" int mxt_bn_fwd(const void* x, const void* gamma, const void* beta,
                           float* rmean, float* rvar, void* y, void* mean_out,
                           void* var_out, float* stats, float* ws, int m, int c,
                           int vec, int tpr, int splits, int rows, int dtype,
                           int gamma_code, int beta_code, int mode,
                           int fix_gamma, float eps, float momentum,
-                          float one_minus_m, void* stream) {
+                          float one_minus_m, int grid, int smem, int keep,
+                          void* stream) {
   const Geometry g{m, c, tpr, splits, rows};
   if (!valid(g, vec) || mode < 0 || mode > 2 || !valid_code(gamma_code) ||
       !valid_code(beta_code))
     return cudaErrorInvalidValue;
-  const FwdArgs a{m,         c,         splits,   1,   mode,
-                  fix_gamma, gamma_code, beta_code, eps, momentum,
-                  one_minus_m};
+  const Plan p = make_plan(g, vec, 0, grid, smem, 1, keep);
+  if (!valid_plan(p, g, vec, kFwdRoundBytes)) return cudaErrorInvalidValue;
+  const FwdArgs a{m,         c,          splits,    mode,     fix_gamma,
+                  gamma_code, beta_code, eps,       momentum, one_minus_m};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fwd_dispatch<float>(x, gamma, beta, rmean, rvar, y, mean_out,
-                               var_out, stats, ws, g, vec, a, st);
+    return fwd_dispatch<float>(p, vec, x, gamma, beta, rmean, rvar, y,
+                               mean_out, var_out, stats, ws, g, a, st);
   if (dtype == 1)
-    return fwd_dispatch<__nv_bfloat16>(x, gamma, beta, rmean, rvar, y,
-                                       mean_out, var_out, stats, ws, g, vec,
-                                       a, st);
+    return fwd_dispatch<__nv_bfloat16>(p, vec, x, gamma, beta, rmean, rvar, y,
+                                       mean_out, var_out, stats, ws, g, a, st);
   if (dtype == 2)
-    return fwd_dispatch<__half>(x, gamma, beta, rmean, rvar, y, mean_out,
-                                var_out, stats, ws, g, vec, a, st);
+    return fwd_dispatch<__half>(p, vec, x, gamma, beta, rmean, rvar, y,
+                                mean_out, var_out, stats, ws, g, a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -953,37 +1047,34 @@ extern "C" int mxt_bn_bwd(const void* x, const void* dy, const float* stats,
   const Geometry g{m, c, tpr, splits, rows};
   if (!valid(g, vec) || !valid_code(gamma_code) || !valid_code(beta_code))
     return cudaErrorInvalidValue;
-  const int rpi = kThreads / tpr;
-  const BwdPlan p{resident != 0, grid, smem, spb, keep,
-                  (c + tpr * vec - 1) / (tpr * vec), (rows + rpi - 1) / rpi};
-  if (!valid_plan(p, g, vec)) return cudaErrorInvalidValue;
+  const Plan p = make_plan(g, vec, resident, grid, smem, spb, keep);
+  if (!valid_plan(p, g, vec, kBwdRoundBytes)) return cudaErrorInvalidValue;
   const BwdArgs a{m, c, splits, train, fix_gamma, gamma_code, beta_code};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd_dispatch<float>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws,
-                               g, vec, a, st);
+    return bwd_dispatch<float>(p, vec, x, dy, stats, gamma, dx, dgamma, dbeta,
+                               ws, g, a, st);
   if (dtype == 1)
-    return bwd_dispatch<__nv_bfloat16>(p, x, dy, stats, gamma, dx, dgamma,
-                                       dbeta, ws, g, vec, a, st);
+    return bwd_dispatch<__nv_bfloat16>(p, vec, x, dy, stats, gamma, dx,
+                                       dgamma, dbeta, ws, g, a, st);
   if (dtype == 2)
-    return bwd_dispatch<__half>(p, x, dy, stats, gamma, dx, dgamma, dbeta, ws,
-                                g, vec, a, st);
+    return bwd_dispatch<__half>(p, vec, x, dy, stats, gamma, dx, dgamma,
+                                dbeta, ws, g, a, st);
   return cudaErrorInvalidValue;
 }
 
-// The blocks an SM that the occupancy API allows K6b's kernel of dtype
-// code `dtype`, `vec` channels an access, the route (1 resident, 0
-// streamed) and `smem` bytes of dynamic shared memory, into *blocks, on the
-// current device.
+// The blocks an SM that the occupancy API allows K6a's kernel of dtype
+// code `dtype`, `vec` channels an access and `smem` bytes of dynamic
+// shared memory (K6b's: of the route, 1 resident, 0 streamed), into
+// *blocks, on the current device.
+extern "C" int mxt_bn_fwd_occupancy(int dtype, int vec, int smem,
+                                    int* blocks) {
+  return occupancy<true>(dtype, vec, 0, smem, blocks);
+}
+
 extern "C" int mxt_bn_bwd_occupancy(int dtype, int vec, int resident,
                                     int smem, int* blocks) {
-  if (dtype == 0)
-    return bwd_occupancy_typed<float>(vec, resident, smem, blocks);
-  if (dtype == 1)
-    return bwd_occupancy_typed<__nv_bfloat16>(vec, resident, smem, blocks);
-  if (dtype == 2)
-    return bwd_occupancy_typed<__half>(vec, resident, smem, blocks);
-  return cudaErrorInvalidValue;
+  return occupancy<false>(dtype, vec, resident, smem, blocks);
 }
 
 extern "C" const char* mxt_error_string(int err) {

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from .. import autograd as _ag
-from ..base import MXNetError, np_dtype, numeric_types, torch_dtype
+from ..base import (MXNetError, np_dtype, numeric_types, saturating_cast,
+                    torch_dtype)
 from ..context import resolve_device
 from ..ops import init_ops as _init
 from ..ops import registry as _reg
@@ -139,11 +140,14 @@ class NDArray:
 
     # ------------------------------------------------------ dtype/device
     def astype(self, dtype, copy=True):
+        """A copy in ``dtype`` (floats to integers truncate and saturate,
+        NaN to 0, as the JAX package converts)."""
         dt = torch_dtype(dtype)
         if not copy and self._t.dtype == dt:
             return self
         with _grad_mode():
-            return NDArray(self._t.to(dt, copy=True))
+            out = saturating_cast(self._t, dt)
+            return NDArray(out.clone() if out is self._t else out)
 
     def as_in_context(self, ctx):
         dev = resolve_device(ctx)

@@ -47,48 +47,62 @@ from ..base import MXNetError
 
 __all__ = ["batch_norm", "batch_norm_fwd", "batch_norm_bwd",
            "batch_norm_fwd_plain", "batch_norm_bwd_plain", "launch_plan",
-           "LaunchPlan"]
+           "LaunchPlan", "Occupancy"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMS = 132              # streaming multiprocessors of an H100
 THREADS = 256           # a block of the row passes
 TARGET_BLOCKS = 4 * _SMS
-# K6b: the co-resident blocks an SM of the streamed route (the kernel's
-# launch bounds allow them); an H100's shared memory, an SM, a block and
-# reserved a block; a round of a thread's slab, x and dy, 16 bytes each
+# the co-resident blocks an SM of the streamed route (the kernels' launch
+# bounds allow them); an H100's shared memory, an SM, a block and reserved
+# a block; a round of a block's slab, 16 bytes a thread of x and dy (K6b)
+# or of x (K6a)
 BWD_BLOCKS_PER_SM = 4
 SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
 ROUND_BYTES = 2 * THREADS * 16
+FWD_ROUND_BYTES = THREADS * 16
 # rows of the per-channel state ``stats`` (float32, (4, C)): the mean,
 # the scale and shift as the apply pass uses them, and rsqrt(var + eps)
 MEAN, SCALE, SHIFT, INV = range(4)
+
+
+class Occupancy(NamedTuple):
+    """What a plan asks of the occupancy API for one kernel: the C entry
+    that answers for the kernel, its arguments before the output (the
+    type code, the access, K6b's route and the dynamic shared memory), the
+    blocks an SM that the plan assumes co-resident and its grid."""
+    entry: str
+    args: tuple
+    blocks_per_sm: int
+    grid: int
 
 
 class LaunchPlan(NamedTuple):
     """How K6a and K6b cover an (M, C) tensor.  ``access``: ``"16-byte"``
     (``vec`` channels a load: 8 of bf16 or float16, 4 of float32) or
     ``"scalar"`` (``vec`` 1, where C or a pointer's alignment does not
-    allow 16 bytes).  A block of 256 threads takes ``tile_c`` channels
-    (``tpr`` threads a row, ``tpr * vec`` channels) and ``rows_at_once``
-    = 256 / ``tpr`` rows at a time; ``channel_tiles`` blocks cover C and
-    ``splits`` blocks the rows, ``rows`` rows each (the last one
-    shorter).  The forward's workspace holds ``fwd_ws`` float32 partial
-    sums, the backward's ``bwd_ws`` (the partial sums and three
-    coefficients a channel).
+    allow 16 bytes).  A (split, channel tile) item of 256 threads takes
+    ``tile_c`` channels (``tpr`` threads a row, ``tpr * vec`` channels)
+    and ``rows_at_once`` = 256 / ``tpr`` rows at a time;
+    ``channel_tiles`` items cover C and ``splits`` items the rows,
+    ``rows`` rows each (the last one shorter).  The forward's workspace
+    holds ``fwd_ws`` float32 partial sums, the backward's ``bwd_ws`` (the
+    partial sums and three coefficients a channel).
 
     K6b is one cooperative launch of ``bwd_grid`` co-resident blocks over
-    the same splits and channel tiles, launched as the plan says (the
-    kernel takes the route, grid, shared memory, splits a block and
-    rounds kept from it).  ``route`` ``"resident"``: a block takes
-    ``splits_per_block`` consecutive splits of a tile (``rounds`` rows a
-    thread), whose x and dy rows stay in ``bwd_smem`` bytes of dynamic
-    shared memory between its two phases, ``blocks_per_sm`` blocks an SM;
-    ``"streamed"``: at most ``blocks_per_sm`` (4) blocks an SM walk the
-    (split, tile) items (``rounds`` rows a thread each), reading x and dy
-    again for dx but for the first ``kept_rounds`` of each thread's rows,
-    which stay in ``bwd_smem`` bytes where a block has one item.  Both
-    write the same partial sums as the forward's partition, so K6b's
-    results do not depend on the route."""
+    the items, launched as the plan says (the kernel takes the route,
+    grid, shared memory, splits a block and rounds kept from it).
+    ``route`` ``"resident"``: a block takes ``splits_per_block``
+    consecutive splits of a tile (``rounds`` rows a thread), whose x and
+    dy rows stay in ``bwd_smem`` bytes of dynamic shared memory between
+    its two phases, ``blocks_per_sm`` blocks an SM; ``"streamed"``: at
+    most ``blocks_per_sm`` (4) blocks an SM walk the items (``rounds``
+    rows a thread each), reading x and dy again for dx but for the first
+    ``kept_rounds`` of each thread's rows, which stay in ``bwd_smem``
+    bytes where a block has one item.  The ``fwd_`` fields are K6a's
+    launch, on the streamed route at every shape, its kept rounds of x
+    alone.  Every route writes the same partial sums, those of the items,
+    so the results of K6b do not depend on it."""
     access: str
     vec: int
     tpr: int
@@ -106,11 +120,29 @@ class LaunchPlan(NamedTuple):
     bwd_grid: int
     bwd_smem: int
     blocks_per_sm: int
+    fwd_kept_rounds: int
+    fwd_grid: int
+    fwd_smem: int
+    fwd_blocks_per_sm: int
+
+    def fwd_occupancy(self, code):
+        """K6a's :class:`Occupancy` for data of type code ``code``."""
+        return Occupancy("mxt_bn_fwd_occupancy",
+                         (code, self.vec, self.fwd_smem),
+                         self.fwd_blocks_per_sm, self.fwd_grid)
+
+    def bwd_occupancy(self, code):
+        """K6b's :class:`Occupancy` for data of type code ``code``."""
+        return Occupancy("mxt_bn_bwd_occupancy",
+                         (code, self.vec, int(self.route == "resident"),
+                          self.bwd_smem), self.blocks_per_sm, self.bwd_grid)
 
 
-def _red_bytes(vec):
-    """A block's static shared memory: 2 * 256 * ``vec`` float32 sums."""
-    return 2 * THREADS * vec * 4
+def _red_bytes(vec, sums=2):
+    """A block's static shared memory: ``sums`` x 256 x ``vec`` float32
+    partial sums (K6b and K6a in bf16 and float16 add two a channel, K6a
+    in float32 one)."""
+    return sums * THREADS * vec * 4
 
 
 def _resident_blocks_per_sm(rounds, vec):
@@ -144,16 +176,19 @@ def _resident_route(splits, rps, vec, tiles, sms):
     return None
 
 
-def _streamed_route(splits, rps, vec, tiles, sms):
-    """K6b's streamed launch: at most :data:`BWD_BLOCKS_PER_SM` blocks an
-    SM; a block of one item keeps the first rounds that fit beside three
-    others."""
+def _streamed_route(splits, rps, vec, tiles, sms, round_bytes=ROUND_BYTES,
+                    red=None):
+    """The streamed launch: at most :data:`BWD_BLOCKS_PER_SM` blocks an
+    SM; a block of one item keeps the first rounds (of ``round_bytes``,
+    beside ``red`` bytes of static shared memory; K6b's by default) that
+    fit beside three others."""
+    red = _red_bytes(vec) if red is None else red
     cap = BWD_BLOCKS_PER_SM * sms
     keep = (SMEM_PER_SM // BWD_BLOCKS_PER_SM - SMEM_RESERVED
-            - _red_bytes(vec)) // ROUND_BYTES
+            - red) // round_bytes
     kept = min(rps, keep) if vec > 1 and splits * tiles <= cap else 0
     return ("streamed", 1, rps, kept, min(splits * tiles, cap),
-            kept * ROUND_BYTES, BWD_BLOCKS_PER_SM)
+            kept * round_bytes, BWD_BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,10 +197,10 @@ def launch_plan(m, c, dtype, aligned=True, sms=_SMS):
     (``aligned``: the tensors lie on 16-byte boundaries) on a card of
     ``sms`` SMs: a pure function of the shapes.  The channels go to as
     few threads a row as hold them, at most 32; the rows are cut into as
-    many splits as put about :data:`TARGET_BLOCKS` blocks (four an SM of
+    many splits as put about :data:`TARGET_BLOCKS` items (four an SM of
     an H100) in flight, no split shorter than one round of rows.  K6b's
-    route is resident where a grouping of the splits fits, else
-    streamed."""
+    route is resident where a grouping of the splits fits its slab, else
+    streamed; K6a streams at every shape."""
     if m < 1 or c < 1:
         raise MXNetError("batch_norm takes at least one row and one channel "
                          "(got M=%d, C=%d)" % (m, c))
@@ -185,9 +220,11 @@ def launch_plan(m, c, dtype, aligned=True, sms=_SMS):
     rps = -(-rows // rows_at_once)
     route = (_resident_route(splits, rps, vec, tiles, sms)
              or _streamed_route(splits, rps, vec, tiles, sms))
+    fwd = _streamed_route(splits, rps, vec, tiles, sms, FWD_ROUND_BYTES,
+                          _red_bytes(vec, 2 if esize == 2 else 1))
     return LaunchPlan("16-byte" if vec > 1 else "scalar", vec, tpr,
                       rows_at_once, tpr * vec, tiles, splits, rows, part,
-                      part + 3 * c, *route)
+                      part + 3 * c, *route, *fwd[3:])
 
 
 def batch_norm_fwd_plain(x, gamma, beta, running_mean, running_var, eps,
@@ -277,30 +314,27 @@ def _plan_for(x, *tensors):
     return launch_plan(m, c, x.dtype, aligned, _sm_count(x.device.index))
 
 
-_held: set = set()  # K6b's plans held to the occupancy API, by device
+_held: set = set()  # the plans held to the occupancy API, by device
 
 
-def _hold_to_occupancy(lib, plan, code, device):
-    """Raise unless the occupancy API lets ``plan``'s blocks an SM of K6b
-    be co-resident on ``device``; asked once for each device, type,
-    access, route and shared memory."""
-    key = (device.index, code, plan.vec, plan.route, plan.bwd_smem,
-           plan.blocks_per_sm)
+def _hold_to_occupancy(lib, occ, device):
+    """Raise unless the occupancy API, asked through ``lib``'s entry of
+    :class:`Occupancy` ``occ``, lets its blocks an SM be co-resident on
+    ``device``; asked once for each device, entry and arguments."""
+    key = (device.index, occ.entry, occ.args, occ.blocks_per_sm)
     if key in _held:
         return
     blocks = ctypes.c_int()
     with torch.cuda.device(device):
-        err = lib.mxt_bn_bwd_occupancy(code, plan.vec,
-                                       int(plan.route == "resident"),
-                                       plan.bwd_smem, ctypes.byref(blocks))
+        err = getattr(lib, occ.entry)(*occ.args, ctypes.byref(blocks))
     if err:
-        raise MXNetError("batch_norm_bwd: the occupancy query failed: %s"
-                         % lib.mxt_error_string(err).decode())
-    if blocks.value < plan.blocks_per_sm:
+        raise MXNetError("batch_norm: %s failed: %s" % (
+            occ.entry, lib.mxt_error_string(err).decode()))
+    if blocks.value < occ.blocks_per_sm:
         raise MXNetError(
-            "batch_norm_bwd: the %s plan puts %d blocks of %d bytes of "
-            "dynamic shared memory on an SM; the occupancy API allows %d"
-            % (plan.route, plan.blocks_per_sm, plan.bwd_smem, blocks.value))
+            "batch_norm: the plan puts %d blocks an SM of the kernel that %s "
+            "answers for, at %s; the occupancy API allows %d"
+            % (occ.blocks_per_sm, occ.entry, occ.args, blocks.value))
     _held.add(key)
 
 
@@ -320,6 +354,14 @@ def batch_norm_fwd(x, gamma, beta, running_mean, running_var, eps,
     if x.device.type != "cuda":
         raise MXNetError("batch_norm runs on CPU or CUDA tensors, not %s"
                          % x.device)
+    return _launch_fwd(x, gamma, beta, running_mean, running_var, eps,
+                       fix_gamma, use_global_stats, momentum)
+
+
+def _launch_fwd(x, gamma, beta, running_mean, running_var, eps, fix_gamma,
+                use_global_stats, momentum):
+    """K6a's launch for :func:`batch_norm_fwd`: one cooperative launch of
+    the plan's forward grid, held to the occupancy API."""
     code = _code(x, "the data")
     if running_mean.dtype != torch.float32 \
             or running_var.dtype != torch.float32:
@@ -344,12 +386,14 @@ def batch_norm_fwd(x, gamma, beta, running_mean, running_var, eps,
         mode = 1 if momentum is not None else 0
     mom = 0.0 if momentum is None else float(momentum)
     lib = _kernels.library("batch_norm")
+    _hold_to_occupancy(lib, plan.fwd_occupancy(code), x.device)
     _kernels.launch(lib, lib.mxt_bn_fwd, x, gamma, beta, running_mean,
                     running_var, y, mean if train else 0,
                     var if train else 0, stats, ws, m, c, plan.vec,
                     plan.tpr, plan.splits, plan.rows, code,
                     _code(gamma, "gamma"), _code(beta, "beta"), mode,
-                    int(bool(fix_gamma)), float(eps), mom, 1.0 - mom)
+                    int(bool(fix_gamma)), float(eps), mom, 1.0 - mom,
+                    plan.fwd_grid, plan.fwd_smem, plan.fwd_kept_rounds)
     batch_norm_fwd.launches += 1
     if not train:
         mean, var = running_mean, running_var
@@ -379,7 +423,7 @@ def batch_norm_bwd(x, dy, stats, gamma, beta, fix_gamma, train):
     plan = _plan_for(x, dy, dx)
     ws = torch.empty(plan.bwd_ws, dtype=torch.float32, device=x.device)
     lib = _kernels.library("batch_norm")
-    _hold_to_occupancy(lib, plan, code, x.device)
+    _hold_to_occupancy(lib, plan.bwd_occupancy(code), x.device)
     _kernels.launch(lib, lib.mxt_bn_bwd, x, dy, stats, gamma, dx, dgamma,
                     dbeta, ws, m, c, plan.vec, plan.tpr, plan.splits,
                     plan.rows, code, _code(gamma, "gamma"),

@@ -9,11 +9,19 @@ decides:
 - ``round`` and ``rint`` round halves to even (``jnp.round``), not away
   from zero as MXNet's C++ does;
 - ``mod`` is the floored modulo, with the sign of the divisor
-  (``jnp.mod``, ``torch.remainder``);
+  (``jnp.mod``, ``torch.remainder``); an integer modulo by 0 is 0, as in
+  MXNet's ``mshadow_op::mod``;
+- ``power`` of two integer operands is JAX's: binary exponentiation over
+  the low six bits of the exponent, wrapping in the integer type;
+- ``sign`` keeps NaN and the sign of a zero (``jnp.sign``); ``rint`` of
+  integers is float32 (``jnp.rint``);
+- float-to-integer casts saturate, NaN to 0 (``lax.convert_element_type``);
 - comparisons and logical ops return 0/1 in the inputs' promoted dtype,
   ``isnan``/``isinf``/``isfinite`` return booleans;
 - a Python scalar is a weak type, as in JAX: ``int32 + 2.5`` is float32,
-  ``bf16 * 2.0`` stays bf16 (torch's scalar promotion is the same);
+  ``bf16 * 2.0`` stays bf16, and an integer scalar keeps an integer
+  input's type, wrapping (``uint8 * 3``; torch's scalar promotion is the
+  same);
 - ``maximum``/``minimum`` propagate NaN.
 """
 
@@ -22,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..base import torch_dtype
+from ..base import saturating_cast, torch_dtype
 from .registry import register
 
 __all__ = []
@@ -37,10 +45,17 @@ def _float(x):
     return x if x.is_floating_point() else x.float()
 
 
+def _sign(x):
+    """``jnp.sign``: NaN and both zeros map to themselves."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+
+
 _UNARY = {
     "abs": torch.abs,
-    "sign": torch.sign,
-    "rint": torch.round,
+    "sign": _sign,
+    "rint": lambda x: torch.round(_float(x)),
     "ceil": torch.ceil,
     "floor": torch.floor,
     "trunc": torch.trunc,
@@ -127,8 +142,9 @@ def clip(x, a_min=None, a_max=None, **_):
 
 @register("Cast", aliases=("cast",))
 def cast(x, dtype="float32", **_):
-    """Element type conversion to ``dtype`` (floats to ints truncate)."""
-    return x.to(torch_dtype(dtype))
+    """Element type conversion to ``dtype`` (floats to ints truncate and
+    saturate, NaN to 0)."""
+    return saturating_cast(x, torch_dtype(dtype))
 
 
 @register("_copy", aliases=("identity",))
@@ -157,13 +173,47 @@ def _ne0(t):
     return t != 0
 
 
+def _is_int(dt):
+    return not (dt.is_floating_point or dt.is_complex or dt == torch.bool)
+
+
+def _mod(a, b):
+    """The floored modulo of a tensor by a tensor or a Python number; an
+    integer divisor of 0 gives 0."""
+    if not _is_int(torch.result_type(a, b)):
+        return torch.remainder(a, b)
+    if not isinstance(b, torch.Tensor):
+        b = _scalar_t(a, b)
+    zero = b == 0
+    return torch.where(zero, 0, torch.remainder(a, torch.where(zero, 1, b)))
+
+
+def _int_pow(base, exp):
+    """``jnp.power`` of integers: binary exponentiation over the exponent's
+    low six bits, wrapping in the promoted integer type (``0 ** e`` is 0
+    for ``e != 0``)."""
+    dt = torch.result_type(base, exp)
+    base, exp = torch.broadcast_tensors(base.to(dt), exp.to(dt))
+    acc = torch.where((base == 0) & (exp != 0), 0, torch.ones_like(base))
+    for bit in range(6):
+        acc = torch.where(((exp >> bit) & 1) != 0, acc * base, acc)
+        base = base * base
+    return acc
+
+
+def _power(a, b):
+    if _is_int(torch.result_type(a, b)):
+        return _int_pow(a, b)
+    return torch.pow(a, b)
+
+
 _BINARY = {
     "add": torch.add,
     "sub": torch.sub,
     "mul": torch.mul,
     "div": torch.true_divide,
-    "mod": torch.remainder,
-    "power": torch.pow,
+    "mod": _mod,
+    "power": _power,
     "maximum": torch.maximum,
     "minimum": torch.minimum,
     "hypot": lambda a, b: torch.hypot(_float(a), _float(b)),
@@ -229,10 +279,12 @@ _SCALAR = {
     "_mul_scalar": lambda x, s: x * s,
     "_div_scalar": lambda x, s: x / s,
     "_rdiv_scalar": lambda x, s: s / x,
-    "_mod_scalar": lambda x, s: torch.remainder(x, s),
-    "_rmod_scalar": lambda x, s: torch.remainder(_scalar_t(x, s), x),
+    "_mod_scalar": _mod,
+    "_rmod_scalar": lambda x, s: _mod(_scalar_t(x, s), x),
     "_power_scalar": lambda x, s: torch.pow(x, s),
-    "_rpower_scalar": lambda x, s: torch.pow(s, x),
+    "_rpower_scalar": lambda x, s: (
+        _int_pow(_scalar_t(x, s), x) if _is_int(torch.result_type(x, s))
+        else torch.pow(s, x)),
     "_maximum_scalar": lambda x, s: torch.maximum(x, _scalar_t(x, s)),
     "_minimum_scalar": lambda x, s: torch.minimum(x, _scalar_t(x, s)),
     "_hypot_scalar": lambda x, s: torch.hypot(_float(x),
@@ -249,16 +301,20 @@ _SCALAR = {
 }
 
 
+def _int_scalar(s):
+    return isinstance(s, int) and not isinstance(s, bool)
+
+
 def _register_scalar(name, f):
     @register(name)
     def _op(x, scalar=0.0, **_):
         """Tensor-scalar element-wise op, from the _SCALAR table."""
-        return f(x, float(scalar))
+        return f(x, scalar if _int_scalar(scalar) else float(scalar))
 
     _op.__name__ = name
     _op.__doc__ = ("%s(x, scalar=...) per element; the scalar is a Python "
-                   "float, weakly typed as in the JAX package (generated "
-                   "from the _SCALAR table)." % name)
+                   "int or float, weakly typed as in the JAX package "
+                   "(generated from the _SCALAR table)." % name)
     return _op
 
 

@@ -260,28 +260,29 @@ def _pooling_op(data, kernel=(), pool_type="max", stride=(), pad=(),
                 count_include_pad=True, cudnn_off=False, p_value=2,
                 layout=None, **_):
     """The registered ``Pooling``: :func:`pooling` with the JAX op's
-    attributes (empty ``stride``/``pad`` are the defaults; ``lp`` pooling
-    is not ported)."""
-    del cudnn_off, p_value
+    attributes (empty ``stride``/``pad`` are the defaults)."""
+    del cudnn_off
     return pooling(data, kernel=_or(kernel, (1, 1)), pool_type=pool_type,
                    stride=_or(stride, None), pad=_or(pad, (0, 0)),
                    global_pool=global_pool,
                    pooling_convention=pooling_convention,
-                   count_include_pad=count_include_pad, layout=layout)
+                   count_include_pad=count_include_pad, p_value=p_value,
+                   layout=layout)
 
 
 def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
             global_pool=False, pooling_convention="valid",
-            count_include_pad=True, layout="NHWC"):
+            count_include_pad=True, p_value=2, layout="NHWC"):
     """2-D pooling of NHWC data (reference: src/operator/nn/pooling.cc):
-    max, avg or sum over ``kernel`` windows, ``valid`` (floor) or ``full``
-    (ceil) output sizes, ``global_pool`` over the whole plane.
+    max, avg, sum or lp over ``kernel`` windows, ``valid`` (floor) or
+    ``full`` (ceil) output sizes, ``global_pool`` over the whole plane.
 
     As the JAX package (``ops/nn.py:580``): the ``full`` convention pads
     the high side as far as the last window needs; max pads with
     ``-inf``; avg divides by the kernel's area when ``count_include_pad``
     and ``valid``, and otherwise by the count of real elements, at least
-    1 (a window wholly in the padding gives 0, never NaN)."""
+    1 (a window wholly in the padding gives 0, never NaN); lp is
+    ``(sum |x|^p)^(1/p)`` with ``p = p_value``, the padding adding 0."""
     _check_nhwc(layout, "Pooling")
     if data.dim() != 4:
         raise MXNetError("Pooling: the port takes 2-D NHWC data, got %s"
@@ -304,12 +305,16 @@ def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
     hi = tuple(hi)
     if pool_type == "max":
         return _MaxPool.apply(data.contiguous(), kernel, stride, pad, hi)
-    if pool_type not in ("avg", "sum"):
+    if pool_type not in ("avg", "sum", "lp"):
         raise ValueError("unknown pool_type %r" % (pool_type,))
-    xv = F.pad(_nchw(data), (pad[1], hi[1], pad[0], hi[0]))
+    p = float(p_value)
+    x = torch.pow(torch.abs(data), p) if pool_type == "lp" else data
+    xv = F.pad(_nchw(x), (pad[1], hi[1], pad[0], hi[0]))
     summed = _nhwc(F.avg_pool2d(xv, kernel, stride, 0, divisor_override=1))
     if pool_type == "sum":
         return summed
+    if pool_type == "lp":
+        return torch.pow(summed, 1.0 / p)
     if count_include_pad and pooling_convention != "full":
         return summed / float(kernel[0] * kernel[1])
     ones = torch.ones((1, 1) + tuple(data.shape[1:3]), dtype=data.dtype,
@@ -351,9 +356,9 @@ def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
 def softmax(data, axis=-1, temperature=None, length=None, **_):
     """Softmax along ``axis`` (reference: src/operator/nn/softmax.cc),
     with ``temperature`` and, with ``length``, rows masked past their
-    length (masked places are exactly 0)."""
+    length (masked places are exactly 0); integer data gives float32."""
     ax = int(axis)
-    x = data
+    x = data if data.is_floating_point() else data.float()
     if temperature is not None and temperature != 1.0:
         x = x / temperature
     if length is None:
@@ -370,7 +375,10 @@ def softmax(data, axis=-1, temperature=None, length=None, **_):
 @register("log_softmax")
 def log_softmax(data, axis=-1, temperature=None, **_):
     """``log(softmax(data))`` along ``axis``, computed stably (reference:
-    src/operator/nn/softmax.cc), with ``temperature``."""
+    src/operator/nn/softmax.cc), with ``temperature``; integer data gives
+    float32."""
+    if not data.is_floating_point():
+        data = data.float()
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return torch.log_softmax(data, dim=int(axis))

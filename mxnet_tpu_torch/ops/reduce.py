@@ -5,10 +5,13 @@ broadcast_reduce_op_value.cc and broadcast_reduce_op_index.cc), with
 MXNet's ``axis`` (an int, a tuple or None for all), ``keepdims`` and
 ``exclude`` (reduce over every axis *not* listed).
 
-The result types are the JAX package's: a sum or product of integers or
-booleans is int32 (int64 input stays int64), a mean of integers is
-float32, ``dtype=`` sets the accumulation type of sum, mean, prod,
-nansum and nanprod, and argmax/argmin return float32 indices.
+The result types are the JAX package's: a sum or product (``sum``,
+``prod``, ``nansum``, ``nanprod``, ``norm(ord=1)``) of signed integers or
+booleans is int32 and of unsigned integers uint32, wrapping (int64 input,
+which the JAX package never holds, stays int64); a mean of integers is
+float32; ``cumsum`` keeps an integer type (booleans give int32);
+``dtype=`` sets the accumulation type of sum, mean, prod, nansum and
+nanprod; argmax/argmin return float32 indices.
 """
 
 from __future__ import annotations
@@ -33,21 +36,34 @@ def _norm_axis(axis, ndim, exclude=False):
     return axes
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
 def _int_result(x):
     """The type of a sum or product of ``x`` with no ``dtype=``."""
-    if x.dtype == torch.int64:
-        return torch.int64
-    if x.dtype == torch.bool or not (x.is_floating_point()
-                                     or x.is_complex()):
-        return torch.int32
-    return x.dtype
+    if x.dtype == torch.int64 or x.is_floating_point() or x.is_complex():
+        return x.dtype
+    return torch.uint32 if x.dtype in _UNSIGNED else torch.int32
+
+
+def _wrapping(fn, x, dtype):
+    """``fn`` of ``x`` in ``dtype``.  Integers are summed or multiplied in
+    int64 and wrapped to ``dtype``, which is the same value modulo its
+    range (torch widens integer sums and products to int64, and has no
+    uint32 sum)."""
+    if x.is_floating_point() or x.is_complex() or dtype is None \
+            or dtype.is_floating_point or dtype == torch.int64:
+        return fn(x if dtype is None else x.to(dtype))
+    return fn(x.to(torch.int64)).to(dtype)
 
 
 def _prod(x, axes, keepdims, dtype):
-    out = x.to(dtype)
-    for a in sorted(axes, reverse=True):
-        out = torch.prod(out, dim=a, keepdim=keepdims)
-    return out
+    def run(out):
+        for a in sorted(axes, reverse=True):
+            out = torch.prod(out, dim=a, keepdim=keepdims)
+        return out
+
+    return _wrapping(run, x, dtype)
 
 
 _DTYPE_REDUCES = ("sum", "mean", "prod", "nansum", "nanprod")
@@ -56,9 +72,15 @@ _DTYPE_REDUCES = ("sum", "mean", "prod", "nansum", "nanprod")
 def _reduce_fn(name):
     def run(x, axes, keepdims, dtype):
         if name == "sum":
-            return torch.sum(x, dim=axes, keepdim=keepdims, dtype=dtype)
+            if x.is_floating_point() or x.is_complex():
+                return torch.sum(x, dim=axes, keepdim=keepdims, dtype=dtype)
+            return _wrapping(lambda t: torch.sum(t, dim=axes,
+                                                 keepdim=keepdims),
+                             x, dtype)
         if name == "nansum":
-            return torch.nansum(x.to(dtype), dim=axes, keepdim=keepdims)
+            return _wrapping(lambda t: torch.nansum(t, dim=axes,
+                                                    keepdim=keepdims),
+                             x, dtype)
         if name == "mean":
             if dtype is None and not x.is_floating_point():
                 dtype = torch.float32
@@ -117,7 +139,10 @@ def norm(x, ord=2, axis=None, keepdims=False, **_):
     """L1 (``ord=1``) or L2 norm of ``x`` over ``axis`` (None: all axes)."""
     axes = _norm_axis(axis, x.dim())
     if ord == 1:
-        return torch.sum(torch.abs(x), dim=axes, keepdim=bool(keepdims))
+        mag = x if x.dtype == torch.bool else torch.abs(x)
+        return _wrapping(lambda t: torch.sum(t, dim=axes,
+                                             keepdim=bool(keepdims)),
+                         mag, _int_result(x))
     return torch.sqrt(torch.sum(torch.square(x), dim=axes,
                                 keepdim=bool(keepdims)))
 
@@ -181,8 +206,12 @@ def broadcast_like(x, y, lhs_axes=None, rhs_axes=None, **_):
 @register("cumsum")
 def cumsum(x, axis=None, dtype=None, **_):
     """Cumulative sum along ``axis`` (None flattens first), in ``dtype``
-    (integers and booleans: int32, as the JAX package)."""
-    d = torch_dtype(dtype) if dtype is not None else _int_result(x)
+    (integers keep their type, booleans give int32, as the JAX
+    package)."""
+    if dtype is not None:
+        d = torch_dtype(dtype)
+    else:
+        d = torch.int32 if x.dtype == torch.bool else x.dtype
     if axis is None:
         return torch.cumsum(x.reshape(-1), dim=0, dtype=d)
     return torch.cumsum(x, dim=int(axis), dtype=d)

@@ -108,19 +108,45 @@ class _StepGraph:
         return self.loss.clone(), self.grad_norm.clone()
 
 
+def _one_device_mesh(mesh):
+    """Refuse a mesh of more than one device.  A mesh is duck-typed: any
+    object whose ``devices`` holds its devices (a JAX ``Mesh``'s array,
+    a list); None is the one device of the step."""
+    if mesh is None:
+        return None
+    devices = getattr(mesh, "devices", None)
+    if devices is None:
+        raise MXNetError("GluonTrainStep: the third argument is the mesh: "
+                         "None or an object with a 'devices' attribute, "
+                         "not %r (the device is the keyword device=)"
+                         % (mesh,))
+    n = int(np.size(np.asarray(devices, dtype=object)))
+    if n != 1:
+        raise MXNetError(
+            "GluonTrainStep: the mesh spans %d devices; the port runs the "
+            "step on one device, and multi-GPU training (data, tensor or "
+            "pipeline parallel over a mesh) is not yet ported" % n)
+    return mesh
+
+
 class GluonTrainStep:
     """A Gluon block, a loss and SGD with momentum as one training step.
 
-    ``device``: where the block's parameters lie and the step runs
-    (``None``: ``gpu(0)``).  ``compute_dtype`` (``'bfloat16'``, ...): the
-    forward and backward run on cast copies of the float32 trainables and
-    of the input, while the masters and their update stay float32.
-    ``step(x, y)`` takes host arrays or tensors and returns the batch's
-    mean loss as a tensor on the device, without waiting for it."""
+    The reference's positional order: ``mesh`` third, then ``lr``,
+    ``momentum``, ``wd`` and ``compute_dtype``.  ``mesh``: None or a mesh
+    of one device (a multi-device mesh raises :class:`MXNetError`).
+    ``device``, keyword-only: where the block's parameters lie and the
+    step runs (``None``: ``gpu(0)``).  ``compute_dtype`` (``'bfloat16'``,
+    ...): the forward and backward run on cast copies of the float32
+    trainables and of the input, while the masters and their update stay
+    float32.  ``step(x, y)`` takes host arrays or tensors and returns the
+    batch's mean loss as a tensor on the device, without waiting for
+    it."""
 
-    def __init__(self, block, loss_block, device=None, lr=0.1, momentum=0.9,
-                 wd=0.0, compute_dtype=None):
+    def __init__(self, block, loss_block, mesh=None, lr=0.1, momentum=0.9,
+                 wd=0.0, compute_dtype=None, *, device=None):
         self.block = block
+        self.mesh = _one_device_mesh(mesh)
         self.device = resolve_device(device)
         params = block.collect_params()
         for name, p in params.items():

@@ -109,6 +109,33 @@ OP_CASES.update({
     "where": ([("fi", (3,), 0, 2), _F, _F], {}),
     "_plus_scalar/int32": ([("i", (3, 4), -5, 5)], {"scalar": 2.5}),
     "elemwise_mul/int32": ([("i", (3, 4), -5, 5), ("i", (3, 4), -5, 5)], {}),
+    # integers past their range, NaN, the infinities, zeros and divisors
+    # of 0, where the two devices (and the two packages) could part
+    "_mul_scalar/uint8-wraps": ([("v", [[200, 0, 7, 255]], "uint8")],
+                                {"scalar": 3}),
+    "_minus_scalar/int8-wraps": ([("v", [[100, -128, 0, 5]], "int8")],
+                                 {"scalar": 3}),
+    "_rpower_scalar/int32": ([("v", [[5, -7, 0, 70]], "int32")],
+                             {"scalar": 3}),
+    "_mod_scalar/int32-by-0": ([("i", (3, 4), -5, 5)], {"scalar": 0}),
+    "_rmod_scalar/int32-at-0": ([("v", [[5, -7, 0, 3]], "int32")],
+                                {"scalar": 3}),
+    "broadcast_mod/int32-by-0": ([("i", (3, 4), -9, 9),
+                                  ("v", [[0, 3, 0, -2]], "int32")], {}),
+    "elemwise_power/int8": ([("i", (3, 4), -3, 4), ("i", (3, 4), -9, 70)],
+                            {}),
+    "Cast/int8-saturates": ([("v", [[300.7, -1.5, float("nan"),
+                                     float("inf")],
+                                    [-float("inf"), 127.9, -128.9, 0.5]])],
+                            {"dtype": "int8"}),
+    "Cast/int32-saturates": ([("v", [[1e10, -3e9, float("nan"),
+                                      -float("inf")]])], {"dtype": "int32"}),
+    "Cast/uint8-saturates": ([("v", [[-1.5, 255.5, float("nan"),
+                                      float("inf")]])], {"dtype": "uint8"}),
+    "sign/nan-and-zeros": ([("v", [[float("nan"), -0.0, 0.0, -2.5],
+                                   [3.0, -float("inf"), float("inf"),
+                                    -1e-30]])], {}),
+    "rint/int32": ([("i", (3, 4), -5, 5)], {}),
     # reductions
     "sum": ([_X345], {"axis": (0, 2)}),
     "sum/int32": ([("i", (3, 4, 5), -9, 9)], {"axis": 1}),
@@ -129,6 +156,17 @@ OP_CASES.update({
     "broadcast_like": ([("f", (1, 4)), ("f", (3, 4))], {}),
     "cumsum": ([_X345], {"axis": 1}),
     "cumsum/int32": ([("i", (3, 4), -5, 5)], {}),
+    "cumsum/int8-wraps": ([("v", [[100, 100, -128, 5]], "int8")],
+                          {"axis": 1}),
+    "sum/uint8": ([("v", [[200, 255, 7], [0, 1, 255]], "uint8")], {}),
+    "prod/int32-wraps": ([("v", [[70000, 70000, 3], [-2, 5, 0]], "int32")],
+                         {"axis": 1}),
+    "prod/uint8": ([("v", [[255] * 5, [3, 0, 1, 2, 9]], "uint8")],
+                   {"axis": 1}),
+    "nansum/int8": ([("v", [[100, 100, -128, 5]], "int8")], {}),
+    "nanprod/uint8": ([("v", [[255] * 5], "uint8")], {}),
+    "norm/int8-l1": ([("v", [[100, -128, 5], [7, -1, 0]], "int8")],
+                     {"ord": 1, "axis": 1}),
     # creation
     "_zeros": ([], {"shape": (2, 3)}),
     "_ones": ([], {"shape": (2, 3), "dtype": "int32"}),
@@ -194,12 +232,18 @@ OP_CASES.update({
     "Dropout": ([_F], {"p": 0.5}),
     "softmax": ([("f", (3, 5))], {"axis": 1, "temperature": 2.0}),
     "log_softmax": ([("f", (3, 5))], {"axis": 0}),
+    "log_softmax/int32": ([("i", (3, 5), -6, 6)], {"axis": -1}),
+    "softmax/int32": ([("i", (3, 5), -6, 6)], {"axis": 0}),
     "Convolution": ([("f", (2, 6, 6, 3)), ("f", (4, 3, 3, 3)), ("f", (4,))],
                     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
                      "num_filter": 4, "layout": "NHWC"}),
     "Pooling": ([("f", (2, 6, 6, 3))], {"kernel": (3, 3), "stride": (2, 2),
                                         "pad": (1, 1), "pool_type": "max",
                                         "layout": "NHWC"}),
+    "Pooling/lp": ([("f", (2, 7, 7, 3))], {"kernel": (3, 3),
+                                           "stride": (2, 2), "pad": (1, 1),
+                                           "pool_type": "lp", "p_value": 3,
+                                           "layout": "NHWC"}),
     "BatchNorm": ([("f", (2, 3, 4, 5)), ("f", (3,)), ("f", (3,)),
                    ("f", (3,)), ("u", (3,), 0.5, 2.0)],
                   {"fix_gamma": False, "output_mean_var": True}),

@@ -442,11 +442,13 @@ def test_bwd_plan_is_held_to_the_occupancy_api(monkeypatch):
     assert plan.route == "resident"
     lib = Lib(plan.blocks_per_sm)
     for _ in range(2):
-        tbn._hold_to_occupancy(lib, plan, 1, torch.device("cuda", 0))
+        tbn._hold_to_occupancy(lib, plan.bwd_occupancy(1),
+                               torch.device("cuda", 0))
     assert lib.asked == [(1, 8, 1, plan.bwd_smem)]
     few = Lib(plan.blocks_per_sm - 1)
     with pytest.raises(tmx_error, match="occupancy API allows 1"):
-        tbn._hold_to_occupancy(few, plan, 1, torch.device("cuda", 1))
+        tbn._hold_to_occupancy(few, plan.bwd_occupancy(1),
+                               torch.device("cuda", 1))
 
 
 @pytest.mark.parametrize("m,c", [(25088, 256), (6272, 2048), (792, 5)])
@@ -468,15 +470,181 @@ def test_bwd_launches_the_plan(monkeypatch, m, c):
 
     monkeypatch.setattr(tbn, "_kernels", Kernels)
     monkeypatch.setattr(tbn, "_hold_to_occupancy",
-                        lambda lib, plan, code, dev: seen.update(held=plan))
+                        lambda lib, occ, dev: seen.update(held=occ))
     x = torch.empty(m, c, dtype=torch.bfloat16, device="meta")
     g = torch.empty(c, dtype=torch.bfloat16, device="meta")
     stats = torch.empty(4, c, device="meta")
     tbn.batch_norm_bwd(x, torch.empty_like(x), stats, g, g, False, True)
     plan = tbn.launch_plan(m, c, torch.bfloat16)
-    assert seen["held"] == plan and seen["fn"] == "mxt_bn_bwd"
+    assert seen["held"] == plan.bwd_occupancy(1)
+    assert seen["fn"] == "mxt_bn_bwd"
     assert seen["args"][7].numel() == plan.bwd_ws
     assert seen["args"][8:] == (
         m, c, plan.vec, plan.tpr, plan.splits, plan.rows, 1, 1, 1, 1, 0,
         int(plan.route == "resident"), plan.bwd_grid, plan.bwd_smem,
         plan.splits_per_block, plan.kept_rounds)
+
+
+# K6a at the same shapes in bf16, streamed at each: the BatchNorms of a
+# step and the rounds a thread keeps of x (all of a split's rows at
+# (25088, 256) and (6272, 512))
+RESNET_FWD = [
+    (1605632, 64, 1, 10), (401408, 64, 6, 10), (401408, 256, 4, 10),
+    (100352, 128, 8, 10), (100352, 512, 5, 10), (25088, 256, 12, 6),
+    (25088, 1024, 7, 10), (6272, 512, 6, 3), (6272, 2048, 4, 10),
+]
+
+
+def test_resnet_shapes_are_the_batchnorms_of_a_step():
+    """The 9 shapes cover the 53 BatchNorms of a ResNet-50 step, each
+    listed with its count in both tables."""
+    assert sum(n for _, _, n, _ in RESNET_FWD) == 53
+    assert [r[:3] for r in RESNET_FWD] == [r[:3] for r in RESNET_BWD]
+
+
+@pytest.mark.parametrize("m,c,per_step,kept", RESNET_FWD)
+def test_fwd_launch_plan_at_resnet_shapes(m, c, per_step, kept):
+    """K6a's one launch, streamed: one item a block, at most four blocks
+    an SM on the 132 SMs, the row partition of K6b (the same workspace),
+    and each thread's first rounds of x, at most 10, kept in the shared
+    memory that four blocks an SM leave beside their two float32 sums a
+    channel."""
+    plan = tbn.launch_plan(m, c, torch.bfloat16)
+    assert plan.fwd_ws == 2 * c * plan.splits
+    rps = -(-plan.rows // plan.rows_at_once)  # rounds a split
+    static = 2 * tbn.THREADS * plan.vec * 4   # the block's sums
+    assert plan.fwd_blocks_per_sm == 4
+    assert plan.fwd_grid == plan.splits * plan.channel_tiles <= 4 * 132
+    assert plan.fwd_kept_rounds == kept == min(10, rps)
+    assert plan.fwd_smem == kept * tbn.THREADS * 16
+    assert 4 * (plan.fwd_smem + static + tbn.SMEM_RESERVED) \
+        <= tbn.SMEM_PER_SM
+    assert 4 * (plan.fwd_smem + 16 * tbn.THREADS + static
+                + tbn.SMEM_RESERVED) > tbn.SMEM_PER_SM or kept == rps
+
+
+@pytest.mark.parametrize("m,c,dtype,aligned,kept", [
+    (6272, 512, torch.float32, True, 6),
+    (25088, 256, torch.float32, True, 12),
+    (100352, 128, torch.float32, True, 13),  # one sum a channel
+    (1605632, 64, torch.float16, True, 10),
+    (6272, 2048, torch.float16, True, 10),
+    (3, 64, torch.bfloat16, True, 1),
+    (792, 5, torch.bfloat16, True, 0),       # scalar access
+    (792, 5, torch.float32, True, 0),
+    (6272, 512, torch.bfloat16, False, 0),   # a misaligned pointer
+])
+def test_fwd_route_by_type_and_access(m, c, dtype, aligned, kept):
+    """K6a streams at every shape.  cp.async copies 16 bytes, so a scalar
+    access keeps nothing; float32's rounds are twice bf16's bytes a row,
+    but its block sums one float a channel, so a block keeps up to 13
+    rounds where bf16 keeps 10."""
+    plan = tbn.launch_plan(m, c, dtype, aligned)
+    assert plan.fwd_kept_rounds == kept
+    assert plan.fwd_blocks_per_sm == 4
+    assert plan.fwd_grid <= 132 * plan.fwd_blocks_per_sm
+    assert plan.fwd_smem == kept * tbn.THREADS * 16
+
+
+@pytest.mark.parametrize("m,c,per_step,kept", RESNET_FWD)
+def test_fwd_plan_fits_a_card_of_fewer_sms(m, c, per_step, kept):
+    """On a card of 114 SMs the row partition, and so K6a's sums, stay
+    those of the 132-SM plan; only the grid adapts, every block still
+    co-resident, and blocks that walk more than one item keep nothing."""
+    plan = tbn.launch_plan(m, c, torch.bfloat16)
+    small = tbn.launch_plan(m, c, torch.bfloat16, True, 114)
+    assert small[:10] == plan[:10]  # the geometry and the workspaces
+    assert small.fwd_grid == min(small.splits * small.channel_tiles,
+                                 4 * 114)
+    if small.fwd_grid < small.splits * small.channel_tiles:
+        assert small.fwd_kept_rounds == small.fwd_smem == 0
+
+
+def test_fwd_plan_is_held_to_the_occupancy_api(monkeypatch):
+    """K6a's plan is asked of mxt_bn_fwd_occupancy once for each
+    (device, type, access, shared memory), apart from K6b's; a plan of
+    more blocks an SM than it allows raises."""
+    class Lib:
+        def __init__(self, blocks):
+            self.blocks, self.asked = blocks, []
+
+        def mxt_bn_fwd_occupancy(self, code, vec, smem, out):
+            self.asked.append(("fwd", code, vec, smem))
+            out._obj.value = self.blocks
+            return 0
+
+        def mxt_bn_bwd_occupancy(self, code, vec, resident, smem, out):
+            self.asked.append(("bwd", code, vec, resident, smem))
+            out._obj.value = self.blocks
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(tbn, "_held", set())
+    plan = tbn.launch_plan(6272, 2048, torch.bfloat16)
+    lib = Lib(4)
+    for _ in range(2):
+        tbn._hold_to_occupancy(lib, plan.fwd_occupancy(1),
+                               torch.device("cuda", 0))
+        tbn._hold_to_occupancy(lib, plan.bwd_occupancy(1),
+                               torch.device("cuda", 0))
+    assert lib.asked == [("fwd", 1, 8, plan.fwd_smem),
+                         ("bwd", 1, 8, 0, plan.bwd_smem)]
+    few = Lib(plan.fwd_blocks_per_sm - 1)
+    with pytest.raises(tmx_error, match="the plan puts 4 blocks an SM of "
+                                        "the kernel that mxt_bn_fwd_occupancy"
+                                        " answers for.*allows 3"):
+        tbn._hold_to_occupancy(few, plan.fwd_occupancy(1),
+                               torch.device("cuda", 1))
+
+
+@pytest.mark.parametrize("m,c,dtype", [
+    (100352, 128, torch.bfloat16), (1605632, 64, torch.bfloat16),
+    (6272, 512, torch.float32), (792, 5, torch.bfloat16)])
+@pytest.mark.parametrize("mode", ["train", "momentum", "predict"])
+def test_fwd_launches_the_plan(monkeypatch, m, c, dtype, mode):
+    """K6a's launch (batch_norm_fwd on a CUDA tensor) hands mxt_bn_fwd the
+    geometry and the forward grid, shared memory and rounds kept of
+    launch_plan's plan, after holding the plan to the occupancy API, and
+    counts one launch a call (shapes only: meta tensors, the library and
+    the launch replaced)."""
+    seen = []
+
+    class Kernels:
+        @staticmethod
+        def library(name):
+            return type("Lib", (), {"mxt_bn_fwd": "mxt_bn_fwd"})
+
+        @staticmethod
+        def launch(lib, fn, *args):
+            seen.append((fn, args))
+
+    held = []
+    monkeypatch.setattr(tbn, "_kernels", Kernels)
+    monkeypatch.setattr(tbn, "_hold_to_occupancy",
+                        lambda lib, occ, dev: held.append(occ))
+    x = torch.empty(m, c, dtype=dtype, device="meta")
+    g = torch.empty(c, dtype=dtype, device="meta")
+    rm = torch.empty(c, device="meta")
+    before = tbn.batch_norm_fwd.launches
+    for _ in range(2):
+        y, mean, var, stats = tbn._launch_fwd(
+            x, g, g, rm, rm, 1e-5, False, mode == "predict",
+            0.9 if mode == "momentum" else None)
+    assert tbn.batch_norm_fwd.launches == before + 2
+    assert y.shape == x.shape and stats.shape == (4, c)
+    plan = tbn.launch_plan(m, c, dtype)
+    code = tbn._DTYPE_CODES[dtype]
+    assert held == [plan.fwd_occupancy(code)] * 2
+    want_mode = {"train": 0, "momentum": 1, "predict": 2}[mode]
+    mom = 0.9 if mode == "momentum" else 0.0
+    for fn, args in seen:
+        assert fn == "mxt_bn_fwd"
+        ws = args[9]
+        assert ws.numel() == (1 if mode == "predict" else plan.fwd_ws)
+        assert args[10:21] == (m, c, plan.vec, plan.tpr, plan.splits,
+                               plan.rows, code, code, code, want_mode, 0)
+        assert args[21] == 1e-5 and args[22] == mom
+        assert args[23] == pytest.approx(1.0 - mom)
+        assert args[24:] == (plan.fwd_grid, plan.fwd_smem,
+                             plan.fwd_kept_rounds)

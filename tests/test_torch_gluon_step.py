@@ -53,6 +53,8 @@ Tolerances:
   (measured: 8e-4).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -244,6 +246,67 @@ def test_step_rejects_parameters_on_another_device():
 def _state(net, step):
     return ({k: v.detach().clone() for k, v in net.state_dict().items()},
             [s.clone() for s in step.opt_state])
+
+
+def _one_cpu_mesh():
+    import jax
+
+    return create_mesh({"dp": 1}, devices=jax.devices("cpu")[:1])
+
+
+@pytest.mark.parametrize("mesh", [None, "jax-1", "duck-1"])
+def test_bench_keywords_with_a_one_device_mesh(batch, mesh):
+    """bench.py:677's keywords (mesh=, lr, momentum, wd, compute_dtype),
+    with None, a JAX mesh of one device or any object whose ``devices``
+    holds one device as the mesh, step bit for bit as the step built
+    without a mesh."""
+    mesh = {"jax-1": _one_cpu_mesh,
+            "duck-1": lambda: types.SimpleNamespace(devices=["cpu"]),
+            None: lambda: None}[mesh]()
+    x, y = batch
+    _, params = _jax_params()
+    net_a, step_a = _port_step(params, "bfloat16")
+    net_b = load_mxnet_tpu_params(
+        ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES,
+                 layout="NHWC", device="cpu"), params)
+    step_b = GluonTrainStep(net_b, gluon.loss.SoftmaxCrossEntropyLoss(),
+                            mesh=mesh, lr=0.1, momentum=0.9, wd=1e-4,
+                            compute_dtype="bfloat16", device="cpu")
+    assert step_b.mesh is mesh
+    for _ in range(2):
+        assert torch.equal(step_b(x, y), step_a(x, y))
+    (va, sa), (vb, sb) = _state(net_a, step_a), _state(net_b, step_b)
+    assert all(torch.equal(vb[k], v) for k, v in va.items())
+    assert all(torch.equal(b, a) for a, b in zip(sa, sb))
+
+
+def test_mesh_is_third_and_device_keyword_only():
+    """The reference's positional order: a device in the mesh's place, or
+    positionally after compute_dtype, is refused; a mesh of two devices
+    raises, naming multi-GPU training as not yet ported."""
+    import jax
+
+    net = ResNetV1(BottleneckV1, LAYERS, CHANNELS, classes=CLASSES,
+                   layout="NHWC", device="cpu")
+    loss = gluon.loss.SoftmaxCrossEntropyLoss()
+    with pytest.raises(MXNetError, match="device="):
+        GluonTrainStep(net, loss, "cpu")
+    with pytest.raises(MXNetError, match="device="):
+        GluonTrainStep(net, loss, torch.device("cpu"))
+    with pytest.raises(TypeError):
+        GluonTrainStep(net, loss, None, 0.1, 0.9, 1e-4, None, "cpu")
+    two = create_mesh({"dp": 2}, devices=jax.devices("cpu")[:2])
+    for mesh in (two, types.SimpleNamespace(devices=["cpu", "cpu"])):
+        with pytest.raises(MXNetError, match="multi-GPU"):
+            GluonTrainStep(net, loss, mesh=mesh, device="cpu")
+    with pytest.raises(MXNetError, match="'devices'"):
+        GluonTrainStep(net, loss, mesh=object(), device="cpu")
+    with pytest.raises(MXNetError, match="'devices'"):
+        GluonTrainStep(net, loss, mesh=["cpu"], device="cpu")
+    step = GluonTrainStep(net, loss, _one_cpu_mesh(), 0.1, 0.9, 1e-4,
+                          "bfloat16", device="cpu")
+    assert step.device == torch.device("cpu")
+    assert step._compute_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])

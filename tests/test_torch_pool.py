@@ -209,8 +209,8 @@ def test_what_the_port_does_not_take_raises():
         tnn.pooling(x, kernel=(2, 2), layout="NCHW")
     with pytest.raises(MXNetError, match="NHWC"):
         tgnn.MaxPool2D(2)
-    with pytest.raises(ValueError, match="pool_type"):
-        tnn.pooling(x, kernel=(2, 2), pool_type="lp", layout="NHWC")
+    with pytest.raises(ValueError, match="pool_type"):  # lp is ported
+        tnn.pooling(x, kernel=(2, 2), pool_type="median", layout="NHWC")
     dy = torch.zeros(1, 2, 2, 2)
     with pytest.raises(MXNetError, match="255 taps"):
         pb.maxpool_bwd(x, dy, (16, 16), (1, 1))
