@@ -38,10 +38,11 @@ Phases (any failure raises, and the script exits non-zero):
    ResNet-50 at batch 128 in bf16 (the tensor-core kernel), at two of
    them in float32 too (the CUDA-core kernel), at three in float16 (the
    tensor-core kernel's f16 instances) and at a ragged shape in bf16 and
-   float32; the max-pool backward K2 at the stem pool's shape in bf16,
+   float32, and at LeNet's two convolutions in float32 (phase 8's); the
+   max-pool backward K2 at the stem pool's shape in bf16,
    float32 and float16, at an all-ties input, an odd shape (C = 5, the
-   scalar path), 2x2/s2, 3x3/s1/p1 and 7x7 windows, NaN inputs and
-   windows wholly in the padding; each against its plain version on the
+   scalar path), 2x2/s2, 3x3/s1/p1 and 7x7 windows, NaN inputs,
+   windows wholly in the padding and LeNet's two pools in float32; each against its plain version on the
    card (K1 within 1e-3 of the plain result's largest magnitude, K2
    bitwise), bitwise equal across two launches, with its time, the plain
    version's, cuDNN's (or PyTorch's max-pool backward) and the bound, for
@@ -121,7 +122,24 @@ Phases (any failure raises, and the script exits non-zero):
    dtype, a CPU array); each kernel bitwise repeatable, with its time, the
    plain version's, the library call's, the bound, the host time of a
    launch by part (beside the parts of the earlier launch path that the
-   launch template replaced) and NVRTC's compile time, cold and cached.
+   launch template replaced) and NVRTC's compile time, cold and cached;
+8. symbolic: train_mnist.py's MLP (784-128-64-10, 2 epochs) and LeNet
+   (20 and 50 filters of 5x5, tanh, 2x2 max pools, 500 hidden; 1 epoch,
+   NCHW) through mx.sym -> Executor -> mx.mod.Module on the synthetic
+   digits at batch 64, with common/fit.py's SGD (lr 0.05, momentum 0.9,
+   wd 1e-4, MultiFactorScheduler, rescale_grad 1/batch) from a seeded
+   Xavier start: the first batch's gradients and outputs held against the
+   CPU plain path within 1e-5 of each largest magnitude; 3 captured
+   batches (the executor's fused forward and backward as one CUDA graph)
+   against 3 eager ones, bitwise, the eager ones launching K1b and K2
+   twice each a LeNet batch; a batch's forward_backward + update timed
+   captured and eager (CUDA events); then the main path, Module.fit with
+   eval_metric accuracy, Speedometer and do_checkpoint: validation
+   accuracy above 0.9, the wrappers' counts over it (LeNet: K1b and K2 at
+   the eager warm-up and the capture, 2 x 2 each), the Module loop's host
+   time a batch, the last checkpoint read back through Module.load
+   predicting bitwise as the trained Module; for LeNet the launches of 3
+   replayed batches counted in a profiler trace.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -172,6 +190,11 @@ SERVE_TOL = 1e-4
 # gradient's largest magnitude on the CPU plain path
 GRAD_TOL = 1e-3
 TRAIN_BATCH, TRAIN_STEPS, WARMUP_STEPS = 8, 10, 2
+# phase 8: train_mnist.py's batch, and LeNet's convolutions as (NHWC x
+# shape, kernel, stride, pad, O), as the NCHW ops hand them to K1b
+SYM_BATCH = 64
+LENET_CONVS = [((SYM_BATCH, 28, 28, 1), (5, 5), (1, 1), (0, 0), 20),
+               ((SYM_BATCH, 12, 12, 20), (5, 5), (1, 1), (0, 0), 50)]
 
 
 def log(*args):
@@ -1130,10 +1153,15 @@ def conv_kernels(seed):
     f16 = [convs[0]] + [c for c in counts if c[1] == (3, 3)
                         and c[0][3] in (64, 512) and c[2] == (1, 1)]
     cases += [(c, torch.float16, C.formulation(c[0][3]), 0) for c in f16]
+    # LeNet's two convolutions (phase 8), float32, one launch each a batch
+    cases += [(c, torch.float32, C.formulation(c[0][3]), 0)
+              for c in LENET_CONVS]
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                        library_ms=0.0, launches_per_step=0,
                        bound_by=set()) for form in ("pertap", "im2col")}
+    lenet = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=0.0, bound_by=set())
     ws_most = 0
     for (xs, k, s, p, o), dt, form, per_step in cases:
         n, h, w, _ = xs
@@ -1184,6 +1212,22 @@ def conv_kernels(seed):
                                  % (form, xs))
         row = rows[form]
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        if (xs, k, s, p, o) in LENET_CONVS and dt == torch.float32:
+            # phase 8 replays these in a captured graph: device times
+            g = [graph_ms(f) for f in (
+                fn, lambda: C.conv_dw_reference(x, dy, k, s, p),
+                lambda: torch.ops.aten.convolution_backward(
+                    _nchw(dy), _nchw(x), _nchw(wt), None, s, p, (1, 1),
+                    False, (0, 0), 1, (False, True, False)))]
+            log("kernel conv_dw im2col [LeNet x %s O %d]: in graph replays "
+                "kernel %.4f ms (%.1f %% of the bound), plain %.4f ms, cuDNN "
+                "wgrad %.4f ms" % (xs, o, g[0], 100.0 * bound / g[0], g[1],
+                                   g[2]))
+            lenet["max_abs_err"] = max(lenet["max_abs_err"], err)
+            for key, v in (("ms", g[0]), ("plain_ms", g[1]),
+                           ("bound_ms", bound), ("library_ms", g[2])):
+                lenet[key] += v
+            lenet["bound_by"].add(bound_by)
         if per_step:
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("bound_ms", bound), ("library_ms", lib_ms)):
@@ -1200,7 +1244,13 @@ def conv_kernels(seed):
             "kernel %.3f ms, plain %.3f ms, cuDNN wgrad %.3f ms, bound "
             "%.3f ms" % (form, row.pop("launches_per_step"), row["ms"],
                          row["plain_ms"], row["library_ms"], row["bound_ms"]))
-    return rows
+    lenet["bound_by"] = "+".join(sorted(lenet.pop("bound_by")))
+    log("kernel conv_dw im2col over one LeNet batch (2 launches, float32; "
+        "graph replays): kernel %.4f ms, plain %.4f ms, cuDNN wgrad %.4f ms, "
+        "bound %.4f ms"
+        % (lenet["ms"], lenet["plain_ms"], lenet["library_ms"],
+           lenet["bound_ms"]))
+    return rows, lenet
 
 
 def maxpool_bound_ms(xs, dys, dtype):
@@ -1247,6 +1297,12 @@ POOL_CASES = [
     # padding, so its dy reaches no pixel
     ("window in padding", (4, 8, 8, 16), (2, 2), (2, 2), (2, 2),
      torch.float16),
+    # LeNet's two pools (phase 8): C = 20 takes the 16-byte route, C = 50
+    # the scalar one
+    ("lenet pool1", (SYM_BATCH, 24, 24, 20), (2, 2), (2, 2), (0, 0),
+     torch.float32),
+    ("lenet pool2", (SYM_BATCH, 8, 8, 50), (2, 2), (2, 2), (0, 0),
+     torch.float32),
 ]
 
 
@@ -1263,6 +1319,8 @@ def pool_kernels(seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     row = None
+    lenet = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=0.0, bound_by="bytes")
     for name, xs, k, s, p, dt in POOL_CASES:
         n, h, w, c = xs
         dys = (n, _out_size(h, k[0], s[0], p[0]),
@@ -1322,9 +1380,29 @@ def pool_kernels(seed):
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound, "bound_by": bound_by,
                    "library_ms": lib_ms}
+        if name.startswith("lenet"):
+            # phase 8 replays these in a captured graph: device times
+            _, idx = F.max_pool2d(_nchw(x), k, s, p, return_indices=True)
+            g = [graph_ms(f) for f in (
+                fn, lambda: P.maxpool_bwd_reference(x, dy, k, s, p),
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    _nchw(dy), _nchw(x), k, s, p, (1, 1), False, idx))]
+            log("kernel maxpool_bwd [%s]: in graph replays kernel %.4f ms "
+                "(%.1f %% of the bound), plain %.4f ms, "
+                "max_pool2d_with_indices_backward %.4f ms" % (
+                    name, g[0], 100.0 * bound / g[0], g[1], g[2]))
+            del idx
+            lenet["max_abs_err"] = max(lenet["max_abs_err"], err)
+            for key, v in (("ms", g[0]), ("plain_ms", g[1]),
+                           ("bound_ms", bound), ("library_ms", g[2])):
+                lenet[key] += v
         del x, dy
     torch.cuda.empty_cache()
-    return row
+    log("kernel maxpool_bwd over one LeNet batch (2 launches, float32; "
+        "graph replays): kernel %.4f ms, plain %.4f ms, "
+        "max_pool2d_with_indices_backward %.4f ms, bound %.4f ms" % (lenet["ms"], lenet["plain_ms"],
+                                    lenet["library_ms"], lenet["bound_ms"]))
+    return row, lenet
 
 
 def resnet_bns(batch=RESNET_BATCH, size=RESNET_SIZE):
@@ -2514,6 +2592,340 @@ def imperative(seed, smi):
     return rtc_phase(seed, smi)
 
 
+# ---------------------------------------------------------------- symbolic
+
+# common/fit.py's settings for train_mnist.py: SGD at lr 0.05, momentum
+# 0.9, wd 1e-4, the rate divided by 10 at epoch 10 (lr_step_epochs "10"),
+# rescale_grad 1/batch (Module's); 6000 training digits an epoch
+SYM_EPOCH = 6000 // SYM_BATCH
+# the first batch's gradients on the card vs the CPU plain path, within
+# this share of each gradient's largest magnitude
+SYM_GRAD_TOL = 1e-5
+# the wrappers' launches of one LeNet batch (two convolutions, two pools)
+LENET_LAUNCHES = {"im2col": 2, "maxpool": 2}
+LENET_KERNELS = (("im2col", ("conv_dw_kernel<true",), 2),
+                 ("maxpool", ("maxpool_bwd_kernel",), 2))
+# device kernels of a symbolic batch by what they do, matched on the
+# kernel's name (the first group that matches wins)
+SYM_GROUPS = (
+    ("K1b conv_dw im2col", ("conv_dw_kernel<true",)),
+    ("K1 split-K sum", ("conv_dw_reduce",)),
+    ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
+    ("host-to-device copies", ("memcpy htod", "memcpy h2d")),
+    ("matrix products", ("gemm", "cutlass", "sm90_xmma")),
+    ("cuDNN conv fwd/dgrad", ("conv", "cudnn", "xmma", "fprop", "dgrad",
+                              "implicit")),
+    ("pooling fwd", ("pool",)),
+    ("softmax", ("softmax",)),
+    ("element-wise (the update, activations, copies)",
+     ("elementwise", "vectorized", "reduce", "fill", "copy", "memcpy",
+      "memset")),
+)
+
+
+def _mnist_net(network):
+    """train_mnist.py's build_mlp or build_lenet, named from fresh
+    counters."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.name import NameManager
+
+    sym = mx.sym
+    with NameManager():
+        net = sym.Variable("data")
+        if network == "mlp":
+            net = sym.Flatten(net)
+            net = sym.FullyConnected(net, num_hidden=128, name="fc1")
+            net = sym.Activation(net, act_type="relu")
+            net = sym.FullyConnected(net, num_hidden=64, name="fc2")
+            net = sym.Activation(net, act_type="relu")
+            net = sym.FullyConnected(net, num_hidden=10, name="fc3")
+        else:
+            for i, filters in ((1, 20), (2, 50)):
+                net = sym.Convolution(net, kernel=(5, 5), num_filter=filters,
+                                      name="conv%d" % i)
+                net = sym.Activation(net, act_type="tanh")
+                net = sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                                  stride=(2, 2))
+            net = sym.FullyConnected(sym.Flatten(net), num_hidden=500,
+                                     name="fc1")
+            net = sym.Activation(net, act_type="tanh")
+            net = sym.FullyConnected(net, num_hidden=10, name="fc2")
+        return sym.SoftmaxOutput(net, name="softmax")
+
+
+def _fit_params():
+    import mxnet_tpu_torch as mx
+
+    return {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
+            "lr_scheduler": mx.lr_scheduler.MultiFactorScheduler(
+                step=[SYM_EPOCH * 10], factor=0.1)}
+
+
+def _mnist_iter(train, shuffle):
+    """common/data.py's get_mnist_iter: the idx files under data/ when
+    present, else the synthetic digits."""
+    import mxnet_tpu_torch as mx
+
+    kind = "train" if train else "t10k"
+    return mx.io.MNISTIter(image="data/%s-images-idx3-ubyte" % kind,
+                           label="data/%s-labels-idx1-ubyte" % kind,
+                           batch_size=SYM_BATCH, shuffle=shuffle)
+
+
+def _bound_module(network, device, params):
+    """A Module of ``network`` bound for training on ``device`` from the
+    host ``params`` (args, aux), with common/fit.py's SGD."""
+    import mxnet_tpu_torch as mx
+
+    it = _mnist_iter(True, False)
+    mod = mx.mod.Module(_mnist_net(network), context=device)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params[0], aux_params=params[1])
+    mod.init_optimizer(optimizer="sgd", optimizer_params=_fit_params())
+    return mod
+
+
+def _module_state(mod):
+    ex = mod._exec_group.execs[0]
+    state = [a.data_torch.clone() for a in ex.arg_arrays + ex.aux_arrays]
+    state += [g.data_torch.clone() for g in ex.grad_dict.values()]
+    state += [s.clone() for s in mod._updater.states.values()
+              if s is not None]
+    return state
+
+
+def _train_batches(mod, batches, n, events=None):
+    """``n`` batches of forward_backward + update, cycling ``batches``;
+    each batch's outputs (copies); CUDA events around each when given."""
+    outs = []
+    for i in range(n):
+        if events is not None:
+            events[i][0].record()
+        mod.forward_backward(batches[i % len(batches)])
+        mod.update()
+        if events is not None:
+            events[i][1].record()
+        outs.append(mod.get_outputs()[0].data_torch.clone())
+    return outs
+
+
+def symbolic_net(network, epochs, seed, smi):
+    """Phase 8, one network: gradients against the CPU plain path, 3
+    captured batches against 3 eager ones (bitwise), the step time
+    captured and eager, then the main path: Module.fit on the card with
+    accuracy, Speedometer and do_checkpoint, the kernels' counts over it,
+    the validation accuracy and the checkpoint read back."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    card = torch.device("cuda", 0)
+    counters = {"im2col": C.conv_dw_im2col, "maxpool": P.maxpool_bwd}
+    per_batch = LENET_LAUNCHES if network == "lenet" \
+        else dict.fromkeys(LENET_LAUNCHES, 0)
+    # the initial parameters, from the seed (the reference common/fit.py's
+    # initializer), kept on the host
+    mx.random.seed(seed)
+    first = mx.mod.Module(_mnist_net(network), context=mx.cpu())
+    it = _mnist_iter(True, False)
+    first.bind(it.provide_data, it.provide_label)
+    first.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                     magnitude=2))
+    params = tuple({k: v.copy() for k, v in d.items()}
+                   for d in first.get_params())
+    batches = [next(it) for _ in range(3)]
+
+    # 1. the first batch's gradients on the card vs the CPU plain path
+    grads = {}
+    for where, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        mod = _bound_module(network, dev, params)
+        mod.forward_backward(batches[0])
+        ex = mod._exec_group.execs[0]
+        grads[where] = {k: g.asnumpy() for k, g in ex.grad_dict.items()}
+        grads[where]["softmax_output"] = mod.get_outputs()[0].asnumpy()
+    errs = {k: float(np.abs(grads["card"][k] - w).max())
+            / max(float(np.abs(w).max()), 1e-30)
+            for k, w in grads["cpu"].items()}
+    worst = max((e, k) for k, e in errs.items())
+    log("symbolic %s: first batch's gradients and outputs on the card vs "
+        "the CPU plain path: worst %.3g of the largest magnitude (%s; tol "
+        "%.0e); each: %s" % (network, worst[0], worst[1], SYM_GRAD_TOL,
+                             ", ".join("%s %.2g" % kv for kv in errs.items())))
+    if not worst[0] <= SYM_GRAD_TOL:
+        raise AssertionError("symbolic %s: the card's gradients disagree "
+                             "with the CPU's" % network)
+
+    # 2. 3 captured batches vs 3 eager ones (the program the graph holds),
+    # bitwise; the eager run counts the kernels' launches a batch
+    runs = {}
+    for capture in (True, False):
+        mod = _bound_module(network, card, params)
+        mod._exec_group.execs[0].capture = capture
+        for fn in counters.values():
+            fn.launches = 0
+        outs = _train_batches(mod, batches, 3)
+        torch.cuda.synchronize()
+        runs[capture] = (outs, _module_state(mod),
+                         {k: fn.launches for k, fn in counters.items()},
+                         mod)
+    (oc, sc, _, mod_c), (oe, se, eager_counts, mod_e) = runs[True], \
+        runs[False]
+    diff = sum(not torch.equal(a, b) for a, b in zip(oc + sc, oe + se))
+    graph = next(iter(mod_c._exec_group.execs[0].graphs.values()))
+    log("symbolic %s: 3 captured batches (%d graph, %d replays) vs 3 eager "
+        "from the same state: %d of %d outputs, arguments, aux states, "
+        "gradients and momenta differ; eager launches %s (expected 3 x %s)"
+        % (network, len(mod_c._exec_group.execs[0].graphs), graph.replays,
+           diff, len(oc + sc), eager_counts, per_batch))
+    if diff or len(sc) != len(se):
+        raise AssertionError("symbolic %s: the captured batches differ from "
+                             "the eager ones" % network)
+    if eager_counts != {k: 3 * v for k, v in per_batch.items()}:
+        raise AssertionError("symbolic %s: the eager batches did not launch "
+                             "K1b and K2 once per convolution and pool"
+                             % network)
+
+    # 3. the step (forward_backward + update) time, captured and eager
+    steps, warm = 20, 3
+    step_ms = {}
+    for capture, mod in ((True, mod_c), (False, mod_e)):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(steps)]
+        _train_batches(mod, batches, steps, ev)
+        torch.cuda.synchronize()
+        step_ms[capture] = float(np.mean([a.elapsed_time(b)
+                                          for a, b in ev[warm:]]))
+    log("symbolic %s: a batch's forward_backward + update on %s, captured "
+        "%.4f ms (%.0f samples/s), eager %.4f ms (%.0f samples/s) (CUDA "
+        "events, mean of %d after %d)" % (
+            network, smi, step_ms[True], SYM_BATCH / step_ms[True] * 1e3,
+            step_ms[False], SYM_BATCH / step_ms[False] * 1e3, steps - warm,
+            warm))
+    # where a captured batch's host time goes: each call's host clock (the
+    # device runs behind; the metric's copy to the host waits for it)
+    parts = {"forward (the batch's copy in)": [], "backward (replay)": [],
+             "update": [], "update_metric": []}
+    metric = mx.metric.create("accuracy")
+    for i in range(steps):
+        b = batches[i % len(batches)]
+        t = [time.perf_counter()]
+        mod_c.forward(b, is_train=True)
+        t.append(time.perf_counter())
+        mod_c.backward()
+        t.append(time.perf_counter())
+        mod_c.update()
+        t.append(time.perf_counter())
+        mod_c.update_metric(metric, b.label)
+        t.append(time.perf_counter())
+        for part, a, z in zip(parts, t, t[1:]):
+            parts[part].append((z - a) * 1e3)
+    log("symbolic %s: a captured batch's host time by call (median of %d "
+        "after %d): %s" % (network, steps - warm, warm, ", ".join(
+            "%s %.4f ms" % (k, float(np.median(v[warm:])))
+            for k, v in parts.items())))
+    del mod_c, mod_e, runs
+    torch.cuda.empty_cache()
+
+    # 4. the main path: Module.fit as train_mnist.py calls it
+    prefix_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        prefix = prefix_dir + "/" + network
+        np.random.seed(seed)  # MNISTIter's shuffle
+        train, val = _mnist_iter(True, True), _mnist_iter(False, False)
+        mod = mx.mod.Module(_mnist_net(network), context=card)
+        ends = []
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        mod.fit(train, eval_data=val, eval_metric=["accuracy"],
+                num_epoch=epochs, optimizer="sgd",
+                optimizer_params=_fit_params(), kvstore="device",
+                arg_params=params[0], aux_params=params[1],
+                batch_end_callback=[mx.callback.Speedometer(SYM_BATCH, 20),
+                                    lambda p: ends.append(
+                                        time.perf_counter())],
+                epoch_end_callback=mx.callback.do_checkpoint(prefix))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        # ---- end of the main path
+        acc = dict(mod.score(val, "accuracy"))["accuracy"]
+        host_ms = float(np.median(np.diff(ends))) * 1e3
+        ex = mod._exec_group.execs[0]
+        (graph,) = ex.graphs.values()
+        log("symbolic %s: Module.fit %d epoch(s) of %d batches on %s in "
+            "%.2f s wall (validation and checkpoints included); the Module "
+            "loop %.4f ms of host time a batch (median; forward_backward, "
+            "update, the metric's host copy, callbacks), %.0f samples/s; "
+            "validation accuracy %.4f; wrapper counts %s over the main path "
+            "(1 eager warm-up + 1 capture; %d replays)" % (
+                network, epochs, SYM_EPOCH, smi, wall, host_ms,
+                SYM_BATCH / host_ms * 1e3, acc, launches, graph.replays))
+        if not acc > 0.9:
+            raise AssertionError("symbolic %s: validation accuracy %.4f is "
+                                 "not above 0.9" % (network, acc))
+        if launches != {k: 2 * v for k, v in per_batch.items()}:
+            raise AssertionError("symbolic %s: the main path did not launch "
+                                 "K1b and K2 at warm-up and capture"
+                                 % network)
+        # the checkpoint of the last epoch, read back
+        again = mx.mod.Module.load(prefix, epochs, context=card)
+        again.bind(val.provide_data, val.provide_label, for_training=False)
+        want = mod.predict(val)
+        got = again.predict(val)
+        log("symbolic %s: do_checkpoint's epoch-%d checkpoint read back "
+            "predicts %s, bitwise equal to the trained Module's %s, finite "
+            "%s" % (network, epochs, tuple(got.shape),
+                    np.array_equal(got.asnumpy(), want.asnumpy()),
+                    bool(np.isfinite(got.asnumpy()).all())))
+        if got.shape != (SYM_BATCH * (1000 // SYM_BATCH), 10) or \
+                not np.array_equal(got.asnumpy(), want.asnumpy()) or \
+                not np.isfinite(got.asnumpy()).all():
+            raise AssertionError("symbolic %s: the checkpoint does not "
+                                 "predict as the Module" % network)
+    finally:
+        shutil.rmtree(prefix_dir, ignore_errors=True)
+
+    # 5. 3 replayed batches under the profiler: the device's busy share,
+    # its time by group and, for LeNet, K1b's and K2's launches
+    traced = 3
+    seen = profile_steps(lambda: _train_batches(mod, batches, 1), smi,
+                         step_ms[True], steps=traced, groups=SYM_GROUPS,
+                         tag="symbolic %s" % network, count=LENET_KERNELS)
+    if network == "lenet":
+        if seen is not None:
+            want = {k: n * traced for k, _, n in LENET_KERNELS}
+            log("symbolic lenet: launches in the trace of %d replayed "
+                "batches %s; expected %s" % (traced, seen, want))
+            if seen != want:
+                raise AssertionError("the replayed LeNet batch does not "
+                                     "launch K1b and K2 once per "
+                                     "convolution and pool")
+    del mod
+    torch.cuda.empty_cache()
+    return {k: dict(launches=n, traced_replays=traced,
+                    launches_in_traced_replays=None if seen is None
+                    else seen[k]) for k, n in launches.items()}
+
+
+def symbolic(seed, smi):
+    """Phase 8: train_mnist.py's MLP (2 epochs) and LeNet (1 epoch)
+    through the symbolic path, Symbol -> Executor -> Module, on the card.
+    Returns LeNet's launch counts."""
+    import logging
+
+    # Module.fit's and Speedometer's lines, as train_mnist.py shows them
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="%(message)s", force=True)
+    symbolic_net("mlp", 2, seed, smi)
+    return symbolic_net("lenet", 1, seed, smi)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2531,13 +2943,15 @@ def main():
     phase("build", build)
     fwd_row = phase("3 attention forward", kernels, args.seed)
     bwd_rows = phase("3b attention backward", backward_kernels, args.seed)
-    dw_rows = phase("3c conv dW", conv_kernels, args.seed)
-    pool_row = phase("3c max-pool backward", pool_kernels, args.seed)
+    dw_rows, dw_lenet = phase("3c conv dW", conv_kernels, args.seed)
+    pool_row, pool_lenet = phase("3c max-pool backward", pool_kernels,
+                                 args.seed)
     bn_rows = phase("3d batch norm", bn_kernels, args.seed)
     serve_launches = phase("4 serve", serve, args.seed, smi)
     train_launches = phase("5 train", train, args.seed, smi)
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
+    lenet_launches = phase("8 symbolic", symbolic, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     plan_route=fwd_kernel_plan(UNITS // HEADS,
@@ -2578,6 +2992,19 @@ def main():
             "batch_norm_" + kern, "batch_norm_" + kern,
             "mxnet_tpu_torch/csrc/batch_norm.cu", "mxnet_tpu/ops/nn.py:462",
             bn_rows[kern]))
+    # the symbolic LeNet: captured as the ResNet step, float32
+    for key, name, line, row in (
+            ("im2col", "conv_dw_im2col", "mxnet_tpu/ops/pallas_conv.py:133",
+             dw_lenet),
+            ("maxpool", "maxpool_bwd", "mxnet_tpu/ops/pallas_pool.py:55",
+             pool_lenet)):
+        entries.append(dict(
+            name=name, path="symbolic_lenet", route="cuda",
+            source="mxnet_tpu_torch/csrc/%s.cu" % (
+                "conv_dw" if key == "im2col" else "maxpool_bwd"),
+            replaces=line,
+            launches_counted_over="eager warm-up batch + capture",
+            **lenet_launches[key], **row))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

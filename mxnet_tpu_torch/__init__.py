@@ -7,15 +7,26 @@ device (``device="cpu"``), and raise :class:`MXNetError` when no CUDA device
 is present.  The Pallas kernels of the reference become hand-written
 Hopper kernels under ``csrc/``, built at first use (``_kernels``); the
 run-time kernel facility (``rtc.CudaModule``) compiles a user's CUDA
-source through NVRTC.
+source through NVRTC.  The three entry points of the JAX package are
+here: imperative ``mx.nd``, Gluon, and the symbolic ``mx.sym`` ->
+``Executor`` -> ``mx.mod.Module`` path with ``mx.io``, ``mx.metric``,
+``mx.callback``, ``mx.model`` and ``mx.lr_scheduler``.
 """
 
-from . import (autograd, context, convert, gluon, initializer, ndarray, ops,
-               optimizer, parallel, random, rtc, serving)
+from . import (attribute, autograd, callback, context, convert, executor,
+               gluon, initializer, io, lr_scheduler, metric, model, module,
+               name, ndarray, ops, optimizer, parallel, random, rtc, serving,
+               symbol)
+from . import initializer as init
+from . import module as mod
 from . import ndarray as nd
+from . import symbol as sym
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, gpu
 
-__all__ = ["MXNetError", "autograd", "context", "convert", "cpu", "gpu",
-           "gluon", "initializer", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "rtc", "serving"]
+__all__ = ["AttrScope", "MXNetError", "attribute", "autograd", "callback",
+           "context", "convert", "cpu", "executor", "gpu", "gluon", "init",
+           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
+           "module", "name", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "random", "rtc", "serving", "sym", "symbol"]

@@ -1,75 +1,194 @@
 """Parameter initializers of the PyTorch port.
 
-Counterpart of ``mxnet_tpu/initializer.py``: the same default law and the
-same dispatch on the parameter name's suffix (``weight`` draws from the
-initializer, ``bias``/``beta`` and ``running_mean`` are zeros, ``gamma``
-and ``running_var`` ones).  Draws come
-from a ``numpy.random.RandomState``, so a seed gives the same weights on
-every device; they cannot match the JAX package's key-based draws.  A
-layer's own initializer (``weight_initializer``, ``bias_initializer``,
-...) fills its parameter whatever the name, as in the JAX package.
+Counterpart of ``mxnet_tpu/initializer.py`` (reference:
+python/mxnet/initializer.py): the registry (``register``, ``create``,
+also from ``dumps()``), ``InitDesc``, and ``Zero``, ``One``,
+``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.  An initializer
+dispatches on the parameter name's suffix as the JAX package does:
+``weight`` draws from the initializer; ``bias``, ``beta`` and the
+moving or running means are zeros; ``gamma`` and the moving or running
+variances ones; a name's ``__init__`` attribute (an initializer's
+``dumps()``) takes precedence.
+
+An initializer is called two ways: by Gluon as ``init(name, arr, rng)``
+on a numpy array with a ``numpy.random.RandomState``, and by the Module
+API as ``init(desc, arr)`` on an NDArray, filled from a numpy array drawn
+from :func:`mxnet_tpu_torch.random.host_rng` (restarted by
+``random.seed``).  The draws cannot match the JAX package's key-based
+ones: tests hold the laws.
 """
 
 from __future__ import annotations
 
-__all__ = ["Initializer", "Uniform", "Zero", "One", "create"]
+import json
+
+import numpy as np
+
+__all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier", "register", "create"]
+
+_REGISTRY = {}
+_ALIASES = {"zeros": "zero", "ones": "one"}
+
+
+class InitDesc(str):
+    """A parameter's name with its attributes (reference: InitDesc)."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
+def register(klass):
+    """Register an initializer class under its lower-cased name."""
+    _REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(init, **kwargs):
+    """``init`` itself if it is an :class:`Initializer`, else the
+    registered initializer of that name (``'xavier'``, ``'zeros'``, ...)
+    or of that ``dumps()`` string."""
+    if isinstance(init, Initializer):
+        return init
+    name = str(init)
+    if name.startswith("["):
+        name, kwargs = json.loads(name)
+    cls = _REGISTRY.get(_ALIASES.get(name.lower(), name.lower()))
+    if cls is None:
+        raise ValueError("unknown initializer %r; the port has %s"
+                         % (init, ", ".join(sorted(_REGISTRY))))
+    return cls(**kwargs)
 
 
 class Initializer:
-    """Fills a numpy array for a named parameter."""
+    """Fills a named parameter, by its name's suffix."""
 
-    def __call__(self, name, arr, rng):
-        name = name.lower()
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        """``[name, kwargs]`` as JSON; :func:`create` reads it back."""
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
+
+    def __call__(self, desc, arr, rng=None):
+        if not isinstance(desc, str):
+            raise TypeError("desc must be a str or an InitDesc")
+        if isinstance(arr, np.ndarray):
+            self._fill(desc, arr, rng if rng is not None else _host_rng())
+            return
+        buf = np.zeros(arr.shape, dtype=np.float32)
+        self._fill(desc, buf, rng if rng is not None else _host_rng())
+        arr[:] = buf
+
+    def _fill(self, desc, arr, rng):
+        own = getattr(desc, "attrs", {}).get("__init__")
+        if own:
+            create(own)._init_weight(arr, rng)
+            return
+        name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(arr, rng)
-        elif name.endswith(("bias", "beta", "running_mean")):
+        elif name.endswith(("bias", "beta", "running_mean", "moving_mean",
+                            "moving_inv_var", "moving_avg")):
             arr[...] = 0.0
-        elif name.endswith(("gamma", "running_var")):
+        elif name.endswith(("gamma", "running_var", "moving_var")):
             arr[...] = 1.0
         else:
             raise ValueError("Unknown initialization pattern for %s; name a "
                              "known suffix (weight/bias/gamma/beta/"
-                             "running_mean/running_var)" % name)
+                             "running_mean/running_var/moving_mean/"
+                             "moving_var) or set an explicit init" % name)
 
     def _init_weight(self, arr, rng):
         raise NotImplementedError()
 
 
+def _host_rng():
+    from .random import host_rng
+
+    return host_rng()
+
+
+@register
+class Zero(Initializer):
+    """Zeros (also ``'zeros'``)."""
+
+    def _init_weight(self, arr, rng):
+        arr[...] = 0.0
+
+
+@register
+class One(Initializer):
+    """Ones (also ``'ones'``)."""
+
+    def _init_weight(self, arr, rng):
+        arr[...] = 1.0
+
+
+@register
+class Constant(Initializer):
+    """Every weight ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, arr, rng):
+        arr[...] = self.value
+
+
+@register
 class Uniform(Initializer):
     """U(-scale, scale), the framework default (scale 0.07)."""
 
     def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
         self.scale = scale
 
     def _init_weight(self, arr, rng):
         arr[...] = rng.uniform(-self.scale, self.scale, size=arr.shape)
 
 
-class Zero(Initializer):
-    """Zeros (reference name ``'zeros'``)."""
+@register
+class Normal(Initializer):
+    """N(0, sigma^2)."""
+
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
 
     def _init_weight(self, arr, rng):
-        arr[...] = 0.0
+        arr[...] = rng.normal(0.0, self.sigma, size=arr.shape)
 
 
-class One(Initializer):
-    """Ones (reference name ``'ones'``)."""
+@register
+class Xavier(Initializer):
+    """Xavier/Glorot (reference: initializer.py Xavier): scale
+    ``sqrt(magnitude / factor)``, the factor the average of the fans
+    (``'avg'``), the fan in or the fan out, each fan a dimension times
+    the product of the dimensions past the second; uniform in
+    ``[-scale, scale]`` or gaussian of that deviation."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
 
     def _init_weight(self, arr, rng):
-        arr[...] = 1.0
-
-
-_BY_NAME = {"zeros": Zero, "zero": Zero, "ones": One, "one": One,
-            "uniform": Uniform}
-
-
-def create(init):
-    """``init`` itself if it is an :class:`Initializer`, else the
-    initializer of that name (``'zeros'``, ``'ones'``, ``'uniform'``)."""
-    if isinstance(init, Initializer):
-        return init
-    cls = _BY_NAME.get(str(init).lower())
-    if cls is None:
-        raise ValueError("unknown initializer %r; the port has %s"
-                         % (init, ", ".join(sorted(_BY_NAME))))
-    return cls()
+        shape = arr.shape
+        if len(shape) < 2:
+            raise ValueError("Xavier requires ndim >= 2 (got %s)" % (shape,))
+        hw = float(np.prod(shape[2:])) if len(shape) > 2 else 1.0
+        fan_in, fan_out = shape[1] * hw, shape[0] * hw
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                  "out": fan_out}[self.factor_type]
+        scale = np.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            arr[...] = rng.uniform(-scale, scale, size=shape)
+        else:
+            arr[...] = rng.normal(0.0, scale, size=shape)

@@ -1,0 +1,299 @@
+"""BaseModule of the PyTorch port: the training loop's contract.
+
+Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
+python/mxnet/module/base_module.py, fit:409, score, predict,
+forward_backward:193): bind, init_params, init_optimizer, then
+``fit(train_data, eval_data, ...)`` with evaluation metrics, epoch and
+batch callbacks and checkpoints; ``score``, ``predict`` and
+``iter_predict``.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+from .. import metric as _metric
+from ..base import MXNetError
+from ..initializer import Uniform
+from ..io import DataBatch
+
+
+class BatchEndParam:
+    def __init__(self, epoch, nbatch, eval_metric, locals=None):
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.eval_metric = eval_metric
+        self.locals = locals
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+class BaseModule:
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+        self._total_exec_bytes = 0
+
+    # ---------------------------------------------------------- interface
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        raise NotImplementedError()
+
+    def bind(self, *args, **kwargs):
+        raise NotImplementedError()
+
+    def init_params(self, *args, **kwargs):
+        raise NotImplementedError()
+
+    def init_optimizer(self, *args, **kwargs):
+        raise NotImplementedError()
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    # ---------------------------------------------------------- high level
+    def forward_backward(self, data_batch):
+        """reference: base_module.py:193."""
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0, sparse_row_id_fn=None):
+        """reference: base_module.py score."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            if pad:
+                # exclude zero-padded tail samples of the final partial
+                # batch from the metric (reference: predict slices pad the
+                # same way, base_module.py iter_predict)
+                outputs = [o[0:o.shape[0] - pad] for o in self.get_outputs()]
+                labels = [l[0:l.shape[0] - pad] for l in eval_batch.label]
+                eval_metric.update(labels=labels, preds=outputs)
+            else:
+                self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric, locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad
+            outputs = [out[0:out.shape[0] - (pad or 0)]
+                       for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True, reset=True,
+                always_output_list=False, sparse_row_id_fn=None):
+        """reference: base_module.py predict."""
+        from ..ndarray import concatenate
+
+        assert self.binded and self.params_initialized
+        if isinstance(eval_data, DataBatch):
+            self.forward(eval_data, is_train=False)
+            return self.get_outputs()
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad
+            outputs = [out[0:out.shape[0] - (pad or 0)].copy()
+                       for out in self.get_outputs()]
+            output_list.append(outputs)
+        if len(output_list) == 0:
+            return output_list
+        if merge_batches:
+            num_outputs = len(output_list[0])
+            for out in output_list:
+                if len(out) != num_outputs:
+                    raise MXNetError("Cannot merge: different number of outputs")
+            output_list2 = [concatenate([out[i] for out in output_list], axis=0)
+                            for i in range(num_outputs)]
+            if num_outputs == 1 and not always_output_list:
+                return output_list2[0]
+            return output_list2
+        return output_list
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None, monitor=None,
+            sparse_row_id_fn=None):
+        """The training loop (reference: base_module.py:409)."""
+        assert num_epoch is not None, "please specify number of epochs"
+        if initializer is None:
+            initializer = Uniform(0.01)
+        if monitor is not None:
+            raise MXNetError("fit: a Monitor is not ported yet")
+
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label, for_training=True,
+                  force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            nbatch = 0
+            data_iter = iter(train_data)
+            end_of_batch = False
+            next_data_batch = next(data_iter)
+            while not end_of_batch:
+                data_batch = next_data_batch
+                self.forward_backward(data_batch)
+                self.update()
+                try:
+                    next_data_batch = next(data_iter)
+                    self.prepare(next_data_batch,
+                                 sparse_row_id_fn=sparse_row_id_fn)
+                except StopIteration:
+                    end_of_batch = True
+                self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    batch_end_params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                                     eval_metric=eval_metric,
+                                                     locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(batch_end_params)
+                nbatch += 1
+
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            toc = time.time()
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, (toc - tic))
+
+            arg_params, aux_params = self.get_params()
+            self.set_params(arg_params, aux_params)
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_params, aux_params)
+
+            if eval_data:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
+
+            train_data.reset()
+
+    # ---------------------------------------------------------- misc
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        pass
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        from ..ndarray import save
+
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        save(fname, save_dict)
+
+    def load_params(self, fname):
+        from ..context import cpu
+        from ..ndarray import load
+
+        save_dict = load(fname, ctx=cpu())
+        arg_params = {}
+        aux_params = {}
+        for k, value in save_dict.items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise MXNetError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)
+
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()

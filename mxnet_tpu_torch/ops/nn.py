@@ -1,8 +1,9 @@
 """Neural-network ops of the PyTorch port, as plain functions on tensors.
 
 Counterparts of ``mxnet_tpu/ops/nn.py`` Convolution, FullyConnected,
-Activation, LeakyReLU (gelu), BatchNorm, LayerNorm, Pooling, Dropout and
-log_softmax.  The JAX package leaves most of these to XLA; here they stay
+Activation, LeakyReLU (gelu), BatchNorm, LayerNorm, Pooling, Dropout,
+log_softmax and the Module API's loss heads (SoftmaxOutput and the
+regression outputs).  The JAX package leaves most of these to XLA; here they stay
 plain PyTorch (matrix products go to cuBLAS, the convolutions' forward and
 data-gradient and the max-pool forward to cuDNN).  Two gradients are the
 port's own kernels, as the JAX package routes them to Pallas: a
@@ -14,7 +15,10 @@ flag.
 
 Convolution and pooling take channel-last (NHWC) data and OHWI weights.
 They run cuDNN on the NHWC tensors viewed as NCHW with ``channels_last``
-strides, so nothing is copied.
+strides, so nothing is copied.  The registered ``Convolution`` and
+``Pooling`` also take the JAX ops' default layout (``layout=None`` or
+``"NCHW"``: NCHW data, OIHW weights): they permute into the NHWC path and
+back, so the weight-gradient still runs K1 and the max-pool backward K2.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from .registry import register
 
 __all__ = ["convolution", "fully_connected", "activation", "leaky_relu",
            "batch_norm", "layer_norm", "pooling", "dropout", "softmax",
-           "log_softmax"]
+           "log_softmax", "softmax_output", "regression_output"]
 
 
 def _pair(v, what):
@@ -51,6 +55,12 @@ def _nchw(t):
 def _nhwc(t):
     """The NHWC view of an NCHW tensor."""
     return t.permute(0, 2, 3, 1)
+
+
+def _channel_first(layout):
+    """True for the registered ops' channel-first layouts (None, the JAX
+    ops' default, or ``"NCHW"``)."""
+    return layout is None or layout == "NCHW"
 
 
 def _check_nhwc(layout, op):
@@ -100,12 +110,22 @@ def _convolution_op(data, weight, bias=None, kernel=(), stride=(),
                     cudnn_tune=None, workspace=1024, **_):
     """The registered ``Convolution``: :func:`convolution` with the JAX
     op's attributes (an empty ``stride``/``dilate``/``pad`` is the
-    default; ``cudnn_*`` and ``workspace`` are accepted and ignored)."""
+    default; ``cudnn_*`` and ``workspace`` are accepted and ignored).
+    ``layout`` None or ``"NCHW"`` (the JAX op's default) takes NCHW data
+    and OIHW weights through the NHWC path."""
     del cudnn_off, cudnn_tune, workspace
-    return convolution(data, weight, bias, kernel=_or(kernel, None),
-                       stride=_or(stride, (1, 1)), dilate=_or(dilate, (1, 1)),
-                       pad=_or(pad, (0, 0)), num_filter=num_filter,
-                       num_group=num_group, no_bias=no_bias, layout=layout)
+    nchw = _channel_first(layout)
+    if nchw and (data.dim() != 4 or weight.dim() != 4):
+        raise MXNetError("Convolution: the port takes 2-D NCHW data and "
+                         "OIHW weights, got %s and %s"
+                         % (tuple(data.shape), tuple(weight.shape)))
+    out = convolution(_nhwc(data) if nchw else data,
+                      _nhwc(weight) if nchw else weight, bias,
+                      kernel=_or(kernel, None), stride=_or(stride, (1, 1)),
+                      dilate=_or(dilate, (1, 1)), pad=_or(pad, (0, 0)),
+                      num_filter=num_filter, num_group=num_group,
+                      no_bias=no_bias, layout="NHWC" if nchw else layout)
+    return _nchw(out) if nchw else out
 
 
 def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
@@ -260,14 +280,21 @@ def _pooling_op(data, kernel=(), pool_type="max", stride=(), pad=(),
                 count_include_pad=True, cudnn_off=False, p_value=2,
                 layout=None, **_):
     """The registered ``Pooling``: :func:`pooling` with the JAX op's
-    attributes (empty ``stride``/``pad`` are the defaults)."""
+    attributes (empty ``stride``/``pad`` are the defaults).  ``layout``
+    None or ``"NCHW"`` (the JAX op's default) takes NCHW data through the
+    NHWC path."""
     del cudnn_off
-    return pooling(data, kernel=_or(kernel, (1, 1)), pool_type=pool_type,
-                   stride=_or(stride, None), pad=_or(pad, (0, 0)),
-                   global_pool=global_pool,
-                   pooling_convention=pooling_convention,
-                   count_include_pad=count_include_pad, p_value=p_value,
-                   layout=layout)
+    nchw = _channel_first(layout)
+    if nchw and data.dim() != 4:
+        raise MXNetError("Pooling: the port takes 2-D NCHW data, got %s"
+                         % (tuple(data.shape),))
+    out = pooling(_nhwc(data) if nchw else data, kernel=_or(kernel, (1, 1)),
+                  pool_type=pool_type, stride=_or(stride, None),
+                  pad=_or(pad, (0, 0)), global_pool=global_pool,
+                  pooling_convention=pooling_convention,
+                  count_include_pad=count_include_pad, p_value=p_value,
+                  layout="NHWC" if nchw else layout)
+    return _nchw(out) if nchw else out
 
 
 def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
@@ -382,3 +409,131 @@ def log_softmax(data, axis=-1, temperature=None, **_):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return torch.log_softmax(data, dim=int(axis))
+
+
+# ------------------------------------------------------------ loss heads
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward is the fused cross-entropy gradient
+    ``(softmax - onehot(label)) * scale`` and ignores the incoming
+    cotangent (reference: src/operator/softmax_output.cc;
+    ``mxnet_tpu/ops/nn.py:336-379``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output,
+                use_ignore, normalization, smooth_alpha):
+        axis = 1 if multi_output else -1
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (axis, grad_scale, ignore_label, use_ignore,
+                   normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        del g  # SoftmaxOutput is the loss layer
+        out, label = ctx.saved_tensors
+        axis, grad_scale, ignore_label, use_ignore, normalization, \
+            smooth_alpha = ctx.cfg
+        ax = axis % out.dim()
+        ncls = out.shape[ax]
+        lab = label.to(torch.int32)
+        shape = [1] * out.dim()
+        shape[ax] = ncls
+        classes = torch.arange(ncls, dtype=torch.int32, device=out.device)
+        # one_hot's zeros for an out-of-range class, as jax.nn.one_hot
+        onehot = (lab.unsqueeze(ax) == classes.reshape(shape)).to(out.dtype)
+        if smooth_alpha:
+            onehot = (onehot * (1.0 - smooth_alpha)
+                      + smooth_alpha / (ncls - 1) * (1.0 - onehot))
+        grad = out - onehot
+        keep = None
+        if use_ignore:
+            keep = (lab != int(ignore_label)).to(out.dtype)
+            grad = grad * keep.unsqueeze(ax)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / out.shape[0]
+        elif normalization == "valid":
+            if use_ignore:
+                scale = scale / torch.clamp_min(keep.sum(), 1.0)
+            else:
+                scale = scale / float(lab.numel())
+        grad = (grad * scale).to(out.dtype)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, dlabel, None, None, None, None, None, None
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0,
+                   **_):
+    """Softmax over the last axis (axis 1 with ``multi_output``) whose
+    backward is the cross-entropy gradient against ``label``: ``grad_scale``
+    times ``softmax - onehot``, label-smoothed by ``smooth_alpha``, with
+    rows of ``ignore_label`` zeroed under ``use_ignore``, divided by the
+    batch (``normalization="batch"``) or by the count of labels, or of the
+    labels kept (``"valid"``).  ``preserve_shape`` and ``out_grad`` are
+    accepted, as in the JAX package, and change nothing."""
+    del preserve_shape, out_grad
+    if normalization not in ("null", "batch", "valid"):
+        raise MXNetError("SoftmaxOutput: normalization must be null, batch "
+                         "or valid, not %r" % (normalization,))
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(multi_output),
+                                bool(use_ignore), str(normalization),
+                                float(smooth_alpha))
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Identity (``"linear"``, ``"mae"``) or sigmoid (``"logistic"``)
+    forward; the backward is ``pred - label`` (``sign(pred - label)`` for
+    ``"mae"``) times ``grad_scale`` over the second axis's width, and
+    ignores the incoming cotangent (reference:
+    src/operator/regression_output.cc; ``mxnet_tpu/ops/nn.py:403-447``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        del g
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.cfg
+        diff = out - label.reshape(out.shape)
+        grad = torch.sign(diff) if kind == "mae" else diff
+        num = out.shape[1] if out.dim() > 1 else 1
+        grad = (grad * (grad_scale / num)).to(out.dtype)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, dlabel, None, None
+
+
+def regression_output(data, label, grad_scale=1.0, kind="linear"):
+    """The regression heads' op: see :class:`_RegressionOutput`."""
+    return _RegressionOutput.apply(data, label, float(grad_scale), kind)
+
+
+@register("LinearRegressionOutput")
+def _linear_regression_output(data, label, grad_scale=1.0, **_):
+    """Identity forward, L2 backward ``pred - label``."""
+    return regression_output(data, label, grad_scale, "linear")
+
+
+@register("MAERegressionOutput")
+def _mae_regression_output(data, label, grad_scale=1.0, **_):
+    """Identity forward, L1 backward ``sign(pred - label)``."""
+    return regression_output(data, label, grad_scale, "mae")
+
+
+@register("LogisticRegressionOutput")
+def _logistic_regression_output(data, label, grad_scale=1.0, **_):
+    """Sigmoid forward, cross-entropy backward ``pred - label``."""
+    return regression_output(data, label, grad_scale, "logistic")

@@ -20,13 +20,15 @@ import numpy as np
 from ..base import MXNetError
 
 __all__ = ["Op", "register", "get", "alias", "list_ops", "apply_op",
-           "OP_INPUT_NAMES", "canonical_attr"]
+           "OP_INPUT_NAMES", "OP_AUX_INPUTS", "OP_LABEL_INPUTS",
+           "canonical_attr"]
 
 _OP_REGISTRY: dict = {}
 
 # Ordered tensor-input names of the ported ops that take tensors by
 # keyword (reference: each op's ListArguments()); nd.<op> pulls these
-# keywords in as tensor inputs, in this order, after the positional ones.
+# keywords in as tensor inputs, in this order, after the positional ones,
+# and a Symbol grows a "<name>_<input>" variable for each one not given.
 OP_INPUT_NAMES = {
     "Convolution": ("data", "weight", "bias"),
     "FullyConnected": ("data", "weight", "bias"),
@@ -38,7 +40,19 @@ OP_INPUT_NAMES = {
     "batch_dot": ("lhs", "rhs"),
     "where": ("condition", "x", "y"),
     "take": ("a", "indices"),
+    "SoftmaxOutput": ("data", "label"),
+    "LinearRegressionOutput": ("data", "label"),
+    "MAERegressionOutput": ("data", "label"),
+    "LogisticRegressionOutput": ("data", "label"),
 }
+
+# Inputs that are auxiliary states: no gradient, updated by the executor
+# (reference: list_auxiliary_states).
+OP_AUX_INPUTS = {"BatchNorm": ("moving_mean", "moving_var")}
+
+# The loss heads, whose "label" input is a data input of the Module.
+OP_LABEL_INPUTS = {"SoftmaxOutput", "LinearRegressionOutput",
+                   "MAERegressionOutput", "LogisticRegressionOutput"}
 
 
 def canonical_attr(v):

@@ -5,7 +5,8 @@ python/mxnet/optimizer/optimizer.py): the registry (``register``,
 ``create``), the ``Optimizer`` base with ``lr``, ``wd``,
 ``rescale_grad``, ``clip_gradient``, per-parameter multipliers from
 ``param_dict`` and per-index update counts, ``SGD`` (with momentum),
-``Adam``, and the ``Updater`` that keeps each index's state.  Updates run
+``Adam``, and the ``Updater`` that keeps each index's state (and saves
+and restores it, ``get_states``/``set_states``).  Updates run
 the in-place ops of :mod:`~mxnet_tpu_torch.ops.optimizer_ops`; there is
 no ``torch.optim`` underneath.
 """
@@ -13,7 +14,9 @@ no ``torch.optim`` underneath.
 from __future__ import annotations
 
 import math
+import pickle
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -44,22 +47,41 @@ def create(name, **kwargs):
 
 
 class Optimizer:
-    """Base optimizer (reference: optimizer.py:46).
+    """Base optimizer (reference: optimizer.py:46;
+    ``mxnet_tpu/optimizer/optimizer.py:96-222``).
 
-    ``param_dict`` maps an index to its parameter; the parameter's
-    ``lr_mult`` and ``wd_mult`` scale ``lr`` and ``wd`` (``Trainer`` sets
-    it, so weight decay applies to every parameter whose ``wd_mult`` is
-    1, biases, betas and gammas included)."""
+    The rate of an update is ``learning_rate``, or ``lr_scheduler``'s
+    rate at the update count (which starts from ``begin_num_update``),
+    times the parameter's ``lr_mult``; its weight decay is ``wd`` times
+    its ``wd_mult``.  The multipliers come from ``param_dict`` (index ->
+    parameter with ``lr_mult``/``wd_mult``, as ``Trainer`` sets it), else
+    from :meth:`set_lr_mult`/:meth:`set_wd_mult` by index or by name
+    (``param_idx2name``).  As in MXNet, the constructor applies the
+    symbol's ``__lr_mult__``/``__wd_mult__`` attributes (``sym``) and the
+    no-decay rule: a parameter whose name ends neither in ``_weight`` nor
+    in ``_gamma`` takes no weight decay."""
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, param_dict=None):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.wd = wd
-        self.num_update = 0
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
+        self.idx2name = dict(param_idx2name or {})
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ()
         self.param_dict = param_dict if param_dict else {}
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    create_optimizer = staticmethod(create)
 
     def create_state(self, index, weight):
         return None
@@ -69,25 +91,58 @@ class Optimizer:
 
     @property
     def learning_rate(self):
+        """The current rate: the scheduler's at the update count, if any."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("LRScheduler of the optimizer has already been "
+                             "defined")
         self.lr = lr
 
+    def _sym_mults(self, key):
+        if not self.sym_info:
+            return {}
+        attr, arg_names = self.sym_info
+        return {n: float(attr[n][key]) for n in arg_names
+                if key in attr.get(n, {})}
+
+    def set_lr_mult(self, args_lr_mult):
+        """Learning-rate multipliers by index or name, over the symbol's
+        ``__lr_mult__`` attributes."""
+        self.lr_mult = self._sym_mults("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Weight-decay multipliers by index or name: 0 for every name of
+        ``param_idx2name`` that ends neither in ``_weight`` nor in
+        ``_gamma``, then the symbol's ``__wd_mult__`` attributes, then
+        ``args_wd_mult``."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(self._sym_mults("__wd_mult__"))
+        self.wd_mult.update(args_wd_mult)
+
     def _update_count(self, index):
-        count = self._index_update_count.get(index, 0) + 1
-        self._index_update_count[index] = count
-        self.num_update = max(count, self.num_update)
+        count = self._index_update_count.get(index, self.begin_num_update)
+        self._index_update_count[index] = count + 1
+        self.num_update = max(count + 1, self.num_update)
+
+    def _mult(self, index, table, attr):
+        if index in self.param_dict:
+            return getattr(self.param_dict[index], attr)
+        if index in table:
+            return table[index]
+        return table.get(self.idx2name.get(index), 1.0)
 
     def _get_lr(self, index):
-        if index in self.param_dict:
-            return self.lr * self.param_dict[index].lr_mult
-        return self.lr
+        return self.learning_rate * self._mult(index, self.lr_mult,
+                                               "lr_mult")
 
     def _get_wd(self, index):
-        if index in self.param_dict:
-            return self.wd * self.param_dict[index].wd_mult
-        return self.wd
+        return self.wd * self._mult(index, self.wd_mult, "wd_mult")
 
     def _clip(self):
         """The ops' ``clip_gradient``: -1 (no clipping) when unset or 0."""
@@ -162,7 +217,46 @@ class Updater:
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+        elif _is_host(self.states[index]):  # restored by set_states
+            self.states[index] = _to_device(self.states[index], weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and the optimizer, with ``dump_optimizer``) as
+        bytes, the tensors as numpy arrays."""
+        states = {k: _to_host(v) for k, v in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states):
+        """Restore what :meth:`get_states` gave; each state moves to its
+        weight's device at the index's next update."""
+        states = pickle.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            states, self.optimizer = states
+        self.states = states
+
+
+def _to_host(state):
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_host(s) for s in state)
+    return state
+
+
+def _is_host(state):
+    if isinstance(state, (tuple, list)):
+        return any(_is_host(s) for s in state)
+    return isinstance(state, np.ndarray)
+
+
+def _to_device(state, weight):
+    if isinstance(state, np.ndarray):
+        return torch.from_numpy(state).to(weight.device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_device(s, weight) for s in state)
+    return state
 
 
 def get_updater(optimizer):

@@ -244,6 +244,28 @@ OP_CASES.update({
                                            "stride": (2, 2), "pad": (1, 1),
                                            "pool_type": "lp", "p_value": 3,
                                            "layout": "NHWC"}),
+    # the registered ops' default layout (NCHW data, OIHW weights)
+    "Convolution/nchw": ([("f", (2, 3, 7, 7)), ("f", (4, 3, 3, 3)),
+                          ("f", (4,))],
+                         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                          "num_filter": 4}),
+    "Convolution/nchw-1ch": ([("f", (2, 1, 8, 8)), ("f", (5, 1, 5, 5))],
+                             {"kernel": (5, 5), "num_filter": 5,
+                              "no_bias": True, "layout": "NCHW"}),
+    "Pooling/nchw": ([("f", (2, 3, 8, 8))], {"kernel": (2, 2),
+                                             "stride": (2, 2),
+                                             "pool_type": "max"}),
+    "Pooling/nchw-avg-full": ([("f", (2, 3, 7, 7))],
+                              {"kernel": (3, 3), "stride": (2, 2),
+                               "pool_type": "avg", "layout": "NCHW",
+                               "pooling_convention": "full"}),
+    # the Module API's loss heads (forward: softmax, identity, sigmoid)
+    "SoftmaxOutput": ([("f", (4, 5)), ("fi", (4,), 0, 5)], {}),
+    "SoftmaxOutput/multi": ([("f", (2, 3, 4)), ("fi", (2, 4), 0, 3)],
+                            {"multi_output": True}),
+    "LinearRegressionOutput": ([_F, _F], {}),
+    "MAERegressionOutput": ([_F, _F], {"grad_scale": 2.0}),
+    "LogisticRegressionOutput": ([_F, ("fi", (3, 4), 0, 2)], {}),
     "BatchNorm": ([("f", (2, 3, 4, 5)), ("f", (3,)), ("f", (3,)),
                    ("f", (3,)), ("u", (3,), 0.5, 2.0)],
                   {"fix_gamma": False, "output_mean_var": True}),
