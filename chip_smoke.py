@@ -102,7 +102,9 @@ Phases (any failure raises, and the script exits non-zero):
    as null where the trace holds no device kernel); then one
    make_chained(10) launch, timed;
 7. imperative: (a) every registered op once through mx.nd on the card at a
-   small seeded shape, against the same call on the CPU (BatchNorm over
+   small seeded shape, against the same call on the CPU (the RNN op in
+   five cases: LSTM, GRU, relu and tanh, bidirectional, two layers, the
+   clipped cell state, a batch-1 state; BatchNorm over
    axis 1 raises there; over the last axis it runs K6a; integers that
    wrap, float-to-integer casts that saturate, NaN, the infinities, an
    integer divisor of 0 and signed zeros among the cases), then the
@@ -139,7 +141,31 @@ Phases (any failure raises, and the script exits non-zero):
    the eager warm-up and the capture, 2 x 2 each), the Module loop's host
    time a batch, the last checkpoint read back through Module.load
    predicting bitwise as the trained Module; for LeNet the launches of 3
-   replayed batches counted in a profiler trace.
+   replayed batches counted in a profiler trace;
+9. word LM: BASELINE config 3, the RNNModel of example/rnn/word_lm at the
+   PTB "medium" widths (Zaremba et al. 2014: vocab 10000, embedding and
+   hidden 650, 2 LSTM layers, dropout 0.5, bptt 35, batch 20, Uniform(0.05),
+   SGD lr 1 with the global norm clipped to 5; mxnet_tpu_torch.gluon.
+   model_zoo.word_lm) on the synthetic corpus: (a) the first batch at
+   dropout 0 on the card against the CPU plain path (the loss and every
+   gradient within 1e-3 of its largest magnitude); (b) two record/backward
+   calls of the hybridized model (one captured forward and backward
+   graph, the LSTM inside) against eager within 1e-5, the states carried;
+   (c) dropout at p = 0.5 inside captured graphs, through the Dropout
+   layer and the RNN op's inter-layer dropout: two replays, two masks,
+   each keeping 0.5 within 0.01; (d) the main path: 600 hybridized steps
+   with the Trainer built before the first forward (deferred widths),
+   the states carried and detached, clip_global_norm and SGD: a finite
+   loss whose perplexity over the last 20 batches lies below the first
+   20's, and no launch of any of the port's hand kernels (the path runs
+   none of K1-K6: the JAX recurrence is an XLA scan, no Pallas kernel);
+   (e) the step's time eager and hybridized by CUDA events, split into
+   forward, backward, clip and update, tokens/s, peak memory, and from
+   torch.profiler the device's busy share, the kernels a step and the
+   device time by group; (f) a yardstick off the path: the port's LSTM
+   layer forward + backward at (35, 20, 650) eager and hybridized beside
+   torch.nn.LSTM (cuDNN) with the same weights, times and largest
+   differences.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -2926,6 +2952,461 @@ def symbolic(seed, smi):
     return symbolic_net("lenet", 1, seed, smi)
 
 
+# ---------------------------------------------------------------- word LM
+
+# phase 9: batches of the main path (hybridized), of the eager timing run
+# and the window whose perplexity is compared at each end
+LM_STEPS, LM_EAGER_STEPS, LM_WARMUP, LM_PPL_WINDOW = 600, 20, 5, 20
+# the hybridized model vs eager on the card, as phase 5's
+LM_HYBRID_TOL = 1e-5
+# a dropout mask's kept share: 455,000 draws at p = 0.5 (std 0.0007)
+LM_KEEP_TOL = 0.01
+# device kernels of a word-LM step by what they do (the forward's and
+# the backward's by name, the first match wins; every kernel of the clip
+# and of the update is theirs)
+LM_GROUPS = (("matrix products", ("gemm", "gemv", "splitk", "xmma",
+                                  "cutlass")),
+             ("softmax-CE (log-softmax)", ("softmax",)),
+             ("embedding rows and the loss's pick (gather, index, sort)",
+              ("index", "gather", "scatter", "sort", "radix",
+               "embedding")),
+             ("element-wise (LSTM gates, dropout, the rest)", ("",)))
+LM_PHASES = ("forward", "backward", "clip", "update")
+
+
+def _word_lm(device, dropout, seed=None):
+    """PTB_MEDIUM's RNNModel with deferred widths; ``seed``: initialized
+    with Uniform(0.05) from that seed (drawn at the first forward)."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    c = W.PTB_MEDIUM
+    net = W.RNNModel(c["vocab"], c["num_embed"], c["num_hidden"],
+                     c["num_layers"], dropout=dropout, device=device)
+    if seed is not None:
+        net.initialize(initializer.Uniform(c["init_scale"]), seed=seed)
+    return net
+
+
+def _lm_copy(net, device, dropout):
+    from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+
+    return load_mxnet_tpu_params(_word_lm(device, dropout), {
+        k: v.detach().cpu().numpy() for k, v in net.state_dict().items()})
+
+
+def _lm_data(seed, batches):
+    """The synthetic corpus of ``batches`` batches, (T, batch) ids on the
+    card."""
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    c = W.PTB_MEDIUM
+    corpus, _ = W.synthetic_corpus(
+        num_tokens=(batches * c["bptt"] + 1) * c["batch_size"],
+        vocab=c["vocab"], seed=seed)
+    return torch.from_numpy(W.batchify(corpus, c["batch_size"]).copy()) \
+        .cuda()
+
+
+def _lm_batch(data, i):
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    t = W.PTB_MEDIUM["bptt"]
+    return data[i * t:(i + 1) * t], data[i * t + 1:(i + 1) * t + 1]
+
+
+def _lm_record(net, x, y, hidden):
+    """One recorded forward and backward: (per-token loss, logits, the
+    new states)."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    with autograd.record():
+        out, hidden = net(x, hidden)
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, y.reshape(-1))
+    autograd.backward(loss)
+    return loss.detach(), out.detach(), hidden
+
+
+def _lm_trainer(net):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    return gluon.Trainer(net.collect_params(), "sgd",
+                         {"learning_rate": W.PTB_MEDIUM["lr"]})
+
+
+def _lm_steps(net, trainer, data, first, n, at=None):
+    """``n`` training steps of the word-LM loop from batch ``first``: the
+    states carried and detached, the loss per token summed over the bptt
+    steps and averaged over the batch (PTB_MEDIUM), the gradients'
+    global norm clipped to 5, SGD.  ``at(step, i)`` is called at the
+    boundaries i = 0..4 around forward, backward, clip and update.
+    Returns the mean losses (on the card) and the norms."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    c = W.PTB_MEDIUM
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = list(net.collect_params().values())
+    hidden = net.begin_state(batch_size=c["batch_size"])
+    losses, norms = [], []
+    at = at or (lambda step, i: None)
+    for step in range(n):
+        x, y = _lm_batch(data, first + step)
+        hidden = W.detach(hidden)
+        at(step, 0)
+        with autograd.record():
+            out, hidden = net(x, hidden)
+            loss = loss_fn(out, y.reshape(-1))
+        losses.append(loss.detach().mean())
+        at(step, 1)
+        autograd.backward(loss)
+        at(step, 2)
+        norms.append(gluon.utils.clip_global_norm(
+            [p.grad for p in params], c["clip"] * c["batch_size"]))
+        at(step, 3)
+        trainer.step(c["batch_size"])
+        at(step, 4)
+    return losses, norms
+
+
+def _lm_timed(net, trainer, data, n, smi, tag):
+    """``n`` steps timed by CUDA events at the phase boundaries: the mean
+    step after LM_WARMUP and its split, tokens/s and peak memory.
+    Returns the step's ms, the losses and the norms."""
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+              for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms = _lm_steps(net, trainer, data, 0, n,
+                              lambda step, i: events[step][i].record())
+    torch.cuda.synchronize()
+    split = np.array([[a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+                      for ev in events[LM_WARMUP:]])
+    parts = split.mean(axis=0)
+    step_ms = split.sum(axis=1).mean()
+    tokens = W.PTB_MEDIUM["bptt"] * W.PTB_MEDIUM["batch_size"]
+    log("word LM: %s step %.3f ms on %s (mean of %d after %d warmup): %s; "
+        "%.0f tokens/s; peak memory %.3f GB" % (
+            tag, step_ms, smi, n - LM_WARMUP, LM_WARMUP,
+            ", ".join("%s %.3f ms" % kv for kv in zip(LM_PHASES, parts)),
+            tokens / step_ms * 1e3, torch.cuda.max_memory_allocated() / 1e9))
+    return step_ms, losses, norms
+
+
+def _lm_profile(run, smi, step_ms, tag, steps=3):
+    """Device time of a word-LM step by group and the device's busy
+    share from a torch.profiler trace of ``steps`` steps.  ``run(first,
+    n, at)`` runs n steps from batch ``first``, and ``at`` launches a
+    marker kernel (torch.cuda._sleep, a spin kernel) before each of a
+    step's four phases; the kernels of one stream run in order, so each
+    kernel belongs to the phase of the marker before it.  One more step
+    runs first in the same profiler session (its first events can be
+    lost); the timed steps' kernels start at the last 4 x ``steps``
+    markers.  A trace with fewer markers is reported, its groups not
+    measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def mark(_step, boundary):
+        if boundary < 4:  # before forward, backward, clip and update
+            torch.cuda._sleep(1)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(0, 1, mark)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(1, steps, mark)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [i for i, (_, _, name) in enumerate(spans)
+             if "spin_kernel" in name]
+    if len(marks) < 4 * steps:
+        log("word LM: %s, profiled %d steps on %s: the trace holds %d "
+            "device events and %d of %d phase markers: busy share and "
+            "time by group not measured" % (tag, steps + 1, smi,
+                                            len(spans), len(marks),
+                                            4 * steps + 4))
+        return
+    totals = dict.fromkeys([g for g, _ in LM_GROUPS] + ["clip",
+                                                        "optimizer"], 0.0)
+    busy, end, seen, kernels = 0.0, None, -1, 0
+    for t_start, t_end, name in spans[marks[-4 * steps]:]:
+        if "spin_kernel" in name:
+            seen += 1
+            continue
+        phase = LM_PHASES[seen % 4]
+        if phase in ("forward", "backward"):
+            group = next(g for g, keys in LM_GROUPS
+                         if any(k in name.lower() for k in keys))
+        else:
+            group = "clip" if phase == "clip" else "optimizer"
+        totals[group] += t_end - t_start
+        kernels += 1
+        if end is None or t_start > end:
+            busy += t_end - t_start
+            end = t_end
+        elif t_end > end:
+            busy += t_end - end
+            end = t_end
+    total = sum(totals.values())
+    log("word LM: %s, profiled %d steps on %s (%d of %d phase markers "
+        "seen): %.2f ms of wall, device busy %.1f %% of it; %.0f kernels a "
+        "step; device time a step %.3f ms (%.1f %% of the unprofiled step, "
+        "%.3f ms); by group: %s" % (
+            tag, steps, smi, len(marks), 4 * steps + 4, wall_us / 1e3,
+            100.0 * busy / wall_us, kernels / steps, total / steps / 1e3,
+            100.0 * total / steps / 1e3 / step_ms, step_ms,
+            ", ".join("%s %.3f ms (%.1f %%)" % (
+                g, t / steps / 1e3, 100.0 * t / total)
+                for g, t in totals.items())))
+
+
+def _lm_counters():
+    """Every hand kernel's launch counter, by the kernel's ID."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops import attention as A
+
+    counters = {"K3": A.flash_attention, "K4a": A.flash_attention_bwd_dq,
+                "K4b": A.flash_attention_bwd_dkv, "K5": rtc.CudaKernel}
+    for key, fn in _resnet_counters().items():
+        counters[{"pertap": "K1a", "im2col": "K1b", "maxpool": "K2",
+                  "batch_norm_fwd": "K6a",
+                  "batch_norm_bwd": "K6b"}[key]] = fn
+    return counters
+
+
+def lm_card_vs_cpu(seed, data):
+    """Phase 9a: the first batch at dropout 0, the same weights on the
+    card and on the CPU plain path: the loss and every parameter gradient
+    within GRAD_TOL of its largest magnitude.  Returns the card's
+    model."""
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    net = _word_lm("cuda", 0.0, seed)
+    x, y = _lm_batch(data, 0)
+    b = W.PTB_MEDIUM["batch_size"]
+    loss, _, _ = _lm_record(net, x, y, net.begin_state(batch_size=b))
+    got = {k: p.grad.clone() for k, p in net.collect_params().items()}
+    cpu = _lm_copy(net, "cpu", 0.0)
+    want_loss, _, _ = _lm_record(cpu, x.cpu(), y.cpu(), cpu.begin_state(
+        batch_size=b, device="cpu"))
+    errs = {"loss": _rel_err(loss.cpu(), want_loss)}
+    for k, p in cpu.collect_params().items():
+        errs[k] = _rel_err(got[k].cpu(), p.grad)
+    worst = max(errs, key=errs.get)
+    log("word LM: card vs CPU plain path at the first batch (35, 20), "
+        "dropout 0: loss %.6f vs %.6f; loss and %d gradients, worst %.3g of "
+        "the largest magnitude (%s; tol %.0e)" % (
+            loss.mean().item(), want_loss.mean().item(), len(got),
+            errs[worst], worst, GRAD_TOL))
+    if errs[worst] > GRAD_TOL or not np.isfinite(loss.mean().item()):
+        raise AssertionError("the word LM on the card disagrees with the "
+                             "CPU plain path")
+    return net
+
+
+def lm_hybrid_vs_eager(net, data):
+    """Phase 9b: two record/backward calls of a hybridized copy (the
+    whole model one captured forward and backward, the LSTM layer inside
+    it) against the eager model, the states carried: logits, states and
+    every gradient within LM_HYBRID_TOL of each largest magnitude."""
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    hyb = _lm_copy(net, "cuda", 0.0)
+    hyb.hybridize()
+    b = W.PTB_MEDIUM["batch_size"]
+    he, hh = net.begin_state(batch_size=b), hyb.begin_state(batch_size=b)
+    worst, name = 0.0, None
+    for call in range(2):
+        x, y = _lm_batch(data, call)
+        le, oe, he = _lm_record(net, x, y, W.detach(he))
+        lh, oh, hh = _lm_record(hyb, x, y, W.detach(hh))
+        errs = {"loss": _rel_err(lh, le), "logits": _rel_err(oh, oe),
+                "h": _rel_err(hh[0].detach(), he[0].detach()),
+                "c": _rel_err(hh[1].detach(), he[1].detach())}
+        grads = dict(hyb.collect_params().items())
+        for k, p in net.collect_params().items():
+            errs[k] = _rel_err(grads[k].grad, p.grad)
+        call_worst = max(errs, key=errs.get)
+        if errs[call_worst] >= worst:
+            worst, name = errs[call_worst], call_worst
+    (graph,) = hyb._cached_graphs.values()
+    log("word LM: hybridized model, 2 record/backward calls (states "
+        "carried) vs eager on the card: worst %.3g of the largest magnitude "
+        "(%s; tol %.0e); %d cached graph(s), %d forward replays, backward "
+        "graph %s" % (worst, name, LM_HYBRID_TOL, len(hyb._cached_graphs),
+                      graph.replays, graph.bwd is not None))
+    if worst > LM_HYBRID_TOL or graph.replays != 2 or graph.bwd is None:
+        raise AssertionError("the hybridized word LM disagrees with eager "
+                             "execution or did not replay its graphs")
+
+
+def lm_dropout_in_graphs():
+    """Phase 9c: dropout at p = 0.5 inside captured graphs, through the
+    Dropout layer and through the RNN op's inter-layer dropout (a 2-layer
+    relu RNN whose layer 0 gives ones and layer 1 is the identity, so its
+    output is the mask times 2): two replays draw other masks, each
+    keeping 0.5 within LM_KEEP_TOL."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    ones = torch.ones(35, 20, 650, device="cuda")
+    drop = nn.Dropout(0.5, device="cuda")
+    layer = rnn.RNN(650, 2, activation="relu", dropout=0.5, input_size=650,
+                    device="cuda")
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.zero_()
+        layer.l0_i2h_bias.fill_(1.0)
+        layer.l1_i2h_weight.copy_(torch.eye(650, device="cuda"))
+    for what, block in (("Dropout layer", drop), ("RNN op", layer)):
+        block.hybridize()
+        with autograd.train_mode():
+            outs = [block(ones) for _ in range(2)]
+        (graph,) = block._cached_graphs.values()
+        kept = [(o > 0).float().mean().item() for o in outs]
+        values = set(torch.unique(outs[0]).tolist())
+        log("word LM: %s at p = 0.5 in a captured graph: kept %.4f and "
+            "%.4f in 2 replays, masks differ %s, values %s" % (
+                what, kept[0], kept[1], not torch.equal(outs[0], outs[1]),
+                sorted(values)))
+        if graph.replays != 2 or torch.equal(outs[0], outs[1]) \
+                or any(abs(k - 0.5) > LM_KEEP_TOL for k in kept) \
+                or not values <= {0.0, 2.0}:
+            raise AssertionError("dropout in a captured graph repeats its "
+                                 "mask or keeps the wrong share")
+
+
+def lm_yardstick(seed, smi):
+    """Phase 9f, never on the path: the port's LSTM layer (2 layers, 650,
+    at (35, 20, 650)) forward plus backward, eager and hybridized, beside
+    torch.nn.LSTM (cuDNN) given the same weights; both times and the
+    largest differences of output and weight gradients."""
+    from mxnet_tpu_torch import autograd, initializer
+    from mxnet_tpu_torch.gluon import rnn
+
+    layer = rnn.LSTM(650, 2, input_size=650, device="cuda").initialize(
+        initializer.Uniform(0.05), seed=seed)
+    ref = torch.nn.LSTM(650, 650, num_layers=2).cuda()
+    with torch.no_grad():
+        for i in range(2):
+            for theirs, ours in (("weight_ih", "i2h_weight"),
+                                 ("weight_hh", "h2h_weight"),
+                                 ("bias_ih", "i2h_bias"),
+                                 ("bias_hh", "h2h_bias")):
+                getattr(ref, "%s_l%d" % (theirs, i)).copy_(
+                    getattr(layer, "l%d_%s" % (i, ours)))
+    rng = np.random.RandomState(seed + 9)
+    x = torch.from_numpy(rng.randn(35, 20, 650).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.randn(35, 20, 650).astype(np.float32)).cuda()
+    h0 = [torch.zeros(2, 20, 650, device="cuda") for _ in range(2)]
+
+    def ours(block):
+        with autograd.record():
+            out, _ = block(x, h0)
+        autograd.backward(out, g)
+        return out
+
+    def theirs():
+        ref.zero_grad()
+        out, _ = ref(x, tuple(h0))
+        out.backward(g)
+        return out
+
+    out_ours, out_ref = ours(layer).detach(), theirs().detach()
+    grad_err = max(
+        _rel_err(getattr(layer, "l%d_%s" % (i, o)).grad,
+                 getattr(ref, "%s_l%d" % (t, i)).grad)
+        for i in range(2) for t, o in (("weight_ih", "i2h_weight"),
+                                       ("weight_hh", "h2h_weight")))
+    ms_ours = time_ms(lambda: ours(layer), iters=10)
+    ms_ref = time_ms(theirs, iters=10)
+    hyb = rnn.LSTM(650, 2, input_size=650, device="cuda")
+    hyb.load_state_dict(layer.state_dict())
+    hyb.hybridize()
+    ms_hyb = time_ms(lambda: ours(hyb), iters=10)
+    log("word LM: yardstick (not on the path), LSTM 2 x 650 at (35, 20, "
+        "650) forward + backward on %s: the port's layer %.3f ms eager, "
+        "%.3f ms hybridized (captured); torch.nn.LSTM (cuDNN) %.3f ms; "
+        "largest difference: output %.3g (%.3g of its largest magnitude), "
+        "weight gradients %.3g of their largest magnitude" % (
+            smi, ms_ours, ms_hyb, ms_ref,
+            (out_ours - out_ref).abs().max().item(),
+            _rel_err(out_ours, out_ref), grad_err))
+
+
+def word_lm(seed, smi):
+    """Phase 9: PTB_MEDIUM's word LM (vocab 10000, 650/650, 2 layers,
+    bptt 35, batch 20, dropout 0.5) on the card."""
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.gluon.model_zoo import word_lm as W
+
+    mx_random.seed(seed)  # the dropout masks' stream
+    data = _lm_data(seed, LM_STEPS)
+    net = lm_card_vs_cpu(seed, data)
+    lm_hybrid_vs_eager(net, data)
+    del net
+    lm_dropout_in_graphs()
+
+    # the eager loop, timed
+    eager = _word_lm("cuda", 0.5, seed)
+    trainer = _lm_trainer(eager)
+    eager_ms, _, _ = _lm_timed(eager, trainer, data, LM_EAGER_STEPS, smi,
+                               "eager")
+    _lm_profile(lambda first, n, at: _lm_steps(eager, trainer, data, first,
+                                               n, at), smi, eager_ms, "eager")
+    del eager, trainer
+
+    # the main path: the hybridized model, its Trainer built before the
+    # first forward gives the deferred widths
+    model = _word_lm("cuda", 0.5, seed)
+    trainer = _lm_trainer(model)
+    model.hybridize()
+    counters = _lm_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hyb_ms, losses, norms = _lm_timed(model, trainer, data, LM_STEPS, smi,
+                                      "hybridized")
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    # ---- end of the main path
+    losses = np.array([v.item() for v in losses])
+    first = float(np.exp(losses[:LM_PPL_WINDOW].mean()))
+    last = float(np.exp(losses[-LM_PPL_WINDOW:].mean()))
+    c = W.PTB_MEDIUM
+    clipped = sum(n > c["clip"] * c["batch_size"] for n in norms)
+    log("word LM: %d hybridized steps (SGD lr %g, clip %g) on the synthetic "
+        "corpus: perplexity of the first %d batches %.1f, of the last %d "
+        "%.1f; loss %.4f -> %.4f; the clip rescaled %d of %d steps; %.2f s "
+        "wall on %s" % (LM_STEPS, c["lr"], c["clip"], LM_PPL_WINDOW, first,
+                        LM_PPL_WINDOW, last, losses[0], losses[-1], clipped,
+                        LM_STEPS, wall, smi))
+    if not np.all(np.isfinite(losses)) or not last < first:
+        raise AssertionError("the word LM's loss is not finite or its "
+                             "perplexity did not fall")
+    log("word LM: launches of the port's hand kernels on the main path: "
+        "%s (the path runs none of K1-K6)" % launched)
+    if any(launched.values()):
+        raise AssertionError("the word-LM path launched a hand kernel")
+    (graph,) = model._cached_graphs.values()
+    log("word LM: the model is %d cached graph(s), %d calls, %d forward "
+        "replays" % (len(model._cached_graphs), graph.calls, graph.replays))
+    _lm_profile(lambda first, n, at: _lm_steps(model, trainer, data, first,
+                                               n, at), smi, hyb_ms,
+                "hybridized")
+    del model, trainer
+    lm_yardstick(seed, smi)
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2952,6 +3433,7 @@ def main():
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
     lenet_launches = phase("8 symbolic", symbolic, args.seed, smi)
+    phase("9 word LM", word_lm, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     plan_route=fwd_kernel_plan(UNITS // HEADS,

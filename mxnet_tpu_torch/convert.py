@@ -25,7 +25,11 @@ def load_mxnet_tpu_params(module, params):
     ``params``: a dict of structural name -> array (numpy, or anything
     ``numpy.asarray`` takes), or the path of a ``save_parameters`` npz file.
     Raises :class:`MXNetError` on any missing or extra name and on any
-    shape mismatch, before anything is copied."""
+    shape mismatch, before anything is copied.  A deferred parameter
+    (:class:`~mxnet_tpu_torch.gluon.block.DeferredParameter`) takes the
+    array's shape where its known dimensions agree."""
+    from .gluon.block import is_deferred, materialize
+
     if isinstance(params, (str, os.PathLike)):
         params = read_npz(params)
     if not isinstance(params, dict):
@@ -39,12 +43,21 @@ def load_mxnet_tpu_params(module, params):
     arrays = {}
     for name, target in own.items():
         arr = np.asarray(params[name])
-        if tuple(arr.shape) != tuple(target.shape):
+        if is_deferred(target):
+            want = target.declared_shape
+            fits = len(arr.shape) == len(want) and all(
+                w in (0, a) for w, a in zip(want, arr.shape))
+        else:
+            want = tuple(target.shape)
+            fits = tuple(arr.shape) == want
+        if not fits:
             raise MXNetError("parameter %s: shape %s, expected %s"
-                             % (name, arr.shape, tuple(target.shape)))
+                             % (name, arr.shape, want))
         arrays[name] = arr
     with torch.no_grad():
         for name, target in own.items():
+            if is_deferred(target):
+                materialize(target, arrays[name].shape)
             src = np.require(arrays[name], requirements=["C", "W"])
             target.copy_(torch.from_numpy(src))
     return module

@@ -12,7 +12,11 @@ Parameters are allocated on the block's device at construction (the
 default-device rule of :mod:`..context`) and filled by
 :meth:`Block.initialize` from a numpy seed.  Each is a :class:`Parameter`,
 an ``nn.Parameter`` that also carries the JAX package's ``grad_req``,
-``lr_mult`` and ``wd_mult``.
+``lr_mult`` and ``wd_mult``.  A width given as 0 (a layer's
+``in_units=0``: the JAX package's deferred initialization,
+``mxnet_tpu/gluon/parameter.py:141-158``) makes a
+:class:`DeferredParameter`, PyTorch's ``UninitializedParameter``, which
+the layer materializes in place from its first input's shape.
 
 A block runs with PyTorch's grad mode set to
 :func:`~mxnet_tpu_torch.autograd.is_recording`: called outside
@@ -35,6 +39,7 @@ import os
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
 from .. import _capture
 from .. import autograd as _autograd
@@ -43,7 +48,7 @@ from .. import ndarray
 from ..base import MXNetError
 from ..context import resolve_device
 
-__all__ = ["Block", "HybridBlock", "Parameter"]
+__all__ = ["Block", "HybridBlock", "Parameter", "DeferredParameter"]
 
 _cast_generation = 0  # Block.cast calls so far
 
@@ -77,9 +82,59 @@ class Parameter(nn.Parameter):
         if req not in ("write", "add", "null"):
             raise ValueError("invalid grad_req %r" % (req,))
         self._grad_req = req
-        self.requires_grad_(req != "null")
+        self.requires_grad = req != "null"
         if req == "null":
             self.grad = None
+
+
+class DeferredParameter(UninitializedParameter, Parameter):
+    """A :class:`Parameter` whose shape waits for the first input
+    (reference: deferred initialization).  ``declared_shape`` holds the
+    known dimensions and 0 for each unknown one.  :func:`materialize`
+    turns it, the same Python object, into a :class:`Parameter`, so the
+    Trainer, ``collect_params()`` and captured programs that hold it keep
+    holding it; ``grad_req``, ``init``, ``lr_mult`` and ``wd_mult`` stay."""
+
+    cls_to_become = Parameter
+
+
+def materialize(p, shape):
+    """Give the deferred parameter ``p`` its ``shape`` (each known
+    dimension must agree) and fill it: by the initializer that
+    :meth:`Block.initialize` recorded, else with zeros, as a parameter
+    that was never initialized holds."""
+    shape = tuple(int(s) for s in shape)
+    declared = p.declared_shape
+    if len(shape) != len(declared) or any(
+            d and d != s for d, s in zip(declared, shape)):
+        raise MXNetError("a deferred parameter of shape %s cannot take the "
+                         "shape %s" % (declared, shape))
+    pending = getattr(p, "_pending_init", None)
+    p.materialize(shape)
+    p._pending_init = None
+    with torch.no_grad():
+        if pending is None:
+            p.zero_()
+        else:
+            init, name, rng = pending
+            p.copy_(torch.from_numpy(_draw(p, name, init, rng)))
+
+
+def _draw(p, name, init, rng):
+    """``p``'s initial values: its own initializer where its layer was
+    given one, else ``init`` by the name's suffix."""
+    arr = np.zeros(tuple(p.shape), dtype=np.float32)
+    own = getattr(p, "init", None)
+    if own is None:
+        init(name, arr, rng)
+    else:
+        _init.create(own)._init_weight(arr, rng)
+    return arr
+
+
+def is_deferred(p):
+    """Whether ``p`` still waits for its shape."""
+    return isinstance(p, DeferredParameter)
 
 
 class Block(nn.Module):
@@ -98,11 +153,24 @@ class Block(nn.Module):
     def _param(self, name, shape, dtype="float32", init=None):
         """Register a parameter ``name`` of ``shape`` and ``dtype``;
         ``init`` (an initializer or its name) fills it in
-        :meth:`initialize` in place of the block-wide one."""
-        p = Parameter(torch.zeros(shape, dtype=getattr(torch, str(dtype)),
-                                  device=self.device))
+        :meth:`initialize` in place of the block-wide one.  A 0 in
+        ``shape`` makes a :class:`DeferredParameter`."""
+        dt = getattr(torch, str(dtype))
+        if 0 in tuple(shape):
+            p = DeferredParameter(device=self.device, dtype=dt)
+            p.declared_shape = tuple(shape)
+        else:
+            p = Parameter(torch.zeros(shape, dtype=dt, device=self.device))
         p.init = init
         self.register_parameter(name, p)
+
+    def _finish_deferred(self, **shapes):
+        """Materialize each deferred parameter named in ``shapes`` (name ->
+        shape); a parameter that has its shape already is left alone."""
+        for name, shape in shapes.items():
+            p = self._parameters[name]
+            if is_deferred(p):
+                materialize(p, shape)
 
     def __call__(self, *args, **kwargs):
         with torch.set_grad_enabled(_autograd.is_recording()):
@@ -120,18 +188,18 @@ class Block(nn.Module):
         by its name's suffix: weights from ``init`` (default
         ``Uniform()``), biases and betas with zeros, gammas with ones.
         The draws come from
-        ``numpy.random.RandomState(seed)`` in registration order."""
+        ``numpy.random.RandomState(seed)`` in registration order; a
+        deferred parameter draws when it is materialized, from
+        ``RandomState([seed, i])``, ``i`` its place in that order."""
         rng = np.random.RandomState(seed)
         init = init or _init.Uniform()
         with torch.no_grad():
-            for name, p in self.named_parameters():
-                arr = np.zeros(tuple(p.shape), dtype=np.float32)
-                own = getattr(p, "init", None)
-                if own is None:
-                    init(name, arr, rng)
-                else:
-                    _init.create(own)._init_weight(arr, rng)
-                p.copy_(torch.from_numpy(arr))
+            for i, (name, p) in enumerate(self.named_parameters()):
+                if is_deferred(p):
+                    p._pending_init = (init, name,
+                                       np.random.RandomState([seed, i]))
+                    continue
+                p.copy_(torch.from_numpy(_draw(p, name, init, rng)))
         return self
 
     def zero_grad(self, set_to_none=False):
@@ -169,7 +237,14 @@ class Block(nn.Module):
     def save_parameters(self, filename):
         """Write the parameters by structural name in the npz format the
         JAX package reads (through a temporary file and a rename, so a
-        crash never leaves a torn file under ``filename``)."""
+        crash never leaves a torn file under ``filename``).  Raises
+        :class:`MXNetError` while a parameter's shape is deferred."""
+        deferred = [k for k, p in self.collect_params().items()
+                    if is_deferred(p)]
+        if deferred:
+            raise MXNetError(
+                "cannot save parameters %s: their shapes wait for the first "
+                "input (run a forward first)" % ", ".join(deferred))
         tmp = "%s.tmp%d" % (filename, os.getpid())
         ndarray.save(tmp, {k: v for k, v in self.collect_params().items()})
         os.replace(tmp, filename)
@@ -214,6 +289,11 @@ def _unflatten(flat, tree):
     return build(tree)
 
 
+def _freeze(tree):
+    """A :func:`_flatten` tree as a hashable key."""
+    return None if tree is None else tuple(_freeze(t) for t in tree)
+
+
 class _Replay(torch.autograd.Function):
     """A recording call of a :class:`_CachedGraph`: the forward graph's
     replay, whose backward is the backward graph's.  Inputs: the graph,
@@ -252,15 +332,17 @@ class _CachedGraph:
     else it raises.  On the CPU the block runs eagerly.  ``calls`` counts
     the calls, ``replays`` the forward replays."""
 
-    def __init__(self, block, args, recording):
+    def __init__(self, block, args, recording, in_tree):
         self.block, self.recording = block, recording
+        self.in_tree = in_tree
         self.device = args[0].device
         self.calls = self.replays = self.generation = 0
         self.fwd = self.bwd = None
 
     def _forward(self, args):
         with _capture.staging():
-            return nn.Module.__call__(self.block, *args)
+            return nn.Module.__call__(self.block,
+                                      *_unflatten(args, self.in_tree))
 
     def __call__(self, args):
         self.calls += 1
@@ -364,7 +446,8 @@ class HybridBlock(Block):
 
     def hybridize(self, active=True, **flags):
         """Cache one :class:`_CachedGraph` per (argument shapes, dtypes
-        and gradient flags, device, train mode, recording); ``active=False``
+        and gradient flags, device, train mode, recording, and the nesting
+        of list arguments such as an RNN's states); ``active=False``
         runs eagerly again.  Calling it again, or :meth:`cast`, clears the
         cache.  The flags (``static_alloc``, ``static_shape``, ...) are
         accepted and change nothing: a captured graph is static in both."""
@@ -385,16 +468,28 @@ class HybridBlock(Block):
         return self._cached_graphs
 
     def _call_cached(self, *args, **kwargs):
-        if kwargs or not args or not all(isinstance(a, torch.Tensor)
-                                         for a in args):
+        try:
+            flat, tree = _flatten(list(args))
+        except MXNetError:
+            flat = None
+        if kwargs or not flat:
             raise MXNetError("a hybridized %s takes tensors as positional "
-                             "arguments only" % type(self).__name__)
+                             "arguments only (or nested lists of them, as "
+                             "an RNN's states)" % type(self).__name__)
         recording = _autograd.is_recording()
         key = (tuple((tuple(a.shape), a.dtype, recording and a.requires_grad)
-                     for a in args),
-               args[0].device, _autograd.is_training(), recording)
+                     for a in flat),
+               flat[0].device, _autograd.is_training(), recording,
+               _freeze(tree))
         graphs = self._graphs()
         graph = graphs.get(key)
         if graph is None:
-            graph = graphs[key] = _CachedGraph(self, args, recording)
-        return graph(args)
+            if any(is_deferred(p) for p in self.parameters()):
+                # one eager pass in predict mode, unrecorded, gives the
+                # deferred parameters their shapes (no dropout drawn, no
+                # running statistics moved), as the JAX package's
+                # _call_cached does before it stages the program
+                with _autograd.pause(), _capture.staging():
+                    nn.Module.__call__(self, *args)
+            graph = graphs[key] = _CachedGraph(self, flat, recording, tree)
+        return graph(flat)

@@ -3,12 +3,15 @@
 Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` HybridSequential,
 Dense, Activation, Dropout, BatchNorm, LayerNorm and Embedding, with the
 same parameter names, layouts and positional argument order (``device``
-comes last, as a keyword).  The JAX package infers an input width on the
-first call (deferred init); the port takes it at construction
-(``in_units``, ``in_channels``).
+comes last, as a keyword).  An input width left at 0 (``in_units``,
+``in_channels``) is taken from the first input, as the JAX package's
+``infer_shape`` does: the parameter is a
+:class:`~mxnet_tpu_torch.gluon.block.DeferredParameter` until then.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,18 +19,11 @@ from ... import autograd as _autograd
 from ...base import MXNetError
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
-from ..block import HybridBlock
+from ..block import HybridBlock, is_deferred
 from ..block import _dtype as _block_dtype
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Dropout", "BatchNorm",
            "LayerNorm", "Embedding"]
-
-
-def _width(value, what):
-    if value <= 0:
-        raise ValueError("%s must be given: the port has no deferred "
-                         "shape inference" % what)
-    return value
 
 
 class HybridSequential(HybridBlock):
@@ -54,9 +50,9 @@ class Dense(HybridBlock):
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, *, device=None):
         super().__init__(device=device)
+        self._units = units
         self._flatten = flatten
-        self._param("weight", (units, _width(in_units, "in_units")), dtype,
-                    weight_initializer)
+        self._param("weight", (units, in_units), dtype, weight_initializer)
         if use_bias:
             self._param("bias", (units,), dtype, bias_initializer)
         else:
@@ -64,6 +60,10 @@ class Dense(HybridBlock):
         self.act = Activation(activation) if activation is not None else None
 
     def forward(self, x):
+        if is_deferred(self.weight):
+            in_units = math.prod(x.shape[1:]) if self._flatten \
+                else x.shape[-1]
+            self._finish_deferred(weight=(self._units, in_units))
         out = _ops.fully_connected(x, self.weight, self.bias,
                                    flatten=self._flatten)
         return self.act(out) if self.act is not None else out
@@ -126,7 +126,7 @@ class BatchNorm(HybridBlock):
         self._epsilon = epsilon
         self._scale = scale
         self._use_global_stats = use_global_stats
-        c = _width(in_channels, "in_channels")
+        c = in_channels
         for name, init in (("gamma", gamma_initializer),
                            ("beta", beta_initializer),
                            ("running_mean", running_mean_initializer),
@@ -138,6 +138,10 @@ class BatchNorm(HybridBlock):
         self.running_var.grad_req = "null"
 
     def forward(self, x):
+        if is_deferred(self.gamma):
+            c = (x.shape[self._axis],)
+            self._finish_deferred(gamma=c, beta=c, running_mean=c,
+                                  running_var=c)
         train_stats = _autograd.is_training() and not self._use_global_stats
         return _ops.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
@@ -154,7 +158,8 @@ class BatchNorm(HybridBlock):
 
     def __repr__(self):
         return "BatchNorm(axis=%s, momentum=%s, eps=%s, in_channels=%s)" % (
-            self._axis, self._momentum, self._epsilon, self.gamma.shape[0])
+            self._axis, self._momentum, self._epsilon,
+            0 if is_deferred(self.gamma) else self.gamma.shape[0])
 
 
 class LayerNorm(HybridBlock):
@@ -169,13 +174,15 @@ class LayerNorm(HybridBlock):
         super().__init__(device=device)
         self._axis = axis
         self._epsilon = epsilon
-        c = _width(in_channels, "in_channels")
-        self._param("gamma", (c,), init=gamma_initializer)
-        self._param("beta", (c,), init=beta_initializer)
+        self._param("gamma", (in_channels,), init=gamma_initializer)
+        self._param("beta", (in_channels,), init=beta_initializer)
         self.gamma.grad_req = "write" if scale else "null"
         self.beta.grad_req = "write" if center else "null"
 
     def forward(self, x):
+        if is_deferred(self.gamma):
+            c = (x.shape[self._axis],)
+            self._finish_deferred(gamma=c, beta=c)
         return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                                eps=self._epsilon)
 

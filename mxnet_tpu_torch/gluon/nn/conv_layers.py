@@ -5,7 +5,8 @@ Counterparts of ``mxnet_tpu/gluon/nn/conv_layers.py`` ``_Conv``,
 the same parameter names.  The port takes the
 channel-last layout only (``layout="NHWC"``, OHWI weights; any other
 layout raises :class:`~mxnet_tpu_torch.base.MXNetError`), groups 1 and
-dilation 1, and the input width at construction (``in_channels``).  On
+dilation 1; ``in_channels=0`` takes the input width from the first
+input.  On
 the card a convolution's weight-gradient runs kernels K1a/K1b and a max
 pool's input-gradient kernel K2 (:mod:`~mxnet_tpu_torch.ops.nn`).
 """
@@ -16,8 +17,8 @@ from torch import nn
 
 from ...base import MXNetError
 from ...ops import nn as _ops
-from ..block import HybridBlock
-from .basic_layers import Activation, _width
+from ..block import HybridBlock, is_deferred
+from .basic_layers import Activation
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
 
@@ -44,8 +45,7 @@ class _Conv(HybridBlock):
             raise MXNetError("%s: the port takes groups=1 and dilation=1"
                              % type(self).__name__)
         self._param("weight", (channels,) + self._kwargs["kernel"]
-                    + (_width(in_channels, "in_channels"),),
-                    init=weight_initializer)
+                    + (in_channels,), init=weight_initializer)
         if use_bias:
             self._param("bias", (channels,), init=bias_initializer)
         else:
@@ -53,6 +53,9 @@ class _Conv(HybridBlock):
         self.act = Activation(activation) if activation is not None else None
 
     def forward(self, x):
+        if is_deferred(self.weight):
+            self._finish_deferred(weight=(self._kwargs["num_filter"],)
+                                  + self._kwargs["kernel"] + (x.shape[-1],))
         out = _ops.convolution(x, self.weight, self.bias, **self._kwargs)
         return self.act(out) if self.act is not None else out
 

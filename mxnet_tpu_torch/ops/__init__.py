@@ -3,7 +3,7 @@ the JAX package's names (:mod:`.registry`), and the wrappers of the
 hand-written kernels."""
 
 from . import (attention, conv_dw, elemwise, init_ops, matrix, nn,
-               optimizer_ops, pool_bwd, reduce, registry)
+               optimizer_ops, pool_bwd, reduce, registry, rnn)
 
 __all__ = ["attention", "conv_dw", "elemwise", "init_ops", "matrix", "nn",
-           "optimizer_ops", "pool_bwd", "reduce", "registry"]
+           "optimizer_ops", "pool_bwd", "reduce", "registry", "rnn"]

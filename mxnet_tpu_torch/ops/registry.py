@@ -44,6 +44,7 @@ OP_INPUT_NAMES = {
     "LinearRegressionOutput": ("data", "label"),
     "MAERegressionOutput": ("data", "label"),
     "LogisticRegressionOutput": ("data", "label"),
+    "RNN": ("data", "parameters", "state", "state_cell"),
 }
 
 # Inputs that are auxiliary states: no gradient, updated by the executor

@@ -43,7 +43,7 @@ from .. import _capture
 from .. import autograd as _autograd
 from ..base import MXNetError
 from ..context import resolve_device
-from ..gluon.block import cast_generation
+from ..gluon.block import cast_generation, is_deferred
 
 __all__ = ["GluonTrainStep", "sgd_momentum_update"]
 
@@ -150,6 +150,10 @@ class GluonTrainStep:
         self.device = resolve_device(device)
         params = block.collect_params()
         for name, p in params.items():
+            if is_deferred(p):
+                raise MXNetError("parameter %s waits for its shape: run a "
+                                 "forward of the block before building its "
+                                 "step" % name)
             if p.device != self.device:
                 raise MXNetError("parameter %s lives on %s, not on the "
                                  "step's device %s" % (name, p.device,

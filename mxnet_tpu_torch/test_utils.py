@@ -273,6 +273,32 @@ OP_CASES.update({
     "BatchNorm/nhwc": ([("f", (2, 4, 5, 3)), ("f", (3,)), ("f", (3,)),
                         ("f", (3,)), ("u", (3,), 0.5, 2.0)],
                        {"fix_gamma": False, "axis": -1}),
+    # the recurrent op: packed cuDNN-layout parameters, (T, N, C) data
+    "RNN": ([("f", (5, 3, 4)), ("u", (624,), -0.5, 0.5), ("f", (2, 3, 6)),
+             ("f", (2, 3, 6))],
+            {"state_size": 6, "num_layers": 2, "mode": "lstm",
+             "state_outputs": True}),
+    "RNN/gru-bidirectional": ([("f", (5, 3, 4)), ("u", (432,), -0.5, 0.5),
+                               ("f", (2, 3, 6))],
+                              {"state_size": 6, "mode": "gru",
+                               "bidirectional": True,
+                               "state_outputs": True}),
+    "RNN/relu-2-bidirectional": ([("f", (5, 3, 4)),
+                                  ("u", (384,), -0.5, 0.5),
+                                  ("f", (4, 3, 6))],
+                                 {"state_size": 6, "num_layers": 2,
+                                  "mode": "rnn_relu",
+                                  "bidirectional": True}),
+    "RNN/tanh": ([("f", (5, 3, 4)), ("u", (72,), -0.5, 0.5),
+                  ("f", (1, 3, 6))], {"state_size": 6, "mode": "rnn_tanh",
+                                      "state_outputs": True}),
+    # the cell state clipped every step, a batch-1 state broadcast
+    "RNN/lstm-clip-batch1": ([("f", (5, 3, 4)), ("u", (288,), -0.5, 0.5),
+                              ("f", (1, 1, 6)), ("f", (1, 1, 6))],
+                             {"state_size": 6, "mode": "lstm",
+                              "state_outputs": True,
+                              "lstm_state_clip_min": -0.3,
+                              "lstm_state_clip_max": 0.3}),
     # optimizer updates
     "sgd_update": ([_F, _F], {"lr": 0.1, "wd": 1e-3, "clip_gradient": 0.5}),
     "sgd_mom_update": ([_F, _F, _F], {"lr": 0.1, "momentum": 0.9,

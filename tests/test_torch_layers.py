@@ -120,8 +120,10 @@ def test_layers_hold_jax_names_and_layouts():
     emb = tgnn.Embedding(10, 3, device="cpu").initialize(seed=3)
     w = emb.weight.detach().numpy()
     assert np.abs(w).max() <= 0.07 and np.abs(w).max() > 0  # Uniform(0.07)
-    with pytest.raises(ValueError):
-        tgnn.Dense(4, device="cpu")  # no deferred input width in the port
+    lazy = tgnn.Dense(4, device="cpu")  # the width comes at the first call
+    out = lazy(torch.ones(2, 3, 5))  # flattened: 3 * 5 inputs
+    assert tuple(lazy.weight.shape) == (4, 15)
+    assert tuple(out.shape) == (2, 4)
 
 
 @pytest.mark.parametrize("fmt", ["dict", "list"])
