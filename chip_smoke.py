@@ -38,7 +38,8 @@ Phases (any failure raises, and the script exits non-zero):
    ResNet-50 at batch 128 in bf16 (the tensor-core kernel), at two of
    them in float32 too (the CUDA-core kernel), at three in float16 (the
    tensor-core kernel's f16 instances) and at a ragged shape in bf16 and
-   float32, and at LeNet's two convolutions in float32 (phase 8's); the
+   float32, at LeNet's two convolutions in float32 (phase 8's) and the
+   ConvLSTM cell's two (phase 10's); the
    max-pool backward K2 at the stem pool's shape in bf16,
    float32 and float16, at an all-ties input, an odd shape (C = 5, the
    scalar path), 2x2/s2, 3x3/s1/p1 and 7x7 windows, NaN inputs,
@@ -165,7 +166,35 @@ Phases (any failure raises, and the script exits non-zero):
    device time by group; (f) a yardstick off the path: the port's LSTM
    layer forward + backward at (35, 20, 650) eager and hybridized beside
    torch.nn.LSTM (cuDNN) with the same weights, times and largest
-   differences.
+   differences;
+10. bucketing: example/rnn/bucketing/lstm_bucketing.py's model (an
+   Embedding, a SequentialRNNCell of 2 LSTMCells of 200 unrolled into the
+   symbol, FullyConnected over the vocabulary of 10000, SoftmaxOutput) at
+   the upstream example's widths (embedding 200, batch 32, buckets 10 to
+   60, SGD lr 0.01, momentum 0, wd 1e-5, Xavier(factor_type "in",
+   magnitude 2.34)) through mx.rnn.BucketSentenceIter and
+   mx.mod.BucketingModule on a seeded synthetic corpus (noisy ring walks
+   of 2-60 tokens, the noise a Zipf law over the ids): (1) the first
+   batch at bucket 10 on the card against the CPU plain path (the loss and
+   every gradient within 1e-3 of its largest magnitude); (2) at every
+   bucket one captured forward_backward + update against the eager
+   program from the same state, bitwise, each bucket's bind and first
+   (capture) batch timed, then each bucket's step captured and eager by
+   CUDA events, and bucket 60 under torch.profiler (busy share, kernels a
+   batch); (3) the main path: BucketingModule.fit over one pass with a
+   validation iterator and Perplexity(0): 6 buckets, one captured graph
+   each, every parameter shared by storage with the default bucket's
+   executor, no parameter copied between the host and the card after the
+   first, the perplexity of the last 20 batches below the first 20's, no
+   hand kernel launched; tokens/s, valid and padded, peak memory and a
+   fit batch's host time by call; (4) the FusedRNNCell form (the RNN op,
+   upstream's cudnn_rnn_bucketing.py) against its unfuse() stack, weights
+   carried through unpack_weights/pack_weights, within 1e-5 over 3
+   batches at buckets 10 and 60, both timed; (5) a ConvLSTMCell unrolled
+   over 4 steps ((8, 3, 16, 16) maps, 16 hidden channels) through a
+   captured executor against the CPU (gradients within 1e-3), its K1b
+   launches counted over the main path and in a trace of 3 replays (the
+   kernels line's path bucketing_convlstm).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -221,6 +250,14 @@ TRAIN_BATCH, TRAIN_STEPS, WARMUP_STEPS = 8, 10, 2
 SYM_BATCH = 64
 LENET_CONVS = [((SYM_BATCH, 28, 28, 1), (5, 5), (1, 1), (0, 0), 20),
                ((SYM_BATCH, 12, 12, 20), (5, 5), (1, 1), (0, 0), 50)]
+
+
+# phase 10: the ConvLSTM cell's unroll (NCHW, float32): batch, input
+# channels, map size, hidden channels, steps; its i2h and h2h convolutions
+# as (NHWC x, kernel, stride, pad, O) with their launches a backward
+CONVLSTM = dict(batch=8, channels=3, size=16, hidden=16, steps=4)
+CONVLSTM_CONVS = [
+    (((8, 16, 16, c), (3, 3), (1, 1), (1, 1), 64), 4) for c in (3, 16)]
 
 
 def log(*args):
@@ -1179,15 +1216,18 @@ def conv_kernels(seed):
     f16 = [convs[0]] + [c for c in counts if c[1] == (3, 3)
                         and c[0][3] in (64, 512) and c[2] == (1, 1)]
     cases += [(c, torch.float16, C.formulation(c[0][3]), 0) for c in f16]
-    # LeNet's two convolutions (phase 8), float32, one launch each a batch
+    # LeNet's two convolutions (phase 8) and the ConvLSTM cell's two
+    # (phase 10), float32, the symbolic paths' shapes
     cases += [(c, torch.float32, C.formulation(c[0][3]), 0)
-              for c in LENET_CONVS]
+              for c in LENET_CONVS + [c for c, _ in CONVLSTM_CONVS]]
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                        library_ms=0.0, launches_per_step=0,
                        bound_by=set()) for form in ("pertap", "im2col")}
     lenet = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=0.0, bound_by=set())
+    convlstm = dict(lenet, bound_by=set())
+    convlstm_per_call = dict(CONVLSTM_CONVS)
     ws_most = 0
     for (xs, k, s, p, o), dt, form, per_step in cases:
         n, h, w, _ = xs
@@ -1238,22 +1278,27 @@ def conv_kernels(seed):
                                  % (form, xs))
         row = rows[form]
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if (xs, k, s, p, o) in LENET_CONVS and dt == torch.float32:
-            # phase 8 replays these in a captured graph: device times
+        conv = (xs, k, s, p, o)
+        if dt == torch.float32 and (conv in LENET_CONVS
+                                    or conv in convlstm_per_call):
+            # phases 8 and 10 replay these in captured graphs: device
+            # times, summed over a LeNet batch or a ConvLSTM backward
             g = [graph_ms(f) for f in (
                 fn, lambda: C.conv_dw_reference(x, dy, k, s, p),
                 lambda: torch.ops.aten.convolution_backward(
                     _nchw(dy), _nchw(x), _nchw(wt), None, s, p, (1, 1),
                     False, (0, 0), 1, (False, True, False)))]
-            log("kernel conv_dw im2col [LeNet x %s O %d]: in graph replays "
+            what, sums, n = ("LeNet", lenet, 1) if conv in LENET_CONVS \
+                else ("ConvLSTM", convlstm, convlstm_per_call[conv])
+            log("kernel conv_dw im2col [%s x %s O %d]: in graph replays "
                 "kernel %.4f ms (%.1f %% of the bound), plain %.4f ms, cuDNN "
-                "wgrad %.4f ms" % (xs, o, g[0], 100.0 * bound / g[0], g[1],
-                                   g[2]))
-            lenet["max_abs_err"] = max(lenet["max_abs_err"], err)
+                "wgrad %.4f ms" % (what, xs, o, g[0], 100.0 * bound / g[0],
+                                   g[1], g[2]))
+            sums["max_abs_err"] = max(sums["max_abs_err"], err)
             for key, v in (("ms", g[0]), ("plain_ms", g[1]),
                            ("bound_ms", bound), ("library_ms", g[2])):
-                lenet[key] += v
-            lenet["bound_by"].add(bound_by)
+                sums[key] += n * v
+            sums["bound_by"].add(bound_by)
         if per_step:
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("bound_ms", bound), ("library_ms", lib_ms)):
@@ -1276,7 +1321,14 @@ def conv_kernels(seed):
         "bound %.4f ms"
         % (lenet["ms"], lenet["plain_ms"], lenet["library_ms"],
            lenet["bound_ms"]))
-    return rows, lenet
+    convlstm["bound_by"] = "+".join(sorted(convlstm.pop("bound_by")))
+    log("kernel conv_dw im2col over one ConvLSTM backward (%d launches, "
+        "float32; graph replays): kernel %.4f ms, plain %.4f ms, cuDNN wgrad "
+        "%.4f ms, bound %.4f ms" % (
+            sum(convlstm_per_call.values()), convlstm["ms"],
+            convlstm["plain_ms"], convlstm["library_ms"],
+            convlstm["bound_ms"]))
+    return rows, lenet, convlstm
 
 
 def maxpool_bound_ms(xs, dys, dtype):
@@ -3407,6 +3459,552 @@ def word_lm(seed, smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- bucketing
+
+# phase 10: example/rnn/bucketing/lstm_bucketing.py at the widths of the
+# upstream MXNet example (--num-layers 2 --num-hidden 200 --num-embed 200
+# --batch-size 32, buckets 10-60, invalid label 0, SGD lr 0.01, momentum
+# 0, wd 1e-5, Xavier(factor_type="in", magnitude=2.34)), PTB's vocabulary
+BK_VOCAB, BK_EMBED, BK_HIDDEN, BK_LAYERS, BK_BATCH = 10000, 200, 200, 2, 32
+BK_BUCKETS = [10, 20, 30, 40, 50, 60]
+BK_SGD = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+# the synthetic corpus: sentences of 2-60 tokens, ring walks whose next
+# token is the last plus one, or (with BK_NOISE) an id drawn from a Zipf
+# law over the ids (rank = id); training and validation sentences
+BK_NOISE, BK_ZIPF = 0.15, 1.0
+BK_TRAIN, BK_VAL = 12800, 1280
+BK_PPL_WINDOW = 20
+# the card vs the CPU (share of each largest magnitude), the fused cell
+# vs its unfused stack
+BK_GRAD_TOL, BK_FUSED_TOL = 1e-3, 1e-5
+BK_GROUPS = (("matrix products", ("gemm", "gemv", "splitk", "xmma",
+                                  "cutlass")),
+             ("softmax", ("softmax",)),
+             ("element-wise (gates, their gradients, the update)",
+              ("elementwise", "vectorized", "reduce", "fill", "copy",
+               "memcpy", "memset", "cat", "index")))
+
+
+def _bk_corpus(n, seed):
+    """``n`` sentences of 2-60 token ids: noisy ring walks over the
+    vocabulary (lstm_bucketing.py's synthetic corpus, 0 kept for the
+    padding), the noise a Zipf law over the ids."""
+    rs = np.random.RandomState(seed)
+    lengths = rs.randint(2, 61, n)
+    starts = rs.randint(1, BK_VOCAB, n)
+    total = int(lengths.sum())
+    noise = rs.rand(total) < BK_NOISE
+    law = 1.0 / np.arange(1, BK_VOCAB) ** BK_ZIPF
+    draws = rs.choice(np.arange(1, BK_VOCAB), size=total, p=law / law.sum())
+    sentences, pos = [], 0
+    for length, tok in zip(lengths, starts):
+        sent = [int(tok)]
+        for _ in range(length - 1):
+            tok = draws[pos] if noise[pos] else tok % (BK_VOCAB - 1) + 1
+            sent.append(int(tok))
+            pos += 1
+        sentences.append(sent)
+    return sentences
+
+
+def _bk_sym_gen(cell="stack"):
+    """lstm_bucketing.py's build_sym_gen on the port's mx.sym and mx.rnn;
+    ``cell``: "stack" (LSTMCells), "fused" (upstream's
+    cudnn_rnn_bucketing.py form) or a cell.  Returns (sym_gen, cell)."""
+    import mxnet_tpu_torch as mx
+
+    if cell == "stack":
+        cell = mx.rnn.SequentialRNNCell()
+        for i in range(BK_LAYERS):
+            cell.add(mx.rnn.LSTMCell(BK_HIDDEN, prefix="lstm_l%d_" % i))
+    elif cell == "fused":
+        cell = mx.rnn.FusedRNNCell(BK_HIDDEN, num_layers=BK_LAYERS,
+                                   mode="lstm", prefix="lstm_")
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=BK_VOCAB,
+                                 output_dim=BK_EMBED, name="embed")
+        cell.reset()
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, BK_HIDDEN))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=BK_VOCAB,
+                                     name="pred")
+        pred = mx.sym.SoftmaxOutput(data=pred, label=mx.sym.Reshape(
+            label, shape=(-1,)), name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen, cell
+
+
+def _bk_iters(seed):
+    import random
+
+    import mxnet_tpu_torch as mx
+
+    random.seed(seed)  # the iterators' shuffles
+    np.random.seed(seed)
+    sentences = _bk_corpus(BK_TRAIN + BK_VAL, seed)
+    return [mx.rnn.BucketSentenceIter(part, BK_BATCH, buckets=BK_BUCKETS,
+                                      invalid_label=0)
+            for part in (sentences[:BK_TRAIN], sentences[BK_TRAIN:])]
+
+
+def _bk_module(device, params, sym_gen=None, default=BK_BUCKETS[-1],
+               sgd=BK_SGD):
+    """A BucketingModule bound for training at ``default`` on ``device``,
+    from the host ``params``, with the example's SGD."""
+    import mxnet_tpu_torch as mx
+
+    shape = (BK_BATCH, default)
+    mod = mx.mod.BucketingModule(sym_gen or _bk_sym_gen()[0], default,
+                                 context=device)
+    mod.bind([("data", shape)], [("softmax_label", shape)])
+    mod.init_params(arg_params=params[0], aux_params=params[1])
+    mod.init_optimizer(optimizer="sgd", optimizer_params=sgd)
+    return mod
+
+
+def _bk_first_batches(it):
+    """The first batch of each bucket, in BK_BUCKETS order."""
+    it.reset()
+    first = {}
+    for b in it:
+        first.setdefault(b.bucket_key, b)
+    return [first[k] for k in BK_BUCKETS]
+
+
+def _bk_ex(mod):
+    return mod._curr_module._exec_group.execs[0]
+
+
+def _bk_state(mod):
+    """Every bound array of the current bucket: arguments, gradients."""
+    ex = _bk_ex(mod)
+    return [a.data_torch.clone() for a in ex.arg_arrays] + \
+        [g.data_torch.clone() for g in ex.grad_dict.values()]
+
+
+def _bk_step(mod, batch):
+    mod.forward_backward(batch)
+    mod.update()
+    return mod.get_outputs()[0].data_torch
+
+
+def bk_card_vs_cpu(params, batch):
+    """Phase 10, 1: the first batch at bucket 10 on the card and on the
+    CPU plain path from the same parameters: the loss (the mean cross
+    entropy SoftmaxOutput trains) and every gradient within BK_GRAD_TOL of
+    its largest magnitude."""
+    got = {}
+    for where, dev in (("card", torch.device("cuda", 0)),
+                       ("cpu", torch.device("cpu"))):
+        mod = _bk_module(dev, params, default=batch.bucket_key)
+        mod.forward_backward(batch)
+        probs = mod.get_outputs()[0].asnumpy()
+        label = batch.label[0].asnumpy().astype(np.int64).ravel()
+        got[where] = {k: g.asnumpy() for k, g in
+                      _bk_ex(mod).grad_dict.items()}
+        got[where]["loss"] = np.array(-np.log(np.maximum(
+            probs[np.arange(label.size), label], 1e-30)).mean())
+    errs = {k: float(np.abs(got["card"][k] - w).max())
+            / max(float(np.abs(w).max()), 1e-30)
+            for k, w in got["cpu"].items()}
+    worst = max((e, k) for k, e in errs.items())
+    log("bucketing: the first batch at bucket %d on the card vs the CPU "
+        "plain path: loss %.6f vs %.6f; worst %.3g of the largest magnitude "
+        "(%s; tol %.0e); each: %s" % (
+            batch.bucket_key, float(got["card"]["loss"]),
+            float(got["cpu"]["loss"]), worst[0], worst[1], BK_GRAD_TOL,
+            ", ".join("%s %.2g" % kv for kv in errs.items())))
+    if not worst[0] <= BK_GRAD_TOL:
+        raise AssertionError("bucketing: the card's gradients disagree "
+                             "with the CPU's")
+
+
+def bk_captured_vs_eager(params, batches, smi):
+    """Phase 10, 2: a captured and an eager (``capture = False``)
+    BucketingModule from the same state, one forward_backward + update a
+    bucket in turn, bitwise equal; each bucket's bind and first (capture)
+    batch timed; then each bucket's step captured and eager by CUDA
+    events, and bucket 60 under the profiler.  Returns the captured
+    times."""
+    card = torch.device("cuda", 0)
+    bind_ms, first_ms = {}, {}
+    mods = {}
+    for capture in (True, False):
+        t0 = time.perf_counter()
+        mods[capture] = _bk_module(card, params)
+        if capture:
+            bind_ms[BK_BUCKETS[-1]] = (time.perf_counter() - t0) * 1e3
+    for capture, mod in mods.items():
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.switch_bucket(b.bucket_key, b.provide_data, b.provide_label)
+            if capture and b.bucket_key != BK_BUCKETS[-1]:
+                bind_ms[b.bucket_key] = (time.perf_counter() - t0) * 1e3
+            _bk_ex(mod).capture = capture
+    for b in batches:
+        outs = {}
+        for capture, mod in mods.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[capture] = [_bk_step(mod, b).clone()] + _bk_state(mod)
+            torch.cuda.synchronize()
+            if capture:
+                first_ms[b.bucket_key] = (time.perf_counter() - t0) * 1e3
+        diff = sum(not torch.equal(a, c)
+                   for a, c in zip(outs[True], outs[False]))
+        graphs = len(_bk_ex(mods[True]).graphs)
+        log("bucketing: bucket %d: bind %.1f ms, first captured batch (warm-"
+            "up + capture) %.1f ms; captured vs eager from the same state: "
+            "%d of %d outputs, arguments and gradients differ; %d graph" % (
+                b.bucket_key, bind_ms[b.bucket_key],
+                first_ms[b.bucket_key], diff, len(outs[True]), graphs))
+        if diff or graphs != 1:
+            raise AssertionError("bucketing: the captured batch differs from "
+                                 "the eager one at bucket %d" % b.bucket_key)
+    step_ms = {}
+    for b in batches:
+        key = b.bucket_key
+        for capture, iters in ((True, 10), (False, 3)):
+            mod = mods[capture]
+            step_ms[key, capture] = time_ms(lambda: _bk_step(mod, b), iters)
+        log("bucketing: bucket %d forward_backward + update on %s: captured "
+            "%.3f ms (%.0f padded tokens/s), eager %.3f ms (%.0f)" % (
+                key, smi, step_ms[key, True],
+                BK_BATCH * key / step_ms[key, True] * 1e3,
+                step_ms[key, False],
+                BK_BATCH * key / step_ms[key, False] * 1e3))
+    last = batches[-1]
+    for capture in (True, False):
+        mod = mods[capture]
+        seen = profile_steps(lambda: _bk_step(mod, last), smi,
+                             step_ms[last.bucket_key, capture], steps=3,
+                             groups=BK_GROUPS,
+                             tag="bucketing %s at bucket %d" % (
+                                 "captured" if capture else "eager",
+                                 last.bucket_key),
+                             count=(("all", ("",), 0),))
+        log("bucketing: %s at bucket %d: %s kernels a batch" % (
+            "captured" if capture else "eager", last.bucket_key,
+            "not measured" if seen is None else "%.0f" % (seen["all"] / 3)))
+    del mods
+    torch.cuda.empty_cache()
+    return {k: v for (k, c), v in step_ms.items() if c}
+
+
+def bk_fused_vs_unfused(params, batches, smi):
+    """Phase 10, 4: the FusedRNNCell form (the registered RNN op) and its
+    unfuse() stack, the weights carried through unpack_weights and
+    pack_weights, 3 batches each at buckets 10 and 60 in turn (weight
+    decay 0: MXNet's no-decay rule exempts the packed vector): outputs
+    and parameters within BK_FUSED_TOL; each form's captured step
+    timed."""
+    card = torch.device("cuda", 0)
+    gen_f, fused = _bk_sym_gen("fused")
+    gen_u, stack = _bk_sym_gen(fused.unfuse())
+    args = fused.pack_weights(stack.unpack_weights(dict(params[0])))
+    sgd = dict(BK_SGD, wd=0.0)
+    mods = {"fused": _bk_module(card, (args, {}), gen_f, sgd=sgd),
+            "unrolled": _bk_module(card, params, gen_u, sgd=sgd)}
+    pair = [batches[0], batches[-1]]
+    worst = 0.0
+    for b in pair * 3:
+        outs = {k: _bk_step(m, b).clone() for k, m in mods.items()}
+        worst = max(worst, _rel_err(outs["fused"], outs["unrolled"]))
+    got = stack.pack_weights(fused.unpack_weights(mods["fused"].get_params()[0]))
+    want = mods["unrolled"].get_params()[0]
+    worst_p = max(_rel_err(torch.from_numpy(got[k].asnumpy()),
+                           torch.from_numpy(want[k].asnumpy()))
+                  for k in want)
+    times = {(k, b.bucket_key): time_ms(lambda: _bk_step(m, b), 10)
+             for k, m in mods.items() for b in pair}
+    log("bucketing: FusedRNNCell(200, num_layers=2, mode='lstm') vs its "
+        "unfuse() stack, 3 batches at buckets 10 and 60 in turn on the "
+        "card: outputs within %.3g, parameters within %.3g of each largest "
+        "magnitude (tol %.0e); captured step on %s: fused %.3f / %.3f ms, "
+        "unrolled %.3f / %.3f ms at buckets 10 / 60" % (
+            worst, worst_p, BK_FUSED_TOL, smi, times["fused", 10],
+            times["fused", 60], times["unrolled", 10],
+            times["unrolled", 60]))
+    if not max(worst, worst_p) <= BK_FUSED_TOL:
+        raise AssertionError("bucketing: the fused cell disagrees with its "
+                             "unfused stack")
+    del mods
+    torch.cuda.empty_cache()
+
+
+def _convlstm_symbol():
+    import mxnet_tpu_torch as mx
+
+    c = CONVLSTM
+    cell = mx.rnn.ConvLSTMCell((c["batch"], c["channels"], c["size"],
+                                c["size"]), c["hidden"], prefix="cl_")
+    out, _ = cell.unroll(c["steps"], inputs=mx.sym.Variable("data"),
+                         merge_outputs=True)
+    return out
+
+
+def bk_convlstm(seed, smi):
+    """Phase 10, 5: a ConvLSTM cell (3x3 i2h and h2h convolutions, NCHW)
+    unrolled over 4 steps through an executor: the card (captured, K1b
+    for the weight gradients) against the CPU plain path, every gradient
+    within BK_GRAD_TOL of its largest magnitude; the wrappers' launches
+    over the main path (3 backward calls: the eager warm-up, the capture,
+    a replay) and in a profiler trace of 3 replays."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import conv_dw as C
+
+    c = CONVLSTM
+    shape = (c["batch"], c["steps"], c["channels"], c["size"], c["size"])
+    sym = _convlstm_symbol()
+    rng = np.random.RandomState(seed + 10)
+    arg_shapes, out_shapes, _ = sym.infer_shape(data=shape)
+    values = {n: rng.uniform(-0.5, 0.5, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), arg_shapes)}
+    head = rng.randn(*out_shapes[0]).astype(np.float32)
+    grads, exs = {}, {}
+    counters = {"pertap": C.conv_dw_pertap, "im2col": C.conv_dw_im2col}
+    for where, dev in (("cpu", torch.device("cpu")),
+                       ("card", torch.device("cuda", 0))):
+        ex = sym.simple_bind(ctx=dev, data=shape)
+        for n, v in values.items():
+            ex.arg_dict[n][:] = mx.nd.array(v, ctx=dev)
+        hd = mx.nd.array(head, ctx=dev)
+        if where == "card":
+            for fn in counters.values():
+                fn.launches = 0
+        for _ in range(3 if where == "card" else 1):
+            ex.forward(is_train=True)
+            ex.backward(hd)
+        torch.cuda.synchronize()
+        if where == "card":
+            launches = {k: fn.launches for k, fn in counters.items()}
+        grads[where] = {k: g.asnumpy() for k, g in ex.grad_dict.items()}
+        grads[where]["output"] = ex.outputs[0].asnumpy()
+        exs[where] = ex
+    # ---- end of the main path
+    errs = {k: float(np.abs(grads["card"][k] - w).max())
+            / max(float(np.abs(w).max()), 1e-30)
+            for k, w in grads["cpu"].items()}
+    worst = max((e, k) for k, e in errs.items())
+    per_call = sum(n for _, n in CONVLSTM_CONVS)
+    ex = exs["card"]
+    log("bucketing: ConvLSTMCell %s x %d steps, hidden %d, on the card "
+        "(captured) vs the CPU plain path: worst %.3g of the largest "
+        "magnitude (%s; tol %.0e); wrapper launches over the main path %s "
+        "(expected im2col 2 x %d: the warm-up's and the capture's; %d "
+        "replays)" % (
+            shape, c["steps"], c["hidden"], worst[0], worst[1], BK_GRAD_TOL,
+            launches, per_call, next(iter(ex.graphs.values())).replays))
+    if not worst[0] <= BK_GRAD_TOL:
+        raise AssertionError("bucketing: the ConvLSTM cell's gradients on "
+                             "the card disagree with the CPU's")
+    if launches != {"pertap": 0, "im2col": 2 * per_call}:
+        raise AssertionError("bucketing: the ConvLSTM cell did not launch "
+                             "K1b once per convolution")
+    traced = 3
+    hd = mx.nd.array(head, ctx=torch.device("cuda", 0))
+
+    def replay():
+        ex.forward(is_train=True)
+        ex.backward(hd)
+
+    seen = profile_steps(replay, smi, time_ms(replay, 10), steps=traced,
+                         groups=(("K1b conv_dw im2col",
+                                  ("conv_dw_kernel<true",)),) + BK_GROUPS,
+                         tag="bucketing ConvLSTM",
+                         count=(("im2col", ("conv_dw_kernel<true",),
+                                 per_call),))
+    if seen is not None:
+        log("bucketing: ConvLSTM launches of K1b in the trace of %d "
+            "replays: %d (expected %d)" % (traced, seen["im2col"],
+                                           traced * per_call))
+        if seen["im2col"] != traced * per_call:
+            raise AssertionError("the replayed ConvLSTM backward does not "
+                                 "launch K1b once per convolution")
+    del exs, ex
+    torch.cuda.empty_cache()
+    return dict(launches=launches["im2col"], traced_replays=traced,
+                launches_in_traced_replays=None if seen is None
+                else seen["im2col"])
+
+
+def bucketing(seed, smi):
+    """Phase 10: lstm_bucketing.py's model through BucketSentenceIter and
+    BucketingModule on the card.  Returns the ConvLSTM cell's K1b
+    launches."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.module import executor_group
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="%(message)s", force=True)
+    t0 = time.perf_counter()
+    train, val = _bk_iters(seed)
+    log("bucketing: the synthetic corpus (%d + %d sentences of 2-60 tokens, "
+        "vocab %d) and its iterators in %.2f s: buckets %s, %d training and "
+        "%d validation batches" % (
+            BK_TRAIN, BK_VAL, BK_VOCAB, time.perf_counter() - t0,
+            train.buckets, len(train.idx), len(val.idx)))
+    # the initial parameters from the seed, on the host
+    mx.random.seed(seed)
+    host = mx.mod.BucketingModule(_bk_sym_gen()[0], BK_BUCKETS[0],
+                                  context=mx.cpu())
+    host.bind([("data", (BK_BATCH, BK_BUCKETS[0]))],
+              [("softmax_label", (BK_BATCH, BK_BUCKETS[0]))])
+    host.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    params = tuple({k: v.copy() for k, v in d.items()}
+                   for d in host.get_params())
+    del host
+    batches = _bk_first_batches(train)
+
+    bk_card_vs_cpu(params, batches[0])
+    step_ms = bk_captured_vs_eager(params, batches, smi)
+
+    # 3. the main path: BucketingModule.fit over one pass
+    card = torch.device("cuda", 0)
+    counters = _lm_counters()
+    copies = []
+    group = executor_group.DataParallelExecutorGroup
+    saved = group.get_params, group.set_params
+
+    def counted(fn, what):
+        def wrapper(self, *a, **k):
+            copies.append(what)
+            return fn(self, *a, **k)
+        return wrapper
+
+    group.get_params = counted(saved[0], "get_params")
+    group.set_params = counted(saved[1], "set_params")
+    mod = mx.mod.BucketingModule(_bk_sym_gen()[0], train.default_bucket_key,
+                                 context=card)
+    ends, keys, ppl, copies_in_loop = [], [], [], []
+    metric = mx.metric.Perplexity(0)
+    seen = {"sum": 0.0, "n": 0}  # the metric's sums at the batch before
+
+    def batch_end(p):
+        # before the Speedometer's, which resets the metric
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        keys.append(mod._curr_bucket_key)
+        if metric.num_inst < seen["n"]:
+            seen.update(sum=0.0, n=0)
+        ppl.append(metric.sum_metric - seen["sum"])
+        seen.update(sum=metric.sum_metric, n=metric.num_inst)
+        copies_in_loop[:] = list(copies)
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train.reset()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(train, eval_data=val, eval_metric=metric, num_epoch=1,
+                optimizer="sgd", optimizer_params=BK_SGD,
+                arg_params=params[0], aux_params=params[1],
+                batch_end_callback=[batch_end,
+                                    mx.callback.Speedometer(BK_BATCH, 100)])
+    finally:
+        group.get_params, group.set_params = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the main path
+    val_ppl = dict(mod.score(val, mx.metric.Perplexity(0)))["perplexity"]
+    ppl = np.array(ppl)
+    first = float(ppl[:BK_PPL_WINDOW].mean())
+    last = float(ppl[-BK_PPL_WINDOW:].mean())
+    times = np.diff([t0] + ends) * 1e3
+    # the batches after each bucket's first (its bind and capture)
+    steady = [i for i, k in enumerate(keys) if k in keys[:i]]
+    padded = BK_BATCH * np.array(keys, dtype=np.float64)
+    train.reset()
+    valid = sum(int((b.data[0].asnumpy() != 0).sum()) for b in train)
+    log("bucketing: BucketingModule.fit, %d batches on %s in %.2f s wall "
+        "(validation included); training perplexity of the first %d batches "
+        "%.1f, of the last %d %.1f; validation perplexity %.1f; the loop "
+        "%.0f padded and %.0f valid tokens/s over the pass (binds and "
+        "captures included), %.0f padded tokens/s over the batches after "
+        "each bucket's first; peak memory %.3f GB" % (
+            len(keys), smi, wall, BK_PPL_WINDOW, first, BK_PPL_WINDOW, last,
+            val_ppl, padded.sum() / times.sum() * 1e3,
+            valid / times.sum() * 1e3,
+            padded[steady].sum() / times[steady].sum() * 1e3, peak / 1e9))
+    log("bucketing: training perplexity by window of 50 batches: %s" % (
+        ", ".join("%.1f" % ppl[i:i + 50].mean()
+                  for i in range(0, len(ppl), 50))))
+    for key in BK_BUCKETS:
+        sel = [i for i in steady if keys[i] == key]
+        log("bucketing: bucket %d: %d batches, fit loop %.3f ms a batch "
+            "(median of those after the first), captured step alone %.3f ms"
+            % (key, keys.count(key), float(np.median(times[sel])),
+               step_ms[key]))
+    if not np.all(np.isfinite(ppl)) or not last < first:
+        raise AssertionError("bucketing: the perplexity is not finite or "
+                             "did not fall")
+    default = mod._buckets[train.default_bucket_key]._exec_group.execs[0]
+    shared = []
+    for key, m in sorted(mod._buckets.items()):
+        ex = m._exec_group.execs[0]
+        shared.append(sum(ex.arg_dict[n] is default.arg_dict[n]
+                          and ex.arg_dict[n].data_torch.data_ptr()
+                          == default.arg_dict[n].data_torch.data_ptr()
+                          for n in m._param_names))
+        if len(ex.graphs) != 1:
+            raise AssertionError("bucketing: bucket %d holds %d graphs"
+                                 % (key, len(ex.graphs)))
+    n_params = len(mod._buckets[BK_BUCKETS[-1]]._param_names)
+    log("bucketing: %d buckets bound, one captured graph each; parameters "
+        "shared by storage with the default bucket's executor: %s of %d; "
+        "parameter copies between the host and the card up to the last of "
+        "the %d training batches: %s (expected the initial set_params "
+        "alone); hand-kernel launches over the main path: %s (the path "
+        "runs none of K1-K6)" % (
+            len(mod._buckets), shared, n_params, len(keys), copies_in_loop,
+            launched))
+    if sorted(mod._buckets) != BK_BUCKETS or shared != [n_params] * 6:
+        raise AssertionError("bucketing: the buckets do not share their "
+                             "parameters")
+    if copies_in_loop != ["set_params"]:
+        raise AssertionError("bucketing: a bucket switch copied parameters "
+                             "through the host")
+    if any(launched.values()):
+        raise AssertionError("bucketing: the unrolled LSTM launched a hand "
+                             "kernel")
+    # where a fit batch's host time goes, by call (a fresh pass)
+    parts = {"forward (the batch's copy in)": [], "backward (replay)": [],
+             "update": [], "update_metric": []}
+    metric = mx.metric.Perplexity(0)
+    train.reset()
+    for i, b in zip(range(60), train):
+        t = [time.perf_counter()]
+        mod.forward(b, is_train=True)
+        t.append(time.perf_counter())
+        mod.backward()
+        t.append(time.perf_counter())
+        mod.update()
+        t.append(time.perf_counter())
+        mod.update_metric(metric, b.label)
+        t.append(time.perf_counter())
+        for part, a, z in zip(parts, t, t[1:]):
+            parts[part].append((z - a) * 1e3)
+    log("bucketing: a fit batch's host time by call (median of 60 batches "
+        "over every bucket): %s" % ", ".join(
+            "%s %.4f ms" % (k, float(np.median(v))) for k, v in parts.items()))
+    del mod
+    torch.cuda.empty_cache()
+
+    bk_fused_vs_unfused(params, batches, smi)
+    return bk_convlstm(seed, smi)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3424,7 +4022,8 @@ def main():
     phase("build", build)
     fwd_row = phase("3 attention forward", kernels, args.seed)
     bwd_rows = phase("3b attention backward", backward_kernels, args.seed)
-    dw_rows, dw_lenet = phase("3c conv dW", conv_kernels, args.seed)
+    dw_rows, dw_lenet, dw_convlstm = phase("3c conv dW", conv_kernels,
+                                           args.seed)
     pool_row, pool_lenet = phase("3c max-pool backward", pool_kernels,
                                  args.seed)
     bn_rows = phase("3d batch norm", bn_kernels, args.seed)
@@ -3434,6 +4033,7 @@ def main():
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
     lenet_launches = phase("8 symbolic", symbolic, args.seed, smi)
     phase("9 word LM", word_lm, args.seed, smi)
+    convlstm_launches = phase("10 bucketing", bucketing, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     plan_route=fwd_kernel_plan(UNITS // HEADS,
@@ -3487,6 +4087,13 @@ def main():
             replaces=line,
             launches_counted_over="eager warm-up batch + capture",
             **lenet_launches[key], **row))
+    # the ConvLSTM cell's unroll through a captured executor, float32
+    entries.append(dict(
+        name="conv_dw_im2col", path="bucketing_convlstm", route="cuda",
+        source="mxnet_tpu_torch/csrc/conv_dw.cu",
+        replaces="mxnet_tpu/ops/pallas_conv.py:133",
+        launches_counted_over="eager warm-up backward + capture",
+        **convlstm_launches, **dw_convlstm))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

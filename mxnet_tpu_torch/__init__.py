@@ -10,13 +10,15 @@ run-time kernel facility (``rtc.CudaModule``) compiles a user's CUDA
 source through NVRTC.  The three entry points of the JAX package are
 here: imperative ``mx.nd``, Gluon, and the symbolic ``mx.sym`` ->
 ``Executor`` -> ``mx.mod.Module`` path with ``mx.io``, ``mx.metric``,
-``mx.callback``, ``mx.model`` and ``mx.lr_scheduler``.
+``mx.callback``, ``mx.model`` and ``mx.lr_scheduler``, and its recurrent
+side: ``mx.rnn``'s cells and ``BucketSentenceIter`` trained through
+``mx.mod.BucketingModule``.
 """
 
 from . import (attribute, autograd, callback, context, convert, executor,
                gluon, initializer, io, lr_scheduler, metric, model, module,
-               name, ndarray, ops, optimizer, parallel, random, rtc, serving,
-               symbol)
+               name, ndarray, ops, optimizer, parallel, random, rnn, rtc,
+               serving, symbol)
 from . import initializer as init
 from . import module as mod
 from . import ndarray as nd
@@ -29,4 +31,4 @@ __all__ = ["AttrScope", "MXNetError", "attribute", "autograd", "callback",
            "context", "convert", "cpu", "executor", "gpu", "gluon", "init",
            "initializer", "io", "lr_scheduler", "metric", "mod", "model",
            "module", "name", "nd", "ndarray", "ops", "optimizer", "parallel",
-           "random", "rtc", "serving", "sym", "symbol"]
+           "random", "rnn", "rtc", "serving", "sym", "symbol"]

@@ -5,7 +5,10 @@ graph_executor.cc).  The JAX executor evaluates the graph as one pure
 function and jits it, forward and backward fused into one program that
 runs at ``backward()`` (``executor.py:206-240``).  The port evaluates the
 graph node by node with the registered ops; ``forward(is_train=True)`` is
-lazy as there, and ``backward()`` runs the fused program: the forward,
+lazy (its outputs are computed at their first read, or by ``backward``:
+the JAX package's forward computes them at once, so a training batch
+runs its forward twice there), and ``backward()`` runs the fused program:
+the forward,
 ``torch.autograd.grad`` of the outputs (the head gradients ones unless
 given; a loss head ignores its own) with respect to every argument whose
 ``grad_req`` is not ``"null"``, each gradient written (``"write"``) or
@@ -27,6 +30,8 @@ on the card.  A forward in predict mode runs eagerly everywhere.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
 from . import _capture
@@ -35,6 +40,7 @@ from .base import MXNetError
 from .ndarray import NDArray
 from .ops import registry as _reg
 from .ops.registry import OP_AUX_INPUTS, OP_INPUT_NAMES
+from .symbol.symbol import op_attrs
 
 __all__ = ["Executor"]
 
@@ -65,6 +71,21 @@ class _FusedGraph:
         return [o.clone() for o in self.outs]
 
 
+class _PendingOutputs(Sequence):
+    """What ``forward(is_train=True)`` returns: the executor's outputs,
+    read at the first access, so that a forward followed by ``backward``
+    runs the graph once (in the fused program) rather than twice."""
+
+    def __init__(self, ex):
+        self._ex = ex
+
+    def __getitem__(self, index):
+        return self._ex.outputs[index]
+
+    def __len__(self):
+        return len(self._ex._symbol._outputs)
+
+
 class Executor:
     """A symbol bound to arrays on one device (reference: executor.py
     Executor): ``arg_dict``, ``grad_dict``, ``aux_dict``,
@@ -92,6 +113,10 @@ class Executor:
                       if n in self.grad_dict]
         self._nodes = symbol._topo_nodes()
         self._aux_ids = symbol._aux_nodes()
+        # a creation op with no input (a cell's zero begin state) makes
+        # its array on the executor's device
+        self._attrs = {id(n): op_attrs(n, self._device)
+                       for n in self._nodes if not n.is_variable}
         self.capture = self._device.type == "cuda"
         self.graphs = {}  # head-gradient signature -> _FusedGraph
         self._outputs = None
@@ -142,7 +167,7 @@ class Executor:
             if node.op == "BatchNorm":
                 out = _eval_batchnorm(node, ins, is_train, new_aux)
             else:
-                out = _reg.get(node.op).fn(*ins, **node.attrs)
+                out = _reg.get(node.op).fn(*ins, **self._attrs[id(node)])
             values[id(node)] = out if isinstance(out, tuple) else (out,)
         outs = [values[id(n)][idx] for n, idx in self._symbol._outputs]
         return outs, [new_aux[n] for n in self._aux_names]
@@ -221,7 +246,8 @@ class Executor:
         self._train_pending = bool(is_train)
         if not is_train:
             self._set_outputs(self._forward_only(False))
-        return self.outputs
+            return self.outputs
+        return _PendingOutputs(self)
 
     def _set_outputs(self, outs):
         self._outputs = [NDArray(o) for o in outs]

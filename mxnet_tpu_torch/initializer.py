@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (reference:
 python/mxnet/initializer.py): the registry (``register``, ``create``,
 also from ``dumps()``), ``InitDesc``, and ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.  An initializer
+``Constant``, ``Uniform``, ``Normal``, ``Xavier``, and the recurrent
+cells' ``LSTMBias`` and ``FusedRNN``.  An initializer
 dispatches on the parameter name's suffix as the JAX package does:
 ``weight`` draws from the initializer; ``bias``, ``beta`` and the
 moving or running means are zeros; ``gamma`` and the moving or running
@@ -25,7 +26,7 @@ import json
 import numpy as np
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Xavier", "LSTMBias", "FusedRNN", "register", "create"]
 
 _REGISTRY = {}
 _ALIASES = {"zeros": "zero", "ones": "one"}
@@ -76,6 +77,8 @@ class Initializer:
     def __call__(self, desc, arr, rng=None):
         if not isinstance(desc, str):
             raise TypeError("desc must be a str or an InitDesc")
+        if isinstance(desc, InitDesc) and desc.global_init is None:
+            desc.global_init = self
         if isinstance(arr, np.ndarray):
             self._fill(desc, arr, rng if rng is not None else _host_rng())
             return
@@ -86,7 +89,7 @@ class Initializer:
     def _fill(self, desc, arr, rng):
         own = getattr(desc, "attrs", {}).get("__init__")
         if own:
-            create(own)._init_weight(arr, rng)
+            create(own)._init_named(desc, arr, rng)
             return
         name = desc.lower()
         if name.endswith("weight"):
@@ -101,6 +104,11 @@ class Initializer:
                              "known suffix (weight/bias/gamma/beta/"
                              "running_mean/running_var/moving_mean/"
                              "moving_var) or set an explicit init" % name)
+
+    def _init_named(self, desc, arr, rng):
+        """Fill ``arr`` as the ``__init__`` attribute of ``desc`` asks."""
+        del desc
+        self._init_weight(arr, rng)
 
     def _init_weight(self, arr, rng):
         raise NotImplementedError()
@@ -192,3 +200,61 @@ class Xavier(Initializer):
             arr[...] = rng.uniform(-scale, scale, size=shape)
         else:
             arr[...] = rng.normal(0.0, scale, size=shape)
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM's i2h bias: 0, and ``forget_bias`` on the forget gate's
+    quarter (gates i, f, c, o; reference: initializer.py LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, arr, rng):
+        h = arr.shape[0] // 4
+        arr[...] = 0.0
+        arr[h:2 * h] = self.forget_bias
+
+
+@register
+class FusedRNN(Initializer):
+    """A ``FusedRNNCell``'s packed vector, piece by piece in the order of
+    its per-gate names: each weight by ``init`` (or by the initializer
+    that called this one, else ``Uniform(0.1)``), each bias 0, an LSTM's
+    forget-gate biases ``forget_bias`` (reference: initializer.py
+    FusedRNN)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            init = create(init)
+        super().__init__(
+            init=init.dumps() if init is not None else None,
+            num_hidden=num_hidden, num_layers=num_layers, mode=mode,
+            bidirectional=bidirectional, forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_named(self, desc, arr, rng):
+        from .rnn.rnn_cell import FusedRNNCell
+
+        cell = FusedRNNCell(self._num_hidden, self._num_layers, self._mode,
+                            self._bidirectional,
+                            forget_bias=self._forget_bias, prefix="")
+        global_init = getattr(desc, "global_init", None)
+        sub_init = self._init or global_init or Uniform(0.1)
+        flat = arr.reshape(-1)
+        for name, start, shape in cell.slices(flat.size):
+            piece = flat[start:start + int(np.prod(shape))].reshape(shape)
+            if self._mode == "lstm" and name.endswith("_f_bias"):
+                piece[...] = self._forget_bias
+                continue
+            sub_init(InitDesc(name, global_init=global_init), piece, rng)
+
+    def _init_weight(self, arr, rng):
+        self._init_named("parameters", arr, rng)

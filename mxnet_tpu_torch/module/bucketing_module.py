@@ -1,0 +1,257 @@
+"""BucketingModule of the PyTorch port: variable-length sequences through
+one Module a bucket.
+
+Counterpart of ``mxnet_tpu/module/bucketing_module.py`` (reference:
+python/mxnet/module/bucketing_module.py).  ``sym_gen(bucket_key)`` gives a
+bucket's symbol and its data and label names; the default bucket's Module
+is bound first, and each other bucket's at its first batch, with
+``shared_module`` the default one.  On the card each bucket's executor is
+one captured CUDA graph.
+
+Every bucket's Module shares the default one's parameter storage, its
+host copies and its optimizer states (keyed by parameter name), so a
+bucket switch moves no parameter: the JAX package copies every parameter
+out of the previous bucket's Module and into the next one on each switch
+(``bucketing_module.py:193-211``), because its arrays cannot share
+storage; here each bucket reads the same tensors, with the same values
+after every update.  A bucket whose symbol has a parameter that the
+default bucket's lacks, or at another shape, raises at its bind.
+``install_monitor`` raises: ``Monitor`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from ..base import MXNetError
+from .base_module import BaseModule
+from .module import Module
+
+__all__ = ["BucketingModule"]
+
+
+class BucketingModule(BaseModule):
+    """One Module a bucket key, all sharing the default bucket's
+    parameters and optimizer."""
+
+    def __init__(self, sym_gen, default_bucket_key=None, logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, group2ctxs=None, compression_params=None):
+        super().__init__(logger=logger)
+        if default_bucket_key is None:
+            raise MXNetError("BucketingModule needs a default_bucket_key")
+        self._default_bucket_key = default_bucket_key
+        self._sym_gen = sym_gen
+        self._context = context
+        self._work_load_list = work_load_list
+        self._fixed_param_names = list(fixed_param_names or [])
+        self._state_names = list(state_names or [])
+        self._group2ctxs = group2ctxs
+        self._compression_params = compression_params
+        self._buckets = {}
+        self._curr_module = None
+        self._curr_bucket_key = None
+        self._params_dirty = False
+        self._grad_req = None
+
+    def _reset_bind(self):
+        self.binded = False
+        self.optimizer_initialized = False
+        self._buckets = {}
+        self._curr_module = None
+        self._curr_bucket_key = None
+
+    @property
+    def data_names(self):
+        if self.binded:
+            return self._curr_module.data_names
+        _, data_names, _ = self._sym_gen(self._default_bucket_key)
+        return data_names
+
+    @property
+    def output_names(self):
+        if self.binded:
+            return self._curr_module.output_names
+        symbol, _, _ = self._sym_gen(self._default_bucket_key)
+        return symbol.list_outputs()
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._curr_module.data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._curr_module.label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        return self._curr_module.output_shapes
+
+    @property
+    def symbol(self):
+        assert self.binded
+        return self._curr_module.symbol
+
+    def _module(self, bucket_key):
+        symbol, data_names, label_names = self._sym_gen(bucket_key)
+        return Module(symbol, data_names, label_names, logger=self.logger,
+                      context=self._context,
+                      work_load_list=self._work_load_list,
+                      fixed_param_names=self._fixed_param_names,
+                      state_names=self._state_names,
+                      group2ctxs=self._group2ctxs,
+                      compression_params=self._compression_params)
+
+    def _share_all(self, source):
+        """Every other bucket takes ``source``'s host copies."""
+        for mod in self._buckets.values():
+            if mod is not source:
+                mod._share_params(source)
+
+    # ------------------------------------------------------------- params
+    def get_params(self):
+        assert self.params_initialized
+        self._curr_module._params_dirty = self._params_dirty
+        params = self._curr_module.get_params()
+        self._params_dirty = False
+        return params
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        if not allow_missing:
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init, allow_extra=allow_extra)
+            return
+        if self.params_initialized and not force_init:
+            return
+        self._curr_module.set_params(arg_params, aux_params,
+                                     allow_missing=allow_missing,
+                                     force_init=force_init,
+                                     allow_extra=allow_extra)
+        self._share_all(self._curr_module)
+        self.params_initialized = True
+        self._params_dirty = False
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        self._curr_module.init_params(initializer=initializer,
+                                      arg_params=arg_params,
+                                      aux_params=aux_params,
+                                      allow_missing=allow_missing,
+                                      force_init=force_init,
+                                      allow_extra=allow_extra)
+        self._share_all(self._curr_module)
+        self._params_dirty = False
+        self.params_initialized = True
+
+    # ------------------------------------------------------------- binding
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Bind the default bucket's Module at these shapes."""
+        if shared_module is not None:
+            raise MXNetError("shared_module for BucketingModule is not "
+                             "supported")
+        if force_rebind:
+            self._reset_bind()
+        if self.binded:
+            self.logger.warning("Already bound, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+        self._grad_req = grad_req
+        module = self._module(self._default_bucket_key)
+        module.bind(data_shapes, label_shapes, for_training, inputs_need_grad,
+                    force_rebind=False, shared_module=None,
+                    grad_req=grad_req)
+        self._curr_module = module
+        self._curr_bucket_key = self._default_bucket_key
+        self._buckets[self._default_bucket_key] = module
+
+    def switch_bucket(self, bucket_key, data_shapes, label_shapes=None):
+        """Make ``bucket_key``'s Module the current one, binding it over
+        the default bucket's parameters at its first use."""
+        assert self.binded, "call bind before switching bucket"
+        if bucket_key not in self._buckets:
+            default = self._buckets[self._default_bucket_key]
+            module = self._module(bucket_key)
+            module.bind(data_shapes, label_shapes,
+                        self._curr_module.for_training,
+                        self._curr_module.inputs_need_grad,
+                        force_rebind=False, shared_module=default,
+                        grad_req=self._grad_req)
+            if self.optimizer_initialized:
+                module.borrow_optimizer(default)
+            self._buckets[bucket_key] = module
+        self._curr_module = self._buckets[bucket_key]
+        self._curr_bucket_key = bucket_key
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, ignoring.")
+            return
+        self._curr_module.init_optimizer(kvstore, optimizer, optimizer_params,
+                                         force_init=force_init)
+        for mod in self._buckets.values():
+            if mod is not self._curr_module:
+                mod.borrow_optimizer(self._curr_module)
+        self.optimizer_initialized = True
+
+    # ------------------------------------------------------------- running
+    def forward(self, data_batch, is_train=None):
+        """Switch to the batch's bucket (``bucket_key``, the default when
+        None) and run its Module's forward; no parameter is copied."""
+        assert self.binded and self.params_initialized
+        bucket_key = getattr(data_batch, "bucket_key", None)
+        if bucket_key is None:
+            bucket_key = self._default_bucket_key
+        self.switch_bucket(bucket_key, data_batch.provide_data,
+                           data_batch.provide_label)
+        self._curr_module.forward(data_batch, is_train=is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._curr_module.backward(out_grads=out_grads)
+
+    def update(self):
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        self._params_dirty = True
+        self._curr_module.update()
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._curr_module.get_outputs(merge_multi_context)
+
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._curr_module.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        self._curr_module.set_states(states=states, value=value)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._curr_module.get_input_grads(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        assert self.binded and self.params_initialized
+        self._curr_module.update_metric(eval_metric, labels, pre_sliced)
+
+    def install_monitor(self, mon):
+        raise MXNetError("BucketingModule.install_monitor: Monitor is not "
+                         "ported yet")

@@ -6,7 +6,12 @@ on one device: a batch is not split, and a list of more than one context
 raises :class:`~mxnet_tpu_torch.base.MXNetError` (multi-GPU training, the
 kvstore over ``torch.distributed``, is not ported yet).  ``grad_req`` is
 the parameters' (``"null"`` for the fixed ones and when not training),
-``"null"`` for the labels, and the data's only with ``inputs_need_grad``.
+``"null"`` for the labels and the states, and the data's only with
+``inputs_need_grad``.  The state inputs (``state_names``, a recurrent
+cell's ``begin_state`` variables) are bound at the batch size: each 0 of a
+state's ``__shape__`` becomes the batch (its first dimension where it has
+no 0); ``set_states`` writes them in place, so that a captured graph reads
+the new values, as it reads the data.
 """
 
 from __future__ import annotations
@@ -38,9 +43,8 @@ class DataParallelExecutorGroup:
                  shared_group=None, logger=None, fixed_param_names=None,
                  grad_req="write", state_names=None):
         del workload, logger
-        if state_names:
-            raise MXNetError("Module: state_names are not ported yet")
         self.symbol = symbol
+        self.state_names = list(state_names or [])
         self.device = one_device(contexts)
         self.contexts = [self.device]
         self.for_training = for_training
@@ -66,6 +70,7 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = "null"
         shapes = dict(data_shapes)
         shapes.update(label_shapes or [])
+        shapes.update(self._state_shapes())
         ex = symbol.simple_bind(ctx=self.device, grad_req=self.grad_req,
                                 **shapes)
         if shared_group is not None:
@@ -82,6 +87,44 @@ class DataParallelExecutorGroup:
                         src_aux[name].shape == ex.aux_arrays[j].shape:
                     ex.aux_arrays[j] = src_aux[name]
         self.execs = [ex]
+
+    def _state_shapes(self):
+        """The state inputs' shapes at this batch size, from their
+        variables' ``__shape__``."""
+        from ..symbol.symbol import _parse_attr_value
+
+        shapes = {}
+        for node in self.symbol._topo_nodes():
+            if node.is_variable and node.name in self.state_names \
+                    and "__shape__" in node.attr_dict:
+                s = [int(d) for d in _parse_attr_value(
+                    node.attr_dict["__shape__"])]
+                if 0 not in s:
+                    s[0] = 0
+                shapes[node.name] = tuple(self.batch_size if d == 0 else d
+                                          for d in s)
+        return shapes
+
+    def get_states(self, merge_multi_context=True):
+        """The state inputs' arrays, in ``state_names`` order."""
+        states = [self.execs[0].arg_dict[n] for n in self.state_names]
+        return states if merge_multi_context else [[s] for s in states]
+
+    def set_states(self, states=None, value=None):
+        """Write the state inputs in place: from ``states`` (one array a
+        state, or a list of one a device as ``get_states(False)`` gives)
+        or every element ``value``."""
+        if (states is None) == (value is None):
+            raise ValueError("set_states: give exactly one of states and "
+                             "value")
+        ad = self.execs[0].arg_dict
+        for i, name in enumerate(self.state_names):
+            if value is not None:
+                ad[name][:] = value
+            else:
+                src = states[i]
+                ad[name][:] = src[0] if isinstance(src, (list, tuple)) \
+                    else src
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         self.execs[0].copy_params_from(arg_params, aux_params,

@@ -10,6 +10,13 @@ store or a store object raises.  ``update`` applies the optimizer to
 every parameter with a gradient, one updater index a parameter, in
 place; on the card the forward and backward before it are one captured
 CUDA graph (:mod:`..executor`).
+
+A Module bound with ``shared_module`` shares that module's parameter
+storage and host copies, as MXNet's does (one bucket of a
+``BucketingModule``): an update through either is seen by both, with no
+copy.  ``borrow_optimizer`` shares the optimizer and its states, keyed
+by parameter name, the lender's index for each name.  ``state_names``
+are inputs that ``get_states``/``set_states`` read and write.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        self._update_keys = None  # the updater's index a parameter
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -220,11 +228,30 @@ class Module(BaseModule):
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
             state_names=self._state_names)
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            ex, src = self._exec_group.execs[0], \
+                shared_module._exec_group.execs[0]
+            unshared = [n for n in self._param_names
+                        if ex.arg_dict[n] is not src.arg_dict.get(n)] + \
+                [n for n in self._aux_names
+                 if ex.aux_dict[n] is not src.aux_dict.get(n)]
+            if unshared:
+                raise MXNetError(
+                    "bind: %s not in the shared module at the same shape; "
+                    "a module bound with shared_module shares every "
+                    "parameter" % ", ".join(unshared))
+            if shared_module.params_initialized:
+                self._share_params(shared_module)
+        elif self.params_initialized:
             # set before bind (Module.load): copy to the device
             self._exec_group.set_params(self._arg_params, self._aux_params)
-        if shared_module is not None and shared_module.params_initialized:
-            self.set_params(*shared_module.get_params())
+
+    def _share_params(self, shared_module):
+        """Take ``shared_module``'s host copies (its parameter storage is
+        this module's since bind)."""
+        self._arg_params = shared_module._arg_params
+        self._aux_params = shared_module._aux_params
+        self.params_initialized = True
 
     # ------------------------------------------------------------- optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -265,6 +292,14 @@ class Module(BaseModule):
     def borrow_optimizer(self, shared_module):
         """Update through ``shared_module``'s optimizer and its states."""
         assert shared_module.optimizer_initialized
+        keys = shared_module._update_keys or \
+            range(len(shared_module._param_names))
+        index = dict(zip(shared_module._param_names, keys))
+        missing = [n for n in self._param_names if n not in index]
+        if missing:
+            raise MXNetError("borrow_optimizer: %s not among the lender's "
+                             "parameters" % ", ".join(missing))
+        self._update_keys = [index[n] for n in self._param_names]
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
         self.optimizer_initialized = True
@@ -285,10 +320,12 @@ class Module(BaseModule):
             self.optimizer_initialized
         self._params_dirty = True
         group = self._exec_group
-        for i, (weights, grads) in enumerate(zip(group.param_arrays,
-                                                 group.grad_arrays)):
+        keys = self._update_keys or range(len(group.param_names))
+        for key, weights, grads in zip(keys, group.param_arrays,
+                                       group.grad_arrays):
             if grads:
-                self._updater(i, grads[0].data_torch, weights[0].data_torch)
+                self._updater(key, grads[0].data_torch,
+                              weights[0].data_torch)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -298,6 +335,17 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized and \
             self.inputs_need_grad
         return self._exec_group.get_input_grads(merge_multi_context)
+
+    def get_states(self, merge_multi_context=True):
+        """The arrays of the state inputs (``state_names``)."""
+        assert self.binded and self.params_initialized
+        return self._exec_group.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        """Write the state inputs: from ``states`` or every element
+        ``value``."""
+        assert self.binded and self.params_initialized
+        self._exec_group.set_states(states=states, value=value)
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels, pre_sliced)

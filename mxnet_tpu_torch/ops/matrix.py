@@ -27,7 +27,7 @@ import torch
 from ..base import torch_dtype
 from .registry import register
 
-__all__ = ["reshape", "transpose", "slice_axis", "embedding", "arange_like",
+__all__ = ["reshape", "transpose", "swapaxes", "slice_axis", "embedding", "arange_like",
            "pick", "encode_basic_index", "decode_basic_index"]
 
 
@@ -95,6 +95,13 @@ def transpose(data, axes=(), **_):
     if not axes:
         axes = tuple(range(data.dim()))[::-1]
     return data.permute(tuple(axes))
+
+
+@register("SwapAxis", aliases=("swapaxes", "swapaxis"))
+def swapaxes(data, dim1=0, dim2=0, **_):
+    """Exchange axes ``dim1`` and ``dim2`` (reference:
+    src/operator/swapaxis.cc)."""
+    return data.transpose(int(dim1), int(dim2)).contiguous()
 
 
 @register("expand_dims")

@@ -10,11 +10,15 @@ other.
 
 Shape inference solves the parameters' shapes from the data's by each
 op's rules (FullyConnected, Convolution, BatchNorm, LayerNorm, Embedding,
-prelu LeakyReLU and the loss heads' labels), as the JAX package's
-``_solve_params`` does, and takes each op's output shape from running it
-on ``torch.device("meta")`` tensors, which hold no memory.  Dimensions
-of 0 (unknown) in a variable's ``__shape__`` are not solved: such a
-variable stays unknown.
+RNN's packed parameters and states, prelu LeakyReLU and the loss heads'
+labels), as the JAX package's ``_solve_params`` does, and takes each op's
+output shape from running it on ``torch.device("meta")`` tensors, which
+hold no memory.  Dimensions of 0 (unknown) in a variable's ``__shape__``,
+such as the batch of a recurrent cell's ``begin_state`` variables, are
+first solved by the JAX package's unification pass
+(:func:`_propagate_partial`, forward and backward through element-wise
+ops, shape-preserving unaries, FullyConnected, Convolution, SliceChannel
+and Concat); a variable it leaves partial stays unknown.
 
 ``bind``/``simple_bind`` make an :class:`~mxnet_tpu_torch.executor.Executor`
 on ``gpu(0)`` unless a device is given.
@@ -157,6 +161,10 @@ class Symbol:
         if len(self._outputs) == 1:
             return dict(self._outputs[0][0].attr_dict)
         return {}
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._outputs:
+            node.attr_dict.update({k: str(v) for k, v in kwargs.items()})
 
     def attr_dict(self):
         """``{node name: {attribute: string}}``, the op attributes and the
@@ -518,6 +526,11 @@ def _infer_shapes(symbol, known):
     rules, :func:`_solve_params`), each node's outputs from a run on meta
     tensors."""
     shapes = dict(known)
+    if _has_partial(symbol, shapes):
+        # 0-marked dimensions are unified first; only the variables it
+        # completes feed the main pass
+        shapes = {k: v for k, v in shapes.items() if 0 not in v}
+        shapes.update(_propagate_partial(symbol, known))
     outs = {}
 
     def entry_shape(inp, idx):
@@ -552,12 +565,300 @@ def _meta_shapes(node, in_shapes):
     ins = [torch.empty(s, device="meta") for s in in_shapes]
     try:
         with torch.no_grad(), autograd.predict_mode():
-            out = _reg.get(node.op).fn(*ins, **node.attrs)
+            out = _reg.get(node.op).fn(*ins, **op_attrs(node, "meta"))
     except (RuntimeError, ValueError, TypeError, IndexError,
             NotImplementedError, MXNetError):
         return None
     return [tuple(o.shape) for o in (out if isinstance(out, (tuple, list))
                                      else (out,))]
+
+
+def takes_device(node):
+    """Whether ``node`` is a creation op with no input (``_zeros``, a
+    cell's batch-1 begin state): its array is made on a device that the
+    caller gives as its ``ctx``."""
+    if node.is_variable or node.inputs:
+        return False
+    return "ctx" in inspect.signature(_reg.get(node.op).fn).parameters
+
+
+def op_attrs(node, device):
+    """``node``'s attributes, with ``ctx=device`` for a creation op that
+    was given none."""
+    if node.attrs.get("ctx") is None and takes_device(node):
+        return dict(node.attrs, ctx=device)
+    return node.attrs
+
+
+def _has_partial(symbol, known):
+    """Whether a shape given, or a variable's ``__shape__``, holds a 0."""
+    if any(0 in tuple(v) for v in known.values()):
+        return True
+    for node in symbol._topo_nodes():
+        if node.is_variable and node.name not in known \
+                and "__shape__" in node.attr_dict:
+            if 0 in tuple(_parse_attr_value(node.attr_dict["__shape__"])):
+                return True
+    return False
+
+
+# ops whose first input and output share a shape exactly, and the
+# element-wise ops whose operands and result do (for the unification
+# pass; broadcast variants are not invertible)
+_UNIFY_UNARY = {"relu", "sigmoid", "tanh", "softsign", "Activation",
+                "softmax", "log_softmax", "BatchNorm", "LeakyReLU",
+                "Dropout", "identity", "negative", "LayerNorm"}
+_UNIFY_ELEMWISE = {"elemwise_add", "elemwise_sub", "elemwise_mul",
+                   "elemwise_div"}
+
+
+def _propagate_partial(symbol, known):
+    """``{variable: complete shape}`` for every variable that a fixpoint
+    over partial shapes (None for a 0 dimension) completes, forward and
+    backward: element-wise ops and shape-preserving unaries unify their
+    operands, FullyConnected and Convolution (stride 1 backward) carry
+    the batch, SliceChannel and Concat their axes
+    (``mxnet_tpu/symbol/symbol.py:680-949``; reference:
+    src/executor/infer_graph_attr_pass.cc)."""
+    nodes = symbol._topo_nodes()
+    var_shapes, out_shapes = {}, {}
+
+    def vec_of(shape):
+        return [None if int(d) == 0 else int(d) for d in shape]
+
+    for node in nodes:
+        if node.is_variable:
+            if node.name in known:
+                var_shapes[node.name] = vec_of(known[node.name])
+            elif "__shape__" in node.attr_dict:
+                var_shapes[node.name] = vec_of(
+                    _parse_attr_value(node.attr_dict["__shape__"]))
+    state = {"changed": False}
+
+    def get(inp, idx):
+        if inp.is_variable:
+            return var_shapes.get(inp.name)
+        return out_shapes.get((id(inp), idx))
+
+    def unify(a, b, what):
+        if a is None:
+            return list(b) if b is not None else None
+        if b is None:
+            return list(a)
+        if len(a) != len(b):
+            raise MXNetError("infer_shape: rank mismatch at %s: %r vs %r"
+                             % (what, a, b))
+        out = []
+        for x, y in zip(a, b):
+            if x is not None and y is not None and x != y:
+                raise MXNetError("infer_shape: dim mismatch at %s: %r vs %r"
+                                 % (what, a, b))
+            out.append(x if x is not None else y)
+        return out
+
+    def merge(store, key, vec, what):
+        merged = unify(store.get(key), vec, what)
+        if merged != store.get(key):
+            store[key] = merged
+            state["changed"] = True
+
+    def put(inp, idx, vec, what):
+        if vec is None:
+            return
+        if inp.is_variable:
+            merge(var_shapes, inp.name, vec, what)
+        else:
+            merge(out_shapes, (id(inp), idx), vec, what)
+
+    def put_out(node, idx, vec):
+        if vec is not None:
+            merge(out_shapes, (id(node), idx), vec, node.name)
+
+    def ival(attrs, key, default=None):
+        v = attrs.get(key, default)
+        return _parse_attr_value(v) if isinstance(v, str) else v
+
+    def elemwise(node, ins, me):
+        # operands and result share a shape; where a known 1 meets a
+        # larger dimension the node broadcasts: leave it alone
+        vecs = [v for v in [me] + [get(i, x) for i, x in ins]
+                if v is not None]
+        if any(len(a) == len(b) and any(
+                x is not None and y is not None and x != y and 1 in (x, y)
+                for x, y in zip(a, b))
+               for i, a in enumerate(vecs) for b in vecs[i + 1:]):
+            return
+        merged = me
+        for inp, idx in ins:
+            merged = unify(merged, get(inp, idx), node.name)
+        for inp, idx in ins:
+            put(inp, idx, merged, node.name)
+        put_out(node, 0, merged)
+
+    def flatten_rule(node, ins, me):
+        data = get(*ins[0])
+        batch = data[0] if data is not None else None
+        if batch is None and me is not None:
+            batch = me[0]
+        tail = None
+        if data is not None and all(d is not None for d in data[1:]):
+            tail = int(np.prod(data[1:]))
+        put_out(node, 0, [batch, tail])
+        if data is not None:
+            put(ins[0][0], ins[0][1], [batch] + data[1:], node.name)
+
+    def fc_rule(node, ins, me):
+        nh = ival(node.attrs, "num_hidden")
+        if nh is None:
+            return
+        nh, flat = int(nh), bool(ival(node.attrs, "flatten", True))
+        data = get(*ins[0])
+        batch = data[0] if data is not None else None
+        if me is not None and batch is None:
+            batch = me[0]
+        if flat:
+            put_out(node, 0, [batch, nh])
+        elif data is not None:
+            put_out(node, 0, [batch] + data[1:-1] + [nh])
+        elif me is not None:
+            put_out(node, 0, [batch] + me[1:-1] + [nh])
+        if data is None:
+            return
+        lead = [batch] + data[1:]
+        if not flat and me is not None and len(me) == len(data):
+            lead = [batch] + [d if d is not None else o for d, o in
+                              zip(data[1:-1], me[1:-1])] + [data[-1]]
+        put(ins[0][0], ins[0][1], lead, node.name)
+        rest = data[1:] if flat else data[-1:]
+        if all(d is not None for d in rest) and len(ins) > 1:
+            put(ins[1][0], ins[1][1], [nh, int(np.prod(rest))], node.name)
+
+    def conv_rule(node, ins, me):
+        a = node.attrs
+        k, nf = tuple(ival(a, "kernel", ())), ival(a, "num_filter")
+        if len(k) != 2 or nf is None:
+            return
+        s = tuple(ival(a, "stride", (1, 1)) or (1, 1))
+        p = tuple(ival(a, "pad", (0, 0)) or (0, 0))
+        dl = tuple(ival(a, "dilate", (1, 1)) or (1, 1))
+        data = get(*ins[0])
+        if (data is not None and len(data) != 4) or \
+                (me is not None and len(me) != 4):
+            raise MXNetError("infer_shape: Convolution at %s expects "
+                             "rank-4 NCHW shapes" % node.name)
+        batch = data[0] if data is not None else None
+        if batch is None and me is not None:
+            batch = me[0]
+        fwd, back = [batch, int(nf), None, None], [None, None]
+        for i in range(2):
+            eff = dl[i] * (k[i] - 1)
+            if data is not None and data[2 + i] is not None:
+                fwd[2 + i] = (data[2 + i] + 2 * p[i] - eff - 1) // s[i] + 1
+            if me is not None and me[2 + i] is not None and s[i] == 1:
+                back[i] = me[2 + i] - 2 * p[i] + eff  # exactly invertible
+        put_out(node, 0, fwd)
+        if data is not None:
+            put(ins[0][0], ins[0][1],
+                [batch, data[1], back[0] if data[2] is None else data[2],
+                 back[1] if data[3] is None else data[3]], node.name)
+
+    def split_rule(node, ins, me):
+        n = ival(node.attrs, "num_outputs")
+        if n is None:
+            return
+        n, ax = int(n), int(ival(node.attrs, "axis", 1))
+        squeeze = bool(ival(node.attrs, "squeeze_axis", False))
+        data = get(*ins[0])
+        for i in range(node.num_outputs):
+            out_i = out_shapes.get((id(node), i))
+            if data is not None:
+                a = ax % len(data)
+                if squeeze:
+                    vec = data[:a] + data[a + 1:]
+                else:
+                    vec = list(data)
+                    vec[a] = None if data[a] is None else data[a] // n
+                put_out(node, i, vec)
+            if out_i is not None:
+                if squeeze:
+                    a = ax % (len(out_i) + 1)
+                    back = out_i[:a] + [n] + out_i[a:]
+                else:
+                    a = ax % len(out_i)
+                    back = list(out_i)
+                    back[a] = None if out_i[a] is None else out_i[a] * n
+                put(ins[0][0], ins[0][1], back, node.name)
+
+    def concat_rule(node, ins, me):
+        vecs = [get(inp, idx) for inp, idx in ins]
+        rank = next((len(v) for v in vecs if v is not None),
+                    len(me) if me is not None else None)
+        if rank is None:
+            return
+        d = int(ival(node.attrs, "dim", 1)) % rank
+        proto = [None] * rank  # the axes other than d, across everything
+        for v in vecs + [me]:
+            if v is None:
+                continue
+            if len(v) != rank:
+                raise MXNetError("infer_shape: concat rank mismatch at %s"
+                                 % node.name)
+            for i in range(rank):
+                if i != d and v[i] is not None:
+                    if proto[i] is not None and proto[i] != v[i]:
+                        raise MXNetError("infer_shape: concat dim mismatch "
+                                         "at %s" % node.name)
+                    proto[i] = v[i]
+        for (inp, idx), v in zip(ins, vecs):
+            vec = list(proto)
+            vec[d] = v[d] if v is not None else None
+            put(inp, idx, vec, node.name)
+        dims = [v[d] if v is not None else None for v in vecs]
+        out_d = sum(dims) if all(x is not None for x in dims) else None
+        if out_d is None and me is not None and me[d] is not None \
+                and sum(x is None for x in dims) == 1:
+            i = dims.index(None)
+            vec = list(proto)
+            vec[d] = me[d] - sum(x for x in dims if x is not None)
+            put(ins[i][0], ins[i][1], vec, node.name)
+            out_d = me[d]
+        outv = list(proto)
+        outv[d] = out_d
+        put_out(node, 0, outv)
+
+    def step(node):
+        ins, me = node.inputs, out_shapes.get((id(node), 0))
+        if node.op in _UNIFY_ELEMWISE:
+            elemwise(node, ins, me)
+        elif node.op in _UNIFY_UNARY and ins:
+            merged = unify(me, get(*ins[0]), node.name)
+            put(ins[0][0], ins[0][1], merged, node.name)
+            put_out(node, 0, merged)
+        elif node.op == "Flatten" and ins:
+            flatten_rule(node, ins, me)
+        elif node.op == "FullyConnected":
+            fc_rule(node, ins, me)
+        elif node.op == "Convolution" and \
+                str(ival(node.attrs, "layout", "NCHW") or "NCHW") == "NCHW":
+            conv_rule(node, ins, me)
+        elif node.op == "SliceChannel":
+            split_rule(node, ins, me)
+        elif node.op == "Concat":
+            concat_rule(node, ins, me)
+
+    op_nodes = [n for n in nodes if not n.is_variable]
+    for _ in range(100):
+        state["changed"] = False
+        # a forward and a reverse sweep an iteration, so that a deep
+        # chain (an unrolled RNN) converges in a few iterations
+        for node in op_nodes:
+            step(node)
+        for node in reversed(op_nodes):
+            step(node)
+        if not state["changed"]:
+            break
+    return {name: tuple(v) for name, v in var_shapes.items()
+            if v is not None and all(d is not None for d in v)}
 
 
 def _solve_params(node, data_shape, shapes):
@@ -610,6 +911,18 @@ def _solve_params(node, data_shape, shapes):
     elif node.op == "Embedding":
         setv("weight", (int(a.get("input_dim", 1)),
                         int(a.get("output_dim", 1))))
+    elif node.op == "RNN":
+        # data (T, B, in) fixes the packed vector and the states
+        # (reference: rnn-inl.h RNNShape)
+        from ..ops.rnn import rnn_param_size
+
+        h, layers = int(a.get("state_size", 0)), int(a.get("num_layers", 1))
+        bidir = bool(a.get("bidirectional", False))
+        _, b, din = data_shape
+        setv("parameters", (rnn_param_size(layers, din, h, bidir,
+                                           a.get("mode", "lstm")),))
+        for slot in ("state", "state_cell"):
+            setv(slot, (layers * (2 if bidir else 1), b, h))
     elif node.op == "LeakyReLU" and a.get("act_type") == "prelu":
         setv("gamma", (data_shape[1],))
     elif node.op in OP_LABEL_INPUTS:

@@ -186,6 +186,7 @@ OP_CASES.update({
     "reshape_like": ([("f", (2, 6)), ("f", (3, 4))], {}),
     "Flatten": ([("f", (2, 3, 4))], {}),
     "transpose": ([("f", (2, 3, 4))], {"axes": (2, 0, 1)}),
+    "SwapAxis": ([("f", (2, 3, 4))], {"dim1": 0, "dim2": 2}),
     "expand_dims": ([_F], {"axis": 1}),
     "squeeze": ([("f", (2, 1, 3, 1))], {}),
     "Concat": ([_F, ("f", (3, 2))], {"dim": 1}),

@@ -231,3 +231,48 @@ def test_fused_program_is_the_eager_one():
     for k, g in ex.grad_dict.items():
         np.testing.assert_array_equal(g.asnumpy(), grads[k])
     assert isinstance(outs[0], torch.Tensor) and not outs[0].requires_grad
+
+
+def test_train_forward_runs_the_graph_once(monkeypatch):
+    """``forward(is_train=True)`` followed by ``backward`` evaluates the
+    graph once, in the fused program (the JAX package's forward computes
+    the outputs at once, so its training batch runs the forward twice);
+    the outputs it returns are read at their first access, and a read
+    before the backward runs the forward then, with the same values."""
+    tsym = build("port", "bn")
+    args, aux = _values(tsym, {"data": SHAPES["bn"]}, seed=10)
+    _, want, grads, _ = _run("port", tsym, args, aux)
+    calls = []
+    real = tmx.executor.Executor._eval
+
+    def counted(self, *a):
+        calls.append(a[-1])
+        return real(self, *a)
+
+    monkeypatch.setattr(tmx.executor.Executor, "_eval", counted)
+    for read_first in (False, True):
+        ex, _, _, _ = _run("port", tsym, args, aux, train=False)
+        del calls[:]
+        outs = ex.forward(is_train=True)
+        assert calls == [] and len(outs) == 1
+        if read_first:
+            np.testing.assert_array_equal(outs[0].asnumpy(), want[0])
+        ex.backward()
+        assert calls == [True] * (2 if read_first else 1)
+        np.testing.assert_array_equal(outs[0].asnumpy(), want[0])
+        for k, g in ex.grad_dict.items():
+            np.testing.assert_array_equal(g.asnumpy(), grads[k])
+    mod = tmx.mod.Module(tsym, label_names=["linearregressionoutput0_label"],
+                         context=CPU)
+    mod.bind([("data", SHAPES["bn"])],
+             [("linearregressionoutput0_label", (2, 3))])
+    mod.init_params(arg_params={k: tmx.nd.array(v, ctx=CPU)
+                                for k, v in args.items()},
+                    aux_params={k: tmx.nd.array(v, ctx=CPU)
+                                for k, v in aux.items()},
+                    allow_missing=True)
+    del calls[:]
+    mod.forward_backward(tmx.io.DataBatch(
+        [tmx.nd.array(args["data"], ctx=CPU)],
+        [tmx.nd.array(args["linearregressionoutput0_label"], ctx=CPU)]))
+    assert calls == [True]
