@@ -49,7 +49,12 @@ Phases (any failure raises, and the script exits non-zero):
    version's, cuDNN's (or PyTorch's max-pool backward) and the bound, for
    K1 its launch plan, workspace, TFLOP/s and share of the bound, for K2
    its tile plan; one K2 call at the stem shape launches one kernel and
-   allocates only dX;
+   allocates only dX; then SSD300's shapes at batch 32 in float32 (phase
+   11's): K1 at every distinct convolution (fc6's 3x3 of dilation 6, the
+   heads' widths 84, 126, 16 and 24, conv1_1's I = 3 on K1b) beside
+   cuDNN's wgrad, K1's tensor-core route with dilation at fc6's shape in
+   bf16 and a ragged dilated shape in bf16 and float16, and K2 at pool1-pool5 (pool3's ceil window reaching
+   past its 75 x 75 input, pool5's 3x3/s1/p1);
 3d. BatchNorm kernels: the forward K6a and the backward K6b at every
    distinct BatchNorm shape of ResNet-50 at batch 128 in bf16 (bf16 gamma
    and beta, as the step casts them), at every one in float32 and
@@ -67,7 +72,16 @@ Phases (any failure raises, and the script exits non-zero):
    plan assumes co-resident; one K6a call (in
    train mode at each case, in predict mode in each type) and one K6b
    call at each case is one device kernel each in one profiler trace;
-   axis=1 on the card raises;
+   BatchNorm over axis 1 of NCHW data lying channels_last (SSD300's
+   relu4_3 shape) runs one K6a and one K6b on its NHWC view, equal to the
+   plain version and bitwise to the NHWC call;
+3e. box_nms (K7): the keep set at MultiBoxDetection's shape (32, 8732)
+   and at edge cases (all ties, all suppressed, topk 400, force_suppress,
+   id_index -1), each bitwise equal to the plain version on the card and
+   across two launches (and box_nms on the card to the CPU's at (2,
+   500)), with its time, the plain version's and the bound (the IoU's
+   operations counted for the pairs of one class where ids restrict
+   suppression);
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -105,8 +119,9 @@ Phases (any failure raises, and the script exits non-zero):
 7. imperative: (a) every registered op once through mx.nd on the card at a
    small seeded shape, against the same call on the CPU (the RNN op in
    five cases: LSTM, GRU, relu and tanh, bidirectional, two layers, the
-   clipped cell state, a batch-1 state; BatchNorm over
-   axis 1 raises there; over the last axis it runs K6a; integers that
+   clipped cell state, a batch-1 state; BatchNorm over axis 1 and over
+   the last axis, both through K6a; the detection ops, box_nms through
+   K7; integers that
    wrap, float-to-integer casts that saturate, NaN, the infinities, an
    integer divisor of 0 and signed zeros among the cases), then the
    TransformerLM's feed-forward written in mx.nd at full width ((8, 1024,
@@ -194,7 +209,27 @@ Phases (any failure raises, and the script exits non-zero):
    over 4 steps ((8, 3, 16, 16) maps, 16 hidden channels) through a
    captured executor against the CPU (gradients within 1e-3), its K1b
    launches counted over the main path and in a trace of 3 replays (the
-   kernels line's path bucketing_convlstm).
+   kernels line's path bucketing_convlstm);
+11. SSD300: BASELINE config 4, SSD300 over the reduced VGG16 (upstream
+   example/ssd get_config("vgg16_reduced", 300): 20 classes plus
+   background, 8,732 anchors; gluon.model_zoo.ssd.SSD300) at its
+   published widths, float32, in the Gluon layers' default NCHW layout:
+   (a) one step at batch 2 on the card against the CPU plain path (the
+   outputs and the loss within 1e-3 of their largest magnitude, the L2
+   distance of all gradients within 3 times the CPU's own L2 change
+   under the largest of 3 draws of a 1e-6 relative input change); (b) the main path, the JAX example's train() loop
+   (example/ssd/train.py): synthetic 300 x 300 scenes of 1-3 boxes, a
+   colour a class, through mx.io.NDArrayIter at batch 32, the forward
+   under autograd.record, MultiBoxTarget with hard-negative mining, the
+   class loss plus 5 x L1Loss of the masked offsets, backward and
+   gluon.Trainer's Adam (lr 2e-3): a finite loss whose last 20 batches
+   lie below the first 20, K1a, K1b and K2 launched once a convolution
+   and pool a step; the step time (CUDA events), images/s, peak memory,
+   then 3 steps under torch.profiler (busy share, time by kernel group);
+   (c) evaluate(): MultiBoxDetection (NMS 0.45) on 32 held-out scenes,
+   one K7 launch, finite rows of (32, 8732, 6), the top-1 class at IoU
+   >= 0.5 accuracy and the call's time (the kernels line's paths
+   ssd_train and ssd_detect).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -1082,11 +1117,14 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
     if not spans:
         raise AssertionError("the profiler saw no device kernel")
     totals = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
+    others = {}
     busy, end = 0.0, None
     for t_start, t_end, name in spans:
         group = next((g for g, keys in groups
                       if any(k in name.lower() for k in keys)), "other")
         totals[group] += t_end - t_start
+        if group == "other":
+            others[name] = others.get(name, 0.0) + t_end - t_start
         if end is None or t_start > end:
             busy += t_end - t_start
             end = t_end
@@ -1103,6 +1141,9 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
             ", ".join("%s %.2f ms (%.1f %%)" % (
                 g, t / steps / 1e3, 100.0 * t / total)
                 for g, t in totals.items())))
+    log("%s: the largest kernels of no group, a step: %s" % (tag, "; ".join(
+        "%.2f ms %s" % (t / steps / 1e3, name[:100]) for name, t in sorted(
+            others.items(), key=lambda kv: -kv[1])[:4]) or "none"))
     if count is None:
         return None
     return {key: sum(1 for _, _, name in spans
@@ -1157,29 +1198,30 @@ def resnet_convs(batch=RESNET_BATCH, size=RESNET_SIZE):
     return convs
 
 
-def _out_size(size, k, s, p):
-    return (size + 2 * p - k) // s + 1
+def _out_size(size, k, s, p, d=1):
+    return (size + 2 * p - d * (k - 1) - 1) // s + 1
 
 
-def _taps_read(size, k, s, p, out):
+def _taps_read(size, k, s, p, out, d=1):
     """How many of ``size`` input positions along one axis a convolution
     reads: those some output position's tap lands on."""
-    return len({y * s + r - p for y in range(out) for r in range(k)}
+    return len({y * s + r * d - p for y in range(out) for r in range(k)}
                & set(range(size)))
 
 
-def conv_dw_bound_ms(xs, k, s, p, o, dtype):
+def conv_dw_bound_ms(xs, k, s, p, o, dtype, d=(1, 1)):
     """Least time for dW: the pixels of x that the convolution reads (all
     of them unless a stride skips some, as a 1x1 stride-2 convolution
     does) and dy read once and dW (float32) written once, against 2 flops
     per multiply-add at the card's peak for the inputs' type (bf16: the
     tensor cores)."""
     n, h, w, i = xs
-    oh, ow = _out_size(h, k[0], s[0], p[0]), _out_size(w, k[1], s[1], p[1])
+    oh = _out_size(h, k[0], s[0], p[0], d[0])
+    ow = _out_size(w, k[1], s[1], p[1], d[1])
     flops = 2.0 * n * oh * ow * o * k[0] * k[1] * i
     esize = torch.finfo(dtype).bits // 8
-    pixels = _taps_read(h, k[0], s[0], p[0], oh) * _taps_read(
-        w, k[1], s[1], p[1], ow)
+    pixels = _taps_read(h, k[0], s[0], p[0], oh, d[0]) * _taps_read(
+        w, k[1], s[1], p[1], ow, d[1])
     nbytes = (n * pixels * i + n * oh * ow * o) * esize \
         + o * k[0] * k[1] * i * 4
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
@@ -1610,11 +1652,10 @@ def bn_kernels(seed):
     scalar path) and a tiny M; each against its plain version on the card (within BN_TOL of
     its largest magnitude) and bitwise equal across two launches, with its
     plan, time, the plain version's, the library call's and the bound;
-    axis=1 on the card raises.  Returns, for each kernel, its numbers
-    summed over the BatchNorms of one training step."""
-    from mxnet_tpu_torch import MXNetError
+    axis=1 on NCHW data with channels_last strides runs them too
+    (:func:`bn_axis_1`).  Returns, for each kernel, its numbers summed
+    over the BatchNorms of one training step."""
     from mxnet_tpu_torch.ops import batch_norm as B
-    from mxnet_tpu_torch.ops import nn as N
 
     counts = {}
     for n, h, w, c in resnet_bns():
@@ -1775,15 +1816,64 @@ def bn_kernels(seed):
             "plain %.3f ms, library %.3f ms, bound %.3f ms" % (
                 key, sum(counts.values()), row["ms"], row["plain_ms"],
                 row["library_ms"], row["bound_ms"]))
-    x = torch.zeros(2, 3, 4, 4, device="cuda")
-    ones = torch.ones(3, device="cuda")
-    try:
-        N.batch_norm(x, ones, ones, ones, ones, axis=1)
-    except MXNetError as e:
-        log("kernel batch_norm: axis=1 on the card raises MXNetError: %s" % e)
-    else:
-        raise AssertionError("batch_norm took axis=1 on the card")
+    bn_axis_1(gen)
     return rows
+
+
+def bn_axis_1(gen):
+    """BatchNorm over axis 1 of NCHW data that lies channels_last in
+    memory (SSD's and every default-layout Gluon CNN's): one K6a and one
+    K6b launch on its NHWC view, with no copy of x, each output equal to
+    the plain version's within BN_TOL and, bit for bit, to the same call
+    on the NHWC tensor over its last axis."""
+    from mxnet_tpu_torch.ops import batch_norm as B
+    from mxnet_tpu_torch.ops import nn as N
+
+    n, c, h, w = SSD_BATCH, 512, 38, 38      # SSD300's relu4_3
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    dy = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+    beta = torch.randn(c, device="cuda", generator=gen)
+    outs = {}
+    for name, data, grad, axis in (("nchw", x.permute(0, 3, 1, 2),
+                                    dy.permute(0, 3, 1, 2), 1),
+                                   ("nhwc", x, dy, -1)):
+        data = data.detach().requires_grad_()
+        g, b = (t.clone().requires_grad_() for t in (gamma, beta))
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        launched = (B.batch_norm_fwd.launches, B.batch_norm_bwd.launches)
+        y = N.batch_norm(data, g, b, rm, rv, eps=BN_EPS, fix_gamma=False,
+                         axis=axis, momentum=BN_MOMENTUM)[0]
+        dx, dg, db = torch.autograd.grad(y, (data, g, b), grad)
+        launched = (B.batch_norm_fwd.launches - launched[0],
+                    B.batch_norm_bwd.launches - launched[1])
+        outs[name] = (y, dx, dg, db, rm, rv, launched)
+    y, dx, dg, db, rm, rv, launched = outs["nchw"]
+    x2 = x.reshape(-1, c)
+    ref_y, _, _, stats = B.batch_norm_fwd_plain(
+        x2, gamma, beta, torch.zeros(c, device="cuda"),
+        torch.ones(c, device="cuda"), BN_EPS, False, False)
+    ref_dx, ref_dg, ref_db = B.batch_norm_bwd_plain(
+        x2, dy.reshape(-1, c), stats, gamma, beta, False, True)
+    errs = [_bn_err(got, ref)[1] for got, ref in (
+        (y.permute(0, 2, 3, 1).reshape(-1, c), ref_y),
+        (dx.permute(0, 2, 3, 1).reshape(-1, c), ref_dx), (dg, ref_dg),
+        (db, ref_db))]
+    same = all(torch.equal(a, b) for a, b in zip(
+        (y.permute(0, 2, 3, 1), dx.permute(0, 2, 3, 1), dg, db, rm, rv),
+        outs["nhwc"][:6]))
+    log("kernel batch_norm [axis 1 of NCHW channels_last x (%d, %d, %d, %d) "
+        "float32]: K6a and K6b launches %s, y and dx channels_last %s, "
+        "largest error against the plain version %.3g of its magnitude "
+        "(tol %.0e), bitwise equal to the NHWC call over the last axis %s"
+        % (n, c, h, w, launched,
+           y.is_contiguous(memory_format=torch.channels_last)
+           and dx.is_contiguous(memory_format=torch.channels_last),
+           max(errs), BN_TOL[torch.float32], same))
+    if launched != (1, 1) or max(errs) > BN_TOL[torch.float32] or not same \
+            or not y.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError("BatchNorm over axis 1 on the card did not run "
+                             "K6a and K6b on the NHWC view")
 
 
 def _resnet(device, seed=None):
@@ -2130,9 +2220,6 @@ def _nd_outputs(case, ctx, seed):
     return [o.asnumpy() for o in out]
 
 
-# op cases the card refuses by design: BatchNorm over axis 1 (K6a and K6b
-# take the channels last; "BatchNorm/nhwc" runs them)
-CARD_REFUSES = {"BatchNorm"}
 # op cases whose zeros must keep their sign on the card as on the CPU
 SIGNED_ZERO_CASES = {"sign/nan-and-zeros"}
 
@@ -2143,21 +2230,10 @@ def registry_on_card(seed):
     from mxnet_tpu_torch import test_utils as T
     from mxnet_tpu_torch.ops import registry
 
-    from mxnet_tpu_torch import MXNetError
-
     bad, worst = [], (0.0, None)
     for case in sorted(T.OP_CASES):
         name = T.op_name(case)
         mx_random.seed(seed)
-        if case in CARD_REFUSES:  # a limit of the card's kernels
-            try:
-                _nd_outputs(case, torch.device("cuda", 0), seed)
-            except MXNetError as e:
-                log("imperative: %s raises on the card as it should: %s"
-                    % (case, e))
-            else:
-                bad.append(case)
-            continue
         got = _nd_outputs(case, torch.device("cuda", 0), seed)
         torch.cuda.synchronize()
         if name in T.RANDOM_OPS:
@@ -4005,6 +4081,645 @@ def bucketing(seed, smi):
     return bk_convlstm(seed, smi)
 
 
+# ---------------------------------------------------------------- SSD300
+
+SSD_BATCH, SSD_SIZE, SSD_CLASSES, SSD_ANCHORS = 32, 300, 20, 8732
+# the JAX example's learning rate (example/ssd/train.py: Adam, 2e-3) and
+# box-loss weight; the card's rehearsal trained at it, 300 steps in 85 s
+# (PERF.md), so the main path takes 250
+SSD_LR, SSD_LOC_WEIGHT, SSD_NMS = 2e-3, 5.0, 0.45
+# training scenes (1-3 boxes), cycled in shuffled epochs of 16 batches;
+# the batches of the main path, from the rehearsal; the held-out
+# single-box scenes of evaluate(); the loss window that must fall
+SSD_SCENES, SSD_STEPS, SSD_VAL, SSD_WINDOW = 512, 250, 32, 20
+# SSD300's dW launches a step by formulation and its max pools
+SSD_K1A, SSD_K1B, SSD_K2 = 32, 3, 5
+# input changes on the CPU that set the batch-2 check's noise floor: how
+# many, and their relative size, that of a float32 sum of thousands of
+# products whose order differs (the card's convolutions against the CPU's)
+SSD_NOISE_DRAWS, SSD_INPUT_NOISE = 3, 1e-6
+SSD_GROUPS = (
+    ("K1a conv_dw pertap", ("conv_dw_kernel<false",)),
+    ("K1b conv_dw im2col", ("conv_dw_kernel<true",)),
+    ("K1 split-K sum", ("conv_dw_reduce",)),
+    ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
+    ("K7 box_nms", ("nms_mask_kernel", "nms_walk_kernel")),
+    # cuDNN picks FFT algorithms for some float32 convolutions
+    ("cuDNN conv fwd/dgrad", ("conv", "cudnn", "xmma", "fprop", "dgrad",
+                              "implicit", "gemm", "cutlass", "sm90", "fft",
+                              "complex")),
+    ("pooling fwd", ("pool",)),
+    ("sorts (MultiBoxTarget's mining)", ("sort", "radix", "scan")),
+    ("element-wise, reductions, copies",
+     ("elementwise", "reduce", "vectorized", "copy", "fill", "cat", "index",
+      "gather", "scatter", "memcpy", "memset")),
+)
+
+
+def _ssd_layers(cls, batch, size):
+    """(the layer, its NCHW input shape) of every ``cls`` layer of SSD300
+    at (batch, 3, size, size), in forward order, from a forward on the
+    meta device."""
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import SSD300
+
+    net = SSD300(SSD_CLASSES, device="meta")
+    seen = []
+    for m in net.modules():
+        if isinstance(m, cls):
+            m.register_forward_hook(
+                lambda mod, args, _out: seen.append((mod,
+                                                     tuple(args[0].shape))))
+    net(torch.empty(batch, 3, size, size, device="meta"))
+    return seen
+
+
+def ssd_convs(batch=SSD_BATCH, size=SSD_SIZE):
+    """(NHWC x shape, kernel, stride, pad, O, dilation) of every
+    convolution of SSD300 at (batch, 3, size, size), in forward order."""
+    from mxnet_tpu_torch.gluon.nn import Conv2D
+
+    return [((n, h, w, c), kw["kernel"], kw["stride"], kw["pad"],
+             kw["num_filter"], kw["dilate"])
+            for (n, c, h, w), kw in ((s, m._kwargs)
+                                     for m, s in _ssd_layers(Conv2D, batch,
+                                                             size))]
+
+
+def ssd_pools(batch=SSD_BATCH, size=SSD_SIZE):
+    """(NHWC x shape, kernel, stride, pad, NHWC dy shape) of SSD300's five
+    max pools (pool3 in ceil mode: its last window reaches past x)."""
+    from mxnet_tpu_torch.gluon.nn import MaxPool2D
+
+    out = []
+    for m, (n, c, h, w) in _ssd_layers(MaxPool2D, batch, size):
+        kw = m._kwargs
+        k, st, p = kw["kernel"], kw["stride"], kw["pad"]
+        ceil = kw["pooling_convention"] == "full"
+        dy = tuple((x + 2 * pp - kk + (ss - 1 if ceil else 0)) // ss + 1
+                   for x, kk, ss, pp in zip((h, w), k, st, p))
+        out.append(((n, h, w, c), k, st, p, (n,) + dy + (c,)))
+    return out
+
+
+def ssd_conv_kernels(seed):
+    """Phase 3c at SSD300's shapes, batch 32, float32 (the CUDA-core
+    kernel): K1a or K1b (by the formulation rule) at every distinct
+    convolution, fc6's dilated one and the heads' odd widths among them,
+    within DW_TOL of the plain version's largest magnitude, bitwise equal
+    across two launches, beside cuDNN's wgrad; K2 at pool1-pool5, bitwise
+    equal to its plain version and across two launches.  Returns the rows
+    of K1a, K1b and K2 summed over one SSD300 training step."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    counts = {}
+    for conv in ssd_convs():
+        counts[conv] = counts.get(conv, 0) + 1
+    rows = {key: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                      library_ms=0.0, bound_by=set(), launches_per_step=0)
+            for key in ("pertap", "im2col", "maxpool")}
+    for (xs, k, s, p, o, d), per_step in counts.items():
+        form = C.formulation(xs[3])
+        n, h, w, _ = xs
+        dys = (n, _out_size(h, k[0], s[0], p[0], d[0]),
+               _out_size(w, k[1], s[1], p[1], d[1]), o)
+        x = torch.randn(xs, device="cuda", generator=gen)
+        dy = torch.randn(dys, device="cuda", generator=gen)
+        run = C.conv_dw_pertap if form == "pertap" else C.conv_dw_im2col
+
+        def fn():
+            return run(x, dy, k, s, p, d)
+
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        ref = C.conv_dw_reference(x, dy, k, s, p, d)
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        same = torch.equal(got, again)
+        del got, again, ref
+        ms = time_ms(fn, iters=5)
+        plain_ms = time_ms(lambda: C.conv_dw_reference(x, dy, k, s, p, d),
+                           iters=2)
+        wt = torch.empty((o,) + k + xs[3:], device="cuda")
+        lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+            _nchw(dy), _nchw(x), _nchw(wt), None, s, p, d, False, (0, 0), 1,
+            (False, True, False)), iters=5)
+        bound, bound_by = conv_dw_bound_ms(xs, k, s, p, o, torch.float32, d)
+        plan = C.launch_plan(form, k, s, p, xs, o, torch.float32, d)
+        flops = 2.0 * dys[0] * dys[1] * dys[2] * o * k[0] * k[1] * xs[3]
+        log("kernel conv_dw %s [SSD300 x %s k %s s %s p %s d %s O %d float32, "
+            "%d a step]: max_abs_err %.3g of max %.3g (tol %.0e of it), "
+            "bitwise repeatable %s; %d splits of %d; kernel %.4f ms (%.1f "
+            "TFLOP/s, %.1f %% of the bound), plain %.4f ms, cuDNN wgrad %.4f "
+            "ms, bound %.4f ms (%s)" % (
+                form, xs, k, s, p, d, o, per_step, err, scale, DW_TOL, same,
+                plan.splits, plan.chunk, ms, flops / ms / 1e9,
+                100.0 * bound / ms, plain_ms, lib_ms, bound, bound_by))
+        if not err <= DW_TOL * scale or not same:
+            raise AssertionError("conv_dw %s disagrees with its plain version "
+                                 "or between two launches at SSD300's x %s "
+                                 "k %s d %s" % (form, xs, k, d))
+        row = rows[form]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound), ("library_ms", lib_ms)):
+            row[key] += per_step * v
+        row["launches_per_step"] += per_step
+        row["bound_by"].add(bound_by)
+        del x, dy, wt
+    torch.cuda.empty_cache()
+    # the tensor-core route with dilation (its 16-bit tap offsets): fc6's
+    # shape in bf16 and a ragged dilated im2col shape in bf16 and float16,
+    # checks only (the SSD300 step runs float32)
+    fc6 = next(c for c in counts if c[5] != (1, 1))
+    for (xs, k, s, p, o, d), dt in (
+            (fc6, torch.bfloat16),
+            (((8, 21, 17, 40), (3, 3), (1, 1), (2, 2), 72, (2, 2)),
+             torch.bfloat16),
+            (((8, 21, 17, 40), (3, 3), (2, 2), (3, 3), 72, (3, 3)),
+             torch.float16)):
+        form = C.formulation(xs[3])
+        dys = (xs[0], _out_size(xs[1], k[0], s[0], p[0], d[0]),
+               _out_size(xs[2], k[1], s[1], p[1], d[1]), o)
+        x = torch.randn(xs, device="cuda", generator=gen).to(dt)
+        dy = torch.randn(dys, device="cuda", generator=gen).to(dt)
+        run = C.conv_dw_pertap if form == "pertap" else C.conv_dw_im2col
+        got, again = run(x, dy, k, s, p, d), run(x, dy, k, s, p, d)
+        ref = C.conv_dw_reference(x, dy, k, s, p, d)
+        scale = ref.abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        same = torch.equal(got, again)
+        plan = C.launch_plan(form, k, s, p, xs, o, dt, d)
+        log("kernel conv_dw %s [dilated x %s k %s s %s p %s d %s O %d %s]: "
+            "%s kernel, max_abs_err %.3g of max %.3g (tol %.0e of it), "
+            "bitwise repeatable %s" % (
+                form, xs, k, s, p, d, o, str(dt).split(".")[1], plan.kernel,
+                err, scale, DW_TOL, same))
+        if not err <= DW_TOL * scale or not same:
+            raise AssertionError("conv_dw %s disagrees with its plain version "
+                                 "or between two launches at x %s d %s in %s"
+                                 % (form, xs, d, dt))
+        rows[form]["max_abs_err"] = max(rows[form]["max_abs_err"], err)
+        del x, dy, got, again, ref
+    torch.cuda.empty_cache()
+    for i, (xs, k, s, p, dys) in enumerate(ssd_pools()):
+        x = torch.randn(xs, device="cuda", generator=gen)
+        dy = torch.randn(dys, device="cuda", generator=gen)
+
+        def fn():
+            return P.maxpool_bwd(x, dy, k, s, p)
+
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        ref = P.maxpool_bwd_reference(x, dy, k, s, p)
+        equal, same = torch.equal(got, ref), torch.equal(got, again)
+        err = (got - ref).abs().max().item()
+        del got, again, ref
+        ms = time_ms(fn, iters=5)
+        plain_ms = time_ms(lambda: P.maxpool_bwd_reference(x, dy, k, s, p),
+                           iters=2)
+        # the library's backward of the same pool: ceil mode where the
+        # window reaches past x (pool3)
+        ceil = _out_size(xs[1], k[0], s[0], p[0]) != dys[1]
+        _, idx = F.max_pool2d(_nchw(x), k, s, p, ceil_mode=ceil,
+                              return_indices=True)
+        lib_ms = time_ms(
+            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                _nchw(dy), _nchw(x), k, s, p, (1, 1), ceil, idx), iters=5)
+        bound, bound_by = maxpool_bound_ms(xs, dys, torch.float32)
+        log("kernel maxpool_bwd [SSD300 pool%d x %s k %s s %s p %s dy %s "
+            "float32]: bitwise equal to the plain version %s (max abs err "
+            "%.3g), bitwise repeatable %s; kernel %.4f ms (%.1f %% of the "
+            "bound), plain %.4f ms, max_pool2d_with_indices_backward %.4f "
+            "ms, bound %.4f ms" % (i + 1, xs, k, s, p, dys, equal, err, same,
+                                   ms, 100.0 * bound / ms, plain_ms, lib_ms,
+                                   bound))
+        if not (equal and same):
+            raise AssertionError("maxpool_bwd differs from its plain version "
+                                 "or between two launches at SSD300's pool%d"
+                                 % (i + 1))
+        row = rows["maxpool"]
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound), ("library_ms", lib_ms)):
+            row[key] += v
+        row["launches_per_step"] += 1
+        row["bound_by"].add(bound_by)
+        del x, dy, idx
+    torch.cuda.empty_cache()
+    for key, row in rows.items():
+        row["bound_by"] = "+".join(sorted(row.pop("bound_by")))
+        log("kernel %s over one SSD300 step (%d launches, float32, each "
+            "timed alone): kernel %.3f ms, plain %.3f ms, library %.3f ms, "
+            "bound %.3f ms" % (key, row.pop("launches_per_step"), row["ms"],
+                               row["plain_ms"], row["library_ms"],
+                               row["bound_ms"]))
+    return rows
+
+
+def _nms_rows(gen, b, n, classes=SSD_CLASSES, centres=24, invalid=0.3):
+    """Detection rows (B, N, 6) [class, score, x1, y1, x2, y2] on the card:
+    boxes around a few centres an image, so that many overlap, and a
+    share ``invalid`` of the scores -1, as MultiBoxDetection hands them to
+    box_nms."""
+    def u(*shape):
+        return torch.rand(shape, device="cuda", generator=gen)
+
+    centre = torch.gather(u(b, centres, 2) * 0.8 + 0.1, 1, (
+        u(b, n) * centres).long().unsqueeze(-1).expand(-1, -1, 2))
+    half = u(b, n, 2) * 0.15 + 0.02
+    score = torch.where(u(b, n) < invalid, torch.full((b, n), -1.0,
+                                                      device="cuda"), u(b, n))
+    cls = (u(b, n) * classes).floor()
+    return torch.cat([cls.unsqueeze(-1), score.unsqueeze(-1), centre - half,
+                      centre + half], dim=-1)
+
+
+def nms_bound_ms(b, n, n_valid, ids=None):
+    """Least time for K7 on these inputs: the boxes (and ids) read once and
+    the keep set written once, against the operations this run's rows
+    need at the float32 peak: for a pair of valid rows of one class (of
+    any class where ``ids`` is None) 13 (4 max/min, 4 clipped differences,
+    the intersection's product, the union's add and subtract, the
+    division, the compare), for a pair of valid rows of two classes the
+    one compare of their ids, and each valid box's area once."""
+    nv = n_valid.double()
+    pairs = float((nv * (nv - 1) / 2).sum())
+    same = pairs
+    if ids is not None:
+        valid = torch.arange(n, device=ids.device) < n_valid.unsqueeze(1)
+        image = torch.arange(b, device=ids.device).unsqueeze(1).expand(b, n)
+        _, count = torch.unique(torch.stack(
+            [image[valid].double(), ids[valid].double()], 1), dim=0,
+            return_counts=True)
+        count = count.double()
+        same = float((count * (count - 1) / 2).sum())
+    ops = 13.0 * same + (pairs - same) + 5.0 * float(nv.sum())
+    nbytes = b * n * (16 + (4 if ids is not None else 0) + 1) + 4 * b
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# K7's edge cases: (name, images, rows, box_nms keywords, how the rows are
+# changed); each against the plain version on the card, and box_nms on the
+# card against box_nms on the CPU
+NMS_EDGE_CASES = [
+    ("all ties", 8, 2000, dict(id_index=0), "ties"),
+    ("all suppressed", 8, 2000, dict(force_suppress=True, id_index=0),
+     "same box"),
+    ("topk 400", 8, 2000, dict(id_index=0, topk=400), None),
+    ("force_suppress", 8, 2000, dict(id_index=0, force_suppress=True), None),
+    ("id_index -1", 8, 2000, dict(id_index=-1), None),
+]
+
+
+def nms_kernels(seed):
+    """Phase 3e, K7: box_nms's keep set at MultiBoxDetection's shape (32,
+    8732) and at the edge cases, each bitwise equal to the plain version
+    on the card and across two launches, with its time, the plain
+    version's and the bound (no library computes greedy NMS with the JAX
+    package's rule: no library row).  Returns the main shape's row."""
+    from mxnet_tpu_torch.ops import box_nms as K
+    from mxnet_tpu_torch.ops import contrib as Cb
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    row = None
+    cases = [("detect", SSD_BATCH, SSD_ANCHORS, dict(id_index=0), None)] \
+        + NMS_EDGE_CASES
+    for name, b, n, kw, change in cases:
+        data = _nms_rows(gen, b, n)
+        if change == "ties":
+            data[:, :, 1] = 0.5
+        elif change == "same box":
+            data[:, :, 2:] = data[:, :1, 2:]
+        _, boxes, n_valid, ids = Cb.nms_inputs(data, **kw)
+        topk = kw.get("topk", -1)
+        plan = K.launch_plan(b, n, topk)
+
+        def fn():
+            return K.nms_keep(boxes, n_valid, SSD_NMS, ids, topk)
+
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = K.nms_keep_plain(boxes, n_valid, SSD_NMS, ids)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal, same = torch.equal(got, ref), torch.equal(got, again)
+        kept = got.sum(1).tolist()
+        ms = time_ms(fn, iters=10)
+        bound, bound_by = nms_bound_ms(b, n, n_valid, ids)
+        cpu_equal = True
+        if name != "detect":
+            part = data[:2, :500].contiguous()
+            cpu_equal = torch.equal(Cb.box_nms(part, SSD_NMS, **kw).cpu(),
+                                    Cb.box_nms(part.cpu(), SSD_NMS, **kw))
+        log("kernel box_nms [%s, (%d, %d) rows, %s]: keep set bitwise equal "
+            "to the plain version %s, bitwise repeatable %s, box_nms on the "
+            "card equal to the CPU's at (2, 500) %s; valid rows %d-%d, kept "
+            "%d-%d an image; mask %d bytes (limit %d, %d words a row); "
+            "kernel %.4f ms (%.2f %% of the bound), plain (one call) %.1f ms, "
+            "bound %.4f ms (%s)" % (
+                name, b, n, kw, equal, same, cpu_equal,
+                int(n_valid.min()), int(n_valid.max()), min(kept), max(kept),
+                plan.mask_bytes, plan.limit, plan.words, ms,
+                100.0 * bound / ms, plain_ms, bound, bound_by))
+        if not (equal and same and cpu_equal):
+            raise AssertionError("box_nms's K7 disagrees with its plain "
+                                 "version at %s" % name)
+        if change == "same box" and max(kept) != 1:
+            raise AssertionError("box_nms kept more than one of identical "
+                                 "boxes")
+        if name == "detect":
+            row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": None}
+        del data, boxes, n_valid, ids, got, again, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ssd_counters():
+    from mxnet_tpu_torch.ops import box_nms as K
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    return {"pertap": C.conv_dw_pertap, "im2col": C.conv_dw_im2col,
+            "maxpool": P.maxpool_bwd, "box_nms": K.nms_keep}
+
+
+def _ssd_record(net, data, label):
+    """The example's train() step up to the loss: the forward, the targets
+    (hard-negative mining at 3), the class loss and 5 times the L1 loss
+    of the masked offsets.  Returns (the loss, the class loss, the box
+    loss)."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import ssd as S
+    from mxnet_tpu_torch.ops import contrib as Cb
+
+    with autograd.record():
+        anchor, cls_pred, loc_pred = net(data)
+        loc_t, loc_m, cls_t = Cb.multibox_target(
+            anchor, label, cls_pred.transpose(1, 2),
+            negative_mining_ratio=3.0)
+        lc = S.cls_loss(cls_pred, cls_t)
+        ll = gluon.loss.L1Loss()(loc_pred * loc_m, loc_t * loc_m)
+        loss = lc + SSD_LOC_WEIGHT * ll
+    return loss, lc, ll
+
+
+def ssd_card_vs_cpu(seed):
+    """SSD300 at its published widths, batch 2: the outputs and every
+    parameter gradient of one step on the card against the same weights
+    on the CPU plain path (the targets of the CPU's outputs on both).
+    Each output within GRAD_TOL of its largest magnitude.  The gradients
+    at initialisation hinge on ReLU masks and max-pool windows that
+    rounding alone flips: the CPU against itself under a relative input
+    change of 1e-7 moves an element by up to 1.4e-3 of the largest
+    gradient, and one draw's L2 change varies 700-fold over draws and
+    seeds (PERF.md).  So the gradients are gated as phase 6's train mode
+    is: their L2 distance from the CPU's within TRAIN_NOISE_RATIO times
+    the CPU's own L2 change under a relative input change of
+    SSD_INPUT_NOISE, the largest of SSD_NOISE_DRAWS draws; the worst
+    element and each leaf's worst are logged."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon.model_zoo import ssd as S
+    from mxnet_tpu_torch.ops import contrib as Cb
+
+    images, labels = S.synthetic_scenes(np.random.RandomState(seed + 7), 2,
+                                        SSD_SIZE, SSD_CLASSES, max_objs=3)
+    data = S.normalize(torch.from_numpy(images))
+    draws = np.random.RandomState(seed + 8)
+    t0 = time.perf_counter()
+    cpu = S.SSD300(SSD_CLASSES, device="cpu")
+    cpu.initialize(mx.init.Xavier(), seed=seed)
+    targets = []
+
+    def run(net, x):
+        dev = next(net.parameters()).device
+        with autograd.record():
+            anchor, cls_pred, loc_pred = net(x.to(dev))
+            if not targets:
+                targets.extend(Cb.multibox_target(
+                    anchor, torch.from_numpy(labels),
+                    cls_pred.transpose(1, 2), negative_mining_ratio=3.0))
+            loc_t, loc_m, cls_t = (t.to(dev) for t in targets)
+            loss = S.cls_loss(cls_pred, cls_t) + SSD_LOC_WEIGHT * \
+                gluon.loss.L1Loss()(loc_pred * loc_m, loc_t * loc_m)
+        autograd.backward(loss)
+        outs = dict(zip(("anchor", "cls_pred", "loc_pred", "loss"),
+                        (t.detach().cpu() for t in (anchor, cls_pred,
+                                                    loc_pred, loss))))
+        grads = {k: p.grad.detach().to("cpu", copy=True)
+                 for k, p in net.collect_params().items()}
+        return outs, grads
+
+    want, want_g = run(cpu, data)  # the first input materializes the widths
+    card = load_mxnet_tpu_params(S.SSD300(SSD_CLASSES), {
+        k: v.detach().numpy() for k, v in cpu.state_dict().items()})
+    top = max(g.abs().max().item() for g in want_g.values())
+
+    def per_leaf(got):
+        return sorted((((got[k] - w).abs().max().item()
+                        / max(w.abs().max().item(), GRAD_FLOOR * top)), k)
+                      for k, w in want_g.items())[::-1]
+
+    outs, grads = run(card, data)
+    out_err = {k: (outs[k] - w).abs().max().item()
+               / max(w.abs().max().item(), 1e-30) for k, w in want.items()}
+    grad_err = max((grads[k] - w).abs().max().item()
+                   for k, w in want_g.items()) / top
+    l2 = _l2_rel(grads, want_g)
+    floors, noisy = [], None
+    for _ in range(SSD_NOISE_DRAWS):
+        noise = torch.from_numpy(draws.uniform(-1, 1, data.shape).astype(
+            np.float32))
+        g = run(cpu, data * (1 + SSD_INPUT_NOISE * noise))[1]
+        floors.append(_l2_rel(g, want_g))
+        if floors[-1] == max(floors):
+            noisy = g
+    floor = max(floors)
+    log("ssd: SSD300 (published widths, batch 2, float32) on the card "
+        "against the CPU plain path: outputs %s of each largest magnitude "
+        "(tol %.0e); %d parameter gradients: the worst element %.3g of the "
+        "largest gradient (%.3g), L2 over all %.3g against the "
+        "CPU's own under %d draws of a %.0e input change %s (ratio to the "
+        "largest %.2f, limit %.1f); each leaf's worst of its own largest "
+        "magnitude: the card %s, the CPU under the largest draw %s; the "
+        "largest logit %.1f; %.1f s" % (
+            ", ".join("%s %.3g" % kv for kv in out_err.items()), GRAD_TOL,
+            len(want_g), grad_err, top, l2, SSD_NOISE_DRAWS,
+            SSD_INPUT_NOISE, ", ".join("%.3g" % f for f in floors),
+            l2 / floor, TRAIN_NOISE_RATIO,
+            ", ".join("%.3g (%s)" % e for e in per_leaf(grads)[:3]),
+            ", ".join("%.3g (%s)" % e for e in per_leaf(noisy)[:3]),
+            want["cls_pred"].abs().max().item(), time.perf_counter() - t0))
+    if not max(out_err.values()) <= GRAD_TOL:
+        raise AssertionError("ssd: the card's outputs disagree with the CPU "
+                             "plain path")
+    if not l2 <= TRAIN_NOISE_RATIO * floor:
+        raise AssertionError("ssd: the card's gradients are farther from the "
+                             "CPU's than rounding noise explains")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def _detection_accuracy(det, labels):
+    """The example's evaluate(): the share of single-box scenes whose best
+    detection has the box's class at an IoU of at least 0.5."""
+    hits = 0
+    for rows, gt in zip(det, labels[:, 0]):
+        rows = rows[rows[:, 0] >= 0]
+        if not len(rows):
+            continue
+        best = rows[rows[:, 1].argmax()]
+        ix1, iy1 = max(best[2], gt[1]), max(best[3], gt[2])
+        ix2, iy2 = min(best[4], gt[3]), min(best[5], gt[4])
+        inter = max(ix2 - ix1, 0) * max(iy2 - iy1, 0)
+        a1 = (best[4] - best[2]) * (best[5] - best[3])
+        a2 = (gt[3] - gt[1]) * (gt[4] - gt[2])
+        iou = inter / max(a1 + a2 - inter, 1e-9)
+        hits += int(best[0]) == int(gt[0]) and iou >= 0.5
+    return hits / len(labels)
+
+
+def ssd(seed, smi):
+    """Phase 11: SSD300-VGG16 trained by the JAX example's loop at its
+    published widths, then its detections.  Returns the wrappers' launch
+    counts over the training path and over the detection."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import ssd as S
+    from mxnet_tpu_torch.ops import contrib as Cb
+
+    ssd_card_vs_cpu(seed)
+    card = torch.device("cuda", 0)
+    np.random.seed(seed)  # NDArrayIter's shuffle
+    t0 = time.perf_counter()
+    images, labels = S.synthetic_scenes(np.random.RandomState(seed),
+                                        SSD_SCENES, SSD_SIZE, SSD_CLASSES,
+                                        max_objs=3)
+    val_images, val_labels = S.synthetic_scenes(
+        np.random.RandomState(seed + 99), SSD_VAL, SSD_SIZE, SSD_CLASSES)
+    it = mx.io.NDArrayIter(images, labels, batch_size=SSD_BATCH,
+                           shuffle=True, last_batch_handle="discard",
+                           label_name="label")
+    log("ssd: %d training scenes (1-3 boxes of %d classes) and %d held-out "
+        "ones (one box) of %d x %d in %.1f s, batches of %d through "
+        "mx.io.NDArrayIter" % (SSD_SCENES, SSD_CLASSES, SSD_VAL, SSD_SIZE,
+                               SSD_SIZE, time.perf_counter() - t0,
+                               SSD_BATCH))
+
+    def batches():
+        while True:
+            it.reset()
+            for b in it:
+                yield (S.normalize(b.data[0].data_torch.to(card)),
+                       b.label[0].data_torch.to(card))
+
+    net = S.SSD300(SSD_CLASSES, device=card)
+    net.initialize(mx.init.Xavier(), seed=seed)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": SSD_LR})
+    feed = batches()
+
+    def step():
+        data, label = next(feed)
+        loss, lc, ll = _ssd_record(net, data, label)
+        autograd.backward(loss)
+        trainer.step(SSD_BATCH)
+        return lc.detach(), ll.detach().mean()
+
+    counters = _ssd_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SSD_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(SSD_STEPS):
+        losses.append(step())
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the training path
+    step_ms = np.array([a.elapsed_time(b) for a, b in zip(events,
+                                                          events[1:])])
+    cls_l = np.array([float(a) for a, _ in losses])
+    loc_l = np.array([float(b) for _, b in losses])
+    total = cls_l + SSD_LOC_WEIGHT * loc_l
+    first, last = total[:SSD_WINDOW].mean(), total[-SSD_WINDOW:].mean()
+    steady = float(np.median(step_ms[5:]))
+    log("ssd: %d Adam steps (lr %g) of SSD300 at (%d, 3, %d, %d) on %s in "
+        "%.1f s wall: step %.2f ms (median after 5; CUDA events), %.1f "
+        "images/s; loss (class + %g x box) of the first %d batches %.4f "
+        "(class %.4f, box %.4f), of the last %d %.4f (class %.4f, box "
+        "%.4f); peak memory %.2f GB" % (
+            SSD_STEPS, SSD_LR, SSD_BATCH, SSD_SIZE, SSD_SIZE, smi, wall,
+            steady, SSD_BATCH / steady * 1e3, SSD_LOC_WEIGHT, SSD_WINDOW,
+            first, cls_l[:SSD_WINDOW].mean(), loc_l[:SSD_WINDOW].mean(),
+            SSD_WINDOW, last, cls_l[-SSD_WINDOW:].mean(),
+            loc_l[-SSD_WINDOW:].mean(), peak / 1e9))
+    log("ssd: loss by window of 25 steps: %s" % ", ".join(
+        "%.3f" % total[i:i + 25].mean() for i in range(0, len(total), 25)))
+    want = {"pertap": SSD_K1A * SSD_STEPS, "im2col": SSD_K1B * SSD_STEPS,
+            "maxpool": SSD_K2 * SSD_STEPS, "box_nms": 0}
+    log("ssd: wrapper launches over the training path: %s (expected %s)"
+        % (launched, want))
+    if not np.all(np.isfinite(total)) or not last < first:
+        raise AssertionError("ssd: the loss is not finite or did not fall")
+    if launched != want:
+        raise AssertionError("ssd: the training path did not launch K1a, "
+                             "K1b and K2 once a convolution and pool a step")
+    profile_steps(step, smi, steady, steps=3, groups=SSD_GROUPS, tag="ssd",
+                  count=())
+    # evaluate(): the held-out scenes through MultiBoxDetection
+    data = S.normalize(torch.from_numpy(val_images).to(card))
+
+    def detect():
+        anchor, cls_pred, loc_pred = net(data)
+        probs = torch.softmax(cls_pred, dim=-1).transpose(1, 2)
+        return Cb.multibox_detection(probs, loc_pred, anchor,
+                                     nms_threshold=SSD_NMS)
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det = detect()
+    torch.cuda.synchronize()
+    det_ms = (time.perf_counter() - t0) * 1e3
+    detected = {k: fn.launches for k, fn in counters.items()}
+    # ---- end of the detection path
+    det = det.cpu().numpy()
+    acc = _detection_accuracy(det, val_labels)
+    det_time = time_ms(detect, iters=5)
+    log("ssd: MultiBoxDetection (nms %.2f) on the %d held-out scenes: %d "
+        "rows of %d anchors kept, top-1 class at IoU >= 0.5 accuracy %.3f; "
+        "the first call %.2f ms (host clock), a call %.3f ms (CUDA events, "
+        "the forward included); wrapper launches %s" % (
+            SSD_NMS, SSD_VAL, int((det[..., 0] >= 0).sum()), SSD_ANCHORS,
+            acc, det_ms, det_time, detected))
+    if det.shape != (SSD_VAL, SSD_ANCHORS, 6) or not np.isfinite(det).all():
+        raise AssertionError("ssd: the detections are not finite rows of "
+                             "the expected shape")
+    if detected != {"pertap": 0, "im2col": 0, "maxpool": 0, "box_nms": 1}:
+        raise AssertionError("ssd: the detection did not launch K7 once")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return launched, detected
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4026,7 +4741,10 @@ def main():
                                            args.seed)
     pool_row, pool_lenet = phase("3c max-pool backward", pool_kernels,
                                  args.seed)
+    ssd_rows = phase("3c SSD300 conv dW and max-pool backward",
+                     ssd_conv_kernels, args.seed)
     bn_rows = phase("3d batch norm", bn_kernels, args.seed)
+    nms_row = phase("3e box_nms", nms_kernels, args.seed)
     serve_launches = phase("4 serve", serve, args.seed, smi)
     train_launches = phase("5 train", train, args.seed, smi)
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
@@ -4034,6 +4752,7 @@ def main():
     lenet_launches = phase("8 symbolic", symbolic, args.seed, smi)
     phase("9 word LM", word_lm, args.seed, smi)
     convlstm_launches = phase("10 bucketing", bucketing, args.seed, smi)
+    ssd_train, ssd_detect = phase("11 SSD300", ssd, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     plan_route=fwd_kernel_plan(UNITS // HEADS,
@@ -4094,6 +4813,24 @@ def main():
         replaces="mxnet_tpu/ops/pallas_conv.py:133",
         launches_counted_over="eager warm-up backward + capture",
         **convlstm_launches, **dw_convlstm))
+    # SSD300 (float32, eager): the training path's dW and max-pool backward
+    # at SSD300's shapes (phase 3c's sums over one step), and K7 in the
+    # detection (phase 3e's row at MultiBoxDetection's shape)
+    for key, name, source, line in (
+            ("pertap", "conv_dw_pertap", "conv_dw", "pallas_conv.py:111"),
+            ("im2col", "conv_dw_im2col", "conv_dw", "pallas_conv.py:133"),
+            ("maxpool", "maxpool_bwd", "maxpool_bwd", "pallas_pool.py:55")):
+        entries.append(dict(
+            name=name, path="ssd_train", route="cuda",
+            source="mxnet_tpu_torch/csrc/%s.cu" % source,
+            replaces="mxnet_tpu/ops/" + line, launches=ssd_train[key],
+            **ssd_rows[key]))
+    # no Pallas kernel: the JAX op's greedy loop, a lax.fori_loop
+    entries.append(dict(
+        name="box_nms", path="ssd_detect", route="cuda",
+        source="mxnet_tpu_torch/csrc/box_nms.cu",
+        replaces="mxnet_tpu/ops/contrib.py:62",
+        launches=ssd_detect["box_nms"], **nms_row))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

@@ -57,9 +57,9 @@ _SIGNATURES = {
     },
     "conv_dw": {
         "mxt_conv_dw_pertap": (ctypes.c_int, [ctypes.c_void_p] * 4
-                               + [ctypes.c_int] * 17 + [ctypes.c_void_p]),
+                               + [ctypes.c_int] * 19 + [ctypes.c_void_p]),
         "mxt_conv_dw_im2col": (ctypes.c_int, [ctypes.c_void_p] * 4
-                               + [ctypes.c_int] * 17 + [ctypes.c_void_p]),
+                               + [ctypes.c_int] * 19 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "batch_norm": {
@@ -72,6 +72,12 @@ _SIGNATURES = {
                        + [ctypes.c_int] * 16 + [ctypes.c_void_p]),
         "mxt_bn_bwd_occupancy": (ctypes.c_int, [ctypes.c_int] * 4
                                  + [ctypes.c_void_p]),
+        "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "box_nms": {
+        "mxt_box_nms": (ctypes.c_int, [ctypes.c_void_p] * 5
+                        + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "maxpool_bwd": {

@@ -3,8 +3,8 @@
 // Replaces mxnet_tpu/ops/pallas_conv.py::_dw_kernel_pertap (K1a) and
 // ::_dw_kernel_im2col (K1b), the Pallas TPU kernels behind conv_dw_nhwc.
 // It computes the same function for an NHWC input and OHWI weights
-// (groups 1, dilation 1):
-//   dW[o, r, s, i] = sum_{n,y,x} X[n, y*sy + r - py, x*sx + s - px, i]
+// (groups 1, dilation dh x dw):
+//   dW[o, r, s, i] = sum_{n,y,x} X[n, y*sy + r*dh - py, x*sx + s*dw - px, i]
 //                                * dY[n, y, x, o]
 // with taps outside the image reading as 0, so nothing is padded in device
 // memory (the JAX wrapper pads x with jnp.pad).  The sum runs in float32
@@ -112,6 +112,7 @@ struct Shape {
   int n, h, w, ci;        // x
   int oh, ow, co;         // dy
   int kh, kw, sy, sx, py, px;
+  int dil_h, dil_w;       // dilation: tap (r, s) lies r*dil_h, s*dil_w away
   int mt;                 // rows of dW^T: kh * kw * ci
   int splits, chunk;      // split-K: chunk positions per split
 };
@@ -270,7 +271,8 @@ __device__ __forceinline__ uint32_t ldg_u16(const uint16_t* p, bool ok) {
   return v;
 }
 
-// a tap's offsets (r - py, s - px) packed as the halves of one int
+// a tap's offsets (r*dil_h - py, s*dil_w - px) packed as the halves of one
+// int
 __device__ __forceinline__ int tap_dy(int dyx) { return dyx >> 16; }
 __device__ __forceinline__ int tap_dx(int dyx) { return (int)(short)(dyx & 0xffff); }
 
@@ -330,8 +332,8 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
       t = ok ? m / s.ci : 0;
       i = ok ? m % s.ci : 0;
     }
-    const int dyo = ok ? t / s.kw - s.py : -16384;
-    const int dxo = t % s.kw - s.px;
+    const int dyo = ok ? (t / s.kw) * s.dil_h - s.py : -16384;
+    const int dxo = (t % s.kw) * s.dil_w - s.px;
     b_dyx[e] = (int)(((unsigned)dyo << 16) | ((unsigned)dxo & 0xffffu));
     b_i[e] = ok ? i : 0;
   }
@@ -525,13 +527,13 @@ conv_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const int mm = a_ok ? m : 0;
     a_i = mm % s.ci;
     const int tap = mm / s.ci;
-    a_dy = tap / s.kw - s.py;
-    a_dx = tap % s.kw - s.px;
+    a_dy = (tap / s.kw) * s.dil_h - s.py;
+    a_dx = (tap % s.kw) * s.dil_w - s.px;
   } else {
     a_i = blockIdx.x * kBM + col;
     a_ok = a_i < s.ci;
-    a_dy = tap_r - s.py;
-    a_dx = tap_s - s.px;
+    a_dy = tap_r * s.dil_h - s.py;
+    a_dx = tap_s * s.dil_w - s.px;
   }
   const int b_o = o0 + col;
   const bool b_ok = b_o < s.co;
@@ -709,15 +711,18 @@ int launch_tc_variant(const void* x, const void* dy, float* ws, float* dw,
 template <bool kIm2col>
 int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
              int w, int ci, int oh, int ow, int co, int kh, int kw, int sy,
-             int sx, int py, int px, int splits, int chunk, int dtype,
-             int variant, void* stream) {
+             int sx, int py, int px, int dil_h, int dil_w, int splits,
+             int chunk, int dtype, int variant, void* stream) {
+  // a tap's offsets must fit the 16-bit halves of the tensor-core kernel
   if (n <= 0 || h <= 0 || w <= 0 || ci <= 0 || oh <= 0 || ow <= 0 || co <= 0 ||
       kh <= 0 || kw <= 0 || sy <= 0 || sx <= 0 || splits <= 0 || chunk <= 0 ||
+      dil_h <= 0 || dil_w <= 0 || (int64_t)(kh - 1) * dil_h > 8192 ||
+      (int64_t)(kw - 1) * dil_w > 8192 || py > 8192 || px > 8192 ||
       (int64_t)splits * chunk < (int64_t)n * oh * ow || variant < 0 ||
       variant > 7)
     return cudaErrorInvalidValue;
-  Shape s{n, h, w, ci, oh, ow, co, kh, kw, sy, sx, py, px, kh * kw * ci,
-          splits, chunk};
+  Shape s{n, h, w, ci, oh, ow, co, kh, kw, sy, sx, py, px, dil_h, dil_w,
+          kh * kw * ci, splits, chunk};
   auto st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   float* dwf = static_cast<float*>(dw);
@@ -746,21 +751,23 @@ int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
 extern "C" int mxt_conv_dw_pertap(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,
                                   int oh, int ow, int co, int kh, int kw,
-                                  int sy, int sx, int py, int px, int splits,
-                                  int chunk, int dtype, int variant,
-                                  void* stream) {
-  return dispatch<false>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy,
-                         sx, py, px, splits, chunk, dtype, variant, stream);
+                                  int sy, int sx, int py, int px, int dil_h,
+                                  int dil_w, int splits, int chunk, int dtype,
+                                  int variant, void* stream) {
+  return dispatch<false>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy, sx,
+                      py, px, dil_h, dil_w, splits, chunk, dtype, variant,
+                      stream);
 }
 
 extern "C" int mxt_conv_dw_im2col(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,
                                   int oh, int ow, int co, int kh, int kw,
-                                  int sy, int sx, int py, int px, int splits,
-                                  int chunk, int dtype, int variant,
-                                  void* stream) {
-  return dispatch<true>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy,
-                        sx, py, px, splits, chunk, dtype, variant, stream);
+                                  int sy, int sx, int py, int px, int dil_h,
+                                  int dil_w, int splits, int chunk, int dtype,
+                                  int variant, void* stream) {
+  return dispatch<true>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy, sx,
+                      py, px, dil_h, dil_w, splits, chunk, dtype, variant,
+                      stream);
 }
 
 extern "C" const char* mxt_error_string(int err) {

@@ -1,6 +1,6 @@
 """Gluon model zoo of the PyTorch port (counterpart of
 ``mxnet_tpu/gluon/model_zoo``)."""
 
-from . import vision, word_lm
+from . import ssd, vision, word_lm
 
-__all__ = ["vision", "word_lm"]
+__all__ = ["ssd", "vision", "word_lm"]

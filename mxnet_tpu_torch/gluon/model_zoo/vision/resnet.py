@@ -10,8 +10,9 @@ parameter names are the JAX package's, so ``state_dict()`` keys equal its
 :func:`~mxnet_tpu_torch.convert.load_mxnet_tpu_params` carries its
 weights, the BatchNorm running statistics included.
 
-The port takes ``layout="NHWC"`` only (OHWI weights, NHWC input; other
-layouts raise :class:`~mxnet_tpu_torch.base.MXNetError`), and every
+The port's ResNet takes ``layout="NHWC"`` only (OHWI weights, NHWC input,
+BatchNorm over axis 3; other layouts raise
+:class:`~mxnet_tpu_torch.base.MXNetError`), and every
 constructor takes ``device`` (``None``: ``gpu(0)``).  As in the JAX
 package, ``BottleneckV1``'s two 1x1 convolutions of the body carry a bias
 and its 3x3 one does not.
@@ -53,6 +54,7 @@ class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__(device=device)
+        _ops._check_nhwc(layout, type(self).__name__)
         dev = self.device
         self.body = HybridSequential(device=dev)
         self.body.add(_conv3x3(channels, stride, in_channels, layout, dev))
@@ -78,6 +80,7 @@ class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__(device=device)
+        _ops._check_nhwc(layout, type(self).__name__)
         dev = self.device
         mid = channels // 4
         self.body = HybridSequential(device=dev)
@@ -113,6 +116,7 @@ class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout="NCHW", device=None):
         super().__init__(device=device)
+        _ops._check_nhwc(layout, type(self).__name__)
         if len(layers) != len(channels) - 1:
             raise ValueError("need one more channel width than stages")
         dev = self.device

@@ -1,8 +1,8 @@
 """Basic layers of the PyTorch port.
 
-Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` HybridSequential,
-Dense, Activation, Dropout, BatchNorm, LayerNorm and Embedding, with the
-same parameter names, layouts and positional argument order (``device``
+Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` Sequential,
+HybridSequential, Dense, Activation, Dropout, BatchNorm, LayerNorm and
+Embedding, with the same parameter names, layouts and positional argument order (``device``
 comes last, as a keyword).  An input width left at 0 (``in_units``,
 ``in_channels``) is taken from the first input, as the JAX package's
 ``infer_shape`` does: the parameter is a
@@ -19,15 +19,17 @@ from ... import autograd as _autograd
 from ...base import MXNetError
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
-from ..block import HybridBlock, is_deferred
+from ..block import Block, HybridBlock, is_deferred
 from ..block import _dtype as _block_dtype
 
-__all__ = ["HybridSequential", "Dense", "Activation", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation", "Dropout",
+           "BatchNorm", "LayerNorm", "Embedding"]
 
 
-class HybridSequential(HybridBlock):
-    """Blocks run in order; children are named ``0``, ``1``, ..."""
+class _Stack:
+    """Blocks run in order; children are named ``0``, ``1``, ...; ``len``,
+    indexing (a slice gives a stack of the same kind) and iteration walk
+    them."""
 
     def add(self, *blocks):
         for block in blocks:
@@ -37,6 +39,30 @@ class HybridSequential(HybridBlock):
         for block in self._modules.values():
             x = block(x)
         return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())
+        if not isinstance(key, slice):
+            return layers[key]
+        net = type(self)(device=self.device)
+        net.add(*layers[key])
+        return net
+
+
+class Sequential(_Stack, Block):
+    """A stack of blocks (reference: ``basic_layers.py:19``), run eagerly
+    whatever its children are; ``hybridize()`` reaches the hybrid ones."""
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """A stack of hybrid blocks, cached as one program by
+    ``hybridize()``."""
 
 
 class Dense(HybridBlock):

@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/ndarray/`` (reference: python/mxnet/ndarray/):
 the :class:`NDArray` class, the creation functions, ``save``/``load``,
 one generated function per registered op (``mx.nd.dot``,
-``mx.nd.FullyConnected``, ...) and ``mx.nd.random``.  Sparse arrays and
-``mx.nd.contrib`` are not ported yet.
+``mx.nd.FullyConnected``, ...), ``mx.nd.random`` and ``mx.nd.contrib``.
+Sparse arrays are not ported yet.
 """
 
 from .. import ops as _ops  # noqa: F401  (registers every op)
@@ -15,4 +15,4 @@ from .register import populate as _populate
 
 _populate(globals())
 
-from . import random  # noqa: E402,F401
+from . import contrib, random  # noqa: E402,F401

@@ -30,8 +30,10 @@ kernels equal them wherever the float32 sums agree.
 :func:`batch_norm_fwd` (K6a) and :func:`batch_norm_bwd` (K6b) launch the
 kernels on CUDA tensors, with no fallback, and take the plain versions on
 CPU tensors; each counts its launches in ``.launches``.
-:func:`batch_norm` is the differentiable op over any axis on the CPU and
-over the last axis (NHWC) on the card.
+:func:`batch_norm` is the differentiable op over any axis: the kernels
+see the channel axis last, so NCHW data (``axis=1``) goes through its
+NHWC view, free when the tensor is ``channels_last`` in memory (as the
+port's NCHW convolutions leave it) and one copy otherwise.
 """
 
 from __future__ import annotations
@@ -477,16 +479,12 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     mode also moves the running statistics in place; otherwise they are
     the caller's to update.
 
-    On the card the channel axis must be the last (NHWC: ``axis=3`` or
-    ``-1`` of 4-D data), where K6a and K6b run on the tensor as it lies;
-    any other axis raises.  The CPU takes any axis."""
+    K6a and K6b run on the data with ``axis`` moved last: a view where
+    that axis is already innermost in memory (NHWC data, or NCHW data
+    with ``channels_last`` strides), else one copy; the result is moved
+    back, so it keeps the input's memory order."""
     ax = axis % data.dim()
     last = ax == data.dim() - 1
-    if data.device.type == "cuda" and not last:
-        raise MXNetError(
-            "BatchNorm on the card normalizes the last axis (channel-last "
-            "data, NHWC: axis=3 or -1); got axis=%s of %d-D data"
-            % (axis, data.dim()))
     x = data if last else data.movedim(ax, -1)
     shape = x.shape
     x2 = x.contiguous().reshape(-1, shape[-1])

@@ -1,11 +1,15 @@
 """Convolution backward-filter (dW) of the PyTorch port.
 
 Counterpart of ``mxnet_tpu/ops/pallas_conv.py``.  Layouts: data NHWC,
-weight OHWI, groups 1, dilation 1:
+weight OHWI, groups 1, dilation (dh, dw):
 
-    dW[o, r, s, i] = sum_{n,y,x} Xp[n, y*sy + r, x*sx + s, i] * dY[n, y, x, o]
+    dW[o, r, s, i] = sum_{n,y,x} Xp[n, y*sy + r*dh, x*sx + s*dw, i]
+                     * dY[n, y, x, o]
 
-with ``Xp`` the input zero-padded by ``pad`` on both sides.
+with ``Xp`` the input zero-padded by ``pad`` on both sides.  The JAX
+package sends a dilated convolution's dW to XLA (``ops/nn.py:79-80``);
+here it runs the same kernels as every other convolution, a tap reading
+``x`` ``r*dh`` rows and ``s*dw`` columns from the window's corner.
 
 - :func:`conv_dw_reference` is the plain version: one float32 ``einsum``
   per tap over strided slices of the padded input, the JAX formula
@@ -140,15 +144,16 @@ def _tc_tile_o(out_channels):
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(form, kernel, stride, pad, x_shape, o, dtype):
+def launch_plan(form, kernel, stride, pad, x_shape, o, dtype,
+                dilate=(1, 1)):
     """The :class:`LaunchPlan` of dW by ``form`` for an NHWC ``x_shape``,
-    ``kernel``, ``stride``, ``pad`` and ``o`` output channels in
-    ``dtype`` (float32, bfloat16 or float16): a pure function of the
+    ``kernel``, ``stride``, ``pad``, ``dilate`` and ``o`` output channels
+    in ``dtype`` (float32, bfloat16 or float16): a pure function of the
     shapes."""
     n, h, w, ci = x_shape
     kh, kw = kernel
-    positions = (n * _out_size(h, kh, stride[0], pad[0])
-                 * _out_size(w, kw, stride[1], pad[1]))
+    positions = (n * _out_size(h, kh, stride[0], pad[0], dilate[0])
+                 * _out_size(w, kw, stride[1], pad[1], dilate[1]))
     splits, chunk = split_plan(form, kernel, ci, o, positions, dtype)
     entry = "mxt_conv_dw_" + form
     dw_elems = o * kh * kw * ci
@@ -162,24 +167,25 @@ def launch_plan(form, kernel, stride, pad, x_shape, o, dtype):
                       splits * dw_elems if splits > 1 else 0)
 
 
-def _out_size(size, k, s, p):
-    return (size + 2 * p - k) // s + 1
+def _out_size(size, k, s, p, d=1):
+    return (size + 2 * p - d * (k - 1) - 1) // s + 1
 
 
-def _check(x, dy, kernel, stride, pad):
+def _check(x, dy, kernel, stride, pad, dilate):
     if x.dim() != 4 or dy.dim() != 4:
         raise MXNetError("conv_dw takes NHWC x and dy")
     n, h, w, _ = x.shape
     kh, kw = kernel
     sy, sx = stride
     py, px = pad
-    want = (n, _out_size(h, kh, sy, py), _out_size(w, kw, sx, px))
-    if min(kh, kw, sy, sx) < 1 or min(py, px) < 0 \
+    dh, dw = dilate
+    want = (n, _out_size(h, kh, sy, py, dh), _out_size(w, kw, sx, px, dw))
+    if min(kh, kw, sy, sx, dh, dw) < 1 or min(py, px) < 0 \
             or tuple(dy.shape[:3]) != want:
         raise MXNetError("conv_dw: dy %s does not match x %s, kernel %s, "
-                         "stride %s, pad %s" % (tuple(dy.shape),
-                                                tuple(x.shape), kernel,
-                                                stride, pad))
+                         "stride %s, pad %s, dilate %s"
+                         % (tuple(dy.shape), tuple(x.shape), kernel, stride,
+                            pad, dilate))
     if x.device != dy.device:
         raise MXNetError("x and dy lie on different devices")
     if x.dtype != dy.dtype or x.dtype not in _DTYPE_CODES:
@@ -193,11 +199,13 @@ def _check(x, dy, kernel, stride, pad):
                          % x.device)
 
 
-def conv_dw_reference(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
+def conv_dw_reference(x, dy, kernel, stride=(1, 1), pad=(0, 0),
+                      dilate=(1, 1)):
     """Plain dW: float32 (O, KH, KW, I), one einsum per tap."""
     kh, kw = kernel
     sy, sx = stride
     py, px = pad
+    dh, dw_ = dilate
     oh, ow = dy.shape[1], dy.shape[2]
     xp = F.pad(x.float(), (0, 0, px, px, py, py))
     dyf = dy.float()
@@ -205,7 +213,9 @@ def conv_dw_reference(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
                      device=x.device)
     for r in range(kh):
         for s in range(kw):
-            xs = xp[:, r:r + sy * (oh - 1) + 1:sy, s:s + sx * (ow - 1) + 1:sx]
+            y0, x0 = r * dh, s * dw_
+            xs = xp[:, y0:y0 + sy * (oh - 1) + 1:sy,
+                    x0:x0 + sx * (ow - 1) + 1:sx]
             dw[:, r, s, :] = torch.einsum("nyxi,nyxo->oi", xs, dyf)
     return dw
 
@@ -215,16 +225,16 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _run(form, x, dy, kernel, stride, pad):
-    _check(x, dy, kernel, stride, pad)
+def _run(form, x, dy, kernel, stride, pad, dilate):
+    _check(x, dy, kernel, stride, pad, dilate)
     if x.device.type == "cpu":
-        return conv_dw_reference(x, dy, kernel, stride, pad)
+        return conv_dw_reference(x, dy, kernel, stride, pad, dilate)
     lib = _kernels.library("conv_dw")
     n, h, w, ci = x.shape
     _, oh, ow, co = dy.shape
     kh, kw = kernel
     plan = launch_plan(form, tuple(kernel), tuple(stride), tuple(pad),
-                       tuple(x.shape), co, x.dtype)
+                       tuple(x.shape), co, x.dtype, tuple(dilate))
     if plan.dy_loads == "16-byte":
         dy = _aligned(dy)
     if plan.x_loads == "16-byte":
@@ -233,36 +243,39 @@ def _run(form, x, dy, kernel, stride, pad):
     dw = torch.empty((co, kh, kw, ci), dtype=torch.float32, device=x.device)
     _kernels.launch(lib, getattr(lib, plan.entry), x, dy, ws, dw, n, h, w, ci,
                     oh, ow, co, kh, kw, stride[0], stride[1], pad[0], pad[1],
-                    plan.splits, plan.chunk, _DTYPE_CODES[x.dtype],
-                    plan.variant)
+                    dilate[0], dilate[1], plan.splits, plan.chunk,
+                    _DTYPE_CODES[x.dtype], plan.variant)
     return dw
 
 
-def conv_dw_pertap(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
+def conv_dw_pertap(x, dy, kernel, stride=(1, 1), pad=(0, 0),
+                   dilate=(1, 1)):
     """dW by K1a (a block owns one tap) on CUDA tensors, the plain
     version on CPU tensors."""
-    dw = _run("pertap", x, dy, kernel, stride, pad)
+    dw = _run("pertap", x, dy, kernel, stride, pad, dilate)
     if x.device.type == "cuda":
         conv_dw_pertap.launches += 1
     return dw
 
 
-def conv_dw_im2col(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
+def conv_dw_im2col(x, dy, kernel, stride=(1, 1), pad=(0, 0),
+                   dilate=(1, 1)):
     """dW by K1b (a block's rows are the flattened (r, s, i)) on CUDA
     tensors, the plain version on CPU tensors."""
-    dw = _run("im2col", x, dy, kernel, stride, pad)
+    dw = _run("im2col", x, dy, kernel, stride, pad, dilate)
     if x.device.type == "cuda":
         conv_dw_im2col.launches += 1
     return dw
 
 
-def conv_dw(x, dy, kernel, stride=(1, 1), pad=(0, 0)):
+def conv_dw(x, dy, kernel, stride=(1, 1), pad=(0, 0), dilate=(1, 1)):
     """dW of an NHWC/OHWI convolution: x (N, H, W, I) and dy (N, OH, OW,
     O), contiguous, one dtype (float32, bfloat16 or float16).  Returns
     float32 (O, KH, KW, I) through K1b when I < 128, else K1a."""
     run = conv_dw_im2col if formulation(x.shape[-1]) == "im2col" \
         else conv_dw_pertap
-    return run(x, dy, tuple(kernel), tuple(stride), tuple(pad))
+    return run(x, dy, tuple(kernel), tuple(stride), tuple(pad),
+               tuple(dilate))
 
 
 conv_dw_pertap.launches = 0

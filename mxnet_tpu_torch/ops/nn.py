@@ -16,9 +16,12 @@ flag.
 Convolution and pooling take channel-last (NHWC) data and OHWI weights.
 They run cuDNN on the NHWC tensors viewed as NCHW with ``channels_last``
 strides, so nothing is copied.  The registered ``Convolution`` and
-``Pooling`` also take the JAX ops' default layout (``layout=None`` or
-``"NCHW"``: NCHW data, OIHW weights): they permute into the NHWC path and
-back, so the weight-gradient still runs K1 and the max-pool backward K2.
+``Pooling`` and the Gluon layers also take the JAX ops' default layout
+(``layout=None`` or ``"NCHW"``: NCHW data, OIHW weights): they permute
+into the NHWC path and back (:func:`nchw_call`), so the weight-gradient
+still runs K1 and the max-pool backward K2.  An NCHW result is the NHWC
+result's NCHW view, ``channels_last`` in memory, so the next layer's
+permute is free and only a network's first input is copied.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from .registry import register
 
 __all__ = ["convolution", "fully_connected", "activation", "leaky_relu",
            "batch_norm", "layer_norm", "pooling", "dropout", "softmax",
-           "log_softmax", "softmax_output", "regression_output"]
+           "log_softmax", "softmax_output", "regression_output",
+           "l2_normalization", "nchw_call"]
 
 
 def _pair(v, what):
@@ -69,18 +73,40 @@ def _check_nhwc(layout, op):
                          "data, OHWI weights); got %r" % (op, layout))
 
 
+def _check_2d_layout(layout, op):
+    """A 2-D op's layout: ``"NHWC"`` or the channel-first default."""
+    if layout != "NHWC" and not _channel_first(layout):
+        raise MXNetError("%s: the port takes layout 'NCHW' (NCHW data, OIHW "
+                         "weights) or 'NHWC' (NHWC data, OHWI weights); got "
+                         "%r" % (op, layout))
+
+
+def nchw_call(fn, data, *weights, layout, **kwargs):
+    """``fn`` (an NHWC op) on ``data`` and ``weights`` in ``layout``: in
+    the channel-first layouts each 4-D argument is seen as NHWC (OHWI)
+    and the result as NCHW again, both views (:func:`_nhwc`,
+    :func:`_nchw`)."""
+    if not _channel_first(layout):
+        return fn(data, *weights, layout=layout, **kwargs)
+    if data.dim() != 4 or any(w.dim() != 4 for w in weights):
+        raise MXNetError("the port takes 2-D NCHW data and OIHW weights, got "
+                         "%s" % [tuple(t.shape) for t in (data,) + weights])
+    return _nchw(fn(_nhwc(data), *(_nhwc(w) for w in weights),
+                    layout="NHWC", **kwargs))
+
+
 class _Convolution(torch.autograd.Function):
     """NHWC/OHWI 2-D convolution.  Forward and data-gradient are cuDNN's
     (``F.conv2d`` and ``aten.convolution_backward``) as the JAX package
     leaves them to XLA; the weight-gradient is :func:`~.conv_dw.conv_dw`,
     cast to the weight's dtype (``ops/nn.py:180-181`` of the JAX
-    package)."""
+    package), dilated or not."""
 
     @staticmethod
-    def forward(ctx, x, weight, stride, pad):
-        out = F.conv2d(_nchw(x), _nchw(weight), None, stride, pad)
+    def forward(ctx, x, weight, stride, pad, dilate):
+        out = F.conv2d(_nchw(x), _nchw(weight), None, stride, pad, dilate)
         ctx.save_for_backward(x, weight)
-        ctx.stride, ctx.pad = stride, pad
+        ctx.stride, ctx.pad, ctx.dilate = stride, pad, dilate
         return _nhwc(out)
 
     @staticmethod
@@ -92,11 +118,12 @@ class _Convolution(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _nhwc(torch.ops.aten.convolution_backward(
                 _nchw(dy), _nchw(x), _nchw(weight), None, ctx.stride,
-                ctx.pad, (1, 1), False, (0, 0), 1, (True, False, False))[0])
+                ctx.pad, ctx.dilate, False, (0, 0), 1,
+                (True, False, False))[0])
         if ctx.needs_input_grad[1]:
             dw = conv_dw(x.contiguous(), dy, weight.shape[1:3], ctx.stride,
-                         ctx.pad).to(weight.dtype)
-        return dx, dw, None, None
+                         ctx.pad, ctx.dilate).to(weight.dtype)
+        return dx, dw, None, None, None
 
 
 def _or(v, default):
@@ -114,31 +141,24 @@ def _convolution_op(data, weight, bias=None, kernel=(), stride=(),
     ``layout`` None or ``"NCHW"`` (the JAX op's default) takes NCHW data
     and OIHW weights through the NHWC path."""
     del cudnn_off, cudnn_tune, workspace
-    nchw = _channel_first(layout)
-    if nchw and (data.dim() != 4 or weight.dim() != 4):
-        raise MXNetError("Convolution: the port takes 2-D NCHW data and "
-                         "OIHW weights, got %s and %s"
-                         % (tuple(data.shape), tuple(weight.shape)))
-    out = convolution(_nhwc(data) if nchw else data,
-                      _nhwc(weight) if nchw else weight, bias,
-                      kernel=_or(kernel, None), stride=_or(stride, (1, 1)),
-                      dilate=_or(dilate, (1, 1)), pad=_or(pad, (0, 0)),
-                      num_filter=num_filter, num_group=num_group,
-                      no_bias=no_bias, layout="NHWC" if nchw else layout)
-    return _nchw(out) if nchw else out
+    return nchw_call(convolution, data, weight, layout=layout, bias=bias,
+                     kernel=_or(kernel, None), stride=_or(stride, (1, 1)),
+                     dilate=_or(dilate, (1, 1)), pad=_or(pad, (0, 0)),
+                     num_filter=num_filter, num_group=num_group,
+                     no_bias=no_bias)
 
 
 def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
                 dilate=(1, 1), pad=(0, 0), num_filter=None, num_group=1,
                 no_bias=False, layout="NHWC"):
     """2-D convolution (reference: src/operator/nn/convolution.cc) of NHWC
-    ``data`` (N, H, W, I) with OHWI ``weight`` (O, KH, KW, I), plus
-    ``bias`` (O,) unless ``no_bias``.  Groups and dilation other than 1,
-    and other layouts, raise :class:`MXNetError`."""
+    ``data`` (N, H, W, I) with OHWI ``weight`` (O, KH, KW, I), dilated by
+    ``dilate``, plus ``bias`` (O,) unless ``no_bias``.  Groups other than
+    1, and other layouts, raise :class:`MXNetError`."""
     _check_nhwc(layout, "Convolution")
-    if int(num_group) != 1 or _pair(dilate, "dilate") != (1, 1):
-        raise MXNetError("Convolution: the port takes num_group=1 and "
-                         "dilate=1 (got %s, %s)" % (num_group, dilate))
+    if int(num_group) != 1:
+        raise MXNetError("Convolution: the port takes num_group=1 (got %s)"
+                         % (num_group,))
     if data.dim() != 4 or weight.dim() != 4 \
             or weight.shape[3] != data.shape[3]:
         raise MXNetError("Convolution: data %s and weight %s are not NHWC "
@@ -152,7 +172,8 @@ def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
         raise MXNetError("Convolution: num_filter %s disagrees with weight "
                          "%s" % (num_filter, tuple(weight.shape)))
     out = _Convolution.apply(data.contiguous(), weight.contiguous(),
-                             _pair(stride, "stride"), _pair(pad, "pad"))
+                             _pair(stride, "stride"), _pair(pad, "pad"),
+                             _pair(dilate, "dilate"))
     if bias is not None and not no_bias:
         out = out + bias
     return out
@@ -284,17 +305,12 @@ def _pooling_op(data, kernel=(), pool_type="max", stride=(), pad=(),
     None or ``"NCHW"`` (the JAX op's default) takes NCHW data through the
     NHWC path."""
     del cudnn_off
-    nchw = _channel_first(layout)
-    if nchw and data.dim() != 4:
-        raise MXNetError("Pooling: the port takes 2-D NCHW data, got %s"
-                         % (tuple(data.shape),))
-    out = pooling(_nhwc(data) if nchw else data, kernel=_or(kernel, (1, 1)),
-                  pool_type=pool_type, stride=_or(stride, None),
-                  pad=_or(pad, (0, 0)), global_pool=global_pool,
-                  pooling_convention=pooling_convention,
-                  count_include_pad=count_include_pad, p_value=p_value,
-                  layout="NHWC" if nchw else layout)
-    return _nchw(out) if nchw else out
+    return nchw_call(pooling, data, layout=layout,
+                     kernel=_or(kernel, (1, 1)), pool_type=pool_type,
+                     stride=_or(stride, None), pad=_or(pad, (0, 0)),
+                     global_pool=global_pool,
+                     pooling_convention=pooling_convention,
+                     count_include_pad=count_include_pad, p_value=p_value)
 
 
 def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
@@ -349,6 +365,25 @@ def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
     counts = F.avg_pool2d(F.pad(ones, (pad[1], hi[1], pad[0], hi[0])),
                           kernel, stride, 0, divisor_override=1)
     return summed / _nhwc(counts).clamp_min(1.0)
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance", **_):
+    """Each entry over the L2 norm of its instance (every axis but the
+    first), channel (axis 1) or spatial position (every axis after the
+    second), ``sqrt(sum x^2 + eps)`` (reference:
+    src/operator/l2_normalization.cc; ``mxnet_tpu/ops/nn.py:550``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, data.dim()))
+    else:
+        raise MXNetError("L2Normalization: mode must be instance, channel "
+                         "or spatial, not %r" % (mode,))
+    norm = torch.sqrt(data.square().sum(dim=red, keepdim=True) + eps)
+    return data / norm
 
 
 def dropout(data, p=0.5, training=False, axes=()):

@@ -75,6 +75,37 @@ _SCALAR_VALUE = {"mod": -1.5, "rmod": 1.5, "power": 2.5, "rpower": 1.5,
                  "logical_or": 0.0, "logical_xor": 1.0}
 
 _X345 = ("f", (3, 4, 5))
+
+
+def _detection_arrays():
+    """Fixed boxes for the detection ops: corner anchors (1, 24, 4),
+    labels (2, 3, 5) with a padding row, class logits (2, 4, 24), box
+    offsets (2, 96), and NMS rows (2, 12, 6) [id, score, box] around
+    three centres, so that boxes overlap and classes repeat."""
+    rng = np.random.RandomState(11)
+    xy = rng.uniform(0.0, 0.7, (24, 2))
+    anchors = np.concatenate([xy, xy + rng.uniform(0.1, 0.3, (24, 2))], 1)
+    labels = np.array([[[1, .1, .1, .4, .5], [2, .5, .45, .9, .8],
+                        [0, .3, .6, .6, .95]],
+                       [[2, .2, .3, .5, .6], [0, .6, .1, .9, .3],
+                        [-1, -1, -1, -1, -1]]])
+    centres = rng.uniform(0.3, 0.7, (3, 2))[rng.randint(0, 3, (2, 12))]
+    half = rng.uniform(0.1, 0.2, (2, 12, 2))
+    rows = np.concatenate([rng.randint(0, 3, (2, 12, 1)),
+                           rng.uniform(0.0, 1.0, (2, 12, 1)),
+                           centres - half, centres + half], -1)
+    f32 = [np.float32(a) for a in (anchors[None], labels,
+                                  rng.randn(2, 4, 24), rng.randn(2, 96) * .5,
+                                  rows)]
+    return [("v", a) for a in f32]
+
+
+_ANCHORS, _LABELS, _CLS_PRED, _LOC_PRED, _NMS_ROWS = _detection_arrays()
+_CLS_PROB = ("v", np.float32(np.exp(_CLS_PRED[1])
+                             / np.exp(_CLS_PRED[1]).sum(1, keepdims=True)))
+_CENTER_BOXES = ("v", np.float32(np.concatenate(
+    [_NMS_ROWS[1][0, :5, 2:4] + _NMS_ROWS[1][0, :5, 4:6],
+     _NMS_ROWS[1][0, :5, 4:6] - _NMS_ROWS[1][0, :5, 2:4]], 1) / [2, 2, 1, 1]))
 _NANS = ("v", [[0.5, 1.0, float("nan"), 2.0],
                [-1.0, float("nan"), 3.5, 0.25]])
 _ROWS = ("fi", (3, 6), 0, 3)  # ties in every row
@@ -274,6 +305,40 @@ OP_CASES.update({
     "BatchNorm/nhwc": ([("f", (2, 4, 5, 3)), ("f", (3,)), ("f", (3,)),
                         ("f", (3,)), ("u", (3,), 0.5, 2.0)],
                        {"fix_gamma": False, "axis": -1}),
+    # channel-first data with a channel axis of 1, as SSD's NCHW layers
+    "BatchNorm/nchw-global": ([("f", (2, 3, 4, 5)), ("f", (3,)),
+                               ("f", (3,)), ("f", (3,)),
+                               ("u", (3,), 0.5, 2.0)],
+                              {"use_global_stats": True, "axis": 1}),
+    "Convolution/nchw-dilated": ([("f", (2, 3, 11, 11)), ("f", (4, 3, 3, 3)),
+                                  ("f", (4,))],
+                                 {"kernel": (3, 3), "pad": (2, 2),
+                                  "dilate": (2, 2), "num_filter": 4}),
+    "Convolution/nhwc-dilated": ([("f", (2, 13, 13, 3)),
+                                  ("f", (4, 3, 3, 3))],
+                                 {"kernel": (3, 3), "pad": (6, 6),
+                                  "dilate": (6, 6), "num_filter": 4,
+                                  "no_bias": True, "layout": "NHWC"}),
+    "L2Normalization": ([("f", (2, 3, 4, 5))], {"mode": "channel"}),
+    "L2Normalization/instance": ([("f", (2, 3, 4))], {}),
+    "L2Normalization/spatial": ([("f", (2, 3, 4, 5))],
+                                {"mode": "spatial", "eps": 1e-3}),
+    # the detection ops (ops/contrib.py)
+    "box_iou": ([_ANCHORS, ("v", _LABELS[1][:, :, 1:])], {}),
+    "box_iou/center": ([_CENTER_BOXES, _CENTER_BOXES], {"format": "center"}),
+    "box_nms": ([_NMS_ROWS], {"overlap_thresh": 0.3, "valid_thresh": 0.1,
+                              "id_index": 0, "topk": 9}),
+    "box_nms/force": ([_NMS_ROWS], {"overlap_thresh": 0.3, "id_index": 0,
+                                    "force_suppress": True}),
+    "MultiBoxPrior": ([("f", (1, 2, 4, 5))],
+                      {"sizes": (0.3, 0.5), "ratios": (1.0, 2.0, 0.5),
+                       "steps": (0.2, 0.25), "clip": True}),
+    "MultiBoxTarget": ([_ANCHORS, _LABELS, _CLS_PRED],
+                       {"negative_mining_ratio": 3.0}),
+    "MultiBoxTarget/no-mining": ([_ANCHORS, _LABELS, _CLS_PRED],
+                                 {"overlap_threshold": 0.3}),
+    "MultiBoxDetection": ([_CLS_PROB, _LOC_PRED, _ANCHORS],
+                          {"nms_threshold": 0.45, "threshold": 0.2}),
     # the recurrent op: packed cuDNN-layout parameters, (T, N, C) data
     "RNN": ([("f", (5, 3, 4)), ("u", (624,), -0.5, 0.5), ("f", (2, 3, 6)),
              ("f", (2, 3, 6))],

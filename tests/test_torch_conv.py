@@ -303,8 +303,6 @@ def test_what_the_port_does_not_take_raises():
     x, w = torch.zeros(1, 5, 5, 4), torch.zeros(8, 3, 3, 4)
     with pytest.raises(MXNetError, match="num_group=1"):
         tnn.convolution(x, torch.zeros(8, 3, 3, 2), num_group=2)
-    with pytest.raises(MXNetError, match="dilate=1"):
-        tnn.convolution(x, w, dilate=(2, 2))
     with pytest.raises(MXNetError, match="NHWC"):
         tnn.convolution(x, w, layout="NCHW")
     with pytest.raises(MXNetError, match="kernel"):
@@ -312,8 +310,6 @@ def test_what_the_port_does_not_take_raises():
     with pytest.raises(MXNetError, match="groups=1"):
         tgnn.Conv2D(8, 3, groups=2, in_channels=4, layout="NHWC",
                     device="cpu")
-    with pytest.raises(MXNetError, match="NHWC"):
-        tgnn.Conv2D(8, 3, in_channels=4, device="cpu")
     with pytest.raises(ValueError, match="relu"):
         tnn.activation(x, act_type="bogus")
     dy = torch.zeros(1, 3, 3, 8)

@@ -207,8 +207,6 @@ def test_what_the_port_does_not_take_raises():
     x = torch.zeros(1, 4, 4, 2)
     with pytest.raises(MXNetError, match="NHWC"):
         tnn.pooling(x, kernel=(2, 2), layout="NCHW")
-    with pytest.raises(MXNetError, match="NHWC"):
-        tgnn.MaxPool2D(2)
     with pytest.raises(ValueError, match="pool_type"):  # lp is ported
         tnn.pooling(x, kernel=(2, 2), pool_type="median", layout="NHWC")
     dy = torch.zeros(1, 2, 2, 2)
