@@ -36,7 +36,7 @@ Phases (any failure raises, and the script exits non-zero):
 3c. convolution and pooling kernels: the weight-gradient kernels K1a
    (per tap) and K1b (im2col) at every distinct convolution shape of
    ResNet-50 at batch 128 in bf16 (the tensor-core kernel), at two of
-   them in float32 too (the CUDA-core kernel), at three in float16 (the
+   them in float32 too (its 3xTF32 route), at three in float16 (the
    tensor-core kernel's f16 instances) and at a ragged shape in bf16 and
    float32, at LeNet's two convolutions in float32 (phase 8's) and the
    ConvLSTM cell's two (phase 10's); the
@@ -52,7 +52,9 @@ Phases (any failure raises, and the script exits non-zero):
    allocates only dX; then SSD300's shapes at batch 32 in float32 (phase
    11's): K1 at every distinct convolution (fc6's 3x3 of dilation 6, the
    heads' widths 84, 126, 16 and 24, conv1_1's I = 3 on K1b) beside
-   cuDNN's wgrad, K1's tensor-core route with dilation at fc6's shape in
+   cuDNN's wgrad, and at conv4_3, conv1_1 and conv4_3's loc head (O = 16)
+   an error against a float64 dW no larger than 4x the plain float32
+   version's, K1's tensor-core route with dilation at fc6's shape in
    bf16 and a ragged dilated shape in bf16 and float16, and K2 at pool1-pool5 (pool3's ceil window reaching
    past its 75 x 75 input, pool5's 3x3/s1/p1);
 3d. BatchNorm kernels: the forward K6a and the backward K6b at every
@@ -103,7 +105,9 @@ Phases (any failure raises, and the script exits non-zero):
    held against the same weights' gradients on the CPU plain path (in
    predict mode every parameter's, in train mode all together against
    the CPU's own rounding sensitivity); 3 captured steps against 3 eager
-   steps from the same state, bitwise, and the eager step's time; then
+   steps from the same state, bitwise, and the eager step's time; one
+   captured step of resnet50_v1() in its default layout, NCHW (BatchNorm
+   over axis 1), at batch 8 against an eager one, bitwise; then
    the main path exactly as the JAX package's bench:
    GluonTrainStep(mesh None, lr 0.1, momentum 0.9, wd 1e-4, compute_dtype
    bfloat16),
@@ -331,6 +335,9 @@ BWD_TC_INSTANCES = {"wgmma": ("Wgmma", "HGMMA", 12),
 FWD_TC_INSTANCES = {"wgmma": ("5WgmmaI", "HGMMA", 6),
                     "tf32x3 wgmma": ("11Tf32x3WgmmaI", "HGMMA", 2),
                     "tf32x3 mma.sync": ("6Tf32x3I", "HMMA", 1)}
+# conv dW's float32 instances (conv_dw_tf32_kernel): 2 formulations x the
+# S operand's 5 widths (16, 24, 32, 64, 128) x 2 register-operand loads
+CONV_TF32_INSTANCES = 20
 # the route codes of mxt_flash_attn_fwd_plan
 FWD_ROUTES = ("cuda_cores", "wgmma", "tf32x3")
 
@@ -364,8 +371,9 @@ def build():
     if serialized:
         raise AssertionError("ptxas serialized the wgmmas of %s (C7518)"
                              % "; ".join(serialized))
-    counts = require_opcode(sass_counts("conv_dw"), "conv_dw",
-                            "conv_dw_wgmma_kernel", "HGMMA")
+    conv_sass = sass_counts("conv_dw")
+    counts = require_opcode(conv_sass, "conv_dw", "conv_dw_wgmma_kernel",
+                            "HGMMA")
     # the tensor-core kernel's instances: 2 types (template argument kF16:
     # Lb0 bf16, Lb1 float16) x 2 formulations x 2 x 2 load paths x 2 tiles
     by_type = {t: sum(1 for f in counts if "conv_dw_wgmma_kernelILb%d" % i
@@ -374,6 +382,15 @@ def build():
     if counts and by_type != {"bf16": 16, "float16": 16}:
         raise AssertionError("expected 16 bf16 and 16 float16 tensor-core "
                              "instances of conv_dw, found %s" % by_type)
+    # the float32 route (3xTF32 on tf32 wgmma): 2 formulations x 5 widths
+    # of the S operand x 2 load paths of the register operand
+    tf32 = require_opcode(conv_sass, "conv_dw", "conv_dw_tf32_kernel",
+                          "HGMMA")
+    log("build: conv_dw float32 (tf32x3) instances with HGMMA: %d"
+        % len(tf32))
+    if conv_sass and len(tf32) != CONV_TF32_INSTANCES:
+        raise AssertionError("expected %d tf32x3 instances of conv_dw, found "
+                             "%d" % (CONV_TF32_INSTANCES, len(tf32)))
     bwd = sass_counts("flash_attn_bwd")
     for route, (marker, opcode, want) in BWD_TC_INSTANCES.items():
         found = require_opcode(bwd, "flash_attn_bwd", marker, opcode)
@@ -1155,6 +1172,9 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
 
 RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
 RESNET_STEPS, RESNET_WARMUP = 10, 2
+# the default layout's check (phase 6.2): one captured step against an
+# eager one of resnet50_v1() in NCHW at this batch
+RESNET_NCHW_BATCH = 8
 # ResNet-50's convolutions per training step by formulation, and its one
 # max pool (the stem's 3x3/s2/p1)
 RESNET_K1A, RESNET_K1B, RESNET_K2 = 44, 9, 1
@@ -1213,8 +1233,8 @@ def conv_dw_bound_ms(xs, k, s, p, o, dtype, d=(1, 1)):
     """Least time for dW: the pixels of x that the convolution reads (all
     of them unless a stride skips some, as a 1x1 stride-2 convolution
     does) and dy read once and dW (float32) written once, against 2 flops
-    per multiply-add at the card's peak for the inputs' type (bf16: the
-    tensor cores)."""
+    per multiply-add at the card's peak for the inputs' type (bf16 and
+    float16: the tensor cores; float32: the tensor cores' 3xTF32 rate)."""
     n, h, w, i = xs
     oh = _out_size(h, k[0], s[0], p[0], d[0])
     ow = _out_size(w, k[1], s[1], p[1], d[1])
@@ -1224,7 +1244,8 @@ def conv_dw_bound_ms(xs, k, s, p, o, dtype, d=(1, 1)):
         w, k[1], s[1], p[1], ow, d[1])
     nbytes = (n * pixels * i + n * oh * ow * o) * esize \
         + o * k[0] * k[1] * i * 4
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    # float32 runs on the tensor cores by 3xTF32
+    peak = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -1303,13 +1324,14 @@ def conv_kernels(seed):
             ws_most = max(ws_most, plan.ws_elems * 4)
         log("kernel conv_dw %s [x %s k %s s %s p %s O %d %s, %d a step]: "
             "max_abs_err %.3g of max %.3g (tol %.0e of it), bitwise "
-            "repeatable %s; %s kernel, x %s, dy %s, %d splits of %d, "
-            "workspace %d bytes; kernel %.4f ms (%.1f TFLOP/s, %.1f %% of "
-            "the bound), plain %.4f ms, cuDNN wgrad %.4f ms, bound %.4f ms "
-            "(%s)" % (
+            "repeatable %s; %s kernel, route %s, tile of %d channels, x %s, "
+            "dy %s, %d splits of %d, workspace %d bytes; kernel %.4f ms "
+            "(%.1f TFLOP/s, %.1f %% of the bound), plain %.4f ms, cuDNN "
+            "wgrad %.4f ms, bound %.4f ms (%s)" % (
                 form, xs, k, s, p, o, str(dt).split(".")[1], per_step, err,
-                scale, DW_TOL, same, plan.kernel, plan.x_loads,
-                plan.dy_loads, plan.splits, plan.chunk, plan.ws_elems * 4,
+                scale, DW_TOL, same, plan.kernel, plan.route, plan.tile_o,
+                plan.x_loads, plan.dy_loads, plan.splits, plan.chunk,
+                plan.ws_elems * 4,
                 ms, flops / ms / 1e9, 100.0 * bound / ms, plain_ms, lib_ms,
                 bound, bound_by))
         if not err <= DW_TOL * scale:
@@ -1876,10 +1898,10 @@ def bn_axis_1(gen):
                              "K6a and K6b on the NHWC view")
 
 
-def _resnet(device, seed=None):
+def _resnet(device, seed=None, layout="NHWC"):
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 
-    net = resnet50_v1(layout="NHWC", device=device)
+    net = resnet50_v1(layout=layout, device=device)
     return net if seed is None else net.initialize(seed=seed)
 
 
@@ -1965,10 +1987,10 @@ RESNET_GROUPS = (
     # formulation (false per-tap, true im2col)
     ("K1a conv_dw pertap", ("conv_dw_wgmma_kernel<false, false",
                             "conv_dw_wgmma_kernel<true, false",
-                            "conv_dw_kernel<false")),
+                            "conv_dw_tf32_kernel<false")),
     ("K1b conv_dw im2col", ("conv_dw_wgmma_kernel<false, true",
                             "conv_dw_wgmma_kernel<true, true",
-                            "conv_dw_kernel<true")),
+                            "conv_dw_tf32_kernel<true")),
     ("K1 split-K sum", ("conv_dw_reduce",)),
     ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -1985,10 +2007,12 @@ RESNET_LAUNCH_KERNELS = (
     ("batch_norm_fwd", ("bn_fwd_kernel",), RESNET_BN),
     ("batch_norm_bwd", ("bn_bwd_kernel",), RESNET_BN),
     ("pertap", ("conv_dw_wgmma_kernel<false, false",
-                "conv_dw_wgmma_kernel<true, false", "conv_dw_kernel<false"),
+                "conv_dw_wgmma_kernel<true, false",
+                "conv_dw_tf32_kernel<false"),
      RESNET_K1A),
     ("im2col", ("conv_dw_wgmma_kernel<false, true",
-                "conv_dw_wgmma_kernel<true, true", "conv_dw_kernel<true"),
+                "conv_dw_wgmma_kernel<true, true",
+                "conv_dw_tf32_kernel<true"),
      RESNET_K1B),
     ("maxpool", ("maxpool_bwd_kernel",), RESNET_K2),
 )
@@ -2009,31 +2033,32 @@ def _step_state(net, step):
             + step.opt_state]
 
 
-def captured_vs_eager(seed, x, y):
-    """Phase 6.2: 3 captured steps against 3 eager steps from the same
-    state, bitwise (losses, weights, running statistics, momentum); then
-    3 more eager steps, timed.  Returns the eager step's time."""
+def captured_vs_eager(seed, x, y, steps=3, layout="NHWC"):
+    """Phase 6.2: ``steps`` captured steps against as many eager steps
+    from the same state, bitwise (losses, weights, running statistics,
+    momentum), of ResNet-50 in ``layout``; then, in NHWC, 3 more eager
+    steps, timed.  Returns the eager step's time (None in NCHW)."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.parallel import GluonTrainStep
 
     runs = {}
     eager_ms = None
     for capture in (False, True):
-        net = _resnet("cuda", seed)
+        net = _resnet("cuda", seed, layout)
         step = GluonTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
                               mesh=None, lr=0.1, momentum=0.9, wd=1e-4,
                               compute_dtype="bfloat16")
         xs, ys = step.put_batch(x, y)
         # the eager side runs the code that the graph captures
         run = step if capture else step._eager
-        out = [run(xs, ys) for _ in range(3)]
+        out = [run(xs, ys) for _ in range(steps)]
         if capture:
             losses, norms = out, step.last_grad_norm
         else:
             losses, norms = [o[0] for o in out], out[-1][1]
         runs[capture] = (torch.stack(losses).float(), norms,
                          _step_state(net, step))
-        if not capture:
+        if not capture and layout == "NHWC":
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
             for e in ev[1:]:
@@ -2048,11 +2073,11 @@ def captured_vs_eager(seed, x, y):
         torch.cuda.empty_cache()
     (le, ne, se), (lc, nc, sc) = runs[False], runs[True]
     diff = [i for i, (a, b) in enumerate(zip(se, sc)) if not torch.equal(a, b)]
-    log("resnet: 3 captured steps (%d graph) vs 3 eager steps from the same "
-        "state: losses %s vs %s, grad norm %.6g vs %.6g; %d of %d state "
-        "tensors differ (weights, running statistics, momentum)" % (
-            graphs, lc.tolist(), le.tolist(), float(nc), float(ne),
-            len(diff), len(se)))
+    log("resnet (%s, x %s): %d captured steps (%d graph) vs %d eager steps "
+        "from the same state: losses %s vs %s, grad norm %.6g vs %.6g; %d "
+        "of %d state tensors differ (weights, running statistics, momentum)"
+        % (layout, tuple(x.shape), steps, graphs, steps, lc.tolist(),
+           le.tolist(), float(nc), float(ne), len(diff), len(se)))
     if diff or not torch.equal(le, lc) or not torch.equal(ne, nc):
         worst = max((_bn_err(sc[i], se[i])[1] for i in diff), default=0.0)
         raise AssertionError("the captured step differs from the eager step "
@@ -2075,6 +2100,12 @@ def resnet_train(seed, smi):
     x = rng.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
     y = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.int32)
     eager_ms = captured_vs_eager(seed, x, y)
+    # the default layout, NCHW (BatchNorm over axis 1): one step at batch
+    # RESNET_NCHW_BATCH, captured against eager
+    xn = rng.rand(RESNET_NCHW_BATCH, 3, RESNET_SIZE,
+                  RESNET_SIZE).astype(np.float32)
+    captured_vs_eager(seed, xn, y[:RESNET_NCHW_BATCH], steps=1,
+                      layout="NCHW")
 
     # the main path: the bench's step, captured, 10 steps on one fixed
     # batch (the first call warms up eagerly, captures and replays)
@@ -2757,12 +2788,12 @@ SYM_EPOCH = 6000 // SYM_BATCH
 SYM_GRAD_TOL = 1e-5
 # the wrappers' launches of one LeNet batch (two convolutions, two pools)
 LENET_LAUNCHES = {"im2col": 2, "maxpool": 2}
-LENET_KERNELS = (("im2col", ("conv_dw_kernel<true",), 2),
+LENET_KERNELS = (("im2col", ("conv_dw_tf32_kernel<true",), 2),
                  ("maxpool", ("maxpool_bwd_kernel",), 2))
 # device kernels of a symbolic batch by what they do, matched on the
 # kernel's name (the first group that matches wins)
 SYM_GROUPS = (
-    ("K1b conv_dw im2col", ("conv_dw_kernel<true",)),
+    ("K1b conv_dw im2col", ("conv_dw_tf32_kernel<true",)),
     ("K1 split-K sum", ("conv_dw_reduce",)),
     ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("host-to-device copies", ("memcpy htod", "memcpy h2d")),
@@ -3889,12 +3920,11 @@ def bk_convlstm(seed, smi):
         ex.forward(is_train=True)
         ex.backward(hd)
 
+    k1b = ("conv_dw_tf32_kernel<true",)
     seen = profile_steps(replay, smi, time_ms(replay, 10), steps=traced,
-                         groups=(("K1b conv_dw im2col",
-                                  ("conv_dw_kernel<true",)),) + BK_GROUPS,
+                         groups=(("K1b conv_dw im2col", k1b),) + BK_GROUPS,
                          tag="bucketing ConvLSTM",
-                         count=(("im2col", ("conv_dw_kernel<true",),
-                                 per_call),))
+                         count=(("im2col", k1b, per_call),))
     if seen is not None:
         log("bucketing: ConvLSTM launches of K1b in the trace of %d "
             "replays: %d (expected %d)" % (traced, seen["im2col"],
@@ -4099,8 +4129,8 @@ SSD_K1A, SSD_K1B, SSD_K2 = 32, 3, 5
 # products whose order differs (the card's convolutions against the CPU's)
 SSD_NOISE_DRAWS, SSD_INPUT_NOISE = 3, 1e-6
 SSD_GROUPS = (
-    ("K1a conv_dw pertap", ("conv_dw_kernel<false",)),
-    ("K1b conv_dw im2col", ("conv_dw_kernel<true",)),
+    ("K1a conv_dw pertap", ("conv_dw_tf32_kernel<false",)),
+    ("K1b conv_dw im2col", ("conv_dw_tf32_kernel<true",)),
     ("K1 split-K sum", ("conv_dw_reduce",)),
     ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
     ("K7 box_nms", ("nms_mask_kernel", "nms_walk_kernel")),
@@ -4161,12 +4191,60 @@ def ssd_pools(batch=SSD_BATCH, size=SSD_SIZE):
     return out
 
 
+# phase 3c's float32-accuracy check of K1's 3xTF32 route at three SSD300
+# shapes, by NHWC x and O: its error against a float64 dW may be at most
+# DW_F64_RATIO times the plain float32 version's (cuBLAS, TF32 off)
+SSD_F64_CHECKS = {"conv4_3": ((SSD_BATCH, 38, 38, 512), 512),
+                  "conv1_1": ((SSD_BATCH, SSD_SIZE, SSD_SIZE, 3), 64),
+                  "conv4_3's loc head": ((SSD_BATCH, 38, 38, 512), 16)}
+DW_F64_RATIO = 4.0
+
+
+def _dw_f64(x, dy, k, s, p, d):
+    """dW in float64 by conv_dw_reference's formula: one einsum a tap over
+    the padded input's strided, dilated slices."""
+    import torch.nn.functional as F
+
+    oh, ow = dy.shape[1], dy.shape[2]
+    xp = F.pad(x.double(), (0, 0, p[1], p[1], p[0], p[0]))
+    dyd = dy.double()
+    out = torch.empty((dy.shape[3],) + tuple(k) + (x.shape[3],),
+                      dtype=torch.float64, device=x.device)
+    for r in range(k[0]):
+        for c in range(k[1]):
+            y0, x0 = r * d[0], c * d[1]
+            taps = xp[:, y0:y0 + s[0] * (oh - 1) + 1:s[0],
+                      x0:x0 + s[1] * (ow - 1) + 1:s[1]]
+            out[:, r, c, :] = torch.einsum("nyxi,nyxo->oi", taps, dyd)
+    return out
+
+
+def dw_f64_check(name, got, plain, want):
+    """K1's float32 dW ``got`` and the plain version's ``plain`` against
+    the float64 ``want``: the kernel's largest error may be at most
+    DW_F64_RATIO times the plain version's."""
+    e_kernel = (got.double() - want).abs().max().item()
+    e_plain = (plain.double() - want).abs().max().item()
+    log("kernel conv_dw [SSD300 %s, float32]: largest error against a "
+        "float64 dW: kernel %.3g, plain float32 version %.3g (ratio %.2f, "
+        "limit %.0f); largest magnitude %.3g" % (
+            name, e_kernel, e_plain,
+            e_kernel / e_plain if e_plain else float("inf"), DW_F64_RATIO,
+            want.abs().max().item()))
+    if not e_kernel <= DW_F64_RATIO * e_plain:
+        raise AssertionError("K1's float32 dW at SSD300's %s is not float32-"
+                             "accurate: %.3g against the plain version's "
+                             "%.3g" % (name, e_kernel, e_plain))
+
+
 def ssd_conv_kernels(seed):
-    """Phase 3c at SSD300's shapes, batch 32, float32 (the CUDA-core
+    """Phase 3c at SSD300's shapes, batch 32, float32 (the 3xTF32
     kernel): K1a or K1b (by the formulation rule) at every distinct
     convolution, fc6's dilated one and the heads' odd widths among them,
     within DW_TOL of the plain version's largest magnitude, bitwise equal
-    across two launches, beside cuDNN's wgrad; K2 at pool1-pool5, bitwise
+    across two launches, beside cuDNN's wgrad, and at SSD_F64_CHECKS no
+    farther from a float64 dW than DW_F64_RATIO times the plain version;
+    K2 at pool1-pool5, bitwise
     equal to its plain version and across two launches.  Returns the rows
     of K1a, K1b and K2 summed over one SSD300 training step."""
     import torch.nn.functional as F
@@ -4199,6 +4277,10 @@ def ssd_conv_kernels(seed):
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
         same = torch.equal(got, again)
+        f64 = next((name for name, (fx, fo) in SSD_F64_CHECKS.items()
+                    if (fx, fo) == (xs, o)), None)
+        if f64 is not None:
+            dw_f64_check(f64, got, ref, _dw_f64(x, dy, k, s, p, d))
         del got, again, ref
         ms = time_ms(fn, iters=5)
         plain_ms = time_ms(lambda: C.conv_dw_reference(x, dy, k, s, p, d),
@@ -4212,10 +4294,12 @@ def ssd_conv_kernels(seed):
         flops = 2.0 * dys[0] * dys[1] * dys[2] * o * k[0] * k[1] * xs[3]
         log("kernel conv_dw %s [SSD300 x %s k %s s %s p %s d %s O %d float32, "
             "%d a step]: max_abs_err %.3g of max %.3g (tol %.0e of it), "
-            "bitwise repeatable %s; %d splits of %d; kernel %.4f ms (%.1f "
-            "TFLOP/s, %.1f %% of the bound), plain %.4f ms, cuDNN wgrad %.4f "
-            "ms, bound %.4f ms (%s)" % (
+            "bitwise repeatable %s; route %s, tile of %d channels, x %s, dy "
+            "%s, %d splits of %d; kernel %.4f ms (%.1f TFLOP/s, %.1f %% of "
+            "the bound), plain %.4f ms, cuDNN wgrad %.4f ms, bound %.4f ms "
+            "(%s)" % (
                 form, xs, k, s, p, d, o, per_step, err, scale, DW_TOL, same,
+                plan.route, plan.tile_o, plan.x_loads, plan.dy_loads,
                 plan.splits, plan.chunk, ms, flops / ms / 1e9,
                 100.0 * bound / ms, plain_ms, lib_ms, bound, bound_by))
         if not err <= DW_TOL * scale or not same:
@@ -4780,10 +4864,13 @@ def main():
                     launches_counted_over="eager warm-up step + capture",
                     **resnet_launches[key], **row)
 
+    # conv dW's route on each path: bf16 on 16-bit wgmma (ResNet-50), else
+    # float32 by 3xTF32
     for form, line in (("pertap", 111), ("im2col", 133)):
         entries.append(resnet_entry(
             "conv_dw_" + form, form, "mxnet_tpu_torch/csrc/conv_dw.cu",
-            "mxnet_tpu/ops/pallas_conv.py:%d" % line, dw_rows[form]))
+            "mxnet_tpu/ops/pallas_conv.py:%d" % line,
+            dict(dw_rows[form], plan_route="wgmma")))
     entries.append(resnet_entry(
         "maxpool_bwd", "maxpool", "mxnet_tpu_torch/csrc/maxpool_bwd.cu",
         "mxnet_tpu/ops/pallas_pool.py:55", pool_row))
@@ -4796,7 +4883,7 @@ def main():
     # the symbolic LeNet: captured as the ResNet step, float32
     for key, name, line, row in (
             ("im2col", "conv_dw_im2col", "mxnet_tpu/ops/pallas_conv.py:133",
-             dw_lenet),
+             dict(dw_lenet, plan_route="tf32x3")),
             ("maxpool", "maxpool_bwd", "mxnet_tpu/ops/pallas_pool.py:55",
              pool_lenet)):
         entries.append(dict(
@@ -4812,7 +4899,7 @@ def main():
         source="mxnet_tpu_torch/csrc/conv_dw.cu",
         replaces="mxnet_tpu/ops/pallas_conv.py:133",
         launches_counted_over="eager warm-up backward + capture",
-        **convlstm_launches, **dw_convlstm))
+        plan_route="tf32x3", **convlstm_launches, **dw_convlstm))
     # SSD300 (float32, eager): the training path's dW and max-pool backward
     # at SSD300's shapes (phase 3c's sums over one step), and K7 in the
     # detection (phase 3e's row at MultiBoxDetection's shape)
@@ -4824,7 +4911,8 @@ def main():
             name=name, path="ssd_train", route="cuda",
             source="mxnet_tpu_torch/csrc/%s.cu" % source,
             replaces="mxnet_tpu/ops/" + line, launches=ssd_train[key],
-            **ssd_rows[key]))
+            **dict(ssd_rows[key], **({} if key == "maxpool"
+                                     else {"plan_route": "tf32x3"}))))
     # no Pallas kernel: the JAX op's greedy loop, a lax.fori_loop
     entries.append(dict(
         name="box_nms", path="ssd_detect", route="cuda",

@@ -12,7 +12,10 @@ here: imperative ``mx.nd``, Gluon, and the symbolic ``mx.sym`` ->
 ``Executor`` -> ``mx.mod.Module`` path with ``mx.io``, ``mx.metric``,
 ``mx.callback``, ``mx.model`` and ``mx.lr_scheduler``, and its recurrent
 side: ``mx.rnn``'s cells and ``BucketSentenceIter`` trained through
-``mx.mod.BucketingModule``.
+``mx.mod.BucketingModule``.  The JAX package's top-level aliases are here
+too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
+``mx.DataIter``, ``mx.DataBatch``, ``mx.NameManager``,
+``mx.save_checkpoint``, ``mx.load_checkpoint``, ``mx.do_checkpoint``).
 """
 
 from . import (attribute, autograd, callback, context, convert, executor,
@@ -25,10 +28,21 @@ from . import ndarray as nd
 from . import symbol as sym
 from .attribute import AttrScope
 from .base import MXNetError
+from .callback import do_checkpoint
 from .context import cpu, gpu
+from .executor import Executor
+from .io import DataBatch, DataIter
+from .model import load_checkpoint, save_checkpoint
+from .module import Module
+from .name import NameManager
+from .ndarray import NDArray
+from .symbol import Symbol
 
-__all__ = ["AttrScope", "MXNetError", "attribute", "autograd", "callback",
-           "context", "convert", "cpu", "executor", "gpu", "gluon", "init",
-           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
-           "module", "name", "nd", "ndarray", "ops", "optimizer", "parallel",
-           "random", "rnn", "rtc", "serving", "sym", "symbol"]
+__all__ = ["AttrScope", "DataBatch", "DataIter", "Executor", "MXNetError",
+           "Module", "NDArray", "NameManager", "Symbol", "attribute",
+           "autograd", "callback", "context", "convert", "cpu",
+           "do_checkpoint", "executor", "gpu", "gluon", "init",
+           "initializer", "io", "load_checkpoint", "lr_scheduler", "metric",
+           "mod", "model", "module", "name", "nd", "ndarray", "ops",
+           "optimizer", "parallel", "random", "rnn", "rtc",
+           "save_checkpoint", "serving", "sym", "symbol"]

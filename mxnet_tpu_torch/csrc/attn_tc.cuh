@@ -1,8 +1,8 @@
 // Tensor-core pieces shared by the attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu): the shared-memory tile layouts, the tile and
-// row-scalar loaders, the tf32 split and the mma.sync and wgmma
-// instruction wrappers.  The cp.async, fence and descriptor primitives
-// they are built on are in hopper.cuh.
+// row-scalar loaders, and the mma.sync and 16-bit wgmma instruction
+// wrappers.  The cp.async, fence and descriptor primitives they are built
+// on, the tf32 split and the tf32 wgmma instructions are in hopper.cuh.
 
 #pragma once
 
@@ -162,73 +162,6 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
         "+f"(d[30]), "+f"(d[31])                                             \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
-// the same three shapes in tf32 (k8; the transpose flags exist for 16-bit
-// types only, so both shared operands are K-major)
-#define MXT_WGMMA_TF32_SS_N64                                                \
-  asm volatile(                                                              \
-      "{\n"                                                                  \
-      ".reg .pred p;\n"                                                      \
-      "setp.ne.b32 p, %34, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"                \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"                            \
-      "}\n"                                                                  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
-        "+f"(d[30]), "+f"(d[31])                                             \
-      : "l"(da), "l"(db), "r"(1))
-
-#define MXT_WGMMA_TF32_RS_N64                                                \
-  asm volatile(                                                              \
-      "{\n"                                                                  \
-      ".reg .pred p;\n"                                                      \
-      "setp.ne.b32 p, %37, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"                \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"          \
-      "}\n"                                                                  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
-        "+f"(d[30]), "+f"(d[31])                                             \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
-
-#define MXT_WGMMA_TF32_RS_N32                                                \
-  asm volatile(                                                              \
-      "{\n"                                                                  \
-      ".reg .pred p;\n"                                                      \
-      "setp.ne.b32 p, %21, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"                \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"                         \
-      "}\n"                                                                  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
-        "+f"(d[15])                                                          \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
-
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint64_t db) {
-  MXT_WGMMA_TF32_SS_N64;
-}
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  MXT_WGMMA_TF32_RS_N64;
-}
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  MXT_WGMMA_TF32_RS_N32;
-}
-
 template <bool kF16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
   if constexpr (kF16)
@@ -271,20 +204,7 @@ __device__ __forceinline__ void pack_a16(uint32_t (&a)[KB / 16][4], const float 
     }
 }
 
-// ---- 3xTF32: float32 products on the tensor cores
-
-// x = hi + lo: hi is x rounded to tf32 on its bits, to nearest with ties
-// away from zero (what cvt.rna.tf32.f32 gives for a finite x, but on the
-// integer pipe: with cvt for both halves the backward kernels took 1.38
-// times as long); lo = x - hi is exact in float32, and the tensor core
-// reads it as tf32 by ignoring its low 13 bits (|lo| <= 2^-11 |x|, so the
-// truncation drops less than 2^-21 |x|; rounding lo on the integer pipe
-// too took 12 % longer).  Times: attn_bwd_probe.py at the training shape,
-// PERF.md.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
+// ---- 3xTF32 on mma.sync (split_tf32 and the tf32 wgmma: hopper.cuh)
 
 // c[16 x 8] += a[16 x 8] b[8 x 8] in tf32, float32 accumulate
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], uint32_t b0,

@@ -79,26 +79,70 @@
 //     6 stages, two blocks an SM with 3 stages, and 128-position stages
 //     were each no faster in trials on an H100.
 //
-// float32 x and dy (the card's gradient check) keep the CUDA-core kernel,
-// conv_dw_kernel: tensor cores would need TF32, which a float32 tolerance
-// of 2e-4 does not allow.  A block computes a 64 x 64 (m, o) tile with 256
-// threads, 4 x 4 outputs each, over stages of 16 positions held in shared
-// memory as float32, double-buffered through registers; every thread
-// loads one column of 4 consecutive positions.
+// float32 x and dy (SSD300's training step, LeNet, the ConvLSTM cell, the
+// card's gradient checks) run on the tensor cores too, by 3xTF32 with
+// float32 accuracy, conv_dw_tf32_kernel: x = hi + lo, hi rounded to tf32
+// on the integer pipe (split_tf32, hopper.cuh), lo = x - hi read as tf32;
+// each product lo*hi + hi*lo + hi*hi, the small terms first (what the
+// lo*lo term and the tf32 reading of lo drop is below 2^-20 of a product).
+//   - tf32 wgmma has no transpose flag: a shared operand must be K-major,
+//     positions p contiguous, while x and dy hold the channel contiguous.
+//     So one operand comes from registers (the RS form): wgmma's A, the R
+//     operand, is loaded as it lies by cp.async, float32 [32 p][128 rows]
+//     padded to rows of 136 floats (the fragment reads, rows g and
+//     columns t of a warp, fall in 32 distinct banks), 16 bytes where the
+//     channel count is a multiple of 4, else 4; each thread reads its
+//     fragments (rows g, g + 8, positions t, t + 4 of each k8 step) and
+//     splits them once, so every element of R is split once.  Only B, the
+//     S operand, is transposed: each thread loads four channels of one
+//     position into registers a stage ahead (16 bytes, or one float
+//     each), splits them once and stores hi and lo into K-major tiles of
+//     32 positions (one 128-byte row a channel, 128-byte swizzle); a warp
+//     stores two 4-channel chunks of 16 positions, so its stores fall in
+//     32 distinct banks.  The other option, both operands transposed on
+//     the tensor cores' shared path, reads A three times a k8 step from
+//     shared memory and stores both operands twice.
+//   - Which operand is which follows O.  O > 64 ("wide"): R = dY, a tile
+//     of 128 output channels on M (two warpgroups of 64), S = X^, 128 rows
+//     m on N (m64n128k8).  O <= 64 ("narrow"; SSD300's loc heads have O =
+//     16 and 24): R = X^, 128 rows m on M, S = dY, all O channels on N,
+//     padded to 16, 24, 32 or 64 (m64nNk8), so a narrow layer does not
+//     spend a 64-row tile on 16 channels.  A warp loads R as 32 chunks of
+//     4 rows at one position, but X^ by 4 bytes (I = 3: 27 of 128 rows at
+//     SSD300's conv1_1) as one chunk of 32 positions, so that whole warps
+//     skip the chunks past the rows' end.
+//   - A ring of 4 slots of 32 positions (wide: 49 KB a slot, 197 KB; one
+//     block an SM): stage k + 2 is filled while the products of stage k
+//     run.  A stage's 12 wgmmas (4 k8 steps x 3) start a fresh float32
+//     sum, which is added to the running sum in registers (round to
+//     nearest) once they are done: the tensor core's own additions then
+//     span 32 positions, not the whole chunk.
+//   - Trials on an H100 (conv_dw_probe.py --variant, K1a and K1b
+//     summed over SSD300's step; PERF.md): a ring of 3 slots (wide), K1a
+//     26.3 ms against 24.2; 6 slots (narrow), no faster; the S loads two
+//     or three stages ahead, moved from register to register each stage,
+//     K1b 11.0 ms against 8.0 (each move waits for a load in flight); two
+//     stages summed on the tensor cores a flush, no faster; X^ by 4 bytes
+//     staged in registers a stage ahead, 32 chunks a warp, conv1_1 1.84
+//     ms, by 4-byte cp.async 1.88, a chunk a warp 1.02; skipping the
+//     loads of chunks past O or the rows' end by a branch in every load
+//     path, K1a 36.2 ms against 23.5.
+//   - Bound on the H100: float32-accurate work on the tensor cores runs at
+//     most at 495 / 3 = 165 TFLOP/s (the CUDA cores' float32 peak is 67).
 //
 // Split-K.  The Pallas kernels carry the accumulator across a sequential
 // image grid.  Hopper blocks run in no order, and the stem has 64 x 147
 // outputs over a 1.6 M-term sum, so the reduction is split with a fixed
-// partition: block (tile, split) sums its chunk of p in order (for bf16 a
-// multiple of the 64-position stage, only the last chunk shorter) and
-// writes a float32 partial to a workspace laid out as [split][o][m]; a
-// second kernel sums the partials of each output in split order and
-// writes dW.  With one split the bf16 kernel writes dW itself and the
-// second launch is skipped.  No atomics, so dW repeats bit for bit.  The
-// split count comes from the caller (ops/conv_dw.py launch_plan), chosen
-// to fill the 132 SMs in whole waves.  Ragged edges (I=3, O not a
-// multiple of the tile, 7x7 taps at the border, a partial last chunk)
-// are masked in the kernels.
+// partition: block (tile, split) sums its chunk of p in order (a
+// multiple of the stage, 64 positions for bf16 and 32 for float32, only
+// the last chunk shorter) and writes a float32 partial to a workspace
+// laid out as [split][o][m]; a second kernel sums the partials of each
+// output in split order and writes dW.  With one split the kernel writes
+// dW itself and the second launch is skipped.  No atomics, so dW repeats
+// bit for bit.  The split count comes from the caller (ops/conv_dw.py
+// launch_plan), chosen to fill the 132 SMs in whole waves.  Ragged edges
+// (I=3, O not a multiple of the tile, 7x7 taps at the border, a partial
+// last chunk) are masked in the kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,24 +171,33 @@ struct Pos {
     y = rem / s.ow;
     x = rem % s.ow;
   }
-  __device__ __forceinline__ void advance(int by, const Shape& s) {
-    p += by;
-    x += by;
-    while (x >= s.ow) {
-      x -= s.ow;
-      if (++y == s.oh) {
-        y = 0;
-        ++n;
-      }
-    }
-  }
 };
+
+// positions a stage of BK holds, as whole rows (y) and the rest (x)
+struct Step {
+  int y, x;
+};
+
+// q advanced by one stage of BK positions
+template <int BK>
+__device__ __forceinline__ void step_by(Pos& q, const Step& st, const Shape& s) {
+  q.p += BK;
+  q.x += st.x;
+  q.y += st.y;
+  if (q.x >= s.ow) {
+    q.x -= s.ow;
+    ++q.y;
+  }
+  while (q.y >= s.oh) {
+    q.y -= s.oh;
+    ++q.n;
+  }
+}
 
 // ------------------------------------ bf16 and float16: the tensor cores
 
 namespace tc {
 
-constexpr int kBM = 128;                     // output channels o of a tile
 constexpr int kBN = 128;                     // rows m of a tile
 constexpr int kBK = 64;                      // positions p of a stage
 constexpr int kStages = 5;                   // slots of the ring
@@ -156,23 +209,8 @@ constexpr int kTileBytes = 2 * kAtomBytes;   // one operand of a stage
 constexpr int kStageBytes = 2 * kTileBytes;  // dY, then X
 constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment
 
-// positions per stage, split as whole rows (step_y) and the rest (step_x)
-struct Step {
-  int y, x;
-};
-
 __device__ __forceinline__ void step(Pos& q, const Step& st, const Shape& s) {
-  q.p += kBK;
-  q.x += st.x;
-  q.y += st.y;
-  if (q.x >= s.ow) {
-    q.x -= s.ow;
-    ++q.y;
-  }
-  while (q.y >= s.oh) {
-    q.y -= s.oh;
-    ++q.n;
-  }
+  step_by<kBK>(q, st, s);
 }
 
 // shared-memory matrix descriptor of an MN-major operand in 128-byte
@@ -477,147 +515,322 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
 
 }  // namespace tc
 
-// ------------------------------------------- float32: the CUDA cores
+// ------------------------------- float32: 3xTF32 on the tensor cores
 
-constexpr int kBM = 64;        // rows m of a tile
-constexpr int kBN = 64;        // output channels o of a tile
-constexpr int kBK = 16;        // reduction positions p per stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kRowsPerThread = kBK * kBM / kThreads;  // 4 positions
+namespace f32 {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kBK = 32;                  // positions p of a stage: one
+                                         // 128-byte row of tf32 along K
+constexpr int kRows = 128;               // rows of the register operand
+                                         // (wgmma's M): two warpgroups
+constexpr int kLdR = kRows + 8;          // its tile's row stride, floats
+constexpr int kRBytes = kBK * kLdR * 4;  // 17 KB
+constexpr int kThreads = 256;
+constexpr int kRLoads = kBK * kRows / 4 / kThreads;  // 4 chunks a thread
+constexpr int kStages = 4;               // slots of the ring
+constexpr int kAhead = kStages - 2;      // stages loaded ahead
 
-template <bool kIm2col, typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-               float* __restrict__ ws, Shape s) {
-  __shared__ __align__(16) float sA[2][kBK][kBM];
-  __shared__ __align__(16) float sB[2][kBK][kBN];
+// the ring for an S operand of N rows: slots of the S operand's hi and lo
+// tiles (N rows of kBK tf32, K-major, 128-byte swizzle; each starts on a
+// 1024-byte boundary), then the R operand's float32 tile [kBK][kLdR]
+template <int N>
+struct Ring {
+  static constexpr int kSBytes = N * 128;
+  static constexpr int kSlot = 2 * kSBytes + kRBytes;
+  static constexpr int kSmem = kStages * kSlot + 1024;  // + alignment
+};
 
-  const int tid = threadIdx.x;
-  const int col = tid % kBM;                      // this thread's load column
-  const int row0 = (tid / kBM) * kRowsPerThread;  // its first load row
-  const int tx = tid % 16, ty = tid / 16;         // its 4 x 4 outputs
+// byte offset of element (row, k) in a K-major tile of 128-byte rows:
+// 16-byte chunk c of row r stored at c ^ (r & 7)
+__device__ __forceinline__ uint32_t kmajor(int row, int k) {
+  return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + (k & 3) * 4;
+}
 
-  int split, m_base;  // m_base: first row of the tile on the flattened axis
-  int tap_r = 0, tap_s = 0;
+// four consecutive rows of X^ (a chunk) from row m of the tile's axis:
+// the tap (r, s) and channel i of its first row, and how many of the
+// four lie before the axis's end (<= 0: none)
+struct XChunk {
+  int r, s, i, left;
+};
+
+template <bool kIm2col>
+__device__ __forceinline__ XChunk x_chunk(int m, int tap, const Shape& s) {
+  XChunk c;
   if (kIm2col) {
-    split = blockIdx.z;
-    m_base = blockIdx.x * kBM;
+    const int mm = m < s.mt ? m : 0;
+    const int t = mm / s.ci;
+    c.i = mm % s.ci;
+    c.r = t / s.kw;
+    c.s = t % s.kw;
+    c.left = s.mt - m;
   } else {
-    const int tap = blockIdx.z / s.splits;
-    split = blockIdx.z % s.splits;
-    tap_r = tap / s.kw;
-    tap_s = tap % s.kw;
-    m_base = tap * s.ci + blockIdx.x * kBM;
+    c.r = tap / s.kw;
+    c.s = tap % s.kw;
+    c.i = m;
+    c.left = s.ci - m;
   }
-  const int o0 = blockIdx.y * kBN;
-  const int k_total = s.n * s.oh * s.ow;
-  const int p_begin = split * s.chunk;
-  const int p_end = min(p_begin + s.chunk, k_total);
+  return c;
+}
 
-  // the A column this thread loads: tap offsets and channel, fixed for
-  // the whole reduction
-  int a_dy, a_dx, a_i;
-  bool a_ok;
-  if (kIm2col) {
-    const int m = m_base + col;
-    a_ok = m < s.mt;
-    const int mm = a_ok ? m : 0;
-    a_i = mm % s.ci;
-    const int tap = mm / s.ci;
-    a_dy = (tap / s.kw) * s.dil_h - s.py;
-    a_dx = (tap % s.kw) * s.dil_w - s.px;
-  } else {
-    a_i = blockIdx.x * kBM + col;
-    a_ok = a_i < s.ci;
-    a_dy = tap_r * s.dil_h - s.py;
-    a_dx = tap_s * s.dil_w - s.px;
-  }
-  const int b_o = o0 + col;
-  const bool b_ok = b_o < s.co;
-
-  Pos pos;
-  pos.p = p_begin;
-  pos.n = p_begin / (s.oh * s.ow);
-  const int rem = p_begin % (s.oh * s.ow);
-  pos.y = rem / s.ow;
-  pos.x = rem % s.ow;
-  pos.advance(row0, s);
-
-  float ra[kRowsPerThread], rb[kRowsPerThread];
-  auto load = [&](Pos q) {
+// f(e, address, ok) for X^'s four rows e of chunk c at position q (row e
+// is X[n, y*sy + r*dh - py, x*sx + s*dw - px, i]; ok false in the
+// padding, past the axis and for !pv): with `vec` once, for the 16 bytes
+// of channels i..i+3 of one tap (e = 0), else once a row, the tap and
+// channel stepped along the flattened (r, s, i) axis
+template <bool kIm2col, class F>
+__device__ __forceinline__ void x_rows(const float* __restrict__ x, const Pos& q, bool pv,
+                                       const XChunk& c, const Shape& s, bool vec, F&& f) {
+  const int yb = q.y * s.sy - s.py, xb = q.x * s.sx - s.px;
+  int r = c.r, ss = c.s, i = c.i;
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      float a = 0.f, b = 0.f;
-      if (q.p < p_end) {
-        if (a_ok) {
-          const int yy = q.y * s.sy + a_dy;
-          const int xx = q.x * s.sx + a_dx;
-          if (yy >= 0 && yy < s.h && xx >= 0 && xx < s.w)
-            a = to_f32(x[((int64_t)(q.n * s.h + yy) * s.w + xx) * s.ci + a_i]);
-        }
-        if (b_ok) b = to_f32(dy[(int64_t)q.p * s.co + b_o]);
+  for (int e = 0; e < (vec ? 1 : 4); ++e) {
+    const int yy = yb + r * s.dil_h, xx = xb + ss * s.dil_w;
+    const bool ok = pv && e < c.left && (unsigned)yy < (unsigned)s.h &&
+                    (unsigned)xx < (unsigned)s.w;
+    f(e, ok ? x + ((int64_t)(q.n * s.h + yy) * s.w + xx) * s.ci + i : x, ok);
+    ++i;
+    if (kIm2col && i == s.ci) {
+      i = 0;
+      if (++ss == s.kw) {
+        ss = 0;
+        ++r;
       }
-      ra[j] = a;
-      rb[j] = b;
-      q.advance(1, s);
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      sA[buf][row0 + j][col] = ra[j];
-      sB[buf][row0 + j][col] = rb[j];
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int stages = (p_end - p_begin + kBK - 1) / kBK;
-  load(pos);
-  store(0);
-  __syncthreads();
-  for (int st = 0; st < stages; ++st) {
-    const int buf = st & 1;
-    if (st + 1 < stages) {
-      pos.advance(kBK, s);
-      load(pos);
-    }
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&sA[buf][k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&sB[buf][k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (st + 1 < stages) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  // the partial of this split, OHWI order: ws[split][o][m]
-  float* out = ws + (int64_t)split * s.co * s.mt;
-  const int m_end = kIm2col ? s.mt : (m_base - blockIdx.x * kBM) + s.ci;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = o0 + tx * 4 + j;
-    if (o >= s.co) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m_base + ty * 4 + i;
-      if (m < m_end) out[(int64_t)o * s.mt + m] = acc[i][j];
     }
   }
 }
+
+// the same for dY's four rows o..o+3 at position p (ok false past O and
+// for !pv): with `vec` (O % 4 == 0) once, else once a row
+template <class F>
+__device__ __forceinline__ void dy_rows(const float* __restrict__ dy, int p, bool pv, int o,
+                                        const Shape& s, bool vec, F&& f) {
+  const float* row = dy + (int64_t)p * s.co + o;
+#pragma unroll
+  for (int e = 0; e < (vec ? 1 : 4); ++e) {
+    const bool ok = pv && o + e < s.co;
+    f(e, ok ? row + e : dy, ok);
+  }
+}
+
+// kN: the S operand's rows.  128: "wide" (O > 64), the R operand is dY (a
+// tile of 128 output channels on wgmma's M) and the S operand X^ (128
+// rows m on N); 16, 24, 32 or 64: "narrow" (O <= kN), R is X^ (128 rows
+// m on M) and S is dY (all O channels on N).  kVecR: the R operand by
+// 16-byte cp.async (dY: O % 4 == 0; X: I % 4 == 0), else by 4-byte
+// cp.async; vec_s: the S operand's loads are 16 bytes (the same
+// conditions), else 4.  Grid: x row tiles of 128, y o tiles (1 when
+// narrow), z split-major (split, tap) for per-tap, split for im2col.
+template <bool kIm2col, int kN, bool kVecR>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                    float* __restrict__ out, Shape s, Step st, int vec_s) {
+  constexpr bool kWide = kN == 128;
+  using G = Ring<kN>;
+  constexpr int kSChunks = kN / 4;  // chunks of the S operand at a position
+  // S loads a thread: (chunk pair, half of the stage's positions) blocks
+  // of 32 loads, one a warp
+  constexpr int kSLoads = kN >= 32 ? kN / 32 : 1;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(smem);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int taps = s.kh * s.kw;
+  const int split = kIm2col ? blockIdx.z : blockIdx.z / taps;
+  const int tap = kIm2col ? 0 : blockIdx.z % taps;
+  const int m0 = blockIdx.x * kRows;  // im2col: on the flattened axis;
+                                      // per-tap: a channel of the tap
+  const int o0 = blockIdx.y * kN;
+  const int k_total = s.n * s.oh * s.ow;
+  const int p_begin = split * s.chunk;
+  const int p_end = min(p_begin + s.chunk, k_total);
+  const int stages = (p_end - p_begin + kBK - 1) / kBK;
+
+  // R loads, chunk r_chunk(j) (rows 4c..4c+3 of the tile) at position
+  // r_pos(j) of a stage, j < kRLoads: a warp loads 32 chunks of one
+  // position, whose 16-byte (or 4-byte) pieces lie side by side; but X^
+  // by 4 bytes (I % 4 != 0) one chunk of 32 positions, so that a chunk
+  // wholly past the axis's end (I = 3 fills 7 chunks of 32) is skipped by
+  // whole warps
+  constexpr bool kWarpChunk = !kVecR && !kWide;
+  constexpr int kRX = kWarpChunk ? kRLoads : 1;  // chunks a thread loads
+  constexpr int kRP = kWarpChunk ? 1 : kRLoads;  // positions a thread loads
+  auto r_chunk = [&](int j) { return kWarpChunk ? (tid >> 5) + 8 * j : lane; };
+  auto r_pos = [&](int j) { return kWarpChunk ? lane : (tid >> 5) + 8 * j; };
+  // S loads: position sp of a stage, chunks sc[j] (a warp 2 chunks of 16
+  // positions, so that the transposed stores fall in 32 distinct banks)
+  const int sp = 16 * ((tid >> 5) & 1) + (lane >> 1);
+  int sc[kSLoads];
+  bool s_on[kSLoads];
+#pragma unroll
+  for (int j = 0; j < kSLoads; ++j) {
+    sc[j] = 2 * ((tid >> 6) + 4 * j) + (tid & 1);
+    s_on[j] = (tid >> 5) + 8 * j < kSChunks;
+  }
+
+  // the R operand's positions, at the stage being filled (wide: dY at pr
+  // + r_pos(j); narrow: X^ at qr); the S operand's, at the stage being
+  // loaded into registers (wide: X^ at qs; narrow: dY at ps)
+  int pr = p_begin, ps = p_begin + sp;
+  Pos qs, qr[kWide ? 1 : kRP];
+  XChunk xs[kWide ? kSLoads : 1], xr[kWide ? 1 : kRX];
+  if constexpr (kWide) {
+    qs.start(ps, s);
+#pragma unroll
+    for (int j = 0; j < kSLoads; ++j) xs[j] = x_chunk<kIm2col>(m0 + 4 * sc[j], tap, s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRP; ++j) qr[j].start(p_begin + r_pos(j), s);
+#pragma unroll
+    for (int j = 0; j < kRX; ++j) xr[j] = x_chunk<kIm2col>(m0 + 4 * r_chunk(j), tap, s);
+  }
+  // the S operand's values of the stage filled next, in registers
+  float sv[kSLoads][4];
+  auto gather = [&]() {
+#pragma unroll
+    for (int j = 0; j < kSLoads; ++j) {
+      float(&v)[4] = sv[j];
+      auto one = [&](int e, const float* p, bool ok) {
+        if (vec_s)
+          ldg_f32x4(v, p, ok);
+        else
+          v[e] = ldg_f32(p, ok);
+      };
+      if constexpr (kWide)
+        x_rows<kIm2col>(x, qs, s_on[j] && qs.p < p_end, xs[j], s, vec_s, one);
+      else
+        dy_rows(dy, ps, s_on[j] && ps < p_end, 4 * sc[j], s, vec_s, one);
+    }
+    if constexpr (kWide)
+      step_by<kBK>(qs, st, s);
+    else
+      ps += kBK;
+  };
+
+  // this thread's part of the next stage into slot `slot`: R by cp.async
+  // at its positions, which then step to the following stage; S from
+  // registers, split and transposed, and the S loads of the following
+  // stage issued
+  auto fill = [&](int slot) {
+    const uint32_t s_hi = sbase + slot * G::kSlot;
+#pragma unroll
+    for (int j = 0; j < kRLoads; ++j) {
+      const uint32_t dst = s_hi + 2 * G::kSBytes + (r_pos(j) * kLdR + 4 * r_chunk(j)) * 4;
+      auto copy = [&](int e, const float* p, bool ok) {
+        if (kVecR)
+          cp_async16(dst, p, ok);
+        else
+          cp_async4(dst + 4 * e, p, ok);
+      };
+      if constexpr (kWide) {
+        const int p = pr + r_pos(j);
+        dy_rows(dy, p, p < p_end, o0 + 4 * r_chunk(j), s, kVecR, copy);
+      } else {
+        const XChunk& c = xr[kWarpChunk ? j : 0];
+        const Pos& q = qr[kWarpChunk ? 0 : j];
+        if (!kWarpChunk || c.left > 0) x_rows<kIm2col>(x, q, q.p < p_end, c, s, kVecR, copy);
+      }
+    }
+    pr += kBK;
+    if constexpr (!kWide) {
+#pragma unroll
+      for (int j = 0; j < kRP; ++j) step_by<kBK>(qr[j], st, s);
+    }
+#pragma unroll
+    for (int j = 0; j < kSLoads; ++j) {
+      if (!s_on[j]) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t hi, lo;
+        split_tf32(sv[j][e], hi, lo);
+        const uint32_t at = s_hi + kmajor(4 * sc[j] + e, sp);
+        st_shared_u32(at, hi);
+        st_shared_u32(at + G::kSBytes, lo);
+      }
+    }
+    gather();
+  };
+
+  // acc: the running sum; part: one stage's products on the tensor cores,
+  // added to acc in float32 (round to nearest) once they are done
+  float acc[kN / 2], part[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = part[i] = 0.f;
+
+  gather();
+#pragma unroll 1
+  for (int t = 0; t < kAhead; ++t) {
+    if (t < stages) fill(t);
+    cp_async_commit();
+  }
+  // the A fragment rows of this thread (warpgroup wg's 64 rows, warp w's
+  // 16): rows r_a, r_a + 8 and positions t, t + 4 of each k8 step
+  const int r_a = wg * 64 + warp * 16 + (lane >> 2), k_a = lane & 3;
+#pragma unroll 1
+  for (int k = 0; k < stages; ++k) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    fence_proxy_async();
+    const uint32_t s_hi = sbase + (k % kStages) * G::kSlot;
+    const float* R = reinterpret_cast<const float*>(smem + (k % kStages) * G::kSlot +
+                                                    2 * G::kSBytes) +
+                     k_a * kLdR + r_a;
+    uint32_t ah[kBK / 8][4], al[kBK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const float* c = R + kk * 8 * kLdR;
+      split_tf32(c[0], ah[kk][0], al[kk][0]);
+      split_tf32(c[8], ah[kk][1], al[kk][1]);
+      split_tf32(c[4 * kLdR], ah[kk][2], al[kk][2]);
+      split_tf32(c[4 * kLdR + 8], ah[kk][3], al[kk][3]);
+    }
+    // three products a k8 step, the small terms first; the stage's first
+    // overwrites part
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const uint64_t bh = wgmma_desc(s_hi + kk * 32, 16, 1024);
+      const uint64_t bl = wgmma_desc(s_hi + G::kSBytes + kk * 32, 16, 1024);
+      wgmma_tf32_rs(part, al[kk], bh, kk > 0);
+      wgmma_tf32_rs(part, ah[kk], bl);
+      wgmma_tf32_rs(part, ah[kk], bh);
+    }
+    wgmma_commit();
+    // the slot of stage k - 2: its products are done
+    if (k + kAhead < stages) fill((k + kAhead) % kStages);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc[i] += part[i];
+  }
+  cp_async_wait<0>();
+
+  // the partial of this split in OHWI order, out[o][m]: thread (warp w,
+  // lane l) of warpgroup g holds M rows g*64 + w*16 + l/4 (+8) and N
+  // columns 8j + 2(l%4) (+1)
+  float* dst = out + (int64_t)split * s.co * s.mt;
+  const int m_lim = kIm2col ? s.mt : s.ci;
+  const int m_abs = kIm2col ? 0 : tap * s.ci;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_a + 8 * h;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * k_a + c;
+        const int o = kWide ? o0 + r : col;
+        const int m = kWide ? m0 + col : m0 + r;
+        if (o < s.co && m < m_lim) dst[(int64_t)o * s.mt + m_abs + m] = acc[4 * j + 2 * h + c];
+      }
+    }
+  }
+}
+
+}  // namespace f32
 
 // dW[e] = sum over splits, in split order, of ws[split][e]
 __global__ void conv_dw_reduce_kernel(const float* __restrict__ ws,
@@ -640,20 +853,53 @@ int launch_reduce(const float* ws, float* dw, const Shape& s,
   return cudaGetLastError();
 }
 
-template <bool kIm2col, typename T>
-int launch(const void* x, const void* dy, float* ws, float* dw, const Shape& s,
-           cudaStream_t stream) {
+template <bool kIm2col, int kN, bool kVecR>
+int launch_f32(const void* x, const void* dy, float* ws, float* dw,
+               const Shape& s, bool vec_s, cudaStream_t stream) {
   const int m_rows = kIm2col ? s.mt : s.ci;
   const int64_t gz = kIm2col ? (int64_t)s.splits
                              : (int64_t)s.kh * s.kw * s.splits;
-  if (gz > 65535 || (s.co + kBN - 1) / kBN > 65535)
+  if (gz > 65535 || (s.co + kN - 1) / kN > 65535 || s.chunk % f32::kBK != 0)
     return cudaErrorInvalidConfiguration;
-  dim3 grid((m_rows + kBM - 1) / kBM, (s.co + kBN - 1) / kBN, (unsigned)gz);
-  conv_dw_kernel<kIm2col, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), ws, s);
-  cudaError_t err = cudaGetLastError();
+  auto kernel = f32::conv_dw_tf32_kernel<kIm2col, kN, kVecR>;
+  constexpr int kSmem = f32::Ring<kN>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
+  dim3 grid((m_rows + f32::kRows - 1) / f32::kRows, (s.co + kN - 1) / kN,
+            (unsigned)gz);
+  kernel<<<grid, f32::kThreads, kSmem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
+      s.splits == 1 ? dw : ws, s, Step{f32::kBK / s.ow, f32::kBK % s.ow},
+      vec_s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || s.splits == 1) return err;
   return launch_reduce(ws, dw, s, stream);
+}
+
+template <bool kIm2col, int kN>
+int launch_f32_r(const void* x, const void* dy, float* ws, float* dw,
+                 const Shape& s, bool vec_r, bool vec_s, cudaStream_t st) {
+  return vec_r ? launch_f32<kIm2col, kN, true>(x, dy, ws, dw, s, vec_s, st)
+               : launch_f32<kIm2col, kN, false>(x, dy, ws, dw, s, vec_s, st);
+}
+
+// float32: tile_n the S operand's rows (128: R = dY, S = X^; 16, 24, 32,
+// 64: R = X^, S = dY), vec_dy and vec_x the 16-byte loads of each
+template <bool kIm2col>
+int launch_f32_variant(const void* x, const void* dy, float* ws, float* dw,
+                       const Shape& s, bool vec_dy, bool vec_x, int tile_n,
+                       cudaStream_t st) {
+  const bool wide = tile_n == 128;
+  const bool vec_r = wide ? vec_dy : vec_x, vec_s = wide ? vec_x : vec_dy;
+  switch (tile_n) {
+    case 16: return launch_f32_r<kIm2col, 16>(x, dy, ws, dw, s, vec_r, vec_s, st);
+    case 24: return launch_f32_r<kIm2col, 24>(x, dy, ws, dw, s, vec_r, vec_s, st);
+    case 32: return launch_f32_r<kIm2col, 32>(x, dy, ws, dw, s, vec_r, vec_s, st);
+    case 64: return launch_f32_r<kIm2col, 64>(x, dy, ws, dw, s, vec_r, vec_s, st);
+    case 128: return launch_f32_r<kIm2col, 128>(x, dy, ws, dw, s, vec_r, vec_s, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool kF16, bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
@@ -674,7 +920,7 @@ int launch_tc(const void* x, const void* dy, float* ws, float* dw,
   kernel<<<grid, tc::kThreads, tc::kSmemBytes, stream>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
       s.splits == 1 ? dw : ws, s,
-      tc::Step{tc::kBK / s.ow, tc::kBK % s.ow});
+      Step{tc::kBK / s.ow, tc::kBK % s.ow});
   err = cudaGetLastError();
   if (err != cudaSuccess || s.splits == 1) return err;
   return launch_reduce(ws, dw, s, stream);
@@ -705,9 +951,10 @@ int launch_tc_variant(const void* x, const void* dy, float* ws, float* dw,
   return launch_tc_o<kF16, kIm2col, false, false>(x, dy, ws, dw, s, wide_o, st);
 }
 
-// variant (bf16 and float16; the float32 kernel takes 0): bit 0 reads dy and
-// bit 1 reads x by 16-byte copies, bit 2 takes tiles of 64 output
-// channels (O <= 64) instead of 128
+// variant: bit 0 reads dy and bit 1 reads x by 16-byte loads; then, for
+// bf16 and float16, bit 2 takes tiles of 64 output channels (O <= 64)
+// instead of 128, and for float32, bits 2-6 hold the S operand's rows / 8
+// (16, 24, 32 or 64 when O is at most that, else 128)
 template <bool kIm2col>
 int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
              int w, int ci, int oh, int ow, int co, int kh, int kw, int sy,
@@ -719,19 +966,25 @@ int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
       dil_h <= 0 || dil_w <= 0 || (int64_t)(kh - 1) * dil_h > 8192 ||
       (int64_t)(kw - 1) * dil_w > 8192 || py > 8192 || px > 8192 ||
       (int64_t)splits * chunk < (int64_t)n * oh * ow || variant < 0 ||
-      variant > 7)
+      variant > (dtype == 0 ? 127 : 7))
     return cudaErrorInvalidValue;
   Shape s{n, h, w, ci, oh, ow, co, kh, kw, sy, sx, py, px, dil_h, dil_w,
           kh * kw * ci, splits, chunk};
   auto st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   float* dwf = static_cast<float*>(dw);
+  const bool vec_dy = variant & 1, vec_x = variant & 2;
   if (dtype == 0) {
-    if (variant != 0) return cudaErrorInvalidValue;
-    return launch<kIm2col, float>(x, dy, wsf, dwf, s, st);
+    const int tile_n = (variant >> 2) * 8;
+    if ((vec_dy && (co % 4 != 0 || !aligned16(dy))) ||
+        (vec_x && (ci % 4 != 0 || !aligned16(x))))
+      return cudaErrorMisalignedAddress;
+    if (tile_n != 128 && co > tile_n) return cudaErrorInvalidValue;
+    return launch_f32_variant<kIm2col>(x, dy, wsf, dwf, s, vec_dy, vec_x,
+                                       tile_n, st);
   }
   if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
-  const bool vec_dy = variant & 1, vec_x = variant & 2, wide_o = !(variant & 4);
+  const bool wide_o = !(variant & 4);
   if ((vec_dy && (co % 8 != 0 || !aligned16(dy))) ||
       (vec_x && (ci % 8 != 0 || !aligned16(x))))
     return cudaErrorMisalignedAddress;
@@ -746,7 +999,7 @@ int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
 }  // namespace
 
 // x (N, H, W, I) and dy (N, OH, OW, O) contiguous, of one dtype (0 float32,
-// 1 bf16, 2 float16); ws float32 [splits][O][KH*KW*I] (unused by bf16 with one
+// 1 bf16, 2 float16); ws float32 [splits][O][KH*KW*I] (unused with one
 // split); dw float32 (O, KH, KW, I); variant as dispatch() says.
 extern "C" int mxt_conv_dw_pertap(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,

@@ -10,10 +10,11 @@ parameter names are the JAX package's, so ``state_dict()`` keys equal its
 :func:`~mxnet_tpu_torch.convert.load_mxnet_tpu_params` carries its
 weights, the BatchNorm running statistics included.
 
-The port's ResNet takes ``layout="NHWC"`` only (OHWI weights, NHWC input,
-BatchNorm over axis 3; other layouts raise
-:class:`~mxnet_tpu_torch.base.MXNetError`), and every
-constructor takes ``device`` (``None``: ``gpu(0)``).  As in the JAX
+Every constructor takes the JAX package's ``layout``: ``"NCHW"``, the
+default (OIHW weights, NCHW input, BatchNorm over axis 1), or ``"NHWC"``
+(OHWI weights, NHWC input, BatchNorm over axis 3); any other raises
+:class:`~mxnet_tpu_torch.base.MXNetError`.  Every constructor also takes
+``device`` (``None``: ``gpu(0)``).  As in the JAX
 package, ``BottleneckV1``'s two 1x1 convolutions of the body carry a bias
 and its 3x3 one does not.
 """
@@ -36,15 +37,16 @@ def _conv3x3(channels, stride, in_channels, layout, device):
                   device=device)
 
 
-def _bn(channels, device):
-    return BatchNorm(axis=3, in_channels=channels, device=device)
+def _bn(channels, layout, device):
+    return BatchNorm(axis=3 if layout == "NHWC" else 1, in_channels=channels,
+                     device=device)
 
 
 def _downsample(channels, stride, in_channels, layout, device):
     ds = HybridSequential(device=device)
     ds.add(Conv2D(channels, kernel_size=1, strides=stride, use_bias=False,
                   in_channels=in_channels, layout=layout, device=device))
-    ds.add(_bn(channels, device))
+    ds.add(_bn(channels, layout, device))
     return ds
 
 
@@ -54,14 +56,13 @@ class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__(device=device)
-        _ops._check_nhwc(layout, type(self).__name__)
         dev = self.device
         self.body = HybridSequential(device=dev)
         self.body.add(_conv3x3(channels, stride, in_channels, layout, dev))
-        self.body.add(_bn(channels, dev))
+        self.body.add(_bn(channels, layout, dev))
         self.body.add(Activation("relu"))
         self.body.add(_conv3x3(channels, 1, channels, layout, dev))
-        self.body.add(_bn(channels, dev))
+        self.body.add(_bn(channels, layout, dev))
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       dev) if downsample else None
 
@@ -80,21 +81,20 @@ class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None):
         super().__init__(device=device)
-        _ops._check_nhwc(layout, type(self).__name__)
         dev = self.device
         mid = channels // 4
         self.body = HybridSequential(device=dev)
         self.body.add(Conv2D(mid, kernel_size=1, strides=stride,
                              in_channels=in_channels, layout=layout,
                              device=dev))
-        self.body.add(_bn(mid, dev))
+        self.body.add(_bn(mid, layout, dev))
         self.body.add(Activation("relu"))
         self.body.add(_conv3x3(mid, 1, mid, layout, dev))
-        self.body.add(_bn(mid, dev))
+        self.body.add(_bn(mid, layout, dev))
         self.body.add(Activation("relu"))
         self.body.add(Conv2D(channels, kernel_size=1, strides=1,
                              in_channels=mid, layout=layout, device=dev))
-        self.body.add(_bn(channels, dev))
+        self.body.add(_bn(channels, layout, dev))
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       dev) if downsample else None
 
@@ -116,7 +116,6 @@ class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout="NCHW", device=None):
         super().__init__(device=device)
-        _ops._check_nhwc(layout, type(self).__name__)
         if len(layers) != len(channels) - 1:
             raise ValueError("need one more channel width than stages")
         dev = self.device
@@ -127,7 +126,7 @@ class ResNetV1(HybridBlock):
             self.features.add(Conv2D(channels[0], 7, 2, 3, use_bias=False,
                                      in_channels=3, layout=layout,
                                      device=dev))
-            self.features.add(_bn(channels[0], dev))
+            self.features.add(_bn(channels[0], layout, dev))
             self.features.add(Activation("relu"))
             self.features.add(MaxPool2D(3, 2, 1, layout=layout))
         for i, num_layer in enumerate(layers):

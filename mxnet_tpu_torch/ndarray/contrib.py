@@ -4,8 +4,10 @@ Counterpart of ``mxnet_tpu/ndarray/contrib.py``'s ``_install_contrib_ops``
 (reference: python/mxnet/ndarray/contrib.py, filled from the ``_contrib_``
 prefix of the C++ registry): one ``mx.nd`` function for every registered
 op that has a ``_contrib_`` name, under its canonical name
-(``mx.nd.contrib.MultiBoxPrior``, ``mx.nd.contrib.box_nms``) and that
-name without the prefix.  ``foreach``, ``while_loop`` and ``cond`` are
+(``mx.nd.contrib.MultiBoxPrior``, ``mx.nd.contrib.box_nms``), every alias
+(``multibox_prior``, ``_contrib_MultiBoxPrior``), as the JAX package's
+``register.populate`` installs them, and each ``_contrib_`` name without
+the prefix.  ``foreach``, ``while_loop`` and ``cond`` are
 not ported yet.
 """
 
@@ -25,7 +27,7 @@ def _install_contrib_ops(namespace):
         if not short:
             continue
         f = _make_op_func(name)
-        for n in [name] + short:
+        for n in names + tuple(short):
             namespace.setdefault(n, f)
             __all__.append(n)
     return namespace

@@ -23,8 +23,10 @@ here it runs the same kernels as every other convolution, a tap reading
 - :func:`conv_dw` picks the formulation by the JAX package's rule
   (:func:`formulation`: im2col below 128 input channels) and runs it.
 - :func:`launch_plan` says, from the shapes alone, what a launch runs:
-  bf16 and float16 the tensor-core kernel (16-byte or register-staged
-  loads of x and dy), float32 the CUDA-core kernel, with the split-K partition
+  the tensor-core kernel, bf16 and float16 on 16-bit ``wgmma`` (16-byte
+  or register-staged loads of x and dy) and float32 by 3xTF32 on tf32
+  ``wgmma`` (16-byte or 4-byte loads; the S operand's rows, 128 or, when
+  O <= 64, O padded to 16, 24, 32 or 64), with the split-K partition
   (:func:`split_plan`) and the workspace.
 
 Every result is float32 (O, KH, KW, I); the caller casts it to the
@@ -48,32 +50,37 @@ __all__ = ["conv_dw", "conv_dw_reference", "conv_dw_pertap",
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMS = 132              # streaming multiprocessors of an H100
-# float32, the CUDA-core kernel: 64 x 64 tiles, about four blocks per SM
-_F32_TILE = 64
-_F32_TARGET_BLOCKS = 4 * _SMS
-_F32_MIN_CHUNK = 256    # fewest reduction positions a split sums
-# bf16, the tensor-core kernel: 128 (o; 64 when O <= 64) x 128 (rows)
+# bf16 and float16 on 16-bit wgmma: 128 (o; 64 when O <= 64) x 128 (rows)
 # tiles over stages of 64 positions, one resident block per SM (its ring
 # takes 161 KB of shared memory)
 TC_TILE_ROWS, TC_STAGE = 128, 64
-_TC_MIN_CHUNK = 4 * TC_STAGE
+# float32 by 3xTF32 on tf32 wgmma: 128 rows of the register operand (o
+# when O > 64, else rows m) by 128 or the padded O, stages of 32
+# positions, one resident block per SM (a ring of up to 197 KB)
+TF32_STAGE = 32
+TF32_NARROW_O = (16, 24, 32, 64)
+_MIN_CHUNK_STAGES = 4   # fewest stages a split sums
 _TC_MAX_WAVES = 8       # the most waves of blocks a split plan may ask
-_TC_BLOCK_STAGES = 8    # a block's own cost (pipeline fill, epilogue), in
+_BLOCK_STAGES = 8       # a block's own cost (pipeline fill, epilogue), in
                         # stages
 
 
 class LaunchPlan(NamedTuple):
-    """What one dW launch runs: the C entry point, the kernel (``"tensor-
-    core"`` for bf16 and float16, ``"cuda-core"`` for float32), how the tensor-core
-    kernel loads x and dy (``"16-byte"`` cp.async or ``"register-
-    staged"``; ``None`` for the CUDA-core kernel), the output channels of
-    its tile (128, or 64 when O <= 64), the split-K partition (``splits``
-    chunks of ``chunk`` positions, the last one shorter) and the float32
-    workspace it needs, in elements (0: dW written directly)."""
+    """What one dW launch runs: the C entry point, the kernel (always
+    ``"tensor-core"``), its route (``"wgmma"``: bf16 and float16 products
+    on 16-bit wgmma; ``"tf32x3"``: float32 as three tf32 products each),
+    how it loads x and dy (``"16-byte"``; else ``"register-staged"`` for
+    16-bit types, ``"4-byte"`` for float32), the output channels of its
+    tile (16-bit: 128, or 64 when O <= 64; float32: 128, or O padded to
+    16, 24, 32 or 64 when O <= 64), the split-K partition (``splits``
+    chunks of ``chunk`` positions, whole stages, the last one shorter) and
+    the float32 workspace it needs, in elements (0: dW written
+    directly)."""
     entry: str
     kernel: str
-    x_loads: str | None
-    dy_loads: str | None
+    route: str
+    x_loads: str
+    dy_loads: str
     tile_o: int
     splits: int
     chunk: int
@@ -82,11 +89,12 @@ class LaunchPlan(NamedTuple):
     @property
     def variant(self):
         """The C entry's variant argument: bit 0 dy and bit 1 x by
-        16-byte copies, bit 2 tiles of 64 output channels."""
-        if self.kernel == "cuda-core":
-            return 0
-        return ((self.dy_loads == "16-byte") | (self.x_loads == "16-byte") << 1
-                | (self.tile_o == 64) << 2)
+        16-byte loads; then ``"wgmma"``: bit 2 tiles of 64 output
+        channels; ``"tf32x3"``: bits 2-6 the tile's output channels / 8."""
+        vec = (self.dy_loads == "16-byte") | (self.x_loads == "16-byte") << 1
+        if self.route == "tf32x3":
+            return vec | (self.tile_o // 8) << 2
+        return vec | (self.tile_o == 64) << 2
 
 
 def formulation(in_channels):
@@ -108,39 +116,34 @@ def split_plan(form, kernel, in_channels, out_channels, positions,
     ``positions`` = N*OH*OW is cut into ``splits`` chunks of ``chunk``
     positions (the last one shorter).
 
-    float32 (64 x 64 tiles): enough splits that the tiles of ``form``
-    times the splits put about four blocks per SM in flight, no chunk
-    shorter than 256 positions.  bf16 (128 x 128 tiles, one block per
-    SM): chunks are whole 64-position stages, at least four, and the
-    split count is the one, up to eight waves of blocks, that the cost
-    model waves x (stages a chunk + 8) puts lowest, so that the blocks
-    fill the 132 SMs in whole waves."""
-    if dtype == torch.float32:
-        tiles = _tiles(form, kernel, in_channels, out_channels, _F32_TILE,
-                       _F32_TILE)
-        splits = max(1, min(-(-_F32_TARGET_BLOCKS // tiles),
-                            -(-positions // _F32_MIN_CHUNK)))
-        chunk = -(-positions // splits)
-        return -(-positions // chunk), chunk
+    Chunks are whole stages (64 positions for bf16 and float16, 32 for
+    float32), at least four, and the split count is the one, up to eight
+    waves of blocks (one resident block per SM), that the cost model waves
+    x (stages a chunk + 8) puts lowest, so that the blocks fill the 132 SMs
+    in whole waves."""
+    stage = TF32_STAGE if dtype == torch.float32 else TC_STAGE
     tiles = _tiles(form, kernel, in_channels, out_channels, TC_TILE_ROWS,
-                   _tc_tile_o(out_channels))
-    stages = -(-positions // TC_STAGE)
+                   _tile_o(out_channels, dtype))
+    stages = -(-positions // stage)
     most = max(1, min(-(-_TC_MAX_WAVES * _SMS // tiles),
-                      stages // (_TC_MIN_CHUNK // TC_STAGE)))
+                      stages // _MIN_CHUNK_STAGES))
     best = None
     for cut in range(1, most + 1):
         per = -(-stages // cut)          # stages a chunk
         splits = -(-stages // per)
-        cost = -(-tiles * splits // _SMS) * (per + _TC_BLOCK_STAGES)
+        cost = -(-tiles * splits // _SMS) * (per + _BLOCK_STAGES)
         if best is None or cost < best[0]:
-            best = (cost, splits, per * TC_STAGE)
+            best = (cost, splits, per * stage)
     return best[1], best[2]
 
 
-def _tc_tile_o(out_channels):
-    """Output channels of a tensor-core tile: 64 when O <= 64 (the
-    warpgroups then split the rows), else 128."""
-    return 64 if out_channels <= 64 else 128
+def _tile_o(out_channels, dtype):
+    """Output channels of a tile.  bf16 and float16: 64 when O <= 64 (the
+    warpgroups then split the rows), else 128.  float32: O padded to 16,
+    24, 32 or 64 when O <= 64 (dY then lies on wgmma's N), else 128."""
+    if dtype != torch.float32:
+        return 64 if out_channels <= 64 else 128
+    return next((n for n in TF32_NARROW_O if out_channels <= n), 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,15 +158,14 @@ def launch_plan(form, kernel, stride, pad, x_shape, o, dtype,
     positions = (n * _out_size(h, kh, stride[0], pad[0], dilate[0])
                  * _out_size(w, kw, stride[1], pad[1], dilate[1]))
     splits, chunk = split_plan(form, kernel, ci, o, positions, dtype)
-    entry = "mxt_conv_dw_" + form
     dw_elems = o * kh * kw * ci
-    if dtype == torch.float32:
-        return LaunchPlan(entry, "cuda-core", None, None, _F32_TILE, splits,
-                          chunk, splits * dw_elems)
-    return LaunchPlan(entry, "tensor-core",
-                      "16-byte" if ci % 8 == 0 else "register-staged",
-                      "16-byte" if o % 8 == 0 else "register-staged",
-                      _tc_tile_o(o), splits, chunk,
+    f32 = dtype == torch.float32
+    lanes, other = (4, "4-byte") if f32 else (8, "register-staged")
+    return LaunchPlan("mxt_conv_dw_" + form, "tensor-core",
+                      "tf32x3" if f32 else "wgmma",
+                      "16-byte" if ci % lanes == 0 else other,
+                      "16-byte" if o % lanes == 0 else other,
+                      _tile_o(o, dtype), splits, chunk,
                       splits * dw_elems if splits > 1 else 0)
 
 

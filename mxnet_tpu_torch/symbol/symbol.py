@@ -240,6 +240,31 @@ class Symbol:
 
     __hash__ = object.__hash__
 
+    # the JAX Symbol's fluent methods, each the op it builds
+    def reshape(self, shape, **kw):
+        return _create("Reshape", [self], {"shape": shape, **kw})
+
+    def sum(self, axis=None, keepdims=False):
+        return _create("sum", [self], {"axis": axis, "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        return _create("mean", [self], {"axis": axis, "keepdims": keepdims})
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return _create("transpose", [self], {"axes": axes})
+
+    def softmax(self, axis=-1):
+        return _create("softmax", [self], {"axis": axis})
+
+    def slice_axis(self, axis, begin, end):
+        return _create("slice_axis", [self], {"axis": axis, "begin": begin,
+                                              "end": end})
+
+    def astype(self, dtype):
+        return _create("Cast", [self], {"dtype": str(np.dtype(dtype))})
+
     # ---------------------------------------------------------- inference
     def infer_shape(self, *args, **kwargs):
         """``(arg_shapes, out_shapes, aux_shapes)`` from the shapes given

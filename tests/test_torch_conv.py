@@ -13,7 +13,12 @@ Tolerances:
   package's float16 convolution: one float16 step (2**-10) of the largest
   magnitude, both rounded to float16 once;
 - convolution forward, dX and the bias gradient: 1e-5 (rtol and atol),
-  one float32 op each, summed in another order by each package.
+  one float32 op each, summed in another order by each package;
+- the emulated float32 tensor-core route (3xTF32): 1e-5 of the plain
+  version's largest magnitude (float32 sums in another order; each
+  product exact to about 2^-20), and against a float64 dW no more than 4x
+  the float32 plain version's own error, the gate phase 3c holds the
+  kernel to on the card.
 """
 
 import numpy as np
@@ -130,19 +135,19 @@ def _tiles(plan, form, xs, k, o):
     """The kernel's blocks per split: row tiles x output-channel tiles
     (x taps for per-tap)."""
     rows = k[0] * k[1] * xs[3] if form == "im2col" else xs[3]
-    tile_rows = 64 if plan.kernel == "cuda-core" else cdw.TC_TILE_ROWS
-    tiles = -(-rows // tile_rows) * -(-o // plan.tile_o)
+    tiles = -(-rows // cdw.TC_TILE_ROWS) * -(-o // plan.tile_o)
     return tiles * (k[0] * k[1] if form == "pertap" else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resnet50_formulations_and_split_plan(dtype):
     """44 convolutions of ResNet-50 take K1a and 9 take K1b; each plan
-    covers the reduction exactly once, in whole 64-position stages but
-    the last for bf16, and fills the card: float32 at least 2 x 132
-    blocks, bf16 (one resident block per SM) at least 95 % of the 132
-    SMs, unless the smallest chunk stops it.  bf16 runs on the tensor cores, the stem's x (I = 3)
-    register-staged; float32 on the CUDA cores."""
+    covers the reduction exactly once, in whole stages but the last (64
+    positions for bf16, 32 for float32), and fills the card (one resident
+    block per SM) at least 95 % of the 132 SMs, unless the smallest chunk
+    stops it.  Both run on the tensor cores, bf16 on 16-bit wgmma and
+    float32 by 3xTF32; the stem's x (I = 3) register-staged in bf16, by
+    4-byte loads in float32."""
     convs = _resnet50_convs()
     forms = [cdw.formulation(xs[3]) for xs, *_ in convs]
     assert len(convs) == 53
@@ -154,28 +159,26 @@ def test_resnet50_formulations_and_split_plan(dtype):
         assert (plan.splits - 1) * plan.chunk < positions \
             <= plan.splits * plan.chunk, (xs, k, o)
         blocks = _tiles(plan, form, xs, k, o) * plan.splits
-        if dtype == torch.float32:
-            assert plan.kernel == "cuda-core" and plan.x_loads is None
-            assert blocks >= 2 * 132, (xs, k, o)
-            assert plan.ws_elems == plan.splits * o * k[0] * k[1] * xs[3]
-            continue
+        f32 = dtype == torch.float32
+        stage = cdw.TF32_STAGE if f32 else cdw.TC_STAGE
         assert plan.kernel == "tensor-core"
-        assert plan.chunk % cdw.TC_STAGE == 0
-        assert blocks >= 0.95 * 132 or plan.chunk == 4 * cdw.TC_STAGE, \
-            (xs, k, o)
+        assert plan.route == ("tf32x3" if f32 else "wgmma")
+        assert plan.chunk % stage == 0
+        assert blocks >= 0.95 * 132 or plan.chunk == 4 * stage, (xs, k, o)
         assert plan.tile_o == (64 if o <= 64 else 128)
         assert plan.dy_loads == "16-byte"
-        assert plan.x_loads == ("register-staged" if xs[3] == 3
-                                else "16-byte"), xs
+        assert plan.x_loads == ("16-byte" if xs[3] != 3 else
+                                "4-byte" if f32 else "register-staged"), xs
         assert plan.ws_elems == (0 if plan.splits == 1 else
                                  plan.splits * o * k[0] * k[1] * xs[3])
 
 
 @pytest.mark.parametrize("form", ["pertap", "im2col"])
 def test_launch_plan_of_the_ragged_case_and_its_variant(form):
-    """I = 200, O = 100: x by 16-byte copies, dy (200-byte rows)
+    """I = 200, O = 100: bf16 x by 16-byte copies, dy (200-byte rows)
     register-staged; the C variant packs dy, x and the 64-channel tile
-    as bits 0, 1 and 2."""
+    as bits 0, 1 and 2.  float32: both by 16-byte loads (O % 4 == 0), a
+    tile of 128 channels in bits 2-6 as 128 / 8."""
     xs, k, s, p, o = RAGGED
     plan = cdw.launch_plan(form, k, s, p, xs, o, torch.bfloat16)
     assert (plan.x_loads, plan.dy_loads, plan.tile_o) == (
@@ -184,7 +187,10 @@ def test_launch_plan_of_the_ragged_case_and_its_variant(form):
     stem = cdw.launch_plan("im2col", (7, 7), (2, 2), (3, 3),
                            (128, 224, 224, 3), 64, torch.bfloat16)
     assert stem.variant == 1 | 4
-    assert cdw.launch_plan(form, k, s, p, xs, o, torch.float32).variant == 0
+    f32 = cdw.launch_plan(form, k, s, p, xs, o, torch.float32)
+    assert (f32.route, f32.x_loads, f32.dy_loads, f32.tile_o) == (
+        "tf32x3", "16-byte", "16-byte", 128)
+    assert f32.variant == 1 | 2 | 16 << 2
 
 
 @pytest.mark.parametrize("xs,k,s,p,o", [
@@ -220,18 +226,16 @@ def test_split_k_partial_sums_in_split_order_make_dw(xs, k, s, p, o, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_plan_small_reductions_are_not_cut_below_the_minimum(dtype):
+    """100 positions stay one chunk of whole stages (4 of float32's 32, 2
+    of bf16's 64); 10,000 positions on one tile are cut as finely as
+    whole stages allow, not below four stages a chunk."""
+    stage = cdw.TF32_STAGE if dtype == torch.float32 else cdw.TC_STAGE
     splits, chunk = cdw.split_plan("pertap", (1, 1), 128, 64, 100, dtype)
-    assert splits == 1 and chunk >= 100
-    assert (splits, chunk) == ((1, 100) if dtype == torch.float32
-                               else (1, 128))
+    assert (splits, chunk) == (1, 128)
     splits, chunk = cdw.split_plan("im2col", (3, 3), 3, 8, 10_000, dtype)
-    if dtype == torch.float32:
-        assert splits == -(-10_000 // 256) and chunk == -(-10_000 // splits)
-    else:
-        # one tile: cut as finely as whole stages allow, not below four
-        assert chunk % cdw.TC_STAGE == 0
-        assert 4 * cdw.TC_STAGE <= chunk < 8 * cdw.TC_STAGE
-        assert splits == -(-10_000 // chunk)
+    assert chunk % stage == 0
+    assert 4 * stage <= chunk < 8 * stage
+    assert splits == -(-10_000 // chunk)
 
 
 @pytest.mark.parametrize("xs,k,s,p,o", CASES[:4] + [
@@ -377,3 +381,215 @@ def test_float16_launch_plan_is_the_tensor_core_kernel():
         half = cdw.launch_plan(form, k, s, p, xs, o, torch.float16)
         assert half.kernel == "tensor-core"
         assert half == cdw.launch_plan(form, k, s, p, xs, o, torch.bfloat16)
+
+
+# ------------------------------------------ float32: 3xTF32 (tf32x3 route)
+
+# LeNet's two convolutions and the ConvLSTM cell's two, as the symbolic
+# paths hand them to K1b: (NHWC x, kernel, stride, pad, O)
+LENET = [((64, 28, 28, 1), (5, 5), (1, 1), (0, 0), 20),
+         ((64, 12, 12, 20), (5, 5), (1, 1), (0, 0), 50)]
+CONVLSTM = [((8, 16, 16, c), (3, 3), (1, 1), (1, 1), 64) for c in (3, 16)]
+
+
+def _ssd300_convs(batch=32, size=300):
+    """(NHWC x, kernel, stride, pad, O, dilate) of every convolution of
+    SSD300 at (batch, 3, size, size), in forward order."""
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import SSD300
+
+    net = SSD300(20, device="meta")
+    convs = []
+
+    def hook(mod, args, out):
+        n, c, h, w = args[0].shape
+        kw = mod._kwargs
+        convs.append(((n, h, w, c), kw["kernel"], kw["stride"], kw["pad"],
+                      kw["num_filter"], kw["dilate"]))
+
+    for m in net.modules():
+        if isinstance(m, tgnn.Conv2D):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        net(torch.empty(batch, 3, size, size, device="meta"))
+    return convs
+
+
+def _f32_shapes():
+    """Every float32 convolution shape of the main paths: ResNet-50's
+    (the card's float32 gradient check), SSD300's, LeNet's, ConvLSTM's."""
+    return ([c + ((1, 1),) for c in _resnet50_convs()] + _ssd300_convs()
+            + [c + ((1, 1),) for c in LENET + CONVLSTM])
+
+
+def _dilated_positions(xs, k, s, p, d):
+    n, h, w, _ = xs
+    return n * ((h + 2 * p[0] - d[0] * (k[0] - 1) - 1) // s[0] + 1) \
+        * ((w + 2 * p[1] - d[1] * (k[1] - 1) - 1) // s[1] + 1)
+
+
+def test_float32_plan_is_tf32x3_at_every_main_path_shape():
+    """At every float32 shape of the main paths (ResNet-50's 53, SSD300's
+    35, LeNet's 2, ConvLSTM's 2) the plan is the tensor-core kernel's
+    tf32x3 route: chunks of whole 32-position stages that cover the
+    reduction once, a tile of 128 output channels above O = 64 and O
+    padded to 16, 24, 32 or 64 at or below it, 16-byte loads where the
+    channel count is a multiple of 4."""
+    shapes = _f32_shapes()
+    assert len(shapes) == 53 + 35 + 2 + 2
+    narrow = 0
+    for xs, k, s, p, o, d in shapes:
+        form = cdw.formulation(xs[3])
+        plan = cdw.launch_plan(form, k, s, p, xs, o, torch.float32, d)
+        positions = _dilated_positions(xs, k, s, p, d)
+        assert (plan.kernel, plan.route) == ("tensor-core", "tf32x3")
+        assert plan.chunk % cdw.TF32_STAGE == 0
+        assert plan.chunk >= 4 * cdw.TF32_STAGE or plan.splits == 1
+        assert (plan.splits - 1) * plan.chunk < positions \
+            <= plan.splits * plan.chunk, (xs, k, o)
+        want = min((t for t in cdw.TF32_NARROW_O if o <= t), default=128)
+        assert plan.tile_o == want, (xs, o)
+        narrow += plan.tile_o < 128
+        assert plan.x_loads == ("16-byte" if xs[3] % 4 == 0 else "4-byte")
+        assert plan.dy_loads == ("16-byte" if o % 4 == 0 else "4-byte")
+        assert plan.ws_elems == (0 if plan.splits == 1 else
+                                 plan.splits * o * k[0] * k[1] * xs[3])
+    # ResNet-50's stem and the 6 of stage 1 with 64 channels, SSD300's
+    # conv1_x and its 3 + 3 loc heads, LeNet's and ConvLSTM's 4
+    assert narrow == 7 + 2 + 6 + 4
+
+
+# (NHWC x, kernel, stride, pad, O, dilate): (splits, chunk) of the plan
+PINNED_F32_SPLITS = {
+    ((32, 300, 300, 3), (3, 3), (1, 1), (1, 1), 64, (1, 1)): (132, 21824),
+    ((32, 300, 300, 64), (3, 3), (1, 1), (1, 1), 64, (1, 1)): (79, 36480),
+    ((32, 38, 38, 512), (3, 3), (1, 1), (1, 1), 512, (1, 1)): (8, 5792),
+    ((32, 38, 38, 512), (3, 3), (1, 1), (1, 1), 16, (1, 1)): (11, 4224),
+    ((32, 19, 19, 512), (3, 3), (1, 1), (6, 6), 1024, (6, 6)): (4, 2912),
+    ((32, 19, 19, 1024), (3, 3), (1, 1), (1, 1), 126, (1, 1)): (7, 1664),
+    ((32, 1, 1, 256), (3, 3), (1, 1), (1, 1), 16, (1, 1)): (1, 32),
+    ((64, 28, 28, 1), (5, 5), (1, 1), (0, 0), 20, (1, 1)): (128, 288),
+    ((8, 16, 16, 16), (3, 3), (1, 1), (1, 1), 64, (1, 1)): (16, 128),
+    ((128, 224, 224, 3), (7, 7), (2, 2), (3, 3), 64, (1, 1)): (66, 24352),
+}
+
+
+@pytest.mark.parametrize("conv", sorted(PINNED_F32_SPLITS))
+def test_float32_split_counts_are_pinned(conv):
+    """The float32 split-K plan at SSD300's large maps, a dilated layer, a
+    loc head, a 1 x 1 map, LeNet's conv1, the ConvLSTM cell's h2h and
+    ResNet-50's stem: pinned, so that a change to the cost model shows."""
+    xs, k, s, p, o, d = conv
+    plan = cdw.launch_plan(cdw.formulation(xs[3]), k, s, p, xs, o,
+                           torch.float32, d)
+    assert (plan.splits, plan.chunk) == PINNED_F32_SPLITS[conv]
+
+
+@pytest.mark.parametrize("o,tile", [(1, 16), (16, 16), (17, 24), (24, 24),
+                                    (25, 32), (32, 32), (33, 64), (50, 64),
+                                    (64, 64), (65, 128), (126, 128),
+                                    (512, 128)])
+def test_float32_narrow_o_tiling(o, tile):
+    """O <= 64 puts dY on wgmma's N at O padded to 16, 24, 32 or 64; the
+    C variant carries the width / 8 in bits 2-6 (bf16 keeps its 64 or
+    128 tile and bit 2)."""
+    xs = (8, 10, 10, 64)
+    plan = cdw.launch_plan("im2col", (3, 3), (1, 1), (1, 1), xs, o,
+                           torch.float32)
+    assert plan.tile_o == tile
+    assert plan.variant >> 2 == tile // 8
+    assert plan.variant & 3 == (o % 4 == 0) | 2
+    half = cdw.launch_plan("im2col", (3, 3), (1, 1), (1, 1), xs, o,
+                           torch.bfloat16)
+    assert half.route == "wgmma" and half.tile_o == (64 if o <= 64 else 128)
+    assert half.variant >> 2 == (o <= 64)
+
+
+def _tf32_parts(a):
+    """float32 ``a`` split as the kernel splits it: hi rounded to tf32 on
+    its bits ((bits + 0x1000) & ~0x1fff), lo = a - hi as the tensor core
+    reads it (its low 13 bits dropped)."""
+    bits = a.contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    hi = (bits + 0x1000) & 0xffffe000
+    hi = torch.where(hi >= 2 ** 31, hi - 2 ** 32, hi).to(torch.int32)
+    hi = hi.view(torch.float32)
+    lo = (a - hi).contiguous().view(torch.int32) & ~0x1fff
+    return hi, lo.view(torch.float32)
+
+
+def _x_rows(x, k, s, p, d):
+    """X^ [P, KH*KW*I]: x at every position's taps, (r, s, i) order."""
+    n, h, w, _ = x.shape
+    oh = (h + 2 * p[0] - d[0] * (k[0] - 1) - 1) // s[0] + 1
+    ow = (w + 2 * p[1] - d[1] * (k[1] - 1) - 1) // s[1] + 1
+    xp = torch.nn.functional.pad(x, (0, 0, p[1], p[1], p[0], p[0]))
+    taps = [xp[:, r * d[0]:r * d[0] + s[0] * (oh - 1) + 1:s[0],
+               c * d[1]:c * d[1] + s[1] * (ow - 1) + 1:s[1]]
+            for r in range(k[0]) for c in range(k[1])]
+    return torch.cat(taps, -1).reshape(n * oh * ow, -1)
+
+
+def _tf32x3_emulation(x, dy, k, s, p, d, plan):
+    """The kernel's arithmetic: each split's chunk summed stage by stage
+    (32 positions), a stage's three tf32 products lo*hi + hi*lo + hi*hi
+    in float32 added to the running float32 sum, the splits' partials
+    added in split order."""
+    xr = _x_rows(x, k, s, p, d)
+    yr = dy.reshape(-1, dy.shape[-1])
+    xh, xl = _tf32_parts(xr)
+    yh, yl = _tf32_parts(yr)
+    positions = xr.shape[0]
+    total = None
+    for sp in range(plan.splits):
+        acc = torch.zeros(yr.shape[1], xr.shape[1])
+        end = min((sp + 1) * plan.chunk, positions)
+        for st in range(sp * plan.chunk, end, cdw.TF32_STAGE):
+            at = slice(st, min(st + cdw.TF32_STAGE, end))
+            acc = acc + (yl[at].T @ xh[at] + yh[at].T @ xl[at]
+                         + yh[at].T @ xh[at])
+        total = acc if total is None else total + acc
+    return total.reshape(yr.shape[1], k[0], k[1], x.shape[3])
+
+
+def _dw_float64(x, dy, k, s, p, d):
+    n = _x_rows(x.double(), k, s, p, d)
+    return (dy.double().reshape(-1, dy.shape[-1]).T @ n).reshape(
+        dy.shape[-1], k[0], k[1], x.shape[3])
+
+
+@pytest.mark.parametrize("xs,k,s,p,o,d", [
+    ((2, 13, 13, 5), (3, 3), (1, 1), (2, 2), 24, (2, 2)),     # dilated
+    ((2, 30, 30, 3), (7, 7), (2, 2), (3, 3), 64, (1, 1)),     # I = 3
+    ((2, 12, 12, 128), (3, 3), (1, 1), (1, 1), 16, (1, 1)),   # O = 16
+    ((6, 14, 13, 20), (3, 3), (1, 1), (1, 1), 100, (1, 1)),   # ragged end
+], ids=["dilated", "stem-I3", "loc-head-O16", "partial-last-chunk"])
+def test_tf32x3_emulation_is_float32_accurate(xs, k, s, p, o, d):
+    """A plain emulation of the tf32x3 route's arithmetic (the split by
+    the kernel's bit formula, three tf32 products a stage into float32,
+    the plan's stage and split order) against the plain version, within
+    1e-5 of its largest magnitude, and against a float64 dW, within 4x
+    the float32 plain version's own error."""
+    rs = np.random.RandomState(11)
+    n, h, w, ci = xs
+    oh = (h + 2 * p[0] - d[0] * (k[0] - 1) - 1) // s[0] + 1
+    ow = (w + 2 * p[1] - d[1] * (k[1] - 1) - 1) // s[1] + 1
+    x = torch.from_numpy(rs.randn(*xs).astype(np.float32))
+    dy = torch.from_numpy(rs.randn(n, oh, ow, o).astype(np.float32))
+    plan = cdw.launch_plan(cdw.formulation(ci), k, s, p, xs, o,
+                           torch.float32, d)
+    if xs[0] == 6:
+        # several splits, the last chunk and its last stage short
+        positions = n * oh * ow
+        assert plan.splits > 1 and positions % plan.chunk % 32 != 0
+    got = _tf32x3_emulation(x, dy, k, s, p, d, plan)
+    ref = cdw.conv_dw_reference(x, dy, k, s, p, d)
+    want = _dw_float64(x, dy, k, s, p, d)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    e_emulated = float((got.double() - want).abs().max())
+    e_plain = float((ref.double() - want).abs().max())
+    assert e_emulated <= 4 * e_plain, (e_emulated, e_plain)
+    # the split itself: hi + lo gives x back within the tf32 reading of lo
+    hi, lo = _tf32_parts(x)
+    assert torch.equal(hi.view(torch.int32) & 0x1fff,
+                       torch.zeros_like(hi, dtype=torch.int32))
+    assert float(((hi + lo) - x).abs().max()) <= 2.0 ** -21 * float(
+        x.abs().max())

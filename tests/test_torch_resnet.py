@@ -110,12 +110,67 @@ class _Device:
         return attr
 
 
+def _grads_of(jnet, net, x, train):
+    """Outputs and gradients of ``sum(out^2)`` in both packages, recorded
+    in train mode (batch statistics) or predict mode (running ones)."""
+    xj = mx.nd.array(x)
+    with jag.record(train_mode=train):
+        jout = jnet(xj)
+        (jout * jout).sum().backward()
+    xt = torch.from_numpy(x)
+    with tag.record(train_mode=train):
+        tout = net(xt)
+    tag.backward((tout * tout).sum())
+    jg = {k: p.grad().asnumpy()
+          for k, p in jnet._collect_params_with_prefix().items()
+          if p.grad_req != "null"}
+    tg = {k: p.grad.numpy() for k, p in net.collect_params().items()
+          if p.requires_grad and p.grad is not None}
+    return tout.detach().numpy(), jout.asnumpy(), tg, jg
+
+
+@pytest.mark.parametrize("make,shape", [
+    (lambda v, **kw: v.resnet18_v1(classes=6, **kw), (2, 3, 64, 64)),
+    (lambda v, **kw: v.ResNetV1(v.BottleneckV1, [1], [8, 32], classes=4,
+                                **kw), (2, 3, 16, 16)),
+], ids=["resnet18_v1", "bottleneck-one-stage"])
+@pytest.mark.parametrize("train", [False, True], ids=["predict", "train"])
+def test_nchw_resnets_match_jax_outputs_and_gradients(make, shape, train):
+    """The default layout, NCHW (OIHW weights, BatchNorm over axis 1):
+    logits and every parameter's gradient against the JAX zoo's.  The
+    gradients are held to 1e-4 of each one's largest magnitude (1e-3 in
+    train mode, where BatchNorm's division by the batch's spread at the
+    deepest stages magnifies the float32 differences; biases that feed a
+    BatchNorm have a true gradient of 0 and are compared on the scale of
+    the layer's weight gradient).  ResNet-18 runs at 64 x 64, so that its
+    last stage's BatchNorm sees 2 x 2 maps of two samples."""
+    jnet, params, x, want = _jax_net(lambda: make(jvision), shape)
+    net = load_mxnet_tpu_params(make(tvision, device="cpu"), params)
+    assert net.features[0].weight.shape[1:] == (3, 7, 7)  # OIHW
+    with torch.no_grad():
+        _close(net(torch.from_numpy(x)).numpy(), want)
+    got, jout, tg, jg = _grads_of(jnet, net, x, train)
+    _close(got, jout, 1e-4 if train else 1e-5)
+    assert set(tg) == set(jg)
+    tol = 1e-3 if train else 1e-4
+    for k, want_g in jg.items():
+        scale = float(np.abs(want_g).max())
+        if k.endswith("bias") and k[:-4] + "weight" in jg:
+            scale = max(scale, float(np.abs(jg[k[:-4] + "weight"]).max()))
+        assert tg[k].shape == want_g.shape, k
+        assert float(np.abs(tg[k] - want_g).max()) <= tol * scale, k
+
+
 def test_model_zoo_entry_points():
     net = tvision.resnet18_v1(layout="NHWC", classes=4, device="cpu")
     assert isinstance(net, tvision.ResNetV1)
     assert net.output.weight.shape == (4, 512)
+    # the default layout is NCHW: OIHW weights, BatchNorm over axis 1
+    net = tvision.resnet50_v1(device="cpu")
+    assert net.features[0].weight.shape == (64, 3, 7, 7)
+    assert net.features[1]._axis == 1
     with pytest.raises(MXNetError, match="NHWC"):
-        tvision.resnet50_v1(device="cpu")
+        tvision.resnet50_v1(layout="NCWH", device="cpu")
     with pytest.raises(ValueError, match="v1 only"):
         tvision.get_resnet(2, 50, layout="NHWC", device="cpu")
     with pytest.raises(ValueError, match="no ResNet of 26 layers"):

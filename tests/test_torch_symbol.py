@@ -208,3 +208,43 @@ def test_label_and_head_json_attrs_parse_as_jax():
     loaded = tmx.sym.load_json(json.dumps(g))
     assert loaded.infer_shape(data=(4, 1, 28, 28)) == \
         t.infer_shape(data=(4, 1, 28, 28))
+
+
+FLUENT = {
+    "reshape": lambda s: s.reshape((4, 6)),
+    "reshape-special": lambda s: s.reshape((0, -1)),
+    "sum": lambda s: s.sum(),
+    "sum-axis-keepdims": lambda s: s.sum(axis=1, keepdims=True),
+    "mean-axis": lambda s: s.mean(axis=(0, 2)),
+    "transpose": lambda s: s.transpose(),
+    "transpose-axes": lambda s: s.transpose((2, 0, 1)),
+    "transpose-varargs": lambda s: s.transpose(1, 2, 0),
+    "softmax": lambda s: s.softmax(),
+    "softmax-axis": lambda s: s.softmax(axis=1),
+    "slice_axis": lambda s: s.slice_axis(axis=1, begin=1, end=3),
+    "astype": lambda s: s.astype(np.float16),
+    "chain": lambda s: (s * 2.0).transpose((1, 0, 2)).reshape((3, -1))
+    .softmax(axis=0).sum(axis=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLUENT))
+def test_fluent_methods_build_the_jax_ops(case):
+    """Each fluent method of Symbol builds the op the JAX Symbol builds
+    (the same JSON, op names and attributes), and the bound graph gives the
+    JAX graph's values on the same input (float32, one op each: 1e-6)."""
+    x = np.random.RandomState(7).randn(2, 3, 4).astype(np.float32)
+    outs, jsons = [], []
+    for pkg in ("jax", "port"):
+        mx, nm = PKGS[pkg]
+        with nm():
+            sym = FLUENT[case](mx.sym.Variable("x"))
+        jsons.append(sym.tojson())
+        ctx = mx.cpu()
+        outs.append(sym.eval(ctx=ctx, x=mx.nd.array(x, ctx=ctx))[0]
+                    .asnumpy())
+    assert jsons[1] == jsons[0]
+    ops = [n["op"] for n in json.loads(jsons[1])["nodes"]]
+    assert ops[0] == "null" and len(ops) >= 2
+    assert outs[1].dtype == outs[0].dtype
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-6, atol=1e-6)
