@@ -78,12 +78,16 @@ Phases (any failure raises, and the script exits non-zero):
    relu4_3 shape) runs one K6a and one K6b on its NHWC view, equal to the
    plain version and bitwise to the NHWC call;
 3e. box_nms (K7): the keep set at MultiBoxDetection's shape (32, 8732)
-   and at edge cases (all ties, all suppressed, topk 400, force_suppress,
-   id_index -1), each bitwise equal to the plain version on the card and
-   across two launches (and box_nms on the card to the CPU's at (2,
-   500)), with its time, the plain version's and the bound (the IoU's
-   operations counted for the pairs of one class where ids restrict
-   suppression);
+   and at other cases (all ties, all suppressed, topk 400, force_suppress
+   at (8, 2000) and at the full shape, id_index -1, 80 % of the rows one
+   class, 80 classes, NaN and signed-zero ids, 24,564 rows an image by
+   class, 400,000 and 2,000,000 rows an image, and 2,000,000 by class),
+   each bitwise equal to the plain version on the card and across two
+   launches (and box_nms on the card to the CPU's at (2, 500)), with its
+   route, launch shapes and scratch bytes, its time (and the device time
+   of the scan -- class keys, sort, segments -- and of the walk, from a
+   profiler trace), the plain version's and the bound (the pair tests
+   that greedy NMS needs for this run's keep set, in each class);
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
    8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
    concurrent requests of 1-8 samples plus one with an out-of-range token;
@@ -232,8 +236,8 @@ Phases (any failure raises, and the script exits non-zero):
    then 3 steps under torch.profiler (busy share, time by kernel group);
    (c) evaluate(): MultiBoxDetection (NMS 0.45) on 32 held-out scenes,
    one K7 launch, finite rows of (32, 8732, 6), the top-1 class at IoU
-   >= 0.5 accuracy and the call's time (the kernels line's paths
-   ssd_train and ssd_detect).
+   >= 0.5 accuracy, the call's time and its peak memory (the kernels
+   line's paths ssd_train and ssd_detect).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -4133,7 +4137,7 @@ SSD_GROUPS = (
     ("K1b conv_dw im2col", ("conv_dw_tf32_kernel<true",)),
     ("K1 split-K sum", ("conv_dw_reduce",)),
     ("K2 maxpool_bwd", ("maxpool_bwd_kernel",)),
-    ("K7 box_nms", ("nms_mask_kernel", "nms_walk_kernel")),
+    ("K7 box_nms", ("nms_scan_kernel", "nms_walk_kernel")),
     # cuDNN picks FFT algorithms for some float32 convolutions
     ("cuDNN conv fwd/dgrad", ("conv", "cudnn", "xmma", "fprop", "dgrad",
                               "implicit", "gemm", "cutlass", "sm90", "fft",
@@ -4421,67 +4425,136 @@ def _nms_rows(gen, b, n, classes=SSD_CLASSES, centres=24, invalid=0.3):
                       centre + half], dim=-1)
 
 
-def nms_bound_ms(b, n, n_valid, ids=None):
+def nms_bound_ms(b, n, n_valid, keep, ids=None):
     """Least time for K7 on these inputs: the boxes (and ids) read once and
-    the keep set written once, against the operations this run's rows
-    need at the float32 peak: for a pair of valid rows of one class (of
-    any class where ``ids`` is None) 13 (4 max/min, 4 clipped differences,
-    the intersection's product, the union's add and subtract, the
-    division, the compare), for a pair of valid rows of two classes the
-    one compare of their ids, and each valid box's area once."""
-    nv = n_valid.double()
-    pairs = float((nv * (nv - 1) / 2).sum())
-    same = pairs
-    if ids is not None:
-        valid = torch.arange(n, device=ids.device) < n_valid.unsqueeze(1)
-        image = torch.arange(b, device=ids.device).unsqueeze(1).expand(b, n)
-        _, count = torch.unique(torch.stack(
-            [image[valid].double(), ids[valid].double()], 1), dim=0,
-            return_counts=True)
-        count = count.double()
-        same = float((count * (count - 1) / 2).sum())
-    ops = 13.0 * same + (pairs - same) + 5.0 * float(nv.sum())
+    the keep set written once, against the operations that this run's
+    keep set ``keep`` needs at the float32 peak: each valid box's area
+    once (5), and 13 a pair test (4 max/min, 4 clipped differences, the
+    intersection's product, the union's add and subtract, the division,
+    the compare).  Greedy NMS needs, in each class of each image (the
+    image where ``ids`` is None; a NaN id is a class of its own), with n
+    valid rows of which k are kept: a test of each pair of kept rows, or
+    a later one could have been removed by an earlier one, and one test
+    for each removed row: k(k-1)/2 + (n-k).  No pair of two classes is
+    tested."""
+    valid = torch.arange(n, device=keep.device) < n_valid.unsqueeze(1)
+    image = torch.arange(b, device=keep.device).unsqueeze(1).expand(b, n)
+    key = (torch.zeros_like(keep, dtype=torch.float32) if ids is None
+           else torch.where(ids == 0, torch.zeros_like(ids), ids))  # -0.0
+    sel = valid & (key == key)
+    _, inverse, count = torch.unique(torch.stack(
+        [image[sel].double(), key[sel].double()], 1), dim=0,
+        return_inverse=True, return_counts=True)
+    count = count.double()
+    kept = torch.zeros_like(count).index_add_(0, inverse, keep[sel].double())
+    tests = float((kept * (kept - 1) / 2 + count - kept).sum())
+    ops = 13.0 * tests + 5.0 * float(valid.sum())
     nbytes = b * n * (16 + (4 if ids is not None else 0) + 1) + 4 * b
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-# K7's edge cases: (name, images, rows, box_nms keywords, how the rows are
+def _kernel_ms(fn, keys, calls=5):
+    """Device ms a launch of the kernel whose name holds each of ``keys``,
+    from one torch.profiler session of ``calls`` calls of ``fn`` after a
+    warm-up one (averaged over the launches the trace kept: it can lose
+    its first events), and the device kernels a call in the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = {}
+    for key in keys:
+        spans = [e.time_range.end - e.time_range.start for e in events
+                 if key in e.name]
+        ms[key] = sum(spans) / max(1, len(spans)) / 1e3
+    return ms, len(events) / calls
+
+
+# K7's cases besides MultiBoxDetection's shape: (name, images, rows,
+# box_nms keywords, classes, share of invalid scores, how the rows are
 # changed); each against the plain version on the card, and box_nms on the
-# card against box_nms on the CPU
+# card against box_nms on the CPU at (2, 500).  The class-aware case of
+# 24,564 rows (SSD512's anchors) takes the layouts past MultiBoxDetection's
+# shape: the sort's buffers in the scratch (past 12,416 rows) and a class
+# of about 13,900 rows walked by a block with its boxes read from the
+# scratch (past 11,498 rows).  The last three lie past the 393,216 rows an
+# image that the mask design took, with about 3,000 valid rows an image
+# (the plain loop's length): the removed bits of the one segment in 50 KB
+# of shared memory, then in the scratch (2,000,000 rows), and by class,
+# each of the 66 walk blocks of an image with removed bits of its own in
+# the scratch, the 80 % class (about 2,400 rows) a block's.
 NMS_EDGE_CASES = [
-    ("all ties", 8, 2000, dict(id_index=0), "ties"),
+    ("all ties", 8, 2000, dict(id_index=0), SSD_CLASSES, 0.3, "ties"),
     ("all suppressed", 8, 2000, dict(force_suppress=True, id_index=0),
-     "same box"),
-    ("topk 400", 8, 2000, dict(id_index=0, topk=400), None),
-    ("force_suppress", 8, 2000, dict(id_index=0, force_suppress=True), None),
-    ("id_index -1", 8, 2000, dict(id_index=-1), None),
+     SSD_CLASSES, 0.3, "same box"),
+    ("topk 400", 8, 2000, dict(id_index=0, topk=400), SSD_CLASSES, 0.3,
+     None),
+    ("force_suppress", 8, 2000, dict(id_index=0, force_suppress=True),
+     SSD_CLASSES, 0.3, None),
+    ("id_index -1", 8, 2000, dict(id_index=-1), SSD_CLASSES, 0.3, None),
+    ("force_suppress full", SSD_BATCH, SSD_ANCHORS,
+     dict(id_index=0, force_suppress=True), SSD_CLASSES, 0.3, None),
+    ("skewed 80 %", SSD_BATCH, SSD_ANCHORS, dict(id_index=0), SSD_CLASSES,
+     0.3, "skew"),
+    ("80 classes", SSD_BATCH, SSD_ANCHORS, dict(id_index=0), 80, 0.3, None),
+    ("NaN and signed-zero ids", 8, 2000, dict(id_index=0), SSD_CLASSES, 0.3,
+     "nan ids"),
+    ("24,564 rows, 80 %", 2, 24564, dict(id_index=0), SSD_CLASSES, 0.3,
+     "skew"),
+    ("400,000 rows", 2, 400000, dict(id_index=0, force_suppress=True),
+     SSD_CLASSES, 1 - 3000 / 400000, None),
+    ("2,000,000 rows", 2, 2000000, dict(id_index=0, force_suppress=True),
+     SSD_CLASSES, 1 - 3000 / 2000000, None),
+    ("2,000,000 rows, 80 %", 2, 2000000, dict(id_index=0), SSD_CLASSES,
+     1 - 3000 / 2000000, "skew"),
 ]
 
 
 def nms_kernels(seed):
     """Phase 3e, K7: box_nms's keep set at MultiBoxDetection's shape (32,
-    8732) and at the edge cases, each bitwise equal to the plain version
-    on the card and across two launches, with its time, the plain
+    8732) and at the other cases, each bitwise equal to the plain version
+    on the card and across two launches, with its route, launch shapes,
+    scratch bytes, time (and the scan's -- class keys, sort, segments --
+    and the walk's device time, from a profiler trace), the plain
     version's and the bound (no library computes greedy NMS with the JAX
-    package's rule: no library row).  Returns the main shape's row."""
+    package's rule: no library row).
+    Returns the main shape's row."""
     from mxnet_tpu_torch.ops import box_nms as K
     from mxnet_tpu_torch.ops import contrib as Cb
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 12)
     row = None
-    cases = [("detect", SSD_BATCH, SSD_ANCHORS, dict(id_index=0), None)] \
-        + NMS_EDGE_CASES
-    for name, b, n, kw, change in cases:
-        data = _nms_rows(gen, b, n)
+    cases = [("detect", SSD_BATCH, SSD_ANCHORS, dict(id_index=0),
+              SSD_CLASSES, 0.3, None)] + NMS_EDGE_CASES
+    for name, b, n, kw, classes, invalid, change in cases:
+        data = _nms_rows(gen, b, n, classes=classes, invalid=invalid)
         if change == "ties":
             data[:, :, 1] = 0.5
         elif change == "same box":
             data[:, :, 2:] = data[:, :1, 2:]
+        elif change == "skew":
+            one = torch.rand((b, n), device="cuda", generator=gen) < 0.8
+            data[:, :, 0] = torch.where(one, torch.zeros_like(data[:, :, 0]),
+                                        data[:, :, 0])
+        elif change == "nan ids":
+            u = torch.rand((b, n), device="cuda", generator=gen)
+            cls = data[:, :, 0]
+            data[:, :, 0] = torch.where(
+                u < 0.1, torch.full_like(cls, float("nan")),
+                torch.where((cls == 0) & (u < 0.55), -torch.zeros_like(cls),
+                            cls))
         _, boxes, n_valid, ids = Cb.nms_inputs(data, **kw)
         topk = kw.get("topk", -1)
-        plan = K.launch_plan(b, n, topk)
+        plan = K.launch_plan(b, n, topk, ids is not None,
+                             K._sm_count(boxes.device.index))
 
         def fn():
             return K.nms_keep(boxes, n_valid, SSD_NMS, ids, topk)
@@ -4492,25 +4565,43 @@ def nms_kernels(seed):
         ref = K.nms_keep_plain(boxes, n_valid, SSD_NMS, ids)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        equal, same = torch.equal(got, ref), torch.equal(got, again)
+        equal = torch.equal(got, ref)
+        same = torch.equal(got, again)
         kept = got.sum(1).tolist()
         ms = time_ms(fn, iters=10)
-        bound, bound_by = nms_bound_ms(b, n, n_valid, ids)
+        # the scan (class keys, sort, segments) and the walk apart
+        part_ms, per_call = _kernel_ms(fn, ("nms_scan_kernel",
+                                            "nms_walk_kernel"))
+        bound, bound_by = nms_bound_ms(b, n, n_valid, ref, ids)
         cpu_equal = True
         if name != "detect":
             part = data[:2, :500].contiguous()
-            cpu_equal = torch.equal(Cb.box_nms(part, SSD_NMS, **kw).cpu(),
-                                    Cb.box_nms(part.cpu(), SSD_NMS, **kw))
+            cpu_equal = torch.allclose(  # equal, NaN ids in equal places
+                Cb.box_nms(part, SSD_NMS, **kw).cpu(),
+                Cb.box_nms(part.cpu(), SSD_NMS, **kw), rtol=0, atol=0,
+                equal_nan=True)
         log("kernel box_nms [%s, (%d, %d) rows, %s]: keep set bitwise equal "
             "to the plain version %s, bitwise repeatable %s, box_nms on the "
             "card equal to the CPU's at (2, 500) %s; valid rows %d-%d, kept "
-            "%d-%d an image; mask %d bytes (limit %d, %d words a row); "
-            "kernel %.4f ms (%.2f %% of the bound), plain (one call) %.1f ms, "
-            "bound %.4f ms (%s)" % (
+            "%d-%d an image; %s route: scan %d bytes of shared memory (sort "
+            "%s), walk grid %s of %d threads, %d bytes of shared memory "
+            "(removed bits %s, boxes %s); scratch %d bytes (the mask design: "
+            "a %d-byte mask); kernel %.4f ms (%.2f %% of the bound): scan "
+            "%.4f, walk %.4f ms of device time (torch.profiler, %.1f device "
+            "kernels a call); plain (one call) %.1f ms, bound %.4f ms (%s)"
+            % (
                 name, b, n, kw, equal, same, cpu_equal,
                 int(n_valid.min()), int(n_valid.max()), min(kept), max(kept),
-                plan.mask_bytes, plan.limit, plan.words, ms,
-                100.0 * bound / ms, plain_ms, bound, bound_by))
+                plan.route, plan.scan_smem,
+                "in it" if plan.sort_in_smem else "in the scratch",
+                plan.grid, plan.threads, plan.walk_smem,
+                "in it" if plan.removed_in_smem else "in the scratch",
+                "in it" if plan.boxes_in_smem else "not",
+                plan.scratch_bytes,
+                b * plan.limit * -(-plan.limit // 64) * 8, ms,
+                100.0 * bound / ms, part_ms["nms_scan_kernel"],
+                part_ms["nms_walk_kernel"], per_call, plain_ms, bound,
+                bound_by))
         if not (equal and same and cpu_equal):
             raise AssertionError("box_nms's K7 disagrees with its plain "
                                  "version at %s" % name)
@@ -4779,10 +4870,13 @@ def ssd(seed, smi):
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     det = detect()
     torch.cuda.synchronize()
     det_ms = (time.perf_counter() - t0) * 1e3
+    det_peak = torch.cuda.max_memory_allocated()
     detected = {k: fn.launches for k, fn in counters.items()}
     # ---- end of the detection path
     det = det.cpu().numpy()
@@ -4791,9 +4885,11 @@ def ssd(seed, smi):
     log("ssd: MultiBoxDetection (nms %.2f) on the %d held-out scenes: %d "
         "rows of %d anchors kept, top-1 class at IoU >= 0.5 accuracy %.3f; "
         "the first call %.2f ms (host clock), a call %.3f ms (CUDA events, "
-        "the forward included); wrapper launches %s" % (
+        "the forward included); peak memory %.3f GB, %.1f MB above the "
+        "%.3f GB held before the call; wrapper launches %s" % (
             SSD_NMS, SSD_VAL, int((det[..., 0] >= 0).sum()), SSD_ANCHORS,
-            acc, det_ms, det_time, detected))
+            acc, det_ms, det_time, det_peak / 1e9, (det_peak - base) / 1e6,
+            base / 1e9, detected))
     if det.shape != (SSD_VAL, SSD_ANCHORS, 6) or not np.isfinite(det).all():
         raise AssertionError("ssd: the detections are not finite rows of "
                              "the expected shape")

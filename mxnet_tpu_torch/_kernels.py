@@ -76,8 +76,10 @@ _SIGNATURES = {
     },
     "box_nms": {
         "mxt_box_nms": (ctypes.c_int, [ctypes.c_void_p] * 5
-                        + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                ctypes.c_void_p]),
+                        + [ctypes.c_int] * 7
+                        + [ctypes.POINTER(ctypes.c_longlong),
+                           ctypes.c_longlong, ctypes.c_float,
+                           ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "maxpool_bwd": {

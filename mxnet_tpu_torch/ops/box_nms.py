@@ -4,9 +4,14 @@ Not the counterpart of a Pallas kernel: the JAX package runs ``box_nms``
 (``mxnet_tpu/ops/contrib.py:62-107``) as a ``lax.fori_loop`` over all N
 sorted rows, one device loop once XLA compiles it.  Written in plain
 PyTorch that loop is N sequential steps of several launches each, so on
-the card it is the port's own kernel, ``csrc/box_nms.cu``: a pass that
-writes, for each valid row, a bit mask of the later rows it suppresses,
-then one block an image that walks the rows in order.
+the card it is the port's own kernel, ``csrc/box_nms.cu``.  A row
+suppresses only rows of its own class, so the kernel walks each class of
+each image on its own: a scan kernel sorts each image's valid rows by
+class (stably: a class's rows stay in score order) and lists the classes
+("segments"), then a walk kernel resolves them over the whole card, 64
+rows at a time, a warp a short segment and a block a long one.  On the
+single-class route (``ids`` None) each image's valid rows are one
+segment.
 
 The rows come sorted by score, descending (``box_nms`` in
 :mod:`.contrib` sorts them, stably, as ``jnp.argsort`` does), and the
@@ -27,6 +32,8 @@ is given, whose class id equals its own; only valid rows are kept.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -35,33 +42,92 @@ from .. import _kernels
 from ..base import MXNetError
 
 __all__ = ["corner_iou", "nms_keep", "nms_keep_plain", "launch_plan",
-           "LaunchPlan"]
+           "LaunchPlan", "REGIONS"]
 
-TILE = 64           # rows and columns of a mask block; bits of a word
-WALK_THREADS = 256  # threads of the walking block
-_MAX_SMEM = 48 * 1024
+TILE = 64             # rows resolved together: the bits of a word
+WALK_WARPS = 32       # warps of a walk block
+# the scan's dynamic shared memory before the sort's buffers (the digit
+# counts: 256 digits x 33 ints) and the bytes of a row in those buffers
+# (two keys, two rows); the walk's before the removed bits (two tiles of
+# suppression words, two kept masks) and the bytes of a long segment's
+# row kept in it (a box and its area); a block's at most, on an H100.
+# The C entry refuses shared memory below what its kernels' layouts take.
+SCAN_SMEM_FIXED = 256 * 33 * 4
+SORT_ROW_BYTES = 16
+WALK_SMEM_FIXED = (2 * TILE + 2) * 8
+ROW_BYTES = 20
+MAX_SMEM = 232448
+_SMS = 132            # streaming multiprocessors of an H100
 
 
 class LaunchPlan(NamedTuple):
-    """A K7 launch: ``limit`` rows and columns of each image can be kept
-    (``topk`` where it is given, else N), the mask's ``words`` a row and
-    its bytes, pass 1's grid (column tiles, row tiles, images) of
-    ``TILE`` threads, pass 2's ``images`` blocks of ``WALK_THREADS``
-    threads with ``walk_smem`` bytes of removed bits."""
+    """A K7 launch.  ``route`` "class-aware" (ids given: the scan sorts
+    each image's valid rows by class) or "single-class"; ``limit`` rows of
+    each image can be valid (``topk`` where it is given, else N); the
+    scan's ``scan_smem`` bytes of dynamic shared memory, which hold the
+    sort's buffers where ``sort_in_smem`` (else they lie in the scratch);
+    the walk's ``grid`` (blocks an image, images) of ``threads`` threads
+    with ``walk_smem`` bytes of dynamic shared memory, which hold a long
+    segment's removed bits where ``removed_in_smem`` (a word a tile of
+    ``limit`` rows; else they lie in the scratch) and its boxes and areas
+    where ``boxes_in_smem``; ``scratch_bytes`` of scratch, its regions at
+    the byte ``offsets`` of :data:`REGIONS` (-1 for a region that lies in
+    shared memory).  The C entry takes these decisions as they are."""
+    route: str
     limit: int
-    words: int
-    mask_bytes: int
-    mask_grid: tuple
+    scan_smem: int
+    sort_in_smem: bool
+    grid: tuple
+    threads: int
     walk_smem: int
+    removed_in_smem: bool
+    boxes_in_smem: bool
+    scratch_bytes: int
+    offsets: tuple
 
 
-def launch_plan(b, n, topk=-1):
+# the scratch's regions, in order: the boxes, areas and rows in sorted
+# order, the segments' first and last rows, their lists, their counts, the
+# removed bits and the sort's buffers
+REGIONS = ("box", "area", "order", "pairs", "lists", "counts", "removed",
+           "sort")
+
+
+def _align16(v):
+    return -(-v // 16) * 16
+
+
+def launch_plan(b, n, topk=-1, classes=True, sms=_SMS):
     """The :class:`LaunchPlan` of ``b`` images of ``n`` sorted rows, of
-    which at most ``topk`` (all where ``topk <= 0``) are valid."""
+    which at most ``topk`` (all where ``topk <= 0``) are valid, by class
+    (``classes``) or all one class, on a card of ``sms`` SMs: a pure
+    function of its arguments.  The sort's buffers, a long segment's
+    removed bits, then its boxes go to shared memory where they fit; the
+    class-aware route deals each image ``sms // b`` walk blocks (at least
+    one), so that the segments spread over the card, one block an SM when
+    the boxes fill its shared memory; the single-class route has one
+    segment an image, one block."""
     limit = min(n, topk) if topk > 0 else n
     words = -(-limit // TILE)
-    return LaunchPlan(limit, words, b * limit * words * 8,
-                      (words, words, b), words * 8)
+    sort = SCAN_SMEM_FIXED + limit * SORT_ROW_BYTES
+    scan_smem = sort if sort <= MAX_SMEM else SCAN_SMEM_FIXED
+    removed = WALK_SMEM_FIXED + _align16(words * 8)
+    boxes = removed + limit * ROW_BYTES
+    walk_smem = next(v for v in (boxes, removed, WALK_SMEM_FIXED)
+                     if v <= MAX_SMEM)
+    blocks = min(65535, max(1, sms // b)) if classes else 1
+    rows, cap = b * limit, limit // 2 + 1  # cap: segments of two rows or more
+    sizes = (rows * 16, rows * 4, rows * 4, b * cap * 8, b * cap * 8, b * 8,
+             0 if walk_smem >= removed else b * blocks * words * 8,
+             0 if scan_smem == sort else rows * 16)
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at if size else -1)
+        at += _align16(size)
+    return LaunchPlan("class-aware" if classes else "single-class", limit,
+                      scan_smem, scan_smem == sort, (blocks, b),
+                      WALK_WARPS * 32, walk_smem, walk_smem >= removed,
+                      walk_smem == boxes, at, tuple(offsets))
 
 
 def corner_iou(a, b):
@@ -130,20 +196,26 @@ def nms_keep(boxes, n_valid, overlap_thresh, ids=None, topk=-1):
     if boxes.device.type == "cpu":
         return nms_keep_plain(boxes, n_valid, overlap_thresh, ids)
     b, n = boxes.shape[:2]
-    plan = launch_plan(b, n, topk)
-    if plan.walk_smem > _MAX_SMEM:
-        raise MXNetError("nms_keep takes at most %d rows an image on the "
-                         "card, got %d" % (_MAX_SMEM // 8 * TILE, plan.limit))
+    plan = launch_plan(b, n, topk, ids is not None,
+                       _sm_count(boxes.device.index))
     if boxes.data_ptr() % 16:
         boxes = boxes.clone()
-    lib = _kernels.library("box_nms")
-    mask = torch.empty(plan.mask_bytes // 8, dtype=torch.int64,
-                       device=boxes.device)
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
-    _kernels.launch(lib, lib.mxt_box_nms, boxes, ids, n_valid, mask, keep, b,
-                    n, plan.limit, float(overlap_thresh))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=boxes.device)
+    lib = _kernels.library("box_nms")
+    _kernels.launch(lib, lib.mxt_box_nms, boxes, ids, n_valid, scratch, keep,
+                    b, n, plan.limit, plan.grid[0], plan.scan_smem,
+                    plan.walk_smem, int(plan.boxes_in_smem),
+                    (ctypes.c_longlong * len(REGIONS))(*plan.offsets),
+                    plan.scratch_bytes, float(overlap_thresh))
     nms_keep.launches += 1
     return keep
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 nms_keep.launches = 0

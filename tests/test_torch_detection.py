@@ -194,12 +194,16 @@ def test_keep_wrapper_on_the_cpu_counts_no_launch_and_plans():
         tbn.nms_keep_plain(boxes, n_valid, 0.5).numpy())
     assert tbn.nms_keep.launches == before
     plan = tbn.launch_plan(32, 8732)
-    assert plan.limit == 8732 and plan.words == 137
-    assert plan.mask_bytes == 32 * 8732 * 137 * 8  # 306 MB
-    assert plan.mask_grid == (137, 137, 32) and plan.walk_smem == 137 * 8
+    assert plan.limit == 8732 and plan.route == "class-aware"
+    # no mask (the mask design's: 32 * 8732 * 137 words, 306 MB): the boxes,
+    # areas and rows in sorted order and the segment lists, under 9 MB
+    assert plan.scratch_bytes == 32 * 8732 * 24 + 2 * 32 * 4367 * 8 + 256
+    assert plan.grid == (4, 32)
+    assert plan.walk_smem == (2 * 64 + 2 + 138) * 8 + 8732 * 20
     small = tbn.launch_plan(32, 8732, topk=400)
-    assert small.limit == 400 and small.words == 7
-    assert small.mask_bytes == 32 * 400 * 7 * 8
+    assert small.limit == 400
+    assert small.walk_smem == (2 * 64 + 2 + 8) * 8 + 400 * 20
+    assert small.scratch_bytes == 32 * 400 * 24 + 2 * 32 * 201 * 8 + 256
     for bad in ((boxes.double(), n_valid), (boxes, n_valid.long()),
                 (boxes[:, :, :3], n_valid), (boxes, n_valid[:2])):
         with pytest.raises(MXNetError, match="nms_keep"):
