@@ -237,7 +237,33 @@ Phases (any failure raises, and the script exits non-zero):
    (c) evaluate(): MultiBoxDetection (NMS 0.45) on 32 held-out scenes,
    one K7 launch, finite rows of (32, 8732, 6), the top-1 class at IoU
    >= 0.5 accuracy, the call's time and its peak memory (the kernels
-   line's paths ssd_train and ssd_detect).
+   line's paths ssd_train and ssd_detect);
+12. module family: (a) a Dropout(0.5) Module read before its backward
+   (the executor's split graphs: a captured forward that keeps its
+   activations, a captured backward over them): one mask for the output
+   and the input gradient, one forward run a batch, a new mask each
+   batch; train_mnist.py's LeNet as a SequentialModule (the trunk to the
+   pools with label_names [], the head from the Flatten taking the
+   labels) against phase 8's single Module from the same seeded start on
+   the same 20 batches (forward, outputs read, backward, update): every
+   parameter within 1e-5 of its largest magnitude, each module's forward
+   once a batch; the captured batch's time, the single Module's and the
+   SequentialModule's in turns, and the sequential batch's host time by
+   call; then the main path, SequentialModule.fit for 1 epoch with
+   common/fit.py's SGD and a Monitor(100): validation accuracy above 0.9,
+   each module's forward once a batch, the Monitor's syncs (one a toc,
+   none on the batches it skips), the wrappers' counts (K1b and K2 at the
+   trunk's warm-up and capture, 2 x 2 each) and the launches of 3
+   batches counted in a profiler trace (2 each a batch; the kernels
+   line's path sequential_lenet); (b) custom_softmax.py's MLP (a softmax
+   on the host through mx.operator.CustomOp, need_top_grad False) through
+   Module.fit: accuracy above 0.9, its executor never captured, a batch's
+   time beside the same MLP with SoftmaxOutput (captured); (c)
+   Module.reshape of a trained MLP to 1 and 100 samples: outputs within
+   1e-6 of a fresh bind from get_params(), the trained weights kept, and
+   back at 64 the first executor's graph replayed; (d) model.FeedForward
+   on numpy arrays, 2 epochs: predict and score above 0.9, a save/load
+   round trip predicting bitwise equal.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -4900,6 +4926,512 @@ def ssd(seed, smi):
     return launched, detected
 
 
+# ---------------------------------------------------------------- module family
+
+# phase 12: the SequentialModule's trajectory against the single Module
+# (batches), its accuracy floor, and the Monitor's interval
+MF_BATCHES, MF_TOL, MF_MONITOR = 20, 1e-5, 100
+# the reshaped Module's outputs against a fresh bind, within this share
+# of their largest magnitude
+MF_RESHAPE_TOL = 1e-6
+
+
+def _lenet_split():
+    """train_mnist.py's LeNet cut at its Flatten: the trunk (the
+    convolutions and pools) and the head, named as _mnist_net's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.name import NameManager
+
+    sym = mx.sym
+    with NameManager():
+        net = sym.Variable("data")
+        for i, filters in ((1, 20), (2, 50)):
+            net = sym.Convolution(net, kernel=(5, 5), num_filter=filters,
+                                  name="conv%d" % i)
+            net = sym.Activation(net, act_type="tanh")
+            net = sym.Pooling(net, pool_type="max", kernel=(2, 2),
+                              stride=(2, 2))
+        trunk = net
+        net = sym.FullyConnected(sym.Flatten(sym.Variable("data")),
+                                 num_hidden=500, name="fc1")
+        net = sym.Activation(net, act_type="tanh")
+        net = sym.FullyConnected(net, num_hidden=10, name="fc2")
+        return trunk, sym.SoftmaxOutput(net, name="softmax")
+
+
+def _sequential_lenet(device):
+    import mxnet_tpu_torch as mx
+
+    trunk, head = _lenet_split()
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(trunk, label_names=[], context=device))
+    seq.add(mx.mod.Module(head, context=device), take_labels=True)
+    return seq
+
+
+def _bound_sequential(device, params):
+    it = _mnist_iter(True, False)
+    seq = _sequential_lenet(device)
+    seq.bind(it.provide_data, it.provide_label)
+    seq.init_params(arg_params=params[0], aux_params=params[1])
+    seq.init_optimizer(optimizer="sgd", optimizer_params=_fit_params())
+    return seq
+
+
+def _train_seq(mod, batches, n, events=None):
+    """``n`` batches of forward, a read of the outputs (the metric's),
+    backward and update, as a manual loop runs them."""
+    for i in range(n):
+        b = batches[i % len(batches)]
+        if events is not None:
+            events[i][0].record()
+        mod.forward(b, is_train=True)
+        mod.get_outputs()
+        mod.backward()
+        mod.update()
+        if events is not None:
+            events[i][1].record()
+
+
+def _lenet_initial(seed):
+    """Phase 8's LeNet start: a seeded Xavier draw on the host."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(seed)
+    first = mx.mod.Module(_mnist_net("lenet"), context=mx.cpu())
+    it = _mnist_iter(True, False)
+    first.bind(it.provide_data, it.provide_label)
+    first.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                     magnitude=2))
+    return tuple({k: v.copy() for k, v in d.items()}
+                 for d in first.get_params())
+
+
+def mf_dropout_once(seed):
+    """Phase 12a's first check: a Dropout(0.5) Module read before its
+    backward (the split graphs) keeps one mask for its output and its
+    input gradient, runs its forward once a batch, and draws a new mask
+    each batch."""
+    import mxnet_tpu_torch as mx
+
+    card = torch.device("cuda", 0)
+    mx.random.seed(seed)
+    shape = (SYM_BATCH, 1000)
+    mod = mx.mod.Module(mx.sym.Dropout(mx.sym.Variable("data"), p=0.5),
+                        label_names=[], context=card)
+    mod.bind([("data", shape)], inputs_need_grad=True)
+    mod.init_params()
+    x = mx.nd.ones(shape, ctx=card)
+    masks = []
+    for _ in range(3):
+        mod.forward(mx.io.DataBatch([x]), is_train=True)
+        out = mod.get_outputs()[0].asnumpy()
+        mod.backward([mx.nd.ones(shape, ctx=card)])
+        grad = mod.get_input_grads()[0].asnumpy()
+        masks.append((out != 0, grad != 0))
+    ex = mod._exec_group.execs[0]
+    same = all(np.array_equal(o, g) for o, g in masks)
+    keep = [float(o.mean()) for o, _ in masks]
+    log("module family: Dropout(0.5) read before backward on the card, 3 "
+        "batches: route %r, forward runs %d, output and input-gradient "
+        "masks equal %s, keep shares %s, a new mask each batch %s" % (
+            ex.route, ex.forward_runs, same, keep,
+            not np.array_equal(masks[0][0], masks[1][0])))
+    if ex.route != "split graphs" or ex.forward_runs != 3 or not same or \
+            np.array_equal(masks[0][0], masks[1][0]) or \
+            any(abs(k - 0.5) > 0.01 for k in keep):
+        raise AssertionError("the read-then-backward Dropout did not keep "
+                             "one mask a batch")
+
+
+def mf_sequential(seed, smi):
+    """Phase 12a: LeNet as a SequentialModule (trunk, head)."""
+    import mxnet_tpu_torch as mx
+
+    mf_dropout_once(seed)
+
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    card = torch.device("cuda", 0)
+    counters = {"im2col": C.conv_dw_im2col, "maxpool": P.maxpool_bwd}
+    params = _lenet_initial(seed)
+    it = _mnist_iter(True, False)
+    batches = [next(it) for _ in range(MF_BATCHES)]
+
+    # 1. 20 batches of the SequentialModule against phase 8's single
+    # Module from the same parameters on the same batches
+    single = _bound_module("lenet", card, params)
+    _train_batches(single, batches, MF_BATCHES)
+    seq = _bound_sequential(card, params)
+    _train_seq(seq, batches, MF_BATCHES)
+    want, _ = single.get_params()
+    got, _ = seq.get_params()
+    errs = {k: float(np.abs(got[k].asnumpy() - w.asnumpy()).max())
+            / max(float(np.abs(w.asnumpy()).max()), 1e-30)
+            for k, w in want.items()}
+    worst = max((e, k) for k, e in errs.items())
+    trunk_ex = seq._modules[0]._exec_group.execs[0]
+    head_ex = seq._modules[1]._exec_group.execs[0]
+    log("module family: LeNet as a SequentialModule (trunk to the pools, "
+        "head from the Flatten) vs the single Module after %d batches "
+        "(forward, outputs read, backward, update): worst parameter %.3g "
+        "of its largest magnitude (%s; tol %.0e); the trunk's route %r, "
+        "%d forward runs, the head's route %r, %d forward runs" % (
+            MF_BATCHES, worst[0], worst[1], MF_TOL, trunk_ex.route,
+            trunk_ex.forward_runs, head_ex.route, head_ex.forward_runs))
+    if not worst[0] <= MF_TOL:
+        raise AssertionError("the SequentialModule's LeNet left the single "
+                             "Module's trajectory")
+    if trunk_ex.forward_runs != MF_BATCHES or \
+            head_ex.forward_runs != MF_BATCHES:
+        raise AssertionError("a module's forward did not run once a batch")
+    if trunk_ex.route != "split graphs":
+        raise AssertionError("the trunk's read-then-backward did not run "
+                             "its split graphs")
+
+    # 2. the captured batch's time, the single Module's and the
+    # SequentialModule's in turns, and the sequential batch's host time
+    # by call
+    steps, warm = 20, 3
+    step_ms = {}
+    for tag, run, mod in (("single", _train_batches, single),
+                          ("sequential", _train_seq, seq),
+                          ("sequential again", _train_seq, seq),
+                          ("single again", _train_batches, single)):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(steps)]
+        run(mod, batches, steps, ev)
+        torch.cuda.synchronize()
+        step_ms[tag] = float(np.mean([a.elapsed_time(b)
+                                      for a, b in ev[warm:]]))
+    log("module family: a captured LeNet batch on %s (CUDA events, mean of "
+        "%d after %d, in turns): %s" % (smi, steps - warm, warm, ", ".join(
+            "%s %.4f ms" % kv for kv in step_ms.items())))
+    parts = {"forward (the trunk's forward graph, the head's copy in)": [],
+             "backward (the head's fused graph, the trunk's backward "
+             "graph)": [], "update": [], "update_metric": []}
+    metric = mx.metric.create("accuracy")
+    for i in range(steps):
+        b = batches[i % len(batches)]
+        t = [time.perf_counter()]
+        seq.forward(b, is_train=True)
+        t.append(time.perf_counter())
+        seq.backward()
+        t.append(time.perf_counter())
+        seq.update()
+        t.append(time.perf_counter())
+        seq.update_metric(metric, b.label)
+        t.append(time.perf_counter())
+        for part, a, z in zip(parts, t, t[1:]):
+            parts[part].append((z - a) * 1e3)
+    log("module family: a captured sequential batch's host time by call "
+        "(median of %d after %d): %s" % (steps - warm, warm, ", ".join(
+            "%s %.4f ms" % (k, float(np.median(v[warm:])))
+            for k, v in parts.items())))
+    del single
+    torch.cuda.empty_cache()
+
+    # 3. the main path: SequentialModule.fit with a Monitor
+    np.random.seed(seed)  # MNISTIter's shuffle
+    train, val = _mnist_iter(True, True), _mnist_iter(False, False)
+    main = _sequential_lenet(card)
+    mon = mx.mon.Monitor(MF_MONITOR)
+    runs, syncs = [], []
+
+    def batch_end(p):
+        t_ex = main._modules[0]._exec_group.execs[0]
+        h_ex = main._modules[1]._exec_group.execs[0]
+        runs.append((t_ex.forward_runs, h_ex.forward_runs))
+        syncs.append(mon.syncs)
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    main.fit(train, eval_data=None, eval_metric=["accuracy"], num_epoch=1,
+             optimizer="sgd", optimizer_params=_fit_params(),
+             kvstore="device", arg_params=params[0], aux_params=params[1],
+             batch_end_callback=batch_end, monitor=mon)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # ---- end of the main path
+    acc = dict(main.score(val, "accuracy"))["accuracy"]
+    nb = len(runs)
+    watched = (nb + MF_MONITOR - 1) // MF_MONITOR
+    trunk_ex = main._modules[0]._exec_group.execs[0]
+    (split,) = trunk_ex.split_graphs.values()
+    log("module family: SequentialModule.fit 1 epoch of %d batches on %s in "
+        "%.2f s wall; validation accuracy %.4f; forward runs a module after "
+        "the last batch %s (one a batch: %d); wrapper counts %s over the "
+        "main path (the trunk's eager warm-up + its capture; the trunk's "
+        "forward graph %d replays, its backward graphs %d (%d signature)); "
+        "the Monitor(%d): %d syncs, after each batch %s" % (
+            nb, smi, wall, acc, runs[-1], nb, launches, split.replays,
+            split.bwd_replays, len(split.bwd), MF_MONITOR, mon.syncs,
+            syncs[:3] + ["..."] + syncs[-2:]))
+    if not acc > 0.9:
+        raise AssertionError("module family: validation accuracy %.4f is "
+                             "not above 0.9" % acc)
+    if runs[-1] != (nb, nb):
+        raise AssertionError("module family: a module's forward did not run "
+                             "once a batch on the main path")
+    if launches != {k: 2 * v for k, v in LENET_LAUNCHES.items()}:
+        raise AssertionError("module family: the main path did not launch "
+                             "K1b and K2 at the trunk's warm-up and capture")
+    if mon.syncs != watched or any(
+            s != (i // MF_MONITOR + 1) for i, s in enumerate(syncs)):
+        raise AssertionError("module family: the Monitor synced on a batch "
+                             "it does not watch, or more than once a toc")
+
+    # 4. 3 batches under the profiler: K1b and K2 in the trunk's backward
+    # graph, twice each a batch
+    traced = 3
+    seen = profile_steps(lambda: (main.forward_backward(batches[0]),
+                                  main.update()), smi,
+                         step_ms["sequential"], steps=traced,
+                         groups=SYM_GROUPS, tag="module family sequential",
+                         count=LENET_KERNELS)
+    if seen is not None:
+        want = {k: n * traced for k, _, n in LENET_KERNELS}
+        log("module family: launches in the trace of %d sequential "
+            "batches %s; expected %s" % (traced, seen, want))
+        if seen != want:
+            raise AssertionError("the sequential LeNet batch does not "
+                                 "launch K1b and K2 twice each")
+    del main, seq
+    torch.cuda.empty_cache()
+    return {k: dict(launches=n, traced_replays=traced,
+                    launches_in_traced_replays=None if seen is None
+                    else seen[k]) for k, n in launches.items()}
+
+
+def _numpy_softmax(mx):
+    """example/numpy-ops/custom_softmax.py's op, for the port: a softmax
+    on the host, its backward p - onehot(label)."""
+
+    class NumpySoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0],
+                        mx.nd.array(e / e.sum(axis=1, keepdims=True),
+                                    ctx=in_data[0].context))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            label = in_data[1].asnumpy().ravel().astype(np.int64)
+            p = out_data[0].asnumpy().copy()
+            p[np.arange(label.shape[0]), label] -= 1.0
+            self.assign(in_grad[0], req[0],
+                        mx.nd.array(p, ctx=in_data[0].context))
+
+    @mx.operator.register("numpy_softmax")
+    class NumpySoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+    return NumpySoftmaxProp
+
+
+def _custom_mlp(custom):
+    """custom_softmax.py's build_mlp (or the same MLP with SoftmaxOutput)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.name import NameManager
+
+    sym = mx.sym
+    with NameManager():
+        h = sym.Flatten(sym.Variable("data"))
+        h = sym.Activation(sym.FullyConnected(h, num_hidden=128,
+                                              name="fc1"), act_type="relu")
+        h = sym.Activation(sym.FullyConnected(h, num_hidden=64,
+                                              name="fc2"), act_type="relu")
+        h = sym.FullyConnected(h, num_hidden=10, name="fc3")
+        if custom:
+            return sym.Custom(data=h, name="softmax",
+                              op_type="numpy_softmax")
+        return sym.SoftmaxOutput(h, name="softmax")
+
+
+def mf_custom(seed, smi):
+    """Phase 12b: custom_softmax.py's MLP through Module.fit."""
+    import mxnet_tpu_torch as mx
+
+    card = torch.device("cuda", 0)
+    _numpy_softmax(mx)
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-5}
+    mx.random.seed(seed)
+    np.random.seed(seed)
+    train, val = _mnist_iter(True, True), _mnist_iter(False, False)
+    mod = mx.mod.Module(_custom_mlp(True), context=card)
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, optimizer="sgd", optimizer_params=opt,
+            num_epoch=1, initializer=mx.init.Xavier())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = dict(mod.score(val, "accuracy"))["accuracy"]
+    ex = mod._exec_group.execs[0]
+    # a batch's time beside the same MLP with SoftmaxOutput (captured)
+    ref = mx.mod.Module(_custom_mlp(False), context=card)
+    ref.bind(train.provide_data, train.provide_label)
+    ref.init_params(arg_params=mod.get_params()[0])
+    ref.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    train.reset()
+    batches = [next(train) for _ in range(5)]
+    host_ms = {}
+    for tag, m in (("Custom (eager)", mod), ("SoftmaxOutput (captured)", ref),
+                   ("Custom again", mod), ("SoftmaxOutput again", ref)):
+        _train_batches(m, batches, 3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _train_batches(m, batches, 20)
+        torch.cuda.synchronize()
+        host_ms[tag] = (time.perf_counter() - t) / 20 * 1e3
+    ref_ex = ref._exec_group.execs[0]
+    log("module family: custom_softmax.py's MLP (NumpySoftmax on the host, "
+        "need_top_grad False) through Module.fit 1 epoch on %s in %.2f s: "
+        "validation accuracy %.4f; its executor captures %s, route %r; a "
+        "batch's forward_backward + update, host clock to a sync (mean of "
+        "20 after 3, in turns): %s; the SoftmaxOutput MLP's route %r" % (
+            smi, wall, acc, ex.capture, ex.route, ", ".join(
+                "%s %.4f ms" % kv for kv in host_ms.items()), ref_ex.route))
+    if not acc > 0.9:
+        raise AssertionError("the Custom-op MLP's accuracy %.4f is not above "
+                             "0.9" % acc)
+    if ex.capture or ex.route != "eager, fused" or \
+            ref_ex.route != "fused graph":
+        raise AssertionError("the Custom-op graph was captured, or the "
+                             "SoftmaxOutput one was not")
+
+
+def mf_reshape(seed, smi):
+    """Phase 12c: Module.reshape of a trained MLP to 1 and 100 samples,
+    and back to 64."""
+    import mxnet_tpu_torch as mx
+
+    card = torch.device("cuda", 0)
+    mx.random.seed(seed)
+    train, val = _mnist_iter(True, False), _mnist_iter(False, False)
+    mod = mx.mod.Module(_mnist_net("mlp"), context=card)
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=_fit_params())
+    batches = [next(train) for _ in range(10)]
+    _train_batches(mod, batches, 10)
+    first = mod._exec_group.execs[0]
+    (graph,) = first.graphs.values()
+    trained = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    data = val.next().data[0].asnumpy()
+    worst, kept = 0.0, True
+    for n in (1, 100):
+        x = np.concatenate([data] * 2)[:n]
+        mod.reshape([("data", (n, 1, 28, 28))], [("softmax_label", (n,))])
+        mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=card)]),
+                    is_train=False)
+        got = mod.get_outputs()[0].asnumpy()
+        fresh = mx.mod.Module(_mnist_net("mlp"), context=card)
+        fresh.bind([("data", (n, 1, 28, 28))], for_training=False)
+        fresh.set_params(*mod.get_params())
+        fresh.forward(mx.io.DataBatch([mx.nd.array(x, ctx=card)]),
+                      is_train=False)
+        want = fresh.get_outputs()[0].asnumpy()
+        worst = max(worst, float(np.abs(got - want).max())
+                    / float(np.abs(want).max()))
+        kept &= all(np.array_equal(v.asnumpy(), trained[k])
+                    for k, v in mod.get_params()[0].items())
+    replays = graph.replays
+    mod.reshape([("data", (SYM_BATCH, 1, 28, 28))],
+                [("softmax_label", (SYM_BATCH,))])
+    _train_batches(mod, batches, 5)
+    torch.cuda.synchronize()
+    back = mod._exec_group.execs[0]
+    log("module family: Module.reshape of the trained MLP to 1 and 100 "
+        "samples on %s: outputs vs a fresh bind from get_params() worst %.3g "
+        "of the largest (tol %.0e), trained weights kept %s; back at %d: "
+        "the first executor %s, its graph replayed %d more times, %d graph "
+        "in all" % (smi, worst, MF_RESHAPE_TOL, kept, SYM_BATCH,
+                    "taken back" if back is first else "NOT taken back",
+                    graph.replays - replays, len(back.graphs)))
+    if not worst <= MF_RESHAPE_TOL or not kept:
+        raise AssertionError("the reshaped Module disagrees with a fresh "
+                             "bind, or lost its trained weights")
+    if back is not first or graph.replays - replays != 5 or \
+            len(back.graphs) != 1:
+        raise AssertionError("the first shape's graph was not replayed")
+
+
+def mf_feedforward(seed, smi):
+    """Phase 12d: model.FeedForward on numpy arrays."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io.io import _synthetic_mnist
+
+    card = torch.device("cuda", 0)
+    imgs, labels = _synthetic_mnist(6000, seed=0)
+    x = imgs.astype(np.float32).reshape(-1, 1, 28, 28) / 255.0
+    y = labels.astype(np.float32)
+    vimgs, vlabels = _synthetic_mnist(1000, seed=1)
+    vx = vimgs.astype(np.float32).reshape(-1, 1, 28, 28) / 255.0
+    vy = vlabels.astype(np.float32)
+    mx.random.seed(seed)
+    np.random.seed(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ff_")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            t0 = time.perf_counter()
+            model = mx.model.FeedForward(
+                _mnist_net("mlp"), ctx=card, num_epoch=2,
+                numpy_batch_size=SYM_BATCH, learning_rate=0.05,
+                momentum=0.9, wd=1e-4, initializer=mx.init.Xavier())
+            model.fit(x, y)
+            pred = model.predict(vx)
+            acc = model.score(mx.io.NDArrayIter(vx, vy,
+                                                batch_size=SYM_BATCH))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            model.save(tmp + "/ff")
+            again = mx.model.FeedForward.load(tmp + "/ff", 2, ctx=card,
+                                              numpy_batch_size=SYM_BATCH)
+            pred2 = again.predict(vx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    top1 = float((pred.argmax(1) == vy).mean())
+    log("module family: FeedForward(mlp).fit 2 epochs on numpy arrays on %s "
+        "in %.2f s (predict and score included): predict %s, finite %s, "
+        "top-1 %.4f, score %.4f; save/load round trip predicts bitwise "
+        "equal %s" % (smi, wall, pred.shape, bool(np.isfinite(pred).all()),
+                      top1, acc, np.array_equal(pred, pred2)))
+    if pred.shape != (1000, 10) or not np.isfinite(pred).all() or \
+            not acc > 0.9 or abs(top1 - acc) > 1e-9 or \
+            not np.array_equal(pred, pred2):
+        raise AssertionError("FeedForward: wrong predictions, accuracy or "
+                             "round trip")
+
+
+def module_family(seed, smi):
+    """Phase 12: the Module family (SequentialModule with a Monitor, a
+    Custom op, reshape, FeedForward).  Returns the SequentialModule's
+    launch counts."""
+    launches = mf_sequential(seed, smi)
+    mf_custom(seed, smi)
+    mf_reshape(seed, smi)
+    mf_feedforward(seed, smi)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4933,6 +5465,7 @@ def main():
     phase("9 word LM", word_lm, args.seed, smi)
     convlstm_launches = phase("10 bucketing", bucketing, args.seed, smi)
     ssd_train, ssd_detect = phase("11 SSD300", ssd, args.seed, smi)
+    seq_launches = phase("12 module family", module_family, args.seed, smi)
     # one entry per kernel per main path, each with that path's own count
     entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
                     plan_route=fwd_kernel_plan(UNITS // HEADS,
@@ -4989,6 +5522,20 @@ def main():
             replaces=line,
             launches_counted_over="eager warm-up batch + capture",
             **lenet_launches[key], **row))
+    # the LeNet trunk of phase 12's SequentialModule: its read-then-
+    # backward route, split into a captured forward and backward graph
+    for key, name, line, row in (
+            ("im2col", "conv_dw_im2col", "mxnet_tpu/ops/pallas_conv.py:133",
+             dict(dw_lenet, plan_route="tf32x3")),
+            ("maxpool", "maxpool_bwd", "mxnet_tpu/ops/pallas_pool.py:55",
+             pool_lenet)):
+        entries.append(dict(
+            name=name, path="sequential_lenet", route="cuda",
+            source="mxnet_tpu_torch/csrc/%s.cu" % (
+                "conv_dw" if key == "im2col" else "maxpool_bwd"),
+            replaces=line,
+            launches_counted_over="eager warm-up batch + capture",
+            **seq_launches[key], **row))
     # the ConvLSTM cell's unroll through a captured executor, float32
     entries.append(dict(
         name="conv_dw_im2col", path="bucketing_convlstm", route="cuda",

@@ -10,7 +10,10 @@ run-time kernel facility (``rtc.CudaModule``) compiles a user's CUDA
 source through NVRTC.  The three entry points of the JAX package are
 here: imperative ``mx.nd``, Gluon, and the symbolic ``mx.sym`` ->
 ``Executor`` -> ``mx.mod.Module`` path with ``mx.io``, ``mx.metric``,
-``mx.callback``, ``mx.model`` and ``mx.lr_scheduler``, and its recurrent
+``mx.callback``, ``mx.model`` (with ``FeedForward``) and
+``mx.lr_scheduler``, the Module family (``mx.mod.SequentialModule``,
+``PythonModule``, ``PythonLossModule``), ``mx.monitor`` (``mx.mon``) and
+custom operators (``mx.operator``, ``mx.sym.Custom``), and its recurrent
 side: ``mx.rnn``'s cells and ``BucketSentenceIter`` trained through
 ``mx.mod.BucketingModule``.  The JAX package's top-level aliases are here
 too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
@@ -20,10 +23,11 @@ too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
 
 from . import (attribute, autograd, callback, context, convert, executor,
                gluon, initializer, io, lr_scheduler, metric, model, module,
-               name, ndarray, ops, optimizer, parallel, random, rnn, rtc,
-               serving, symbol)
+               monitor, name, ndarray, operator, ops, optimizer, parallel,
+               random, rnn, rtc, serving, symbol)
 from . import initializer as init
 from . import module as mod
+from . import monitor as mon
 from . import ndarray as nd
 from . import symbol as sym
 from .attribute import AttrScope
@@ -43,6 +47,7 @@ __all__ = ["AttrScope", "DataBatch", "DataIter", "Executor", "MXNetError",
            "autograd", "callback", "context", "convert", "cpu",
            "do_checkpoint", "executor", "gpu", "gluon", "init",
            "initializer", "io", "load_checkpoint", "lr_scheduler", "metric",
-           "mod", "model", "module", "name", "nd", "ndarray", "ops",
-           "optimizer", "parallel", "random", "rnn", "rtc",
+           "mod", "model", "module", "mon", "monitor", "name", "nd",
+           "ndarray", "operator", "ops", "optimizer", "parallel", "random",
+           "rnn", "rtc",
            "save_checkpoint", "serving", "sym", "symbol"]

@@ -51,6 +51,13 @@ from ..context import resolve_device
 __all__ = ["Block", "HybridBlock", "Parameter", "DeferredParameter"]
 
 _cast_generation = 0  # Block.cast calls so far
+_name_counter = collections.Counter()
+
+
+def _name_unique(hint):
+    n = _name_counter[hint]
+    _name_counter[hint] += 1
+    return "%s%d" % (hint, n)
 
 
 def cast_generation():
@@ -149,6 +156,14 @@ class Block(nn.Module):
     def __init__(self, device=None):
         super().__init__()
         self.device = resolve_device(device)
+        self._name = _name_unique(type(self).__name__.lower())
+
+    @property
+    def name(self):
+        """The block's name: its class's, lower case, with a count a
+        class (``hybridsequential0``), as the JAX package names a block
+        made outside a name scope."""
+        return self._name
 
     def _param(self, name, shape, dtype="float32", init=None):
         """Register a parameter ``name`` of ``shape`` and ``dtype``;
@@ -175,8 +190,24 @@ class Block(nn.Module):
     def __call__(self, *args, **kwargs):
         with torch.set_grad_enabled(_autograd.is_recording()):
             if self._active and not _capture.is_staging():
-                return self._call_cached(*args, **kwargs)
+                return self._hooked_cached(args, kwargs)
             return super().__call__(*args, **kwargs)
+
+    def _hooked_cached(self, args, kwargs):
+        """A hybridized call with the block's own forward hooks around it
+        (``register_forward_pre_hook``, ``register_forward_hook``; the
+        JAX package's ``gluon/block.py:304-307``): they fire on every
+        call, its descendants' only while the program is staged."""
+        for hook in self._forward_pre_hooks.values():
+            res = hook(self, args)
+            if res is not None:
+                args = res if isinstance(res, tuple) else (res,)
+        out = self._call_cached(*args, **kwargs)
+        for hook in self._forward_hooks.values():
+            res = hook(self, args, out)
+            if res is not None:
+                out = res
+        return out
 
     def collect_params(self):
         """Structural name -> parameter, in registration order."""
@@ -340,9 +371,10 @@ class _CachedGraph:
         self.fwd = self.bwd = None
 
     def _forward(self, args):
+        # the block's forward without its own hooks, which fire around
+        # the call (HybridBlock._hooked_cached)
         with _capture.staging():
-            return nn.Module.__call__(self.block,
-                                      *_unflatten(args, self.in_tree))
+            return self.block.forward(*_unflatten(args, self.in_tree))
 
     def __call__(self, args):
         self.calls += 1
@@ -490,6 +522,6 @@ class HybridBlock(Block):
                 # running statistics moved), as the JAX package's
                 # _call_cached does before it stages the program
                 with _autograd.pause(), _capture.staging():
-                    nn.Module.__call__(self, *args)
+                    self.forward(*args)
             graph = graphs[key] = _CachedGraph(self, flat, recording, tree)
         return graph(flat)

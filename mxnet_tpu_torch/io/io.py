@@ -7,14 +7,18 @@ src/io/iter_mnist.cc): ``DataDesc``, ``DataBatch``, ``DataIter``,
 the host; a Module copies them into its bound arrays on its device.
 Without the idx files, ``MNISTIter`` makes the JAX package's deterministic
 synthetic digits (the same numpy code), so both packages see the same
-data.  The CSV, LibSVM and ImageRecord iterators and ``PrefetchingIter``
-are not ported yet.
+data.  ``CSVIter`` reads CSV files into an ``NDArrayIter``
+(``round_batch`` pads the last batch); ``PrefetchingIter`` reads one
+inner iterator ahead on a background thread.  The LibSVM and ImageRecord
+iterators are not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import struct
+import threading
 from collections import namedtuple
 
 import numpy as np
@@ -23,7 +27,7 @@ from ..context import cpu
 from ..ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter", "NDArrayIter",
-           "MNISTIter"]
+           "MNISTIter", "CSVIter", "PrefetchingIter"]
 
 DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
 DataDesc.__new__.__defaults__ = (np.float32, "NCHW")
@@ -296,3 +300,138 @@ class MNISTIter(DataIter):
 
     def iter_next(self):
         return self._inner.iter_next()
+
+
+class CSVIter(DataIter):
+    """Batches of a CSV file (reference: src/io/iter_csv.cc:218; JAX
+    ``io.py:418-455``): rows of ``data_csv`` reshaped to ``data_shape``,
+    labels from ``label_csv`` (zeros without one); ``round_batch`` pads
+    the last short batch by wrapping to the start, else it is dropped."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True, **kwargs):
+        super().__init__(batch_size)
+        del kwargs
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32,
+                          ndmin=2).reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                               ndmin=2).reshape((-1,) + tuple(label_shape))
+            if tuple(label_shape) == (1,):
+                label = label.reshape(-1)
+        else:
+            label = np.zeros((data.shape[0],), dtype=np.float32)
+        self._inner = NDArrayIter(
+            data, label, batch_size=batch_size, shuffle=False,
+            last_batch_handle="pad" if round_batch else "discard")
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+
+def _renamed(descs, rename):
+    if rename is None:
+        return descs
+    return [DataDesc(rename[0].get(d.name, d.name), d.shape, d.dtype)
+            if isinstance(d, DataDesc) else d for d in descs]
+
+
+class PrefetchingIter(DataIter):
+    """One iterator read ahead on a background thread (reference: io.py
+    PrefetchingIter over src/io/iter_prefetcher.h; JAX ``io.py:171-246``):
+    up to ``capacity`` batches wait in a queue.  ``rename_data`` and
+    ``rename_label`` (a list of one dict, old name -> new) rename the
+    descriptions."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 capacity=2):
+        super().__init__()
+        iters = iters if isinstance(iters, list) else [iters]
+        assert len(iters) == 1, "PrefetchingIter takes one iterator"
+        self.iters = iters
+        self.n_iter = 1
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = iters[0].batch_size
+        self._queue = queue.Queue(maxsize=capacity)
+        self._stop = threading.Event()
+        self._thread = None
+        self._start()
+
+    @property
+    def provide_data(self):
+        return _renamed(self.iters[0].provide_data, self.rename_data)
+
+    @property
+    def provide_label(self):
+        return _renamed(self.iters[0].provide_label, self.rename_label)
+
+    def _start(self):
+        self._stop.clear()
+
+        def worker():
+            try:
+                for batch in self.iters[0]:
+                    if self._stop.is_set():
+                        return
+                    self._queue.put(batch)
+            finally:
+                self._queue.put(None)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def reset(self):
+        """Stop the reader, drop what it read, reset the inner iterator
+        and read again."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._queue.get(timeout=0.01)
+            except queue.Empty:
+                pass
+        self._thread.join()
+        while not self._queue.empty():
+            self._queue.get()
+        self.iters[0].reset()
+        self._start()
+
+    def next(self):
+        batch = self._queue.get()
+        if batch is None:
+            self._queue.put(None)  # the end stays the end until reset
+            raise StopIteration
+        return batch
+
+    def iter_next(self):
+        try:
+            self.current_batch = self.next()
+            return True
+        except StopIteration:
+            return False
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad

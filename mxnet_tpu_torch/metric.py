@@ -3,15 +3,19 @@
 Counterpart of ``mxnet_tpu/metric.py`` (reference: python/mxnet/metric.py):
 ``EvalMetric``, ``CompositeEvalMetric``, ``create``, ``Accuracy``,
 ``TopKAccuracy``, ``CrossEntropy``, ``NegativeLogLikelihood``,
-``Perplexity``, ``MAE``, ``MSE``, ``RMSE``, ``Loss`` and ``CustomMetric``
-with ``np``.  Metrics run on the host in numpy, from NDArrays or numpy
-arrays, so their values equal the JAX package's on the same inputs.
-F1, MCC and PearsonCorrelation are not ported yet.  A composite's
+``Perplexity``, ``MAE``, ``MSE``, ``RMSE``, ``F1`` and ``MCC`` (binary,
+``average="macro"`` over the updates or ``"micro"`` over the samples),
+``PearsonCorrelation``, ``Loss`` with its ``Torch`` and ``Caffe`` aliases,
+and ``CustomMetric`` with ``np``.  Metrics run on the host in numpy, from
+NDArrays or numpy arrays, so their values equal the JAX package's on the
+same inputs.  A composite's
 ``get`` takes its children's numpy scalars as MXNet's does (the JAX
 package's takes Python numbers only, and raises on a numpy float32).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as _np
 
@@ -343,6 +347,138 @@ class Loss(EvalMetric):
             loss = _to_numpy(pred).sum()
             self.sum_metric += loss
             self.num_inst += pred.size
+
+
+@register
+class Torch(Loss):
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+class _BinaryClassificationMetrics:
+    """The true and false positives and negatives of a binary
+    classifier's argmax (JAX ``metric.py:205-263``)."""
+
+    def __init__(self):
+        self.reset_stats()
+
+    def update_binary_stats(self, label, pred):
+        pred_label = _np.argmax(pred, axis=1)
+        label = label.astype("int32").reshape(-1)
+        if len(_np.unique(label)) > 2:
+            raise ValueError("%s currently only supports binary "
+                             "classification." % type(self).__name__)
+        self.true_positives += ((pred_label == 1) & (label == 1)).sum()
+        self.false_positives += ((pred_label == 1) & (label == 0)).sum()
+        self.false_negatives += ((pred_label == 0) & (label == 1)).sum()
+        self.true_negatives += ((pred_label == 0) & (label == 0)).sum()
+
+    @property
+    def precision(self):
+        tp_fp = self.true_positives + self.false_positives
+        return self.true_positives / tp_fp if tp_fp > 0 else 0.0
+
+    @property
+    def recall(self):
+        tp_fn = self.true_positives + self.false_negatives
+        return self.true_positives / tp_fn if tp_fn > 0 else 0.0
+
+    @property
+    def fscore(self):
+        pr = self.precision + self.recall
+        return 2 * self.precision * self.recall / pr if pr > 0 else 0.0
+
+    @property
+    def matthewscc(self):
+        terms = [self.true_positives + self.false_positives,
+                 self.true_positives + self.false_negatives,
+                 self.true_negatives + self.false_positives,
+                 self.true_negatives + self.false_negatives]
+        denom = 1.0
+        for t in terms:
+            denom *= t if t != 0 else 1.0
+        return ((self.true_positives * self.true_negatives
+                 - self.false_positives * self.false_negatives)
+                / math.sqrt(denom))
+
+    @property
+    def total_examples(self):
+        return (self.false_negatives + self.false_positives
+                + self.true_negatives + self.true_positives)
+
+    def reset_stats(self):
+        self.false_positives = 0
+        self.false_negatives = 0
+        self.true_positives = 0
+        self.true_negatives = 0
+
+
+@register
+class F1(EvalMetric):
+    """The F1 score of a binary classifier: ``average="macro"`` averages
+    each update's score, ``"micro"`` scores all samples together."""
+
+    _stat = "fscore"
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        self.average = average
+        self.metrics = _BinaryClassificationMetrics()
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            self.metrics.update_binary_stats(_to_numpy(label),
+                                             _to_numpy(pred))
+        value = getattr(self.metrics, self._stat)
+        if self.average == "macro":
+            self.sum_metric += value
+            self.num_inst += 1
+            self.metrics.reset_stats()
+        else:
+            self.sum_metric = value * self.metrics.total_examples
+            self.num_inst = self.metrics.total_examples
+
+    def reset(self):
+        self.sum_metric = 0.0
+        self.num_inst = 0
+        if hasattr(self, "metrics"):
+            self.metrics.reset_stats()
+
+
+@register
+class MCC(F1):
+    """The Matthews correlation coefficient of a binary classifier."""
+
+    _stat = "matthewscc"
+
+    def __init__(self, name="mcc", output_names=None, label_names=None,
+                 average="macro"):
+        super().__init__(name=name, output_names=output_names,
+                         label_names=label_names, average=average)
+
+
+@register
+@alias("pearson_correlation")
+class PearsonCorrelation(EvalMetric):
+    """Pearson's r of predictions and labels, averaged over updates."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            self.sum_metric += _np.corrcoef(_to_numpy(pred).ravel(),
+                                            _to_numpy(label).ravel())[0, 1]
+            self.num_inst += 1
 
 
 @register

@@ -4,8 +4,10 @@ Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
 python/mxnet/module/base_module.py, fit:409, score, predict,
 forward_backward:193): bind, init_params, init_optimizer, then
 ``fit(train_data, eval_data, ...)`` with evaluation metrics, epoch and
-batch callbacks and checkpoints; ``score``, ``predict`` and
-``iter_predict``.
+batch callbacks, checkpoints and a ``monitor`` (installed after the
+bind; ``tic`` before each batch, ``toc_print`` after its update and
+metric, as the JAX package's ``base_module.py:184-218``); ``score``,
+``predict`` and ``iter_predict``.
 """
 
 from __future__ import annotations
@@ -17,14 +19,7 @@ from .. import metric as _metric
 from ..base import MXNetError
 from ..initializer import Uniform
 from ..io import DataBatch
-
-
-class BatchEndParam:
-    def __init__(self, epoch, nbatch, eval_metric, locals=None):
-        self.epoch = epoch
-        self.nbatch = nbatch
-        self.eval_metric = eval_metric
-        self.locals = locals
+from ..model import BatchEndParam
 
 
 def _as_list(obj):
@@ -67,6 +62,9 @@ class BaseModule:
         raise NotImplementedError()
 
     def init_optimizer(self, *args, **kwargs):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
         raise NotImplementedError()
 
     @property
@@ -176,12 +174,12 @@ class BaseModule:
         assert num_epoch is not None, "please specify number of epochs"
         if initializer is None:
             initializer = Uniform(0.01)
-        if monitor is not None:
-            raise MXNetError("fit: a Monitor is not ported yet")
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -202,6 +200,8 @@ class BaseModule:
             next_data_batch = next(data_iter)
             while not end_of_batch:
                 data_batch = next_data_batch
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 try:
@@ -211,6 +211,8 @@ class BaseModule:
                 except StopIteration:
                     end_of_batch = True
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     batch_end_params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                                      eval_metric=eval_metric,

@@ -16,7 +16,8 @@ out of the previous bucket's Module and into the next one on each switch
 storage; here each bucket reads the same tensors, with the same values
 after every update.  A bucket whose symbol has a parameter that the
 default bucket's lacks, or at another shape, raises at its bind.
-``install_monitor`` raises: ``Monitor`` is not ported yet.
+``install_monitor`` watches every bucket's executor, those bound later
+too.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class BucketingModule(BaseModule):
         self._curr_bucket_key = None
         self._params_dirty = False
         self._grad_req = None
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -189,6 +191,8 @@ class BucketingModule(BaseModule):
                         self._curr_module.inputs_need_grad,
                         force_rebind=False, shared_module=default,
                         grad_req=self._grad_req)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             if self.optimizer_initialized:
                 module.borrow_optimizer(default)
             self._buckets[bucket_key] = module
@@ -253,5 +257,9 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels, pre_sliced)
 
     def install_monitor(self, mon):
-        raise MXNetError("BucketingModule.install_monitor: Monitor is not "
-                         "ported yet")
+        """Watch every bucket's executor with ``mon``, and each bucket's
+        bound later (JAX ``bucketing_module.py:164-165,249-253``)."""
+        assert self.binded
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

@@ -87,6 +87,36 @@ class DataParallelExecutorGroup:
                         src_aux[name].shape == ex.aux_arrays[j].shape:
                     ex.aux_arrays[j] = src_aux[name]
         self.execs = [ex]
+        self._monitor = None
+        self._by_shape = {self._shape_key(): ex}
+
+    def _shape_key(self):
+        return (tuple(self.data_shapes), tuple(self.label_shapes or ()))
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Make the executor of these shapes the current one: the one
+        kept from an earlier bind at them, else ``Executor.reshape`` of
+        the current one (sharing every array whose shape stays)."""
+        self.data_shapes = data_shapes
+        self.label_shapes = label_shapes
+        self.batch_size = data_shapes[0][1][0]
+        key = self._shape_key()
+        ex = self._by_shape.get(key)
+        if ex is None:
+            shapes = dict(data_shapes)
+            shapes.update(label_shapes or [])
+            shapes.update(self._state_shapes())
+            ex = self._by_shape[key] = self.execs[0].reshape(**shapes)
+            if self._monitor is not None:
+                self._monitor.install(ex)
+        self.execs = [ex]
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on the executor of every shape, now and at
+        each later reshape."""
+        self._monitor = mon
+        for ex in self._by_shape.values():
+            mon.install(ex)
 
     def _state_shapes(self):
         """The state inputs' shapes at this batch size, from their

@@ -17,6 +17,8 @@ storage and host copies, as MXNet's does (one bucket of a
 copy.  ``borrow_optimizer`` shares the optimizer and its states, keyed
 by parameter name, the lender's index for each name.  ``state_names``
 are inputs that ``get_states``/``set_states`` read and write.
+``reshape`` rebinds at new shapes over the same parameter, gradient and
+optimizer storage; ``install_monitor`` watches the executor's outputs.
 """
 
 from __future__ import annotations
@@ -129,9 +131,13 @@ class Module(BaseModule):
 
     @property
     def output_shapes(self):
+        """``[(name, shape)]`` of the outputs at the bound shapes (by
+        shape inference: no forward needs to have run)."""
         assert self.binded
-        return list(zip(self._output_names,
-                        [o.shape for o in self._exec_group.get_outputs()]))
+        shapes = dict(self._data_shapes + (self._label_shapes or []))
+        shapes.update(self._exec_group._state_shapes())
+        _, outs, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, [tuple(s) for s in outs]))
 
     # ------------------------------------------------------------- params
     def get_params(self):
@@ -349,6 +355,28 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels, pre_sliced)
+
+    def install_monitor(self, mon):
+        """Watch the executor's outputs with ``mon`` (reference: MXNet's
+        Module.install_monitor, ``mon.install(executor)`` through
+        ``set_monitor_callback``), and the executor of each later
+        ``reshape``.  The JAX package's Module hands the executor to a
+        Monitor that takes Gluon blocks only, and raises."""
+        assert self.binded
+        self._exec_group.install_monitor(mon)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Bind at new data (and label) shapes, keeping the parameters,
+        their gradients and the optimizer's states: the new executor
+        shares every array whose shape stays (reference: module.py
+        reshape over ``Executor.reshape``).  The executor of each shape
+        is kept, so a return to an earlier shape takes its executor back,
+        captured graphs included."""
+        assert self.binded
+        self._data_shapes = _norm_shapes(data_shapes)
+        self._label_shapes = _norm_shapes(label_shapes) \
+            if label_shapes else None
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
 
     def _sync_params_from_devices(self):
         self._exec_group.get_params(self._arg_params, self._aux_params)

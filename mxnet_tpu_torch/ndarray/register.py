@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import inspect
 
+from ..ops import custom as _custom
 from ..ops import registry as _reg
 from ..ops.registry import OP_INPUT_NAMES as _TENSOR_KWARGS
 from .ndarray import NDArray, imperative_invoke
@@ -55,8 +56,13 @@ def _make_op_func(op_name):
                                     "%r)" % (op_name, type(a)))
                 kwargs[scalar_names[scalar_pos]] = a
                 scalar_pos += 1
-        if tensor_names:
-            for tn in tensor_names[len(inputs):]:
+        names = tensor_names
+        if op_name == "Custom":  # the prop's arguments, by keyword
+            names = _custom.input_names(
+                {k: v for k, v in kwargs.items()
+                 if not isinstance(v, NDArray)})
+        if names:
+            for tn in names[len(inputs):]:
                 if isinstance(kwargs.get(tn), NDArray):
                     inputs.append(kwargs.pop(tn))
                 elif tn in kwargs and kwargs[tn] is None:

@@ -2,9 +2,10 @@
 the JAX package's names (:mod:`.registry`), and the wrappers of the
 hand-written kernels."""
 
-from . import (attention, box_nms, contrib, conv_dw, elemwise, init_ops,
-               matrix, nn, optimizer_ops, pool_bwd, reduce, registry, rnn)
+from . import (attention, box_nms, contrib, conv_dw, custom, elemwise,
+               init_ops, matrix, nn, optimizer_ops, pool_bwd, reduce,
+               registry, rnn)
 
-__all__ = ["attention", "box_nms", "contrib", "conv_dw", "elemwise",
-           "init_ops", "matrix", "nn", "optimizer_ops", "pool_bwd", "reduce",
-           "registry", "rnn"]
+__all__ = ["attention", "box_nms", "contrib", "conv_dw", "custom",
+           "elemwise", "init_ops", "matrix", "nn", "optimizer_ops",
+           "pool_bwd", "reduce", "registry", "rnn"]

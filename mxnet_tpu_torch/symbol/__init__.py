@@ -2,8 +2,8 @@
 
 Counterpart of ``mxnet_tpu/symbol/`` (reference: python/mxnet/symbol/):
 :class:`Symbol`, ``Variable``/``var``, ``Group``, ``load``/``load_json``
-and one function per registered op.  The graph passes, AMP and
-``mx.sym.contrib``/``random`` are not ported yet.
+one function per registered op, ``mx.sym.contrib`` and
+``mx.sym.random``.  The graph passes and AMP are not ported yet.
 """
 
 from .. import ops as _ops  # noqa: F401  (registers every op)
@@ -12,8 +12,10 @@ from .symbol import Group, Symbol, Variable, load, load_json, var
 
 _populate(globals())
 
+from . import contrib, random  # noqa: E402,F401
+
 zeros = globals()["_zeros"]
 ones = globals()["_ones"]
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "zeros", "ones"]
+           "zeros", "ones", "contrib", "random"]

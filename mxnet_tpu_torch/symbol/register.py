@@ -10,6 +10,7 @@ left out becomes a ``<name>_<input>`` variable.
 
 from __future__ import annotations
 
+from ..ops import custom as _custom
 from ..ops import registry as _reg
 from .symbol import Symbol, _create
 
@@ -21,6 +22,10 @@ def _make_sym_func(op_name):
         name = kwargs.pop("name", None)
         kwargs.pop("out", None)
         names = _reg.OP_INPUT_NAMES.get(op_name)
+        if op_name == "Custom":  # the prop's arguments, by keyword
+            names = _custom.input_names(
+                {k: v for k, v in kwargs.items()
+                 if not isinstance(v, Symbol)})
         inputs = []
         for a in args:
             if isinstance(a, Symbol):

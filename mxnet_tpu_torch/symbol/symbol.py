@@ -35,6 +35,7 @@ import torch
 from ..attribute import AttrScope
 from ..base import MXNetError
 from ..name import NameManager
+from ..ops import custom as _custom
 from ..ops import registry as _reg
 from ..ops.registry import OP_AUX_INPUTS, OP_INPUT_NAMES, OP_LABEL_INPUTS
 
@@ -295,11 +296,22 @@ class Symbol:
 
     def infer_type(self, *args, **kwargs):
         """Every argument, output and auxiliary state in the first type
-        given (float32 by default), as the JAX package infers."""
+        given (float32 by default), as the JAX package infers; an output
+        of a ``Custom`` op in its prop's ``infer_type``."""
         dtype = np.dtype(args[0]) if args and args[0] is not None \
             else np.dtype(np.float32)
+
+        def out_type(node, idx):
+            if node.op != "Custom":
+                return dtype
+            _, types, _ = _custom.prop_for(
+                node.attrs["op_type"],
+                {k: v for k, v in node.attrs.items() if k != "op_type"}
+            ).infer_type([dtype] * len(node.inputs))
+            return np.dtype(types[idx])
+
         return ([dtype] * len(self.list_arguments()),
-                [dtype] * len(self._outputs),
+                [out_type(n, i) for n, i in self._outputs],
                 [dtype] * len(self.list_auxiliary_states()))
 
     # ---------------------------------------------------------- binding
@@ -500,6 +512,13 @@ def _create(op_name, input_syms, attrs, name=None):
                 and attrs.get("act_type", "leaky") != "prelu":
             continue
         inputs.append(Variable("%s_%s" % (name, slot))._outputs[0])
+    if op.name == "Custom":
+        # a custom op's arguments are its prop's; each one not given
+        # becomes "<name>_<argument>" (mx.sym.Custom(data=x,
+        # name="softmax") grows "softmax_label"), as in the JAX package
+        # (symbol/symbol.py:559-566)
+        for arg in _custom.input_names(attrs)[len(inputs):]:
+            inputs.append(Variable("%s_%s" % (name, arg))._outputs[0])
     nout = op.nout(attrs)
     node = _Node(op.name, name, attrs, inputs, nout, attr_dict)
     return Symbol([(node, i) for i in range(nout)])
@@ -573,11 +592,35 @@ def _infer_shapes(symbol, known):
                     shapes[node.name] = s
             continue
         in_shapes = [entry_shape(i, x) for i, x in node.inputs]
+        if node.op == "Custom":
+            outs[id(node)] = _custom_shapes(node, in_shapes, shapes)
+            continue
         if in_shapes and in_shapes[0] is not None:
             _solve_params(node, in_shapes[0], shapes)
             in_shapes = [entry_shape(i, x) for i, x in node.inputs]
         outs[id(node)] = _meta_shapes(node, in_shapes)
     return shapes, [entry_shape(n, idx) for n, idx in symbol._outputs]
+
+
+def _custom_shapes(node, in_shapes, shapes):
+    """A ``Custom`` node's output shapes by its prop's ``infer_shape``
+    (user code: it cannot run on meta tensors), and the shapes the prop
+    gives its unknown variable inputs (a label's from the data's), as the
+    JAX package's rule does (``symbol/symbol.py:1046-1070``): with every
+    input known the prop's errors propagate, else they leave the node
+    unknown."""
+    if not in_shapes or in_shapes[0] is None:
+        return None
+    try:
+        args, outs, _, _, _ = _custom.infer(node.attrs, in_shapes)
+    except Exception:  # noqa: BLE001 - the user's code, on partial shapes
+        if any(s is None for s in in_shapes):
+            return None
+        raise
+    for (inp, _), s in zip(node.inputs, args):
+        if s is not None and inp.is_variable and inp.name not in shapes:
+            shapes[inp.name] = s
+    return outs
 
 
 def _meta_shapes(node, in_shapes):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["OP_CASES", "RANDOM_OPS", "INPLACE_OPS", "NO_TENSOR_OPS",
-           "make_inputs", "op_name"]
+           "CUSTOM_CASE", "make_inputs", "op_name", "register_case_op"]
 
 _F = ("f", (3, 4))
 _HALVES = ("v", [[-2.5, -1.5, -0.5, 0.5], [1.5, 2.5, 0.3, -0.7]])
@@ -372,6 +372,9 @@ OP_CASES.update({
     "adam_update": ([_F, _F, _F, ("u", (3, 4), 0.1, 1.0)],
                     {"lr": 0.01, "wd": 1e-3, "rescale_grad": 0.5}),
 })
+# the custom op of the ``Custom`` case (register_case_op)
+CUSTOM_CASE = "_case_square"
+OP_CASES["Custom"] = ([_F], {"op_type": CUSTOM_CASE})
 RANDOM_OPS = {"_random_uniform", "_random_normal", "_random_randint",
               "_shuffle"}
 INPLACE_OPS = {"sgd_update", "sgd_mom_update", "adam_update"}
@@ -402,3 +405,28 @@ def make_inputs(case, seed=0):
             dtype = spec[2] if len(spec) > 2 else np.float32
             out.append(np.asarray(spec[1], dtype=dtype))
     return out
+
+
+def register_case_op(operator):
+    """Register :data:`CUSTOM_CASE` (``x * x``, its gradient ``2 x dy``)
+    with ``operator``: this package's ``mx.operator`` or the JAX
+    package's, whose APIs are the same."""
+
+    class _Square(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 2 * in_data[0] * out_grad[0])
+
+    @operator.register(CUSTOM_CASE)
+    class _SquareProp(operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return _Square()
+
+    return _SquareProp
+
+
+from . import operator as _operator  # noqa: E402
+
+register_case_op(_operator)

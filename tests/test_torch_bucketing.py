@@ -424,10 +424,12 @@ def test_bucket_with_a_parameter_the_default_lacks_raises():
         return sym, names, labels
 
     mod, it = _bound(gen)
+    mon = tmx.mon.Monitor(1)
+    mod.install_monitor(mon)
     with pytest.raises(MXNetError):
         mod.forward(_batch_of(it, 4))
-    with pytest.raises(MXNetError):
-        mod.install_monitor(None)
+    # the bucket that failed its bind left no executor to watch
+    assert len(mon.exes) == 1
     with pytest.raises(MXNetError):
         tmx.mod.BucketingModule(gen)
 

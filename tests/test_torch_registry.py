@@ -16,12 +16,15 @@ import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from mxnet_tpu import operator as joperator
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch import test_utils as T
 from mxnet_tpu_torch.ops import registry as treg
 
 CPU = tmx.cpu()
+# the JAX twin of the port's Custom case (the port registers its own)
+T.register_case_op(joperator)
 _LOOSE = {"sum", "mean", "prod", "nansum", "nanprod", "norm", "cumsum",
           "dot", "batch_dot", "FullyConnected", "Convolution", "LayerNorm",
           "BatchNorm", "softmax", "log_softmax", "RNN"}
