@@ -89,11 +89,32 @@ Phases (any failure raises, and the script exits non-zero):
    profiler trace), the plain version's and the bound (the pair tests
    that greedy NMS needs for this run's keep set, in each class);
 4. serve: the full-width TransformerLM (vocab 32000, units 512, 4 layers,
-   8 heads, S=1024) behind the InferenceServer (buckets 1/2/4/8), a dozen
-   concurrent requests of 1-8 samples plus one with an out-of-range token;
-   every served row is held against an unbatched forward, and the logits
-   of a short input against the same weights run by the plain path on the
-   CPU; the kernel's launch count must match the batches served;
+   8 heads, S=1024), hybridized, behind the InferenceServer (buckets
+   1/2/4/8, one captured CUDA graph a bucket, built by warmup()), a dozen
+   concurrent requests of 1-8 samples plus one with an out-of-range token
+   (rejected by the sentinel); every served row is held against an
+   unbatched eager forward, and the logits of a short input against the
+   same weights run by the plain path on the CPU; the bucket builds must
+   equal the buckets after warmup and after serving, and the kernel's
+   wrapper count the layers x buckets x 2 (each bucket's eager warm-up
+   and capture); the net called outside inference_mode at a served
+   bucket shape replays the server's graph and equals the served rows;
+   latency p50/p99 and tokens/s from the host clock and the serve:e2e
+   histogram, and the caching host allocator's pinned bytes; the
+   bucket-8 forward as a graph replay against eager, and the bucket-8
+   logits' copy to the host pageable (.cpu()) against pinned, in turns;
+   a burst of bucket-8 requests under torch.profiler: K3 once a layer a
+   replayed batch, and the share of the device-to-host copies' time
+   that overlaps kernels; a bucket built (captured) lazily while the
+   other worker serves, which must serve requests during the build;
+4b. predictor: phase 8's LeNet with seeded weights, written by
+   save_checkpoint and loaded by a Predictor on the card; its captured
+   predict forward bitwise equal to the eager one; served at buckets
+   1-64 (one captured predict forward a bucket) to 6 concurrent clients,
+   the workers turned 1 -> 3 -> 1 and the batch wait changed mid-run with
+   no request lost, every row within 1e-5 of a batch-1 Predictor
+   forward, one JSONL line a batch; the serving, runtime_stats and slo
+   snapshots and a reqtrace exemplar printed;
 5. train: the same model on the card, first one record/backward on a
    (2, 128) batch whose every parameter gradient is held against the same
    weights' gradients on the CPU plain path, then two record/backward
@@ -825,15 +846,81 @@ def _cpu_copy(net):
         k: v.detach().cpu().numpy() for k, v in net.state_dict().items()})
 
 
+# phase 4: the burst traced for K3's replays and the copy/compute overlap
+# (bucket-8 requests, callers dropping each result), and the lazy bucket
+# built while two clients keep the other worker serving
+SERVE_TRACE_REQUESTS = 6
+# (15 rows cannot share a batch with the clients' 2 and 3 rows, so the
+# lazy batch is alone in bucket 16 and the small ones go on serving)
+LAZY_BUCKET, LAZY_SAMPLES = 16, 15
+
+
+def _device_err(host, ref):
+    """Max abs difference of a served host array (a view of pinned
+    memory) and a device reference, taken on the card."""
+    return float((torch.from_numpy(host).to(ref.device) - ref).abs().max())
+
+
+def _graph_at(net, shape):
+    """The hybridized net's cached graph at input ``shape``."""
+    return next(g for k, g in net._cached_graphs.items()
+                if k[0][0][0] == tuple(shape))
+
+
+def _host_pinned():
+    """The caching host allocator's statistics, as this PyTorch names
+    them: pinned bytes and blocks it holds, bytes handed out, blocks made
+    and their cudaHostAlloc ms; None where it has no
+    ``host_memory_stats``."""
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    keys = ("allocated_bytes.current", "allocations.current",
+            "active_bytes.current", "num_host_alloc",
+            "host_alloc_time.total")
+    return {k: stats[k] for k in keys if k in stats} or None
+
+
+def _fmt_pinned(p):
+    if p is None:
+        return "not measured (no torch.cuda.host_memory_stats)"
+    return ", ".join("%s %s" % (k, ("%.3f GB" % (v / 1e9)) if "bytes" in k
+                                else ("%.1f ms" % (v / 1e3)) if "time" in k
+                                else v) for k, v in p.items())
+
+
+def _overlap(spans):
+    """From a trace's device spans (start, end, name): the device-to-host
+    copies' count and time, and the part of that time during which some
+    kernel ran (the union of kernel spans), in us."""
+    kernels = sorted((s, e) for s, e, n in spans if "memcpy" not in
+                     n.lower() and "memset" not in n.lower())
+    merged = []
+    for s, e in kernels:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    copies = [(s, e) for s, e, n in spans if "dtoh" in n.lower()]
+    both = sum(max(0.0, min(e, me) - max(s, ms))
+               for s, e in copies for ms, me in merged)
+    return len(copies), sum(e - s for s, e in copies), both
+
+
 def serve(seed, smi):
+    """Phase 4: the hybridized TransformerLM behind the InferenceServer,
+    one captured graph a bucket.  Returns K3's counts for the kernels
+    line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch import _capture, histogram
     from mxnet_tpu_torch.ops.attention import flash_attention
     from mxnet_tpu_torch.serving import InferenceServer, RequestRejected
 
     t0 = time.perf_counter()
     net = _lm("cuda", seed)
+    net.hybridize()
     torch.cuda.synchronize()
     log("serve: TransformerLM vocab %d units %d layers %d heads %d, %d "
-        "parameters, built in %.1f s" % (
+        "parameters, hybridized, built in %.1f s" % (
             VOCAB, UNITS, LAYERS, HEADS,
             sum(p.numel() for p in net.parameters()),
             time.perf_counter() - t0))
@@ -844,13 +931,15 @@ def serve(seed, smi):
     bad[1, 17] = VOCAB + 5  # out of range: a NaN row, then the sentinel
 
     # ---- the main path: the counts run from 0 over warmup and serving
+    histogram.reset()
     flash_attention.launches = 0
     srv = InferenceServer(net, {"data": (SEQ,)}, buckets=BUCKETS,
                           device="cuda").start()
     t0 = time.perf_counter()
     srv.warmup()
-    log("serve: warmup of buckets %s in %.2f s" % (BUCKETS,
-                                                  time.perf_counter() - t0))
+    warm_s = time.perf_counter() - t0
+    warm_compiles = srv.snapshot()["bucket_compiles"]
+    pinned_warm = _host_pinned()
     results = [None] * len(requests)
     futures = [None] * len(requests)
     bad_outcome = []
@@ -879,68 +968,382 @@ def serve(seed, smi):
     launches = flash_attention.launches
     snap = srv.snapshot()
     # ---- end of the main path
+    pinned_end = _host_pinned()
     if any(t.is_alive() for t in threads) or any(r is None for r in results):
         raise AssertionError("not every request was served")
     if not (bad_outcome and bad_outcome[0].startswith("rejected")):
         raise AssertionError("the out-of-range token was not rejected: %s"
                              % bad_outcome)
-    expected = LAYERS * (len(BUCKETS) + snap["batches"])
     log("serve: %s" % json.dumps(snap))
-    log("serve: flash_attn_fwd launches %d, expected %d (layers x (warmup "
-        "buckets + batches))" % (launches, expected))
+    log("serve: warmup of buckets %s in %.2f s: %d bucket builds, %d "
+        "captured graphs in the net; after serving %d builds" % (
+            BUCKETS, warm_s, warm_compiles, len(net._cached_graphs),
+            snap["bucket_compiles"]))
+    if not warm_compiles == snap["bucket_compiles"] == \
+            len(net._cached_graphs) == len(BUCKETS):
+        raise AssertionError("serving did not run one captured graph a "
+                             "bucket")
+    # each bucket's graph launches K3 in its eager warm-up and once into
+    # the graph at capture; replays pass no wrapper (the burst's trace
+    # below counts them)
+    expected = 2 * LAYERS * len(BUCKETS)
+    log("serve: flash_attn_fwd wrapper launches %d over the main path, "
+        "expected %d (layers x buckets x (warm-up + capture))" % (
+            launches, expected))
     if launches != expected:
-        raise AssertionError("the serving path did not run the kernel once "
-                             "per layer per batch")
+        raise AssertionError("the serving path did not capture the kernel "
+                             "once per layer per bucket")
 
     e2e = sorted((f.t_done - f.t_submit) * 1e3 for f in futures)
+    hist = histogram.snapshot()["serve:e2e"]
     served_tokens = sum(REQUEST_SAMPLES) * SEQ
     log("serve: %d requests (%d samples, %d tokens) in %.3f s on %s: "
-        "latency p50 %.1f ms p99 %.1f ms, %.0f tokens/s" % (
+        "latency p50 %.1f ms p99 %.1f ms (host clock), serve:e2e p50 %.1f "
+        "ms p99 %.1f ms over %d requests (the rejected one among them), "
+        "%.0f tokens/s; pinned host memory after warmup: %s; at the end, "
+        "the callers holding every result: %s" % (
             len(requests), sum(REQUEST_SAMPLES), served_tokens, wall, smi,
             float(np.percentile(e2e, 50)), float(np.percentile(e2e, 99)),
-            served_tokens / wall))
+            hist["p50"] * 1e3, hist["p99"] * 1e3, hist["count"],
+            served_tokens / wall, _fmt_pinned(pinned_warm),
+            _fmt_pinned(pinned_end)))
 
     worst = 0.0
-    with torch.inference_mode():
+    with torch.inference_mode(), _capture.staging():
         for x, out in zip(requests, results):
-            ref = net(torch.from_numpy(x).cuda()).cpu().numpy()
             got = out[0]
-            if got.shape != (x.shape[0], SEQ, VOCAB) \
-                    or not np.isfinite(got).all():
-                raise AssertionError("served output has shape %s or "
-                                     "non-finite values" % (got.shape,))
-            worst = max(worst, float(np.abs(got - ref).max()))
-            np.testing.assert_allclose(got, ref, rtol=SERVE_TOL,
-                                       atol=SERVE_TOL)
-    log("serve: every served row matches an unbatched forward (max abs "
-        "err %.3g, tol %.0e)" % (worst, SERVE_TOL))
+            if got.shape != (x.shape[0], SEQ, VOCAB):
+                raise AssertionError("served output has shape %s"
+                                     % (got.shape,))
+            ref = net(torch.from_numpy(x).cuda())  # eager, unbatched
+            err = _device_err(got, ref)
+            if not err <= SERVE_TOL:  # NaN fails too
+                raise AssertionError("a served row is %.3g from the "
+                                     "unbatched forward" % err)
+            worst = max(worst, err)
+            del ref
+    log("serve: every served row matches an unbatched eager forward (max "
+        "abs err %.3g, tol %.0e)" % (worst, SERVE_TOL))
 
-    # where a bucket-8 batch spends its time: the forward on the card
-    # (CUDA events) and the one host sync, the logits' copy to the host
-    x8 = torch.from_numpy(requests[REQUEST_SAMPLES.index(8)]).cuda()
-    with torch.inference_mode():
-        fwd_ms = time_ms(lambda: net(x8), iters=5)
-        logits = net(x8)
+    # F1: the bucket-8 graph, captured under inference mode by the
+    # server, called outside it at the same signature
+    i8 = REQUEST_SAMPLES.index(8)
+    x8 = torch.from_numpy(requests[i8]).cuda()
+    if torch.is_inference_mode_enabled():
+        raise AssertionError("phase 4 must call the net outside inference "
+                             "mode")
+    out8 = net(x8)
+    f1_err = _device_err(results[i8][0], out8)
+    log("serve: F1: the net called outside inference_mode at (8, %d) "
+        "replays the server's graph (%d graphs, unchanged): max abs err "
+        "%.3g to the served rows (%s)" % (
+            SEQ, len(net._cached_graphs), f1_err,
+            "bitwise" if f1_err == 0 else "not bitwise"))
+    if not f1_err <= SERVE_TOL or len(net._cached_graphs) != len(BUCKETS):
+        raise AssertionError("the F1 call did not replay the served graph")
+    del results, futures, out8
+    torch.cuda.synchronize()
+
+    # a bucket-8 batch: the graph replay against the eager forward, and
+    # the logits' copy to the host, pageable against pinned, in turns
+    graph = _graph_at(net, (8, SEQ))
+
+    def replay():
+        graph.replay_forward([x8], clone=False)
+
+    def eager():
+        with torch.inference_mode(), _capture.staging():
+            net(x8)
+
+    fwd = [time_ms(f, iters=5) for f in (eager, replay, replay, eager)]
+    replay()
+    logits = graph.static_out[0]
+    nbytes = logits.numel() * logits.element_size()
+    t0 = time.perf_counter()
+    pinned = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+    alloc_ms = (time.perf_counter() - t0) * 1e3
+    copied = torch.cuda.Event()
+
+    def pageable_ms():
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t = time.perf_counter()
         logits.cpu()
-        copy_ms = (time.perf_counter() - t0) * 1e3
-    log("serve: bucket 8 on %s: forward %.2f ms (%d attention launches), "
-        "logits host copy %.1f ms for %.2f GB" % (
-            smi, fwd_ms, LAYERS, copy_ms, logits.numel() * 4 / 1e9))
-    del logits
+        return (time.perf_counter() - t) * 1e3
+
+    def pinned_ms():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pinned.copy_(logits, non_blocking=True)
+        copied.record()
+        copied.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    copies = [f() for f in (pageable_ms, pinned_ms, pinned_ms, pageable_ms)]
+    if not torch.equal(pinned.to(logits.device), logits):
+        raise AssertionError("the pinned copy differs from the logits")
+    log("serve: bucket 8 on %s: forward as a graph replay %.3f, %.3f ms "
+        "against eager %.3f, %.3f ms (in turns; %d attention kernels a "
+        "batch); the logits' %.3f GB to the host: pageable .cpu() %.1f, "
+        "%.1f ms (%.2f GB/s), pinned %.1f, %.1f ms (%.2f GB/s) in turns, "
+        "host clock (the pinned buffer's first allocation %.1f ms)" % (
+            smi, fwd[1], fwd[2], fwd[0], fwd[3], LAYERS, nbytes / 1e9,
+            copies[0], copies[3], nbytes / 1e6 / max(copies[0], copies[3]),
+            copies[1], copies[2], nbytes / 1e6 / max(copies[1], copies[2]),
+            alloc_ms))
+    del pinned, logits
+
+    # a served burst under torch.profiler: K3 in the replays and the
+    # copies' overlap with kernels of other batches
+    srv = InferenceServer(net, {"data": (SEQ,)}, buckets=BUCKETS,
+                          device="cuda").start()
+    srv.warmup()
+    xs = [rng.randint(0, VOCAB, size=(8, SEQ)).astype(np.float32)
+          for _ in range(SERVE_TRACE_REQUESTS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        futs = [srv.submit(x) for x in xs]
+        for f in futs:
+            f.result(600)  # dropped at once: the pinned block goes back
+        burst_ms = (time.perf_counter() - t0) * 1e3
+    batches = srv.snapshot()["batches"]
+    srv.stop()
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    k3 = sum(1 for _, _, n in spans if "flash_fwd" in n.lower())
+    n_copies, copy_us, overlap_us = _overlap(spans)
+    e2e = sorted((f.t_done - f.t_submit) * 1e3 for f in futs)
+    log("serve: a traced burst of %d bucket-8 requests on %s (2 workers, "
+        "the callers dropping each result): %d batches in %.1f ms, latency "
+        "p50 %.1f ms max %.1f ms; flash_fwd kernels in the trace %s "
+        "(expected %d); %d device-to-host copies, %.1f ms, %.1f ms of it "
+        "(%.1f %%) while a kernel ran; pinned: %s" % (
+            len(xs), smi, batches, burst_ms, float(np.percentile(e2e, 50)),
+            e2e[-1], k3 if spans else "not measured (no device events)",
+            LAYERS * batches, n_copies, copy_us / 1e3, overlap_us / 1e3,
+            100.0 * overlap_us / copy_us if copy_us else 0.0,
+            _fmt_pinned(_host_pinned())))
+    if spans and k3 != LAYERS * batches:
+        raise AssertionError("the served replays did not run K3 once a "
+                             "layer a batch")
+    del futs
+
+    # a bucket built lazily (captured) while the other worker serves
+    srv = InferenceServer(net, {"data": (SEQ,)},
+                          buckets=BUCKETS + (LAZY_BUCKET,),
+                          device="cuda").start()
+    for b in BUCKETS:  # the net's graphs: builds with no capture
+        srv._bucket_fn(b)
+    built = []
+    build = srv._model.build
+
+    def timed_build(bucket):
+        t = time.perf_counter()
+        exe = build(bucket)
+        built.append((bucket, t, time.perf_counter()))
+        return exe
+
+    srv._model.build = timed_build
+    done = threading.Event()
+    served = []
+
+    def small_client(cid):
+        r = np.random.RandomState(100 + cid)
+        while not done.is_set():
+            x = r.randint(0, VOCAB, size=(2 + cid, SEQ)).astype(np.float32)
+            f = srv.submit(x)
+            f.result(600)
+            served.append((f.t_submit, f.t_done))
+
+    clients = [threading.Thread(target=small_client, args=(c,))
+               for c in range(2)]
+    for t in clients:
+        t.start()
+    time.sleep(0.3)
+    xl = rng.randint(0, VOCAB, size=(LAZY_SAMPLES, SEQ)).astype(np.float32)
+    big = srv.submit(xl)
+    out = big.result(600)[0]
+    done.set()
+    for t in clients:
+        t.join(600)
+    srv.stop()
+    if any(t.is_alive() for t in clients) or len(built) != 1 \
+            or built[0][0] != LAZY_BUCKET:
+        raise AssertionError("the lazy bucket was not built once: %s"
+                             % built)
+    _, b0, b1 = built[0]
+    during = sum(1 for s, d in served if b0 < d < b1)
+    with torch.inference_mode(), _capture.staging():
+        lazy_err = _device_err(out, net(torch.from_numpy(xl).cuda()))
+    log("serve: bucket %d built lazily (captured) in %.1f ms under load; "
+        "%d small requests served by the other worker during the build, "
+        "%d in all; the %d-row request's rows within %.3g of an unbatched "
+        "forward" % (LAZY_BUCKET, (b1 - b0) * 1e3, during, len(served),
+                     LAZY_SAMPLES, lazy_err))
+    if during < 1 or not lazy_err <= SERVE_TOL:
+        raise AssertionError("the lazy build kept the other worker off the "
+                             "card, or its rows are wrong")
+    del out, graph
 
     # the same weights through the plain path on the CPU, at a short input
     cpu_net = _cpu_copy(net)
     x = torch.from_numpy(requests[1][:, :128].copy())
-    with torch.inference_mode():
+    with torch.inference_mode(), _capture.staging():
         got = net(x.cuda()).cpu()
         ref = cpu_net(x)
     err = (got - ref).abs().max().item()
     log("serve: card vs CPU plain path on a (2, 128) input: max abs err "
         "%.3g (tol %.0e)" % (err, SERVE_TOL))
     torch.testing.assert_close(got, ref, rtol=SERVE_TOL, atol=SERVE_TOL)
-    return launches
+    del net
+    torch.cuda.empty_cache()
+    return dict(launches=launches, traced_replays=batches,
+                launches_in_traced_replays=k3 if spans else None)
+
+
+# phase 4b: LeNet (phase 8's symbol) served through a Predictor
+LENET_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+LENET_CLIENTS, LENET_REQUESTS = 6, 10
+PREDICT_TOL = 1e-5
+
+
+def predictor_serve(seed, smi):
+    """Phase 4b: LeNet with seeded weights, written by save_checkpoint,
+    loaded by Predictor and served at buckets 1-64 to concurrent clients,
+    each bucket's predict forward captured; the knobs turned mid-run."""
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import reqtrace, runtime_stats, serving, slo
+    from mxnet_tpu_torch.predictor import Predictor
+    from mxnet_tpu_torch.serving import InferenceServer
+
+    sym = _mnist_net("lenet")
+    one = (1, 1, 28, 28)
+    arg_shapes, _, _ = sym.infer_shape(data=one)
+    rng = np.random.RandomState(seed)
+    params = {n: mx.nd.array(rng.normal(0, 0.1, size=s).astype(np.float32),
+                             ctx="cpu")
+              for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pred_")
+    prefix = os.path.join(tmp, "lenet")
+    mx.model.save_checkpoint(prefix, 0, sym, params, {})
+    with open(prefix + "-symbol.json") as f, \
+            open(prefix + "-0000.params", "rb") as g:
+        pred = Predictor(f.read(), g.read(), {"data": one})  # the card
+
+    # the captured predict forward against the eager one, bitwise
+    x64 = rng.rand(64, 1, 28, 28).astype(np.float32)
+    clone = pred._reshape_clone({"data": (64, 1, 28, 28)})
+    clone.forward(data=x64)
+    captured = clone._exec.outputs[0].data_torch
+    eager = clone._exec._predict()[0]
+    if not (torch.equal(captured, eager)
+            and len(clone._exec.predict_graphs) == 1):
+        raise AssertionError("the captured predict forward is not the "
+                             "eager one bit for bit")
+    log("predictor: LeNet's captured predict forward at batch 64 bitwise "
+        "equal to the eager one (one graph); weights shared with the "
+        "clone: %s" % all(
+            clone._exec.arg_dict[n].data_torch.data_ptr()
+            == a.data_torch.data_ptr() for n, a in pred._arg_params.items()))
+    del clone, captured, eager
+
+    sizes = [[int(s) for s in rng.randint(1, 65, size=LENET_REQUESTS)]
+             for _ in range(LENET_CLIENTS)]
+    xs = [[rng.rand(n, 1, 28, 28).astype(np.float32) for n in row]
+          for row in sizes]
+    runtime_stats.reset()
+    slo.enable("e2e:50ms:99,avail:99.9")
+    reqtrace.enable(sample=8)
+    metrics = os.path.join(tmp, "serve.jsonl")
+    srv = InferenceServer(pred, buckets=LENET_BUCKETS, workers=1,
+                          metrics_path=metrics).start()
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    got = [[None] * LENET_REQUESTS for _ in range(LENET_CLIENTS)]
+    errors = []
+
+    def client(c):
+        try:
+            for i, x in enumerate(xs[c]):
+                got[c][i] = srv.submit(x).result(300)[0]
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(LENET_CLIENTS)]
+    total = LENET_CLIENTS * LENET_REQUESTS
+
+    def wait_done(n):
+        while sum(g is not None for row in got for g in row) < n \
+                and any(t.is_alive() for t in threads):
+            time.sleep(0.001)
+
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    wait_done(total // 3)
+    srv.set_workers(3)
+    wait_done(total // 2)
+    srv.set_max_wait_ms(0.5)
+    wait_done(2 * total // 3)
+    srv.set_workers(1)
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    deadline = time.monotonic() + 10
+    while srv._worker_count > 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    workers_left = srv._worker_count
+    srv.stop()
+    snap = serving.snapshot()
+    if errors or any(t.is_alive() for t in threads) \
+            or any(g is None for row in got for g in row):
+        raise AssertionError("a request was lost: %s" % errors[:3])
+    with open(metrics) as f:
+        lines = [json.loads(line) for line in f]
+    log("predictor: served %d requests (%d rows) in %.3f s on %s, buckets "
+        "%s built in %.2f s (%d builds), %d batches, %d JSONL lines, "
+        "workers 1 -> 3 -> 1 (%d left after the run)" % (
+            total, sum(map(sum, sizes)), wall, smi, LENET_BUCKETS, warm_s,
+            snap["bucket_compiles"], snap["batches"], len(lines),
+            workers_left))
+    if snap["bucket_compiles"] != len(LENET_BUCKETS) \
+            or snap["outcomes"]["ok"] != total \
+            or len(lines) != snap["batches"] or workers_left != 1 \
+            or snap["knob_adjusts"] != 3:
+        raise AssertionError("the Predictor server's accounting is off")
+
+    # each row against a batch-1 Predictor forward
+    one_pred = pred._reshape_clone({"data": one})
+    worst = 0.0
+    for row_x, row_got in zip(xs, got):
+        for x, out in zip(row_x, row_got):
+            for r in range(x.shape[0]):
+                one_pred.forward(data=x[r:r + 1])
+                worst = max(worst, float(np.abs(
+                    out[r] - one_pred.get_output(0)[0]).max()))
+    log("predictor: every served row within %.3g of a batch-1 Predictor "
+        "forward (tol %.0e)" % (worst, PREDICT_TOL))
+    if not worst <= PREDICT_TOL:
+        raise AssertionError("a served LeNet row is off")
+    log("predictor: serving.snapshot() %s" % json.dumps(snap))
+    log("predictor: runtime_stats.snapshot()['serving'] equal to it: %s; "
+        "counters %s" % (runtime_stats.snapshot()["serving"] == snap,
+                         json.dumps(runtime_stats.snapshot()["counters"])))
+    log("predictor: slo.snapshot() %s" % json.dumps(slo.snapshot()))
+    log("predictor: reqtrace.exemplar() %s (of %d records retained)" % (
+        reqtrace.exemplar(), reqtrace.snapshot()["retained"]))
+    log("predictor: a JSONL line: %s" % json.dumps(lines[-1]))
+    slo.reset()
+    reqtrace.reset()
+    serving.reset()
 
 
 def _grads(net, x, y):
@@ -5457,7 +5860,8 @@ def main():
                      ssd_conv_kernels, args.seed)
     bn_rows = phase("3d batch norm", bn_kernels, args.seed)
     nms_row = phase("3e box_nms", nms_kernels, args.seed)
-    serve_launches = phase("4 serve", serve, args.seed, smi)
+    serve_row = phase("4 serve", serve, args.seed, smi)
+    phase("4b predictor", predictor_serve, args.seed, smi)
     train_launches = phase("5 train", train, args.seed, smi)
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
@@ -5466,15 +5870,20 @@ def main():
     convlstm_launches = phase("10 bucketing", bucketing, args.seed, smi)
     ssd_train, ssd_detect = phase("11 SSD300", ssd, args.seed, smi)
     seq_launches = phase("12 module family", module_family, args.seed, smi)
-    # one entry per kernel per main path, each with that path's own count
-    entries = [dict(name="flash_attn_fwd", path=path, route="cuda",
-                    plan_route=fwd_kernel_plan(UNITS // HEADS,
-                                               torch.float32).route,
-                    source="mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
-                    replaces="mxnet_tpu/ops/attention.py:63",
-                    launches=n, **fwd_row)
-               for path, n in (("serve", serve_launches),
-                               ("train", train_launches["fwd"]))]
+    # one entry per kernel per main path, each with that path's own count;
+    # the served buckets are captured graphs, so "launches" is the
+    # wrapper's count over the eager warm-up and capture of each bucket,
+    # and the kernels the replays ran are counted in a profiler trace of
+    # a served burst (as the ResNet entries below)
+    k3 = dict(name="flash_attn_fwd", route="cuda",
+              plan_route=fwd_kernel_plan(UNITS // HEADS,
+                                         torch.float32).route,
+              source="mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+              replaces="mxnet_tpu/ops/attention.py:63", **fwd_row)
+    entries = [dict(k3, path="serve",
+                    launches_counted_over="eager warm-up + capture of each "
+                                          "bucket", **serve_row),
+               dict(k3, path="train", launches=train_launches["fwd"])]
     for kern, line in (("dq", 163), ("dkv", 206)):
         entries.append(dict(name="flash_attn_bwd_" + kern, path="train",
                             route="cuda",

@@ -38,9 +38,12 @@ executor runs eagerly on the card (``capture`` is False from the bind).
 On the CPU every program runs eagerly.  :meth:`Executor._fused_eager` is
 the fused program on any device, and ``capture = False`` makes the
 executor run eagerly, so the two can be compared on the card.  A forward
-in predict mode runs eagerly everywhere.  ``forward_runs`` counts the
-graph's forward evaluations that reached the caller (a warm-up or a
-capture is not one); ``route`` names how the last train batch ran.
+in predict mode is captured too: one CUDA graph a bound executor
+(``predict_graphs``, keyed as the fused program's graphs are), its
+arguments its static inputs; :meth:`Executor._predict` is the eager
+program.  ``forward_runs`` counts the graph's forward evaluations that
+reached the caller (a warm-up or a capture is not one); ``route`` names
+how the last train batch ran.
 
 ``set_monitor_callback(callback)`` calls ``callback(name, output)`` for
 each output whenever the outputs are set (a predict forward, a read, a
@@ -82,6 +85,22 @@ class _FusedGraph:
 
     def run(self, heads):
         _copy_heads(self.heads, heads)
+        self.graph.replay()
+        self.replays += 1
+        return [o.clone() for o in self.outs]
+
+
+class _PredictGraph:
+    """The predict-mode forward captured: it reads the executor's own
+    arguments and auxiliary states and writes nothing, so its warm-up has
+    no state to put back."""
+
+    def __init__(self, ex):
+        _capture.warm_up(ex._predict, [], ex._device)
+        self.graph, self.outs = _capture.capture(ex._predict, ex._device)
+        self.replays = 0
+
+    def run(self):
         self.graph.replay()
         self.replays += 1
         return [o.clone() for o in self.outs]
@@ -199,6 +218,7 @@ class Executor:
         self.capture = self._device.type == "cuda" and \
             graph_capturable(symbol)
         self.graphs = {}  # head-gradient signature -> _FusedGraph
+        self.predict_graphs = {}  # the arrays' addresses -> _PredictGraph
         self.split_graphs = {}  # the arrays' addresses -> _SplitGraphs
         self.forward_runs = 0
         self.route = None
@@ -343,9 +363,18 @@ class Executor:
         self._kept = None
         self._train_pending = bool(is_train)
         if not is_train:
-            self._set_outputs(self._run("forward", self._predict))
+            self._set_outputs(self._run(
+                "forward", self._captured_predict if self.capture
+                else self._predict))
             return self.outputs
         return _PendingOutputs(self)
+
+    def _captured_predict(self):
+        key = self._graph_key([])
+        graph = self.predict_graphs.get(key)
+        if graph is None:
+            graph = self.predict_graphs[key] = _PredictGraph(self)
+        return graph.run()
 
     def _run(self, what, fn, *args):
         """``fn(*args)``, one evaluation of the graph; a failure of the

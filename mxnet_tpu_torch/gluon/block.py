@@ -343,6 +343,16 @@ class _Replay(torch.autograd.Function):
         return (None,) + ctx.graph.replay_backward(ctx.generation, grads)
 
 
+def _static_inputs(args, recording):
+    """The graph's static inputs: copies of ``args``, normal tensors
+    whatever mode the caller is in (a copy made under
+    ``torch.inference_mode()`` would be an inference tensor, which a later
+    call's in-place copy outside that mode may not update)."""
+    with _capture.normal_tensors():
+        return [a.detach().clone().requires_grad_(recording and a.requires_grad)
+                for a in args]
+
+
 class _CachedGraph:
     """One input signature of a hybridized block (reference: CachedOp's
     per-signature graph, ``src/imperative/cached_op.cc:266``; the JAX
@@ -360,8 +370,11 @@ class _CachedGraph:
     overwrites the graph's own): one device copy of each a call.  A
     recorded call's backward must come before the next call at the same
     signature replays the forward (its activations live in the graph):
-    else it raises.  On the CPU the block runs eagerly.  ``calls`` counts
-    the calls, ``replays`` the forward replays."""
+    else it raises.  What the graph keeps is made as normal tensors
+    whatever mode the first call ran under (:func:`_static_inputs`), so a
+    graph captured under ``torch.inference_mode()`` replays outside it and
+    the reverse.  On the CPU the block runs eagerly.  ``calls`` counts the
+    calls, ``replays`` the forward replays."""
 
     def __init__(self, block, args, recording, in_tree):
         self.block, self.recording = block, recording
@@ -380,13 +393,18 @@ class _CachedGraph:
         self.calls += 1
         if self.device.type != "cuda":
             return self._forward(args)
-        if self.fwd is None:
-            self._capture(args)
+        self.prepare(args)
         if self.recording:
             outs = _Replay.apply(self, *args, *self.params)
         else:
             outs = self.replay_forward(args)
         return _unflatten(list(outs), self.tree)
+
+    def prepare(self, args):
+        """Capture the graph, once, on the card (the server builds a
+        bucket so, before its first batch)."""
+        if self.fwd is None and self.device.type == "cuda":
+            self._capture(args)
 
     def _capture(self, args):
         block, dev = self.block, self.device
@@ -410,8 +428,7 @@ class _CachedGraph:
                 grads_of(outs, args)
 
         _capture.warm_up(warm, state, dev)
-        self.static_in = [a.detach().clone().requires_grad_(
-            self.recording and a.requires_grad) for a in args]
+        self.static_in = _static_inputs(args, self.recording)
         self.fwd, out = _capture.capture(
             lambda: self._forward(self.static_in), dev)
         self.static_out, self.tree = _flatten(out)
@@ -437,7 +454,10 @@ class _CachedGraph:
         # would outlive it on the capture stream)
         self.static_out = [o.detach() for o in self.static_out]
 
-    def replay_forward(self, args):
+    def replay_forward(self, args, clone=True):
+        """Copy ``args`` into the static inputs and replay the forward; the
+        outputs are copies, or with ``clone=False`` the graph's own
+        buffers, which the next replay overwrites."""
         with torch.no_grad():
             for s, a in zip(self.static_in, args):
                 if s.data_ptr() != a.data_ptr():
@@ -445,6 +465,8 @@ class _CachedGraph:
             self.fwd.replay()
             self.replays += 1
             self.generation += 1
+            if not clone:
+                return list(self.static_out)
             return [o.detach().clone() for o in self.static_out]
 
     def replay_backward(self, generation, grads):
@@ -500,6 +522,12 @@ class HybridBlock(Block):
         return self._cached_graphs
 
     def _call_cached(self, *args, **kwargs):
+        graph, flat = self._cached_graph(args, kwargs)
+        return graph(flat)
+
+    def _cached_graph(self, args, kwargs=None):
+        """``(graph, flat arguments)``: the :class:`_CachedGraph` of the
+        arguments' signature, made on its first use."""
         try:
             flat, tree = _flatten(list(args))
         except MXNetError:
@@ -524,4 +552,4 @@ class HybridBlock(Block):
                 with _autograd.pause(), _capture.staging():
                     self.forward(*args)
             graph = graphs[key] = _CachedGraph(self, flat, recording, tree)
-        return graph(flat)
+        return graph, flat

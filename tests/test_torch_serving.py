@@ -1,10 +1,13 @@
 """The port's InferenceServer (mxnet_tpu_torch/serving.py) on the CPU,
 serving a small TransformerLM: padded buckets against the unbatched
 forward (1e-5: the same float32 ops at another batch size), the served
-rows against the JAX package's InferenceServer over the same weights
-(1e-4: two packages' float32 products and softmaxes), backpressure and
-shape rejections, drain on stop, and the NaN sentinel for an
-out-of-range token.
+rows of the hybridized model against the JAX package's InferenceServer
+over the same weights (1e-4: two packages' float32 products and
+softmaxes), one cached graph a bucket, backpressure and shape
+rejections, drain on stop, the NaN sentinel for an out-of-range token,
+and the static inputs of a hybridized block's graph made as normal
+tensors under ``torch.inference_mode()`` (so a graph captured there
+replays outside it).
 """
 
 import threading
@@ -17,7 +20,9 @@ import mxnet_tpu as mx
 from mxnet_tpu import histogram, runtime_stats
 from mxnet_tpu import serving as jserving
 from mxnet_tpu.gluon.nn.transformer import TransformerLM as JaxLM
+from mxnet_tpu_torch import _capture
 from mxnet_tpu_torch.convert import load_mxnet_tpu_params
+from mxnet_tpu_torch.gluon.block import _static_inputs
 from mxnet_tpu_torch.gluon.nn import TransformerLM
 from mxnet_tpu_torch.serving import (InferenceServer, RequestRejected,
                                      ServerStopped)
@@ -106,11 +111,59 @@ def test_served_rows_match_jax_server(_jax_serving_state):
     params = {k: p.data().asnumpy()
               for k, p in jnet._collect_params_with_prefix().items()}
     net = load_mxnet_tpu_params(_net(), params)
+    net.hybridize()
     with InferenceServer(net, {"data": (S,)}, buckets=(1, 2, 4),
                          device="cpu") as srv:
         got = [srv.infer(x, timeout=60)[0] for x in xs]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+    assert srv.snapshot()["bucket_compiles"] == \
+        jsrv.snapshot()["bucket_compiles"] == 3
+
+
+def test_hybridized_block_has_one_graph_a_bucket():
+    """warmup() builds every bucket once (on the CPU a hybridized block's
+    graph runs eagerly under its cache key); serving adds none."""
+    net, ref = _net(seed=2), _net(seed=2)
+    net.hybridize()
+    with InferenceServer(net, {"data": (S,)}, buckets=(1, 2, 4),
+                         device="cpu") as srv:
+        srv.warmup()
+        assert srv.snapshot()["bucket_compiles"] == 3
+        assert sorted(k[0][0][0][0] for k in net._cached_graphs) == [1, 2, 4]
+        for n in (1, 3, 4, 2):
+            x = _ids(n, seed=40 + n)
+            np.testing.assert_allclose(srv.infer(x, timeout=60)[0],
+                                       _unbatched(ref, x), rtol=1e-5,
+                                       atol=1e-5)
+    assert srv.snapshot()["bucket_compiles"] == 3
+    assert len(net._cached_graphs) == 3
+
+
+@pytest.mark.parametrize("recording", [False, True])
+@pytest.mark.parametrize("inference", [False, True])
+def test_static_inputs_are_normal_tensors(recording, inference):
+    """A graph's static inputs made under inference mode stay normal
+    tensors, so a later call's in-place copy outside that mode works;
+    the caller's grad mode is kept."""
+    args = [torch.rand(2, 3, requires_grad=True), torch.rand(4)]
+    with torch.inference_mode(inference):
+        grad_before = torch.is_grad_enabled()
+        static = _static_inputs(args, recording)
+        with _capture.normal_tensors():
+            assert torch.is_grad_enabled() == grad_before
+            assert not torch.is_inference_mode_enabled()
+        assert torch.is_inference_mode_enabled() == inference
+    assert not any(t.is_inference() for t in static)
+    assert [t.requires_grad for t in static] == [recording, False]
+    with torch.no_grad():
+        for t, a in zip(static, args):
+            t.copy_(a + 1)  # outside inference mode
+            assert torch.equal(t, a + 1)
+    with torch.inference_mode():
+        clone = torch.rand(3).clone()
+    with torch.no_grad(), pytest.raises(RuntimeError, match="[Ii]nference"):
+        clone.copy_(torch.zeros(3))  # the fault the helper avoids
 
 
 def test_shape_and_queue_rejections():
