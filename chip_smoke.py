@@ -56,7 +56,14 @@ Phases (any failure raises, and the script exits non-zero):
    an error against a float64 dW no larger than 4x the plain float32
    version's, K1's tensor-core route with dilation at fc6's shape in
    bf16 and a ragged dilated shape in bf16 and float16, and K2 at pool1-pool5 (pool3's ceil window reaching
-   past its 75 x 75 input, pool5's 3x3/s1/p1);
+   past its 75 x 75 input, pool5's 3x3/s1/p1); then K1 grouped and with
+   the roles swapped, in bf16 and float32, against the plain version:
+   a ResNeXt-style 3x3 at (128, 56, 56, 128) in 32 groups, MobileNet's
+   depthwise 3x3 at (128, 112, 112, 32) and a 2x transposed convolution
+   (kernel 4, stride 2, pad 1) at (32, 56, 56, 64 -> 128), each beside
+   aten's weight gradient and the bound; then the three as Gluon layers
+   in bf16 through one recorded forward and backward, the wrappers'
+   counts over it (the kernels line's path grouped_conv);
 3d. BatchNorm kernels: the forward K6a and the backward K6b at every
    distinct BatchNorm shape of ResNet-50 at batch 128 in bf16 (bf16 gamma
    and beta, as the step casts them), at every one in float32 and
@@ -145,6 +152,24 @@ Phases (any failure raises, and the script exits non-zero):
    them counted in the trace (3 x a step; these go in the kernels line,
    as null where the trace holds no device kernel); then one
    make_chained(10) launch, timed;
+6b. ResNet-50 v2 and the space-to-depth stem: resnet50_v2's float32
+   gradients at (4, 64, 64, 3) against the CPU plain path (phase 6's
+   criteria); a FactorScheduler halving the rate every 2 steps inside a
+   captured GluonTrainStep(optimizer=SGD) on an MLP: one capture, each
+   step's rate read from the step's buffer, bitwise equal to the step run
+   eagerly, within 1e-5 of the eager Updater loop; the main path,
+   resnet50_v2(layout="NHWC") through GluonTrainStep(optimizer=SGD(lr
+   0.1, momentum 0.9, wd 1e-4), compute_dtype bfloat16), captured, 10
+   steps on one (128, 224, 224, 3) batch: a finite loss, one graph, the
+   wrappers' counts (2 x a step; the raw input's BatchNorm runs K6a
+   alone), step time, images/s, peak memory, 3 replays under
+   torch.profiler (busy share, time by group, launches counted); the
+   same step with the fused lr/momentum/wd closure, in turns; K1 summed
+   over v2's convolutions (the kernels line's path resnet_v2_train);
+   then resnet50_v1(stem_s2d=True) against the 7x7 stem, captured at
+   the same batch, in turns, its counts (path resnet_s2d_train), and K1
+   over its convolutions, the stem's K1b at (128, 115, 115, 12) 4x4
+   among them (the 7x7 stem's is phase 3c's);
 7. imperative: (a) every registered op once through mx.nd on the card at a
    small seeded shape, against the same call on the CPU (the RNN op in
    five cases: LSTM, GRU, relu and tanh, bidirectional, two layers, the
@@ -1629,14 +1654,23 @@ GRAD_FLOOR = 1e-3
 INPUT_NOISE, TRAIN_NOISE_RATIO = 1e-7, 3.0
 
 
-def resnet_convs(batch=RESNET_BATCH, size=RESNET_SIZE):
+def _meta_resnet(make):
+    """``make`` (a model-zoo entry point, resnet50_v1 by default) in NHWC
+    on the meta device."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    return (make or vision.resnet50_v1)(layout="NHWC", device="meta")
+
+
+def resnet_convs(batch=RESNET_BATCH, size=RESNET_SIZE, make=None):
     """(x shape, kernel, stride, pad, O) of every convolution of
-    resnet50_v1 at (batch, size, size, 3), in forward order, from a
-    forward on the meta device."""
-    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    resnet50_v1 (or of ``make()``'s net) at (batch, size, size, 3), in
+    forward order, from a forward on the meta device; the space-to-depth
+    stem's as the 4x4 convolution it runs over 12 channels."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision.resnet import _S2DStem
     from mxnet_tpu_torch.gluon.nn import Conv2D
 
-    net = resnet50_v1(layout="NHWC", device="meta")
+    net = _meta_resnet(make)
     convs = []
 
     def hook(mod, args, _out):
@@ -1644,9 +1678,16 @@ def resnet_convs(batch=RESNET_BATCH, size=RESNET_SIZE):
         convs.append((tuple(args[0].shape), kw["kernel"], kw["stride"],
                       kw["pad"], kw["num_filter"]))
 
+    def s2d_hook(mod, args, _out):
+        n, h, w, c = args[0].shape
+        convs.append(((n, h // 2 + 3, w // 2 + 3, 4 * c), (4, 4), (1, 1),
+                      (0, 0), mod._channels))
+
     for m in net.modules():
         if isinstance(m, Conv2D):
             m.register_forward_hook(hook)
+        elif isinstance(m, _S2DStem):
+            m.register_forward_hook(s2d_hook)
     net(torch.empty(batch, size, size, 3, device="meta"))
     return convs
 
@@ -1662,21 +1703,24 @@ def _taps_read(size, k, s, p, out, d=1):
                & set(range(size)))
 
 
-def conv_dw_bound_ms(xs, k, s, p, o, dtype, d=(1, 1)):
+def conv_dw_bound_ms(xs, k, s, p, o, dtype, d=(1, 1), groups=1):
     """Least time for dW: the pixels of x that the convolution reads (all
     of them unless a stride skips some, as a 1x1 stride-2 convolution
-    does) and dy read once and dW (float32) written once, against 2 flops
-    per multiply-add at the card's peak for the inputs' type (bf16 and
-    float16: the tensor cores; float32: the tensor cores' 3xTF32 rate)."""
+    does) and dy read once and dW (float32, O x KH x KW x I/G) written
+    once, against 2 flops per multiply-add (each output channel's over
+    its group's I/G inputs) at the card's peak for the inputs' type (bf16
+    and float16: the tensor cores; float32: the tensor cores' 3xTF32
+    rate)."""
     n, h, w, i = xs
+    ig = i // groups
     oh = _out_size(h, k[0], s[0], p[0], d[0])
     ow = _out_size(w, k[1], s[1], p[1], d[1])
-    flops = 2.0 * n * oh * ow * o * k[0] * k[1] * i
+    flops = 2.0 * n * oh * ow * o * k[0] * k[1] * ig
     esize = torch.finfo(dtype).bits // 8
     pixels = _taps_read(h, k[0], s[0], p[0], oh, d[0]) * _taps_read(
         w, k[1], s[1], p[1], ow, d[1])
     nbytes = (n * pixels * i + n * oh * ow * o) * esize \
-        + o * k[0] * k[1] * i * 4
+        + o * k[0] * k[1] * ig * 4
     # float32 runs on the tensor cores by 3xTF32
     peak = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -1826,6 +1870,176 @@ def conv_kernels(seed):
             convlstm["plain_ms"], convlstm["library_ms"],
             convlstm["bound_ms"]))
     return rows, lenet, convlstm
+
+
+def _timed_dw(fn, plain, lib):
+    """K1 (``fn``) twice against its plain version (``plain``) on the
+    card: (max abs error, the plain result's largest magnitude, bitwise
+    repeatable, kernel ms, plain ms, ms of ``lib``, the library call)."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    scale, err = ref.abs().max().item(), (got - ref).abs().max().item()
+    same = torch.equal(got, again)
+    del got, again, ref
+    return (err, scale, same, time_ms(fn), time_ms(plain, iters=3),
+            time_ms(lib))
+
+
+def _wgrad(x, dy, wt, s, p, groups=1):
+    """aten's weight gradient of an NHWC/OHWI convolution (cuDNN's wgrad
+    on the channels_last views)."""
+    return torch.ops.aten.convolution_backward(
+        _nchw(dy), _nchw(x), _nchw(wt), None, s, p, (1, 1), False, (0, 0),
+        groups, (False, True, False))
+
+
+# phase 3c's grouped and transposed shapes: (name, x NHWC, kernel, stride,
+# pad, O, groups, transposed).  A transposed convolution's dW is the
+# convolution dW of its output's gradient (as x) over its input (as dy) at
+# the same stride and pad; its x here is the transposed convolution's input
+GROUPED_CONVS = (
+    ("ResNeXt 3x3, 32 groups", (RESNET_BATCH, 56, 56, 128), (3, 3), (1, 1),
+     (1, 1), 128, 32, False),
+    ("MobileNet depthwise 3x3", (RESNET_BATCH, 112, 112, 32), (3, 3),
+     (1, 1), (1, 1), 32, 32, False),
+    ("2x Conv2DTranspose k4 s2 p1", (32, 56, 56, 64), (4, 4), (2, 2),
+     (1, 1), 128, 1, True),
+)
+
+
+def _dw_case(xs, k, s, p, o, groups, transposed):
+    """(x, dy shapes, groups) of the conv_dw call of a GROUPED_CONVS row:
+    for a transposed convolution the roles swapped."""
+    n, h, w, i = xs
+    if not transposed:
+        return xs, (n, _out_size(h, k[0], s[0], p[0]),
+                    _out_size(w, k[1], s[1], p[1]), o), groups
+    oh = (h - 1) * s[0] - 2 * p[0] + k[0]
+    ow = (w - 1) * s[1] - 2 * p[1] + k[1]
+    return (n, oh, ow, o), xs, groups
+
+
+def grouped_conv_kernels(seed):
+    """Phase 3c, K1 grouped and with the roles swapped: the ResNeXt-style
+    grouped 3x3, MobileNet's depthwise 3x3 and a 2x transposed
+    convolution's dW, in bf16 and float32, each against its plain version
+    on the card, bitwise repeatable, timed beside aten's weight gradient
+    and the bound; then the path: the three as Gluon layers in bf16
+    (Conv2D groups 32, Conv2D groups 32 depthwise, NHWC; Conv2DTranspose,
+    NCHW) through one recorded forward and backward, the wrappers' counts
+    set to 0 just before it and read just after.  Returns the bf16 rows
+    summed over that path by formulation and its launches."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.ops import conv_dw as C
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=0.0, bound_by=set())
+            for form in ("pertap", "im2col")}
+    for name, xs0, k, s, p, o0, groups, transposed in GROUPED_CONVS:
+        xs, dys, g = _dw_case(xs0, k, s, p, o0, groups, transposed)
+        o = dys[3]
+        form = C.formulation(xs[3] // g)
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(xs, device="cuda", generator=gen).to(dt)
+            dy = torch.randn(dys, device="cuda", generator=gen).to(dt)
+
+            if transposed:
+                # aten's weight gradient of the transposed convolution,
+                # (I, O/G, KH, KW), over its own input and output gradient
+                wt = torch.empty((o, xs[3]) + k, dtype=dt, device="cuda")
+
+                def lib():
+                    return torch.ops.aten.convolution_backward(
+                        _nchw(x), _nchw(dy), wt, None, s, p, (1, 1), True,
+                        (0, 0), 1, (False, True, False))
+            else:
+                wt = torch.empty((o,) + k + (xs[3] // g,), dtype=dt,
+                                 device="cuda")
+
+                def lib():
+                    return _wgrad(x, dy, wt, s, p, g)
+            err, scale, same, ms, plain_ms, lib_ms = _timed_dw(
+                lambda: C.conv_dw(x, dy, k, s, p, (1, 1), g),
+                lambda: C.conv_dw_reference(x, dy, k, s, p, (1, 1), g), lib)
+            bound, bound_by = conv_dw_bound_ms(xs, k, s, p, o, dt,
+                                               groups=g)
+            plan = C.launch_plan(form, k, s, p, xs, o, dt, (1, 1), g)
+            log("kernel conv_dw %s [%s: x %s dy %s k %s s %s p %s, %d "
+                "groups, %s]: max_abs_err %.3g of max %.3g (tol %.0e of "
+                "it), bitwise repeatable %s; route %s, tile of %d channels, "
+                "x %s, dy %s, %d splits of %d; kernel %.4f ms (%.1f %% of "
+                "the bound), plain %.4f ms, aten weight gradient %.4f ms, "
+                "bound %.4f ms (%s)" % (
+                    form, name, xs, dys, k, s, p, g, str(dt).split(".")[1],
+                    err, scale, DW_TOL, same, plan.route, plan.tile_o,
+                    plan.x_loads, plan.dy_loads, plan.splits, plan.chunk, ms,
+                    100.0 * bound / ms, plain_ms, lib_ms, bound, bound_by))
+            if not err <= DW_TOL * scale:
+                raise AssertionError("grouped conv_dw disagrees with its "
+                                     "plain version at %s %s" % (name, dt))
+            if not same:
+                raise AssertionError("two launches of grouped conv_dw "
+                                     "differ at %s %s" % (name, dt))
+            if dt == torch.bfloat16:
+                row = rows[form]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                               ("bound_ms", bound), ("library_ms", lib_ms)):
+                    row[key] += v
+                row["bound_by"].add(bound_by)
+            del x, dy, wt
+    torch.cuda.empty_cache()
+    for row in rows.values():
+        row["bound_by"] = "+".join(sorted(row.pop("bound_by")))
+
+    # the path: the three as Gluon layers in bf16, one recorded forward
+    # and backward each
+    layers = []
+    for name, xs0, k, s, p, o0, groups, transposed in GROUPED_CONVS:
+        n, h, w, i = xs0
+        if transposed:
+            layer = gnn.Conv2DTranspose(o0, k, s, p, in_channels=i,
+                                        use_bias=False, device="cuda")
+            x = torch.randn((n, i, h, w), device="cuda", generator=gen)
+            x = x.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+        else:
+            layer = gnn.Conv2D(o0, k, s, p, groups=groups, in_channels=i,
+                               use_bias=False, layout="NHWC", device="cuda")
+            x = torch.randn(xs0, device="cuda", generator=gen).to(
+                torch.bfloat16)
+        layer.initialize(seed=seed)
+        layer.cast("bfloat16")
+        layers.append((name, layer, x))
+    counters = {"pertap": C.conv_dw_pertap, "im2col": C.conv_dw_im2col}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    grads = []
+    for name, layer, x in layers:
+        with autograd.record():
+            out = layer(x)
+        torch.autograd.backward(out, torch.ones_like(out))
+        grads.append((name, layer.weight.grad))
+    torch.cuda.synchronize()
+    launches = {key: fn.launches for key, fn in counters.items()}
+    # ---- end of the path
+    finite = all(bool(torch.isfinite(g).all()) for _, g in grads)
+    log("grouped conv path: Conv2D (32 groups), depthwise Conv2D and "
+        "Conv2DTranspose in bf16, one recorded forward and backward each: "
+        "weight gradients %s, finite %s; wrapper launches %s (expected "
+        "im2col 2, pertap 1)" % (
+            ", ".join("%s %s" % (n, tuple(g.shape)) for n, g in grads),
+            finite, launches))
+    if not finite or launches != {"pertap": 1, "im2col": 2}:
+        raise AssertionError("the grouped and transposed convolutions did "
+                             "not take their weight gradients from K1")
+    del layers, grads
+    torch.cuda.empty_cache()
+    return {k: dict(rows[k], launches=launches[k]) for k in rows}
 
 
 def maxpool_bound_ms(xs, dys, dtype):
@@ -1980,14 +2194,13 @@ def pool_kernels(seed):
     return row, lenet
 
 
-def resnet_bns(batch=RESNET_BATCH, size=RESNET_SIZE):
-    """The (N, H, W, C) input of every BatchNorm of resnet50_v1 at
-    (batch, size, size, 3), in forward order, from a forward on the meta
-    device."""
-    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+def resnet_bns(batch=RESNET_BATCH, size=RESNET_SIZE, make=None):
+    """The (N, H, W, C) input of every BatchNorm of resnet50_v1 (or of
+    ``make()``'s net) at (batch, size, size, 3), in forward order, from a
+    forward on the meta device."""
     from mxnet_tpu_torch.gluon.nn import BatchNorm
 
-    net = resnet50_v1(layout="NHWC", device="meta")
+    net = _meta_resnet(make)
     shapes = []
     for m in net.modules():
         if isinstance(m, BatchNorm):
@@ -2109,13 +2322,21 @@ def bn_kernels(seed):
     plan, time, the plain version's, the library call's and the bound;
     axis=1 on NCHW data with channels_last strides runs them too
     (:func:`bn_axis_1`).  Returns, for each kernel, its numbers summed
-    over the BatchNorms of one training step."""
+    over the BatchNorms of one training step of ResNet-50 v1 (phase 6) and
+    of v2 (phase 6b, whose raw input's BatchNorm, C = 3, runs K6a alone:
+    neither its input nor its fixed gamma and beta need a gradient)."""
     from mxnet_tpu_torch.ops import batch_norm as B
 
     counts = {}
     for n, h, w, c in resnet_bns():
         counts[(n * h * w, c)] = counts.get((n * h * w, c), 0) + 1
+    v2 = {"fwd": {}, "bwd": {}}
+    for i, (n, h, w, c) in enumerate(resnet_bns(make=_resnet50_v2)):
+        for key in ("fwd", "bwd") if i else ("fwd",):
+            v2[key][(n * h * w, c)] = v2[key].get((n * h * w, c), 0) + 1
     cases = [(m, c, torch.bfloat16, k) for (m, c), k in counts.items()]
+    cases += [(m, c, torch.bfloat16, 0) for m, c in v2["fwd"]
+              if (m, c) not in counts]
     cases += [(m, c, dt, 0) for m, c in counts
               for dt in (torch.float32, torch.float16)]
     cases += [(792, 5, torch.bfloat16, 0), (792, 5, torch.float32, 0),
@@ -2124,8 +2345,10 @@ def bn_kernels(seed):
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     library_ms=0.0, bound_by="bytes")
             for k in ("fwd", "bwd")}
+    rows_v2 = {k: dict(v) for k, v in rows.items()}
     fwd_times, bwd_times = [], []
     for m, c, dt, per_step in cases:
+        on_v2 = dt == torch.bfloat16 and (m, c) in v2["fwd"]
         pdt = dt  # gamma and beta in the data's type, as the step casts them
         x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dt)
         dy = torch.randn(m, c, device="cuda", generator=gen).to(dt)
@@ -2166,7 +2389,7 @@ def bn_kernels(seed):
         occupancy = bn_occupancy(plan.bwd_occupancy(code), m, c, dt)
         occ_fwd = bn_occupancy(plan.fwd_occupancy(code), m, c, dt)
         tol = BN_TOL[dt]
-        if not (per_step or (m, c) in (BN_STEM, BN_LAST)):
+        if not (per_step or on_v2 or (m, c) in (BN_STEM, BN_LAST)):
             # checked, not timed: the other shapes in float32 and float16
             log("kernel batch_norm [M %d C %d %s]: K6a %d blocks, %d "
                 "rounds kept, K6b %s, %d blocks; errs "
@@ -2242,7 +2465,7 @@ def bn_kernels(seed):
                                  "C %d %s" % (m, c, dt))
         check_share("batch_norm_fwd", (m, c, dt), ms, bound)
         check_share("batch_norm_bwd", (m, c, dt), ms_b, bound_b)
-        if per_step or (m, c) in (BN_STEM, BN_LAST):
+        if per_step or on_v2 or (m, c) in (BN_STEM, BN_LAST):
             fwd_times.append((m, c, str(dt).split(".")[1], "streamed", ms,
                               bound, lib_ms))
             bwd_times.append((m, c, str(dt).split(".")[1], plan.route, ms_b,
@@ -2256,6 +2479,13 @@ def bn_kernels(seed):
             for name, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
                                vals):
                 row[name] += per_step * v
+            n_v2 = v2[key].get((m, c), 0) if on_v2 else 0
+            if n_v2:
+                row2 = rows_v2[key]
+                row2["max_abs_err"] = max(row2["max_abs_err"], err)
+                for name, v in zip(("ms", "plain_ms", "bound_ms",
+                                    "library_ms"), vals):
+                    row2[name] += n_v2 * v
         del x, dy, got, gotb
     torch.cuda.empty_cache()
     for name, times in (("batch_norm_fwd (K6a)", fwd_times),
@@ -2271,8 +2501,14 @@ def bn_kernels(seed):
             "plain %.3f ms, library %.3f ms, bound %.3f ms" % (
                 key, sum(counts.values()), row["ms"], row["plain_ms"],
                 row["library_ms"], row["bound_ms"]))
+    for key, row in rows_v2.items():
+        log("kernel batch_norm %s over one ResNet-50 v2 step (%d launches, "
+            "bf16; kernel and library in graph replays): kernel %.3f ms, "
+            "plain %.3f ms, library %.3f ms, bound %.3f ms" % (
+                key, sum(v2[key].values()), row["ms"], row["plain_ms"],
+                row["library_ms"], row["bound_ms"]))
     bn_axis_1(gen)
-    return rows
+    return rows, rows_v2
 
 
 def bn_axis_1(gen):
@@ -2331,10 +2567,18 @@ def bn_axis_1(gen):
                              "K6a and K6b on the NHWC view")
 
 
-def _resnet(device, seed=None, layout="NHWC"):
+def _resnet50_v2(**kwargs):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v2
+
+    return resnet50_v2(**kwargs)
+
+
+def _resnet(device, seed=None, layout="NHWC", make=None, **kwargs):
+    """resnet50_v1 (or ``make``'s net) on ``device``, initialised from
+    ``seed`` unless it is None."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 
-    net = resnet50_v1(layout=layout, device=device)
+    net = (make or resnet50_v1)(layout=layout, device=device, **kwargs)
     return net if seed is None else net.initialize(seed=seed)
 
 
@@ -2359,17 +2603,18 @@ def _l2_rel(got, want):
                       for w in want.values())) ** 0.5
 
 
-def resnet_gradient_check(seed):
-    """Phase 6.1: float32 (TF32 off) gradients of ResNet-50 at
-    (4, 64, 64, 3) on the card against the same weights on the CPU plain
-    path, in predict mode (each within GRAD_TOL) and in train mode
-    (within TRAIN_NOISE_RATIO of the CPU's own rounding sensitivity)."""
+def resnet_gradient_check(seed, make=None, tag="resnet"):
+    """Phase 6.1 (and 6b's, ``make`` resnet50_v2): float32 (TF32 off)
+    gradients of ResNet-50 at (4, 64, 64, 3) on the card against the same
+    weights on the CPU plain path, in predict mode (each within GRAD_TOL)
+    and in train mode (within TRAIN_NOISE_RATIO of the CPU's own rounding
+    sensitivity)."""
     from mxnet_tpu_torch.convert import load_mxnet_tpu_params
 
     rng = np.random.RandomState(seed + 5)
-    net = _resnet("cuda", seed)
+    net = _resnet("cuda", seed, make=make)
     state = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
-    cpu_net = _resnet("cpu")
+    cpu_net = _resnet("cpu", make=make)
     x = rng.rand(4, 64, 64, 3).astype(np.float32)
     y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, (4,)).astype(np.int32))
     x_noisy = (x * (1 + INPUT_NOISE * rng.randn(*x.shape))).astype(np.float32)
@@ -2386,11 +2631,11 @@ def resnet_gradient_check(seed):
         l2 = _l2_rel(got, want)
         mode = "train" if train else "predict"
         if not train:
-            log("resnet: float32 %s-mode gradients of %d parameters on the "
+            log("%s: float32 %s-mode gradients of %d parameters on the "
                 "card vs the CPU plain path on a (4, 64, 64, 3) batch: "
                 "worst %.3g of the gradient's largest magnitude (%s; tol "
                 "%.0e; each scale at least %.0e of the largest gradient, "
-                "%.3g); L2 over all %.3g" % (mode, len(want), rel[worst],
+                "%.3g); L2 over all %.3g" % (tag, mode, len(want), rel[worst],
                                              worst, GRAD_TOL, GRAD_FLOOR,
                                              big, l2))
             if rel[worst] > GRAD_TOL:
@@ -2400,11 +2645,11 @@ def resnet_gradient_check(seed):
         load_mxnet_tpu_params(cpu_net, state)
         noise = _l2_rel(_resnet_grads(cpu_net, torch.from_numpy(x_noisy), y,
                                       True), want)
-        log("resnet: float32 %s-mode gradients on the card vs the CPU: L2 "
+        log("%s: float32 %s-mode gradients on the card vs the CPU: L2 "
             "over all %.3g, worst tensor %.3g (%s); the CPU's own L2 change "
             "under a %.0e input perturbation %.3g (ratio %.2f, limit %.1f)"
-            % (mode, l2, rel[worst], worst, INPUT_NOISE, noise, l2 / noise,
-               TRAIN_NOISE_RATIO))
+            % (tag, mode, l2, rel[worst], worst, INPUT_NOISE, noise,
+               l2 / noise, TRAIN_NOISE_RATIO))
         if not l2 <= TRAIN_NOISE_RATIO * noise:
             raise AssertionError("the card's train-mode ResNet-50 gradients "
                                  "are farther from the CPU's than rounding "
@@ -2639,6 +2884,323 @@ def resnet_train(seed, smi):
                     launches_in_traced_replays=None if seen is None
                     else seen[k])
             for k, n in launches.items()}
+
+
+# ------------------------------------------------------- ResNet-50 v2 (6b)
+
+# the optimizer= route's SGD (the bench's hyperparameters), and the steps
+# the two routes are timed over, in turns
+V2_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+V2_TIMED = 5
+
+
+def _per_formulation(convs):
+    """The convolutions of one step by K1's formulation (I < 128: im2col)."""
+    from mxnet_tpu_torch.ops import conv_dw as C
+
+    out = {"pertap": 0, "im2col": 0}
+    for c in convs:
+        out[C.formulation(c[0][3])] += 1
+    return out
+
+
+def step_dw_rows(convs, seed, tag):
+    """K1a and K1b at every distinct convolution of ``convs`` (one step's)
+    in bf16, against their plain version on the card (DW_TOL) and bitwise
+    repeatable, timed beside cuDNN's wgrad and the bound; the numbers
+    summed over the step by formulation."""
+    from mxnet_tpu_torch.ops import conv_dw as C
+
+    counts = {}
+    for c in convs:
+        counts[c] = counts.get(c, 0) + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=0.0, bound_by=set())
+            for form in ("pertap", "im2col")}
+    dt = torch.bfloat16
+    for (xs, k, s, p, o), n_step in counts.items():
+        form = C.formulation(xs[3])
+        run = C.conv_dw_pertap if form == "pertap" else C.conv_dw_im2col
+        n, h, w, _ = xs
+        dys = (n, _out_size(h, k[0], s[0], p[0]),
+               _out_size(w, k[1], s[1], p[1]), o)
+        x = torch.randn(xs, device="cuda", generator=gen).to(dt)
+        dy = torch.randn(dys, device="cuda", generator=gen).to(dt)
+        wt = torch.empty((o,) + k + xs[3:], dtype=dt, device="cuda")
+        err, scale, same, ms, plain_ms, lib_ms = _timed_dw(
+            lambda: run(x, dy, k, s, p),
+            lambda: C.conv_dw_reference(x, dy, k, s, p),
+            lambda: _wgrad(x, dy, wt, s, p))
+        if not (err <= DW_TOL * scale and same):
+            raise AssertionError("conv_dw %s at x %s (%s): error %.3g of "
+                                 "%.3g, bitwise repeatable %s"
+                                 % (form, xs, tag, err, scale, same))
+        bound, bound_by = conv_dw_bound_ms(xs, k, s, p, o, dt)
+        log("kernel conv_dw %s [%s: x %s k %s s %s p %s O %d bf16, %d a "
+            "step]: max_abs_err %.3g of max %.3g; kernel %.4f ms (%.1f %% "
+            "of the bound), plain %.4f ms, cuDNN wgrad %.4f ms, bound %.4f "
+            "ms (%s)" % (form, tag, xs, k, s, p, o, n_step, err, scale, ms,
+                         100.0 * bound / ms, plain_ms, lib_ms, bound,
+                         bound_by))
+        row = rows[form]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound), ("library_ms", lib_ms)):
+            row[key] += n_step * v
+        row["bound_by"].add(bound_by)
+        del x, dy, wt
+    torch.cuda.empty_cache()
+    for form, row in rows.items():
+        row["bound_by"] = "+".join(sorted(row.pop("bound_by")))
+        log("kernel conv_dw %s over one %s step (bf16): kernel %.3f ms, "
+            "plain %.3f ms, cuDNN wgrad %.3f ms, bound %.3f ms" % (
+                form, tag, row["ms"], row["plain_ms"], row["library_ms"],
+                row["bound_ms"]))
+    return rows
+
+
+def _timed_turns(runs, n=V2_TIMED):
+    """Each (name, fn) of ``runs`` called ``n`` times, timed by CUDA events,
+    in the order given: {name: [ms a call, ...]}."""
+    out = {}
+    for name, fn in runs:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.setdefault(name, []).append(start.elapsed_time(end) / n)
+    return out
+
+
+def scheduled_step_check(seed):
+    """Phase 6b.2: GluonTrainStep(optimizer=SGD with a FactorScheduler
+    that halves the rate every 2 steps) on a two-layer MLP on the card:
+    five captured steps from one capture, against the same step run
+    eagerly (the code the graph captures), bit for bit, and against the
+    eager Updater loop within 1e-5 of each weight's largest magnitude;
+    each step's rate read back from the step's buffer."""
+    from mxnet_tpu_torch import autograd, gluon, lr_scheduler, optimizer
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.parallel import GluonTrainStep
+
+    def mlp():
+        net = gnn.HybridSequential(device="cuda")
+        net.add(gnn.Dense(64, activation="relu", in_units=32, device="cuda"))
+        net.add(gnn.Dense(10, in_units=64, device="cuda"))
+        return net.initialize(seed=seed)
+
+    def sgd():
+        return optimizer.SGD(learning_rate=0.5, momentum=0.9, wd=1e-3,
+                             lr_scheduler=lr_scheduler.FactorScheduler(
+                                 step=2, factor=0.5))
+
+    rng = np.random.RandomState(seed + 21)
+    x = torch.from_numpy(rng.randn(16, 32).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, (16,)).astype(np.int32)).cuda()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    nets = [mlp() for _ in range(3)]
+    captured = GluonTrainStep(nets[0], loss_fn, optimizer=sgd())
+    eager = GluonTrainStep(nets[1], loss_fn, optimizer=sgd())
+    eager._capture = False
+    updater = optimizer.get_updater(sgd())
+    params = list(nets[2].collect_params().values())
+    rates, worst, differ = [], 0.0, 0
+    for _ in range(5):
+        captured(x, y)
+        eager(x, y)
+        rates.append(float(captured._scalars[0]))
+        with autograd.record():
+            loss = loss_fn(nets[2](x), y).mean()
+        autograd.backward(loss)
+        for i, p in enumerate(params):
+            updater(i, p.grad, p)
+        torch.cuda.synchronize()
+        a, b, c = (n.state_dict() for n in nets)
+        differ += sum(not torch.equal(a[k], b[k]) for k in a)
+        worst = max(worst, max((a[k] - c[k]).abs().max().item()
+                               / max(c[k].abs().max().item(), 1e-30)
+                               for k in a))
+    (graph,) = captured.graphs.values()
+    log("resnet v2: GluonTrainStep(optimizer=SGD, FactorScheduler(step 2, "
+        "factor 0.5)) on an MLP, 5 captured steps: %d graph, %d replays; "
+        "rates read from the buffer %s; %d state tensors differ from the "
+        "same step run eagerly (bitwise expected); worst weight against the "
+        "eager Updater loop %.3g of its largest magnitude (tol 1e-05)" % (
+            len(captured.graphs), graph.replays, rates, differ, worst))
+    if len(captured.graphs) != 1 or rates != [0.5, 0.5, 0.25, 0.25, 0.125] \
+            or differ or worst > 1e-5:
+        raise AssertionError("the scheduled optimizer= step recaptured, read "
+                             "a stale rate or left the eager trajectory")
+
+
+def _train_drive(step, xs, ys, n, counters):
+    """``n`` steps, their times by CUDA events and the wrappers' launches:
+    every count set to 0 just before and read just after."""
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for ev in events:
+        ev[0].record()
+        losses.append(step(xs, ys))
+        ev[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    step_ms = float(np.mean([a.elapsed_time(b)
+                             for a, b in events[RESNET_WARMUP:]]))
+    return ([v.float().item() for v in losses], launches, step_ms, wall,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def resnet_v2(seed, smi):
+    """Phase 6b: ResNet-50 v2 (pre-activation) and the space-to-depth
+    stem.  (1) float32 gradients of resnet50_v2 at (4, 64, 64, 3) on the
+    card against the CPU plain path (phase 6's criteria); (2) an
+    FactorScheduler inside a captured optimizer= step (one capture, the
+    rate changing mid-run); (3) the main path: resnet50_v2(layout="NHWC")
+    through GluonTrainStep(optimizer=SGD(lr 0.1, momentum 0.9, wd 1e-4),
+    compute_dtype bfloat16), captured, 10 steps on one (128, 224, 224, 3)
+    batch: a finite loss, the wrappers' counts (2 x a step: the warm-up's
+    and the capture's), step time, images/s, peak memory, then 3 replays
+    under torch.profiler (busy share, time by group, launches counted);
+    (4) the same step with the fused lr/momentum/wd closure, timed in
+    turns; (5) resnet50_v1(stem_s2d=True) against the 7x7 stem, both
+    captured at the same batch, in turns, the s2d path's counts, and K1
+    over its convolutions (the stem's K1b at (128, 115, 115, 12) 4x4
+    among them; the 7x7 stem's is phase 3c's).  Returns the two paths'
+    launches and the K1 rows of each path's convolutions."""
+    from mxnet_tpu_torch import gluon, optimizer
+    from mxnet_tpu_torch.parallel import GluonTrainStep
+
+    resnet_gradient_check(seed, make=_resnet50_v2, tag="resnet v2")
+    torch.cuda.empty_cache()
+    scheduled_step_check(seed)
+    rng = np.random.RandomState(seed + 6)
+    x = rng.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)).astype(np.int32)
+    convs = resnet_convs(make=_resnet50_v2)
+    bns = resnet_bns(make=_resnet50_v2)
+    per_step = dict(_per_formulation(convs), maxpool=RESNET_K2,
+                    batch_norm_fwd=len(bns), batch_norm_bwd=len(bns) - 1)
+    counters = _resnet_counters()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    # (3) the main path
+    net = _resnet("cuda", seed, make=_resnet50_v2)
+    step = GluonTrainStep(net, loss_fn, compute_dtype="bfloat16",
+                          optimizer=optimizer.SGD(**V2_SGD))
+    xs, ys = step.put_batch(x, y)
+    losses, launches, step_ms, wall, peak = _train_drive(
+        step, xs, ys, RESNET_STEPS, counters)
+    # ---- end of the main path
+    (graph,) = step.graphs.values()
+    log("resnet v2: %d GluonTrainStep(optimizer=SGD(lr 0.1, momentum 0.9, "
+        "wd 1e-4), bf16 compute, captured) steps of resnet50_v2 on one (%d, "
+        "%d, %d, 3) batch: loss %s; grad norm %.4g; %d graph, %d replays"
+        % (RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_SIZE,
+           " ".join("%.4f" % v for v in losses), float(step.last_grad_norm),
+           len(step.graphs), graph.replays))
+    log("resnet v2: wrapper counts over the main path (1 eager warm-up step "
+        "+ 1 capture) %s; expected 2 x %s (the raw input's BatchNorm runs "
+        "K6a alone)" % (launches, per_step))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("the ResNet-50 v2 loss is not finite")
+    if launches != {k: 2 * v for k, v in per_step.items()} \
+            or len(step.graphs) != 1:
+        raise AssertionError("the ResNet-50 v2 step did not launch K1a, K1b, "
+                             "K2, K6a and K6b once per layer, or recaptured")
+    log("resnet v2: step %.2f ms on %s (captured, optimizer=; mean of %d "
+        "after %d warmup), %.1f images/s; %d steps in %.2f s wall (the "
+        "first: warm-up, capture, replay); peak memory %.2f GB" % (
+            step_ms, smi, RESNET_STEPS - RESNET_WARMUP, RESNET_WARMUP,
+            RESNET_BATCH / step_ms * 1e3, RESNET_STEPS, wall, peak))
+    traced = 3
+    count = tuple((key, keys, per_step[key])
+                  for key, keys, _ in RESNET_LAUNCH_KERNELS)
+    seen = profile_steps(lambda: step(xs, ys), smi, step_ms, steps=traced,
+                         groups=RESNET_GROUPS, tag="resnet v2", count=count)
+    if seen is not None:
+        want = {k: n * traced for k, _, n in count}
+        log("resnet v2: kernel launches in the trace of %d replays: %s; "
+            "expected %s" % (traced, seen, want))
+        if seen != want:
+            raise AssertionError("the replayed v2 step does not launch each "
+                                 "kernel once per layer")
+
+    # (4) the optimizer= route against the fused closure, in turns
+    net_f = _resnet("cuda", seed, make=_resnet50_v2)
+    fused = GluonTrainStep(net_f, loss_fn, lr=0.1, momentum=0.9, wd=1e-4,
+                           compute_dtype="bfloat16")
+    xf, yf = fused.put_batch(x, y)
+    fused(xf, yf)
+    turns = _timed_turns([("optimizer=", lambda: step(xs, ys)),
+                          ("fused", lambda: fused(xf, yf)),
+                          ("fused", lambda: fused(xf, yf)),
+                          ("optimizer=", lambda: step(xs, ys))])
+    log("resnet v2: the captured step on %s, optimizer=SGD against the "
+        "fused lr/momentum/wd closure, %d replays each, in turns: %s ms" % (
+            smi, V2_TIMED, "; ".join("%s %s" % (k, ", ".join(
+                "%.2f" % v for v in vals)) for k, vals in turns.items())))
+    v2_launches = {k: dict(launches=n, traced_replays=traced,
+                           launches_in_traced_replays=None if seen is None
+                           else seen[k]) for k, n in launches.items()}
+    del step, net, fused, net_f, xs, ys, xf, yf
+    torch.cuda.empty_cache()
+    v2_rows = step_dw_rows(convs, seed, "resnet50_v2")
+
+    # (5) the space-to-depth stem against the 7x7 stem
+    s2d_convs = resnet_convs(make=lambda **kw: _resnet(
+        kw.pop("device"), stem_s2d=True, **kw))
+    s2d_per_step = dict(_per_formulation(s2d_convs), maxpool=RESNET_K2,
+                        batch_norm_fwd=RESNET_BN, batch_norm_bwd=RESNET_BN)
+    steps = {}
+    for name, kw in (("s2d", {"stem_s2d": True}), ("7x7", {})):
+        net = _resnet("cuda", seed, **kw)
+        st = GluonTrainStep(net, loss_fn, lr=0.1, momentum=0.9, wd=1e-4,
+                            compute_dtype="bfloat16")
+        steps[name] = (net, st) + st.put_batch(x, y)
+    _, st, xs, ys = steps["s2d"]
+    losses, s2d_launches, s2d_ms, wall, peak = _train_drive(
+        st, xs, ys, RESNET_STEPS, counters)
+    # ---- end of the s2d path
+    log("resnet s2d: %d captured steps of resnet50_v1(stem_s2d=True) (lr "
+        "0.1, momentum 0.9, wd 1e-4, bf16): loss %s; step %.2f ms; wrapper "
+        "counts %s, expected 2 x %s; peak memory %.2f GB" % (
+            RESNET_STEPS, " ".join("%.4f" % v for v in losses), s2d_ms,
+            s2d_launches, s2d_per_step, peak))
+    if not all(np.isfinite(losses)) or s2d_launches != {
+            k: 2 * v for k, v in s2d_per_step.items()}:
+        raise AssertionError("the s2d step's loss is not finite or it did "
+                             "not launch each kernel once per layer")
+    _, std, xs7, ys7 = steps["7x7"]
+    first = [float(std(xs7, ys7))]
+    turns = _timed_turns([("s2d", lambda: st(xs, ys)),
+                          ("7x7", lambda: std(xs7, ys7)),
+                          ("7x7", lambda: std(xs7, ys7)),
+                          ("s2d", lambda: st(xs, ys))])
+    log("resnet s2d: the captured step on %s, the space-to-depth stem "
+        "against the 7x7/s2 stem, %d replays each, in turns: %s ms; the 7x7 "
+        "stem's first loss %.4f against the s2d one's %.4f (the same "
+        "function; bf16 rounding differs)" % (
+            smi, V2_TIMED, "; ".join("%s %s" % (k, ", ".join(
+                "%.2f" % v for v in vals)) for k, vals in turns.items()),
+            first[0], losses[0]))
+    del steps, st, std, xs, ys, xs7, ys7, net
+    torch.cuda.empty_cache()
+    # the stem's K1b at (128, 115, 115, 12) 4x4 among them (the 7x7 stem's
+    # is phase 3c's)
+    s2d_rows = step_dw_rows(s2d_convs, seed, "resnet50_v1 s2d")
+    s2d = {k: dict(launches=n) for k, n in s2d_launches.items()}
+    return dict(v2_launches=v2_launches, v2_rows=v2_rows,
+                s2d_launches=s2d, s2d_rows=s2d_rows)
 
 
 # ---------------------------------------------------------------- imperative
@@ -5854,16 +6416,19 @@ def main():
     bwd_rows = phase("3b attention backward", backward_kernels, args.seed)
     dw_rows, dw_lenet, dw_convlstm = phase("3c conv dW", conv_kernels,
                                            args.seed)
+    dw_grouped = phase("3c grouped and transposed conv dW",
+                       grouped_conv_kernels, args.seed)
     pool_row, pool_lenet = phase("3c max-pool backward", pool_kernels,
                                  args.seed)
     ssd_rows = phase("3c SSD300 conv dW and max-pool backward",
                      ssd_conv_kernels, args.seed)
-    bn_rows = phase("3d batch norm", bn_kernels, args.seed)
+    bn_rows, bn_rows_v2 = phase("3d batch norm", bn_kernels, args.seed)
     nms_row = phase("3e box_nms", nms_kernels, args.seed)
     serve_row = phase("4 serve", serve, args.seed, smi)
     phase("4b predictor", predictor_serve, args.seed, smi)
     train_launches = phase("5 train", train, args.seed, smi)
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
+    v2 = phase("6b resnet v2", resnet_v2, args.seed, smi)
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
     lenet_launches = phase("8 symbolic", symbolic, args.seed, smi)
     phase("9 word LM", word_lm, args.seed, smi)
@@ -5918,6 +6483,43 @@ def main():
             "batch_norm_" + kern, "batch_norm_" + kern,
             "mxnet_tpu_torch/csrc/batch_norm.cu", "mxnet_tpu/ops/nn.py:462",
             bn_rows[kern]))
+    # ResNet-50 v2 through GluonTrainStep(optimizer=SGD) (phase 6b's main
+    # path) and resnet50_v1 with the space-to-depth stem, both captured as
+    # the ResNet step: K1 summed over each path's own convolutions, K2 at
+    # the same stem pool, K6 over v2's BatchNorms (v1's for the s2d net)
+    for path, launches, dw, bn in (
+            ("resnet_v2_train", v2["v2_launches"], v2["v2_rows"], bn_rows_v2),
+            ("resnet_s2d_train", v2["s2d_launches"], v2["s2d_rows"],
+             bn_rows)):
+        common = dict(path=path, route="cuda",
+                      launches_counted_over="eager warm-up step + capture")
+        for form, line in (("pertap", 111), ("im2col", 133)):
+            entries.append(dict(
+                common, name="conv_dw_" + form,
+                source="mxnet_tpu_torch/csrc/conv_dw.cu",
+                replaces="mxnet_tpu/ops/pallas_conv.py:%d" % line,
+                plan_route="wgmma", **launches[form], **dw[form]))
+        entries.append(dict(
+            common, name="maxpool_bwd",
+            source="mxnet_tpu_torch/csrc/maxpool_bwd.cu",
+            replaces="mxnet_tpu/ops/pallas_pool.py:55",
+            **launches["maxpool"], **pool_row))
+        for kern in ("fwd", "bwd"):
+            entries.append(dict(
+                common, name="batch_norm_" + kern,
+                source="mxnet_tpu_torch/csrc/batch_norm.cu",
+                replaces="mxnet_tpu/ops/nn.py:462",
+                **launches["batch_norm_" + kern], **bn[kern]))
+    # K1 grouped (the ResNeXt-style and depthwise convolutions) and with the
+    # roles swapped (the transposed convolution), bf16, eager
+    for form, line, what in (
+            ("im2col", 133, "grouped and depthwise"),
+            ("pertap", 111, "transposed convolution (roles swapped)")):
+        entries.append(dict(
+            name="conv_dw_" + form, path="grouped_conv", route="cuda",
+            source="mxnet_tpu_torch/csrc/conv_dw.cu",
+            replaces="mxnet_tpu/ops/pallas_conv.py:%d" % line,
+            plan_route="wgmma", what=what, **dw_grouped[form]))
     # the symbolic LeNet: captured as the ResNet step, float32
     for key, name, line, row in (
             ("im2col", "conv_dw_im2col", "mxnet_tpu/ops/pallas_conv.py:133",

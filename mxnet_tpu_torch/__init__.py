@@ -22,9 +22,10 @@ too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
 """
 
 from . import (attribute, autograd, callback, context, convert, executor,
-               gluon, initializer, io, lr_scheduler, metric, model, module,
-               monitor, name, ndarray, operator, ops, optimizer, parallel,
-               random, rnn, rtc, serving, symbol)
+               gluon, initializer, io, log, lr_scheduler, metric, model,
+               module, monitor, name, ndarray, operator, ops, optimizer,
+               parallel, predictor, random, rnn, rtc, serving, symbol,
+               test_utils)
 from . import initializer as init
 from . import module as mod
 from . import monitor as mon
@@ -46,8 +47,9 @@ __all__ = ["AttrScope", "DataBatch", "DataIter", "Executor", "MXNetError",
            "Module", "NDArray", "NameManager", "Symbol", "attribute",
            "autograd", "callback", "context", "convert", "cpu",
            "do_checkpoint", "executor", "gpu", "gluon", "init",
-           "initializer", "io", "load_checkpoint", "lr_scheduler", "metric",
+           "initializer", "io", "load_checkpoint", "log", "lr_scheduler",
+           "metric",
            "mod", "model", "module", "mon", "monitor", "name", "nd",
-           "ndarray", "operator", "ops", "optimizer", "parallel", "random",
-           "rnn", "rtc",
-           "save_checkpoint", "serving", "sym", "symbol"]
+           "ndarray", "operator", "ops", "optimizer", "parallel", "predictor",
+           "random", "rnn", "rtc",
+           "save_checkpoint", "serving", "sym", "symbol", "test_utils"]

@@ -57,9 +57,9 @@ _SIGNATURES = {
     },
     "conv_dw": {
         "mxt_conv_dw_pertap": (ctypes.c_int, [ctypes.c_void_p] * 4
-                               + [ctypes.c_int] * 19 + [ctypes.c_void_p]),
+                               + [ctypes.c_int] * 20 + [ctypes.c_void_p]),
         "mxt_conv_dw_im2col": (ctypes.c_int, [ctypes.c_void_p] * 4
-                               + [ctypes.c_int] * 19 + [ctypes.c_void_p]),
+                               + [ctypes.c_int] * 20 + [ctypes.c_void_p]),
         "mxt_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "batch_norm": {

@@ -3,12 +3,20 @@
 // Replaces mxnet_tpu/ops/pallas_conv.py::_dw_kernel_pertap (K1a) and
 // ::_dw_kernel_im2col (K1b), the Pallas TPU kernels behind conv_dw_nhwc.
 // It computes the same function for an NHWC input and OHWI weights
-// (groups 1, dilation dh x dw):
+// (dilation dh x dw):
 //   dW[o, r, s, i] = sum_{n,y,x} X[n, y*sy + r*dh - py, x*sx + s*dw - px, i]
 //                                * dY[n, y, x, o]
 // with taps outside the image reading as 0, so nothing is padded in device
-// memory (the JAX wrapper pads x with jnp.pad).  The sum runs in float32
-// and dW is written in float32; the caller casts it to the weight's type.
+// memory (the JAX wrapper pads x with jnp.pad).  With G groups the same
+// product runs on each group's slice: group g's dW rows o = g*O/G ..
+// (g+1)*O/G - 1 take channels g*I/G .. of x and g*O/G .. of dY, and dW is
+// (O, KH, KW, I/G).  The JAX package sends a grouped dW to XLA
+// (pallas_conv.py supported(): groups != 1); here every group is one more
+// slice of the grid's y axis (the block reads x and dY at the group's
+// channel offset with the full row strides I and O), so a grouped or
+// depthwise (I/G = 1) convolution runs the same kernels as any other.
+// The sum runs in float32 and dW is written in float32; the caller casts
+// it to the weight's type.
 //
 // The algebra.  dW is an implicit GEMM, dW[o, m] = sum_p dY[p, o] *
 // X^[p, m], over the reduction axis p = (n, y, x), K = N*OH*OW (1.6 M at
@@ -153,13 +161,24 @@
 namespace {
 
 struct Shape {
-  int n, h, w, ci;        // x
-  int oh, ow, co;         // dy
+  int n, h, w, ci;        // x; ci: the channels of one group (I/G)
+  int oh, ow, co;         // dy; co: the channels of one group (O/G)
   int kh, kw, sy, sx, py, px;
   int dil_h, dil_w;       // dilation: tap (r, s) lies r*dil_h, s*dil_w away
   int mt;                 // rows of dW^T: kh * kw * ci
   int splits, chunk;      // split-K: chunk positions per split
+  int groups;             // G
+  int xs, ys;             // row strides of x (I = G*ci) and dy (O = G*co)
 };
+
+// the tiles of output channels of one group, and the group and first
+// output channel (within the group) of grid row y
+__device__ __forceinline__ void group_tile(const Shape& s, int tile_o, int& g,
+                                           int& o0) {
+  const int o_tiles = (s.co + tile_o - 1) / tile_o;
+  g = blockIdx.y / o_tiles;
+  o0 = (blockIdx.y % o_tiles) * tile_o;
+}
 
 // A running reduction position: p and its (n, y, x).
 struct Pos {
@@ -323,13 +342,19 @@ __device__ __forceinline__ int tap_dx(int dyx) { return (int)(short)(dyx & 0xfff
 // im2col.
 template <bool kF16, bool kIm2col, bool kVecA, bool kVecB, bool kWideO>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
-                     const uint16_t* __restrict__ dy,
+conv_dw_wgmma_kernel(const uint16_t* __restrict__ x_all,
+                     const uint16_t* __restrict__ dy_all,
                      float* __restrict__ out, Shape s, Step st) {
   constexpr int kM = kWideO ? 128 : 64;  // output channels of the tile
   constexpr int kN = kWideO ? 128 : 64;  // rows of a warpgroup's product
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  int g, o0;
+  group_tile(s, kM, g, o0);
+  // the group's channels: x and dY from its channel offset, rows of
+  // s.xs and s.ys elements
+  const uint16_t* const x = x_all + (int64_t)g * s.ci;
+  const uint16_t* const dy = dy_all + (int64_t)g * s.co;
   const uint16_t* xr = x;
   const uint16_t* dyr = dy;
 
@@ -338,7 +363,6 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
   const int taps = s.kh * s.kw;
   const int split = kIm2col ? blockIdx.z : blockIdx.z / taps;
   const int tap = kIm2col ? 0 : blockIdx.z % taps;
-  const int o0 = blockIdx.y * kM;
   const int m0 = blockIdx.x * kBN;  // im2col: on the flattened axis;
                                     // per-tap: a channel of the tap
   const int k_total = s.n * s.oh * s.ow;
@@ -398,7 +422,7 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
         const int dyo = tap_dy(b_dyx[e]), dxo = tap_dx(b_dyx[e]);
         const bool ok = pv && (unsigned)(yb + dyo) < (unsigned)s.h &&
                         (unsigned)(xb + dxo) < (unsigned)s.w;
-        xe[j][e] = ldg_u16(xr + (pix + dyo * s.w + dxo) * s.ci + b_i[e], ok);
+        xe[j][e] = ldg_u16(xr + (pix + dyo * s.w + dxo) * s.xs + b_i[e], ok);
       }
       step(xpos[j], st, s);
     }
@@ -422,12 +446,12 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
       if constexpr (kVecA) {
         const bool ok = pv && oc < s.co;
         if (a_mine)
-          cp_async16(dst_a, ok ? dy + (int64_t)q.p * s.co + oc : dy, ok);
+          cp_async16(dst_a, ok ? dy + (int64_t)q.p * s.ys + oc : dy, ok);
       } else if (a_mine) {
         uint32_t v[4];
 #pragma unroll
         for (int e = 0; e < 8; e += 2) {
-          const int64_t at = (int64_t)q.p * s.co + oc + e;
+          const int64_t at = (int64_t)q.p * s.ys + oc + e;
           const uint32_t lo = pv && oc + e < s.co ? __ldg(dyr + at) : 0u;
           const uint32_t hi = pv && oc + e + 1 < s.co ? __ldg(dyr + at + 1) : 0u;
           v[e >> 1] = lo | (hi << 16);
@@ -440,7 +464,7 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
         const bool ok = pv && (unsigned)yy < (unsigned)s.h &&
                         (unsigned)xx < (unsigned)s.w;
         cp_async16(dst_b,
-                   ok ? x + ((int64_t)(q.n * s.h + yy) * s.w + xx) * s.ci + b_i[0]
+                   ok ? x + ((int64_t)(q.n * s.h + yy) * s.w + xx) * s.xs + b_i[0]
                       : x,
                    ok);
       } else {
@@ -488,10 +512,10 @@ conv_dw_wgmma_kernel(const uint16_t* __restrict__ x,
   wgmma_wait<0>();
   fence_acc(acc);
 
-  // the partial of this split in OHWI order, out[o][m]: thread (warp w,
-  // lane l) of warpgroup g holds rows w*16 + l/4 (+8) and columns
-  // 8j + 2(l%4) (+1) of g's product
-  float* dst = out + (int64_t)split * s.co * s.mt;
+  // the partial of this split in OHWI order, out[o][m] (the group's rows
+  // from g*O/G): thread (warp w, lane l) of warpgroup wg holds rows
+  // w*16 + l/4 (+8) and columns 8j + 2(l%4) (+1) of wg's product
+  float* dst = out + ((int64_t)split * s.groups + g) * s.co * s.mt;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int m_lim = kIm2col ? s.mt : s.ci;
   const int m_abs = kIm2col ? m0 : tap * s.ci + m0;
@@ -587,7 +611,7 @@ __device__ __forceinline__ void x_rows(const float* __restrict__ x, const Pos& q
     const int yy = yb + r * s.dil_h, xx = xb + ss * s.dil_w;
     const bool ok = pv && e < c.left && (unsigned)yy < (unsigned)s.h &&
                     (unsigned)xx < (unsigned)s.w;
-    f(e, ok ? x + ((int64_t)(q.n * s.h + yy) * s.w + xx) * s.ci + i : x, ok);
+    f(e, ok ? x + ((int64_t)(q.n * s.h + yy) * s.w + xx) * s.xs + i : x, ok);
     ++i;
     if (kIm2col && i == s.ci) {
       i = 0;
@@ -604,7 +628,7 @@ __device__ __forceinline__ void x_rows(const float* __restrict__ x, const Pos& q
 template <class F>
 __device__ __forceinline__ void dy_rows(const float* __restrict__ dy, int p, bool pv, int o,
                                         const Shape& s, bool vec, F&& f) {
-  const float* row = dy + (int64_t)p * s.co + o;
+  const float* row = dy + (int64_t)p * s.ys + o;
 #pragma unroll
   for (int e = 0; e < (vec ? 1 : 4); ++e) {
     const bool ok = pv && o + e < s.co;
@@ -622,9 +646,14 @@ __device__ __forceinline__ void dy_rows(const float* __restrict__ dy, int p, boo
 // narrow), z split-major (split, tap) for per-tap, split for im2col.
 template <bool kIm2col, int kN, bool kVecR>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+conv_dw_tf32_kernel(const float* __restrict__ x_all, const float* __restrict__ dy_all,
                     float* __restrict__ out, Shape s, Step st, int vec_s) {
   constexpr bool kWide = kN == 128;
+  int g, o0;
+  group_tile(s, kN, g, o0);
+  // the group's channels, as in the 16-bit kernel
+  const float* const x = x_all + (int64_t)g * s.ci;
+  const float* const dy = dy_all + (int64_t)g * s.co;
   using G = Ring<kN>;
   constexpr int kSChunks = kN / 4;  // chunks of the S operand at a position
   // S loads a thread: (chunk pair, half of the stage's positions) blocks
@@ -641,7 +670,6 @@ conv_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int tap = kIm2col ? 0 : blockIdx.z % taps;
   const int m0 = blockIdx.x * kRows;  // im2col: on the flattened axis;
                                       // per-tap: a channel of the tap
-  const int o0 = blockIdx.y * kN;
   const int k_total = s.n * s.oh * s.ow;
   const int p_begin = split * s.chunk;
   const int p_end = min(p_begin + s.chunk, k_total);
@@ -808,10 +836,10 @@ conv_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
   cp_async_wait<0>();
 
-  // the partial of this split in OHWI order, out[o][m]: thread (warp w,
-  // lane l) of warpgroup g holds M rows g*64 + w*16 + l/4 (+8) and N
-  // columns 8j + 2(l%4) (+1)
-  float* dst = out + (int64_t)split * s.co * s.mt;
+  // the partial of this split in OHWI order, out[o][m] (the group's rows
+  // from g*O/G): thread (warp w, lane l) of warpgroup wg holds M rows
+  // wg*64 + w*16 + l/4 (+8) and N columns 8j + 2(l%4) (+1)
+  float* dst = out + ((int64_t)split * s.groups + g) * s.co * s.mt;
   const int m_lim = kIm2col ? s.mt : s.ci;
   const int m_abs = kIm2col ? 0 : tap * s.ci;
 #pragma unroll
@@ -846,7 +874,7 @@ __global__ void conv_dw_reduce_kernel(const float* __restrict__ ws,
 
 int launch_reduce(const float* ws, float* dw, const Shape& s,
                   cudaStream_t stream) {
-  const int64_t elems = (int64_t)s.co * s.mt;
+  const int64_t elems = (int64_t)s.groups * s.co * s.mt;
   const int64_t blocks = (elems + 255) / 256;
   conv_dw_reduce_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0,
                           stream>>>(ws, dw, elems, s.splits);
@@ -859,15 +887,15 @@ int launch_f32(const void* x, const void* dy, float* ws, float* dw,
   const int m_rows = kIm2col ? s.mt : s.ci;
   const int64_t gz = kIm2col ? (int64_t)s.splits
                              : (int64_t)s.kh * s.kw * s.splits;
-  if (gz > 65535 || (s.co + kN - 1) / kN > 65535 || s.chunk % f32::kBK != 0)
+  const int64_t gy = (int64_t)(s.co + kN - 1) / kN * s.groups;
+  if (gz > 65535 || gy > 65535 || s.chunk % f32::kBK != 0)
     return cudaErrorInvalidConfiguration;
   auto kernel = f32::conv_dw_tf32_kernel<kIm2col, kN, kVecR>;
   constexpr int kSmem = f32::Ring<kN>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((m_rows + f32::kRows - 1) / f32::kRows, (s.co + kN - 1) / kN,
-            (unsigned)gz);
+  dim3 grid((m_rows + f32::kRows - 1) / f32::kRows, (unsigned)gy, (unsigned)gz);
   kernel<<<grid, f32::kThreads, kSmem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dy),
       s.splits == 1 ? dw : ws, s, Step{f32::kBK / s.ow, f32::kBK % s.ow},
@@ -909,14 +937,14 @@ int launch_tc(const void* x, const void* dy, float* ws, float* dw,
   const int m_rows = kIm2col ? s.mt : s.ci;
   const int64_t gz = kIm2col ? (int64_t)s.splits
                              : (int64_t)s.kh * s.kw * s.splits;
-  if (gz > 65535 || (s.co + kM - 1) / kM > 65535 || s.chunk % tc::kBK != 0)
+  const int64_t gy = (int64_t)(s.co + kM - 1) / kM * s.groups;
+  if (gz > 65535 || gy > 65535 || s.chunk % tc::kBK != 0)
     return cudaErrorInvalidConfiguration;
   auto kernel = tc::conv_dw_wgmma_kernel<kF16, kIm2col, kVecA, kVecB, kWideO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmemBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((m_rows + tc::kBN - 1) / tc::kBN, (s.co + kM - 1) / kM,
-            (unsigned)gz);
+  dim3 grid((m_rows + tc::kBN - 1) / tc::kBN, (unsigned)gy, (unsigned)gz);
   kernel<<<grid, tc::kThreads, tc::kSmemBytes, stream>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
       s.splits == 1 ? dw : ws, s,
@@ -952,43 +980,48 @@ int launch_tc_variant(const void* x, const void* dy, float* ws, float* dw,
 }
 
 // variant: bit 0 reads dy and bit 1 reads x by 16-byte loads; then, for
-// bf16 and float16, bit 2 takes tiles of 64 output channels (O <= 64)
+// bf16 and float16, bit 2 takes tiles of 64 output channels (O/G <= 64)
 // instead of 128, and for float32, bits 2-6 hold the S operand's rows / 8
-// (16, 24, 32 or 64 when O is at most that, else 128)
+// (16, 24, 32 or 64 when O/G is at most that, else 128).  ci and co are
+// the whole widths I and O, each a multiple of groups; the loads and tiles
+// are chosen by a group's widths I/G and O/G.
 template <bool kIm2col>
 int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
              int w, int ci, int oh, int ow, int co, int kh, int kw, int sy,
-             int sx, int py, int px, int dil_h, int dil_w, int splits,
-             int chunk, int dtype, int variant, void* stream) {
+             int sx, int py, int px, int dil_h, int dil_w, int groups,
+             int splits, int chunk, int dtype, int variant, void* stream) {
   // a tap's offsets must fit the 16-bit halves of the tensor-core kernel
   if (n <= 0 || h <= 0 || w <= 0 || ci <= 0 || oh <= 0 || ow <= 0 || co <= 0 ||
       kh <= 0 || kw <= 0 || sy <= 0 || sx <= 0 || splits <= 0 || chunk <= 0 ||
       dil_h <= 0 || dil_w <= 0 || (int64_t)(kh - 1) * dil_h > 8192 ||
       (int64_t)(kw - 1) * dil_w > 8192 || py > 8192 || px > 8192 ||
       (int64_t)splits * chunk < (int64_t)n * oh * ow || variant < 0 ||
-      variant > (dtype == 0 ? 127 : 7))
+      variant > (dtype == 0 ? 127 : 7) || groups <= 0 || ci % groups != 0 ||
+      co % groups != 0)
     return cudaErrorInvalidValue;
-  Shape s{n, h, w, ci, oh, ow, co, kh, kw, sy, sx, py, px, dil_h, dil_w,
-          kh * kw * ci, splits, chunk};
+  const int cg = ci / groups, og = co / groups;
+  Shape s{n, h, w, cg, oh, ow, og, kh, kw, sy, sx, py, px, dil_h, dil_w,
+          kh * kw * cg, splits, chunk, groups, ci, co};
   auto st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   float* dwf = static_cast<float*>(dw);
   const bool vec_dy = variant & 1, vec_x = variant & 2;
   if (dtype == 0) {
     const int tile_n = (variant >> 2) * 8;
-    if ((vec_dy && (co % 4 != 0 || !aligned16(dy))) ||
-        (vec_x && (ci % 4 != 0 || !aligned16(x))))
+    // a group's slice keeps 16-byte alignment only where its width does
+    if ((vec_dy && (og % 4 != 0 || !aligned16(dy))) ||
+        (vec_x && (cg % 4 != 0 || !aligned16(x))))
       return cudaErrorMisalignedAddress;
-    if (tile_n != 128 && co > tile_n) return cudaErrorInvalidValue;
+    if (tile_n != 128 && og > tile_n) return cudaErrorInvalidValue;
     return launch_f32_variant<kIm2col>(x, dy, wsf, dwf, s, vec_dy, vec_x,
                                        tile_n, st);
   }
   if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
   const bool wide_o = !(variant & 4);
-  if ((vec_dy && (co % 8 != 0 || !aligned16(dy))) ||
-      (vec_x && (ci % 8 != 0 || !aligned16(x))))
+  if ((vec_dy && (og % 8 != 0 || !aligned16(dy))) ||
+      (vec_x && (cg % 8 != 0 || !aligned16(x))))
     return cudaErrorMisalignedAddress;
-  if (!wide_o && co > 64) return cudaErrorInvalidValue;
+  if (!wide_o && og > 64) return cudaErrorInvalidValue;
   if (dtype == 2)
     return launch_tc_variant<true, kIm2col>(x, dy, wsf, dwf, s, vec_dy, vec_x,
                                             wide_o, st);
@@ -999,28 +1032,29 @@ int dispatch(const void* x, const void* dy, void* ws, void* dw, int n, int h,
 }  // namespace
 
 // x (N, H, W, I) and dy (N, OH, OW, O) contiguous, of one dtype (0 float32,
-// 1 bf16, 2 float16); ws float32 [splits][O][KH*KW*I] (unused with one
-// split); dw float32 (O, KH, KW, I); variant as dispatch() says.
+// 1 bf16, 2 float16), in `groups` groups; ws float32
+// [splits][O][KH*KW*I/G] (unused with one split); dw float32 (O, KH, KW,
+// I/G); variant as dispatch() says.
 extern "C" int mxt_conv_dw_pertap(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,
                                   int oh, int ow, int co, int kh, int kw,
                                   int sy, int sx, int py, int px, int dil_h,
-                                  int dil_w, int splits, int chunk, int dtype,
-                                  int variant, void* stream) {
+                                  int dil_w, int groups, int splits, int chunk,
+                                  int dtype, int variant, void* stream) {
   return dispatch<false>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy, sx,
-                      py, px, dil_h, dil_w, splits, chunk, dtype, variant,
-                      stream);
+                      py, px, dil_h, dil_w, groups, splits, chunk, dtype,
+                      variant, stream);
 }
 
 extern "C" int mxt_conv_dw_im2col(const void* x, const void* dy, void* ws,
                                   void* dw, int n, int h, int w, int ci,
                                   int oh, int ow, int co, int kh, int kw,
                                   int sy, int sx, int py, int px, int dil_h,
-                                  int dil_w, int splits, int chunk, int dtype,
-                                  int variant, void* stream) {
+                                  int dil_w, int groups, int splits, int chunk,
+                                  int dtype, int variant, void* stream) {
   return dispatch<true>(x, dy, ws, dw, n, h, w, ci, oh, ow, co, kh, kw, sy, sx,
-                      py, px, dil_h, dil_w, splits, chunk, dtype, variant,
-                      stream);
+                      py, px, dil_h, dil_w, groups, splits, chunk, dtype,
+                      variant, stream);
 }
 
 extern "C" const char* mxt_error_string(int err) {

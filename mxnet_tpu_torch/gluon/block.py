@@ -213,6 +213,29 @@ class Block(nn.Module):
         """Structural name -> parameter, in registration order."""
         return collections.OrderedDict(self.named_parameters())
 
+    def collect_aux_losses(self):
+        """The sum of the ``aux_loss`` of every descendant block (itself
+        included) whose class publishes one (``mxnet_tpu/gluon/
+        block.py:170-200``): a property holding its last forward's
+        auxiliary loss.  A block reachable twice counts once.  Call it
+        after the forward, in the same recording scope, or let
+        ``GluonTrainStep(aux_loss_weight=w)`` add ``w`` times it to the
+        loss.  Raises ``ValueError`` when no descendant publishes one."""
+        total = None
+        stack, seen = [self], set()
+        while stack:
+            b = stack.pop()
+            if id(b) in seen:
+                continue
+            seen.add(id(b))
+            if getattr(type(b), "aux_loss", None) is not None:
+                total = b.aux_loss if total is None else total + b.aux_loss
+            stack.extend(b.children())
+        if total is None:
+            raise ValueError("no descendant of %r publishes an aux_loss"
+                             % (self,))
+        return total
+
     def initialize(self, init=None, seed=0):
         """Fill every parameter on its device: by its own initializer
         where its layer was given one (``weight_initializer``, ...), else

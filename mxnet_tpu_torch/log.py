@@ -16,8 +16,16 @@ import os
 import sys
 import time
 
-__all__ = ["get_logger", "warn_rate_limited", "warn_once",
-           "reset_rate_limits", "process_identity", "rank_suffix_path"]
+__all__ = ["get_logger", "getLogger", "warn_rate_limited", "warn_once",
+           "reset_rate_limits", "process_identity", "rank_suffix_path",
+           "CRITICAL", "ERROR", "WARNING", "INFO", "DEBUG", "NOTSET"]
+
+CRITICAL = logging.CRITICAL
+ERROR = logging.ERROR
+WARNING = logging.WARNING
+INFO = logging.INFO
+DEBUG = logging.DEBUG
+NOTSET = logging.NOTSET
 
 _COLORS = ((logging.WARNING, "\x1b[31m"), (logging.INFO, "\x1b[32m"),
            (logging.NOTSET, "\x1b[34m"))
@@ -137,3 +145,12 @@ def reset_rate_limits(prefix=None):
         return
     for k in [k for k in _rate_state if k.startswith(prefix)]:
         del _rate_state[k]
+
+
+def getLogger(name=None, filename=None, filemode=None, level=WARNING):
+    """Deprecated alias of :func:`get_logger` (reference parity)."""
+    import warnings
+
+    warnings.warn("getLogger is deprecated; use get_logger",
+                  DeprecationWarning, stacklevel=2)
+    return get_logger(name, filename, filemode, level)

@@ -1,15 +1,18 @@
 """Convolution backward-filter (dW) of the PyTorch port.
 
 Counterpart of ``mxnet_tpu/ops/pallas_conv.py``.  Layouts: data NHWC,
-weight OHWI, groups 1, dilation (dh, dw):
+weight OHWI, dilation (dh, dw), ``groups`` G:
 
-    dW[o, r, s, i] = sum_{n,y,x} Xp[n, y*sy + r*dh, x*sx + s*dw, i]
-                     * dY[n, y, x, o]
+    dW[o, r, s, i] = sum_{n,y,x} Xp[n, y*sy + r*dh, x*sx + s*dw, g*I/G + i]
+                     * dY[n, y, x, o],   g = o // (O/G), i < I/G
 
-with ``Xp`` the input zero-padded by ``pad`` on both sides.  The JAX
-package sends a dilated convolution's dW to XLA (``ops/nn.py:79-80``);
-here it runs the same kernels as every other convolution, a tap reading
-``x`` ``r*dh`` rows and ``s*dw`` columns from the window's corner.
+with ``Xp`` the input zero-padded by ``pad`` on both sides; dW is (O, KH,
+KW, I/G).  The JAX package sends a dilated or grouped convolution's dW to
+XLA (``ops/nn.py:79-80``, ``pallas_conv.py:57``); here they run the same
+kernels as every other convolution, a tap reading ``x`` ``r*dh`` rows and
+``s*dw`` columns from the window's corner, each group one more slice of
+the grid reading its channels of ``x`` and ``dy`` (a depthwise
+convolution, I/G = 1, included).
 
 - :func:`conv_dw_reference` is the plain version: one float32 ``einsum``
   per tap over strided slices of the padded input, the JAX formula
@@ -21,7 +24,8 @@ here it runs the same kernels as every other convolution, a tap reading
   the card they never fall back: a launch that fails raises.  Each counts
   its launches in ``.launches``.
 - :func:`conv_dw` picks the formulation by the JAX package's rule
-  (:func:`formulation`: im2col below 128 input channels) and runs it.
+  (:func:`formulation`: im2col below 128 input channels of a group) and
+  runs it.
 - :func:`launch_plan` says, from the shapes alone, what a launch runs:
   the tensor-core kernel, bf16 and float16 on 16-bit ``wgmma`` (16-byte
   or register-staged loads of x and dy) and float32 by 3xTF32 on tf32
@@ -29,7 +33,7 @@ here it runs the same kernels as every other convolution, a tap reading
   O <= 64, O padded to 16, 24, 32 or 64), with the split-K partition
   (:func:`split_plan`) and the workspace.
 
-Every result is float32 (O, KH, KW, I); the caller casts it to the
+Every result is float32 (O, KH, KW, I/G); the caller casts it to the
 weight's dtype.
 """
 
@@ -98,23 +102,25 @@ class LaunchPlan(NamedTuple):
 
 
 def formulation(in_channels):
-    """``"im2col"`` below 128 input channels, else ``"pertap"``
-    (``pallas_conv.py:178-181``)."""
+    """``"im2col"`` below 128 input channels (of a group), else
+    ``"pertap"`` (``pallas_conv.py:178-181``)."""
     return "im2col" if in_channels < 128 else "pertap"
 
 
-def _tiles(form, kernel, in_channels, out_channels, tile_rows, tile_o):
+def _tiles(form, kernel, in_channels, out_channels, tile_rows, tile_o,
+           groups=1):
     kh, kw = kernel
     rows = kh * kw * in_channels if form == "im2col" else in_channels
-    tiles = -(-rows // tile_rows) * -(-out_channels // tile_o)
+    tiles = -(-rows // tile_rows) * -(-out_channels // tile_o) * groups
     return tiles * (kh * kw if form == "pertap" else 1)
 
 
 def split_plan(form, kernel, in_channels, out_channels, positions,
-               dtype=torch.float32):
+               dtype=torch.float32, groups=1):
     """(splits, chunk) of the split-K partition: the reduction over
     ``positions`` = N*OH*OW is cut into ``splits`` chunks of ``chunk``
-    positions (the last one shorter).
+    positions (the last one shorter).  ``in_channels`` and
+    ``out_channels`` are a group's; the tiles of all ``groups`` count.
 
     Chunks are whole stages (64 positions for bf16 and float16, 32 for
     float32), at least four, and the split count is the one, up to eight
@@ -123,7 +129,7 @@ def split_plan(form, kernel, in_channels, out_channels, positions,
     in whole waves."""
     stage = TF32_STAGE if dtype == torch.float32 else TC_STAGE
     tiles = _tiles(form, kernel, in_channels, out_channels, TC_TILE_ROWS,
-                   _tile_o(out_channels, dtype))
+                   _tile_o(out_channels, dtype), groups)
     stages = -(-positions // stage)
     most = max(1, min(-(-_TC_MAX_WAVES * _SMS // tiles),
                       stages // _MIN_CHUNK_STAGES))
@@ -148,24 +154,29 @@ def _tile_o(out_channels, dtype):
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(form, kernel, stride, pad, x_shape, o, dtype,
-                dilate=(1, 1)):
+                dilate=(1, 1), groups=1):
     """The :class:`LaunchPlan` of dW by ``form`` for an NHWC ``x_shape``,
-    ``kernel``, ``stride``, ``pad``, ``dilate`` and ``o`` output channels
-    in ``dtype`` (float32, bfloat16 or float16): a pure function of the
-    shapes."""
+    ``kernel``, ``stride``, ``pad``, ``dilate``, ``o`` output channels
+    and ``groups`` in ``dtype`` (float32, bfloat16 or float16): a pure
+    function of the shapes.  The loads, the tile and the split follow a
+    group's widths I/G and O/G: a group's channel slice keeps the 16-byte
+    loads only where its width is a whole number of them, as its channel
+    offset then keeps them aligned."""
     n, h, w, ci = x_shape
     kh, kw = kernel
+    cg, og = ci // groups, o // groups
     positions = (n * _out_size(h, kh, stride[0], pad[0], dilate[0])
                  * _out_size(w, kw, stride[1], pad[1], dilate[1]))
-    splits, chunk = split_plan(form, kernel, ci, o, positions, dtype)
-    dw_elems = o * kh * kw * ci
+    splits, chunk = split_plan(form, kernel, cg, og, positions, dtype,
+                               groups)
+    dw_elems = o * kh * kw * cg
     f32 = dtype == torch.float32
     lanes, other = (4, "4-byte") if f32 else (8, "register-staged")
     return LaunchPlan("mxt_conv_dw_" + form, "tensor-core",
                       "tf32x3" if f32 else "wgmma",
-                      "16-byte" if ci % lanes == 0 else other,
-                      "16-byte" if o % lanes == 0 else other,
-                      _tile_o(o, dtype), splits, chunk,
+                      "16-byte" if cg % lanes == 0 else other,
+                      "16-byte" if og % lanes == 0 else other,
+                      _tile_o(og, dtype), splits, chunk,
                       splits * dw_elems if splits > 1 else 0)
 
 
@@ -173,9 +184,12 @@ def _out_size(size, k, s, p, d=1):
     return (size + 2 * p - d * (k - 1) - 1) // s + 1
 
 
-def _check(x, dy, kernel, stride, pad, dilate):
+def _check(x, dy, kernel, stride, pad, dilate, groups):
     if x.dim() != 4 or dy.dim() != 4:
         raise MXNetError("conv_dw takes NHWC x and dy")
+    if groups < 1 or x.shape[3] % groups or dy.shape[3] % groups:
+        raise MXNetError("conv_dw: %d groups do not divide I = %d and O = "
+                         "%d" % (groups, x.shape[3], dy.shape[3]))
     n, h, w, _ = x.shape
     kh, kw = kernel
     sy, sx = stride
@@ -202,23 +216,27 @@ def _check(x, dy, kernel, stride, pad, dilate):
 
 
 def conv_dw_reference(x, dy, kernel, stride=(1, 1), pad=(0, 0),
-                      dilate=(1, 1)):
-    """Plain dW: float32 (O, KH, KW, I), one einsum per tap."""
+                      dilate=(1, 1), groups=1):
+    """Plain dW: float32 (O, KH, KW, I/G), one einsum per tap and group."""
     kh, kw = kernel
     sy, sx = stride
     py, px = pad
     dh, dw_ = dilate
     oh, ow = dy.shape[1], dy.shape[2]
+    cg, og = x.shape[3] // groups, dy.shape[3] // groups
     xp = F.pad(x.float(), (0, 0, px, px, py, py))
     dyf = dy.float()
-    dw = torch.empty((dy.shape[3], kh, kw, x.shape[3]), dtype=torch.float32,
+    dw = torch.empty((dy.shape[3], kh, kw, cg), dtype=torch.float32,
                      device=x.device)
-    for r in range(kh):
-        for s in range(kw):
-            y0, x0 = r * dh, s * dw_
-            xs = xp[:, y0:y0 + sy * (oh - 1) + 1:sy,
-                    x0:x0 + sx * (ow - 1) + 1:sx]
-            dw[:, r, s, :] = torch.einsum("nyxi,nyxo->oi", xs, dyf)
+    for g in range(groups):
+        dyg = dyf[..., g * og:(g + 1) * og]
+        for r in range(kh):
+            for s in range(kw):
+                y0, x0 = r * dh, s * dw_
+                xs = xp[:, y0:y0 + sy * (oh - 1) + 1:sy,
+                        x0:x0 + sx * (ow - 1) + 1:sx, g * cg:(g + 1) * cg]
+                dw[g * og:(g + 1) * og, r, s, :] = torch.einsum(
+                    "nyxi,nyxo->oi", xs, dyg)
     return dw
 
 
@@ -227,57 +245,60 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _run(form, x, dy, kernel, stride, pad, dilate):
-    _check(x, dy, kernel, stride, pad, dilate)
+def _run(form, x, dy, kernel, stride, pad, dilate, groups):
+    _check(x, dy, kernel, stride, pad, dilate, groups)
     if x.device.type == "cpu":
-        return conv_dw_reference(x, dy, kernel, stride, pad, dilate)
+        return conv_dw_reference(x, dy, kernel, stride, pad, dilate, groups)
     lib = _kernels.library("conv_dw")
     n, h, w, ci = x.shape
     _, oh, ow, co = dy.shape
     kh, kw = kernel
     plan = launch_plan(form, tuple(kernel), tuple(stride), tuple(pad),
-                       tuple(x.shape), co, x.dtype, tuple(dilate))
+                       tuple(x.shape), co, x.dtype, tuple(dilate), groups)
     if plan.dy_loads == "16-byte":
         dy = _aligned(dy)
     if plan.x_loads == "16-byte":
         x = _aligned(x)
     ws = torch.empty(plan.ws_elems, dtype=torch.float32, device=x.device)
-    dw = torch.empty((co, kh, kw, ci), dtype=torch.float32, device=x.device)
+    dw = torch.empty((co, kh, kw, ci // groups), dtype=torch.float32,
+                     device=x.device)
     _kernels.launch(lib, getattr(lib, plan.entry), x, dy, ws, dw, n, h, w, ci,
                     oh, ow, co, kh, kw, stride[0], stride[1], pad[0], pad[1],
-                    dilate[0], dilate[1], plan.splits, plan.chunk,
+                    dilate[0], dilate[1], groups, plan.splits, plan.chunk,
                     _DTYPE_CODES[x.dtype], plan.variant)
     return dw
 
 
 def conv_dw_pertap(x, dy, kernel, stride=(1, 1), pad=(0, 0),
-                   dilate=(1, 1)):
-    """dW by K1a (a block owns one tap) on CUDA tensors, the plain
-    version on CPU tensors."""
-    dw = _run("pertap", x, dy, kernel, stride, pad, dilate)
+                   dilate=(1, 1), groups=1):
+    """dW by K1a (a block owns one tap of a group) on CUDA tensors, the
+    plain version on CPU tensors."""
+    dw = _run("pertap", x, dy, kernel, stride, pad, dilate, groups)
     if x.device.type == "cuda":
         conv_dw_pertap.launches += 1
     return dw
 
 
 def conv_dw_im2col(x, dy, kernel, stride=(1, 1), pad=(0, 0),
-                   dilate=(1, 1)):
-    """dW by K1b (a block's rows are the flattened (r, s, i)) on CUDA
-    tensors, the plain version on CPU tensors."""
-    dw = _run("im2col", x, dy, kernel, stride, pad, dilate)
+                   dilate=(1, 1), groups=1):
+    """dW by K1b (a block's rows are a group's flattened (r, s, i)) on
+    CUDA tensors, the plain version on CPU tensors."""
+    dw = _run("im2col", x, dy, kernel, stride, pad, dilate, groups)
     if x.device.type == "cuda":
         conv_dw_im2col.launches += 1
     return dw
 
 
-def conv_dw(x, dy, kernel, stride=(1, 1), pad=(0, 0), dilate=(1, 1)):
-    """dW of an NHWC/OHWI convolution: x (N, H, W, I) and dy (N, OH, OW,
-    O), contiguous, one dtype (float32, bfloat16 or float16).  Returns
-    float32 (O, KH, KW, I) through K1b when I < 128, else K1a."""
-    run = conv_dw_im2col if formulation(x.shape[-1]) == "im2col" \
+def conv_dw(x, dy, kernel, stride=(1, 1), pad=(0, 0), dilate=(1, 1),
+            groups=1):
+    """dW of an NHWC/OHWI convolution of ``groups`` groups: x (N, H, W,
+    I) and dy (N, OH, OW, O), contiguous, one dtype (float32, bfloat16 or
+    float16).  Returns float32 (O, KH, KW, I/G) through K1b when I/G <
+    128, else K1a."""
+    run = conv_dw_im2col if formulation(x.shape[-1] // groups) == "im2col" \
         else conv_dw_pertap
     return run(x, dy, tuple(kernel), tuple(stride), tuple(pad),
-               tuple(dilate))
+               tuple(dilate), int(groups))
 
 
 conv_dw_pertap.launches = 0

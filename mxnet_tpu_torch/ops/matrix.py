@@ -211,11 +211,20 @@ def reverse(x, axis=(), **_):
 # ---------------------------------------------------------------- products
 
 
+def promote(a, b):
+    """``a`` and ``b`` in their common type (``torch.promote_types``), as
+    ``jnp`` promotes the operands of a product."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
 @register("dot")
 def dot(a, b, transpose_a=False, transpose_b=False, **_):
     """MXNet dot: contracts the last axis of ``a`` with the first of ``b``
     (after a full transpose of either, if asked); two vectors give their
-    inner product."""
+    inner product.  Operands of two types are promoted first
+    (:func:`promote`)."""
+    a, b = promote(a, b)
     if transpose_a:
         a = a.permute(tuple(range(a.dim()))[::-1])
     if transpose_b:
@@ -227,7 +236,9 @@ def dot(a, b, transpose_a=False, transpose_b=False, **_):
 
 @register("batch_dot")
 def batch_dot(a, b, transpose_a=False, transpose_b=False, **_):
-    """Batched product of the trailing two axes."""
+    """Batched product of the trailing two axes, of operands promoted to
+    their common type (:func:`promote`)."""
+    a, b = promote(a, b)
     if transpose_a:
         a = a.transpose(-1, -2)
     if transpose_b:

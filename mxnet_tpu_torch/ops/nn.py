@@ -13,19 +13,37 @@ the JAX package's step, is the port's own forward and backward kernels
 (:mod:`.batch_norm`, K6a/K6b).  On the card they always run; there is no
 flag.
 
-Convolution and pooling take channel-last (NHWC) data and OHWI weights.
-They run cuDNN on the NHWC tensors viewed as NCHW with ``channels_last``
-strides, so nothing is copied.  The registered ``Convolution`` and
-``Pooling`` and the Gluon layers also take the JAX ops' default layout
-(``layout=None`` or ``"NCHW"``: NCHW data, OIHW weights): they permute
-into the NHWC path and back (:func:`nchw_call`), so the weight-gradient
-still runs K1 and the max-pool backward K2.  An NCHW result is the NHWC
-result's NCHW view, ``channels_last`` in memory, so the next layer's
-permute is free and only a network's first input is copied.
+Convolution and pooling take channel-last data (NWC, NHWC or NDHWC)
+and O+spatial+I weights.  They run cuDNN on the channel-last tensors
+viewed as channel-first with ``channels_last`` strides, so nothing is
+copied.  The registered ``Convolution`` and ``Pooling`` and the Gluon
+layers also take the JAX ops' default layouts (``layout=None``,
+``"NCW"``, ``"NCHW"`` or ``"NCDHW"``: channel-first data, OI+spatial
+weights): they permute into the channel-last path and back
+(:func:`nchw_call`), so the weight-gradient still runs K1 and the
+max-pool backward K2.  A channel-first result is the channel-last
+result's view, ``channels_last`` in memory, so the next layer's permute
+is free and only a network's first input is copied.
+
+Dimensions and groups.  A 2-D convolution of any ``num_group`` (a
+depthwise one included) takes its weight-gradient from K1; a 1-D one runs
+the 2-D path with a unit height, so K1 takes its weight-gradient too.  A
+3-D convolution takes cuDNN's forward and data-gradient and
+``aten.convolution_backward`` for its weight, the port's rule for work
+the JAX package leaves to XLA (its Pallas dW gate takes ``nd == 2``
+only, ``mxnet_tpu/ops/nn.py:79``).  ``Deconvolution`` (channel-first
+only, as in the JAX package) is cuDNN's transposed convolution forward
+and data-gradient; its weight-gradient is the convolution weight-gradient
+of the output's gradient over the input at the same stride, pad,
+dilation and groups, so its 1-D and 2-D forms launch K1 with the roles
+swapped and its 3-D form takes aten's.  Pooling in 1-D runs the 2-D path
+(K2 for the max backward); in 3-D aten's pools and their backward, as
+XLA does it in the JAX package (``mxnet_tpu/ops/nn.py:617``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,21 +52,47 @@ from .. import random as _random
 from ..base import MXNetError
 from .batch_norm import batch_norm
 from .conv_dw import conv_dw
+from .matrix import promote
 from .pool_bwd import maxpool_bwd
 from .registry import register
 
-__all__ = ["convolution", "fully_connected", "activation", "leaky_relu",
-           "batch_norm", "layer_norm", "pooling", "dropout", "softmax",
-           "log_softmax", "softmax_output", "regression_output",
-           "l2_normalization", "nchw_call"]
+__all__ = ["convolution", "deconvolution", "fully_connected",
+           "activation", "leaky_relu", "batch_norm", "layer_norm", "pooling",
+           "dropout", "softmax", "log_softmax", "softmax_output",
+           "regression_output", "l2_normalization", "nchw_call"]
+
+# the layouts of 1-, 2- and 3-D data
+CHANNEL_LAST = {1: "NWC", 2: "NHWC", 3: "NDHWC"}
+CHANNEL_FIRST = {1: "NCW", 2: "NCHW", 3: "NCDHW"}
 
 
-def _pair(v, what):
-    t = (int(v),) * 2 if isinstance(v, int) else tuple(int(a) for a in v)
-    if len(t) != 2:
-        raise MXNetError("%s must have 2 entries for a 2-D op, got %s"
-                         % (what, v))
+def _tup(v, n, what):
+    """``v`` (an int or a sequence) as a tuple of ``n`` ints."""
+    t = (int(v),) * n if isinstance(v, (int, np.integer)) \
+        else tuple(int(a) for a in v)
+    if len(t) != n:
+        raise MXNetError("%s must have %d entries for a %d-D op, got %s"
+                         % (what, n, n, v))
     return t
+
+
+def _spatial(data, op):
+    """The spatial dimensions of ``data``: 1, 2 or 3."""
+    nd = data.dim() - 2
+    if nd not in CHANNEL_LAST:
+        raise MXNetError("%s: the port takes 1-D, 2-D or 3-D data, got %s"
+                         % (op, tuple(data.shape)))
+    return nd
+
+
+def _last(t):
+    """The channel-last view of a channel-first tensor."""
+    return t.permute(0, *range(2, t.dim()), 1)
+
+
+def _first(t):
+    """The channel-first view of a channel-last tensor."""
+    return t.permute(0, t.dim() - 1, *range(1, t.dim() - 1))
 
 
 def _nchw(t):
@@ -63,50 +107,61 @@ def _nhwc(t):
 
 def _channel_first(layout):
     """True for the registered ops' channel-first layouts (None, the JAX
-    ops' default, or ``"NCHW"``)."""
-    return layout is None or layout == "NCHW"
+    ops' default, ``"NCW"``, ``"NCHW"`` or ``"NCDHW"``)."""
+    return layout is None or layout in CHANNEL_FIRST.values()
 
 
-def _check_nhwc(layout, op):
-    if layout != "NHWC":
-        raise MXNetError("%s: the port takes layout='NHWC' (channel-last "
-                         "data, OHWI weights); got %r" % (op, layout))
+def _check_channel_last(layout, nd, op):
+    if layout != CHANNEL_LAST[nd]:
+        raise MXNetError("%s: the port takes layout=%r here (channel-last "
+                         "data, O%sI weights) for %d-D data; got %r"
+                         % (op, CHANNEL_LAST[nd], CHANNEL_LAST[nd][1:-1],
+                            nd, layout))
 
 
-def _check_2d_layout(layout, op):
-    """A 2-D op's layout: ``"NHWC"`` or the channel-first default."""
-    if layout != "NHWC" and not _channel_first(layout):
-        raise MXNetError("%s: the port takes layout 'NCHW' (NCHW data, OIHW "
-                         "weights) or 'NHWC' (NHWC data, OHWI weights); got "
-                         "%r" % (op, layout))
+def _check_layout(layout, nd, op):
+    """A ``nd``-D op's layout: its channel-last one or the channel-first
+    default."""
+    if layout not in (None, CHANNEL_FIRST[nd], CHANNEL_LAST[nd]):
+        raise MXNetError("%s: the port takes layout %r (channel-first data, "
+                         "OI%s weights) or %r (channel-last data, O%sI "
+                         "weights); got %r"
+                         % (op, CHANNEL_FIRST[nd], CHANNEL_FIRST[nd][2:],
+                            CHANNEL_LAST[nd], CHANNEL_LAST[nd][1:-1],
+                            layout))
 
 
 def nchw_call(fn, data, *weights, layout, **kwargs):
-    """``fn`` (an NHWC op) on ``data`` and ``weights`` in ``layout``: in
-    the channel-first layouts each 4-D argument is seen as NHWC (OHWI)
-    and the result as NCHW again, both views (:func:`_nhwc`,
-    :func:`_nchw`)."""
+    """``fn`` (a channel-last op) on ``data`` and ``weights`` in
+    ``layout``: in the channel-first layouts each argument is seen as
+    channel-last (O+spatial+I) and the result as channel-first again,
+    both views (:func:`_last`, :func:`_first`)."""
     if not _channel_first(layout):
         return fn(data, *weights, layout=layout, **kwargs)
-    if data.dim() != 4 or any(w.dim() != 4 for w in weights):
-        raise MXNetError("the port takes 2-D NCHW data and OIHW weights, got "
-                         "%s" % [tuple(t.shape) for t in (data,) + weights])
-    return _nchw(fn(_nhwc(data), *(_nhwc(w) for w in weights),
-                    layout="NHWC", **kwargs))
+    nd = _spatial(data, getattr(fn, "__name__", "op"))
+    if any(w.dim() != data.dim() for w in weights):
+        raise MXNetError("the port takes %s data and OI%s weights, got %s"
+                         % (CHANNEL_FIRST[nd], CHANNEL_FIRST[nd][2:],
+                            [tuple(t.shape) for t in (data,) + weights]))
+    return _first(fn(_last(data), *(_last(w) for w in weights),
+                     layout=CHANNEL_LAST[nd], **kwargs))
 
 
 class _Convolution(torch.autograd.Function):
-    """NHWC/OHWI 2-D convolution.  Forward and data-gradient are cuDNN's
-    (``F.conv2d`` and ``aten.convolution_backward``) as the JAX package
-    leaves them to XLA; the weight-gradient is :func:`~.conv_dw.conv_dw`,
-    cast to the weight's dtype (``ops/nn.py:180-181`` of the JAX
-    package), dilated or not."""
+    """NHWC/OHWI 2-D convolution of ``groups`` groups.  Forward and
+    data-gradient are cuDNN's (``F.conv2d`` and
+    ``aten.convolution_backward``) as the JAX package leaves them to XLA;
+    the weight-gradient is :func:`~.conv_dw.conv_dw`, cast to the weight's
+    dtype (``ops/nn.py:180-181`` of the JAX package), dilated, grouped or
+    not."""
 
     @staticmethod
-    def forward(ctx, x, weight, stride, pad, dilate):
-        out = F.conv2d(_nchw(x), _nchw(weight), None, stride, pad, dilate)
+    def forward(ctx, x, weight, stride, pad, dilate, groups):
+        out = F.conv2d(_nchw(x), _nchw(weight), None, stride, pad, dilate,
+                       groups)
         ctx.save_for_backward(x, weight)
         ctx.stride, ctx.pad, ctx.dilate = stride, pad, dilate
+        ctx.groups = groups
         return _nhwc(out)
 
     @staticmethod
@@ -118,12 +173,46 @@ class _Convolution(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _nhwc(torch.ops.aten.convolution_backward(
                 _nchw(dy), _nchw(x), _nchw(weight), None, ctx.stride,
-                ctx.pad, ctx.dilate, False, (0, 0), 1,
+                ctx.pad, ctx.dilate, False, (0, 0), ctx.groups,
                 (True, False, False))[0])
         if ctx.needs_input_grad[1]:
             dw = conv_dw(x.contiguous(), dy, weight.shape[1:3], ctx.stride,
-                         ctx.pad, ctx.dilate).to(weight.dtype)
-        return dx, dw, None, None, None
+                         ctx.pad, ctx.dilate, ctx.groups).to(weight.dtype)
+        return dx, dw, None, None, None, None
+
+
+class _Deconvolution(torch.autograd.Function):
+    """2-D transposed convolution of NHWC ``x`` (N, H, W, I) with the
+    reference's weight (I, O/G, KH, KW), output NHWC.  Forward and
+    data-gradient are cuDNN's (``F.conv_transpose2d``, and the convolution
+    of dy by the same weight); the weight-gradient is the convolution
+    weight-gradient of dy over x at the same stride, pad, dilation and
+    groups (the roles swapped: dy is that convolution's input, x its
+    output), :func:`~.conv_dw.conv_dw` in (I, KH, KW, O/G), seen as
+    (I, O/G, KH, KW)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, pad, dilate, adj, groups):
+        out = F.conv_transpose2d(_nchw(x), weight, None, stride, pad, adj,
+                                 groups, dilate)
+        ctx.save_for_backward(x, weight)
+        ctx.cfg = stride, pad, dilate, adj, groups
+        return _nhwc(out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        stride, pad, dilate, adj, groups = ctx.cfg
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _nhwc(torch.ops.aten.convolution_backward(
+                _nchw(dy), _nchw(x), weight, None, stride, pad, dilate,
+                True, adj, groups, (True, False, False))[0])
+        if ctx.needs_input_grad[1]:
+            dw = conv_dw(dy, x.contiguous(), weight.shape[2:], stride, pad,
+                         dilate, groups).permute(0, 3, 1, 2).to(weight.dtype)
+        return dx, dw, None, None, None, None, None
 
 
 def _or(v, default):
@@ -138,44 +227,117 @@ def _convolution_op(data, weight, bias=None, kernel=(), stride=(),
     """The registered ``Convolution``: :func:`convolution` with the JAX
     op's attributes (an empty ``stride``/``dilate``/``pad`` is the
     default; ``cudnn_*`` and ``workspace`` are accepted and ignored).
-    ``layout`` None or ``"NCHW"`` (the JAX op's default) takes NCHW data
-    and OIHW weights through the NHWC path."""
+    ``layout`` None, ``"NCW"``, ``"NCHW"`` or ``"NCDHW"`` (the JAX op's
+    default) takes channel-first data and OI+spatial weights through the
+    channel-last path."""
     del cudnn_off, cudnn_tune, workspace
     return nchw_call(convolution, data, weight, layout=layout, bias=bias,
-                     kernel=_or(kernel, None), stride=_or(stride, (1, 1)),
-                     dilate=_or(dilate, (1, 1)), pad=_or(pad, (0, 0)),
+                     kernel=_or(kernel, None), stride=_or(stride, 1),
+                     dilate=_or(dilate, 1), pad=_or(pad, 0),
                      num_filter=num_filter, num_group=num_group,
                      no_bias=no_bias)
 
 
-def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
-                dilate=(1, 1), pad=(0, 0), num_filter=None, num_group=1,
-                no_bias=False, layout="NHWC"):
-    """2-D convolution (reference: src/operator/nn/convolution.cc) of NHWC
-    ``data`` (N, H, W, I) with OHWI ``weight`` (O, KH, KW, I), dilated by
-    ``dilate``, plus ``bias`` (O,) unless ``no_bias``.  Groups other than
-    1, and other layouts, raise :class:`MXNetError`."""
-    _check_nhwc(layout, "Convolution")
-    if int(num_group) != 1:
-        raise MXNetError("Convolution: the port takes num_group=1 (got %s)"
-                         % (num_group,))
-    if data.dim() != 4 or weight.dim() != 4 \
-            or weight.shape[3] != data.shape[3]:
-        raise MXNetError("Convolution: data %s and weight %s are not NHWC "
-                         "and OHWI of one input width"
-                         % (tuple(data.shape), tuple(weight.shape)))
-    if kernel is not None and _pair(kernel, "kernel") != tuple(
-            weight.shape[1:3]):
-        raise MXNetError("Convolution: kernel %s disagrees with weight %s"
-                         % (kernel, tuple(weight.shape)))
+def convolution(data, weight, bias=None, kernel=None, stride=1, dilate=1,
+                pad=0, num_filter=None, num_group=1, no_bias=False,
+                layout="NHWC"):
+    """1-, 2- or 3-D convolution (reference: src/operator/nn/
+    convolution.cc) of channel-last ``data`` (N, *spatial, I) with
+    ``weight`` (O, *kernel, I/G) in ``num_group`` groups G, dilated by
+    ``dilate``, plus ``bias`` (O,) unless ``no_bias``; ``layout`` names
+    the channel-last layout of the data's dimensions (``"NWC"``,
+    ``"NHWC"``, ``"NDHWC"``).  A 2-D convolution takes its weight-gradient
+    from K1 (grouped and depthwise too), a 1-D one through the 2-D path
+    with a unit height; a 3-D one is cuDNN's forward and data-gradient
+    and ``aten.convolution_backward``'s weight-gradient (the JAX package
+    leaves it to XLA).  Mixed data and weight types raise, as in the JAX
+    op."""
+    op = "Convolution"
+    nd = _spatial(data, op)
+    _check_channel_last(layout, nd, op)
+    groups = int(num_group)
+    if weight.dim() != data.dim() or groups < 1 \
+            or data.shape[-1] % groups or weight.shape[0] % groups \
+            or weight.shape[-1] * groups != data.shape[-1]:
+        raise MXNetError("%s: data %s and weight %s are not %s and O%sI of "
+                         "one input width in %d groups"
+                         % (op, tuple(data.shape), tuple(weight.shape),
+                            layout, layout[1:-1], groups))
+    k = tuple(weight.shape[1:-1])
+    if kernel is not None and _tup(kernel, nd, "kernel") != k:
+        raise MXNetError("%s: kernel %s disagrees with weight %s"
+                         % (op, kernel, tuple(weight.shape)))
     if num_filter is not None and int(num_filter) != weight.shape[0]:
-        raise MXNetError("Convolution: num_filter %s disagrees with weight "
-                         "%s" % (num_filter, tuple(weight.shape)))
-    out = _Convolution.apply(data.contiguous(), weight.contiguous(),
-                             _pair(stride, "stride"), _pair(pad, "pad"),
-                             _pair(dilate, "dilate"))
+        raise MXNetError("%s: num_filter %s disagrees with weight %s"
+                         % (op, num_filter, tuple(weight.shape)))
+    stride, pad, dilate = (_tup(v, nd, name) for v, name in (
+        (stride, "stride"), (pad, "pad"), (dilate, "dilate")))
+    if nd == 3:
+        out = _last(F.conv3d(_first(data), _first(weight), None, stride, pad,
+                             dilate, groups))
+    elif nd == 2:
+        out = _Convolution.apply(data.contiguous(), weight.contiguous(),
+                                 stride, pad, dilate, groups)
+    else:
+        out = _Convolution.apply(
+            data.contiguous().unsqueeze(1), weight.contiguous().unsqueeze(1),
+            (1,) + stride, (0,) + pad, (1,) + dilate, groups).squeeze(1)
     if bias is not None and not no_bias:
         out = out + bias
+    return out
+
+
+@register("Deconvolution")
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=None,
+                  num_group=1, no_bias=True, layout=None, **_):
+    """Transposed convolution (reference: src/operator/nn/
+    deconvolution.cc; ``mxnet_tpu/ops/nn.py:191-233``) of channel-first
+    ``data`` (N, I, *spatial) with ``weight`` (I, O/G, *kernel) in
+    ``num_group`` groups G, output padded by ``adj`` on the high side.
+    ``target_shape`` is accepted and unused, as in the JAX op; a supplied
+    ``bias`` is added whatever ``no_bias`` says, as there.  Channel-last
+    layouts raise, as in the JAX Gluon layers.  The 1-D and 2-D forms take
+    their weight-gradient from K1 with the roles swapped
+    (:class:`_Deconvolution`), the 3-D form aten's."""
+    del target_shape, no_bias
+    op = "Deconvolution"
+    nd = _spatial(data, op)
+    if not _channel_first(layout):
+        raise MXNetError("%s: the port takes channel-first data only (layout "
+                         "None or %r), as the JAX package; got %r"
+                         % (op, CHANNEL_FIRST[nd], layout))
+    groups = int(num_group)
+    if weight.dim() != data.dim() or groups < 1 \
+            or weight.shape[0] != data.shape[1] or data.shape[1] % groups:
+        raise MXNetError("%s: data %s and weight %s are not %s and (in, "
+                         "out/groups, *kernel) of %d groups"
+                         % (op, tuple(data.shape), tuple(weight.shape),
+                            CHANNEL_FIRST[nd], groups))
+    k = tuple(weight.shape[2:])
+    if kernel not in (None, ()) and _tup(kernel, nd, "kernel") != k:
+        raise MXNetError("%s: kernel %s disagrees with weight %s"
+                         % (op, kernel, tuple(weight.shape)))
+    if num_filter is not None and int(num_filter) != weight.shape[1] * groups:
+        raise MXNetError("%s: num_filter %s disagrees with weight %s in %d "
+                         "groups" % (op, num_filter, tuple(weight.shape),
+                                     groups))
+    stride, dilate, pad, adj = (_tup(_or(v, d), nd, name) for v, d, name in (
+        (stride, 1, "stride"), (dilate, 1, "dilate"), (pad, 0, "pad"),
+        (adj, 0, "adj")))
+    if nd == 3:
+        out = F.conv_transpose3d(data, weight, None, stride, pad, adj, groups,
+                                 dilate)
+    elif nd == 2:
+        out = _nchw(_Deconvolution.apply(_nhwc(data).contiguous(), weight,
+                                         stride, pad, dilate, adj, groups))
+    else:
+        out = _nchw(_Deconvolution.apply(
+            _nhwc(data.unsqueeze(2)).contiguous(), weight.unsqueeze(2),
+            (1,) + stride, (0,) + pad, (1,) + dilate, (0,) + adj,
+            groups)).squeeze(2)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
     return out
 
 
@@ -184,9 +346,12 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                     flatten=True, **_):
     """``data @ weight.T + bias`` (reference: fully_connected.cc:239);
     ``flatten`` folds every axis after the first into one; ``no_bias``
-    drops the bias (``num_hidden`` is read from the weight)."""
+    drops the bias (``num_hidden`` is read from the weight).  Operands of
+    two types are promoted first, as ``jnp.matmul`` does (float16 data
+    over float32 weights gives float32)."""
     del num_hidden
     x = data.reshape(data.shape[0], -1) if flatten else data
+    x, weight = promote(x, weight)
     return F.linear(x, weight, None if no_bias else bias)
 
 
@@ -302,41 +467,46 @@ def _pooling_op(data, kernel=(), pool_type="max", stride=(), pad=(),
                 layout=None, **_):
     """The registered ``Pooling``: :func:`pooling` with the JAX op's
     attributes (empty ``stride``/``pad`` are the defaults).  ``layout``
-    None or ``"NCHW"`` (the JAX op's default) takes NCHW data through the
-    NHWC path."""
+    None, ``"NCW"``, ``"NCHW"`` or ``"NCDHW"`` (the JAX op's default)
+    takes channel-first data through the channel-last path."""
     del cudnn_off
     return nchw_call(pooling, data, layout=layout,
-                     kernel=_or(kernel, (1, 1)), pool_type=pool_type,
-                     stride=_or(stride, None), pad=_or(pad, (0, 0)),
+                     kernel=_or(kernel, 1), pool_type=pool_type,
+                     stride=_or(stride, None), pad=_or(pad, 0),
                      global_pool=global_pool,
                      pooling_convention=pooling_convention,
                      count_include_pad=count_include_pad, p_value=p_value)
 
 
-def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
+def pooling(data, kernel=1, pool_type="max", stride=None, pad=0,
             global_pool=False, pooling_convention="valid",
             count_include_pad=True, p_value=2, layout="NHWC"):
-    """2-D pooling of NHWC data (reference: src/operator/nn/pooling.cc):
+    """1-, 2- or 3-D pooling of channel-last data (``layout`` ``"NWC"``,
+    ``"NHWC"`` or ``"NDHWC"``; reference: src/operator/nn/pooling.cc):
     max, avg, sum or lp over ``kernel`` windows, ``valid`` (floor) or
     ``full`` (ceil) output sizes, ``global_pool`` over the whole plane.
 
     As the JAX package (``ops/nn.py:580``): the ``full`` convention pads
     the high side as far as the last window needs; max pads with
-    ``-inf``; avg divides by the kernel's area when ``count_include_pad``
+    ``-inf``; avg divides by the kernel's volume when ``count_include_pad``
     and ``valid``, and otherwise by the count of real elements, at least
     1 (a window wholly in the padding gives 0, never NaN); lp is
-    ``(sum |x|^p)^(1/p)`` with ``p = p_value``, the padding adding 0."""
-    _check_nhwc(layout, "Pooling")
-    if data.dim() != 4:
-        raise MXNetError("Pooling: the port takes 2-D NHWC data, got %s"
-                         % (tuple(data.shape),))
+    ``(sum |x|^p)^(1/p)`` with ``p = p_value``, the padding adding 0.
+    1-D pooling runs the 2-D path with a unit height (K2 for the max
+    backward); 3-D pooling is aten's, with its backward."""
+    nd = _spatial(data, "Pooling")
+    _check_channel_last(layout, nd, "Pooling")
     if global_pool:
-        kernel, stride, pad = tuple(data.shape[1:3]), (1, 1), (0, 0)
-    kernel = _pair(kernel, "kernel")
-    stride = _pair(stride, "stride") if stride else (1, 1)
-    pad = _pair(pad, "pad") if pad else (0, 0)
+        kernel, stride, pad = tuple(data.shape[1:1 + nd]), 1, 0
+    kernel = _tup(kernel, nd, "kernel")
+    stride = _tup(stride, nd, "stride") if stride else (1,) * nd
+    pad = _tup(pad, nd, "pad") if pad else (0,) * nd
+    if nd == 1:
+        return pooling(data.unsqueeze(1), (1,) + kernel, pool_type,
+                       (1,) + stride, (0,) + pad, False, pooling_convention,
+                       count_include_pad, p_value, "NHWC").squeeze(1)
     hi = []
-    for i in range(2):
+    for i in range(nd):
         lo = pad[i]
         if pooling_convention == "full":
             size = data.shape[1 + i]
@@ -346,25 +516,31 @@ def pooling(data, kernel=(1, 1), pool_type="max", stride=None, pad=(0, 0),
         else:
             hi.append(lo)
     hi = tuple(hi)
+    # F.pad's order: the last spatial axis first, low then high
+    pads = tuple(v for i in reversed(range(nd)) for v in (pad[i], hi[i]))
     if pool_type == "max":
-        return _MaxPool.apply(data.contiguous(), kernel, stride, pad, hi)
+        if nd == 2:
+            return _MaxPool.apply(data.contiguous(), kernel, stride, pad, hi)
+        xv = F.pad(_first(data), pads, value=float("-inf"))
+        return _last(F.max_pool3d(xv, kernel, stride, 0))
     if pool_type not in ("avg", "sum", "lp"):
         raise ValueError("unknown pool_type %r" % (pool_type,))
+    avg_pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
     p = float(p_value)
     x = torch.pow(torch.abs(data), p) if pool_type == "lp" else data
-    xv = F.pad(_nchw(x), (pad[1], hi[1], pad[0], hi[0]))
-    summed = _nhwc(F.avg_pool2d(xv, kernel, stride, 0, divisor_override=1))
+    xv = F.pad(_first(x), pads)
+    summed = _last(avg_pool(xv, kernel, stride, 0, divisor_override=1))
     if pool_type == "sum":
         return summed
     if pool_type == "lp":
         return torch.pow(summed, 1.0 / p)
     if count_include_pad and pooling_convention != "full":
-        return summed / float(kernel[0] * kernel[1])
-    ones = torch.ones((1, 1) + tuple(data.shape[1:3]), dtype=data.dtype,
+        return summed / float(np.prod(kernel))
+    ones = torch.ones((1, 1) + tuple(data.shape[1:1 + nd]), dtype=data.dtype,
                       device=data.device)
-    counts = F.avg_pool2d(F.pad(ones, (pad[1], hi[1], pad[0], hi[0])),
-                          kernel, stride, 0, divisor_override=1)
-    return summed / _nhwc(counts).clamp_min(1.0)
+    counts = avg_pool(F.pad(ones, pads), kernel, stride, 0,
+                      divisor_override=1)
+    return summed / _last(counts).clamp_min(1.0)
 
 
 @register("L2Normalization")

@@ -31,6 +31,7 @@ _OP_REGISTRY: dict = {}
 # and a Symbol grows a "<name>_<input>" variable for each one not given.
 OP_INPUT_NAMES = {
     "Convolution": ("data", "weight", "bias"),
+    "Deconvolution": ("data", "weight", "bias"),
     "FullyConnected": ("data", "weight", "bias"),
     "BatchNorm": ("data", "gamma", "beta", "moving_mean", "moving_var"),
     "LayerNorm": ("data", "gamma", "beta"),

@@ -9,12 +9,26 @@ python/mxnet/optimizer/optimizer.py): the registry (``register``,
 and restores it, ``get_states``/``set_states``).  Updates run
 the in-place ops of :mod:`~mxnet_tpu_torch.ops.optimizer_ops`; there is
 no ``torch.optim`` underneath.
+
+A captured training step (``GluonTrainStep(optimizer=...)``) runs an
+optimizer's ``update`` inside a CUDA graph, so the scalars that change
+from step to step (the scheduled learning rate, Adam's bias-corrected
+one) cannot be Python floats there: the graph would keep the first
+step's.  :class:`scalar_feed` is the port's form of the JAX package's
+(``mxnet_tpu/optimizer/optimizer.py:41``): while it is active the
+optimizer reads each ``(index, name)`` scalar from the table it holds
+(0-d device tensors, views of one buffer that the step refills before
+each replay) and leaves its update counts to the step, which advances
+them and computes the values on the host with :meth:`Optimizer.step_scalars`.
+``compiled_step_safe`` says which optimizers read their per-step scalars
+only so.
 """
 
 from __future__ import annotations
 
 import math
 import pickle
+import threading
 
 import numpy as np
 import torch
@@ -23,9 +37,40 @@ from ..base import MXNetError
 from ..ops import optimizer_ops as _ops
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "register", "create",
-           "get_updater"]
+           "get_updater", "scalar_feed", "feed_active"]
 
 _REGISTRY = {}
+_FEED = threading.local()
+
+
+class scalar_feed:
+    """A scope in which the optimizers read each per-step scalar
+    ``(index, name)`` (``"lr"``, ``"wd"``) from ``table`` and leave their
+    update counts alone: a captured step's update."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __enter__(self):
+        stack = getattr(_FEED, "stack", None)
+        if stack is None:
+            stack = _FEED.stack = []
+        stack.append(self.table)
+        return self
+
+    def __exit__(self, *exc):
+        _FEED.stack.pop()
+
+
+def _fed(index, name):
+    """The fed value of ``(index, name)``, or None with no feed active."""
+    stack = getattr(_FEED, "stack", None)
+    return stack[-1].get((index, name)) if stack else None
+
+
+def feed_active():
+    """True inside a :class:`scalar_feed` scope."""
+    return bool(getattr(_FEED, "stack", None))
 
 
 def register(klass):
@@ -59,7 +104,14 @@ class Optimizer:
     (``param_idx2name``).  As in MXNet, the constructor applies the
     symbol's ``__lr_mult__``/``__wd_mult__`` attributes (``sym``) and the
     no-decay rule: a parameter whose name ends neither in ``_weight`` nor
-    in ``_gamma`` takes no weight decay."""
+    in ``_gamma`` takes no weight decay.
+
+    ``compiled_step_safe``: whether ``update`` reads its per-step scalars
+    only through :meth:`step_scalars`'s names (so a captured step may run
+    it under a :class:`scalar_feed`); False here, True for ``SGD`` and
+    ``Adam``."""
+
+    compiled_step_safe = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -126,6 +178,9 @@ class Optimizer:
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
+        if feed_active():
+            # a captured step advances the counts itself, once a step
+            return
         count = self._index_update_count.get(index, self.begin_num_update)
         self._index_update_count[index] = count + 1
         self.num_update = max(count + 1, self.num_update)
@@ -138,11 +193,24 @@ class Optimizer:
         return table.get(self.idx2name.get(index), 1.0)
 
     def _get_lr(self, index):
+        fed = _fed(index, "lr")
+        if fed is not None:
+            return fed
         return self.learning_rate * self._mult(index, self.lr_mult,
                                                "lr_mult")
 
     def _get_wd(self, index):
+        fed = _fed(index, "wd")
+        if fed is not None:
+            return fed
         return self.wd * self._mult(index, self.wd_mult, "wd_mult")
+
+    def step_scalars(self, index):
+        """The per-step scalars ``update`` reads for ``index``, computed on
+        the host from the current update counts (a captured step calls it
+        after advancing them): ``{"lr": ..., "wd": ...}``
+        (``mxnet_tpu/optimizer/optimizer.py:240``)."""
+        return {"lr": self._get_lr(index), "wd": self._get_wd(index)}
 
     def _clip(self):
         """The ops' ``clip_gradient``: -1 (no clipping) when unset or 0."""
@@ -153,6 +221,8 @@ class Optimizer:
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` is not 0 (reference:
     optimizer.py SGD)."""
+
+    compiled_step_safe = True
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -180,6 +250,8 @@ class Adam(Optimizer):
     into the learning rate on the host, in double precision, from the
     index's own update count."""
 
+    compiled_step_safe = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -191,10 +263,18 @@ class Adam(Optimizer):
         return torch.zeros_like(weight), torch.zeros_like(weight)
 
     def _bc_lr(self, index):
+        fed = _fed(index, "lr")
+        if fed is not None:
+            return fed
         t = max(1, self._index_update_count.get(index, 0))
         coef1 = 1.0 - self.beta1 ** t
         coef2 = 1.0 - self.beta2 ** t
         return self._get_lr(index) * math.sqrt(coef2) / coef1
+
+    def step_scalars(self, index):
+        """The bias-corrected rate and the weight decay
+        (``mxnet_tpu/optimizer/optimizer.py:482``)."""
+        return {"lr": self._bc_lr(index), "wd": self._get_wd(index)}
 
     def update(self, index, weight, grad, state):
         self._update_count(index)

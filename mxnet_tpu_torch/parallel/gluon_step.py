@@ -1,7 +1,8 @@
 """Training step of the PyTorch port built from a Gluon block.
 
 Counterpart of ``mxnet_tpu/parallel/gluon_step.py`` ``GluonTrainStep``
-(its classic path, on one device) and ``sgd_momentum_update``.  The JAX
+(its classic path, on one device), ``sgd_momentum_update`` and
+``zero_env_enabled``.  The JAX
 package traces forward, loss, backward, the update and the BatchNorm
 running-stat update into one jitted program over a device mesh
 (``:407-417``), and ``make_chained(n)`` runs n of them with one dispatch
@@ -16,9 +17,21 @@ running-stat update into one jitted program over a device mesh
    gradient is rounded to bf16 and widened to float32, as the JAX
    package's ``g.astype(v.dtype)``;
 4. ``g += wd * w; s = momentum * s + g; w -= lr * s`` on every trainable,
-   in place;
+   in place; or, with ``optimizer=``, that optimizer's own ``update`` on
+   each trainable and its state, in place;
 5. the running statistics, updated in place by the BatchNorm layers
    during the forward.
+
+With ``optimizer=`` (an optimizer whose ``compiled_step_safe`` is True:
+the port's ``SGD`` and ``Adam``) the update reads its per-step scalars
+(the scheduled rate, Adam's bias-corrected one, the weight decay) from
+one small buffer on the step's device, through
+:class:`~..optimizer.scalar_feed`: before each step the host advances the
+optimizer's update counts, computes the scalars
+(:meth:`~..optimizer.Optimizer.step_scalars`) and copies them into the
+buffer, so a schedule never recaptures and no Python float is kept in the
+graph (the JAX package feeds them to its jitted step as arguments,
+``:183-222``).
 
 On the card the step is one captured CUDA graph per batch signature
 (:mod:`.._capture`), the counterpart of the jitted ``_step``: the first
@@ -30,11 +43,17 @@ every captured graph (they read the parameters' old storage).  On the CPU
 the step runs eagerly.
 
 The float32 masters stay the block's own Parameters, so
-:meth:`GluonTrainStep.sync_to_params` has nothing to do.  ``zero=True``,
-``optimizer=`` and ``param_spec_fn`` are not ported yet.
+:meth:`GluonTrainStep.sync_to_params` has nothing to do.  The port runs
+the step on one device: ``param_spec_fn``, ``data_spec`` and
+``label_spec`` are taken (the first is called on every parameter, as the
+JAX step lays its shardings out) and change nothing, and ``zero=True``
+(ZeRO's sharded update, or ``MXNET_TPU_ZERO=1``) raises, as a mesh of
+more than one device does: multi-GPU training is not yet ported.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -44,8 +63,14 @@ from .. import autograd as _autograd
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import cast_generation, is_deferred
+from ..optimizer import scalar_feed
 
-__all__ = ["GluonTrainStep", "sgd_momentum_update"]
+__all__ = ["GluonTrainStep", "sgd_momentum_update", "zero_env_enabled"]
+
+
+def zero_env_enabled():
+    """True when ``MXNET_TPU_ZERO=1`` asks for the ZeRO step."""
+    return os.environ.get("MXNET_TPU_ZERO") == "1"
 
 
 def sgd_momentum_update(lr, momentum=0.9, wd=0.0):
@@ -129,24 +154,60 @@ def _one_device_mesh(mesh):
     return mesh
 
 
+def _leaves(state):
+    """The tensors of an optimizer state (None, a tensor, or a tuple of
+    them), in order."""
+    if state is None:
+        return []
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for s in state for t in _leaves(s)]
+
+
 class GluonTrainStep:
-    """A Gluon block, a loss and SGD with momentum as one training step.
+    """A Gluon block, a loss and an optimizer as one training step.
 
     The reference's positional order: ``mesh`` third, then ``lr``,
-    ``momentum``, ``wd`` and ``compute_dtype``.  ``mesh``: None or a mesh
-    of one device (a multi-device mesh raises :class:`MXNetError`).
-    ``device``, keyword-only: where the block's parameters lie and the
-    step runs (``None``: ``gpu(0)``).  ``compute_dtype`` (``'bfloat16'``,
-    ...): the forward and backward run on cast copies of the float32
-    trainables and of the input, while the masters and their update stay
-    float32.  ``step(x, y)`` takes host arrays or tensors and returns the
-    batch's mean loss as a tensor on the device, without waiting for
-    it."""
+    ``momentum``, ``wd``, ``compute_dtype``, ``param_spec_fn``,
+    ``data_spec``, ``label_spec``, ``aux_loss_weight``, ``zero`` and
+    ``optimizer``.  ``mesh``: None or a mesh of one device (a
+    multi-device mesh raises :class:`MXNetError`).  ``device``,
+    keyword-only: where the block's parameters lie and the step runs
+    (``None``: ``gpu(0)``).  ``compute_dtype`` (``'bfloat16'``, ...): the
+    forward and backward run on cast copies of the float32 trainables and
+    of the input, while the masters and their update stay float32.
+    ``optimizer``: None (SGD with momentum from ``lr``, ``momentum`` and
+    ``wd``, one fused update) or a ``compiled_step_safe`` optimizer
+    (module docstring; another raises :class:`MXNetError`).
+    ``aux_loss_weight``: ``w`` adds ``w * block.collect_aux_losses()`` to
+    the mean loss inside the step.  ``param_spec_fn``, ``data_spec``,
+    ``label_spec``: sharding specs, taken and unused on the one device;
+    ``zero`` raises (module docstring).  ``step(x, y)`` takes host arrays
+    or tensors and returns the batch's mean loss as a tensor on the
+    device, without waiting for it."""
 
     def __init__(self, block, loss_block, mesh=None, lr=0.1, momentum=0.9,
-                 wd=0.0, compute_dtype=None, *, device=None):
+                 wd=0.0, compute_dtype=None, param_spec_fn=None,
+                 data_spec=None, label_spec=None, aux_loss_weight=None,
+                 zero=None, optimizer=None, *, device=None):
         self.block = block
         self.mesh = _one_device_mesh(mesh)
+        if param_spec_fn is not None and not callable(param_spec_fn):
+            raise TypeError("GluonTrainStep: param_spec_fn (the eighth "
+                            "argument) must be callable, not %r; the device "
+                            "is the keyword device=" % (param_spec_fn,))
+        zero = zero_env_enabled() if zero is None else bool(zero)
+        if zero and param_spec_fn is not None:
+            raise MXNetError(
+                "GluonTrainStep: zero=True owns the parameter layout "
+                "(flat 1-D 'dp' shards) and cannot compose with "
+                "param_spec_fn tensor sharding")
+        if zero:
+            raise MXNetError(
+                "GluonTrainStep: zero=True (ZeRO weight-update sharding over "
+                "the 'dp' axis of a device mesh) needs more than one device; "
+                "the port runs the step on one device, and multi-GPU "
+                "training is not yet ported")
         self.device = resolve_device(device)
         params = block.collect_params()
         for name, p in params.items():
@@ -158,12 +219,39 @@ class GluonTrainStep:
                 raise MXNetError("parameter %s lives on %s, not on the "
                                  "step's device %s" % (name, p.device,
                                                        self.device))
+        if param_spec_fn is not None:
+            for name, p in params.items():
+                param_spec_fn(name, tuple(p.shape))
+        self.data_spec, self.label_spec = data_spec, label_spec
         self._names = [n for n, p in params.items() if p.grad_req != "null"]
         self.trainable = [params[n] for n in self._names]
         self.aux = [p for p in params.values() if p.grad_req == "null"]
-        self.opt_state = [torch.zeros_like(p) for p in self.trainable]
         self._loss = loss_block
-        self._update = sgd_momentum_update(lr, momentum, wd)
+        self._aux_loss_weight = aux_loss_weight
+        self.optimizer = optimizer
+        if optimizer is None:
+            self._update = sgd_momentum_update(lr, momentum, wd)
+            self.opt_state = [torch.zeros_like(p) for p in self.trainable]
+        else:
+            if not getattr(optimizer, "compiled_step_safe", False):
+                raise MXNetError(
+                    "GluonTrainStep(optimizer=...): %s is not compiled-step "
+                    "safe (its update reads per-step host scalars the step "
+                    "cannot feed); the port's SGD and Adam are"
+                    % type(optimizer).__name__)
+            with torch.no_grad():
+                self._states = [optimizer.create_state(i, p.detach())
+                                for i, p in enumerate(self.trainable)]
+            self.opt_state = [t for st in self._states for t in _leaves(st)]
+            # one slot a (parameter index, scalar name); the buffer the
+            # update reads them from, refilled on the host before each step
+            self._slots = [(i, name) for i in range(len(self.trainable))
+                           for name in sorted(optimizer.step_scalars(i))]
+            self._scalars = torch.zeros(len(self._slots),
+                                        dtype=torch.float32,
+                                        device=self.device)
+            self._feed = {slot: self._scalars[k]
+                          for k, slot in enumerate(self._slots)}
         self._compute_dtype = _dtype(compute_dtype)
         self._capture = self.device.type == "cuda"
         self.graphs = {}  # (steps, x and y signature) -> _StepGraph
@@ -216,14 +304,41 @@ class GluonTrainStep:
                 x = x.to(cast)
             out = torch.func.functional_call(self.block, override, (x,))
             loss = self._loss(out, y).mean()
+            if self._aux_loss_weight is not None:
+                loss = loss + self._aux_loss_weight \
+                    * self.block.collect_aux_losses()
         grads = torch.autograd.grad(loss, self.trainable, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.trainable, grads)]
         with torch.no_grad():
             gnorm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
-            self._update(self.trainable, grads, self.opt_state)
+            if self.optimizer is None:
+                self._update(self.trainable, grads, self.opt_state)
+            else:
+                with scalar_feed(self._feed):
+                    for i, (w, g, st) in enumerate(zip(
+                            self.trainable, grads, self._states)):
+                        self.optimizer.update(i, w, g, st)
         return loss.detach(), gnorm
+
+    def _feed_scalars(self):
+        """With ``optimizer=``: advance its update counts by one step and
+        copy this step's scalars into the buffer the update reads, ordered
+        on the device before the step (the host copy is pinned, so the
+        copy does not wait for the device)."""
+        if self.optimizer is None:
+            return
+        opt = self.optimizer
+        table = {}
+        for i in range(len(self.trainable)):
+            opt._update_count(i)
+            table[i] = opt.step_scalars(i)
+        host = torch.tensor([float(table[i][name]) for i, name in self._slots],
+                            dtype=torch.float32)
+        if self._scalars.device.type == "cuda":
+            host = host.pin_memory()
+        self._scalars.copy_(host, non_blocking=True)
 
     def __call__(self, x, y):
         """One training step; returns the mean loss (a device tensor in
@@ -231,6 +346,7 @@ class GluonTrainStep:
         the global L2 norm of the float32 gradients.  Both are fresh
         tensors."""
         x, y = self._to_device(x, y)
+        self._feed_scalars()
         if self._capture:
             loss, self.last_grad_norm = self._graph(x, y, 1).run(x, y)
         else:
@@ -244,7 +360,16 @@ class GluonTrainStep:
         launched once (one ``cudaGraphLaunch``) a call; on the CPU they
         run eagerly.  ``key`` is accepted for the JAX package's signature:
         the port's random stream is its generator
-        (:func:`~mxnet_tpu_torch.random.generator`)."""
+        (:func:`~mxnet_tpu_torch.random.generator`).  Not with
+        ``optimizer=``, as in the JAX package: its per-step scalars are
+        refilled on the host before each step, which one launch of n steps
+        has no room for."""
+        if self.optimizer is not None:
+            raise MXNetError(
+                "make_chained: per-step optimizer scalars (schedules, bias "
+                "corrections) are refilled host-side each step and cannot "
+                "cross a chain of steps; use optimizer=None (the fused "
+                "sgd-momentum closure) for chained micro-benchmarks")
         n_steps = int(n_steps)
         if n_steps < 1:
             raise MXNetError("make_chained takes at least one step, not %d"

@@ -735,6 +735,9 @@ class InferenceServer:
         it is copied asynchronously into pinned host memory on the current
         stream, and the host waits on one event."""
         bad = self._sentinel(outs, total)
+        # numpy has no bf16: a bf16 output is handed back as float32, as
+        # the port's asnumpy() does
+        outs = [o.float() if o.dtype == torch.bfloat16 else o for o in outs]
         if not self._cuda:
             return [o.numpy() for o in outs], \
                 None if bad is None else bad.numpy()

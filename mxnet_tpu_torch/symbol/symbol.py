@@ -968,6 +968,13 @@ def _solve_params(node, data_shape, shapes):
         setv("weight", ((nf,) + k + (cin // ng,)) if last
              else ((nf, cin // ng) + k))
         setv("bias", (nf,))
+    elif node.op == "Deconvolution":
+        # (in_c, out_c/groups, *kernel), channel-first data only
+        k = tuple(a.get("kernel", ()))
+        nf = int(a.get("num_filter", 1))
+        ng = int(a.get("num_group", 1))
+        setv("weight", (data_shape[1], nf // ng) + k)
+        setv("bias", (nf,))
     elif node.op == "BatchNorm":
         c = data_shape[int(a.get("axis", 1)) % len(data_shape)]
         for slot in names[1:]:

@@ -319,6 +319,56 @@ OP_CASES.update({
                                  {"kernel": (3, 3), "pad": (6, 6),
                                   "dilate": (6, 6), "num_filter": 4,
                                   "no_bias": True, "layout": "NHWC"}),
+    # groups (a depthwise one), 1-D and 3-D convolutions, both layouts
+    "Convolution/nchw-grouped": ([("f", (2, 6, 7, 7)), ("f", (4, 3, 3, 3)),
+                                  ("f", (4,))],
+                                 {"kernel": (3, 3), "pad": (1, 1),
+                                  "num_filter": 4, "num_group": 2}),
+    "Convolution/nhwc-depthwise": ([("f", (2, 8, 8, 4)),
+                                    ("f", (4, 3, 3, 1))],
+                                   {"kernel": (3, 3), "stride": (2, 2),
+                                    "pad": (1, 1), "num_filter": 4,
+                                    "num_group": 4, "no_bias": True,
+                                    "layout": "NHWC"}),
+    "Convolution/ncw": ([("f", (2, 3, 11)), ("f", (4, 3, 3)), ("f", (4,))],
+                        {"kernel": (3,), "stride": (2,), "pad": (1,),
+                         "num_filter": 4}),
+    "Convolution/nwc": ([("f", (2, 11, 6)), ("f", (4, 3, 3))],
+                        {"kernel": (3,), "dilate": (2,), "num_filter": 4,
+                         "num_group": 2, "no_bias": True, "layout": "NWC"}),
+    "Convolution/ncdhw": ([("f", (2, 3, 5, 6, 6)), ("f", (4, 3, 3, 3, 3)),
+                           ("f", (4,))],
+                          {"kernel": (3, 3, 3), "pad": (1, 1, 1),
+                           "stride": (1, 2, 2), "num_filter": 4}),
+    "Convolution/ndhwc": ([("f", (2, 4, 5, 5, 4)), ("f", (4, 2, 3, 3, 2))],
+                          {"kernel": (2, 3, 3), "num_filter": 4,
+                           "num_group": 2, "no_bias": True,
+                           "layout": "NDHWC"}),
+    # transposed convolutions: adj, groups, a bias under no_bias=True
+    "Deconvolution": ([("f", (2, 4, 5, 5)), ("f", (4, 3, 4, 4)),
+                       ("f", (6,))],
+                      {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1),
+                       "adj": (1, 1), "num_filter": 6, "num_group": 2}),
+    "Deconvolution/ncw": ([("f", (2, 3, 7)), ("f", (3, 2, 3))],
+                          {"kernel": (3,), "stride": (2,), "num_filter": 2}),
+    "Deconvolution/ncdhw": ([("f", (2, 2, 3, 3, 3)),
+                             ("f", (2, 3, 3, 3, 3))],
+                            {"kernel": (3, 3, 3), "stride": (2, 2, 2),
+                             "pad": (1, 1, 1), "num_filter": 3}),
+    # 1-D and 3-D pooling
+    "Pooling/ncw": ([("f", (2, 3, 9))], {"kernel": (3,), "stride": (2,),
+                                         "pad": (1,), "pool_type": "max"}),
+    "Pooling/nwc-avg-full": ([("f", (2, 9, 3))],
+                             {"kernel": (3,), "stride": (2,),
+                              "pool_type": "avg", "layout": "NWC",
+                              "pooling_convention": "full"}),
+    "Pooling/ncdhw": ([("f", (2, 3, 5, 6, 6))],
+                      {"kernel": (2, 2, 2), "stride": (2, 2, 2),
+                       "pool_type": "max", "pooling_convention": "full"}),
+    "Pooling/ndhwc-avg": ([("f", (2, 5, 6, 6, 3))],
+                          {"kernel": (3, 3, 3), "stride": (2, 2, 2),
+                           "pad": (1, 1, 1), "pool_type": "avg",
+                           "count_include_pad": False, "layout": "NDHWC"}),
     "L2Normalization": ([("f", (2, 3, 4, 5))], {"mode": "channel"}),
     "L2Normalization/instance": ([("f", (2, 3, 4))], {}),
     "L2Normalization/spatial": ([("f", (2, 3, 4, 5))],

@@ -15,7 +15,8 @@ import mxnet_tpu_torch as tmx
 
 TOP_LEVEL = ["NDArray", "Symbol", "Module", "Executor", "DataIter",
              "DataBatch", "NameManager", "save_checkpoint",
-             "load_checkpoint", "do_checkpoint"]
+             "load_checkpoint", "do_checkpoint", "predictor", "test_utils",
+             "log"]
 
 # canonical name: its aliases, as both registries list them
 CONTRIB = {
@@ -73,3 +74,17 @@ def test_aliases_name_the_port_classes():
     assert tmx.NameManager is name.NameManager
     assert tmx.save_checkpoint is model.save_checkpoint
     assert tmx.load_checkpoint is model.load_checkpoint
+
+
+@pytest.mark.parametrize("name", ["CRITICAL", "ERROR", "WARNING", "INFO",
+                                  "DEBUG", "NOTSET"])
+def test_log_level_constants_equal_jax(name):
+    assert getattr(tmx.log, name) == getattr(jmx.log, name)
+    assert name in tmx.log.__all__
+
+
+def test_deprecated_get_logger_warns_as_jax():
+    for mx in (jmx, tmx):
+        with pytest.warns(DeprecationWarning, match="get_logger"):
+            logger = mx.log.getLogger("mxt_exports_test", level=mx.log.INFO)
+        assert logger.level == mx.log.INFO

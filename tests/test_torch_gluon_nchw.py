@@ -156,8 +156,8 @@ def test_layouts_the_layers_refuse():
         tnn.Conv2D(4, 3, layout="NWC", device="cpu")
     with pytest.raises(MXNetError, match="NCHW"):
         tnn.MaxPool2D(layout="CHWN")
-    with pytest.raises(MXNetError, match="groups=1"):
-        tnn.Conv2D(4, 3, groups=2, device="cpu")
+    with pytest.raises(MXNetError, match="groups"):
+        tnn.Conv2D(4, 3, groups=3, device="cpu")
 
 
 @pytest.mark.parametrize("xs,k,s,p,d,o", [

@@ -148,8 +148,14 @@ def test_nd_convolution_default_layout_runs():
 
 
 def test_nchw_takes_2d_data_only():
-    with pytest.raises(MXNetError, match="2-D NCHW"):
+    """1-D and 3-D data run now (tests/test_torch_conv_nd.py); data of
+    four spatial dimensions, and weights of another rank, raise."""
+    with pytest.raises(MXNetError, match="1-D, 2-D or 3-D"):
+        treg.apply_op("Convolution", torch.zeros(2, 3, 4, 4, 4, 4),
+                      torch.zeros(4, 3, 3, 3, 3, 3), num_filter=4)
+    with pytest.raises(MXNetError, match="1-D, 2-D or 3-D"):
+        treg.apply_op("Pooling", torch.zeros(2, 3, 4, 4, 4, 4),
+                      kernel=(2, 2, 2, 2))
+    with pytest.raises(MXNetError, match="NCW data and OIW weights"):
         treg.apply_op("Convolution", torch.zeros(2, 3, 8),
-                      torch.zeros(4, 3, 3), kernel=(3,), num_filter=4)
-    with pytest.raises(MXNetError, match="2-D NCHW"):
-        treg.apply_op("Pooling", torch.zeros(2, 3, 8), kernel=(2,))
+                      torch.zeros(4, 3, 3, 3), kernel=(3,), num_filter=4)

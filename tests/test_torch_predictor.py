@@ -227,3 +227,23 @@ def test_predict_forward_is_captured_once_a_bound_executor(monkeypatch):
     other.capture = True
     other.forward(is_train=False, data=_x(4, 0))
     assert len(other.predict_graphs) == 1 and len(ex.predict_graphs) == 1
+
+
+def test_float16_data_over_float32_weights_serves_as_jax(exported):
+    """``type_dict={"data": "float16"}`` binds float16 data over the
+    float32 weights in both packages; the products promote, and the
+    float32 outputs agree within 1e-5."""
+    sym, params = exported
+    jp = JaxPredictor(sym, params, {"data": (3, IN)},
+                      type_dict={"data": "float16"})
+    pp = Predictor(sym, params, {"data": (3, IN)}, dev_type="cpu",
+                   type_dict={"data": "float16"})
+    x = _x(3, 5).astype(np.float16)
+    for pred in (jp, pp):
+        pred.forward(data=x)
+    got, want = pp.get_output(0), jp.get_output(0)
+    assert got.dtype == np.dtype(want.dtype) == np.float32
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    with InferenceServer(pp, buckets=(4,)) as srv:
+        np.testing.assert_allclose(srv.infer(x, timeout=60)[0], want,
+                                   rtol=TOL, atol=TOL)

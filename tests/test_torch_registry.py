@@ -203,3 +203,36 @@ def test_register_rejects_a_second_op_under_one_name():
     treg.alias("sum", "sum")  # the same op: a no-op
     with pytest.raises(tmx.MXNetError, match="not registered"):
         treg.get("BogusOp")
+
+
+@pytest.mark.parametrize("name,shapes,attrs", [
+    ("FullyConnected", ((2, 3, 4), (5, 12), (5,)), {"num_hidden": 5}),
+    ("dot", ((4, 5), (3, 5)), {"transpose_b": True}),
+    ("batch_dot", ((2, 4, 5), (2, 3, 5)), {"transpose_b": True}),
+])
+def test_mixed_dtype_products_promote_as_jax(name, shapes, attrs):
+    """float16 data over float32 weights: both packages promote the
+    operands (``jnp``'s rule, ``torch.promote_types``) and give float32,
+    within 1e-5 of the JAX op (the same float32 products, summed in
+    another order)."""
+    rng = np.random.RandomState(3)
+    arrays = [rng.randn(*s).astype(np.float16 if i == 0 else np.float32)
+              for i, s in enumerate(shapes)]
+    want = np.asarray(jreg.get(name).fn(*[jax.numpy.asarray(a)
+                                          for a in arrays], **attrs))
+    got = treg.apply_op(name, *[torch.from_numpy(a) for a in arrays],
+                        **attrs).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_mixed_dtype_convolution_raises_in_both_packages():
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 3, 6, 6).astype(np.float16)
+    w = rng.randn(4, 3, 3, 3).astype(np.float32)
+    with pytest.raises(Exception):
+        jreg.get("Convolution").fn(jax.numpy.asarray(x), jax.numpy.asarray(w),
+                                   kernel=(3, 3), num_filter=4)
+    with pytest.raises(Exception):
+        treg.apply_op("Convolution", torch.from_numpy(x), torch.from_numpy(w),
+                      kernel=(3, 3), num_filter=4)

@@ -171,7 +171,10 @@ def test_model_zoo_entry_points():
     assert net.features[1]._axis == 1
     with pytest.raises(MXNetError, match="NHWC"):
         tvision.resnet50_v1(layout="NCWH", device="cpu")
-    with pytest.raises(ValueError, match="v1 only"):
-        tvision.get_resnet(2, 50, layout="NHWC", device="cpu")
+    # v2 is ported too (tests/test_torch_resnet_v2.py); no v3
+    assert isinstance(tvision.get_resnet(2, 50, layout="NHWC", device="cpu"),
+                      tvision.ResNetV2)
+    with pytest.raises(ValueError, match="1 or 2"):
+        tvision.get_resnet(3, 50, layout="NHWC", device="cpu")
     with pytest.raises(ValueError, match="no ResNet of 26 layers"):
         tvision.get_resnet(1, 26, layout="NHWC", device="cpu")

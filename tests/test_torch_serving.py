@@ -262,3 +262,44 @@ def test_out_of_range_token_is_rejected_and_neighbours_served():
     snap = srv.snapshot()
     assert snap["rejected"]["nonfinite"] == 1
     assert snap["batches"] == 2 and snap["completed"] == 2
+
+
+def test_bf16_output_is_served_as_float32_rows():
+    """A block whose output is bfloat16: the JAX server hands back bf16
+    rows (numpy through ml_dtypes); the port's hands back the same rows
+    as float32, as its ``asnumpy()`` does (numpy has no bf16), within one
+    bf16 step of the JAX rows (two libraries' bf16 products)."""
+    import jax.numpy as jnp
+
+    from mxnet_tpu_torch.gluon.block import HybridBlock
+    from mxnet_tpu_torch.gluon.nn import Dense
+
+    rng = np.random.RandomState(5)
+    w = rng.randn(6, 4).astype(np.float32)
+
+    class Bf16Head(HybridBlock):
+        def __init__(self):
+            super().__init__(device="cpu")
+            self.dense = Dense(6, in_units=4, use_bias=False, device="cpu")
+
+        def forward(self, x):
+            return self.dense(x.to(torch.bfloat16))
+
+    net = Bf16Head()
+    with torch.no_grad():
+        net.dense.weight.copy_(torch.from_numpy(w))
+    net.cast("bfloat16")
+    x = rng.randn(3, 4).astype(np.float32)
+    wj = jnp.asarray(w, jnp.bfloat16)
+    with jserving.InferenceServer(
+            lambda inputs, bucket: inputs["data"].astype(jnp.bfloat16)
+            @ wj.T, {"data": (4,)}, buckets=(4,)) as jsrv:
+        want = jsrv.infer(x, timeout=60)[0]
+    with InferenceServer(net, {"data": (4,)}, buckets=(4,),
+                         device="cpu") as srv:
+        got = srv.infer(x, timeout=60)[0]
+    assert str(want.dtype) == "bfloat16" and got.dtype == np.float32
+    assert got.shape == want.shape == (3, 6)
+    want = want.astype(np.float32)
+    np.testing.assert_allclose(got, want, rtol=2 ** -8,
+                               atol=2 ** -8 * float(np.abs(want).max()))
