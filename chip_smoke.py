@@ -133,6 +133,29 @@ Phases (any failure raises, and the script exits non-zero):
    K4a and K4b each launched once per layer per step; the step time, split
    into forward, backward and optimizer; then 3 more steps under
    torch.profiler for the device's busy share and its time by kernel group;
+5b. compiled LM train: Trainer.compile, the whole step (forward, loss,
+   backward, the Trainer's own Updater) as one captured CUDA graph: (1)
+   the full-width model in float32 with Adam, 3 compiled steps against the
+   same step run eagerly (bitwise) and against the eager record /
+   backward / Trainer.step loop (every parameter and Adam state within
+   1e-5 of its largest magnitude); (2) the main path: the model cast to
+   float16, gluon.Trainer(..., "adam", {"learning_rate": 1e-3,
+   "multi_precision": True}), trainer.compile(net,
+   SoftmaxCrossEntropyLoss()), 10 steps of cs.step(x, y) on one fixed
+   (8, 1024) batch: a finite loss that falls, float16 weights with float32
+   masters, one captured graph, K3, K4a and K4b in their float16
+   instances at the warm-up and the capture (2 x 4 each); the Trainer's
+   states saved after step 5; (3) 3 more replays under torch.profiler: K3,
+   K4a and K4b counted (4 each a step), the busy share and the time by
+   kernel group; (4) the step time, tokens/s and peak memory, and the
+   compiled float16 step beside phase 5's eager float32 step in turns;
+   (5) step 5's weights and saved states loaded into a new float16 net,
+   Trainer and compiled step, and into the main path's own (whose graph
+   the load drops, so the next step captures again): each takes steps
+   6-10 with the same losses, weights and masters, bit for bit; (6) SGD,
+   NAG, Signum, Adamax,
+   FTML, Ftrl, RMSProp (plain and centered), AdaGrad and AdaDelta each
+   through 2 compiled steps on an MLP, bitwise the eager Trainer loop;
 6. ResNet-50 v1 training (NHWC): float32 gradients at (4, 64, 64, 3)
    held against the same weights' gradients on the CPU plain path (in
    predict mode every parameter's, in train mode all together against
@@ -177,7 +200,9 @@ Phases (any failure raises, and the script exits non-zero):
    the last axis, both through K6a; the detection ops, box_nms through
    K7; integers that
    wrap, float-to-integer casts that saturate, NaN, the infinities, an
-   integer divisor of 0 and signed zeros among the cases), then the
+   integer divisor of 0 and signed zeros among the cases; every optimizer
+   update op, the multi_* and mp_* ones included, and the CTC loss), then
+   the
    TransformerLM's feed-forward written in mx.nd at full width ((8, 1024,
    512) through FullyConnected, gelu LeakyReLU, FullyConnected, residual
    and LayerNorm) under autograd.record with attach_grad on its weights:
@@ -700,7 +725,7 @@ def kernels(seed):
     cases = [("bucket %d" % b, b, 8, SEQ, SEQ, 64, True, torch.float32)
              for b in BUCKETS] + EDGE_CASES
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    slice_row = None
+    rows = {}
     for name, b, h, sq, sk, d, causal, dt in cases:
         q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dt)
         k = torch.randn(b, h, sk, d, device="cuda", generator=gen).to(dt)
@@ -745,10 +770,12 @@ def kernels(seed):
                                  "different results at %s" % name)
         check_share("flash_attn_fwd", name, ms, bound)
         check_share("flash_attn_fwd", name, launch_ms, bound)
-        if name == "bucket 8":  # the slice's largest attention shape
-            slice_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound, "bound_by": bound_by,
-                         "library_ms": lib_ms}
+        # the serving path's largest shape, and the float16 training
+        # shape of phase 5b's compiled step
+        if name in ("bucket 8", "f16"):
+            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": lib_ms}
         del q, k, v, out, lse, out2, lse2, ref, ref_lse
     torch.cuda.empty_cache()
     from mxnet_tpu_torch.base import MXNetError
@@ -762,7 +789,7 @@ def kernels(seed):
     else:
         raise AssertionError("flash_attention took D=%d on the card"
                              % TOO_WIDE_HEAD_DIM)
-    return slice_row
+    return rows
 
 
 def check_share(kernel, case, ms, bound):
@@ -774,8 +801,10 @@ def check_share(kernel, case, ms, bound):
 
 
 def backward_kernels(seed):
-    """Phase 3b: K4a and K4b against the plain backward; returns the
-    training shape's row for each kernel."""
+    """Phase 3b: K4a and K4b against the plain backward; returns each
+    kernel's row at the float32 training shape (phase 5's) and at the
+    float16 one (phase 5b's): ``{"dq": ..., "dkv": ..., "f16": {"dq":
+    ..., "dkv": ...}}``."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import attention as A
@@ -842,10 +871,11 @@ def backward_kernels(seed):
                                  "different gradients at %s" % name)
         check_share("flash_attn_bwd_dq", name, dq_ms, bounds["dq"][0])
         check_share("flash_attn_bwd_dkv", name, dkv_ms, bounds["dkv"][0])
-        if name == "train":
+        if name in ("train", "f16"):
+            into = rows if name == "train" else rows.setdefault("f16", {})
             for kern, ms, err in (("dq", dq_ms, errs[0]),
                                   ("dkv", dkv_ms, max(errs[1:]))):
-                rows[kern] = {"max_abs_err": err, "ms": ms,
+                into[kern] = {"max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms,
                               "bound_ms": bounds[kern][0],
                               "bound_by": bounds[kern][1],
@@ -1549,6 +1579,7 @@ def _train_step(net, loss_fn, trainer, x, y):
         loss = loss_fn(net(x), y)
     autograd.backward(loss)
     trainer.step(x.shape[0])
+    return loss.detach().mean()
 
 
 # device kernels by what they do, matched on the kernel's name
@@ -1624,6 +1655,319 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
     return {key: sum(1 for _, _, name in spans
                      if any(k in name.lower() for k in keys))
             for key, keys, _ in count}
+
+
+# ----------------------------------------------- compiled LM training (5b)
+
+# the compiled step's f32 check against the eager Trainer loop (phase
+# 5b.1): 3 steps, every parameter and Adam state within this share of its
+# largest magnitude
+COMPILED_TOL = 1e-5
+LM_COMPILED_CHECK = 3
+# the main path's steps, the step after which it saves the Trainer's
+# states (the resumed run takes the steps after it), and the timed turns
+LM_COMPILED_STEPS, LM_RESUME_AT = 10, 5
+LM_TURNS, LM_TURN_STEPS = 3, 5
+# the attention kernels of one step, with the substrings of their device
+# kernels' names: once a layer a step
+LM_LAUNCH_KERNELS = (("fwd", ("flash_fwd",), LAYERS),
+                     ("dq", ("flash_bwd_dq",), LAYERS),
+                     ("dkv", ("flash_bwd_dkv",), LAYERS))
+# phase 5b's kernel groups: the float16 products are cuBLAS's nvjet
+# kernels, and the update's element-wise work is split out
+COMPILED_GROUPS = KERNEL_GROUPS[:3] + (
+    ("matrix products", ("gemm", "nvjet")), ("softmax", ("softmax",)),
+    ("element-wise", ("elementwise_kernel",)),
+    ("reductions", ("reduce_kernel",)))
+# the other compile-safe optimizers (Adam is the main path's), phase 5b.6
+COMPILE_SAFE = (("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+                ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+                ("signum", {"learning_rate": 0.01, "wd_lh": 1e-3}),
+                ("adamax", {}), ("ftml", {}), ("ftrl", {}),
+                ("rmsprop", {}), ("rmsprop", {"centered": True}),
+                ("adagrad", {"learning_rate": 0.1}), ("adadelta", {}))
+
+
+def _attention_counters():
+    from mxnet_tpu_torch.ops import attention as A
+
+    return {"fwd": A.flash_attention, "dq": A.flash_attention_bwd_dq,
+            "dkv": A.flash_attention_bwd_dkv}
+
+
+def _trained_state(net, trainer):
+    """Every parameter and every leaf of its optimizer state (float32
+    masters first), by name, cloned."""
+    from mxnet_tpu_torch.parallel.gluon_step import _leaves
+
+    out = {}
+    states = trainer._updaters[0].states
+    for i, (name, p) in enumerate(net.collect_params().items()):
+        out[name] = p.detach().clone()
+        for j, t in enumerate(_leaves(states.get(i))):
+            out["%s/state%d" % (name, j)] = t.detach().clone()
+    return out
+
+
+def _compiled_lm(seed, dtype=None, optimizer="adam", **kw):
+    from mxnet_tpu_torch import gluon
+
+    net = _lm("cuda", seed)
+    if dtype is not None:
+        net.cast(dtype)
+    kw = dict(kw, learning_rate=kw.get("learning_rate", 1e-3))
+    return net, gluon.Trainer(net.collect_params(), optimizer, kw)
+
+
+def compiled_vs_eager(seed, x, y):
+    """Phase 5b.1: float32 Adam through ``trainer.compile`` on the card,
+    3 captured steps, against the same compiled step run eagerly (the code
+    the graph captures: bitwise) and against the eager Trainer loop
+    (record, backward, step) from the same state: every parameter and
+    Adam state within COMPILED_TOL of its largest magnitude."""
+    from mxnet_tpu_torch import gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for kind in ("captured", "eager step", "eager loop"):
+        net, trainer = _compiled_lm(seed)
+        if kind == "eager loop":
+            losses = [_train_step(net, loss_fn, trainer, x, y)
+                      for _ in range(LM_COMPILED_CHECK)]
+        else:
+            cs = trainer.compile(net, loss_fn)
+            cs._capture = kind == "captured"
+            losses = [cs.step(x, y).mean() for _ in range(LM_COMPILED_CHECK)]
+            graphs = len(cs.graphs) if kind == "captured" else graphs
+        torch.cuda.synchronize()
+        runs[kind] = ([float(v) for v in losses], _trained_state(net, trainer))
+        del net, trainer
+        torch.cuda.empty_cache()
+    (lc, sc), (le, se), (ll, sl) = (runs[k] for k in (
+        "captured", "eager step", "eager loop"))
+    differ = [k for k in sc if not torch.equal(sc[k], se[k])]
+    errs = {k: _bn_err(sc[k], sl[k])[1] for k in sc}
+    worst = max(errs, key=errs.get)
+    log("compiled train: float32 Adam, %d captured steps (%d graph) of the "
+        "full-width TransformerLM at (%d, %d): losses %s; the step run "
+        "eagerly %s, %d of %d tensors differ (bitwise expected); the eager "
+        "Trainer loop %s, worst tensor %.3g of its largest magnitude (%s; "
+        "tol %.0e), %d of %d bitwise" % (
+            LM_COMPILED_CHECK, graphs, TRAIN_BATCH, SEQ, lc, le, len(differ),
+            len(sc), ll, errs[worst], worst, COMPILED_TOL,
+            sum(torch.equal(sc[k], sl[k]) for k in sc), len(sc)))
+    if differ or lc != le or graphs != 1:
+        raise AssertionError("the compiled step's replays differ from the "
+                             "same step run eagerly: %s" % differ[:5])
+    if errs[worst] > COMPILED_TOL:
+        raise AssertionError("the compiled step left the eager Trainer "
+                             "loop's trajectory")
+
+
+def compiled_other_optimizers(seed):
+    """Phase 5b.6: every other compile-safe optimizer through two steps
+    of ``trainer.compile`` on a two-layer MLP (the first captures), against
+    the eager Trainer loop from the same state, bitwise."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn as gnn
+
+    def mlp():
+        net = gnn.HybridSequential(device="cuda")
+        net.add(gnn.Dense(64, activation="relu", in_units=32, device="cuda"))
+        net.add(gnn.Dense(10, in_units=64, device="cuda"))
+        return net.initialize(seed=seed)
+
+    rng = np.random.RandomState(seed + 23)
+    x = torch.from_numpy(rng.randn(16, 32).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, (16,)).astype(np.int32)).cuda()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    bad, rows = [], []
+    for name, kw in COMPILE_SAFE:
+        states = []
+        for compiled in (True, False):
+            net = mlp()
+            trainer = gluon.Trainer(net.collect_params(), name, dict(kw))
+            cs = trainer.compile(net, loss_fn) if compiled else None
+            for _ in range(2):
+                if compiled:
+                    cs.step(x, y)
+                else:
+                    _train_step(net, loss_fn, trainer, x, y)
+            states.append(_trained_state(net, trainer))
+            if compiled:
+                replays = [g.replays for g in cs.graphs.values()]
+        torch.cuda.synchronize()
+        same = all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+        rows.append("%s%s %s" % (name, " centered" if kw.get("centered")
+                                 else "", "bitwise" if same else "DIFFER"))
+        if not same or replays != [2]:
+            bad.append(name)
+    log("compiled train: the other compile-safe optimizers, 2 compiled steps "
+        "(one graph, 2 replays) on an MLP vs the eager Trainer loop: %s"
+        % ", ".join(rows))
+    if bad:
+        raise AssertionError("compiled steps differ from the eager Trainer "
+                             "loop: %s" % bad)
+
+
+def compiled_train(seed, smi):
+    """Phase 5b: ``Trainer.compile`` on the card.  (1) float32 Adam
+    against the eager loop; (2) the main path: the full-width
+    TransformerLM cast to float16, Adam with ``multi_precision`` (float32
+    masters), ``trainer.compile(net, SoftmaxCrossEntropyLoss())``, 10
+    steps of ``cs.step(x, y)`` on one fixed (8, 1024) batch, one captured
+    graph, the Trainer's states saved after step 5; (3) 3 more replays
+    under torch.profiler: K3, K4a and K4b counted (4 each a step), the
+    busy share and the time by kernel group; (4) the step time,
+    tokens/s and peak memory, then the compiled float16 step and phase
+    5's eager float32 step in turns; (5) a new compiled Trainer, and the
+    main path's own, loaded from the saved states take steps 6-10
+    bitwise as the main path did; (6) the other compile-safe
+    optimizers.  Returns the attention
+    kernels' counts for the kernels line."""
+    import tempfile
+
+    from mxnet_tpu_torch import gluon
+
+    rng = np.random.RandomState(seed + 3)
+    x = torch.from_numpy(rng.randint(0, VOCAB, (TRAIN_BATCH, SEQ))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, VOCAB, (TRAIN_BATCH, SEQ))
+                         .astype(np.float32)).cuda()
+    compiled_vs_eager(seed, x, y)
+
+    # 2. the main path
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net, trainer = _compiled_lm(seed, "float16", multi_precision=True)
+    tmp = tempfile.TemporaryDirectory()
+    states_file = "%s/lm.states" % tmp.name
+    cs = trainer.compile(net, loss_fn)
+    counters = _attention_counters()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(LM_COMPILED_STEPS)]
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i, ev in enumerate(events):
+        ev[0].record()
+        losses.append(cs.step(x, y))
+        ev[1].record()
+        if i + 1 == LM_RESUME_AT:
+            trainer.save_states(states_file)
+            at_resume = {k: v.detach().clone()
+                         for k, v in net.state_dict().items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [v.float().mean().item() for v in losses]
+    final = _trained_state(net, trainer)
+    step_ms = float(np.mean([a.elapsed_time(b)
+                             for a, b in events[WARMUP_STEPS:]]))
+    states = trainer._updaters[0].states
+    dtypes = {(str(p.dtype), str(_first(states[i]).dtype))
+              for i, p in enumerate(net.collect_params().values())}
+    (graph,) = cs.graphs.values()
+    log("compiled train: the main path, float16 TransformerLM (vocab %d, "
+        "units %d, %d layers, %d heads), Adam lr 1e-3 multi_precision, %d "
+        "compiled steps on one (%d, %d) batch: loss %s; weights and "
+        "masters %s; %d graph, %d replays; wrapper launches over the main "
+        "path %s (the warm-up's and the capture's: %d each expected)" % (
+            VOCAB, UNITS, LAYERS, HEADS, LM_COMPILED_STEPS, TRAIN_BATCH, SEQ,
+            " ".join("%.4f" % v for v in losses), sorted(dtypes),
+            len(cs.graphs), graph.replays, launches, 2 * LAYERS))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("the float16 compiled loss is not finite or "
+                             "did not fall")
+    if dtypes != {("torch.float16", "torch.float32")}:
+        raise AssertionError("the weights are not float16 with float32 "
+                             "masters")
+    if len(cs.graphs) != 1 or graph.replays != LM_COMPILED_STEPS:
+        raise AssertionError("the compiled step recaptured")
+    if any(n != 2 * LAYERS for n in launches.values()):
+        raise AssertionError("the attention kernels were not in the "
+                             "captured step")
+
+    # 3. three more replays under the profiler
+    traced = 3
+    seen = profile_steps(lambda: cs.step(x, y), smi, step_ms, steps=traced,
+                         groups=COMPILED_GROUPS, tag="compiled train",
+                         count=LM_LAUNCH_KERNELS)
+    want = {k: n * traced for k, _, n in LM_LAUNCH_KERNELS}
+    log("compiled train: attention kernels in the trace of %d replays: %s; "
+        "expected %s" % (traced, seen, want))
+    if seen != want:
+        raise AssertionError("the replayed step does not launch K3, K4a and "
+                             "K4b once a layer")
+
+    # 4. the step's time, and phase 5's float32 eager step in turns
+    log("compiled train: the float16 compiled step %.2f ms on %s (mean of "
+        "%d after %d warm-up, CUDA events), %.0f tokens/s; %d steps in "
+        "%.2f s wall (the first: warm-up, capture, replay; the save after "
+        "step %d); peak memory %.2f GB" % (
+            step_ms, smi, LM_COMPILED_STEPS - WARMUP_STEPS, WARMUP_STEPS,
+            TRAIN_BATCH * SEQ / step_ms * 1e3, LM_COMPILED_STEPS, wall,
+            LM_RESUME_AT, peak))
+    net32, trainer32 = _compiled_lm(seed)
+    _train_step(net32, loss_fn, trainer32, x, y)
+    turns = {"float16 compiled": [], "float32 eager": []}
+    for _ in range(LM_TURNS):
+        for kind, step in (
+                ("float16 compiled", lambda: cs.step(x, y)),
+                ("float32 eager",
+                 lambda: _train_step(net32, loss_fn, trainer32, x, y))):
+            turns[kind].append(time_ms(step, iters=LM_TURN_STEPS))
+    log("compiled train: in %d turns of %d steps on %s: %s" % (
+        LM_TURNS, LM_TURN_STEPS, smi, "; ".join(
+            "%s %s ms" % (k, " ".join("%.2f" % v for v in t))
+            for k, t in turns.items())))
+    del net32, trainer32
+    torch.cuda.empty_cache()
+
+    # 5. steps 6-10 again from the states saved after step 5: through a
+    # new net, Trainer and compiled step, and through the main path's own
+    # (its graph captured before the load reads the old state tensors:
+    # the load drops it, and the next step captures again)
+    net2, trainer2 = _compiled_lm(None, "float16", multi_precision=True)
+    cs2 = trainer2.compile(net2, loss_fn)
+    for kind, n, t, c in (("a new compiled Trainer", net2, trainer2, cs2),
+                          ("the main path's Trainer", net, trainer, cs)):
+        with torch.no_grad():
+            for k, v in n.state_dict().items():
+                v.copy_(at_resume[k])
+        t.load_states(states_file)
+        resumed = [c.step(x, y).float().mean().item()
+                   for _ in range(LM_RESUME_AT, LM_COMPILED_STEPS)]
+        torch.cuda.synchronize()
+        after = _trained_state(n, t)
+        differ = [k for k in final if not torch.equal(final[k], after[k])]
+        log("compiled train: %s loaded with the states saved after step %d "
+            "(%d graph, %d replays): steps %d-%d loss %s (the main path's "
+            "%s); %d of %d tensors differ at step %d (bitwise expected)" % (
+                kind, LM_RESUME_AT, len(c.graphs),
+                next(iter(c.graphs.values())).replays, LM_RESUME_AT + 1,
+                LM_COMPILED_STEPS, " ".join("%.4f" % v for v in resumed),
+                " ".join("%.4f" % v for v in losses[LM_RESUME_AT:]),
+                len(differ), len(final), LM_COMPILED_STEPS))
+        if differ or resumed != losses[LM_RESUME_AT:] or len(c.graphs) != 1:
+            raise AssertionError("the resumed run differs: %s" % differ[:5])
+    tmp.cleanup()
+    del net, trainer, cs, net2, trainer2, cs2, final, after, at_resume
+    torch.cuda.empty_cache()
+
+    compiled_other_optimizers(seed)
+    return {k: dict(launches=n, traced_replays=traced,
+                    launches_in_traced_replays=seen[k])
+            for k, n in launches.items()}
+
+
+def _first(state):
+    """The first tensor of an optimizer state (a master weight's)."""
+    return state if isinstance(state, torch.Tensor) else _first(state[0])
 
 
 # ---------------------------------------------------------------- ResNet-50
@@ -3242,7 +3586,7 @@ def _nd_outputs(case, ctx, seed):
               for a in T.make_inputs(case, seed)]
     out = nd.imperative_invoke(name, inputs, attrs)
     if name in T.INPLACE_OPS:
-        out = inputs[:1] + inputs[2:]
+        out = T.updated(case, inputs)
     return [o.asnumpy() for o in out]
 
 
@@ -6412,7 +6756,7 @@ def main():
 
     smi = environment()
     phase("build", build)
-    fwd_row = phase("3 attention forward", kernels, args.seed)
+    fwd_rows = phase("3 attention forward", kernels, args.seed)
     bwd_rows = phase("3b attention backward", backward_kernels, args.seed)
     dw_rows, dw_lenet, dw_convlstm = phase("3c conv dW", conv_kernels,
                                            args.seed)
@@ -6427,6 +6771,8 @@ def main():
     serve_row = phase("4 serve", serve, args.seed, smi)
     phase("4b predictor", predictor_serve, args.seed, smi)
     train_launches = phase("5 train", train, args.seed, smi)
+    compiled_launches = phase("5b compiled LM train", compiled_train,
+                              args.seed, smi)
     resnet_launches = phase("6 resnet", resnet_train, args.seed, smi)
     v2 = phase("6b resnet v2", resnet_v2, args.seed, smi)
     rtc_row, rtc_launches = phase("7 imperative", imperative, args.seed, smi)
@@ -6444,17 +6790,33 @@ def main():
               plan_route=fwd_kernel_plan(UNITS // HEADS,
                                          torch.float32).route,
               source="mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
-              replaces="mxnet_tpu/ops/attention.py:63", **fwd_row)
+              replaces="mxnet_tpu/ops/attention.py:63")
     entries = [dict(k3, path="serve",
                     launches_counted_over="eager warm-up + capture of each "
-                                          "bucket", **serve_row),
-               dict(k3, path="train", launches=train_launches["fwd"])]
+                                          "bucket", **serve_row,
+                    **fwd_rows["bucket 8"]),
+               dict(k3, path="train", launches=train_launches["fwd"],
+                    **fwd_rows["bucket 8"])]
     for kern, line in (("dq", 163), ("dkv", 206)):
         entries.append(dict(name="flash_attn_bwd_" + kern, path="train",
                             route="cuda",
                             source="mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
                             replaces="mxnet_tpu/ops/attention.py:%d" % line,
                             launches=train_launches[kern], **bwd_rows[kern]))
+    # the compiled float16 step (phase 5b) is captured: "launches" is the
+    # wrappers' count over the main path (its warm-up and capture), and the
+    # replays' launches are counted in a profiler trace, as ResNet's below
+    for kern, line, row in (("fwd", 63, fwd_rows["f16"]),
+                            ("dq", 163, bwd_rows["f16"]["dq"]),
+                            ("dkv", 206, bwd_rows["f16"]["dkv"])):
+        entries.append(dict(
+            name="flash_attn_" + ("fwd" if kern == "fwd" else "bwd_" + kern),
+            path="lm_compiled_train", route="cuda", dtype="float16",
+            source="mxnet_tpu_torch/csrc/flash_attn_%s.cu"
+                   % ("fwd" if kern == "fwd" else "bwd"),
+            replaces="mxnet_tpu/ops/attention.py:%d" % line,
+            launches_counted_over="eager warm-up step + capture",
+            **compiled_launches[kern], **row))
     # the ResNet step is captured: "launches" is the wrappers' count over
     # the main path, which launches in the eager warm-up step and into the
     # graph at capture (2 x a step); the replays launch no wrapper, so the

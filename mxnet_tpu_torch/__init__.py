@@ -21,11 +21,11 @@ too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
 ``mx.save_checkpoint``, ``mx.load_checkpoint``, ``mx.do_checkpoint``).
 """
 
-from . import (attribute, autograd, callback, context, convert, executor,
-               gluon, initializer, io, log, lr_scheduler, metric, model,
-               module, monitor, name, ndarray, operator, ops, optimizer,
-               parallel, predictor, random, rnn, rtc, serving, symbol,
-               test_utils)
+from . import (attribute, autograd, callback, checkpoint, compiled_step,
+               context, convert, executor, gluon, initializer, io, log,
+               lr_scheduler, metric, model, module, monitor, name, ndarray,
+               operator, ops, optimizer, parallel, predictor, random, rnn,
+               rtc, serving, symbol, test_utils)
 from . import initializer as init
 from . import module as mod
 from . import monitor as mon
@@ -45,7 +45,8 @@ from .symbol import Symbol
 
 __all__ = ["AttrScope", "DataBatch", "DataIter", "Executor", "MXNetError",
            "Module", "NDArray", "NameManager", "Symbol", "attribute",
-           "autograd", "callback", "context", "convert", "cpu",
+           "autograd", "callback", "checkpoint", "compiled_step", "context",
+           "convert", "cpu",
            "do_checkpoint", "executor", "gpu", "gluon", "init",
            "initializer", "io", "load_checkpoint", "log", "lr_scheduler",
            "metric",

@@ -5,10 +5,11 @@ python/mxnet/gluon/loss.py): ``Loss``, ``L2Loss``, ``L1Loss``,
 ``SigmoidBinaryCrossEntropyLoss`` (alias ``SigmoidBCELoss``),
 ``SoftmaxCrossEntropyLoss`` (alias ``SoftmaxCELoss``), ``KLDivLoss``,
 ``HuberLoss``, ``HingeLoss``, ``SquaredHingeLoss``, ``LogisticLoss``,
-``TripletLoss`` and ``CosineEmbeddingLoss``, each in the JAX package's
-arithmetic.  A loss returns the per-sample loss: the mean over every
-axis but ``batch_axis`` (``TripletLoss`` and ``CosineEmbeddingLoss``:
-one value a sample).  ``CTCLoss`` is not ported yet.
+``TripletLoss``, ``CosineEmbeddingLoss`` and ``CTCLoss``, each in the
+JAX package's arithmetic.  A loss returns the per-sample loss: the mean
+over every axis but ``batch_axis`` (``TripletLoss`` and
+``CosineEmbeddingLoss``: one value a sample; ``CTCLoss``: one a
+sequence).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from .block import HybridBlock
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
-           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss"]
+           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss", "CTCLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -167,6 +168,34 @@ class KLDivLoss(Loss):
         loss = label * (torch.log(label + 1e-12) - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return _mean_all_but_batch(loss, self._batch_axis)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss (reference: loss.py
+    CTCLoss; :func:`~mxnet_tpu_torch.ops.nn.ctc_loss` with the blank the
+    last class, labels 0-based and padded with -1).  ``layout``: the
+    predictions' ``"NTC"`` or ``"TNC"``; ``label_layout``: ``"NT"`` or
+    ``"TN"``, whose batch axis is the loss's.  ``pred_lengths`` and
+    ``label_lengths`` give each sample's lengths."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None):
+        if layout not in ("NTC", "TNC") or label_layout not in ("NT", "TN"):
+            raise ValueError("CTCLoss: layout %r / label_layout %r"
+                             % (layout, label_layout))
+        super().__init__(weight, label_layout.find("N"))
+        self._layout = layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        loss = _ops.ctc_loss(pred, label, pred_lengths, label_lengths,
+                             use_data_lengths=pred_lengths is not None,
+                             use_label_lengths=label_lengths is not None,
+                             blank_label="last")
+        return _apply_weighting(loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

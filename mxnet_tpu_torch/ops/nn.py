@@ -2,10 +2,11 @@
 
 Counterparts of ``mxnet_tpu/ops/nn.py`` Convolution, FullyConnected,
 Activation, LeakyReLU (gelu), BatchNorm, LayerNorm, Pooling, Dropout,
-log_softmax and the Module API's loss heads (SoftmaxOutput and the
-regression outputs).  The JAX package leaves most of these to XLA; here they stay
-plain PyTorch (matrix products go to cuBLAS, the convolutions' forward and
-data-gradient and the max-pool forward to cuDNN).  Two gradients are the
+log_softmax, the Module API's loss heads (SoftmaxOutput and the
+regression outputs) and the CTC loss.  The JAX package leaves most of
+these to XLA; here they stay plain PyTorch (matrix products go to
+cuBLAS, the convolutions' forward and data-gradient and the max-pool
+forward to cuDNN).  Two gradients are the
 port's own kernels, as the JAX package routes them to Pallas: a
 convolution's weight-gradient (:mod:`.conv_dw`, K1a/K1b) and a max pool's
 input-gradient (:mod:`.pool_bwd`, K2).  BatchNorm, which XLA fuses inside
@@ -59,7 +60,7 @@ from .registry import register
 __all__ = ["convolution", "deconvolution", "fully_connected",
            "activation", "leaky_relu", "batch_norm", "layer_norm", "pooling",
            "dropout", "softmax", "log_softmax", "softmax_output",
-           "regression_output", "l2_normalization", "nchw_call"]
+           "regression_output", "l2_normalization", "nchw_call", "ctc_loss"]
 
 # the layouts of 1-, 2- and 3-D data
 CHANNEL_LAST = {1: "NWC", 2: "NHWC", 3: "NDHWC"}
@@ -748,3 +749,67 @@ def _mae_regression_output(data, label, grad_scale=1.0, **_):
 def _logistic_regression_output(data, label, grad_scale=1.0, **_):
     """Sigmoid forward, cross-entropy backward ``pred - label``."""
     return regression_output(data, label, grad_scale, "logistic")
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first", **_):
+    """Connectionist temporal classification loss of each sample
+    (``mxnet_tpu/ops/nn.py:794-863``; reference:
+    src/operator/contrib/ctc_loss.cc): the negative log-likelihood of
+    ``label`` under the (seq, batch, alphabet) activations ``data``, by
+    the forward recursion in log space over the label extended with
+    blanks, one time step at a time, as the JAX op's ``lax.scan``.
+
+    ``blank_label``: the blank is class 0 (``"first"``; labels are 1-based
+    and padded with 0) or the last class (``"last"``; labels 0-based,
+    padded with -1).  ``use_data_lengths``/``use_label_lengths`` take
+    each sample's lengths from the inputs (given only the label lengths,
+    they may come in the third input, as the reference contracts its
+    input list); past its data length a sample's recursion stands still.
+    Impossible paths sit at -1e30, as in the JAX op.  Differentiable by
+    PyTorch's autograd; no kernel of its own (the JAX op is a scan)."""
+    if use_label_lengths and not use_data_lengths and label_lengths is None:
+        label_lengths, data_lengths = data_lengths, None
+    seq_len, batch, alphabet = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    blank = 0 if blank_label == "first" else alphabet - 1
+    lab = label.to(torch.int64)
+    max_lab = lab.shape[1]
+    if label_lengths is not None and use_label_lengths:
+        lab_len = label_lengths.to(torch.int64)
+    else:
+        lab_len = ((lab > 0) if blank == 0 else (lab >= 0)).sum(dim=1)
+    if data_lengths is not None and use_data_lengths:
+        dat_len = data_lengths.to(torch.int64)
+    else:
+        dat_len = torch.full((batch,), seq_len, dtype=torch.int64,
+                             device=data.device)
+    # the extended label: blanks between and around the labels
+    pos = torch.arange(2 * max_lab + 1, device=data.device)
+    ext = torch.where(pos % 2 == 0, blank,
+                      lab[:, torch.clamp(pos // 2, max=max_lab - 1)])
+    # a negative label reads the class it names from the end, as the JAX
+    # op's gather does
+    idx = torch.where(ext < 0, ext + alphabet, ext)
+    neg = torch.full((), -1e30, dtype=logp.dtype, device=data.device)
+    same = ext == torch.cat([torch.full((batch, 2), -1, dtype=ext.dtype,
+                                        device=ext.device), ext[:, :-2]], 1)
+    allow2 = ~((ext == blank) | same)
+    first = torch.where(lab_len > 0, logp[0].gather(1, idx[:, 1:2])[:, 0],
+                        neg)
+    alpha = torch.cat([logp[0, :, blank:blank + 1], first[:, None],
+                       neg.expand(batch, 2 * max_lab - 1)], 1)
+    pad1, pad2 = neg.expand(batch, 1), neg.expand(batch, 2)
+    for t in range(1, seq_len):
+        shift1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        shift2 = torch.cat([pad2, alpha[:, :-2]], 1)
+        stay = torch.logaddexp(alpha, shift1)
+        cand = torch.where(allow2, torch.logaddexp(stay, shift2), stay)
+        new = cand + logp[t].gather(1, idx)
+        alpha = torch.where((t < dat_len)[:, None], new, alpha)
+    p1 = alpha.gather(1, (2 * lab_len)[:, None])[:, 0]
+    p2 = torch.where(lab_len > 0, alpha.gather(
+        1, torch.clamp(2 * lab_len - 1, min=0)[:, None])[:, 0], neg)
+    return -torch.logaddexp(p1, p2)

@@ -46,6 +46,7 @@ OP_INPUT_NAMES = {
     "MAERegressionOutput": ("data", "label"),
     "LogisticRegressionOutput": ("data", "label"),
     "RNN": ("data", "parameters", "state", "state_cell"),
+    "CTCLoss": ("data", "label", "data_lengths", "label_lengths"),
 }
 
 # Inputs that are auxiliary states: no gradient, updated by the executor

@@ -23,9 +23,10 @@ running-stat update into one jitted program over a device mesh
    during the forward.
 
 With ``optimizer=`` (an optimizer whose ``compiled_step_safe`` is True:
-the port's ``SGD`` and ``Adam``) the update reads its per-step scalars
-(the scheduled rate, Adam's bias-corrected one, the weight decay) from
-one small buffer on the step's device, through
+SGD, NAG, Signum, Adam, Adamax, FTML, Ftrl, RMSProp, AdaGrad, AdaDelta)
+the update reads its per-step scalars (the scheduled rate, Adam's
+bias-corrected one, the weight decay, a step count) from one small
+buffer on the step's device (:class:`ScalarFeed`), through
 :class:`~..optimizer.scalar_feed`: before each step the host advances the
 optimizer's update counts, computes the scalars
 (:meth:`~..optimizer.Optimizer.step_scalars`) and copies them into the
@@ -97,11 +98,45 @@ def _dtype(name):
     return dt
 
 
+class ScalarFeed:
+    """The per-step scalars of ``optimizer``'s update for ``indices``:
+    ``buffer``, one float32 slot a (index, scalar name) on ``device``,
+    and ``table``, its 0-d views by slot, which the update reads under
+    :class:`~..optimizer.scalar_feed`."""
+
+    def __init__(self, optimizer, indices, device):
+        self.indices = list(indices)
+        self.slots = [(i, name) for i in self.indices
+                      for name in sorted(optimizer.step_scalars(i))]
+        self.buffer = torch.zeros(len(self.slots), dtype=torch.float32,
+                                  device=device)
+        self.table = {slot: self.buffer[k]
+                      for k, slot in enumerate(self.slots)}
+
+    def refill(self, optimizer):
+        """Advance ``optimizer``'s update counts by one step and copy this
+        step's scalars into the buffer, ordered on the device before the
+        step (the host copy is pinned, so it does not wait for the
+        device)."""
+        values = {}
+        for i in self.indices:
+            optimizer._update_count(i)
+            values[i] = optimizer.step_scalars(i)
+        host = torch.tensor([float(values[i][name]) for i, name in self.slots],
+                            dtype=torch.float32)
+        if self.buffer.device.type == "cuda":
+            host = host.pin_memory()
+        self.buffer.copy_(host, non_blocking=True)
+
+
 class _StepGraph:
     """``n`` training steps at one batch signature, captured as one CUDA
-    graph after an eager warm-up whose effects are undone.  ``x`` and
-    ``y`` are the graph's static inputs; ``loss`` and ``grad_norm`` (the
-    last step's) its static outputs."""
+    graph after an eager warm-up whose effects are undone.  ``step`` has
+    ``_eager(x, y)`` (one step, returning a tuple of tensors), ``device``
+    and the state the step updates in place, ``trainable``, ``opt_state``
+    and ``aux`` (a ``GluonTrainStep``, a ``CompiledStep``).  ``x`` and
+    ``y`` are the graph's static inputs; ``outs``, the last step's
+    results, its static outputs."""
 
     def __init__(self, step, x, y, n):
         dev = step.device
@@ -111,10 +146,10 @@ class _StepGraph:
 
         def body():
             for _ in range(n):
-                loss, gnorm = step._eager(self.x, self.y)
-            return loss, gnorm
+                outs = step._eager(self.x, self.y)
+            return outs
 
-        self.graph, (self.loss, self.grad_norm) = _capture.capture(body, dev)
+        self.graph, self.outs = _capture.capture(body, dev)
         self.replays = 0
 
     def load(self, x, y):
@@ -125,12 +160,11 @@ class _StepGraph:
         return self.x, self.y
 
     def run(self, x, y):
-        """Replay on ``(x, y)``: fresh copies of the loss and the grad
-        norm."""
+        """Replay on ``(x, y)``: fresh copies of the results."""
         self.load(x, y)
         self.graph.replay()
         self.replays += 1
-        return self.loss.clone(), self.grad_norm.clone()
+        return tuple(o.clone() for o in self.outs)
 
 
 def _one_device_mesh(mesh):
@@ -152,6 +186,13 @@ def _one_device_mesh(mesh):
             "step on one device, and multi-GPU training (data, tensor or "
             "pipeline parallel over a mesh) is not yet ported" % n)
     return mesh
+
+
+def put(v, device):
+    """A host array or a tensor as a tensor on ``device``."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    return v.to(device)
 
 
 def _leaves(state):
@@ -237,21 +278,16 @@ class GluonTrainStep:
                 raise MXNetError(
                     "GluonTrainStep(optimizer=...): %s is not compiled-step "
                     "safe (its update reads per-step host scalars the step "
-                    "cannot feed); the port's SGD and Adam are"
+                    "cannot feed); SGD, NAG, Signum, Adam, Adamax, FTML, "
+                    "Ftrl, RMSProp, AdaGrad and AdaDelta are"
                     % type(optimizer).__name__)
             with torch.no_grad():
                 self._states = [optimizer.create_state(i, p.detach())
                                 for i, p in enumerate(self.trainable)]
             self.opt_state = [t for st in self._states for t in _leaves(st)]
-            # one slot a (parameter index, scalar name); the buffer the
-            # update reads them from, refilled on the host before each step
-            self._slots = [(i, name) for i in range(len(self.trainable))
-                           for name in sorted(optimizer.step_scalars(i))]
-            self._scalars = torch.zeros(len(self._slots),
-                                        dtype=torch.float32,
-                                        device=self.device)
-            self._feed = {slot: self._scalars[k]
-                          for k, slot in enumerate(self._slots)}
+            self._feed = ScalarFeed(optimizer, range(len(self.trainable)),
+                                    self.device)
+            self._scalars = self._feed.buffer
         self._compute_dtype = _dtype(compute_dtype)
         self._capture = self.device.type == "cuda"
         self.graphs = {}  # (steps, x and y signature) -> _StepGraph
@@ -259,12 +295,7 @@ class GluonTrainStep:
         self.last_grad_norm = None
 
     def _to_device(self, x, y):
-        def put(v):
-            if not isinstance(v, torch.Tensor):
-                v = torch.from_numpy(np.ascontiguousarray(v))
-            return v.to(self.device)
-
-        return put(x), put(y)
+        return put(x, self.device), put(y, self.device)
 
     @staticmethod
     def _key(x, y, steps):
@@ -316,29 +347,11 @@ class GluonTrainStep:
             if self.optimizer is None:
                 self._update(self.trainable, grads, self.opt_state)
             else:
-                with scalar_feed(self._feed):
+                with scalar_feed(self._feed.table):
                     for i, (w, g, st) in enumerate(zip(
                             self.trainable, grads, self._states)):
                         self.optimizer.update(i, w, g, st)
         return loss.detach(), gnorm
-
-    def _feed_scalars(self):
-        """With ``optimizer=``: advance its update counts by one step and
-        copy this step's scalars into the buffer the update reads, ordered
-        on the device before the step (the host copy is pinned, so the
-        copy does not wait for the device)."""
-        if self.optimizer is None:
-            return
-        opt = self.optimizer
-        table = {}
-        for i in range(len(self.trainable)):
-            opt._update_count(i)
-            table[i] = opt.step_scalars(i)
-        host = torch.tensor([float(table[i][name]) for i, name in self._slots],
-                            dtype=torch.float32)
-        if self._scalars.device.type == "cuda":
-            host = host.pin_memory()
-        self._scalars.copy_(host, non_blocking=True)
 
     def __call__(self, x, y):
         """One training step; returns the mean loss (a device tensor in
@@ -346,7 +359,8 @@ class GluonTrainStep:
         the global L2 norm of the float32 gradients.  Both are fresh
         tensors."""
         x, y = self._to_device(x, y)
-        self._feed_scalars()
+        if self.optimizer is not None:
+            self._feed.refill(self.optimizer)
         if self._capture:
             loss, self.last_grad_norm = self._graph(x, y, 1).run(x, y)
         else:

@@ -15,8 +15,9 @@ array by :func:`make_inputs` from ``numpy.random.RandomState(seed)``:
 - ``("v", values)`` or ``("v", values, dtype)``: the values themselves.
 
 A key ``"op/extra"`` is one more case of ``op`` (``"sum/int32"``).  :data:`RANDOM_OPS` draw from a generator, so only
-their laws can be compared; :data:`INPLACE_OPS` update their state inputs
-in place and return the weight.
+their laws can be compared; :data:`INPLACE_OPS` update their weight and
+state inputs in place and return the weight (:func:`updated` lists
+them).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["OP_CASES", "RANDOM_OPS", "INPLACE_OPS", "NO_TENSOR_OPS",
-           "CUSTOM_CASE", "make_inputs", "op_name", "register_case_op"]
+           "CUSTOM_CASE", "make_inputs", "op_name", "register_case_op",
+           "updated"]
 
 _F = ("f", (3, 4))
 _HALVES = ("v", [[-2.5, -1.5, -0.5, 0.5], [1.5, 2.5, 0.3, -0.7]])
@@ -32,6 +34,7 @@ _SPECIAL = ("v", [[0.0, 1.0, float("nan"), float("inf")],
                   [-float("inf"), -2.0, 3.5, float("nan")]])
 _UNIT = ("u", (3, 4), -0.9, 0.9)
 _POS = ("u", (3, 4), 0.2, 3.0)
+_VAR = ("u", (3, 4), 0.1, 1.0)  # a positive optimizer state
 
 _UNARY_INPUT = {
     "sqrt": _POS, "rsqrt": _POS, "log": _POS, "log10": _POS, "log2": _POS,
@@ -421,13 +424,72 @@ OP_CASES.update({
                                       "wd": 1e-4}),
     "adam_update": ([_F, _F, _F, ("u", (3, 4), 0.1, 1.0)],
                     {"lr": 0.01, "wd": 1e-3, "rescale_grad": 0.5}),
+    "nag_mom_update": ([_F, _F, _F], {"lr": 0.1, "momentum": 0.9,
+                                      "wd": 1e-4, "clip_gradient": 1.0}),
+    "adamw_update": ([_F, _F, _F, _VAR], {"lr": 0.01, "wd": 1e-3,
+                                          "eta": 0.5, "clip_gradient": 0.8}),
+    "rmsprop_update": ([_F, _F, _VAR], {"lr": 0.01, "wd": 1e-3,
+                                        "clip_weights": 0.5}),
+    "rmspropalex_update": ([_F, _F, ("u", (3, 4), 1.0, 2.0),
+                            ("u", (3, 4), -0.1, 0.1), _F],
+                           {"lr": 0.01, "wd": 1e-3}),
+    "adagrad_update": ([_F, _F, _VAR], {"lr": 0.1, "wd": 1e-3}),
+    "adadelta_update": ([_F, _F, _VAR, _VAR], {"wd": 1e-3,
+                                               "clip_gradient": 1.0}),
+    "signsgd_update": ([_F, _F], {"lr": 0.1, "wd": 1e-3}),
+    "signum_update": ([_F, _F, _F], {"lr": 0.1, "momentum": 0.9,
+                                     "wd": 1e-3, "wd_lh": 0.01}),
+    "ftrl_update": ([_F, _F, _F, _VAR], {"lr": 0.1, "lamda1": 0.3,
+                                         "wd": 1e-3}),
+    # t as the optimizers feed it, a float (an int exponent takes JAX's
+    # integer_pow, a product chain, where 1 - beta2**t cancels)
+    "ftml_update": ([_F, _F, _F, _VAR, _F], {"lr": 0.01, "wd": 1e-3,
+                                             "t": 3.0}),
+    "adamax_update": ([_F, _F, _F, _VAR], {"lr": 0.01, "wd": 1e-3,
+                                           "t": 2.0}),
+    "nadam_update": ([_F, _F, _F, _VAR],
+                     {"lr": 0.01, "wd": 1e-3, "t": 2.0, "m_schedule": 0.8,
+                      "momentum_t": 0.89, "momentum_t_1": 0.891}),
+    "mp_sgd_update": ([_F, _F, _F], {"lr": 0.1, "wd": 1e-3,
+                                     "clip_gradient": 0.5}),
+    "mp_sgd_mom_update": ([_F, _F, _F, _F], {"lr": 0.1, "momentum": 0.9,
+                                             "wd": 1e-3}),
+    "multi_sgd_update": ([_F] * 4, {"lrs": (0.1, 0.2), "wds": (1e-3, 0.0),
+                                    "num_weights": 2}),
+    "multi_sgd_mom_update": ([_F] * 6, {"lrs": (0.1, 0.2),
+                                        "wds": (1e-3, 0.0), "momentum": 0.9,
+                                        "num_weights": 2}),
+    "multi_mp_sgd_update": ([_F] * 6, {"lrs": (0.1, 0.2), "wds": (1e-3, 0.0),
+                                       "clip_gradient": 0.5,
+                                       "num_weights": 2}),
+    "multi_mp_sgd_mom_update": ([_F] * 8, {"lrs": (0.1, 0.2),
+                                           "wds": (1e-3, 0.0),
+                                           "momentum": 0.9,
+                                           "num_weights": 2}),
+    # (seq, batch, alphabet) activations; labels 1-based, 0-padded (a
+    # repeated label, an empty one), then 0-based, -1-padded with lengths
+    "CTCLoss": ([("f", (6, 3, 5)),
+                 ("v", [[1, 2, 2], [3, 0, 0], [0, 0, 0]])], {}),
+    "CTCLoss/last-lengths": ([("f", (6, 3, 5)),
+                              ("v", [[0, 1, 1], [2, -1, -1], [3, 3, -1]]),
+                              ("v", [6, 4, 5]), ("v", [3, 1, 2])],
+                             {"use_data_lengths": True,
+                              "use_label_lengths": True,
+                              "blank_label": "last"}),
 })
 # the custom op of the ``Custom`` case (register_case_op)
 CUSTOM_CASE = "_case_square"
 OP_CASES["Custom"] = ([_F], {"op_type": CUSTOM_CASE})
 RANDOM_OPS = {"_random_uniform", "_random_normal", "_random_randint",
               "_shuffle"}
-INPLACE_OPS = {"sgd_update", "sgd_mom_update", "adam_update"}
+INPLACE_OPS = {"sgd_update", "sgd_mom_update", "nag_mom_update",
+               "adam_update", "adamw_update", "rmsprop_update",
+               "rmspropalex_update", "adagrad_update", "adadelta_update",
+               "signsgd_update", "signum_update", "ftrl_update",
+               "ftml_update", "adamax_update", "nadam_update",
+               "mp_sgd_update", "mp_sgd_mom_update", "multi_sgd_update",
+               "multi_sgd_mom_update", "multi_mp_sgd_update",
+               "multi_mp_sgd_mom_update"}
 NO_TENSOR_OPS = {"_zeros", "_ones", "_full", "_arange", "_linspace", "_eye",
                  "_random_uniform", "_random_normal", "_random_randint"}
 
@@ -435,6 +497,17 @@ NO_TENSOR_OPS = {"_zeros", "_ones", "_full", "_arange", "_linspace", "_eye",
 def op_name(case):
     """The registered op of a case key (``"sum/int32"`` -> ``"sum"``)."""
     return case.split("/")[0]
+
+
+def updated(case, inputs):
+    """The inputs of an :data:`INPLACE_OPS` case that its op updated, in
+    the order the JAX op returns their new values: the weights, then each
+    state in turn (a ``multi_*`` op's inputs are ``num_weights`` groups of
+    weight, gradient and states)."""
+    n = int(OP_CASES[case][1].get("num_weights", 1))
+    k = len(inputs) // n
+    return [inputs[g * k + j] for j in [0] + list(range(2, k))
+            for g in range(n)]
 
 
 def make_inputs(case, seed=0):

@@ -114,7 +114,7 @@ def test_trainer_built_before_the_first_forward():
                for k, p in net.collect_params().items() if "weight" in k)
     net(torch.from_numpy(x))
     load_mxnet_tpu_params(net, params)
-    assert trainer._updater.states == {}
+    assert trainer._updaters[0].states == {}
     for _ in range(3):
         with jag.record():
             jl = ((jnet(mx.nd.array(x)) - mx.nd.array(y)) ** 2).sum()
@@ -127,7 +127,7 @@ def test_trainer_built_before_the_first_forward():
         trainer.step(4)
         np.testing.assert_allclose(float(tl.detach()), float(jl.asnumpy()),
                                    rtol=1e-5)
-    assert len(trainer._updater.states) == 4
+    assert len(trainer._updaters[0].states) == 4
     for k, p in jnet._collect_params_with_prefix().items():
         _close(net.collect_params()[k].detach().numpy(),
                p.data().asnumpy(), 1e-5, k)

@@ -61,8 +61,8 @@ def _port_outputs(case, arrays):
         attrs["ctx"] = CPU
     tensors = [torch.from_numpy(a.copy()) for a in arrays]
     out = treg.apply_op(name, *tensors, **attrs)
-    if name in T.INPLACE_OPS:  # the weight and the states, updated
-        return [t.numpy() for t in tensors[:1] + tensors[2:]]
+    if name in T.INPLACE_OPS:  # the weights and the states, updated
+        return [t.numpy() for t in T.updated(case, tensors)]
     return [o.numpy() for o in (out if isinstance(out, tuple) else (out,))]
 
 

@@ -199,3 +199,96 @@ def test_parameter_no_backward_reached_updates_with_a_zero_gradient():
     assert unused.weight.grad is None
     torch.testing.assert_close(unused.weight.detach(),
                                before - 0.5 * 0.1 * before)
+
+
+@pytest.mark.parametrize("kvstore", ["device", "local", None, False])
+def test_one_device_kvstores_reduce_nothing(kvstore):
+    """The JAX Trainer's keywords (``mxnet_tpu/gluon/trainer.py:110-112``):
+    the stores that mean no store on one device are taken, and the step
+    is the one without them."""
+    net, before, grads, trainer = _dense_step(dict(
+        optimizer="sgd", optimizer_params={"learning_rate": 0.5},
+        kvstore=kvstore, compression_params=None, update_on_kvstore=False))
+    assert trainer._kvstore_type is kvstore and trainer._kvstore is None
+    assert trainer._update_on_kvstore is False
+    for name, p in net.collect_params().items():
+        torch.testing.assert_close(p.detach(),
+                                   before[name] - 0.5 * grads[name] / 2)
+
+
+class _Store:
+    type = "local"
+
+
+@pytest.mark.parametrize("kw", [{"kvstore": "dist_sync"},
+                                {"kvstore": "dist_async_device"},
+                                {"kvstore": _Store()},
+                                {"update_on_kvstore": True}])
+def test_stores_that_need_more_devices_raise(kw):
+    net = Dense(3, in_units=4, device="cpu").initialize()
+    with pytest.raises(MXNetError, match="Queue 1 item 9"):
+        gluon.Trainer(net.collect_params(), "sgd", **kw)
+
+
+def test_jax_trainer_attributes_and_two_phase_update():
+    net = Dense(3, in_units=4, device="cpu").initialize(seed=4)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.5, "rescale_grad": 2.0})
+    assert trainer._param2idx == {net.weight: 0, net.bias: 1}
+    assert trainer._contexts == [torch.device("cpu")]
+    assert len(trainer._updaters) == 1 and trainer._scale == 2.0
+    before = net.weight.detach().clone()
+    with autograd.record():
+        out = net(torch.ones(2, 4))
+    autograd.backward(out)
+    trainer.allreduce_grads()
+    trainer.update(4)
+    assert trainer.optimizer.rescale_grad == 0.5
+    torch.testing.assert_close(net.weight.detach(),
+                               before - 0.5 * 0.5 * net.weight.grad)
+    trainer._update_on_kvstore = True  # the JAX guards of :307-339
+    for call in (trainer.allreduce_grads, lambda: trainer.update(4)):
+        with pytest.raises(ValueError, match="update_on_kvstore"):
+            call()
+    other = Dense(3, in_units=4, device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        gluon.Trainer(list(net.parameters()) + list(other.parameters()),
+                      "sgd")
+
+
+def test_step_telemetry_counts_as_jax():
+    """``trainer_steps`` and the ``trainer:step`` histogram (when on)
+    count the same steps in both packages."""
+    from mxnet_tpu import histogram as jhistogram
+    from mxnet_tpu import runtime_stats as jrts
+    from mxnet_tpu_torch import histogram, runtime_stats
+
+    was = (jhistogram.is_enabled(), histogram.is_enabled())
+    jrts.reset()
+    runtime_stats.reset()
+    try:
+        jnet = mx.gluon.nn.Dense(3, in_units=4)
+        jnet.initialize()
+        jtr = jgl.Trainer(jnet.collect_params(), "sgd")
+        net = Dense(3, in_units=4, device="cpu").initialize()
+        tr = gluon.Trainer(net.collect_params(), "sgd")
+        for on in (False, True, True):
+            for mod in (jhistogram, histogram):
+                (mod.enable if on else mod.disable)()
+            with jag.record():
+                jl = jnet(mx.nd.ones((2, 4)))
+            jl.backward()
+            jtr.step(2)
+            with autograd.record():
+                tl = net(torch.ones(2, 4))
+            autograd.backward(tl)
+            tr.step(2)
+        assert runtime_stats.snapshot()["counters"]["trainer_steps"] == 3 \
+            == jrts.snapshot()["counters"]["trainer_steps"]
+        assert histogram.get("trainer:step").count == 2 == \
+            jhistogram.get("trainer:step").count
+    finally:
+        for mod, on in zip((jhistogram, histogram), was):
+            (mod.enable if on else mod.disable)()
+        jrts.reset()
+        runtime_stats.reset()
