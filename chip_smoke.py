@@ -334,7 +334,26 @@ Phases (any failure raises, and the script exits non-zero):
    1e-6 of a fresh bind from get_params(), the trained weights kept, and
    back at 64 the first executor's graph replayed; (d) model.FeedForward
    on numpy arrays, 2 epochs: predict and score above 0.9, a save/load
-   round trip predicting bitwise equal.
+   round trip predicting bitwise equal;
+13. gluon api: (a) the JAX package's nine Gluon tutorials
+   (docs/tutorials/gluon/*.py, ``mxnet_tpu`` replaced by
+   ``mxnet_tpu_torch`` and nothing else) on the card with no scope, each
+   printing its OK, the mnist tutorial's K1b and K2 wrapper counts; (b)
+   train_imagenet.py's resnet50_v1 (NCHW, float32, batch 128 at 224)
+   driven only through the reference's API: initialize(Xavier(gaussian,
+   in, 2), ctx=gpu(0)), collect_params(select).setattr('wd_mult', 0),
+   Trainer over collect_params() (SGD 0.1, momentum 0.9, wd 1e-4),
+   batches from a DataLoader (pin_memory, 2 workers) over 256 seeded
+   images, hybridize, record, backward, step: 10 steps in turns with the
+   same net built again and driven by tensors (today's API), the first
+   step's logits and gradients bitwise equal, both step times (CUDA
+   events), images/s and peak memory; the wrappers' counts over the
+   NDArray path (K1a, K1b, K2, K6a, K6b: its graph's warm-up and
+   capture) and their launches in a profiler trace of 3 of its steps,
+   none 0 (the kernels line's path gluon_api, with K1 timed at the
+   path's float32 shapes); (c) the trained net exported and reloaded by
+   SymbolBlock.imports on the card: predict-mode logits at batch 128
+   within 1e-5 of the largest one.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -633,6 +652,69 @@ def graph_ms(fn, iters=20, replays=3):
     return start.elapsed_time(end) / (iters * replays)
 
 
+# a torch.profiler session drops the device events of its first moments
+# (a window that grew to several kernels over a process's sessions on the
+# card), so a session that counts kernels first launches TRACE_LEADS
+# marker kernels (torch.cuda._sleep, a spin kernel), TRACE_LEAD_MS apart
+TRACE_LEADS = 20
+TRACE_LEAD_MS = 1.0
+
+
+def trace_lead(gap_ms=TRACE_LEAD_MS):
+    """The markers that open a profiler session, each run to its end."""
+    for _ in range(TRACE_LEADS):
+        time.sleep(gap_ms / 1e3)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+
+def device_spans(fn, cpu=False, expect=None, attempts=3):
+    """The device spans (start, end, name) of one call of ``fn`` in one
+    torch.profiler session, in start order, and what ``fn`` returned.  The
+    session opens with ``trace_lead`` and closes with one more marker, each
+    waited for; the call's spans are those that are not markers.  A trace
+    that kept no lead marker before them or not the closing one after them
+    may have lost some of the call's, and one in which ``expect(spans)`` is
+    false may have lost others: the call is made again in a new session
+    with the markers 10 times further apart, ``attempts`` sessions in all,
+    each retrace logged, and the last trace is returned as it is (the
+    caller's check then fails on it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, attempts + 1):
+        gap_ms = TRACE_LEAD_MS * 10 ** (attempt - 1)
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            trace_lead(gap_ms)
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [s for s in spans if "spin_kernel" in s[2]]
+        spans = [s for s in spans if "spin_kernel" not in s[2]]
+        first = spans[0][0] if spans else float("inf")
+        leads = sum(1 for m in marks if m[0] < first)
+        closed = bool(marks) and (not spans or marks[-1][0] >= spans[-1][1])
+        if leads < TRACE_LEADS:
+            log("a profiler session kept %d of its %d lead markers (%g ms "
+                "apart)" % (leads, TRACE_LEADS, gap_ms))
+        whole = leads > 0 and closed
+        if whole and (expect is None or expect(spans)):
+            return spans, out
+        if attempt < attempts:
+            log("a profiler trace of %d device kernels %s: traced again "
+                "(%d of %d)" % (
+                    len(spans), "kept no lead marker before them or not "
+                    "the closing one" if not whole
+                    else "is not the count expected", attempt + 1, attempts))
+    return spans, out
+
+
 def fwd_launch(q, k, v, causal, lib=None):
     """A function that launches K3 on q, k, v through the C entry point of
     ``lib`` (the built ``flash_attn_fwd`` by default) alone, into buffers
@@ -908,6 +990,8 @@ SERVE_TRACE_REQUESTS = 6
 # (15 rows cannot share a batch with the clients' 2 and 3 rows, so the
 # lazy batch is alone in bucket 16 and the small ones go on serving)
 LAZY_BUCKET, LAZY_SAMPLES = 16, 15
+# the default-priority streams PyTorch keeps a device, handed out in turn
+STREAM_POOL = 32
 
 
 def _device_err(host, ref):
@@ -964,8 +1048,6 @@ def serve(seed, smi):
     """Phase 4: the hybridized TransformerLM behind the InferenceServer,
     one captured graph a bucket.  Returns K3's counts for the kernels
     line."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mxnet_tpu_torch import _capture, histogram
     from mxnet_tpu_torch.ops.attention import flash_attention
     from mxnet_tpu_torch.serving import InferenceServer, RequestRejected
@@ -1154,20 +1236,26 @@ def serve(seed, smi):
     srv.warmup()
     xs = [rng.randint(0, VOCAB, size=(8, SEQ)).astype(np.float32)
           for _ in range(SERVE_TRACE_REQUESTS)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def burst():
+        before = srv.snapshot()["batches"]
         t0 = time.perf_counter()
         futs = [srv.submit(x) for x in xs]
         for f in futs:
             f.result(600)  # dropped at once: the pinned block goes back
-        burst_ms = (time.perf_counter() - t0) * 1e3
-    batches = srv.snapshot()["batches"]
+        last[:] = [futs, (time.perf_counter() - t0) * 1e3,
+                   srv.snapshot()["batches"] - before]
+
+    def k3_count(spans):
+        return sum(1 for _, _, n in spans if "flash_fwd" in n.lower())
+
+    last = []
+    spans, _ = device_spans(
+        burst, cpu=True,
+        expect=lambda spans: k3_count(spans) == LAYERS * last[2])
+    futs, burst_ms, batches = last
     srv.stop()
-    spans = [(e.time_range.start, e.time_range.end, e.name)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    k3 = sum(1 for _, _, n in spans if "flash_fwd" in n.lower())
+    k3 = k3_count(spans)
     n_copies, copy_us, overlap_us = _overlap(spans)
     e2e = sorted((f.t_done - f.t_submit) * 1e3 for f in futs)
     log("serve: a traced burst of %d bucket-8 requests on %s (2 workers, "
@@ -1184,6 +1272,18 @@ def serve(seed, smi):
         raise AssertionError("the served replays did not run K3 once a "
                              "layer a batch")
     del futs
+
+    # the capture stream lies outside PyTorch's pool of default-priority
+    # streams, which the server's workers draw from round-robin: one that
+    # were it would run the workers' batches inside a lazy capture
+    side = _capture._stream(torch.device("cuda", 0)).cuda_stream
+    pool = {torch.cuda.Stream().cuda_stream for _ in range(STREAM_POOL)}
+    log("serve: %d default-priority streams made in turn: %d distinct, the "
+        "capture stream among them: %s" % (STREAM_POOL, len(pool),
+                                           side in pool))
+    if side in pool:
+        raise AssertionError("a new default-priority stream is the capture "
+                             "stream")
 
     # a bucket built lazily (captured) while the other worker serves
     srv = InferenceServer(net, {"data": (SEQ,)},
@@ -1407,7 +1507,7 @@ def _grads(net, x, y):
     with autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
     autograd.backward(loss)
-    return {k: p.grad for k, p in net.collect_params().items()}
+    return {k: p.grad for k, p in net._collect_params_with_prefix().items()}
 
 
 def train(seed, smi):
@@ -1543,7 +1643,7 @@ def hybrid_check(net, x, y, want):
         if call == 0:
             first_s = time.perf_counter() - t0
         errs = {"logits": _bn_err(out.detach(), logits)[1]}
-        for name, p in hyb.collect_params().items():
+        for name, p in hyb._collect_params_with_prefix().items():
             if name in want:
                 errs[name] = _bn_err(p.grad, want[name])[1]
                 bitwise = bitwise and torch.equal(p.grad, want[name])
@@ -1601,20 +1701,38 @@ def profile_steps(step, smi, step_ms, steps=3, groups=KERNEL_GROUPS,
     are graph replays, the launches of each over the window are returned,
     and a
     trace without device kernels (a CUPTI that does not see inside
-    graphs) is reported and gives ``None``."""
+    graphs) is reported and gives ``None``.  A session's first events can
+    be lost, so one step runs first in the same session, each step is led
+    by a marker kernel (torch.cuda._sleep), and the window starts at the
+    marker of the first of the ``steps`` (None if the trace lacks
+    markers)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def run(n):
+        for _ in range(n):
+            torch.cuda._sleep(1)
+            step()
+        torch.cuda.synchronize()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        run(1)
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
+        run(steps)
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans and count is None:
+        raise AssertionError("the profiler saw no device kernel")
+    marks = [i for i, s in enumerate(spans) if "spin_kernel" in s[2]]
+    if len(marks) < steps:
+        log("%s: the profiler saw %d of %d step markers: busy share, time "
+            "by group and launches not measured" % (tag, len(marks),
+                                                    steps + 1))
+        return None
+    spans = [s for s in spans[marks[-steps]:] if "spin_kernel" not in s[2]]
     if not spans and count is not None:
         log("%s: the profiler saw no device kernel in %d graph replays "
             "(%.2f ms of wall): busy share and time by group not measured"
@@ -1702,7 +1820,7 @@ def _trained_state(net, trainer):
 
     out = {}
     states = trainer._updaters[0].states
-    for i, (name, p) in enumerate(net.collect_params().items()):
+    for i, (name, p) in enumerate(net._collect_params_with_prefix().items()):
         out[name] = p.detach().clone()
         for j, t in enumerate(_leaves(states.get(i))):
             out["%s/state%d" % (name, j)] = t.detach().clone()
@@ -1869,8 +1987,9 @@ def compiled_train(seed, smi):
     step_ms = float(np.mean([a.elapsed_time(b)
                              for a, b in events[WARMUP_STEPS:]]))
     states = trainer._updaters[0].states
+    params = net._collect_params_with_prefix().values()
     dtypes = {(str(p.dtype), str(_first(states[i]).dtype))
-              for i, p in enumerate(net.collect_params().values())}
+              for i, p in enumerate(params)}
     (graph,) = cs.graphs.values()
     log("compiled train: the main path, float16 TransformerLM (vocab %d, "
         "units %d, %d layers, %d heads), Adam lr 1e-3 multi_precision, %d "
@@ -2367,7 +2486,7 @@ def grouped_conv_kernels(seed):
         with autograd.record():
             out = layer(x)
         torch.autograd.backward(out, torch.ones_like(out))
-        grads.append((name, layer.weight.grad))
+        grads.append((name, layer._parameters["weight"].grad))
     torch.cuda.synchronize()
     launches = {key: fn.launches for key, fn in counters.items()}
     # ---- end of the path
@@ -2393,21 +2512,22 @@ def maxpool_bound_ms(xs, dys, dtype):
     return nbytes / PEAK_BYTES * 1e3, "bytes"
 
 
-def _one_call_kernels(fn):
-    """The device kernels one call of ``fn`` launches (torch.profiler),
-    and the bytes it allocates on top of what is already allocated."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+def _one_call_kernels(fn, expect=None):
+    """The device kernels one call of ``fn`` launches (``device_spans``;
+    ``expect`` as there, on the names), and the bytes it allocates on top
+    of what is already allocated."""
+    def call():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         out = fn()
         torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - base
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return names, extra, out
+        return out, torch.cuda.max_memory_allocated() - base
+
+    spans, (out, extra) = device_spans(
+        call, expect=None if expect is None
+        else lambda spans: expect([n for _, _, n in spans]))
+    return [n for _, _, n in spans], extra, out
 
 
 # the cases at which K2 is held bitwise to its plain version: (name, x
@@ -2445,13 +2565,14 @@ def pool_kernels(seed):
     3x3/s1 and 7x7, NaN inputs and windows wholly in the padding; each
     bitwise equal to the plain version and to itself across two launches.
     At the stem shape one call launches one kernel and allocates nothing
-    but dX.  Returns the main path's row."""
+    but dX.  Returns the main path's row, LeNet's and the float32 stem's
+    (phase 13's)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import pool_bwd as P
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
-    row = None
+    row = row_f32 = None
     lenet = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=0.0, bound_by="bytes")
     for name, xs, k, s, p, dt in POOL_CASES:
@@ -2501,7 +2622,8 @@ def pool_kernels(seed):
                                  "or between two launches at %s %s"
                                  % (name, dt))
         if name == "stem" and dt == torch.bfloat16:
-            names, extra, out = _one_call_kernels(fn)
+            names, extra, out = _one_call_kernels(
+                fn, expect=lambda names: len(names) == 1)
             dx_bytes = out.numel() * out.element_size()
             log("kernel maxpool_bwd [stem bf16]: one call launches %s and "
                 "allocates %d bytes (dX: %d)" % (names, extra, dx_bytes))
@@ -2513,6 +2635,10 @@ def pool_kernels(seed):
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound, "bound_by": bound_by,
                    "library_ms": lib_ms}
+        if name == "stem" and dt == torch.float32:
+            row_f32 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "library_ms": lib_ms}
         if name.startswith("lenet"):
             # phase 8 replays these in a captured graph: device times
             _, idx = F.max_pool2d(_nchw(x), k, s, p, return_indices=True)
@@ -2535,7 +2661,7 @@ def pool_kernels(seed):
         "graph replays): kernel %.4f ms, plain %.4f ms, "
         "max_pool2d_with_indices_backward %.4f ms, bound %.4f ms" % (lenet["ms"], lenet["plain_ms"],
                                     lenet["library_ms"], lenet["bound_ms"]))
-    return row, lenet
+    return row, lenet, row_f32
 
 
 def resnet_bns(batch=RESNET_BATCH, size=RESNET_SIZE, make=None):
@@ -2608,10 +2734,8 @@ def bn_occupancy(occ, m, c, dtype):
 def one_launch_a_call(cases, gen):
     """One call of K6a (train mode at each case; predict mode at the first
     case of each type) and one of K6b at each case, in one torch.profiler
-    session: each call is one device kernel, bn_fwd_kernel or
-    bn_bwd_kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
+    session (``device_spans``): each call is one device kernel,
+    bn_fwd_kernel or bn_bwd_kernel."""
     from mxnet_tpu_torch.ops import batch_norm as B
 
     calls, predict, types = [], [], set()
@@ -2625,8 +2749,9 @@ def one_launch_a_call(cases, gen):
         if dt not in types:
             types.add(dt)
             predict.append(calls[-1])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    n_fwd = len(calls) + len(predict)
+
+    def run():
         for x, _, _, gamma, rm, rv in calls:
             B.batch_norm_fwd(x, gamma, gamma, rm, rv, BN_EPS, False, False,
                              BN_MOMENTUM)
@@ -2634,13 +2759,15 @@ def one_launch_a_call(cases, gen):
             B.batch_norm_fwd(x, gamma, gamma, rm, rv, BN_EPS, False, True)
         for x, dy, stats, gamma, _, _ in calls:
             B.batch_norm_bwd(x, dy, stats, gamma, gamma, False, True)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    n_fwd = len(calls) + len(predict)
-    ok = (len(names) == n_fwd + len(calls)
-          and all("bn_fwd_kernel" in n for n in names[:n_fwd])
-          and all("bn_bwd_kernel" in n for n in names[n_fwd:]))
+
+    def one_each(spans):
+        names = [n for _, _, n in spans]
+        return (len(names) == n_fwd + len(calls)
+                and all("bn_fwd_kernel" in n for n in names[:n_fwd])
+                and all("bn_bwd_kernel" in n for n in names[n_fwd:]))
+
+    spans, _ = device_spans(run, expect=one_each)
+    names = [n for _, _, n in spans]
     for kernel, part, n in (("fwd", names[:n_fwd], n_fwd),
                             ("bwd", names[n_fwd:], len(calls))):
         log("kernel batch_norm_%s: %d calls at %d shapes in one profiler "
@@ -2649,7 +2776,7 @@ def one_launch_a_call(cases, gen):
                 ", ".join(sorted(set(
                     re.search(r"bn_%s_kernel<[^>]*>" % kernel, x)[0]
                     if "bn_%s_kernel<" % kernel in x else x for x in part)))))
-    if not ok:
+    if not one_each(spans):
         raise AssertionError("a K6a or K6b call is not one device kernel: "
                              "%d kernels for %d calls" % (
                                  len(names), n_fwd + len(calls)))
@@ -2660,7 +2787,8 @@ def one_launch_a_call(cases, gen):
 def bn_kernels(seed):
     """Phase 3d, K6a and K6b: every distinct BatchNorm shape of the main
     path in bf16 (bf16 gamma and beta, as the step's casts make them), each
-    in float32 and float16 too (timed at the stem and layer 4), C = 5 (the
+    in float32 (each timed, phase 13's path) and float16 (timed at the
+    stem and layer 4), C = 5 (the
     scalar path) and a tiny M; each against its plain version on the card (within BN_TOL of
     its largest magnitude) and bitwise equal across two launches, with its
     plan, time, the plain version's, the library call's and the bound;
@@ -2668,7 +2796,8 @@ def bn_kernels(seed):
     (:func:`bn_axis_1`).  Returns, for each kernel, its numbers summed
     over the BatchNorms of one training step of ResNet-50 v1 (phase 6) and
     of v2 (phase 6b, whose raw input's BatchNorm, C = 3, runs K6a alone:
-    neither its input nor its fixed gamma and beta need a gradient)."""
+    neither its input nor its fixed gamma and beta need a gradient), and
+    of v1 in float32 (phase 13's)."""
     from mxnet_tpu_torch.ops import batch_norm as B
 
     counts = {}
@@ -2690,6 +2819,7 @@ def bn_kernels(seed):
                     library_ms=0.0, bound_by="bytes")
             for k in ("fwd", "bwd")}
     rows_v2 = {k: dict(v) for k, v in rows.items()}
+    rows_f32 = {k: dict(v) for k, v in rows.items()}
     fwd_times, bwd_times = [], []
     for m, c, dt, per_step in cases:
         on_v2 = dt == torch.bfloat16 and (m, c) in v2["fwd"]
@@ -2733,8 +2863,10 @@ def bn_kernels(seed):
         occupancy = bn_occupancy(plan.bwd_occupancy(code), m, c, dt)
         occ_fwd = bn_occupancy(plan.fwd_occupancy(code), m, c, dt)
         tol = BN_TOL[dt]
-        if not (per_step or on_v2 or (m, c) in (BN_STEM, BN_LAST)):
-            # checked, not timed: the other shapes in float32 and float16
+        timed = per_step or on_v2 or (m, c) in (BN_STEM, BN_LAST) or (
+            dt == torch.float32 and (m, c) in counts)  # phase 13's
+        if not timed:
+            # checked, not timed: the other shapes in float16
             log("kernel batch_norm [M %d C %d %s]: K6a %d blocks, %d "
                 "rounds kept, K6b %s, %d blocks; errs "
                 "(share of the largest magnitude) y %.3g mean %.3g var %.3g "
@@ -2809,7 +2941,7 @@ def bn_kernels(seed):
                                  "C %d %s" % (m, c, dt))
         check_share("batch_norm_fwd", (m, c, dt), ms, bound)
         check_share("batch_norm_bwd", (m, c, dt), ms_b, bound_b)
-        if per_step or on_v2 or (m, c) in (BN_STEM, BN_LAST):
+        if timed:
             fwd_times.append((m, c, str(dt).split(".")[1], "streamed", ms,
                               bound, lib_ms))
             bwd_times.append((m, c, str(dt).split(".")[1], plan.route, ms_b,
@@ -2823,6 +2955,12 @@ def bn_kernels(seed):
             for name, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
                                vals):
                 row[name] += per_step * v
+            if dt == torch.float32 and counts.get((m, c)):
+                row32 = rows_f32[key]
+                row32["max_abs_err"] = max(row32["max_abs_err"], err)
+                for name, v in zip(("ms", "plain_ms", "bound_ms",
+                                    "library_ms"), vals):
+                    row32[name] += counts[(m, c)] * v
             n_v2 = v2[key].get((m, c), 0) if on_v2 else 0
             if n_v2:
                 row2 = rows_v2[key]
@@ -2851,8 +2989,14 @@ def bn_kernels(seed):
             "plain %.3f ms, library %.3f ms, bound %.3f ms" % (
                 key, sum(v2[key].values()), row["ms"], row["plain_ms"],
                 row["library_ms"], row["bound_ms"]))
+    for key, row in rows_f32.items():
+        log("kernel batch_norm %s over one ResNet-50 step in float32 (phase "
+            "13's; kernel and library in graph replays): kernel %.3f ms, "
+            "plain %.3f ms, library %.3f ms, bound %.3f ms" % (
+                key, row["ms"], row["plain_ms"], row["library_ms"],
+                row["bound_ms"]))
     bn_axis_1(gen)
-    return rows, rows_v2
+    return rows, rows_v2, rows_f32
 
 
 def bn_axis_1(gen):
@@ -2931,7 +3075,7 @@ def _resnet_grads(net, x, y, train):
     predict mode, by parameter name, on the CPU."""
     from mxnet_tpu_torch import autograd, gluon
 
-    params = {k: p for k, p in net.collect_params().items()
+    params = {k: p for k, p in net._collect_params_with_prefix().items()
               if p.grad_req != "null"}
     with autograd.record(train_mode=train):
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y).mean()
@@ -3248,11 +3392,12 @@ def _per_formulation(convs):
     return out
 
 
-def step_dw_rows(convs, seed, tag):
+def step_dw_rows(convs, seed, tag, dt=torch.bfloat16):
     """K1a and K1b at every distinct convolution of ``convs`` (one step's)
-    in bf16, against their plain version on the card (DW_TOL) and bitwise
-    repeatable, timed beside cuDNN's wgrad and the bound; the numbers
-    summed over the step by formulation."""
+    in ``dt`` (bf16: the tensor-core route; float32: 3xTF32), against
+    their plain version on the card (DW_TOL) and bitwise repeatable, timed
+    beside cuDNN's wgrad and the bound; the numbers summed over the step
+    by formulation."""
     from mxnet_tpu_torch.ops import conv_dw as C
 
     counts = {}
@@ -3262,7 +3407,7 @@ def step_dw_rows(convs, seed, tag):
     rows = {form: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                        library_ms=0.0, bound_by=set())
             for form in ("pertap", "im2col")}
-    dt = torch.bfloat16
+    dname = str(dt).split(".")[1]
     for (xs, k, s, p, o), n_step in counts.items():
         form = C.formulation(xs[3])
         run = C.conv_dw_pertap if form == "pertap" else C.conv_dw_im2col
@@ -3281,12 +3426,12 @@ def step_dw_rows(convs, seed, tag):
                                  "%.3g, bitwise repeatable %s"
                                  % (form, xs, tag, err, scale, same))
         bound, bound_by = conv_dw_bound_ms(xs, k, s, p, o, dt)
-        log("kernel conv_dw %s [%s: x %s k %s s %s p %s O %d bf16, %d a "
+        log("kernel conv_dw %s [%s: x %s k %s s %s p %s O %d %s, %d a "
             "step]: max_abs_err %.3g of max %.3g; kernel %.4f ms (%.1f %% "
             "of the bound), plain %.4f ms, cuDNN wgrad %.4f ms, bound %.4f "
-            "ms (%s)" % (form, tag, xs, k, s, p, o, n_step, err, scale, ms,
-                         100.0 * bound / ms, plain_ms, lib_ms, bound,
-                         bound_by))
+            "ms (%s)" % (form, tag, xs, k, s, p, o, dname, n_step, err,
+                         scale, ms, 100.0 * bound / ms, plain_ms, lib_ms,
+                         bound, bound_by))
         row = rows[form]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
@@ -3297,10 +3442,10 @@ def step_dw_rows(convs, seed, tag):
     torch.cuda.empty_cache()
     for form, row in rows.items():
         row["bound_by"] = "+".join(sorted(row.pop("bound_by")))
-        log("kernel conv_dw %s over one %s step (bf16): kernel %.3f ms, "
+        log("kernel conv_dw %s over one %s step (%s): kernel %.3f ms, "
             "plain %.3f ms, cuDNN wgrad %.3f ms, bound %.3f ms" % (
-                form, tag, row["ms"], row["plain_ms"], row["library_ms"],
-                row["bound_ms"]))
+                form, tag, dname, row["ms"], row["plain_ms"],
+                row["library_ms"], row["bound_ms"]))
     return rows
 
 
@@ -3350,7 +3495,7 @@ def scheduled_step_check(seed):
     eager = GluonTrainStep(nets[1], loss_fn, optimizer=sgd())
     eager._capture = False
     updater = optimizer.get_updater(sgd())
-    params = list(nets[2].collect_params().values())
+    params = list(nets[2]._collect_params_with_prefix().values())
     rates, worst, differ = [], 0.0, 0
     for _ in range(5):
         captured(x, y)
@@ -3741,7 +3886,7 @@ def _resnet_trainables(seed):
     y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, (4,))
                          .astype(np.int32)).cuda()
     grads = _resnet_grads(net, x, y, True)
-    params = {k: p for k, p in net.collect_params().items()
+    params = {k: p for k, p in net._collect_params_with_prefix().items()
               if p.grad_req != "null"}
     return net, [nd.NDArray(p.data) for p in params.values()], \
         [nd.NDArray(grads[k].cuda()) for k in params]
@@ -4545,7 +4690,7 @@ def _lm_steps(net, trainer, data, first, n, at=None):
 
     c = W.PTB_MEDIUM
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
-    params = list(net.collect_params().values())
+    params = list(net._collect_params_with_prefix().values())
     hidden = net.begin_state(batch_size=c["batch_size"])
     losses, norms = [], []
     at = at or (lambda step, i: None)
@@ -4691,12 +4836,13 @@ def lm_card_vs_cpu(seed, data):
     x, y = _lm_batch(data, 0)
     b = W.PTB_MEDIUM["batch_size"]
     loss, _, _ = _lm_record(net, x, y, net.begin_state(batch_size=b))
-    got = {k: p.grad.clone() for k, p in net.collect_params().items()}
+    got = {k: p.grad.clone()
+           for k, p in net._collect_params_with_prefix().items()}
     cpu = _lm_copy(net, "cpu", 0.0)
     want_loss, _, _ = _lm_record(cpu, x.cpu(), y.cpu(), cpu.begin_state(
         batch_size=b, device="cpu"))
     errs = {"loss": _rel_err(loss.cpu(), want_loss)}
-    for k, p in cpu.collect_params().items():
+    for k, p in cpu._collect_params_with_prefix().items():
         errs[k] = _rel_err(got[k].cpu(), p.grad)
     worst = max(errs, key=errs.get)
     log("word LM: card vs CPU plain path at the first batch (35, 20), "
@@ -4729,8 +4875,8 @@ def lm_hybrid_vs_eager(net, data):
         errs = {"loss": _rel_err(lh, le), "logits": _rel_err(oh, oe),
                 "h": _rel_err(hh[0].detach(), he[0].detach()),
                 "c": _rel_err(hh[1].detach(), he[1].detach())}
-        grads = dict(hyb.collect_params().items())
-        for k, p in net.collect_params().items():
+        grads = dict(hyb._collect_params_with_prefix().items())
+        for k, p in net._collect_params_with_prefix().items():
             errs[k] = _rel_err(grads[k].grad, p.grad)
         call_worst = max(errs, key=errs.get)
         if errs[call_worst] >= worst:
@@ -4762,8 +4908,9 @@ def lm_dropout_in_graphs():
     with torch.no_grad():
         for p in layer.parameters():
             p.zero_()
-        layer.l0_i2h_bias.fill_(1.0)
-        layer.l1_i2h_weight.copy_(torch.eye(650, device="cuda"))
+        layer._parameters["l0_i2h_bias"].fill_(1.0)
+        layer._parameters["l1_i2h_weight"].copy_(
+            torch.eye(650, device="cuda"))
     for what, block in (("Dropout layer", drop), ("RNN op", layer)):
         block.hybridize()
         with autograd.train_mode():
@@ -4800,7 +4947,7 @@ def lm_yardstick(seed, smi):
                                  ("bias_ih", "i2h_bias"),
                                  ("bias_hh", "h2h_bias")):
                 getattr(ref, "%s_l%d" % (theirs, i)).copy_(
-                    getattr(layer, "l%d_%s" % (i, ours)))
+                    layer._parameters["l%d_%s" % (i, ours)])
     rng = np.random.RandomState(seed + 9)
     x = torch.from_numpy(rng.randn(35, 20, 650).astype(np.float32)).cuda()
     g = torch.from_numpy(rng.randn(35, 20, 650).astype(np.float32)).cuda()
@@ -4820,7 +4967,7 @@ def lm_yardstick(seed, smi):
 
     out_ours, out_ref = ours(layer).detach(), theirs().detach()
     grad_err = max(
-        _rel_err(getattr(layer, "l%d_%s" % (i, o)).grad,
+        _rel_err(layer._parameters["l%d_%s" % (i, o)].grad,
                  getattr(ref, "%s_l%d" % (t, i)).grad)
         for i in range(2) for t, o in (("weight_ih", "i2h_weight"),
                                        ("weight_hh", "h2h_weight")))
@@ -5792,25 +5939,20 @@ def nms_bound_ms(b, n, n_valid, keep, ids=None):
 
 def _kernel_ms(fn, keys, calls=5):
     """Device ms a launch of the kernel whose name holds each of ``keys``,
-    from one torch.profiler session of ``calls`` calls of ``fn`` after a
-    warm-up one (averaged over the launches the trace kept: it can lose
-    its first events), and the device kernels a call in the trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from ``calls`` calls of ``fn`` after a warm-up one in one torch.profiler
+    session (``device_spans``), and the device kernels a call in the
+    trace."""
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    fn()
+    spans, _ = device_spans(run)
     ms = {}
     for key in keys:
-        spans = [e.time_range.end - e.time_range.start for e in events
-                 if key in e.name]
-        ms[key] = sum(spans) / max(1, len(spans)) / 1e3
-    return ms, len(events) / calls
+        times = [end - start for start, end, name in spans if key in name]
+        ms[key] = sum(times) / max(1, len(times)) / 1e3
+    return ms, len(spans) / calls
 
 
 # K7's cases besides MultiBoxDetection's shape: (name, images, rows,
@@ -6026,7 +6168,7 @@ def ssd_card_vs_cpu(seed):
                         (t.detach().cpu() for t in (anchor, cls_pred,
                                                     loc_pred, loss))))
         grads = {k: p.grad.detach().to("cpu", copy=True)
-                 for k, p in net.collect_params().items()}
+                 for k, p in net._collect_params_with_prefix().items()}
         return outs, grads
 
     want, want_g = run(cpu, data)  # the first input materializes the widths
@@ -6741,6 +6883,313 @@ def module_family(seed, smi):
     return launches
 
 
+# ---------------------------------------------- the Gluon user API (13)
+
+# the JAX package's runnable Gluon tutorials (docs/tutorials/gluon/)
+GLUON_TUTORIALS = ("autograd", "custom_layer", "datasets", "gluon", "hybrid",
+                   "learning_rate_schedules", "mnist", "naming",
+                   "save_load_params")
+# the full-width step: train_imagenet.py's resnet50_v1 in NCHW float32 at
+# RESNET_BATCH x RESNET_SIZE, batches from a DataLoader over this many
+# seeded images; the steps of the main path and those before the timing
+GLUON_IMAGES = 2 * RESNET_BATCH
+GLUON_STEPS, GLUON_WARMUP = 10, 2
+# the exported graph against the block, predict mode: asserted bitwise;
+# the error as a share of the largest logit is reported beside this
+GLUON_EXPORT_TOL = 1e-5
+
+
+def gluon_tutorials():
+    """Phase 13a: each of docs/tutorials/gluon/*.py, its text with
+    ``mxnet_tpu`` replaced by ``mxnet_tpu_torch`` and nothing else, run on
+    the card (the default device, no scope); each prints its OK.  Returns
+    the mnist tutorial's K1b and K2 wrapper counts."""
+    import contextlib
+    import io
+    import os
+
+    from mxnet_tpu_torch.ops import conv_dw as C
+    from mxnet_tpu_torch.ops import pool_bwd as P
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                        "tutorials", "gluon")
+    mnist = None
+    for name in GLUON_TUTORIALS:
+        with open(os.path.join(root, name + ".py")) as f:
+            src = f.read().replace("mxnet_tpu", "mxnet_tpu_torch")
+        C.conv_dw_im2col.launches = P.maxpool_bwd.launches = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            exec(compile(src, name + ".py", "exec"), {"__name__": "__main__"})
+        torch.cuda.synchronize()
+        text = out.getvalue().strip().splitlines()
+        log("gluon_api: tutorial %s on the card in %.1f s: %s" % (
+            name, time.perf_counter() - t, text[-1] if text else ""))
+        if "OK" not in out.getvalue():
+            raise AssertionError("the %s tutorial did not print OK" % name)
+        if name == "mnist":
+            mnist = {"im2col": C.conv_dw_im2col.launches,
+                     "maxpool": P.maxpool_bwd.launches}
+    log("gluon_api: the mnist tutorial's wrapper counts (its hybridized "
+        "LeNet: eager warm-up + capture): K1b %d, K2 %d"
+        % (mnist["im2col"], mnist["maxpool"]))
+    if not (mnist["im2col"] and mnist["maxpool"]):
+        raise AssertionError("the mnist tutorial did not launch K1b and K2")
+    return mnist
+
+
+def _gluon_resnet():
+    """train_imagenet.py's net through the reference's API: resnet50_v1
+    in its default NCHW layout, Xavier (gaussian, in, 2) on gpu(0), no
+    weight decay on gamma, beta and biases, hybridized."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1(classes=RESNET_CLASSES)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    net.collect_params(".*gamma|.*beta|.*bias").setattr("wd_mult", 0.0)
+    net.hybridize()
+    return net
+
+
+def _gluon_grads(net):
+    return {k: p.grad.clone()
+            for k, p in net._collect_params_with_prefix().items()
+            if p.grad is not None}
+
+
+def gluon_resnet(seed, smi):
+    """Phase 13b.  First both nets' first step under cuDNN's
+    deterministic algorithms: the NDArray path (DataLoader, record,
+    backward, Trainer over the ParameterDict) against the same net driven
+    by tensors (today's API) from the same seeded weights, logits and
+    gradients bitwise equal (a bitwise comparison needs those algorithms:
+    the default ones may sum in an order that varies from call to call).
+    Then both nets are hybridized again, which drops the graphs captured
+    under those algorithms, and the main path takes GLUON_STEPS steps of
+    each in turns under the default algorithms, as train_imagenet.py's
+    users run it: step times, images/s, peak memory; the kernels' wrapper
+    counts over the NDArray path's steps and their launches a step in a
+    trace of its replays.  Returns the trained NDArray-path net, a batch
+    and the counts."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    rng = np.random.RandomState(seed + 13)
+    images = rng.rand(GLUON_IMAGES, 3, RESNET_SIZE,
+                      RESNET_SIZE).astype(np.float32)
+    labels = rng.randint(0, RESNET_CLASSES, GLUON_IMAGES).astype(np.int32)
+    sgd = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    counters = _resnet_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: the reference's API end to end
+    net = _gluon_resnet()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(images, labels), batch_size=RESNET_BATCH,
+        last_batch="discard", num_workers=2, pin_memory=True)
+    # today's API: tensors in, the Trainer over the storage tensors
+    tnet = _gluon_resnet()
+    tparams = tnet._collect_params_with_prefix()
+    ttrainer = gluon.Trainer(tparams, "sgd", dict(sgd))
+    if not all(torch.equal(a, b) for a, b in zip(
+            net._collect_params_with_prefix().values(), tparams.values())):
+        raise AssertionError("the two nets' seeded weights differ")
+
+    def batches():
+        while True:
+            yield from loader
+
+    launches = dict.fromkeys(counters, 0)
+
+    # a step of each; ``kept`` receives the logits and gradients before
+    # the update
+    def nd_step(bx, by, kept=None):
+        before = {k: fn.launches for k, fn in counters.items()}
+        with autograd.record():
+            out = net(bx)
+            loss = loss_fn(out, by)
+        loss.backward()
+        if kept is not None:
+            kept.append((out.data_torch.clone(), _gluon_grads(net)))
+        trainer.step(RESNET_BATCH)
+        for k, fn in counters.items():
+            launches[k] += fn.launches - before[k]
+        return loss
+
+    def t_step(x, y, kept=None):
+        with autograd.record():
+            out = tnet(x)
+            loss = loss_fn(out, y)
+        autograd.backward(loss)
+        if kept is not None:
+            kept.append((out.detach().clone(), _gluon_grads(tnet)))
+        ttrainer.step(RESNET_BATCH)
+        return loss
+
+    # 1. the first step of each net, deterministic algorithms, bitwise
+    it = batches()
+    bx, by = next(it)
+    if not isinstance(bx, mx.nd.NDArray) or bx.context != mx.gpu(0):
+        raise AssertionError("the DataLoader's batch is not an NDArray on "
+                             "gpu(0)")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = []
+        nd_step(bx, by, first)
+        t_step(bx.data_torch, by.data_torch, first)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    (nd_logits, nd_grads), (t_logits, t_grads) = first
+    same_logits = torch.equal(nd_logits, t_logits)
+    same_grads = nd_grads.keys() == t_grads.keys() and all(
+        torch.equal(nd_grads[k], t_grads[k]) for k in nd_grads)
+    log("gluon_api: the first step (cuDNN's deterministic algorithms): "
+        "logits %s and %d gradients %s, NDArray path against tensor path" % (
+            "bitwise equal" if same_logits else "DIFFER", len(nd_grads),
+            "bitwise equal" if same_grads else "DIFFER"))
+    if not (same_logits and same_grads):
+        raise AssertionError("the NDArray-driven step differs from the "
+                             "tensor-driven one")
+    del first, nd_logits, nd_grads, t_logits, t_grads
+    net.hybridize()
+    tnet.hybridize()
+
+    # 2. the main path, the default algorithms
+    launches.update(dict.fromkeys(counters, 0))
+    times = {"ndarray": [], "tensor": []}
+    losses = {"ndarray": [], "tensor": []}
+    t0 = time.perf_counter()
+    for _ in range(GLUON_STEPS):
+        bx, by = next(it)
+        for kind, run, args in (
+                ("ndarray", nd_step, (bx, by)),
+                ("tensor", t_step, (bx.data_torch, by.data_torch))):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss = run(*args)
+            ev[1].record()
+            times[kind].append(ev)
+            losses[kind].append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = {k: [a.elapsed_time(b) for a, b in v]
+               for k, v in times.items()}
+    curve = {k: [float(getattr(v, "data_torch", v).detach().mean())
+                 for v in vs] for k, vs in losses.items()}
+    log("gluon_api: resnet50_v1 (NCHW float32, batch %d at %d) through "
+        "DataLoader, record, backward and Trainer.step, %d steps after the "
+        "first in turns with the same net driven by tensors, cuDNN's "
+        "default algorithms: losses %s (tensors: %s); %.1f s wall" % (
+            RESNET_BATCH, RESNET_SIZE, GLUON_STEPS,
+            " ".join("%.4f" % v for v in curve["ndarray"]),
+            " ".join("%.4f" % v for v in curve["tensor"]), wall))
+    if not all(np.isfinite(curve["ndarray"])):
+        raise AssertionError("the NDArray path's losses are not finite")
+    ms = {k: float(np.mean(v[GLUON_WARMUP:])) for k, v in step_ms.items()}
+    log("gluon_api: step %.2f ms (NDArray API) vs %.2f ms (tensors), in "
+        "turns, cuDNN's default algorithms, mean of %d after %d warm-up "
+        "steps (CUDA events, each step forward to Trainer.step), %.1f vs "
+        "%.1f images/s on %s; each step %s vs %s ms; peak memory %.2f GB "
+        "(both nets)" % (
+            ms["ndarray"], ms["tensor"], GLUON_STEPS - GLUON_WARMUP,
+            GLUON_WARMUP, RESNET_BATCH / ms["ndarray"] * 1e3,
+            RESNET_BATCH / ms["tensor"] * 1e3, smi,
+            " ".join("%.1f" % v for v in step_ms["ndarray"]),
+            " ".join("%.1f" % v for v in step_ms["tensor"]), peak))
+    per_step = {"pertap": RESNET_K1A, "im2col": RESNET_K1B,
+                "maxpool": RESNET_K2, "batch_norm_fwd": RESNET_BN,
+                "batch_norm_bwd": RESNET_BN}
+    log("gluon_api: wrapper counts over the NDArray path's %d steps (its "
+        "hybridized graph's eager warm-up + capture; the replays launch no "
+        "wrapper) %s; expected 2 x %s" % (GLUON_STEPS, launches, per_step))
+    if launches != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError("the NDArray path did not launch K1a, K1b, K2, "
+                             "K6a and K6b once per layer")
+    del tnet, ttrainer, tparams
+    torch.cuda.empty_cache()
+    bx, by = next(it)
+    traced = 3
+    seen = profile_steps(lambda: nd_step(bx, by), smi, ms["ndarray"],
+                         steps=traced, groups=RESNET_GROUPS,
+                         tag="gluon_api", count=RESNET_LAUNCH_KERNELS)
+    if seen is not None:
+        want = {k: n * traced for k, _, n in RESNET_LAUNCH_KERNELS}
+        log("gluon_api: kernel launches in the trace of %d NDArray-path "
+            "steps: %s; expected %s" % (traced, seen, want))
+        if seen != want or not all(seen.values()):
+            raise AssertionError("a step of the NDArray path does not launch "
+                                 "each kernel once per layer")
+    return net, bx, {k: dict(launches=n, traced_replays=traced,
+                             launches_in_traced_replays=None if seen is None
+                             else seen[k])
+                     for k, n in launches.items()}
+
+
+def gluon_export(net, bx, smi):
+    """Phase 13c: the trained net exported (symbol JSON and arg:/aux:
+    parameters), loaded by SymbolBlock.imports on the card, and the two
+    held against each other in predict mode at the full batch: bitwise
+    equal.  After 10 steps at lr 0.1 from random images the running
+    statistics blow the predict-mode logits up (to about 1e10 on the
+    H100), so a tolerance of the largest logit would pass logits of an
+    ordinary size that were wrong; the error of GLUON_EXPORT_TOL's
+    measure is reported beside it."""
+    import os
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    path = os.path.join(tempfile.mkdtemp(), "resnet50_v1")
+    t = time.perf_counter()
+    net.export(path)
+    sb = gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                   path + "-0000.params", ctx=mx.gpu(0))
+    with autograd.predict_mode():
+        want = net(bx)
+        got = sb(bx)
+        again = sb(bx)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max().asscalar())
+    err = float((got - want).abs().max().asscalar())
+    bitwise = torch.equal(got.data_torch, want.data_torch)
+    repeat = torch.equal(got.data_torch, again.data_torch)
+    log("gluon_api: exported %d parameters (%s), reloaded by "
+        "SymbolBlock.imports on %s in %.1f s; predict-mode logits at batch "
+        "%d: bitwise equal %s (max abs err %.3g, of the largest logit %.3g: "
+        "%.3g, against %.0e); two calls of the SymbolBlock (its captured "
+        "graph) bitwise equal %s" % (
+            len(net.collect_params()), os.path.basename(path), smi,
+            time.perf_counter() - t, bx.shape[0], bitwise, err, scale,
+            err / scale, GLUON_EXPORT_TOL, repeat))
+    if not (bitwise and repeat):
+        raise AssertionError("the exported ResNet-50 disagrees with the "
+                             "block")
+
+
+def gluon_api(seed, smi):
+    """Phase 13: the Gluon user API on the card: the nine tutorials, the
+    full-width ResNet-50 v1 through the reference's API, and its export.
+    Returns the ResNet path's launches and K1's float32 rows at its
+    convolutions."""
+    gluon_tutorials()
+    net, bx, launches = gluon_resnet(seed, smi)
+    gluon_export(net, bx, smi)
+    del net, bx
+    torch.cuda.empty_cache()
+    dw = step_dw_rows(resnet_convs(), seed, "gluon_api resnet50_v1",
+                      torch.float32)
+    return launches, dw
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6762,11 +7211,12 @@ def main():
                                            args.seed)
     dw_grouped = phase("3c grouped and transposed conv dW",
                        grouped_conv_kernels, args.seed)
-    pool_row, pool_lenet = phase("3c max-pool backward", pool_kernels,
-                                 args.seed)
+    pool_row, pool_lenet, pool_row_f32 = phase("3c max-pool backward",
+                                               pool_kernels, args.seed)
     ssd_rows = phase("3c SSD300 conv dW and max-pool backward",
                      ssd_conv_kernels, args.seed)
-    bn_rows, bn_rows_v2 = phase("3d batch norm", bn_kernels, args.seed)
+    bn_rows, bn_rows_v2, bn_rows_f32 = phase("3d batch norm", bn_kernels,
+                                             args.seed)
     nms_row = phase("3e box_nms", nms_kernels, args.seed)
     serve_row = phase("4 serve", serve, args.seed, smi)
     phase("4b predictor", predictor_serve, args.seed, smi)
@@ -6781,6 +7231,8 @@ def main():
     convlstm_launches = phase("10 bucketing", bucketing, args.seed, smi)
     ssd_train, ssd_detect = phase("11 SSD300", ssd, args.seed, smi)
     seq_launches = phase("12 module family", module_family, args.seed, smi)
+    gluon_launches, gluon_dw = phase("13 gluon api", gluon_api, args.seed,
+                                     smi)
     # one entry per kernel per main path, each with that path's own count;
     # the served buckets are captured graphs, so "launches" is the
     # wrapper's count over the eager warm-up and capture of each bucket,
@@ -6935,6 +7387,29 @@ def main():
         source="mxnet_tpu_torch/csrc/box_nms.cu",
         replaces="mxnet_tpu/ops/contrib.py:62",
         launches=ssd_detect["box_nms"], **nms_row))
+    # resnet50_v1 (NCHW, float32) through the reference's Gluon API,
+    # hybridized: "launches" is the wrappers' count over the NDArray path
+    # (its graph's warm-up and capture), the replays' launches in a trace;
+    # K1 on its 3xTF32 route at the path's shapes, K2 and K6 in float32
+    common = dict(path="gluon_api", route="cuda", dtype="float32",
+                  launches_counted_over="eager warm-up step + capture")
+    for form, line in (("pertap", 111), ("im2col", 133)):
+        entries.append(dict(
+            common, name="conv_dw_" + form,
+            source="mxnet_tpu_torch/csrc/conv_dw.cu",
+            replaces="mxnet_tpu/ops/pallas_conv.py:%d" % line,
+            plan_route="tf32x3", **gluon_launches[form], **gluon_dw[form]))
+    entries.append(dict(
+        common, name="maxpool_bwd",
+        source="mxnet_tpu_torch/csrc/maxpool_bwd.cu",
+        replaces="mxnet_tpu/ops/pallas_pool.py:55",
+        **gluon_launches["maxpool"], **pool_row_f32))
+    for kern in ("fwd", "bwd"):
+        entries.append(dict(
+            common, name="batch_norm_" + kern,
+            source="mxnet_tpu_torch/csrc/batch_norm.cu",
+            replaces="mxnet_tpu/ops/nn.py:462",
+            **gluon_launches["batch_norm_" + kern], **bn_rows_f32[kern]))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

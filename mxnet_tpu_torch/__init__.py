@@ -18,7 +18,9 @@ side: ``mx.rnn``'s cells and ``BucketSentenceIter`` trained through
 ``mx.mod.BucketingModule``.  The JAX package's top-level aliases are here
 too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
 ``mx.DataIter``, ``mx.DataBatch``, ``mx.NameManager``,
-``mx.save_checkpoint``, ``mx.load_checkpoint``, ``mx.do_checkpoint``).
+``mx.save_checkpoint``, ``mx.load_checkpoint``, ``mx.do_checkpoint``,
+``mx.Context``, ``mx.current_context``, ``mx.num_gpus``).  ``with
+mx.cpu():`` makes the host the default device for the scope.
 """
 
 from . import (attribute, autograd, callback, checkpoint, compiled_step,
@@ -34,7 +36,7 @@ from . import symbol as sym
 from .attribute import AttrScope
 from .base import MXNetError
 from .callback import do_checkpoint
-from .context import cpu, gpu
+from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 from .executor import Executor
 from .io import DataBatch, DataIter
 from .model import load_checkpoint, save_checkpoint
@@ -43,14 +45,16 @@ from .name import NameManager
 from .ndarray import NDArray
 from .symbol import Symbol
 
-__all__ = ["AttrScope", "DataBatch", "DataIter", "Executor", "MXNetError",
+__all__ = ["AttrScope", "Context", "DataBatch", "DataIter", "Executor",
+           "MXNetError",
            "Module", "NDArray", "NameManager", "Symbol", "attribute",
            "autograd", "callback", "checkpoint", "compiled_step", "context",
-           "convert", "cpu",
+           "convert", "cpu", "cpu_pinned", "current_context",
            "do_checkpoint", "executor", "gpu", "gluon", "init",
            "initializer", "io", "load_checkpoint", "log", "lr_scheduler",
            "metric",
            "mod", "model", "module", "mon", "monitor", "name", "nd",
+           "num_gpus",
            "ndarray", "operator", "ops", "optimizer", "parallel", "predictor",
            "random", "rnn", "rtc",
            "save_checkpoint", "serving", "sym", "symbol", "test_utils"]

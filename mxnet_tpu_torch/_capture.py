@@ -69,9 +69,16 @@ def normal_tensors():
 
 
 def _stream(device):
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     s = _streams.get(device)
     if s is None:
-        s = _streams[device] = torch.cuda.Stream(device)
+        # from the high-priority pool: PyTorch hands out default-priority
+        # streams (a server's workers', a caller's) round-robin from a pool
+        # of 32, so one made later would be this very stream, and its work
+        # would land in another thread's capture
+        s = _streams[device] = torch.cuda.Stream(device, priority=-1)
     return s
 
 

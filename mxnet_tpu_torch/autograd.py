@@ -16,8 +16,8 @@ keeps MXNet's semantics on top of it:
   to it (PyTorch's own ``Tensor.backward`` always adds).  A head without
   a head gradient gets ones, so a per-sample loss needs no ``.sum()``.
 - Heads, head gradients and variables may be ``NDArray``s or tensors;
-  :func:`mark_variables` and :func:`grad` are first-order only
-  (``create_graph`` is not ported).
+  :func:`grad` takes ``create_graph`` for higher-order gradients on the
+  eager path.
 """
 
 from __future__ import annotations
@@ -214,17 +214,34 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """The gradients of ``heads`` with respect to ``variables``, returned
     (as ``NDArray``s where the variables are, else tensors) and delivered
-    to no ``.grad`` (reference: autograd.grad).  First order only."""
+    to no ``.grad`` (reference: autograd.grad).  ``create_graph=True``
+    records the gradient computation itself, so the gradients returned
+    can be differentiated again (a second, a third order); the graph is
+    then kept unless ``retain_graph`` says otherwise.  Inside a captured
+    program (a hybridized block's staged forward, a CUDA graph capture)
+    ``create_graph`` raises :class:`MXNetError`."""
+    from . import _capture
     from .ndarray.ndarray import NDArray
 
     del train_mode
-    if create_graph:
-        raise MXNetError("autograd.grad(create_graph=True): higher-order "
-                         "gradients are not ported")
+    if create_graph and (_capture.is_staging() or (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())):
+        raise MXNetError("autograd.grad(create_graph=True) cannot run inside "
+                         "a captured program; take higher-order gradients "
+                         "eagerly")
     heads, head_grads = _heads(heads, head_grads)
     variables = _as_list(variables)
-    grads = _autograd_grad(heads, [_tensor(v) for v in variables],
-                           head_grads, bool(retain_graph))
+    if retain_graph is None:
+        retain_graph = create_graph
+    try:
+        with torch.enable_grad() if create_graph else torch.no_grad():
+            grads = torch.autograd.grad(
+                heads, [_tensor(v) for v in variables], head_grads,
+                retain_graph=bool(retain_graph), create_graph=create_graph,
+                allow_unused=True)
+    except RuntimeError as e:
+        raise MXNetError("backward failed: %s" % e) from e
     if any(g is None for g in grads):
         raise MXNetError("one of the variables does not participate in the "
                          "graph")

@@ -129,7 +129,7 @@ class CompiledStep:
         self.loss_block = loss
         self.trainer = trainer
         _guard_trainer(trainer)
-        params = block.collect_params().values()
+        params = block._collect_params_with_prefix().values()
         devices = {p.device for p in params}
         if len(devices) != 1:
             raise MXNetError("compiled_step: the block's parameters lie on "
@@ -148,7 +148,7 @@ class CompiledStep:
         """The trainable and auxiliary parameters and each trainable's
         index in the Trainer; raises where the block and the Trainer
         disagree."""
-        params = self.block.collect_params()
+        params = self.block._collect_params_with_prefix()
         self.trainable = [p for p in params.values() if p.grad_req != "null"]
         self.aux = [p for p in params.values() if p.grad_req == "null"]
         if not self.trainable:

@@ -1,43 +1,147 @@
 """Devices of the PyTorch port.
 
-Counterpart of ``mxnet_tpu/context.py``.  A context here is a plain
-``torch.device``: ``gpu(i)`` is ``cuda:i`` and ``cpu()`` is the host.
+Counterpart of ``mxnet_tpu/context.py`` (reference: python/mxnet/
+context.py).  A :class:`Context` names a device type and id, as in the
+reference (``gpu(0)``, ``cpu()``, ``cpu_pinned()``), and stands for one
+``torch.device``: ``gpu(i)`` is ``cuda:i``; ``cpu()`` and ``cpu_pinned()``
+are the host.  A context compares and hashes equal to its
+``torch.device``, and every entry point of the port that takes a device
+(``device=``, ``ctx=``) takes a context, a ``torch.device`` or a string.
 
-The default-device rule: every entry point (model constructors,
-``initialize``, ``InferenceServer``) runs on ``gpu(0)`` unless the caller
-passes a device.  With no CUDA device and no explicit device it raises
+``with mx.cpu():`` makes a context the default for the scope
+(:func:`current_context`): new parameters, ``mx.nd`` arrays and
+DataLoader batches are made there.  Outside any scope the default is
+``gpu(0)``: every entry point runs on ``gpu(0)`` unless the caller or a
+scope names a device, and with no CUDA device it raises
 :class:`MXNetError`; it never carries on quietly on the CPU.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .base import MXNetError
 
-__all__ = ["gpu", "cpu", "resolve_device"]
+__all__ = ["Context", "gpu", "cpu", "cpu_pinned", "current_context",
+           "num_gpus", "resolve_device", "as_torch_device"]
+
+_scope = threading.local()
+
+
+class Context:
+    """A device context (reference: ``mxnet.context.Context``):
+    ``device_type`` ``'gpu'``, ``'cpu'`` or ``'cpu_pinned'`` and
+    ``device_id``.  Used as ``with ctx:`` it is the scope's default
+    context."""
+
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+
+    def __init__(self, device_type, device_id=0):
+        if isinstance(device_type, Context):
+            device_type, device_id = (device_type.device_type,
+                                      device_type.device_id)
+        if device_type not in Context.devstr2type:
+            raise MXNetError("unknown device type %r; the port has %s"
+                             % (device_type, ", ".join(Context.devstr2type)))
+        self.device_typeid = Context.devstr2type[device_type]
+        self.device_id = int(device_id)
+
+    @property
+    def device_type(self):
+        return Context.devtype2str[self.device_typeid]
+
+    @property
+    def torch_device(self):
+        """The ``torch.device`` this context stands for."""
+        if self.device_type == "gpu":
+            return torch.device("cuda", self.device_id)
+        return torch.device("cpu")
+
+    def __hash__(self):
+        return hash(self.torch_device)
+
+    def __eq__(self, other):
+        if isinstance(other, Context):
+            return (self.device_typeid, self.device_id) == \
+                (other.device_typeid, other.device_id)
+        if isinstance(other, torch.device):
+            return self.torch_device == other
+        return NotImplemented
+
+    def __str__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    __repr__ = __str__
+
+    def __enter__(self):
+        stack = getattr(_scope, "stack", None)
+        if stack is None:
+            stack = _scope.stack = []
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _scope.stack.pop()
 
 
 def gpu(device_id=0):
     """The CUDA device ``device_id`` (reference: ``mx.gpu``)."""
-    return torch.device("cuda", int(device_id))
+    return Context("gpu", device_id)
 
 
-def cpu():
+def cpu(device_id=0):
     """The host (reference: ``mx.cpu``)."""
-    return torch.device("cpu")
+    return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """The host, for arrays staged in page-locked memory (reference:
+    ``mx.cpu_pinned``)."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus():
+    """The number of CUDA devices (reference: ``mx.context.num_gpus``)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _scoped():
+    stack = getattr(_scope, "stack", None)
+    return stack[-1] if stack else None
+
+
+def current_context():
+    """The default context: the innermost ``with ctx:`` scope's, else
+    ``gpu(0)`` (reference: ``mx.context.current_context``; its default is
+    the card here, whether one is present or not)."""
+    ctx = _scoped()
+    return ctx if ctx is not None else gpu(0)
+
+
+def as_torch_device(device):
+    """``device`` (a :class:`Context`, ``torch.device``, string or
+    ``None`` for the current context) as a ``torch.device``, unchecked."""
+    if device is None:
+        device = current_context()
+    if isinstance(device, Context):
+        return device.torch_device
+    return torch.device(device)
 
 
 def resolve_device(device=None):
-    """``device`` as a ``torch.device``; ``None`` means ``gpu(0)``.
+    """``device`` as a ``torch.device``; ``None`` means the current
+    context (:func:`current_context`: a scope's, else ``gpu(0)``).
 
     Raises :class:`MXNetError` when the device is a CUDA device and no
     CUDA device is present."""
-    dev = gpu(0) if device is None else torch.device(device)
+    dev = as_torch_device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise MXNetError(
-            "no CUDA device is available; pass device='cpu' to run on "
-            "the host" if device is None else
+            "no CUDA device is available; pass device='cpu' or run under "
+            "'with mx.cpu():' to run on the host" if device is None else
             "device %s requested but no CUDA device is available" % dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -16,7 +16,7 @@ import torch
 from .base import MXNetError
 from .ndarray import read_npz
 
-__all__ = ["load_mxnet_tpu_params"]
+__all__ = ["load_mxnet_tpu_params", "copy_params"]
 
 
 def load_mxnet_tpu_params(module, params):
@@ -26,27 +26,38 @@ def load_mxnet_tpu_params(module, params):
     ``numpy.asarray`` takes), or the path of a ``save_parameters`` npz file.
     Raises :class:`MXNetError` on any missing or extra name and on any
     shape mismatch, before anything is copied.  A deferred parameter
-    (:class:`~mxnet_tpu_torch.gluon.block.DeferredParameter`) takes the
+    (:class:`~mxnet_tpu_torch.gluon.parameter.DeferredParameter`) takes the
     array's shape where its known dimensions agree."""
-    from .gluon.block import is_deferred, materialize
-
     if isinstance(params, (str, os.PathLike)):
         params = read_npz(params)
     if not isinstance(params, dict):
         raise MXNetError("params must be a dict or an npz path")
-    own = module.state_dict(keep_vars=True)
+    own = module._collect_params_with_prefix() \
+        if hasattr(module, "_collect_params_with_prefix") \
+        else module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
         raise MXNetError("parameter names differ: missing %s, extra %s"
                          % (missing, extra))
+    copy_params(own, params)
+    return module
+
+
+def copy_params(own, params):
+    """Copy ``params[name]`` into each storage ``own[name]`` (the names of
+    ``own``), after checking every shape (:class:`MXNetError`); a deferred
+    storage takes the array's shape where its known dimensions agree.
+    The parameters' handles count as initialized."""
+    from .gluon.parameter import is_deferred, materialize
+
     arrays = {}
     for name, target in own.items():
         arr = np.asarray(params[name])
         if is_deferred(target):
             want = target.declared_shape
-            fits = len(arr.shape) == len(want) and all(
-                w in (0, a) for w, a in zip(want, arr.shape))
+            fits = want is None or (len(arr.shape) == len(want) and all(
+                w in (0, a) for w, a in zip(want, arr.shape)))
         else:
             want = tuple(target.shape)
             fits = tuple(arr.shape) == want
@@ -57,7 +68,10 @@ def load_mxnet_tpu_params(module, params):
     with torch.no_grad():
         for name, target in own.items():
             if is_deferred(target):
+                target._pending_init = None
                 materialize(target, arrays[name].shape)
             src = np.require(arrays[name], requirements=["C", "W"])
             target.copy_(torch.from_numpy(src))
-    return module
+            handle = getattr(target, "_handle", None)
+            if handle is not None:
+                handle._initialized = True

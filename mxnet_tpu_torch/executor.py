@@ -60,12 +60,13 @@ import torch
 from . import _capture
 from . import autograd as _autograd
 from .base import MXNetError
+from .context import as_torch_device
 from .ndarray import NDArray
 from .ops import registry as _reg
 from .ops.registry import OP_AUX_INPUTS, OP_INPUT_NAMES
 from .symbol.symbol import op_attrs
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "eval_graph"]
 
 
 class _FusedGraph:
@@ -191,7 +192,7 @@ class Executor:
     def __init__(self, symbol, device, arg_arrays, grad_dict, grad_req,
                  aux_arrays):
         self._symbol = symbol
-        self._device = torch.device(device)
+        self._device = as_torch_device(device)
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         self.arg_arrays = list(arg_arrays)
@@ -265,23 +266,10 @@ class Executor:
     def _eval(self, args, aux, is_train):
         """``(outputs, new aux)`` of the graph on tensors ``args`` and
         ``aux`` (in argument and aux order)."""
-        arg_map = dict(zip(self._arg_names, args))
-        aux_map = dict(zip(self._aux_names, aux))
-        new_aux = dict(aux_map)
-        values = {}
-        for node in self._nodes:
-            if node.is_variable:
-                values[id(node)] = (aux_map[node.name]
-                                    if id(node) in self._aux_ids
-                                    else arg_map[node.name],)
-                continue
-            ins = [values[id(inp)][idx] for inp, idx in node.inputs]
-            if node.op == "BatchNorm":
-                out = _eval_batchnorm(node, ins, is_train, new_aux)
-            else:
-                out = _reg.get(node.op).fn(*ins, **self._attrs[id(node)])
-            values[id(node)] = out if isinstance(out, tuple) else (out,)
-        outs = [values[id(n)][idx] for n, idx in self._symbol._outputs]
+        outs, new_aux = eval_graph(
+            self._symbol, self._nodes, self._aux_ids, self._attrs,
+            dict(zip(self._arg_names, args)),
+            dict(zip(self._aux_names, aux)), is_train)
         return outs, [new_aux[n] for n in self._aux_names]
 
     def _state(self):
@@ -479,6 +467,28 @@ class Executor:
         aux = [a if same(a, s) else zeros(s, ctx=dev)
                for a, s in zip(self.aux_arrays, aux_shapes)]
         return Executor(self._symbol, dev, args, grads, self.grad_req, aux)
+
+
+def eval_graph(symbol, nodes, aux_ids, attrs, arg_map, aux_map, is_train):
+    """``(outputs, new aux by name)`` of ``symbol``'s graph, node by node
+    with the registered ops, on the tensors ``arg_map`` and ``aux_map``
+    (name -> tensor); ``nodes`` are its topological order, ``aux_ids``
+    its auxiliary nodes' ids and ``attrs`` each op node's attributes
+    (:func:`~mxnet_tpu_torch.symbol.symbol.op_attrs`)."""
+    new_aux = dict(aux_map)
+    values = {}
+    for node in nodes:
+        if node.is_variable:
+            values[id(node)] = (aux_map[node.name] if id(node) in aux_ids
+                                else arg_map[node.name],)
+            continue
+        ins = [values[id(inp)][idx] for inp, idx in node.inputs]
+        if node.op == "BatchNorm":
+            out = _eval_batchnorm(node, ins, is_train, new_aux)
+        else:
+            out = _reg.get(node.op).fn(*ins, **attrs[id(node)])
+        values[id(node)] = out if isinstance(out, tuple) else (out,)
+    return [values[id(n)][idx] for n, idx in symbol._outputs], new_aux
 
 
 def _eval_batchnorm(node, ins, is_train, new_aux):

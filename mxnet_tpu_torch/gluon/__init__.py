@@ -1,11 +1,16 @@
-"""Gluon of the PyTorch port: blocks as ``torch.nn.Module``s, losses, the
-Trainer, the recurrent layers and cells, the utilities and the model
-zoo."""
+"""Gluon of the PyTorch port: blocks as ``torch.nn.Module``s with the
+reference's parameters, names and ``hybrid_forward``; losses, the
+Trainer, the recurrent layers and cells, the data API, the utilities and
+the model zoo."""
 
-from . import loss, model_zoo, nn, rnn, utils
-from .block import Block, HybridBlock, Parameter
+from . import data, loss, model_zoo, nn, rnn, utils
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
 from .utils import split_and_load
 
-__all__ = ["Block", "HybridBlock", "Parameter", "Trainer", "loss",
-           "model_zoo", "nn", "rnn", "split_and_load", "utils"]
+__all__ = ["Block", "Constant", "DeferredInitializationError",
+           "HybridBlock", "Parameter", "ParameterDict", "SymbolBlock",
+           "Trainer", "data", "loss", "model_zoo", "nn", "rnn",
+           "split_and_load", "utils"]

@@ -1,22 +1,38 @@
 """Gluon blocks of the PyTorch port.
 
-Counterpart of ``mxnet_tpu/gluon/block.py`` and ``gluon/parameter.py``.
-A block is a ``torch.nn.Module``; its parameters are ``nn.Parameter``s
-registered under the JAX package's structural names, so
-``state_dict()`` keys are the keys of the JAX package's
-``Block._collect_params_with_prefix()`` (``encoder.layers.0.attn.qkv.weight``)
+Counterpart of ``mxnet_tpu/gluon/block.py`` (reference:
+python/mxnet/gluon/block.py).  A block is a ``torch.nn.Module`` with the
+reference's naming: a ``prefix`` made by :meth:`Block.name_scope` and the
+per-scope counters of ``mxnet_tpu/gluon/block.py:48-100`` (so names equal
+the JAX package's letter for letter), ``params`` (a
+:class:`~.parameter.ParameterDict`) and :meth:`Block.collect_params`,
+keyed by the prefixed names.  ``block.weight`` is the reference's
+:class:`~.parameter.Parameter` handle; its storage, an ``nn.Parameter``,
+is registered in the block's ``_parameters`` under the attribute's name,
+so ``state_dict()`` and :meth:`Block._collect_params_with_prefix` give
+the JAX package's structural names (``encoder.layers.0.attn.qkv.weight``)
 and files written by either package's ``save_parameters`` load into the
 other.
 
-Parameters are allocated on the block's device at construction (the
-default-device rule of :mod:`..context`) and filled by
-:meth:`Block.initialize` from a numpy seed.  Each is a :class:`Parameter`,
-an ``nn.Parameter`` that also carries the JAX package's ``grad_req``,
-``lr_mult`` and ``wd_mult``.  A width given as 0 (a layer's
-``in_units=0``: the JAX package's deferred initialization,
-``mxnet_tpu/gluon/parameter.py:141-158``) makes a
-:class:`DeferredParameter`, PyTorch's ``UninitializedParameter``, which
-the layer materializes in place from its first input's shape.
+A block takes tensors or NDArrays.  Tensors in give tensors out, as
+``GluonTrainStep``, ``Trainer.compile`` and the server call it.  NDArrays
+in give NDArrays out: the port's own layers, and any hybridized block,
+unwrap them (no copy), run the tensor path, the same kernels, and wrap
+the results.  A port layer's ``hybrid_forward`` runs on tensors, each
+op bound to its attributes when the layer is built (:class:`BoundOp`);
+a user's gets NDArrays and ``F`` = ``mx.nd`` whatever the block was
+called with, as in the reference.  A
+``mx.sym.Symbol`` in makes a graph (``F`` = ``mx.sym`` over the
+parameters' ``var()``); :meth:`HybridBlock.export` writes it with the
+parameters, and :class:`SymbolBlock` runs such a graph.  A layer of the
+port without a Symbol path raises :class:`MXNetError` on a Symbol.
+
+Parameters are made on the block's device at construction (the device
+given, else the current context, :func:`~mxnet_tpu_torch.context.
+current_context`; ``gpu(0)`` outside any ``with mx.cpu():``), zeros until
+:meth:`Block.initialize`.  A width given as 0 makes a deferred storage
+that the layer materializes from its first input's shape
+(:meth:`HybridBlock.infer_shape`).
 
 A block runs with PyTorch's grad mode set to
 :func:`~mxnet_tpu_torch.autograd.is_recording`: called outside
@@ -34,164 +50,304 @@ keys and bookkeeping.
 from __future__ import annotations
 
 import collections
+import functools
 import os
+import re
+import threading
+import weakref
 
 import numpy as np
 import torch
 from torch import nn
-from torch.nn.parameter import UninitializedParameter
 
 from .. import _capture
 from .. import autograd as _autograd
 from .. import initializer as _init
 from .. import ndarray
+from .. import symbol as _symbol
 from ..base import MXNetError
 from ..context import resolve_device
+from ..ndarray import NDArray
+from ..ops import registry as _reg
+from ..symbol import Symbol
+from .parameter import (DeferredInitializationError, DeferredParameter,
+                        Parameter, ParameterDict, ParameterTensor,
+                        _bump_generation, _one_device, cast_generation,
+                        is_deferred, materialize)
 
-__all__ = ["Block", "HybridBlock", "Parameter", "DeferredParameter"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter",
+           "ParameterTensor", "DeferredParameter", "cast_generation",
+           "is_deferred", "materialize", "tensor_ops", "BoundOp"]
 
-_cast_generation = 0  # Block.cast calls so far
-_name_counter = collections.Counter()
+class _TensorOps:
+    """The ``F`` a port layer's ``hybrid_forward`` gets on tensors: its
+    :class:`BoundOp`s call the registered functions themselves."""
+
+    def __getattr__(self, name):
+        raise AttributeError(
+            "tensor_ops has no %r: a port layer calls its ops on tensors "
+            "through a BoundOp made when the layer is built" % name)
+
+    def __repr__(self):
+        return "tensor_ops"
+
+
+tensor_ops = _TensorOps()
+
+
+class BoundOp:
+    """A registered op with a layer's attributes, for the layer's
+    ``hybrid_forward``: ``op(F, *inputs)`` is ``F.<name>(*inputs,
+    **attrs)``.  On tensors (``F`` is :data:`tensor_ops`) it calls the
+    registered function with the attributes canonicalised once, here, so
+    a tensor call parses no arguments."""
+
+    __slots__ = ("name", "attrs", "fn")
+
+    def __init__(self, name, **attrs):
+        op = _reg.get(name)
+        self.name, self.attrs = name, attrs
+        self.fn = functools.partial(op.fn, **op.canonicalize_attrs(attrs))
+
+    def __call__(self, F, *inputs):
+        if F is tensor_ops:
+            return self.fn(*inputs)
+        return getattr(F, self.name)(*inputs, **self.attrs)
+
+
+# where a layer of the port without a Symbol path is to get one
+SYMBOL_PATH_ITEM = "ROADMAP Queue 1 item 15"
+
+
+class _BlockScope:
+    """Name scoping for blocks (reference: ``gluon/block.py``
+    ``_BlockScope``; ``mxnet_tpu/gluon/block.py:48-100``)."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        # weak: a block that held its scope strongly would be a reference
+        # cycle, freed (with its parameters' memory) only by the collector
+        self._block = weakref.proxy(block)
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        if params is not None and not isinstance(params, ParameterDict):
+            raise MXNetError("params must be a ParameterDict (another "
+                             "block's .params), not %s"
+                             % type(params).__name__)
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = _name_unique(hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            current._counter[hint] = count + 1
+            prefix = "%s%d_" % (hint, count)
+        if params is None:
+            parent = current._block._params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *exc):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+_NAME_COUNTER = {}
 
 
 def _name_unique(hint):
-    n = _name_counter[hint]
-    _name_counter[hint] += 1
-    return "%s%d" % (hint, n)
+    count = _NAME_COUNTER.get(hint, 0)
+    _NAME_COUNTER[hint] = count + 1
+    return "%s%d" % (hint, count)
 
 
-def cast_generation():
-    """How many :meth:`Block.cast` calls have run.  A cast replaces the
-    storage of parameters that captured programs read, so every cache of
-    them (a hybridized block's, a training step's) is dropped when this
-    moves."""
-    return _cast_generation
-
-class Parameter(nn.Parameter):
-    """A block's weight (reference: ``gluon/parameter.py`` Parameter).
-
-    ``grad_req``: ``'write'`` (the default:
-    :func:`~mxnet_tpu_torch.autograd.backward` replaces ``.grad``),
-    ``'add'`` (adds to it) or ``'null'`` (no gradient: ``requires_grad``
-    is False).  ``lr_mult`` and ``wd_mult``
-    scale the optimizer's learning rate and weight decay for this
-    parameter."""
-
-    lr_mult = 1.0
-    wd_mult = 1.0
-
-    @property
-    def grad_req(self):
-        return getattr(self, "_grad_req", "write")
-
-    @grad_req.setter
-    def grad_req(self, req):
-        if req not in ("write", "add", "null"):
-            raise ValueError("invalid grad_req %r" % (req,))
-        self._grad_req = req
-        self.requires_grad = req != "null"
-        if req == "null":
-            self.grad = None
+def _contains(args, cls):
+    for a in args:
+        if isinstance(a, cls):
+            return True
+        if isinstance(a, (list, tuple)) and _contains(a, cls):
+            return True
+    return False
 
 
-class DeferredParameter(UninitializedParameter, Parameter):
-    """A :class:`Parameter` whose shape waits for the first input
-    (reference: deferred initialization).  ``declared_shape`` holds the
-    known dimensions and 0 for each unknown one.  :func:`materialize`
-    turns it, the same Python object, into a :class:`Parameter`, so the
-    Trainer, ``collect_params()`` and captured programs that hold it keep
-    holding it; ``grad_req``, ``init``, ``lr_mult`` and ``wd_mult`` stay."""
-
-    cls_to_become = Parameter
+def _unwrap(x):
+    """NDArrays (in nested lists) as their tensors, no copy."""
+    if isinstance(x, NDArray):
+        return x.data_torch
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(v) for v in x)
+    return x
 
 
-def materialize(p, shape):
-    """Give the deferred parameter ``p`` its ``shape`` (each known
-    dimension must agree) and fill it: by the initializer that
-    :meth:`Block.initialize` recorded, else with zeros, as a parameter
-    that was never initialized holds."""
-    shape = tuple(int(s) for s in shape)
-    declared = p.declared_shape
-    if len(shape) != len(declared) or any(
-            d and d != s for d, s in zip(declared, shape)):
-        raise MXNetError("a deferred parameter of shape %s cannot take the "
-                         "shape %s" % (declared, shape))
-    pending = getattr(p, "_pending_init", None)
-    p.materialize(shape)
-    p._pending_init = None
-    with torch.no_grad():
-        if pending is None:
-            p.zero_()
-        else:
-            init, name, rng = pending
-            p.copy_(torch.from_numpy(_draw(p, name, init, rng)))
-
-
-def _draw(p, name, init, rng):
-    """``p``'s initial values: its own initializer where its layer was
-    given one, else ``init`` by the name's suffix."""
-    arr = np.zeros(tuple(p.shape), dtype=np.float32)
-    own = getattr(p, "init", None)
-    if own is None:
-        init(name, arr, rng)
-    else:
-        _init.create(own)._init_weight(arr, rng)
-    return arr
-
-
-def is_deferred(p):
-    """Whether ``p`` still waits for its shape."""
-    return isinstance(p, DeferredParameter)
+def _wrap(x):
+    """Tensors (in nested lists) as NDArrays, no copy."""
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_wrap(v) for v in x)
+    return x
 
 
 class Block(nn.Module):
-    """Base of the port's layers and models.
+    """Base of the port's layers and models (reference:
+    ``gluon/block.py:127``).
 
-    ``device``: where the parameters live; ``None`` means ``gpu(0)`` and
-    raises :class:`~mxnet_tpu_torch.base.MXNetError` when no CUDA device is
-    present."""
+    ``prefix`` and ``params`` as in the reference; ``device``: where the
+    block's parameters are made (default: the current context)."""
 
     _active = False  # hybridized (HybridBlock.hybridize)
+    _port_native = False  # a layer of the port: runs on tensors
+    _symbolic = None  # takes a Symbol (None: unless a port layer's forward)
+    _placeless = False  # holds no parameters: runs where its input lies
 
-    def __init__(self, device=None):
-        super().__init__()
-        self.device = resolve_device(device)
-        self._name = _name_unique(type(self).__name__.lower())
+    def __init__(self, prefix=None, params=None, *, device=None):
+        nn.Module.__init__(self)
+        self._device_arg = device
+        self._device = None
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = {}
+
+    def _alias(self):
+        return type(self).__name__.lower()
+
+    # ------------------------------------------------------------ attrs
+    def __setattr__(self, name, value):
+        reg = self.__dict__.get("_reg_params")
+        if reg is not None:
+            try:
+                existing = getattr(self, name)
+            except AttributeError:
+                existing = None
+            if isinstance(existing, (Parameter, Block)) and \
+                    not isinstance(value, type(existing)) and \
+                    not isinstance(existing, type(value)):
+                raise TypeError("Changing attribute type for %s from %s to "
+                                "%s is not allowed." % (
+                                    name, type(existing), type(value)))
+            if isinstance(value, Parameter):
+                self._register_handle(name, value)
+                return
+        super().__setattr__(name, value)
+
+    def _register_handle(self, name, handle):
+        """``self.<name> = handle``: the handle as the attribute, its
+        storage (made on this block's device if it has none) in
+        ``_parameters``."""
+        storage = handle._attach(self.device if handle._storage is None
+                                 else None)
+        self.__dict__.pop(name, None)
+        self._parameters[name] = storage
+        self.__dict__[name] = handle
+        self._reg_params[name] = handle
+        self._shapes_known = False
+
+    def register_child(self, block, name=None):
+        """Add ``block`` as a child under ``name`` (default: the count of
+        children so far)."""
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
+    @property
+    def device(self):
+        """Where the block's parameters live: its first parameter's
+        device, else the device it was given or the current context
+        (None for a block that runs where its input lies)."""
+        for p in self._parameters.values():
+            if p is not None:
+                return p.device
+        if self._placeless and self._device_arg is None:
+            return None
+        if self._device is None:
+            self._device = resolve_device(self._device_arg)
+        return self._device
+
+    @property
+    def prefix(self):
+        return self._prefix
 
     @property
     def name(self):
-        """The block's name: its class's, lower case, with a count a
-        class (``hybridsequential0``), as the JAX package names a block
-        made outside a name scope."""
         return self._name
 
-    def _param(self, name, shape, dtype="float32", init=None):
-        """Register a parameter ``name`` of ``shape`` and ``dtype``;
-        ``init`` (an initializer or its name) fills it in
-        :meth:`initialize` in place of the block-wide one.  A 0 in
-        ``shape`` makes a :class:`DeferredParameter`."""
-        dt = getattr(torch, str(dtype))
-        if 0 in tuple(shape):
-            p = DeferredParameter(device=self.device, dtype=dt)
-            p.declared_shape = tuple(shape)
-        else:
-            p = Parameter(torch.zeros(shape, dtype=dt, device=self.device))
-        p.init = init
-        self.register_parameter(name, p)
+    def name_scope(self):
+        """The scope whose children take this block's prefix."""
+        return self._scope
+
+    @property
+    def params(self):
+        """This block's own :class:`ParameterDict` (not its children's)."""
+        return self._params
+
+    def _param(self, name, shape, dtype="float32", init=None, **kwargs):
+        """``self.<name> = self.params.get(name, ...)``: a parameter of
+        ``shape`` (a 0 defers a dimension to the first input) and
+        ``dtype``, filled by ``init`` in :meth:`initialize` in place of
+        the block-wide initializer."""
+        handle = self.params.get(name, shape=shape, dtype=dtype, init=init,
+                                 allow_deferred_init=True, **kwargs)
+        setattr(self, name, handle)
+        return handle
 
     def _finish_deferred(self, **shapes):
-        """Materialize each deferred parameter named in ``shapes`` (name ->
-        shape); a parameter that has its shape already is left alone."""
+        """Materialize each deferred parameter named in ``shapes`` (name
+        -> shape); a parameter that has its shape already is left
+        alone."""
         for name, shape in shapes.items():
             p = self._parameters[name]
             if is_deferred(p):
                 materialize(p, shape)
 
+    # ------------------------------------------------------------ run
     def __call__(self, *args, **kwargs):
+        if kwargs or not all(isinstance(a, torch.Tensor) for a in args):
+            if _contains(args, Symbol) or _contains(kwargs.values(),
+                                                    Symbol):
+                return self._symbol_call(*args, **kwargs)
+            if (self._port_native or self._active) and (
+                    _contains(args, NDArray)
+                    or _contains(kwargs.values(), NDArray)):
+                return _wrap(self(*_unwrap(args), **{
+                    k: _unwrap(v) for k, v in kwargs.items()}))
         with torch.set_grad_enabled(_autograd.is_recording()):
             if self._active and not _capture.is_staging():
                 return self._hooked_cached(args, kwargs)
             return super().__call__(*args, **kwargs)
+
+    def _symbol_call(self, *args, **kwargs):
+        symbolic = self._symbolic
+        if symbolic is None:
+            symbolic = not (self._port_native and isinstance(
+                self, HybridBlock) and type(self).forward
+                is not HybridBlock.forward)
+        if not symbolic:
+            raise MXNetError("%s has no Symbol path in the port yet (%s): "
+                             "call it on tensors or NDArrays"
+                             % (type(self).__name__, SYMBOL_PATH_ITEM))
+        return self.forward(*args, **kwargs)
 
     def _hooked_cached(self, args, kwargs):
         """A hybridized call with the block's own forward hooks around it
@@ -209,9 +365,28 @@ class Block(nn.Module):
                 out = res
         return out
 
-    def collect_params(self):
-        """Structural name -> parameter, in registration order."""
-        return collections.OrderedDict(self.named_parameters())
+    # ------------------------------------------------------------ params
+    def collect_params(self, select=None):
+        """Every :class:`Parameter` of this block and its descendants, by
+        prefixed name, as a :class:`ParameterDict`; ``select``, a regex,
+        keeps the names it matches (reference: ``Block.collect_params``)."""
+        ret = ParameterDict(self._params.prefix)
+        if select is None:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({k: v for k, v in self.params.items()
+                        if pattern.match(k)})
+        for child in self._modules.values():
+            if isinstance(child, Block):
+                ret.update(child.collect_params(select))
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """Structural name (``features.0.weight``) -> storage tensor, in
+        registration order, each storage once: the names of
+        ``save_parameters`` files and of ``state_dict()``."""
+        return collections.OrderedDict(self.named_parameters(prefix=prefix))
 
     def collect_aux_losses(self):
         """The sum of the ``aux_loss`` of every descendant block (itself
@@ -236,24 +411,41 @@ class Block(nn.Module):
                              % (self,))
         return total
 
-    def initialize(self, init=None, seed=0):
-        """Fill every parameter on its device: by its own initializer
-        where its layer was given one (``weight_initializer``, ...), else
-        by its name's suffix: weights from ``init`` (default
-        ``Uniform()``), biases and betas with zeros, gammas with ones.
-        The draws come from
-        ``numpy.random.RandomState(seed)`` in registration order; a
-        deferred parameter draws when it is materialized, from
-        ``RandomState([seed, i])``, ``i`` its place in that order."""
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, seed=0):
+        """Initialize every parameter (reference: ``Block.initialize``):
+        by its own initializer where its layer was given one, else by its
+        name's suffix: weights from ``init`` (default ``Uniform()``),
+        biases and betas with zeros, gammas with ones.  ``ctx`` moves the
+        parameters there first (default: where they are).  A parameter
+        initialized already is left alone unless ``force_reinit``.
+
+        The draws come from ``numpy.random.RandomState(seed)`` in
+        registration order; a deferred parameter draws when it is
+        materialized, from ``RandomState([seed, i])``, ``i`` its place in
+        that order.  ``verbose`` is accepted and prints nothing."""
+        del verbose
         rng = np.random.RandomState(seed)
-        init = init or _init.Uniform()
-        with torch.no_grad():
-            for i, (name, p) in enumerate(self.named_parameters()):
-                if is_deferred(p):
-                    p._pending_init = (init, name,
-                                       np.random.RandomState([seed, i]))
-                    continue
-                p.copy_(torch.from_numpy(_draw(p, name, init, rng)))
+        init = _init.create(init) if init is not None else _init.Uniform()
+        dev = None if ctx is None else _one_device(ctx)
+        done = set()
+        for i, (_, p) in enumerate(self.named_parameters()):
+            handle = getattr(p, "_handle", None)
+            if handle is None:  # a plain nn.Parameter: not a Gluon one
+                continue
+            done.add(id(handle))
+            handle.initialize(
+                None, dev, default_init=init, force_reinit=force_reinit,
+                rng=np.random.RandomState([seed, i]) if is_deferred(p)
+                else rng)
+        for handle in self.collect_params().values():
+            if id(handle) not in done:
+                handle.initialize(None, dev, default_init=init,
+                                  force_reinit=force_reinit, rng=rng)
+        if dev is not None:
+            for b in self.modules():
+                if isinstance(b, Block) and not b._placeless:
+                    b._device = dev
         return self
 
     def zero_grad(self, set_to_none=False):
@@ -274,41 +466,125 @@ class Block(nn.Module):
 
     def cast(self, dtype):
         """Cast every parameter of the block and its children to
-        ``dtype`` in place (the Parameter objects stay; gradients are
+        ``dtype`` in place (the handles and storages stay; gradients are
         dropped).  Every captured program of the port is dropped: its
         parent blocks' and training steps' too."""
-        global _cast_generation
-        _cast_generation += 1
+        _bump_generation()
         dt = _dtype(dtype)
         for child in self.children():
             if isinstance(child, Block):
                 child.cast(dt)
-        for p in self._parameters.values():
-            if p is not None and p.dtype != dt:
-                p.data = p.data.to(dt)
-                p.grad = None
+        for handle in self._reg_params.values():
+            handle.cast(dt)
 
+    def summary(self, *inputs):
+        """Print each block's output shape and parameter count for one
+        forward of ``inputs`` (reference: ``Block.summary``)."""
+        rows, handles = [], []
+
+        def make_hook(path):
+            def hook(block, ins, outs):
+                out = outs[0] if isinstance(outs, (list, tuple)) else outs
+                n = sum(int(np.prod(p.shape)) for p in
+                        block._parameters.values()
+                        if p is not None and not is_deferred(p))
+                rows.append((path, type(block).__name__,
+                             tuple(getattr(out, "shape", ())), n))
+            return hook
+
+        def attach(block, path):
+            handles.append(block.register_forward_hook(make_hook(path)))
+            for k, c in block.named_children():
+                attach(c, path + "." + k if path else k)
+
+        attach(self, "")
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        print("%-30s %-20s %-20s %s" % ("Layer", "Type", "Output", "Params"))
+        total = 0
+        for path, typ, shape, n in rows:
+            total += n
+            print("%-30s %-20s %-20s %d" % (path or "(self)", typ, shape, n))
+        print("Total params: %d" % total)
+
+    # ------------------------------------------------------------ save/load
     def save_parameters(self, filename):
         """Write the parameters by structural name in the npz format the
         JAX package reads (through a temporary file and a rename, so a
         crash never leaves a torn file under ``filename``).  Raises
         :class:`MXNetError` while a parameter's shape is deferred."""
-        deferred = [k for k, p in self.collect_params().items()
-                    if is_deferred(p)]
+        params = self._collect_params_with_prefix()
+        deferred = [k for k, p in params.items() if is_deferred(p)]
         if deferred:
             raise MXNetError(
                 "cannot save parameters %s: their shapes wait for the first "
                 "input (run a forward first)" % ", ".join(deferred))
         tmp = "%s.tmp%d" % (filename, os.getpid())
-        ndarray.save(tmp, {k: v for k, v in self.collect_params().items()})
+        ndarray.save(tmp, {k: v for k, v in params.items()})
         os.replace(tmp, filename)
 
-    def load_parameters(self, filename):
-        """Load a ``save_parameters`` file of either package; every name
-        and shape must match (see :func:`~mxnet_tpu_torch.convert.load_mxnet_tpu_params`)."""
-        from ..convert import load_mxnet_tpu_params
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False):
+        """Load a ``save_parameters`` file of either package (reference:
+        ``Block.load_parameters``), or a legacy file keyed by the
+        parameters' names (``ParameterDict.save``, with or without this
+        block's prefix).  ``IOError`` on a name the file lacks unless
+        ``allow_missing``, and on one this block lacks unless
+        ``ignore_extra``; :class:`MXNetError` on a shape that disagrees.
+        ``ctx`` moves the parameters there; ``cast_dtype`` takes the
+        file's dtypes.  A deferred parameter takes the file's shape."""
+        from ..convert import copy_params
 
-        load_mxnet_tpu_params(self, filename)
+        loaded = ndarray.read_npz(filename)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if loaded and not any("." in k for k in loaded) and \
+                any("." in k for k in params):
+            loaded = self._legacy_names(loaded, params)
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise IOError("Parameter %s is missing in file %s"
+                                  % (name, filename))
+        for name in loaded:
+            if name not in params and not ignore_extra:
+                raise IOError("Parameter %s in file %s is not present in "
+                              "this Block" % (name, filename))
+        targets = {k: p for k, p in params.items() if k in loaded}
+        for name, p in targets.items():
+            if ctx is not None:
+                p._handle.reset_ctx(ctx)
+            if cast_dtype:
+                p._handle.cast(loaded[name].dtype)
+        copy_params(targets, {k: loaded[k] for k in targets})
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def _legacy_names(self, loaded, params):
+        """A legacy file's arrays by structural name: its names are the
+        parameters' (``collect_params()``) with or without this block's
+        prefix, or, for a block whose names are its own, the structural
+        ones with the prefix; a name that matches none is kept, so the
+        checks report it."""
+        stripped = {k.replace(self.prefix, "", 1)
+                    if k.startswith(self.prefix) else k: v
+                    for k, v in loaded.items()}
+        if set(stripped) <= set(params):
+            return stripped
+        structural = {id(p): k for k, p in params.items()}
+        handles = self.collect_params()
+        out = {}
+        for k, v in loaded.items():
+            full = k if k in handles else self.prefix + k
+            h = handles[full] if full in handles else None
+            out[structural.get(id(h._storage), k) if h is not None
+                else k] = v
+        return out
 
 
 def _dtype(dtype):
@@ -400,11 +676,18 @@ class _CachedGraph:
     calls, ``replays`` the forward replays."""
 
     def __init__(self, block, args, recording, in_tree):
-        self.block, self.recording = block, recording
+        # weak: the block holds its graphs, and a strong link back would
+        # keep both (and the graphs' memory pool) until the collector runs
+        self._block = weakref.ref(block)
+        self.recording = recording
         self.in_tree = in_tree
         self.device = args[0].device
         self.calls = self.replays = self.generation = 0
         self.fwd = self.bwd = None
+
+    @property
+    def block(self):
+        return self._block()
 
     def _forward(self, args):
         # the block's forward without its own hooks, which fire around
@@ -517,9 +800,57 @@ class _CachedGraph:
 
 
 class HybridBlock(Block):
-    """A block that :meth:`hybridize` turns into a cached program per
-    input signature (reference: ``gluon/block.py:671``; the JAX package's
-    ``HybridBlock``).  Until then, a plain eager ``nn.Module``."""
+    """A block written as ``hybrid_forward(F, x, *args, **params)``
+    (reference: ``gluon/block.py:671``): ``F`` is ``mx.sym`` for a Symbol
+    and ``mx.nd`` otherwise, ``params`` the block's own parameters by
+    attribute name (their ``var()``s or NDArrays).  A layer of the port
+    (``_port_native``) takes tensors as they are instead, with ``F`` =
+    :data:`tensor_ops` and the storage tensors.  :meth:`hybridize` turns
+    it into a cached program per input signature."""
+
+    def infer_shape(self, *args):
+        """Give each deferred parameter its shape from the inputs (a layer
+        with deferred widths overrides it)."""
+        raise NotImplementedError(
+            "%s has deferred-initialized parameters whose shape could not "
+            "be inferred; implement infer_shape() or initialize with full "
+            "shapes." % type(self).__name__)
+
+    _shapes_known = False  # no parameter of its own is deferred
+
+    def _finish_shapes(self, *args):
+        if self._shapes_known:
+            return
+        deferred = [(k, p) for k, p in self._reg_params.items()
+                    if is_deferred(self._parameters[k])]
+        if not deferred:
+            self._shapes_known = True
+            return
+        self.infer_shape(*args)
+        for k, p in deferred:
+            if p.shape is None or 0 in p.shape:
+                raise DeferredInitializationError(
+                    "Parameter %s: infer_shape left its shape %s"
+                    % (p.name, p.shape))
+            materialize(self._parameters[k], p.shape)
+
+    def forward(self, x, *args):
+        if isinstance(x, Symbol):
+            params = {k: p.var() for k, p in self._reg_params.items()}
+            return self.hybrid_forward(_symbol, x, *args, **params)
+        self._finish_shapes(x, *args)
+        if self._port_native and not isinstance(x, NDArray):
+            params = {k: self._parameters[k] for k in self._reg_params}
+            return self.hybrid_forward(tensor_ops, x, *args, **params)
+        # a user's block sees NDArrays and mx.nd whatever it was called
+        # with (tensors: hybridized, or by the port's training steps), as
+        # in the reference; its NDArray results go back as tensors
+        params = {k: NDArray(self._parameters[k]) for k in self._reg_params}
+        out = self.hybrid_forward(ndarray, *_wrap((x,) + args), **params)
+        return out if isinstance(x, NDArray) else _unwrap(out)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
 
     def hybridize(self, active=True, **flags):
         """Cache one :class:`_CachedGraph` per (argument shapes, dtypes
@@ -527,10 +858,11 @@ class HybridBlock(Block):
         of list arguments such as an RNN's states); ``active=False``
         runs eagerly again.  Calling it again, or :meth:`cast`, clears the
         cache.  The flags (``static_alloc``, ``static_shape``, ...) are
-        accepted and change nothing: a captured graph is static in both."""
+        accepted and change nothing: a captured graph is static in both.
+        NDArray arguments are unwrapped before the cache."""
         self._active = bool(active)
         self._cached_graphs = {}
-        self._graphs_cast = _cast_generation
+        self._graphs_cast = cast_generation()
         super().hybridize(active, **flags)
 
     def cast(self, dtype):
@@ -538,10 +870,10 @@ class HybridBlock(Block):
         super().cast(dtype)
 
     def _graphs(self):
-        """The cache, emptied after a cast of this or any other block
-        (a child's cast frees storage that this block's graphs read)."""
-        if self._graphs_cast != _cast_generation:
-            self._cached_graphs, self._graphs_cast = {}, _cast_generation
+        """The cache, emptied after a cast or a move of this or any other
+        block's parameters (the graphs read their storage)."""
+        if self._graphs_cast != cast_generation():
+            self._cached_graphs, self._graphs_cast = {}, cast_generation()
         return self._cached_graphs
 
     def _call_cached(self, *args, **kwargs):
@@ -576,3 +908,127 @@ class HybridBlock(Block):
                     self.forward(*args)
             graph = graphs[key] = _CachedGraph(self, flat, recording, tree)
         return graph, flat
+
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` (the graph of a call on
+        ``mx.sym.Variable("data")``) and ``path-%04d.params`` (every
+        parameter as ``arg:<name>`` or ``aux:<name>``), the JAX format
+        that ``SymbolBlock.imports`` and ``Module`` read (reference:
+        ``HybridBlock.export``).  Returns the symbol."""
+        inp = _symbol.Variable("data")
+        out = self(inp)
+        if isinstance(out, (list, tuple)):
+            out = _symbol.Group(list(out))
+        out.save("%s-symbol.json" % path)
+        aux_names = set(out.list_auxiliary_states())
+        arg_dict = {}
+        for name, param in self.collect_params().items():
+            kind = "aux" if name in aux_names else "arg"
+            arg_dict["%s:%s" % (kind, name)] = \
+                param._check().detach().to("cpu")
+        ndarray.save("%s-%04d.params" % (path, epoch), arg_dict)
+        return out
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a block (reference: ``gluon.SymbolBlock``,
+    ``mxnet_tpu/gluon/block.py:675-754``): ``outputs`` over the
+    variables ``inputs``; every other argument and auxiliary state of the
+    graph is a parameter, named as in the graph, set from ``params``
+    (``arg:``/``aux:`` keys or plain names) or initialized and shaped at
+    the first call (:meth:`infer_shape`).
+
+    The graph runs node by node with the registered ops
+    (:func:`~mxnet_tpu_torch.executor.eval_graph`), in train mode
+    updating the BatchNorm moving statistics; it is hybridized from the
+    start, so on the card each input signature is one captured CUDA
+    graph.  It is differentiable through PyTorch's autograd (the JAX
+    package's is not: ROADMAP "deliberate divergences")."""
+
+    _port_native = True
+    _symbolic = True
+
+    def __init__(self, outputs, inputs, params=None, *, device=None):
+        super().__init__(prefix="", params=None, device=device)
+        if isinstance(outputs, (list, tuple)):
+            outputs = _symbol.Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        self._arg_names = [n for n in outputs.list_arguments()
+                           if n not in self._input_names]
+        self._aux_names = outputs.list_auxiliary_states()
+        self._nodes = outputs._topo_nodes()
+        self._aux_ids = outputs._aux_nodes()
+        self._attrs = {}  # device -> node attributes
+        self._slots = {}  # graph name -> attribute name of its storage
+        handles = [Parameter(n, allow_deferred_init=True)
+                   for n in self._arg_names] + \
+            [Parameter(n, grad_req="null", allow_deferred_init=True)
+             for n in self._aux_names]
+        params = {} if params is None else {
+            k[4:] if k.startswith(("arg:", "aux:")) else k: v
+            for k, v in params.items()}
+        for h in handles:
+            self._params._params[h.name] = h
+            value = params.get(h.name)
+            if value is not None:
+                h.shape = tuple(value.shape)
+                h.dtype = value.dtype
+            slot = "p%d_%s" % (len(self._slots),
+                               re.sub(r"\W", "_", h.name))
+            self._slots[h.name] = slot
+            setattr(self, slot, h)
+            if value is not None:
+                h.set_data(value)
+        self.hybridize()
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A :class:`SymbolBlock` of an exported model (reference:
+        ``SymbolBlock.imports``), its parameters on ``ctx`` (default: the
+        current context)."""
+        sym = _symbol.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [_symbol.Variable(n) for n in input_names]
+        params = ndarray.read_npz(param_file) if param_file else None
+        return SymbolBlock(sym, inputs, params=params, device=ctx)
+
+    def infer_shape(self, *args):
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+            **{n: tuple(a.shape) for n, a in zip(self._input_names, args)})
+        shapes = dict(zip(self._symbol.list_arguments(), arg_shapes))
+        shapes.update(zip(self._aux_names, aux_shapes))
+        for name, slot in self._slots.items():
+            self._reg_params[slot].shape = shapes[name]
+
+    def forward(self, *args):
+        if _contains(args, Symbol):
+            return self._symbol(**dict(zip(self._input_names, args)))
+        self._finish_shapes(*args)
+        dev = args[0].device
+        attrs = self._attrs.get(dev)
+        if attrs is None:
+            from ..symbol.symbol import op_attrs
+
+            attrs = self._attrs[dev] = {id(n): op_attrs(n, dev)
+                                        for n in self._nodes
+                                        if not n.is_variable}
+        from ..executor import eval_graph
+
+        arg_map = dict(zip(self._input_names, args))
+        arg_map.update((n, self._parameters[self._slots[n]])
+                       for n in self._arg_names)
+        aux_map = {n: self._parameters[self._slots[n]]
+                   for n in self._aux_names}
+        train = _autograd.is_training()
+        outs, new_aux = eval_graph(self._symbol, self._nodes, self._aux_ids,
+                                   attrs, arg_map, aux_map, train)
+        if train:
+            with torch.no_grad():
+                for n in self._aux_names:
+                    if new_aux[n] is not aux_map[n]:
+                        aux_map[n].copy_(new_aux[n])
+        return outs[0] if len(outs) == 1 else outs

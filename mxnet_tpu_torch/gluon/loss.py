@@ -15,7 +15,6 @@ sequence).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..ops import matrix as _matrix
 from ..ops import nn as _ops
@@ -49,11 +48,13 @@ def _softrelu(x):
 class Loss(HybridBlock):
     """Base of the losses: scalar ``weight`` and ``batch_axis``.  A loss
     holds no parameters and runs where its inputs lie, so it takes no
-    device."""
+    device; it takes tensors or NDArrays, and has no Symbol path yet."""
 
-    def __init__(self, weight, batch_axis):
-        nn.Module.__init__(self)
-        self.device = None
+    _port_native = True
+    _placeless = True
+
+    def __init__(self, weight, batch_axis, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._weight = weight
         self._batch_axis = batch_axis
 

@@ -137,6 +137,7 @@ class TinySSD(Block):
     3x3 convolutions on each (``SIZES``, ``RATIOS``: 4 anchors a
     position)."""
 
+    _port_native = True
     SIZES = [(0.2, 0.27), (0.45, 0.55)]
     RATIOS = [(1.0, 2.0, 0.5)] * 2
 
@@ -177,6 +178,8 @@ class SSD300(Block):
     ``l2_scale`` (1, C, 1, 1) scales the normalized ``relu4_3``,
     ``extras`` holds the four extra blocks, and ``cls_heads`` and
     ``loc_heads`` one 3x3 convolution each a map."""
+
+    _port_native = True
 
     def __init__(self, num_classes=20, width_divisor=1, *, device=None):
         super().__init__(device=device)
@@ -224,7 +227,8 @@ class SSD300(Block):
 
     def forward(self, x):
         x = self.features(x)
-        feats = [_ops.l2_normalization(x, mode="channel") * self.l2_scale]
+        feats = [_ops.l2_normalization(x, mode="channel")
+                 * self._parameters["l2_scale"]]
         x = self.fc(x)
         feats.append(x)
         for block in self.extras:

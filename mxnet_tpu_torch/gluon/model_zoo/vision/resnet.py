@@ -13,6 +13,13 @@ parameter names are the JAX package's, so ``state_dict()`` keys equal its
 :func:`~mxnet_tpu_torch.convert.load_mxnet_tpu_params` carries its
 weights, the BatchNorm running statistics included.
 
+Every constructor takes ``prefix`` and ``params`` and opens the JAX
+zoo's name scopes (``mxnet_tpu/gluon/model_zoo/vision/resnet.py:55-278``),
+so ``resnet50_v1(prefix="resnetv10_").collect_params()`` has the JAX
+package's keys (``resnetv10_stage1_conv2d0_weight``, ...).  The v1 blocks
+and nets have a Symbol path (``export``); the v2 blocks and the
+space-to-depth stem run on tensors and NDArrays only.
+
 Every constructor takes the JAX package's ``layout``: ``"NCHW"``, the
 default (OIHW weights, NCHW input, BatchNorm over axis 1), or ``"NHWC"``
 (OHWI weights, NHWC input, BatchNorm over axis 3); any other raises
@@ -27,7 +34,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ....ops import nn as _ops
-from ...block import HybridBlock
+from ...block import BoundOp, HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                    HybridSequential, MaxPool2D)
 
@@ -36,6 +43,9 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
            "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
            "resnet101_v2", "resnet152_v2"]
+
+# the v1 blocks' relu after the residual sum
+_RELU = BoundOp("Activation", act_type="relu")
 
 
 def _conv3x3(channels, stride, in_channels, layout, device):
@@ -50,21 +60,31 @@ def _bn(channels, layout, device, **kwargs):
 
 
 def _downsample(channels, stride, in_channels, layout, device):
-    ds = HybridSequential(device=device)
+    ds = HybridSequential(prefix="", device=device)
     ds.add(Conv2D(channels, kernel_size=1, strides=stride, use_bias=False,
                   in_channels=in_channels, layout=layout, device=device))
     ds.add(_bn(channels, layout, device))
     return ds
 
 
-class BasicBlockV1(HybridBlock):
+class _Block(HybridBlock):
+    """A residual block of the port (its children are named in the
+    scope it is made in, as the JAX zoo's)."""
+
+    _port_native = True
+
+    def __init__(self, prefix, params, device):
+        super().__init__(prefix=prefix, params=params, device=device)
+
+
+class BasicBlockV1(_Block):
     """18/34-layer residual block, v1 (post-activation)."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__(device=device)
-        dev = self.device
-        self.body = HybridSequential(device=dev)
+                 layout="NCHW", prefix=None, params=None, *, device=None):
+        super().__init__(prefix, params, device)
+        dev = device
+        self.body = HybridSequential(prefix="", device=dev)
         self.body.add(_conv3x3(channels, stride, in_channels, layout, dev))
         self.body.add(_bn(channels, layout, dev))
         self.body.add(Activation("relu"))
@@ -73,24 +93,24 @@ class BasicBlockV1(HybridBlock):
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       dev) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
         x = self.body(x)
         if self.downsample is not None:
             residual = self.downsample(residual)
-        return _ops.activation(residual + x, act_type="relu")
+        return _RELU(F, residual + x)
 
 
-class BottleneckV1(HybridBlock):
+class BottleneckV1(_Block):
     """50/101/152-layer bottleneck block, v1: 1x1 (stride, bias), 3x3,
     1x1 (bias), each followed by BatchNorm."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__(device=device)
-        dev = self.device
+                 layout="NCHW", prefix=None, params=None, *, device=None):
+        super().__init__(prefix, params, device)
+        dev = device
         mid = channels // 4
-        self.body = HybridSequential(device=dev)
+        self.body = HybridSequential(prefix="", device=dev)
         self.body.add(Conv2D(mid, kernel_size=1, strides=stride,
                              in_channels=in_channels, layout=layout,
                              device=dev))
@@ -105,23 +125,23 @@ class BottleneckV1(HybridBlock):
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       dev) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
         x = self.body(x)
         if self.downsample is not None:
             residual = self.downsample(residual)
-        return _ops.activation(x + residual, act_type="relu")
+        return _RELU(F, x + residual)
 
 
-class BasicBlockV2(HybridBlock):
+class BasicBlockV2(_Block):
     """18/34-layer residual block, v2 (pre-activation): BatchNorm and
     relu, then two 3x3 convolutions; the downsample convolution reads the
     pre-activated input."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__(device=device)
-        dev = self.device
+                 layout="NCHW", prefix=None, params=None, *, device=None):
+        super().__init__(prefix, params, device)
+        dev = device
         self.bn1 = _bn(in_channels, layout, dev)
         self.conv1 = _conv3x3(channels, stride, in_channels, layout, dev)
         self.bn2 = _bn(channels, layout, dev)
@@ -140,15 +160,15 @@ class BasicBlockV2(HybridBlock):
         return self.conv2(x) + residual
 
 
-class BottleneckV2(HybridBlock):
+class BottleneckV2(_Block):
     """50/101/152-layer bottleneck block, v2: BatchNorm and relu before
     each of a 1x1, a 3x3 (stride) and a 1x1 convolution, none with a
     bias; the downsample convolution reads the pre-activated input."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None):
-        super().__init__(device=device)
-        dev = self.device
+                 layout="NCHW", prefix=None, params=None, *, device=None):
+        super().__init__(prefix, params, device)
+        dev = device
         mid = channels // 4
         self.bn1 = _bn(in_channels, layout, dev)
         self.conv1 = Conv2D(mid, kernel_size=1, strides=1, use_bias=False,
@@ -176,7 +196,7 @@ class BottleneckV2(HybridBlock):
         return self.conv3(x) + residual
 
 
-class _S2DStem(HybridBlock):
+class _S2DStem(_Block):
     """The 7x7/s2 stem convolution (NHWC, no bias) computed through
     space-to-depth (``mxnet_tpu/gluon/model_zoo/vision/resnet.py:179-234``):
     each 2x2 block of the input becomes 4 x in_channels channels in (dy,
@@ -186,18 +206,21 @@ class _S2DStem(HybridBlock):
     4x4 stride-1 kernel over those channels that computes the same
     function.  Checkpoints load into either stem.  Its weight-gradient is
     K1b at I = 12 over the 4x4 taps, its input's width four times the 7x7
-    stem's.  The height and width must be even (``ValueError``)."""
+    stem's.  The height and width must be even (``ValueError``).  It has
+    no Symbol path, as in the JAX package: export the standard stem."""
 
-    def __init__(self, channels, in_channels=3, device=None):
-        super().__init__(device=device)
+    def __init__(self, channels, in_channels=3, prefix=None, params=None, *,
+                 device=None):
+        super().__init__(prefix, params, device)
         self._channels = channels
         self._param("weight", (channels, 7, 7, in_channels))
 
     def forward(self, x):
-        o, c = self._channels, self.weight.shape[3]
+        weight = self._parameters["weight"]
+        o, c = self._channels, weight.shape[3]
         # (O, 7, 7, I) -> front-padded to 8 -> (O, 4, 2, 4, 2, I) ->
         # (O, 4, 4, 2, 2, I) -> (O, 4, 4, 4I), channels in (dy, dx, c) order
-        w = F.pad(self.weight, (0, 0, 1, 0, 1, 0))
+        w = F.pad(weight, (0, 0, 1, 0, 1, 0))
         w = w.reshape(o, 4, 2, 4, 2, c).permute(0, 1, 3, 2, 4, 5)
         w = w.reshape(o, 4, 4, 4 * c)
         b, h, ww, c = x.shape
@@ -216,23 +239,25 @@ class _S2DStem(HybridBlock):
 
 def _stages(features, block, layers, channels, layout, dev):
     """``len(layers)`` stages of ``block`` appended to ``features``:
-    stage i has ``layers[i]`` blocks of ``channels[i+1]``, its first of
-    stride 2 (1 for the first stage) with a downsample where the width
-    changes."""
+    stage i (prefix ``stage<i+1>_``) has ``layers[i]`` blocks of
+    ``channels[i+1]``, its first of stride 2 (1 for the first stage) with
+    a downsample where the width changes."""
     for i, num_layer in enumerate(layers):
         stride = 1 if i == 0 else 2
-        stage = HybridSequential(device=dev)
-        stage.add(block(channels[i + 1], stride,
-                        channels[i + 1] != channels[i],
-                        in_channels=channels[i], layout=layout, device=dev))
-        for _ in range(num_layer - 1):
-            stage.add(block(channels[i + 1], 1, False,
-                            in_channels=channels[i + 1], layout=layout,
-                            device=dev))
+        stage = HybridSequential(prefix="stage%d_" % (i + 1), device=dev)
+        with stage.name_scope():
+            stage.add(block(channels[i + 1], stride,
+                            channels[i + 1] != channels[i],
+                            in_channels=channels[i], layout=layout,
+                            prefix="", device=dev))
+            for _ in range(num_layer - 1):
+                stage.add(block(channels[i + 1], 1, False,
+                                in_channels=channels[i + 1], layout=layout,
+                                prefix="", device=dev))
         features.add(stage)
 
 
-class ResNetV1(HybridBlock):
+class ResNetV1(_Block):
     """ResNet v1: a 7x7/s2 stem with BatchNorm, relu and a 3x3/s2 max
     pool (``thumbnail``: a 3x3/s1 stem alone), ``len(layers)`` stages of
     ``block``, a global average pool and a Dense classifier of
@@ -243,8 +268,8 @@ class ResNetV1(HybridBlock):
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout="NCHW", stem_s2d=False,
-                 device=None):
-        super().__init__(device=device)
+                 prefix=None, params=None, *, device=None):
+        super().__init__(prefix, params, device)
         if len(layers) != len(channels) - 1:
             raise ValueError("need one more channel width than stages")
         if stem_s2d and layout != "NHWC":
@@ -252,29 +277,31 @@ class ResNetV1(HybridBlock):
         if stem_s2d and thumbnail:
             raise ValueError("stem_s2d applies to the 7x7/s2 stem; thumbnail "
                              "models have a 3x3/s1 stem")
-        dev = self.device
-        self.features = HybridSequential(device=dev)
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 3, layout, dev))
-        else:
-            if stem_s2d:
-                self.features.add(_S2DStem(channels[0], device=dev))
+        dev = device
+        with self.name_scope():
+            self.features = HybridSequential(prefix="", device=dev)
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 3, layout, dev))
             else:
-                self.features.add(Conv2D(channels[0], 7, 2, 3,
-                                         use_bias=False, in_channels=3,
-                                         layout=layout, device=dev))
-            self.features.add(_bn(channels[0], layout, dev))
-            self.features.add(Activation("relu"))
-            self.features.add(MaxPool2D(3, 2, 1, layout=layout))
-        _stages(self.features, block, layers, channels, layout, dev)
-        self.features.add(GlobalAvgPool2D(layout=layout))
-        self.output = Dense(classes, in_units=channels[-1], device=dev)
+                if stem_s2d:
+                    self.features.add(_S2DStem(channels[0], prefix="conv0_",
+                                               device=dev))
+                else:
+                    self.features.add(Conv2D(channels[0], 7, 2, 3,
+                                             use_bias=False, in_channels=3,
+                                             layout=layout, device=dev))
+                self.features.add(_bn(channels[0], layout, dev))
+                self.features.add(Activation("relu"))
+                self.features.add(MaxPool2D(3, 2, 1, layout=layout))
+            _stages(self.features, block, layers, channels, layout, dev)
+            self.features.add(GlobalAvgPool2D(layout=layout))
+            self.output = Dense(classes, in_units=channels[-1], device=dev)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
-class ResNetV2(HybridBlock):
+class ResNetV2(_Block):
     """ResNet v2 (pre-activation): a BatchNorm over the raw input with
     gamma fixed at 1 and beta at 0 (``scale=False, center=False``), the
     7x7/s2 stem with BatchNorm, relu and a 3x3/s2 max pool (``thumbnail``:
@@ -283,29 +310,31 @@ class ResNetV2(HybridBlock):
     ``classes``."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, layout="NCHW", device=None):
-        super().__init__(device=device)
+                 thumbnail=False, layout="NCHW", prefix=None, params=None, *,
+                 device=None):
+        super().__init__(prefix, params, device)
         if len(layers) != len(channels) - 1:
             raise ValueError("need one more channel width than stages")
-        dev = self.device
-        self.features = HybridSequential(device=dev)
-        self.features.add(_bn(3, layout, dev, scale=False, center=False))
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, 3, layout, dev))
-        else:
-            self.features.add(Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                     in_channels=3, layout=layout,
-                                     device=dev))
-            self.features.add(_bn(channels[0], layout, dev))
+        dev = device
+        with self.name_scope():
+            self.features = HybridSequential(prefix="", device=dev)
+            self.features.add(_bn(3, layout, dev, scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 3, layout, dev))
+            else:
+                self.features.add(Conv2D(channels[0], 7, 2, 3,
+                                         use_bias=False, in_channels=3,
+                                         layout=layout, device=dev))
+                self.features.add(_bn(channels[0], layout, dev))
+                self.features.add(Activation("relu"))
+                self.features.add(MaxPool2D(3, 2, 1, layout=layout))
+            _stages(self.features, block, layers, channels, layout, dev)
+            self.features.add(_bn(channels[-1], layout, dev))
             self.features.add(Activation("relu"))
-            self.features.add(MaxPool2D(3, 2, 1, layout=layout))
-        _stages(self.features, block, layers, channels, layout, dev)
-        self.features.add(_bn(channels[-1], layout, dev))
-        self.features.add(Activation("relu"))
-        self.features.add(GlobalAvgPool2D(layout=layout))
-        self.output = Dense(classes, in_units=channels[-1], device=dev)
+            self.features.add(GlobalAvgPool2D(layout=layout))
+            self.output = Dense(classes, in_units=channels[-1], device=dev)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
@@ -325,7 +354,8 @@ _VERSIONS = {1: (ResNetV1, {"basic_block": BasicBlockV1,
 def get_resnet(version, num_layers, pretrained=False, **kwargs):
     """ResNet ``version`` (1 or 2) of ``num_layers`` layers; ``kwargs``
     go to :class:`ResNetV1` or :class:`ResNetV2` (``classes``,
-    ``thumbnail``, ``layout``, ``device``; v1 ``stem_s2d``)."""
+    ``thumbnail``, ``layout``, ``prefix``, ``params``, ``device``; v1
+    ``stem_s2d``)."""
     if version not in _VERSIONS:
         raise ValueError("no ResNet v%s; choose 1 or 2" % (version,))
     if num_layers not in resnet_spec:

@@ -35,31 +35,35 @@ class VGG(HybridBlock):
     the ``_bn`` forms) and a 2x2 max pool, then two dense layers of 4096
     with ReLU and dropout 0.5, then ``output`` over ``classes``."""
 
-    def __init__(self, layers, filters, classes=1000, batch_norm=False, *,
-                 device=None):
-        super().__init__(device=device)
+    _port_native = True
+
+    def __init__(self, layers, filters, classes=1000, batch_norm=False,
+                 prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         if len(layers) != len(filters):
             raise ValueError("VGG takes one width a stage: %s layers, %s "
                              "filters" % (layers, filters))
-        dev = self.device
-        self.features = HybridSequential(device=dev)
-        for num, width in zip(layers, filters):
-            for _ in range(num):
-                self.features.add(Conv2D(width, kernel_size=3, padding=1,
-                                         device=dev))
-                if batch_norm:
-                    self.features.add(BatchNorm(device=dev))
-                self.features.add(Activation("relu"))
-            self.features.add(MaxPool2D(strides=2))
-        for _ in range(2):
-            self.features.add(Dense(4096, activation="relu",
-                                    weight_initializer="normal",
-                                    bias_initializer="zeros", device=dev))
-            self.features.add(Dropout(rate=0.5, device=dev))
-        self.output = Dense(classes, weight_initializer="normal",
-                            bias_initializer="zeros", device=dev)
+        dev = self._device_arg
+        with self.name_scope():
+            self.features = HybridSequential(prefix="", device=dev)
+            for num, width in zip(layers, filters):
+                for _ in range(num):
+                    self.features.add(Conv2D(width, kernel_size=3, padding=1,
+                                             device=dev))
+                    if batch_norm:
+                        self.features.add(BatchNorm(device=dev))
+                    self.features.add(Activation("relu"))
+                self.features.add(MaxPool2D(strides=2))
+            for _ in range(2):
+                self.features.add(Dense(4096, activation="relu",
+                                        weight_initializer="normal",
+                                        bias_initializer="zeros",
+                                        device=dev))
+                self.features.add(Dropout(rate=0.5, device=dev))
+            self.output = Dense(classes, weight_initializer="normal",
+                                bias_initializer="zeros", device=dev)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

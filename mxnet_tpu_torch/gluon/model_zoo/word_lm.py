@@ -40,6 +40,8 @@ class RNNModel(HybridBlock):
     """``(decoded (T * N, vocab), states)`` from ids (T, N) and the
     LSTM's states ``[h, c]``."""
 
+    _port_native = True
+
     def __init__(self, vocab_size, num_embed, num_hidden, num_layers,
                  dropout=0.5, *, device=None):
         super().__init__(device=device)

@@ -1,12 +1,17 @@
 """Basic layers of the PyTorch port.
 
 Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py`` Sequential,
-HybridSequential, Dense, Activation, Dropout, BatchNorm, LayerNorm and
-Embedding, with the same parameter names, layouts and positional argument order (``device``
-comes last, as a keyword).  An input width left at 0 (``in_units``,
-``in_channels``) is taken from the first input, as the JAX package's
-``infer_shape`` does: the parameter is a
-:class:`~mxnet_tpu_torch.gluon.block.DeferredParameter` until then.
+HybridSequential, Dense, Activation, Dropout, BatchNorm, InstanceNorm,
+LayerNorm, Embedding, Flatten, Lambda and HybridLambda, with the same
+parameter names, layouts and positional argument order (``prefix`` and
+``params`` as keywords, ``device`` last, keyword-only).  An input width
+left at 0 (``in_units``, ``in_channels``) is taken from the first input
+(:meth:`~mxnet_tpu_torch.gluon.HybridBlock.infer_shape`), as in the JAX
+package.  Each layer with a ``hybrid_forward`` runs the registered ops
+(``F.FullyConnected``, ``F.Activation``, ``F.Dropout``, ``F.BatchNorm``,
+``F.Flatten``, ``F.InstanceNorm``) on tensors and NDArrays and builds
+their nodes on a Symbol; LayerNorm and Embedding run on tensors and
+NDArrays only.
 """
 
 from __future__ import annotations
@@ -16,29 +21,26 @@ import math
 import torch
 
 from ... import autograd as _autograd
+from ... import ndarray as _nd
 from ...base import MXNetError
 from ...ops import matrix as _matrix
 from ...ops import nn as _ops
-from ..block import Block, HybridBlock, is_deferred
+from ..block import Block, BoundOp, HybridBlock, tensor_ops
 from ..block import _dtype as _block_dtype
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation", "Dropout",
-           "BatchNorm", "LayerNorm", "Embedding"]
+           "BatchNorm", "InstanceNorm", "LayerNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda"]
 
 
 class _Stack:
     """Blocks run in order; children are named ``0``, ``1``, ...; ``len``,
-    indexing (a slice gives a stack of the same kind) and iteration walk
-    them."""
+    indexing (a slice gives a stack of the same kind and prefix) and
+    iteration walk them."""
 
     def add(self, *blocks):
         for block in blocks:
-            self.add_module(str(len(self._modules)), block)
-
-    def forward(self, x):
-        for block in self._modules.values():
-            x = block(x)
-        return x
+            self.register_child(block)
 
     def __len__(self):
         return len(self._modules)
@@ -50,7 +52,7 @@ class _Stack:
         layers = list(self._modules.values())
         if not isinstance(key, slice):
             return layers[key]
-        net = type(self)(device=self.device)
+        net = type(self)(prefix=self._prefix, device=self._device_arg)
         net.add(*layers[key])
         return net
 
@@ -59,10 +61,32 @@ class Sequential(_Stack, Block):
     """A stack of blocks (reference: ``basic_layers.py:19``), run eagerly
     whatever its children are; ``hybridize()`` reaches the hybrid ones."""
 
+    _placeless = True
+
+    def __init__(self, prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
+
+    def forward(self, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
 
 class HybridSequential(_Stack, HybridBlock):
     """A stack of hybrid blocks, cached as one program by
-    ``hybridize()``."""
+    ``hybridize()``.  It runs on tensors (NDArrays are unwrapped at its
+    call); a user's block among its children sees NDArrays all the same."""
+
+    _port_native = True
+    _placeless = True
+
+    def __init__(self, prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
+
+    def hybrid_forward(self, F, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
 
 
 class Dense(HybridBlock):
@@ -72,40 +96,58 @@ class Dense(HybridBlock):
     parameters' type; ``weight_initializer`` and ``bias_initializer``
     fill them in :meth:`~mxnet_tpu_torch.gluon.Block.initialize`."""
 
+    _port_native = True
+
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0, *, device=None):
-        super().__init__(device=device)
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         self._units = units
         self._flatten = flatten
+        self._fc = BoundOp("FullyConnected", num_hidden=units,
+                           flatten=flatten, no_bias=not use_bias)
         self._param("weight", (units, in_units), dtype, weight_initializer)
         if use_bias:
             self._param("bias", (units,), dtype, bias_initializer)
         else:
             self.bias = None
-        self.act = Activation(activation) if activation is not None else None
+        self.act = Activation(activation, prefix=activation + "_") \
+            if activation is not None else None
 
-    def forward(self, x):
-        if is_deferred(self.weight):
-            in_units = math.prod(x.shape[1:]) if self._flatten \
-                else x.shape[-1]
-            self._finish_deferred(weight=(self._units, in_units))
-        out = _ops.fully_connected(x, self.weight, self.bias,
-                                   flatten=self._flatten)
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = self._fc(F, x, weight, bias)
         return self.act(out) if self.act is not None else out
+
+    def __repr__(self):
+        shape = self.weight.shape
+        return "Dense(%s -> %s, %s)" % (
+            shape[1] if shape and shape[1] else None, self._units,
+            self.act if self.act is not None else "linear")
+
 
 class Activation(HybridBlock):
     """Element-wise activation (:func:`~mxnet_tpu_torch.ops.nn.activation`:
-    relu).  It holds no parameters and runs where its input lies, so it
-    takes no device."""
+    relu, sigmoid, tanh, softrelu, softsign).  It holds no parameters and
+    runs where its input lies."""
 
-    def __init__(self, activation):
-        torch.nn.Module.__init__(self)
-        self.device = None
+    _port_native = True
+    _placeless = True
+
+    def __init__(self, activation, prefix=None, params=None):
         self._act_type = activation
+        super().__init__(prefix=prefix, params=params)
+        self._act = BoundOp("Activation", act_type=activation)
 
-    def forward(self, x):
-        return _ops.activation(x, act_type=self._act_type)
+    def _alias(self):
+        return self._act_type
+
+    def hybrid_forward(self, F, x):
+        return self._act(F, x)
 
     def __repr__(self):
         return "Activation(%s)" % self._act_type
@@ -117,14 +159,23 @@ class Dropout(HybridBlock):
     ``autograd.record()``), the identity otherwise; the mask is shared
     along ``axes``."""
 
-    def __init__(self, rate, axes=(), *, device=None):
-        super().__init__(device=device)
+    _port_native = True
+    _placeless = True
+
+    def __init__(self, rate, axes=(), prefix=None, params=None, *,
+                 device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         self._rate = rate
         self._axes = tuple(axes)
+        self._drop = BoundOp("Dropout", p=rate, axes=self._axes)
 
-    def forward(self, x):
-        return _ops.dropout(x, p=self._rate, training=_autograd.is_training(),
-                            axes=self._axes)
+    def hybrid_forward(self, F, x):
+        if self._rate == 0:
+            return x
+        return self._drop(F, x)
+
+    def __repr__(self):
+        return "Dropout(p = %s, axes=%s)" % (self._rate, self._axes)
 
 
 class BatchNorm(HybridBlock):
@@ -139,38 +190,52 @@ class BatchNorm(HybridBlock):
     batch * (1 - momentum)`` with the batch's biased variance (K6a writes
     them on the card); otherwise it normalizes by the running
     statistics.  ``scale=False`` fixes gamma at 1
-    (``fix_gamma``) and ``center=False`` keeps beta out of training."""
+    (``fix_gamma``) and ``center=False`` keeps beta out of training.  On
+    a Symbol it is a ``BatchNorm`` node whose moving statistics the
+    executor updates in train mode, as in MXNet (the JAX package's export
+    fixes them: ROADMAP "deliberate divergences")."""
+
+    _port_native = True
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
                  gamma_initializer="ones", running_mean_initializer="zeros",
-                 running_variance_initializer="ones", in_channels=0, *,
-                 device=None):
-        super().__init__(device=device)
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         self._axis = axis
         self._momentum = momentum
         self._epsilon = epsilon
         self._scale = scale
         self._use_global_stats = use_global_stats
         c = in_channels
-        for name, init in (("gamma", gamma_initializer),
-                           ("beta", beta_initializer),
-                           ("running_mean", running_mean_initializer),
-                           ("running_var", running_variance_initializer)):
-            self._param(name, (c,), init=init)
-        self.gamma.grad_req = "write" if scale else "null"
-        self.beta.grad_req = "write" if center else "null"
-        self.running_mean.grad_req = "null"
-        self.running_var.grad_req = "null"
+        self._param("gamma", (c,), init=gamma_initializer,
+                    grad_req="write" if scale else "null",
+                    differentiable=scale)
+        self._param("beta", (c,), init=beta_initializer,
+                    grad_req="write" if center else "null",
+                    differentiable=center)
+        self._param("running_mean", (c,), init=running_mean_initializer,
+                    grad_req="null", differentiable=False)
+        self._param("running_var", (c,), init=running_variance_initializer,
+                    grad_req="null", differentiable=False)
 
-    def forward(self, x):
-        if is_deferred(self.gamma):
-            c = (x.shape[self._axis],)
-            self._finish_deferred(gamma=c, beta=c, running_mean=c,
-                                  running_var=c)
+    def infer_shape(self, x, *args):
+        c = (x.shape[self._axis],)
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape = c
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         train_stats = _autograd.is_training() and not self._use_global_stats
+        if F is not tensor_ops:
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               eps=self._epsilon, momentum=self._momentum,
+                               fix_gamma=not self._scale,
+                               use_global_stats=self._use_global_stats,
+                               axis=self._axis)
         return _ops.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            x, gamma, beta, running_mean, running_var,
             eps=self._epsilon, fix_gamma=not self._scale,
             use_global_stats=not train_stats, axis=self._axis,
             momentum=self._momentum if train_stats else None)[0]
@@ -183,9 +248,41 @@ class BatchNorm(HybridBlock):
         super().cast(dtype)
 
     def __repr__(self):
+        shape = self.gamma.shape
         return "BatchNorm(axis=%s, momentum=%s, eps=%s, in_channels=%s)" % (
             self._axis, self._momentum, self._epsilon,
-            0 if is_deferred(self.gamma) else self.gamma.shape[0])
+            shape[0] if shape and shape[0] else 0)
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization (reference: ``basic_layers.py``
+    InstanceNorm): each sample and channel (axis 1) normalized over the
+    remaining axes with the biased variance, then ``gamma`` and ``beta``;
+    ``scale=False`` (the default) keeps gamma out of training and
+    ``center=False`` beta.  Plain PyTorch (``F.InstanceNorm``): the JAX
+    package has no kernel for it."""
+
+    _port_native = True
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
+        self._axis = axis
+        self._epsilon = epsilon
+        self._norm = BoundOp("InstanceNorm", eps=epsilon)
+        self._param("gamma", (in_channels,), init=gamma_initializer,
+                    grad_req="write" if scale else "null")
+        self._param("beta", (in_channels,), init=beta_initializer,
+                    grad_req="write" if center else "null")
+
+    def infer_shape(self, x, *args):
+        c = (x.shape[self._axis],)
+        self.gamma.shape = c
+        self.beta.shape = c
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return self._norm(F, x, gamma, beta)
 
 
 class LayerNorm(HybridBlock):
@@ -194,22 +291,25 @@ class LayerNorm(HybridBlock):
     ``center=False`` and ``scale=False`` keep beta and gamma out of
     training."""
 
+    _port_native = True
+
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, *, device=None):
-        super().__init__(device=device)
+                 in_channels=0, prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         self._axis = axis
         self._epsilon = epsilon
-        self._param("gamma", (in_channels,), init=gamma_initializer)
-        self._param("beta", (in_channels,), init=beta_initializer)
-        self.gamma.grad_req = "write" if scale else "null"
-        self.beta.grad_req = "write" if center else "null"
+        self._param("gamma", (in_channels,), init=gamma_initializer,
+                    grad_req="write" if scale else "null")
+        self._param("beta", (in_channels,), init=beta_initializer,
+                    grad_req="write" if center else "null")
 
     def forward(self, x):
-        if is_deferred(self.gamma):
+        if self.gamma.shape[0] == 0 or self.beta.shape[0] == 0:
             c = (x.shape[self._axis],)
             self._finish_deferred(gamma=c, beta=c)
-        return _ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+        return _ops.layer_norm(x, self._parameters["gamma"],
+                               self._parameters["beta"], axis=self._axis,
                                eps=self._epsilon)
 
 
@@ -219,9 +319,12 @@ class Embedding(HybridBlock):
     (:func:`~mxnet_tpu_torch.ops.matrix.embedding`).  ``sparse_grad`` (a
     row-sparse gradient) is not ported and raises."""
 
+    _port_native = True
+
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, sparse_grad=False, *, device=None):
-        super().__init__(device=device)
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         if sparse_grad:
             raise MXNetError("Embedding: sparse_grad (row-sparse gradients) "
                              "is not ported")
@@ -229,4 +332,78 @@ class Embedding(HybridBlock):
                     weight_initializer)
 
     def forward(self, x):
-        return _matrix.embedding(x, self.weight)
+        return _matrix.embedding(x, self._parameters["weight"])
+
+
+class Flatten(HybridBlock):
+    """Every axis after the first folded into one (reference:
+    ``basic_layers.py`` Flatten)."""
+
+    _port_native = True
+    _placeless = True
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._flat = BoundOp("Flatten")
+
+    def hybrid_forward(self, F, x):
+        return self._flat(F, x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Lambda(Block):
+    """A function as a block (reference: ``basic_layers.py`` Lambda):
+    ``function`` a callable, or the name of an ``mx.nd`` function."""
+
+    _placeless = True
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not hasattr(_nd, function):
+                raise RuntimeError("Function %s is not found in ndarray"
+                                   % function)
+            self._func_impl = getattr(_nd, function)
+            self._func_name = function
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = getattr(function, "__name__", "custom")
+        else:
+            raise ValueError("function must be a str or callable")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "Lambda(%s)" % self._func_name
+
+
+class HybridLambda(HybridBlock):
+    """A function of ``(F, *args)`` as a hybrid block (reference:
+    ``basic_layers.py`` HybridLambda): ``function`` a callable, or the
+    name of an op of ``F``."""
+
+    _placeless = True
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+
+            def impl(F, *args):
+                return getattr(F, function)(*args)
+
+            self._func_impl = impl
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = getattr(function, "__name__", "custom")
+        else:
+            raise ValueError("function must be a str or callable")
+
+    def hybrid_forward(self, F, *args):
+        return self._func_impl(F, *args)
+
+    def __repr__(self):
+        return "HybridLambda(%s)" % self._func_name

@@ -24,11 +24,10 @@ K1a/K1b, and a 1-D or 2-D max pool's input-gradient kernel K2
 from __future__ import annotations
 
 import torch.nn.functional as F
-from torch import nn
 
 from ...base import MXNetError
 from ...ops import nn as _ops
-from ..block import HybridBlock, is_deferred
+from ..block import BoundOp, HybridBlock
 from .basic_layers import Activation
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
@@ -53,12 +52,14 @@ class _Conv(HybridBlock):
     ``use_bias``, ``bias`` (channels,); ``activation`` names an
     :class:`Activation` applied after it."""
 
+    _port_native = True
+
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", op_name="Convolution", adj=None,
-                 *, device=None):
-        super().__init__(device=device)
+                 prefix=None, params=None, *, device=None):
+        super().__init__(prefix=prefix, params=params, device=device)
         nd = len(kernel_size)
         name = type(self).__name__
         _ops._check_layout(layout, nd, name)
@@ -83,13 +84,18 @@ class _Conv(HybridBlock):
             self._kwargs["no_bias"] = not use_bias
         else:
             self._kwargs["adj"] = _ops._tup(adj, nd, "output_padding")
+        attrs = dict(self._kwargs)
+        if op_name == "Convolution":
+            attrs["layout"] = layout
+        self._conv = BoundOp(op_name, **attrs)
         self._param("weight", self._weight_shape(in_channels),
                     init=weight_initializer)
         if use_bias:
             self._param("bias", (channels,), init=bias_initializer)
         else:
             self.bias = None
-        self.act = Activation(activation) if activation is not None else None
+        self.act = Activation(activation, prefix=activation + "_") \
+            if activation is not None else None
 
     def _weight_shape(self, in_channels):
         k, o = self._kwargs["kernel"], self._kwargs["num_filter"]
@@ -100,17 +106,12 @@ class _Conv(HybridBlock):
             return (o,) + k + (in_channels // groups,)
         return (o, in_channels // groups) + k
 
-    def forward(self, x):
-        if is_deferred(self.weight):
-            self._finish_deferred(weight=self._weight_shape(
-                x.shape[-1 if self._channel_last else 1]))
-        if self._op_name == "Convolution":
-            out = _ops.nchw_call(_ops.convolution, x, self.weight,
-                                 layout=self._layout, bias=self.bias,
-                                 **self._kwargs)
-        else:
-            out = _ops.deconvolution(x, self.weight, self.bias,
-                                     **self._kwargs)
+    def infer_shape(self, x, *args):
+        self.weight.shape = self._weight_shape(
+            x.shape[-1 if self._channel_last else 1])
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = self._conv(F, x, weight, bias)
         return self.act(out) if self.act is not None else out
 
     def __repr__(self):
@@ -126,11 +127,12 @@ class Conv1D(_Conv):
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCW", activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, *, device=None):
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, *, device=None):
         super().__init__(channels, _kernel(kernel_size, 1), strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class Conv2D(_Conv):
@@ -140,11 +142,12 @@ class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1),
                  padding=(0, 0), dilation=(1, 1), groups=1, layout="NCHW",
                  activation=None, use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, *, device=None):
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, *, device=None):
         super().__init__(channels, _kernel(kernel_size, 2), strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class Conv3D(_Conv):
@@ -154,11 +157,11 @@ class Conv3D(_Conv):
                  padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
                  layout="NCDHW", activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 in_channels=0, *, device=None):
+                 in_channels=0, prefix=None, params=None, *, device=None):
         super().__init__(channels, _kernel(kernel_size, 3), strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class Conv1DTranspose(_Conv):
@@ -168,12 +171,13 @@ class Conv1DTranspose(_Conv):
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  output_padding=0, dilation=1, groups=1, layout="NCW",
                  activation=None, use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, *, device=None):
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, *, device=None):
         super().__init__(channels, _kernel(kernel_size, 1), strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
                          op_name="Deconvolution", adj=output_padding,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class Conv2DTranspose(_Conv):
@@ -183,12 +187,12 @@ class Conv2DTranspose(_Conv):
                  output_padding=(0, 0), dilation=(1, 1), groups=1,
                  layout="NCHW", activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 in_channels=0, *, device=None):
+                 in_channels=0, prefix=None, params=None, *, device=None):
         super().__init__(channels, _kernel(kernel_size, 2), strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
                          op_name="Deconvolution", adj=output_padding,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class Conv3DTranspose(_Conv):
@@ -198,26 +202,29 @@ class Conv3DTranspose(_Conv):
                  padding=(0, 0, 0), output_padding=(0, 0, 0),
                  dilation=(1, 1, 1), groups=1, layout="NCDHW",
                  activation=None, use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, *, device=None):
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, *, device=None):
         super().__init__(channels, _kernel(kernel_size, 3), strides, padding,
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
                          op_name="Deconvolution", adj=output_padding,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class _Pooling(HybridBlock):
     """Pooling (:func:`~mxnet_tpu_torch.ops.nn.pooling`) of
     ``len(pool_size)`` spatial dimensions; it holds no parameters and runs
-    where its input lies, so it takes no device."""
+    where its input lies."""
+
+    _port_native = True
+    _placeless = True
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout, count_include_pad=None):
-        nn.Module.__init__(self)
-        self.device = None
+                 pool_type, layout, count_include_pad=None, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         nd = len(pool_size)
         _ops._check_layout(layout, nd, type(self).__name__)
-        self._layout = layout
         self._kwargs = {"kernel": pool_size,
                         "stride": _ops._tup(pool_size if strides is None
                                             else strides, nd, "strides"),
@@ -225,13 +232,13 @@ class _Pooling(HybridBlock):
                         "global_pool": global_pool,
                         "pool_type": pool_type,
                         "pooling_convention": "full" if ceil_mode
-                        else "valid"}
+                        else "valid", "layout": layout}
         if count_include_pad is not None:
             self._kwargs["count_include_pad"] = count_include_pad
+        self._pool = BoundOp("Pooling", **self._kwargs)
 
-    def forward(self, x):
-        return _ops.nchw_call(_ops.pooling, x, layout=self._layout,
-                              **self._kwargs)
+    def hybrid_forward(self, F, x):
+        return self._pool(F, x)
 
     def __repr__(self):
         return "%s(size=%s, stride=%s, padding=%s)" % (
@@ -244,9 +251,10 @@ class MaxPool1D(_Pooling):
     takes the ``full`` (ceil) output size."""
 
     def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
-                 ceil_mode=False):
+                 ceil_mode=False, prefix=None, params=None):
         super().__init__(_kernel(pool_size, 1), strides, padding, ceil_mode,
-                         False, "max", layout)
+                         False, "max", layout,
+                         prefix=prefix, params=params)
 
 
 class MaxPool2D(_Pooling):
@@ -254,18 +262,20 @@ class MaxPool2D(_Pooling):
     takes the ``full`` (ceil) output size."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", ceil_mode=False):
+                 layout="NCHW", ceil_mode=False, prefix=None, params=None):
         super().__init__(_kernel(pool_size, 2), strides, padding, ceil_mode,
-                         False, "max", layout)
+                         False, "max", layout,
+                         prefix=prefix, params=params)
 
 
 class MaxPool3D(_Pooling):
     """3-D max pooling over NCDHW (the default) or NDHWC data."""
 
     def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
-                 layout="NCDHW", ceil_mode=False):
+                 layout="NCDHW", ceil_mode=False, prefix=None, params=None):
         super().__init__(_kernel(pool_size, 3), strides, padding, ceil_mode,
-                         False, "max", layout)
+                         False, "max", layout,
+                         prefix=prefix, params=params)
 
 
 class AvgPool1D(_Pooling):
@@ -273,55 +283,65 @@ class AvgPool1D(_Pooling):
     each window's divisor."""
 
     def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
-                 ceil_mode=False, count_include_pad=True):
+                 ceil_mode=False, count_include_pad=True,
+                 prefix=None, params=None):
         super().__init__(_kernel(pool_size, 1), strides, padding, ceil_mode,
-                         False, "avg", layout, count_include_pad)
+                         False, "avg", layout, count_include_pad,
+                         prefix=prefix, params=params)
 
 
 class AvgPool2D(_Pooling):
     """2-D average pooling."""
 
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", ceil_mode=False, count_include_pad=True):
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 prefix=None, params=None):
         super().__init__(_kernel(pool_size, 2), strides, padding, ceil_mode,
-                         False, "avg", layout, count_include_pad)
+                         False, "avg", layout, count_include_pad,
+                         prefix=prefix, params=params)
 
 
 class AvgPool3D(_Pooling):
     """3-D average pooling."""
 
     def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
-                 layout="NCDHW", ceil_mode=False, count_include_pad=True):
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 prefix=None, params=None):
         super().__init__(_kernel(pool_size, 3), strides, padding, ceil_mode,
-                         False, "avg", layout, count_include_pad)
+                         False, "avg", layout, count_include_pad,
+                         prefix=prefix, params=params)
 
 
 class GlobalMaxPool1D(_Pooling):
     """The largest value over the whole width, (N, C, W) -> (N, C, 1)."""
 
-    def __init__(self, layout="NCW"):
-        super().__init__((1,), None, 0, True, True, "max", layout)
+    def __init__(self, layout="NCW", prefix=None, params=None):
+        super().__init__((1,), None, 0, True, True, "max", layout,
+                         prefix=prefix, params=params)
 
 
 class GlobalMaxPool2D(_Pooling):
     """The largest value over the whole plane."""
 
-    def __init__(self, layout="NCHW"):
-        super().__init__((1, 1), None, 0, True, True, "max", layout)
+    def __init__(self, layout="NCHW", prefix=None, params=None):
+        super().__init__((1, 1), None, 0, True, True, "max", layout,
+                         prefix=prefix, params=params)
 
 
 class GlobalMaxPool3D(_Pooling):
     """The largest value over the whole volume."""
 
-    def __init__(self, layout="NCDHW"):
-        super().__init__((1, 1, 1), None, 0, True, True, "max", layout)
+    def __init__(self, layout="NCDHW", prefix=None, params=None):
+        super().__init__((1, 1, 1), None, 0, True, True, "max", layout,
+                         prefix=prefix, params=params)
 
 
 class GlobalAvgPool1D(_Pooling):
     """The mean over the whole width."""
 
-    def __init__(self, layout="NCW"):
-        super().__init__((1,), None, 0, True, True, "avg", layout)
+    def __init__(self, layout="NCW", prefix=None, params=None):
+        super().__init__((1,), None, 0, True, True, "avg", layout,
+                         prefix=prefix, params=params)
 
 
 class GlobalAvgPool2D(_Pooling):
@@ -329,15 +349,17 @@ class GlobalAvgPool2D(_Pooling):
     (N, H, W, C) -> (N, 1, 1, C)), with the ``full`` convention as the
     JAX package's layer."""
 
-    def __init__(self, layout="NCHW"):
-        super().__init__((1, 1), None, 0, True, True, "avg", layout)
+    def __init__(self, layout="NCHW", prefix=None, params=None):
+        super().__init__((1, 1), None, 0, True, True, "avg", layout,
+                         prefix=prefix, params=params)
 
 
 class GlobalAvgPool3D(_Pooling):
     """The mean over the whole volume."""
 
-    def __init__(self, layout="NCDHW"):
-        super().__init__((1, 1, 1), None, 0, True, True, "avg", layout)
+    def __init__(self, layout="NCDHW", prefix=None, params=None):
+        super().__init__((1, 1, 1), None, 0, True, True, "avg", layout,
+                         prefix=prefix, params=params)
 
 
 class ReflectionPad2D(HybridBlock):
@@ -345,11 +367,14 @@ class ReflectionPad2D(HybridBlock):
     conv_layers.py ReflectionPad2D over src/operator/pad.cc): ``padding``
     an int (every side of H and W) or the op's 8-entry ``pad_width``
     ((N lo, N hi), (C lo, C hi), (H lo, H hi), (W lo, W hi), flattened;
-    N and C not padded).  It holds no parameters and takes no device."""
+    N and C not padded).  It holds no parameters and takes no device; it
+    has no Symbol path yet."""
 
-    def __init__(self, padding=0):
-        nn.Module.__init__(self)
-        self.device = None
+    _port_native = True
+    _placeless = True
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if isinstance(padding, int):
             padding = (0, 0, 0, 0, padding, padding, padding, padding)
         self._padding = tuple(int(p) for p in padding)

@@ -24,11 +24,18 @@ from ...ops.attention import flash_attention
 from ..block import HybridBlock
 from .basic_layers import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 
+
+class _Layer(HybridBlock):
+    """A transformer layer of the port: tensors and NDArrays, no Symbol
+    path yet."""
+
+    _port_native = True
+
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "TransformerEncoder", "TransformerLM"]
 
 
-class MultiHeadAttention(HybridBlock):
+class MultiHeadAttention(_Layer):
     """Self-attention: one packed QKV projection, flash attention, output
     projection; dropout on the projected output."""
 
@@ -60,7 +67,7 @@ class MultiHeadAttention(HybridBlock):
         return self.drop(o) if self.drop is not None else o
 
 
-class PositionwiseFFN(HybridBlock):
+class PositionwiseFFN(_Layer):
     """Two-layer MLP with an exact gelu in between."""
 
     def __init__(self, units, hidden_size, dropout=0.0, device=None):
@@ -77,7 +84,7 @@ class PositionwiseFFN(HybridBlock):
         return self.drop(out) if self.drop is not None else out
 
 
-class TransformerEncoderCell(HybridBlock):
+class TransformerEncoderCell(_Layer):
     """Pre-LN transformer layer: x + MHA(LN(x)); x + FFN(LN(x))."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
@@ -96,7 +103,7 @@ class TransformerEncoderCell(HybridBlock):
         return x + self.ffn(self.ln2(x))
 
 
-class TransformerEncoder(HybridBlock):
+class TransformerEncoder(_Layer):
     def __init__(self, num_layers, units, hidden_size, num_heads,
                  dropout=0.0, causal=False, device=None):
         super().__init__(device=device)
@@ -110,7 +117,7 @@ class TransformerEncoder(HybridBlock):
         return self.layers(x)
 
 
-class TransformerLM(HybridBlock):
+class TransformerLM(_Layer):
     """Decoder-only (causal) transformer language model.
 
     Input: (batch, seq) token ids of any numeric dtype (the server hands

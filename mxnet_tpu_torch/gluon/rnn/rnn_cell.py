@@ -8,18 +8,17 @@ python/mxnet/gluon/rnn/rnn_cell.py): ``RecurrentCell`` and
 computes one time step on tensors; ``unroll`` loops the steps in Python.
 The fused layers of :mod:`.rnn_layer` are the path for long sequences.
 
-The cells take the JAX package's positional arguments; ``prefix`` is
-accepted and names nothing (the structural names do), ``params`` (sharing
-another cell's parameters) is not ported and raises.  Cells with
-parameters live on ``device`` (default ``gpu(0)``); ``input_size=0`` takes
-the input width from the first step.
+The cells take the JAX package's positional arguments, ``prefix`` and
+``params`` (another cell's parameters, shared by name).  Cells with
+parameters live on ``device`` (default: the current context);
+``input_size=0`` takes the input width from the first step.  They run on
+tensors and NDArrays and have no Symbol path yet.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ... import autograd as _autograd
 from ...base import MXNetError
@@ -84,18 +83,10 @@ def _sequence_last(stacked, valid_length):
 class RecurrentCell(Block):
     """Base of the cells (reference: rnn_cell.py:60)."""
 
-    _holds_params = True
+    _port_native = True
 
     def __init__(self, prefix=None, params=None, *, device=None):
-        if params is not None:
-            raise MXNetError("sharing another cell's parameters (params=) "
-                             "is not ported")
-        if self._holds_params:
-            super().__init__(device=device)
-        else:  # runs where its inputs lie
-            nn.Module.__init__(self)
-            self.device = None
-        self.prefix = prefix or ""
+        super().__init__(prefix=prefix, params=params, device=device)
         self._modified = False
         self.reset()
 
@@ -196,8 +187,9 @@ class _GatedCell(HybridRecurrentCell):
         if is_deferred(self.i2h_weight):
             self._finish_deferred(i2h_weight=(
                 self._gates * self._hidden_size, inputs.shape[-1]))
-        return (F.linear(inputs, self.i2h_weight, self.i2h_bias),
-                F.linear(h, self.h2h_weight, self.h2h_bias))
+        p = self._parameters
+        return (F.linear(inputs, p["i2h_weight"], p["i2h_bias"]),
+                F.linear(h, p["h2h_weight"], p["h2h_bias"]))
 
 
 class RNNCell(_GatedCell):
@@ -291,7 +283,7 @@ class SequentialRNNCell(RecurrentCell):
     """Cells stacked in order, named ``0``, ``1``, ... (reference:
     rnn_cell.py SequentialRNNCell)."""
 
-    _holds_params = False
+    _placeless = True
 
     def add(self, cell):
         self.add_module(str(len(self._modules)), cell)
@@ -338,7 +330,7 @@ class HybridSequentialRNNCell(HybridRecurrentCell):
     """A stack of cells that :meth:`hybridize` can capture (reference:
     rnn_cell.py HybridSequentialRNNCell)."""
 
-    _holds_params = False
+    _placeless = True
 
     add = SequentialRNNCell.add
     state_info = SequentialRNNCell.state_info
@@ -353,7 +345,7 @@ class DropoutCell(HybridRecurrentCell):
     """Dropout of rate ``rate`` on the input, in train mode (reference:
     rnn_cell.py DropoutCell)."""
 
-    _holds_params = False
+    _placeless = True
 
     def __init__(self, rate, axes=(), prefix=None, params=None):
         if not isinstance(rate, (int, float)):
@@ -376,14 +368,14 @@ class _ModifierCell(HybridRecurrentCell):
     """A cell around ``base_cell``, its child ``base_cell`` (reference:
     rnn_cell.py ModifierCell)."""
 
-    _holds_params = False
+    _placeless = True
 
     def __init__(self, base_cell):
         base_cell._check_unmodified()
         base_cell._modified = True
         super().__init__(prefix=base_cell.prefix + "_modifier_")
         self.base_cell = base_cell
-        self.device = base_cell.device
+        self._device_arg = base_cell.device
 
     def state_info(self, batch_size=0):
         return self.base_cell.state_info(batch_size)
@@ -466,7 +458,7 @@ class BidirectionalCell(HybridRecurrentCell):
     outputs concatenated a step (reference: rnn_cell.py
     BidirectionalCell); it cannot be stepped, only unrolled."""
 
-    _holds_params = False
+    _placeless = True
 
     def __init__(self, l_cell, r_cell, output_prefix="bi_"):
         del output_prefix  # names nothing in the port

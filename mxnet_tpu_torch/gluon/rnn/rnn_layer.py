@@ -91,7 +91,8 @@ class _RNNLayer(HybridBlock):
             for j in range(self._dir):
                 self._finish_deferred(**{self._names[j][0]: (
                     self._gates * self._hidden_size, inputs.shape[2])})
-        weights = [[getattr(self, n) for n in names] for names in self._names]
+        weights = [[self._parameters[n] for n in names]
+                   for names in self._names]
         out, h, c = _rnn.rnn_forward(
             inputs, weights, states[0], states[1] if len(states) > 1
             else None, mode=self._mode, num_layers=self._num_layers,

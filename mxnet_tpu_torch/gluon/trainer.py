@@ -25,7 +25,7 @@ from .. import histogram as _histogram
 from .. import optimizer as _optimizer
 from .. import runtime_stats as _rts
 from ..base import MXNetError
-from .block import Parameter
+from .parameter import Parameter, ParameterTensor
 
 __all__ = ["Trainer"]
 
@@ -71,8 +71,11 @@ def _one_device_store(kvstore, update_on_kvstore):
 class Trainer:
     """Applies an optimizer to a set of parameters.
 
-    ``params``: a dict (``Block.collect_params()``) or a list of
-    parameters, all on one device; ``optimizer``: a registered name or an
+    ``params``: a :class:`~.parameter.ParameterDict`
+    (``Block.collect_params()``, whose ``lr_mult``, ``wd_mult`` and
+    ``grad_req`` it reads), a dict or list of parameter handles, or of
+    their storage tensors (``_collect_params_with_prefix()``), all on one
+    device; ``optimizer``: a registered name or an
     ``Optimizer``; ``optimizer_params``: its keyword arguments (for
     example ``{"learning_rate": 1e-3, "multi_precision": True}``);
     ``kvstore``, ``compression_params``, ``update_on_kvstore``: see the
@@ -82,14 +85,20 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
-        if isinstance(params, dict):
+        if hasattr(params, "values") and not isinstance(params,
+                                                         (list, tuple)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
             raise ValueError("params must be a list/dict of Parameters")
         self._params = []
         self._param2idx = {}
         for i, p in enumerate(params):
-            if not isinstance(p, Parameter):
+            if isinstance(p, Parameter):
+                if p._storage is None:
+                    raise RuntimeError("Parameter %s has not been "
+                                       "initialized" % p.name)
+                p = p._storage
+            if not isinstance(p, ParameterTensor):
                 raise ValueError("invalid parameter %r" % (p,))
             self._param2idx[p] = i
             self._params.append(p)

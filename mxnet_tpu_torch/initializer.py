@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (reference:
 python/mxnet/initializer.py): the registry (``register``, ``create``,
 also from ``dumps()``), ``InitDesc``, and ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal``, ``Xavier``, and the recurrent
-cells' ``LSTMBias`` and ``FusedRNN``.  An initializer
+``Constant``, ``Uniform``, ``Normal``, ``Xavier``, ``Orthogonal``,
+``MSRAPrelu``, ``Bilinear``, ``Mixed``, ``Load``, and the recurrent cells'
+``LSTMBias`` and ``FusedRNN``.  An initializer
 dispatches on the parameter name's suffix as the JAX package does:
 ``weight`` draws from the initializer; ``bias``, ``beta`` and the
 moving or running means are zeros; ``gamma`` and the moving or running
@@ -22,11 +23,13 @@ ones: tests hold the laws.
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "LSTMBias", "FusedRNN", "register", "create"]
+           "Normal", "Xavier", "Orthogonal", "MSRAPrelu", "Bilinear",
+           "Mixed", "Load", "LSTMBias", "FusedRNN", "register", "create"]
 
 _REGISTRY = {}
 _ALIASES = {"zeros": "zero", "ones": "one"}
@@ -200,6 +203,106 @@ class Xavier(Initializer):
             arr[...] = rng.uniform(-scale, scale, size=shape)
         else:
             arr[...] = rng.normal(0.0, scale, size=shape)
+
+
+@register
+class Orthogonal(Initializer):
+    """A (scaled) orthogonal matrix (reference: initializer.py Orthogonal,
+    after Saxe et al.): the weight seen as (out, prod(rest)), the factor
+    of the SVD of a draw (uniform in [-1, 1] or standard normal) of that
+    shape whose shape it has, times ``scale``: its rows orthonormal when
+    out <= in, its columns otherwise."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, arr, rng):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = rng.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = rng.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[...] = (self.scale * q).reshape(arr.shape)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initializer for PReLU nets (reference: initializer.py
+    MSRAPrelu): gaussian Xavier of magnitude ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel for a transposed convolution's weight
+    (reference: initializer.py Bilinear): entry (y, x) of every (out, in)
+    plane is ``(1 - |x/f - c|) (1 - |y/f - c|)``, ``f = ceil(W / 2)``,
+    ``c = (2f - 1 - f % 2) / 2f``."""
+
+    def _init_weight(self, arr, rng):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        w = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        arr[...] = w.astype(np.float32).reshape(shape)
+
+
+class Mixed(Initializer):
+    """The initializer of the first of ``patterns`` (regexes) that matches
+    a parameter's name (reference: initializer.py Mixed); no match
+    raises ``ValueError``."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must pair up")
+        super().__init__()
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            [create(i) for i in initializers]))
+
+    def __call__(self, desc, arr, rng=None):
+        for prog, init in self.map:
+            if prog.match(desc):
+                init(desc, arr, rng)
+                return
+        raise ValueError("Parameter %s did not match any pattern" % desc)
+
+
+class Load(Initializer):
+    """Values by name from ``param`` (a dict of arrays; ``arg:``/``aux:``
+    prefixes dropped), else ``default_init`` (reference: initializer.py
+    Load); a name with neither raises ``ValueError``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        self.param = {k.replace("arg:", "").replace("aux:", ""):
+                      np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, desc, arr, rng=None):
+        name = str(desc)
+        if name in self.param:
+            if self.param[name].shape != tuple(arr.shape):
+                raise ValueError("shape mismatch loading %s: %s vs %s"
+                                 % (name, self.param[name].shape,
+                                    tuple(arr.shape)))
+            arr[...] = self.param[name]
+        elif self.default_init is None:
+            raise ValueError("no init for %s" % name)
+        else:
+            create(self.default_init)(desc, arr, rng)
 
 
 @register

@@ -544,6 +544,20 @@ def pooling(data, kernel=1, pool_type="max", stride=None, pad=0,
     return summed / _last(counts).clamp_min(1.0)
 
 
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3, **_):
+    """Instance normalization (reference: src/operator/instance_norm.cc;
+    ``mxnet_tpu/ops/nn.py:537``): each sample's and channel's (axis 1)
+    statistics over the spatial axes, the biased variance, ``eps`` inside
+    the root, then ``gamma`` and ``beta`` along axis 1."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = (data - mean).square().mean(dim=red, keepdim=True)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
 @register("L2Normalization")
 def l2_normalization(data, eps=1e-10, mode="instance", **_):
     """Each entry over the L2 norm of its instance (every axis but the

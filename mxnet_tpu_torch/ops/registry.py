@@ -35,6 +35,7 @@ OP_INPUT_NAMES = {
     "FullyConnected": ("data", "weight", "bias"),
     "BatchNorm": ("data", "gamma", "beta", "moving_mean", "moving_var"),
     "LayerNorm": ("data", "gamma", "beta"),
+    "InstanceNorm": ("data", "gamma", "beta"),
     "Embedding": ("data", "weight"),
     "LeakyReLU": ("data", "gamma"),
     "dot": ("lhs", "rhs"),
@@ -68,6 +69,8 @@ def canonical_attr(v):
         low = s.lower()
         if low in ("true", "false"):
             return low == "true"
+        if s.isidentifier() and low != "none":  # "relu", "NCHW": a name
+            return v
         try:
             parsed = ast.literal_eval(s)
         except (ValueError, SyntaxError):

@@ -250,7 +250,7 @@ class GluonTrainStep:
                 "the port runs the step on one device, and multi-GPU "
                 "training is not yet ported")
         self.device = resolve_device(device)
-        params = block.collect_params()
+        params = block._collect_params_with_prefix()
         for name, p in params.items():
             if is_deferred(p):
                 raise MXNetError("parameter %s waits for its shape: run a "

@@ -17,6 +17,8 @@ import threading
 import numpy as np
 import torch
 
+from .context import as_torch_device
+
 __all__ = ["seed", "generator", "host_rng"]
 
 _lock = threading.Lock()
@@ -37,7 +39,7 @@ def seed(seed_state, ctx="all"):
 def generator(device):
     """The generator of ``device``, made at first use from the last
     :func:`seed` (or from a random seed when none was set)."""
-    dev = torch.device(device)
+    dev = as_torch_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     with _lock:

@@ -58,7 +58,7 @@ import torch
 
 from . import _nvrtc
 from .base import MXNetError, numeric_types
-from .context import resolve_device
+from .context import as_torch_device, resolve_device
 from .ndarray import NDArray
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "parse_signature",
@@ -310,7 +310,7 @@ class CudaKernel:
         """The launch with every check in order, raising the first that
         fails; after a launch the device and function of ``ctx`` are kept
         for the next."""
-        dev = torch.device(ctx) if not isinstance(ctx, torch.device) else ctx
+        dev = as_torch_device(ctx)
         if dev.type != "cuda":
             raise MXNetError("CudaKernel(%s) can only be launched on a GPU "
                              "context, got %s" % (self.name, dev))

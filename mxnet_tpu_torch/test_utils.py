@@ -372,6 +372,8 @@ OP_CASES.update({
                           {"kernel": (3, 3, 3), "stride": (2, 2, 2),
                            "pad": (1, 1, 1), "pool_type": "avg",
                            "count_include_pad": False, "layout": "NDHWC"}),
+    "InstanceNorm": ([("f", (2, 3, 4, 5)), ("f", (3,)), ("f", (3,))],
+                     {"eps": 1e-5}),
     "L2Normalization": ([("f", (2, 3, 4, 5))], {"mode": "channel"}),
     "L2Normalization/instance": ([("f", (2, 3, 4))], {}),
     "L2Normalization/spatial": ([("f", (2, 3, 4, 5))],

@@ -88,19 +88,19 @@ def test_write_replaces_and_add_accumulates():
     grads = {}
     for req in ("write", "add"):
         net.weight.grad_req = req
-        net.weight.grad = None
+        net._parameters["weight"].grad = None
         for x in (x1, x2):
             with autograd.record():
                 y = net(x)
             autograd.backward(y)
-        grads[req] = net.weight.grad.clone()
+        grads[req] = net._parameters["weight"].grad.clone()
     one = {}
     for i, x in enumerate((x1, x2)):
         net.weight.grad_req = "write"
         with autograd.record():
             y = net(x)
         autograd.backward(y)
-        one[i] = net.weight.grad.clone()
+        one[i] = net._parameters["weight"].grad.clone()
     torch.testing.assert_close(grads["write"], one[1])
     torch.testing.assert_close(grads["add"], one[0] + one[1])
 
@@ -113,8 +113,9 @@ def test_default_head_gradient_is_ones():
     autograd.backward(y)
     # d(sum of y)/dW = sum over the batch of x, for every output row
     want = x.sum(0).expand(3, 4)
-    torch.testing.assert_close(net.weight.grad, want)
-    torch.testing.assert_close(net.bias.grad, torch.full((3,), 2.0))
+    torch.testing.assert_close(net._parameters["weight"].grad, want)
+    torch.testing.assert_close(net._parameters["bias"].grad,
+                               torch.full((3,), 2.0))
 
 
 def test_head_gradients_match_the_jax_package():
@@ -129,11 +130,12 @@ def test_head_gradients_match_the_jax_package():
     jag.backward(jy, head_grads=mx.nd.array(hg))
     net = Dense(3, in_units=4, use_bias=False, device="cpu")
     with torch.no_grad():
-        net.weight.copy_(torch.from_numpy(w))
+        net._parameters["weight"].copy_(torch.from_numpy(w))
     with autograd.record():
         y = net(torch.from_numpy(x))
     autograd.backward(y, head_grads=torch.from_numpy(hg))
-    np.testing.assert_allclose(net.weight.grad.numpy(), jw.grad.asnumpy(),
+    np.testing.assert_allclose(net._parameters["weight"].grad.numpy(),
+                               jw.grad.asnumpy(),
                                rtol=1e-6, atol=1e-6)
 
 
@@ -153,11 +155,12 @@ def test_backward_on_unrecorded_output_raises():
 def test_grad_req_null_gets_no_gradient():
     net = _dense()
     net.bias.grad_req = "null"
-    assert not net.bias.requires_grad
+    assert not net._parameters["bias"].requires_grad
     with autograd.record():
         y = net(_x())
     autograd.backward(y)
-    assert net.bias.grad is None and net.weight.grad is not None
+    assert net._parameters["bias"].grad is None
+    assert net._parameters["weight"].grad is not None
     with pytest.raises(ValueError):
         net.weight.grad_req = "sometimes"
 
@@ -167,9 +170,9 @@ def test_retain_graph_allows_a_second_backward():
     with autograd.record():
         y = net(_x())
     autograd.backward(y, retain_graph=True)
-    first = net.weight.grad.clone()
+    first = net._parameters["weight"].grad.clone()
     autograd.backward(y)
-    torch.testing.assert_close(net.weight.grad, first)
+    torch.testing.assert_close(net._parameters["weight"].grad, first)
 
 
 def test_zero_grad_zeros_in_place():
@@ -177,6 +180,6 @@ def test_zero_grad_zeros_in_place():
     with autograd.record():
         y = net(_x())
     autograd.backward(y)
-    g = net.weight.grad
+    g = net._parameters["weight"].grad
     net.zero_grad()
-    assert net.weight.grad is g and not g.any()
+    assert net._parameters["weight"].grad is g and not g.any()

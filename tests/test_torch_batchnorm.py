@@ -113,7 +113,7 @@ def _layers(c):
     tl = tgnn.BatchNorm(axis=3, in_channels=c, device="cpu").initialize()
     assert {k: tuple(v.shape) for k, v in tl.state_dict().items()} == {
         k: (c,) for k in ("gamma", "beta", "running_mean", "running_var")}
-    assert [p.grad_req for p in tl.collect_params().values()] == [
+    assert [p.grad_req for p in tl._collect_params_with_prefix().values()] == [
         "write", "write", "null", "null"]
     return jl, tl
 
@@ -141,7 +141,7 @@ def test_layer_updates_running_stats_in_train_mode_as_jax(dtype):
     batch = {"running_mean": [x.mean(axis=(0, 1, 2)) for x in xs],
              "running_var": [x.var(axis=(0, 1, 2)) for x in xs]}
     for name in ("running_mean", "running_var"):
-        got = getattr(tl, name)
+        got = tl._parameters[name]
         assert got.dtype == torch.float32 and not got.requires_grad
         want = getattr(jl, name).data().asnumpy()
         if dtype == "float32":
@@ -154,19 +154,20 @@ def test_layer_updates_running_stats_in_train_mode_as_jax(dtype):
         want_var = 1.0
         for x in xs:
             want_var = want_var * 0.9 + x.var(axis=(0, 1, 2)) * 0.1
-        np.testing.assert_allclose(tl.running_var.detach().numpy(), want_var,
+        np.testing.assert_allclose(
+            tl._parameters["running_var"].detach().numpy(), want_var,
                                    rtol=1e-5)
     # predict mode, from the JAX layer's running statistics: they are
     # used, and not updated
     with torch.no_grad():
         for name in ("running_mean", "running_var"):
-            getattr(tl, name).copy_(torch.from_numpy(
+            tl._parameters[name].copy_(torch.from_numpy(
                 getattr(jl, name).data().asnumpy()))
     x = xs[0]
-    before = tl.running_mean.detach().clone()
+    before = tl._parameters["running_mean"].detach().clone()
     want = jl(nd.array(x)).asnumpy()
     got = tl(torch.from_numpy(x))
-    assert torch.equal(tl.running_mean.detach(), before)
+    assert torch.equal(tl._parameters["running_mean"].detach(), before)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
@@ -175,12 +176,12 @@ def test_layer_use_global_stats_and_fixed_gamma():
                         use_global_stats=True, device="cpu").initialize()
     assert tl.gamma.grad_req == "null" and tl.beta.grad_req == "null"
     with torch.no_grad():
-        tl.gamma.fill_(5.0)  # ignored: fix_gamma
-        tl.running_var.fill_(4.0)
+        tl._parameters["gamma"].fill_(5.0)  # ignored: fix_gamma
+        tl._parameters["running_var"].fill_(4.0)
     x = torch.full((2, 3, 3, 4), 2.0)
     with tag.record():
         out = tl(x)
-    assert torch.equal(tl.running_mean.detach(), torch.zeros(4))
+    assert torch.equal(tl._parameters["running_mean"].detach(), torch.zeros(4))
     torch.testing.assert_close(out, x / torch.sqrt(torch.tensor(4.0 + 1e-5)))
 
 

@@ -103,7 +103,7 @@ def _port_net(params, dtype=None):
     net = load_mxnet_tpu_params(
         TransformerLM(V, units=U, num_layers=L, num_heads=H, max_length=S,
                       device="cpu"), params)
-    for k, p in net.collect_params().items():
+    for k, p in net._collect_params_with_prefix().items():
         if _frozen(k):
             p.grad_req = "null"
     if dtype is not None:
@@ -154,7 +154,7 @@ def test_compiled_step_matches_jax(setup, case):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
     tol = PARAM_TOL.get(name, 1e-5)
     moved = 0.0
-    for k, p in net.collect_params().items():
+    for k, p in net._collect_params_with_prefix().items():
         scale = max(np.abs(want[k]).max(), 1e-30)
         np.testing.assert_allclose(p.detach().numpy(), want[k], rtol=0,
                                    atol=tol * scale, err_msg=k)
@@ -175,7 +175,7 @@ def test_float16_multi_precision_adam_matches_jax(setup):
                                    atol=2e-3 * np.abs(ref).max())
     assert want_losses[-1].mean() < want_losses[0].mean()
     states = trainer._updaters[0].states
-    for i, (k, p) in enumerate(net.collect_params().items()):
+    for i, (k, p) in enumerate(net._collect_params_with_prefix().items()):
         assert p.dtype == torch.float16
         if p.grad_req == "null":
             continue
@@ -381,7 +381,7 @@ def test_load_states_adopts_the_loaded_optimizer(tmp_path):
     trainer.load_states(path)
     assert trainer.optimizer is trainer._updaters[0].optimizer
     assert trainer.optimizer is not old
-    assert trainer.optimizer.param_dict[0] is net.weight
+    assert trainer.optimizer.param_dict[0] is net._parameters["weight"]
     assert trainer.optimizer.lr_scheduler is sched
 
 

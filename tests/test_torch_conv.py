@@ -297,8 +297,9 @@ def test_conv2d_layer_matches_jax_layer():
     assert dict((k, tuple(v.shape)) for k, v in tl.state_dict().items()) == {
         "weight": (6, 3, 3, 5), "bias": (6,)}
     with torch.no_grad():
-        tl.weight.copy_(torch.from_numpy(jl.weight.data().asnumpy()))
-        tl.bias.copy_(torch.from_numpy(jl.bias.data().asnumpy()))
+        for name in ("weight", "bias"):
+            tl._parameters[name].copy_(torch.from_numpy(
+                getattr(jl, name).data().asnumpy()))
     np.testing.assert_allclose(tl(torch.from_numpy(x)).detach().numpy(),
                                want, **TOL)
 

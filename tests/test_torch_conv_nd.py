@@ -337,7 +337,8 @@ def _run_both(make, x, seed=1):
           for k, p in jl._collect_params_with_prefix().items()
           if p.grad_req != "null"}
     jg["data"] = xj.grad.asnumpy()
-    tg = {k: p.grad.numpy() for k, p in tl.collect_params().items()
+    tg = {k: p.grad.numpy()
+          for k, p in tl._collect_params_with_prefix().items()
           if p.requires_grad}
     tg["data"] = xt.grad.numpy()
     return tout.detach().numpy(), jout.asnumpy(), tg, jg

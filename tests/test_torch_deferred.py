@@ -26,7 +26,7 @@ from mxnet_tpu_torch import autograd, gluon
 from mxnet_tpu_torch.convert import load_mxnet_tpu_params
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon import rnn as trnn
-from mxnet_tpu_torch.gluon.block import DeferredParameter, Parameter
+from mxnet_tpu_torch.gluon.block import DeferredParameter, ParameterTensor
 
 CASES = {
     "dense": (lambda m, kw: m.nn.Dense(5, **kw), (2, 3, 4)),
@@ -56,18 +56,20 @@ def test_deferred_layer_matches_jax(case):
     jl.initialize(mx.init.Uniform(0.3))
     jl(mx.nd.array(x))
     tl = make(gluon, {"device": "cpu"})
-    deferred = [k for k, p in tl.collect_params().items()
+    deferred = [k for k, p in tl._collect_params_with_prefix().items()
                 if isinstance(p, DeferredParameter)]
     assert deferred  # the width waits for the input
-    held = {k: p for k, p in tl.collect_params().items()}
+    held = {k: p for k, p in tl._collect_params_with_prefix().items()}
     tl.initialize()
     tl(torch.from_numpy(x))  # materializes
     params = {k: p.data().asnumpy()
               for k, p in jl._collect_params_with_prefix().items()}
-    assert {k: tuple(p.shape) for k, p in tl.collect_params().items()} \
+    assert {k: tuple(p.shape)
+            for k, p in tl._collect_params_with_prefix().items()} \
         == {k: v.shape for k, v in params.items()}
-    assert all(tl.collect_params()[k] is held[k] for k in held)
-    assert all(type(p) is Parameter for p in tl.collect_params().values())
+    assert all(tl._collect_params_with_prefix()[k] is held[k] for k in held)
+    assert all(type(p) is ParameterTensor
+               for p in tl._collect_params_with_prefix().values())
     load_mxnet_tpu_params(tl, params)
     with jag.record():
         jout = jl(mx.nd.array(x))
@@ -80,8 +82,8 @@ def test_deferred_layer_matches_jax(case):
     _close(tout.detach().numpy(), jout.asnumpy(), 1e-5, "output")
     for k, p in jl._collect_params_with_prefix().items():
         if p.grad_req != "null":
-            _close(tl.collect_params()[k].grad.numpy(), p.grad().asnumpy(),
-                   1e-4, k)
+            _close(tl._collect_params_with_prefix()[k].grad.numpy(),
+                   p.grad().asnumpy(), 1e-4, k)
 
 
 def _mlp(pkg, **kw):
@@ -111,7 +113,8 @@ def test_trainer_built_before_the_first_forward():
     trainer = gluon.Trainer(net.collect_params(), "sgd",
                             {"learning_rate": 0.1, "momentum": 0.9})
     assert all(isinstance(p, DeferredParameter)
-               for k, p in net.collect_params().items() if "weight" in k)
+               for k, p in net._collect_params_with_prefix().items()
+               if "weight" in k)
     net(torch.from_numpy(x))
     load_mxnet_tpu_params(net, params)
     assert trainer._updaters[0].states == {}
@@ -129,7 +132,7 @@ def test_trainer_built_before_the_first_forward():
                                    rtol=1e-5)
     assert len(trainer._updaters[0].states) == 4
     for k, p in jnet._collect_params_with_prefix().items():
-        _close(net.collect_params()[k].detach().numpy(),
+        _close(net._collect_params_with_prefix()[k].detach().numpy(),
                p.data().asnumpy(), 1e-5, k)
 
 
@@ -158,8 +161,8 @@ def test_hybridize_before_the_first_call():
         autograd.backward(out.sum())
         outs.append(out.detach())
         bn = getattr(net, "2")
-        stats.append((bn.running_mean.detach().clone(),
-                      getattr(net, "0").weight.grad.clone()))
+        stats.append((bn._parameters["running_mean"].detach().clone(),
+                      getattr(net, "0")._parameters["weight"].grad.clone()))
         if hybrid:
             assert len(net._cached_graphs) == 1
             assert tuple(getattr(net, "0").weight.shape) == (6, 4)
@@ -207,22 +210,23 @@ def test_initialize_before_the_shapes_are_known():
         d = tnn.Dense(4, device="cpu").initialize(tmx.init.Uniform(0.5),
                                                   seed=seed)
         d(torch.ones(2, 3))
-        return d.weight.detach()
+        return d._parameters["weight"].detach()
 
     w = dense(3)
     assert torch.equal(w, dense(3)) and not torch.equal(w, dense(4))
     assert 0 < float(w.abs().max()) <= 0.5
     plain = tnn.Dense(4, device="cpu")
     plain(torch.ones(2, 3))
-    assert not plain.weight.detach().any()
+    assert not plain._parameters["weight"].detach().any()
     bn = tnn.BatchNorm(center=False, device="cpu").initialize()
     bn.gamma.lr_mult = 0.5
     bn.cast("float64")
     bn(torch.ones(2, 3, dtype=torch.float64))
-    assert bn.beta.grad_req == "null" and not bn.beta.requires_grad
+    assert bn.beta.grad_req == "null"
+    assert not bn._parameters["beta"].requires_grad
     assert bn.running_var.grad_req == "null"
-    assert bn.gamma.lr_mult == 0.5 and bn.gamma.dtype == torch.float64
-    assert torch.equal(bn.running_var.detach(),
+    assert bn.gamma.lr_mult == 0.5 and bn.gamma.dtype == np.float64
+    assert torch.equal(bn._parameters["running_var"].detach(),
                        torch.ones(3, dtype=torch.float64))
     lstm = trnn.LSTM(5, 2, bidirectional=True, device="cpu").initialize()
     lstm(torch.ones(4, 2, 3))

@@ -71,7 +71,8 @@ def _run_both(make, x, seed=1):
           for k, p in jl._collect_params_with_prefix().items()
           if p.grad_req != "null"}
     jg["data"] = xj.grad.asnumpy()
-    tg = {k: p.grad.numpy() for k, p in tl.collect_params().items()
+    tg = {k: p.grad.numpy()
+          for k, p in tl._collect_params_with_prefix().items()
           if p.requires_grad}
     tg["data"] = xt.grad.numpy()
     return tl, tout, jout.asnumpy(), tg, jg
@@ -132,7 +133,8 @@ def test_batchnorm_axis_1_running_statistics_match_jax():
             tout = tl(torch.from_numpy(x))
     _close(tout.detach().numpy(), jout.asnumpy(), 1e-5)
     for k, v in _params(jl).items():
-        _close(tl.collect_params()[k].detach().numpy(), v, 1e-5, k)
+        _close(tl._collect_params_with_prefix()[k].detach().numpy(), v, 1e-5,
+               k)
 
 
 def test_nchw_results_are_channels_last_views():
@@ -219,7 +221,7 @@ def test_sequential_matches_jax():
     assert isinstance(tl[1:3], tnn.Sequential) and len(tl[1:3]) == 2
     assert [type(b).__name__ for b in tl] == [
         "Conv2D", "BatchNorm", "Activation", "MaxPool2D", "Conv2D"]
-    assert list(tl.collect_params())[:2] == ["0.weight", "0.bias"]
+    assert list(tl._collect_params_with_prefix())[:2] == ["0.weight", "0.bias"]
 
 
 def _loss_inputs(seed, shape=(3, 4)):

@@ -143,7 +143,7 @@ def _port_from(state, compute_dtype, x, y):
     weights and running statistics after it, and the momentum."""
     vals, mom = state
     net, step = _port_step(vals, compute_dtype)
-    names = {id(p): k for k, p in net.collect_params().items()}
+    names = {id(p): k for k, p in net._collect_params_with_prefix().items()}
     train_names = [names[id(p)] for p in step.trainable]
     with torch.no_grad():
         for s, name in zip(step.opt_state, train_names):
@@ -216,15 +216,16 @@ def test_step_runs_no_kernel_on_cpu_and_updates_in_place(batch):
     x, y = batch
     _, params = _jax_params()
     net, step = _port_step(params, "bfloat16")
-    w = net.output.weight
+    w = net.output._parameters["weight"]
     before = w.detach().clone()
-    rm = getattr(net.features, "1").running_mean.detach().clone()
+    bn = getattr(net.features, "1")
+    rm = bn._parameters["running_mean"].detach().clone()
     counts = (port_dw.conv_dw_pertap.launches,
               port_dw.conv_dw_im2col.launches, port_pool.maxpool_bwd.launches)
     loss = step(x, y)
     assert loss.dtype == torch.bfloat16 and loss.shape == ()
     assert step.trainable[-2] is w and not torch.equal(w.detach(), before)
-    assert not torch.equal(getattr(net.features, "1").running_mean.detach(), rm)
+    assert not torch.equal(bn._parameters["running_mean"].detach(), rm)
     assert len(step.aux) == 2 * sum(1 for k in net.state_dict()
                                     if k.endswith("running_mean"))
     assert counts == (port_dw.conv_dw_pertap.launches,
@@ -376,7 +377,7 @@ def _jax_chained(monkeypatch, x, y, n, state=None):
 def _port_chained(params, x, y, n):
     net, step = _port_step(params, None)
     loss = float(step.make_chained(n)(x, y))
-    names = {id(p): k for k, p in net.collect_params().items()}
+    names = {id(p): k for k, p in net._collect_params_with_prefix().items()}
     return (loss, {k: v.detach().numpy() for k, v in net.state_dict().items()},
             {names[id(p)]: s.numpy() for p, s in zip(step.trainable,
                                                      step.opt_state)})

@@ -121,8 +121,9 @@ def test_gradients_under_record_equal_eager(jax_net):
                                                    torch.from_numpy(y))
         tag.backward(loss)
         grads.append({k: p.grad.clone() for k, p in
-                      net.collect_params().items() if p.grad is not None})
-    trainable = [k for k, p in nets[0].collect_params().items()
+                      net._collect_params_with_prefix().items()
+                      if p.grad is not None})
+    trainable = [k for k, p in nets[0]._collect_params_with_prefix().items()
                  if p.grad_req != "null"]
     assert sorted(grads[0]) == sorted(grads[1]) == sorted(trainable)
     for k, g in grads[0].items():
@@ -182,9 +183,10 @@ def test_cast_keeps_batchnorm_statistics_float32():
     net.add(tnn.Dense(4, in_units=3, device="cpu"),
             tnn.BatchNorm(axis=-1, in_channels=4, device="cpu"))
     net.initialize()
-    w = getattr(net, "0").weight
+    w = getattr(net, "0")._parameters["weight"]
     net.cast("bfloat16")
-    assert getattr(net, "0").weight is w and w.dtype == torch.bfloat16
+    assert getattr(net, "0")._parameters["weight"] is w \
+        and w.dtype == torch.bfloat16
     assert {p.dtype for p in getattr(net, "1").parameters()} == {
         torch.float32}
     net.cast(np.float16)

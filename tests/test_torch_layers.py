@@ -112,13 +112,14 @@ def test_shape_ops_match_jax():
 
 def test_layers_hold_jax_names_and_layouts():
     dense = tgnn.Dense(6, in_units=5, device="cpu")
-    assert {k: tuple(v.shape) for k, v in dense.collect_params().items()} \
+    assert {k: tuple(v.shape)
+            for k, v in dense._collect_params_with_prefix().items()} \
         == {"weight": (6, 5), "bias": (6,)}
     ln = tgnn.LayerNorm(in_channels=7, device="cpu").initialize()
-    np.testing.assert_array_equal(ln.gamma.detach().numpy(), np.ones(7))
-    np.testing.assert_array_equal(ln.beta.detach().numpy(), np.zeros(7))
+    np.testing.assert_array_equal(ln.gamma.data().asnumpy(), np.ones(7))
+    np.testing.assert_array_equal(ln.beta.data().asnumpy(), np.zeros(7))
     emb = tgnn.Embedding(10, 3, device="cpu").initialize(seed=3)
-    w = emb.weight.detach().numpy()
+    w = emb._parameters["weight"].detach().numpy()
     assert np.abs(w).max() <= 0.07 and np.abs(w).max() > 0  # Uniform(0.07)
     lazy = tgnn.Dense(4, device="cpu")  # the width comes at the first call
     out = lazy(torch.ones(2, 3, 5))  # flattened: 3 * 5 inputs
@@ -233,21 +234,22 @@ def test_layer_initializers_fill_as_jax():
     td = tgnn.Dense(3, None, True, True, "float32", "ones", "ones", 2,
                     device="cpu").initialize(seed=1)
     for name in ("weight", "bias"):
-        np.testing.assert_array_equal(getattr(td, name).detach().numpy(),
+        np.testing.assert_array_equal(td._parameters[name].detach().numpy(),
                                       getattr(jd, name).data().asnumpy())
     ln = tgnn.LayerNorm(-1, 1e-5, True, True, "ones", "zeros",
                         4, device="cpu").initialize()
-    assert ln.beta.detach().tolist() == [1.0] * 4
-    assert ln.gamma.detach().tolist() == [0.0] * 4
+    assert ln._parameters["beta"].detach().tolist() == [1.0] * 4
+    assert ln._parameters["gamma"].detach().tolist() == [0.0] * 4
 
 
 def test_layer_arguments_the_port_does_not_take_raise():
     from mxnet_tpu_torch.base import MXNetError
 
     with pytest.raises(TypeError):  # device is a keyword only
-        tgnn.Dense(3, None, True, True, "float32", None, "zeros", 2, "cpu")
+        tgnn.Dense(3, None, True, True, "float32", None, "zeros", 2,
+                   "dense_", None, "cpu")
     with pytest.raises(MXNetError, match="sparse_grad"):
         tgnn.Embedding(10, 3, "float32", None, True, device="cpu")
     with pytest.raises(ValueError, match="unknown initializer"):
-        tgnn.Dense(3, in_units=2, weight_initializer="orthogonal",
+        tgnn.Dense(3, in_units=2, weight_initializer="nosuchinit",
                    device="cpu").initialize()

@@ -399,7 +399,8 @@ def test_gluon_parameters_cross_into_nd():
     with tag.record():
         loss = net(x).sum()
     tag.backward(loss)
-    w, g = tnd.NDArray(net.weight), tnd.NDArray(net.weight.grad)
-    before = net.weight.detach().clone()
+    w, g = net.weight.data(), net.weight.grad()
+    before = w.data_torch.detach().clone()
     tnd.sgd_update(w, g, lr=0.5)
-    torch.testing.assert_close(net.weight.detach(), before - 0.5 * g.data_torch)
+    torch.testing.assert_close(w.data_torch.detach(),
+                               before - 0.5 * g.data_torch)

@@ -148,7 +148,7 @@ def test_trajectory_matches_jax(case):
     assert trainer.learning_rate == jtrainer.learning_rate
     moved = 0.0
     for k, want in _params(jnet).items():
-        got = net.collect_params()[k].detach().numpy()
+        got = net._collect_params_with_prefix()[k].detach().numpy()
         scale = max(np.abs(want).max(), 1e-30)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale,
                                    err_msg=k)
@@ -193,12 +193,12 @@ def test_multi_precision_float16_matches_jax(name, kw):
             loss = loss_fn(jnet(mx.nd.array(x, dtype=x.dtype)),
                            mx.nd.array(y))
         loss.backward()
-        for k, p in net.collect_params().items():
+        for k, p in net._collect_params_with_prefix().items():
             p.grad = torch.from_numpy(jparams[k].grad().asnumpy())
         jtr.step(BATCH)
         tr.step(BATCH)
     f16 = np.finfo(np.float16)
-    for i, (k, p) in enumerate(net.collect_params().items()):
+    for i, (k, p) in enumerate(net._collect_params_with_prefix().items()):
         jstate, state = jtr._updaters[0].states[i], tr._updaters[0].states[i]
         master = state[0]
         assert p.dtype == torch.float16 and master.dtype == torch.float32

@@ -57,12 +57,12 @@ def test_resnet50_v1_loads_jax_parameters_and_gives_its_logits():
     # the same parameters train; the running statistics do not
     trains = {k for k, p in jnet._collect_params_with_prefix().items()
               if p.grad_req != "null"}
-    assert trains == {k for k, p in net.collect_params().items()
+    assert trains == {k for k, p in net._collect_params_with_prefix().items()
                       if p.requires_grad and p.grad_req != "null"}
     assert not any("running" in k for k in trains)
     load_mxnet_tpu_params(net, params)
     assert torch.equal(
-        getattr(net.features, "1").running_var.detach(),
+        getattr(net.features, "1")._parameters["running_var"].detach(),
         torch.from_numpy(params["features.1.running_var"]))
     with torch.no_grad():
         got = net(torch.from_numpy(x)).numpy()
@@ -124,7 +124,8 @@ def _grads_of(jnet, net, x, train):
     jg = {k: p.grad().asnumpy()
           for k, p in jnet._collect_params_with_prefix().items()
           if p.grad_req != "null"}
-    tg = {k: p.grad.numpy() for k, p in net.collect_params().items()
+    tg = {k: p.grad.numpy()
+          for k, p in net._collect_params_with_prefix().items()
           if p.requires_grad and p.grad is not None}
     return tout.detach().numpy(), jout.asnumpy(), tg, jg
 

@@ -97,7 +97,8 @@ def _grads_of(jnet, net, x, train):
     jg = {k: p.grad().asnumpy()
           for k, p in jnet._collect_params_with_prefix().items()
           if p.grad_req != "null"}
-    tg = {k: p.grad.numpy() for k, p in net.collect_params().items()
+    tg = {k: p.grad.numpy()
+          for k, p in net._collect_params_with_prefix().items()
           if p.requires_grad and p.grad is not None}
     return tout.detach().numpy(), jout.asnumpy(), tg, jg
 
@@ -169,8 +170,8 @@ def test_s2d_stem_matches_jax_and_the_standard_stem():
     conv = tvision.resnet.Conv2D(8, 7, 2, 3, use_bias=False, in_channels=3,
                                  layout="NHWC", device="cpu")
     with torch.no_grad():
-        stem.weight.copy_(torch.from_numpy(w))
-        conv.weight.copy_(torch.from_numpy(w))
+        stem._parameters["weight"].copy_(torch.from_numpy(w))
+        conv._parameters["weight"].copy_(torch.from_numpy(w))
     xj = mx.nd.array(x)
     with jag.record():
         jout = jstem(xj)
@@ -181,7 +182,7 @@ def test_s2d_stem_matches_jax_and_the_standard_stem():
             out = layer(torch.from_numpy(x))
         tag.backward((out * out).sum())
         outs.append(out.detach().numpy())
-        grads.append(layer.weight.grad.numpy())
+        grads.append(layer._parameters["weight"].grad.numpy())
     assert outs[0].shape == (2, 8, 9, 8)
     _close(outs[0], jout.asnumpy())
     _close(outs[0], outs[1])
@@ -358,7 +359,7 @@ def test_factor_scheduler_changes_the_rate_without_a_new_program():
                           optimizer=_sched_sgd(tmx), device="cpu")
     eager = load_mxnet_tpu_params(_MLP.make(tmx, device="cpu"), params)
     updater = tmx.optimizer.get_updater(_sched_sgd(tmx))
-    eager_params = list(eager.collect_params().values())
+    eager_params = list(eager._collect_params_with_prefix().values())
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     rates = []
     for _ in range(5):

@@ -76,7 +76,7 @@ def _pair(name, seed):
     params = {k: p.data().asnumpy()
               for k, p in jcell._collect_params_with_prefix().items()}
     tcell = _build(trnn, name, "cpu")
-    assert list(tcell.collect_params()) == list(params)
+    assert list(tcell._collect_params_with_prefix()) == list(params)
     return jcell, load_mxnet_tpu_params(tcell, params)
 
 
@@ -122,7 +122,7 @@ def test_cell_unroll_matches_jax(name, layout, merge, valid):
         _close(g.detach().numpy(), w.asnumpy(), OUT_TOL, "output %d" % i)
     want = {k: p.grad().asnumpy()
             for k, p in jcell._collect_params_with_prefix().items()}
-    for k, p in tcell.collect_params().items():
+    for k, p in tcell._collect_params_with_prefix().items():
         _close(p.grad.numpy(), want[k], GRAD_TOL, k)
 
 
@@ -135,7 +135,8 @@ def test_fused_layer_matches_cell(kind):
     cell = (trnn.LSTMCell if kind == "lstm" else trnn.GRUCell)(
         H, input_size=C, device="cpu")
     load_mxnet_tpu_params(cell, {
-        k[3:]: v.detach().numpy() for k, v in layer.collect_params().items()})
+        k[3:]: v.detach().numpy()
+        for k, v in layer._collect_params_with_prefix().items()})
     x = torch.from_numpy(np.random.RandomState(1).rand(T, N, C)
                          .astype(np.float32))
     outs, states = cell.unroll(T, x, layout="TNC", merge_outputs=True)
@@ -172,7 +173,8 @@ def test_dropout_and_zoneout_cells_in_train_mode():
             outs, _ = stack.unroll(T, torch.ones(N, T, C),
                                    merge_outputs=True)
         autograd.backward((outs * outs).sum())
-        grads.append([p.grad for p in stack.collect_params().values()])
+        grads.append([p.grad for p in
+                      stack._collect_params_with_prefix().values()])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
     base = trnn.GRUCell(H, input_size=C, device="cpu").initialize()

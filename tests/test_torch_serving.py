@@ -287,7 +287,7 @@ def test_bf16_output_is_served_as_float32_rows():
 
     net = Bf16Head()
     with torch.no_grad():
-        net.dense.weight.copy_(torch.from_numpy(w))
+        net.dense._parameters["weight"].copy_(torch.from_numpy(w))
     net.cast("bfloat16")
     x = rng.randn(3, 4).astype(np.float32)
     wj = jnp.asarray(w, jnp.bfloat16)

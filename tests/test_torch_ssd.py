@@ -138,7 +138,8 @@ def test_tiny_ssd_matches_the_jax_example():
     jgrads = {k: p.grad().asnumpy()
               for k, p in jnet._collect_params_with_prefix().items()
               if p.grad_req != "null"}
-    tgrads = {k: p.grad.numpy() for k, p in tnet.collect_params().items()
+    tgrads = {k: p.grad.numpy()
+              for k, p in tnet._collect_params_with_prefix().items()
               if p.requires_grad}
     assert set(tgrads) == set(jgrads) and len(tgrads) == 24
     top = max(float(np.abs(w).max()) for w in jgrads.values())
@@ -159,7 +160,7 @@ def test_tiny_ssd_three_adam_steps_match_the_jax_example():
     # to the learning rate, of either sign: both packages hold them fixed
     for name in BN_FED_BIASES:
         jnet._collect_params_with_prefix()[name].grad_req = "null"
-        tnet.collect_params()[name].grad_req = "null"
+        tnet._collect_params_with_prefix()[name].grad_req = "null"
     small = {}
     jtr = jgl.Trainer(jnet.collect_params(), "adam", {"learning_rate": 2e-3})
     ttr = gluon.Trainer(tnet.collect_params(), "adam",
@@ -182,7 +183,7 @@ def test_tiny_ssd_three_adam_steps_match_the_jax_example():
                                               & (v != 0))
     start = _jparams(_tiny_pair(data)[0])
     for k, v in _jparams(jnet).items():
-        got = tnet.collect_params()[k].detach().numpy()
+        got = tnet._collect_params_with_prefix()[k].detach().numpy()
         # where a gradient was within rounding of 0, Adam's normalised
         # step turns the last bits into up to a learning rate a step
         mask = small.get(k, np.zeros(v.shape, bool))
@@ -319,7 +320,8 @@ def test_ssd300_matches_the_jax_layers(seed):
             _close(g, w, 1e-4, name)
     jgrads = {k: p.grad().asnumpy()
               for k, p in jnet._collect_params_with_prefix().items()}
-    tgrads = {k: p.grad.numpy() for k, p in tnet.collect_params().items()}
+    tgrads = {k: p.grad.numpy()
+              for k, p in tnet._collect_params_with_prefix().items()}
     assert set(tgrads) == set(jgrads)
     for k, w in jgrads.items():
         _close(tgrads[k], w, 1e-4, k)

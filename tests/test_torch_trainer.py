@@ -73,7 +73,7 @@ def test_gradients_match_jax_after_one_backward(setup):
             net(torch.from_numpy(x)), torch.from_numpy(y))
     assert loss.shape == (B,)
     autograd.backward(loss)
-    for name, p in net.collect_params().items():
+    for name, p in net._collect_params_with_prefix().items():
         np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=1e-4,
                                    atol=1e-4, err_msg=name)
 
@@ -123,7 +123,8 @@ def _dense_step(trainer_kw, setup_fn=None, batch=2):
     with autograd.record():
         out = net(x)
     autograd.backward(out)
-    grads = {k: p.grad.clone() for k, p in net.collect_params().items()
+    grads = {k: p.grad.clone()
+             for k, p in net._collect_params_with_prefix().items()
              if p.grad is not None}
     trainer.step(batch)
     return net, before, grads, trainer
@@ -134,7 +135,7 @@ def test_step_rescales_by_batch_size_and_applies_wd_to_every_parameter():
         dict(optimizer="sgd", optimizer_params={"learning_rate": 0.5,
                                                 "wd": 0.1}), batch=4)
     assert trainer.optimizer.rescale_grad == 0.25
-    for name, p in net.collect_params().items():
+    for name, p in net._collect_params_with_prefix().items():
         want = before[name] - 0.5 * (grads[name] * 0.25 + 0.1 * before[name])
         torch.testing.assert_close(p.detach(), want)
 
@@ -149,9 +150,9 @@ def test_lr_and_wd_multipliers_and_null_grad_req():
         dict(optimizer="sgd", optimizer_params={"learning_rate": 0.5,
                                                 "wd": 0.1}),
         setup_fn, batch=2)
-    torch.testing.assert_close(net.weight.detach(),
+    torch.testing.assert_close(net._parameters["weight"].detach(),
                                before["weight"] - 1.0 * grads["weight"] / 2)
-    assert torch.equal(net.bias.detach(), before["bias"])
+    assert torch.equal(net._parameters["bias"].detach(), before["bias"])
 
 
 def test_learning_rate_and_optimizer_instance():
@@ -163,7 +164,7 @@ def test_learning_rate_and_optimizer_instance():
     assert trainer.learning_rate == 0.01
     trainer.set_learning_rate(0.02)
     assert trainer.learning_rate == 0.02 and opt.lr == 0.02
-    assert opt.param_dict[0] is net.weight
+    assert opt.param_dict[0] is net._parameters["weight"]
     with pytest.raises(ValueError):
         gluon.Trainer(net.collect_params(), opt, {"learning_rate": 1.0})
     with pytest.raises(MXNetError, match="not registered"):
@@ -191,13 +192,13 @@ def test_parameter_no_backward_reached_updates_with_a_zero_gradient():
     unused = Dense(3, in_units=4, device="cpu").initialize(seed=3)
     params = list(used.parameters()) + list(unused.parameters())
     trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.5, "wd": 0.1})
-    before = unused.weight.detach().clone()
+    before = unused._parameters["weight"].detach().clone()
     with autograd.record():
         out = used(torch.ones(2, 4))
     autograd.backward(out)
     trainer.step(2)
-    assert unused.weight.grad is None
-    torch.testing.assert_close(unused.weight.detach(),
+    assert unused._parameters["weight"].grad is None
+    torch.testing.assert_close(unused._parameters["weight"].detach(),
                                before - 0.5 * 0.1 * before)
 
 
@@ -211,7 +212,7 @@ def test_one_device_kvstores_reduce_nothing(kvstore):
         kvstore=kvstore, compression_params=None, update_on_kvstore=False))
     assert trainer._kvstore_type is kvstore and trainer._kvstore is None
     assert trainer._update_on_kvstore is False
-    for name, p in net.collect_params().items():
+    for name, p in net._collect_params_with_prefix().items():
         torch.testing.assert_close(p.detach(),
                                    before[name] - 0.5 * grads[name] / 2)
 
@@ -234,18 +235,19 @@ def test_jax_trainer_attributes_and_two_phase_update():
     net = Dense(3, in_units=4, device="cpu").initialize(seed=4)
     trainer = gluon.Trainer(net.collect_params(), "sgd",
                             {"learning_rate": 0.5, "rescale_grad": 2.0})
-    assert trainer._param2idx == {net.weight: 0, net.bias: 1}
+    assert trainer._param2idx == {net._parameters["weight"]: 0,
+                                  net._parameters["bias"]: 1}
     assert trainer._contexts == [torch.device("cpu")]
     assert len(trainer._updaters) == 1 and trainer._scale == 2.0
-    before = net.weight.detach().clone()
+    before = net._parameters["weight"].detach().clone()
     with autograd.record():
         out = net(torch.ones(2, 4))
     autograd.backward(out)
     trainer.allreduce_grads()
     trainer.update(4)
     assert trainer.optimizer.rescale_grad == 0.5
-    torch.testing.assert_close(net.weight.detach(),
-                               before - 0.5 * 0.5 * net.weight.grad)
+    w = net._parameters["weight"]
+    torch.testing.assert_close(w.detach(), before - 0.5 * 0.5 * w.grad)
     trainer._update_on_kvstore = True  # the JAX guards of :307-339
     for call in (trainer.allreduce_grads, lambda: trainer.update(4)):
         with pytest.raises(ValueError, match="update_on_kvstore"):

@@ -95,10 +95,11 @@ def test_convert_checks_names_and_shapes(jax_lm, bad):
     else:
         params["embed.weight"] = params["embed.weight"][:, :8]
     port = _port().initialize(seed=1)
-    before = port.embed.weight.detach().clone()
+    before = port.embed._parameters["weight"].detach().clone()
     with pytest.raises(MXNetError):
         load_mxnet_tpu_params(port, params)
-    assert torch.equal(port.embed.weight.detach(), before)  # nothing copied
+    # nothing copied
+    assert torch.equal(port.embed._parameters["weight"].detach(), before)
 
 
 def test_initialize_is_seeded_and_follows_name_rules():
