@@ -353,7 +353,33 @@ Phases (any failure raises, and the script exits non-zero):
    none 0 (the kernels line's path gluon_api, with K1 timed at the
    path's float32 shapes); (c) the trained net exported and reloaded by
    SymbolBlock.imports on the card: predict-mode logits at batch 128
-   within 1e-5 of the largest one.
+   within 1e-5 of the largest one;
+14. export and deploy: (a) the full-width TransformerLM built,
+   hybridized, called once and exported; its files loaded by
+   SymbolBlock.imports on the card (the graph's _contrib_flash_attention
+   is K3) and served behind an InferenceServer at buckets 1/2/4/8 to 12
+   concurrent requests (the main path: one captured graph a bucket, K3's
+   wrapper count over their warm-up and capture), every served row held
+   against the Gluon block's own served row for the same request (within
+   1e-5, bitwise reported); the same files through
+   mx.model.load_checkpoint and a Predictor at batch 8 (1e-5); K3 once a
+   layer a batch in a traced burst of the imported block; its bucket-8
+   replay timed in turns with the Gluon block's, beside phase 4's; (b)
+   the imported block fine-tuned eagerly, 5 Adam steps at (8, 1024)
+   through record/backward and gluon.Trainer: K3, K4a and K4b once a
+   layer a step, losses and updated weights within 1e-3 of the Gluon
+   block's taking the same steps (the step time beside phase 5's); (c)
+   resnet50_v2(layout="NHWC") exported and imported: predict logits at
+   batch 128 against the Gluon net's (bitwise or 1e-5), one recorded
+   float32 train step of the imported block, eager, under cuDNN's
+   deterministic algorithms, every gradient within 1e-3 of the Gluon
+   net's, K1a, K1b, K2, K6a and K6b counted (the kernels line's path
+   resnet_symbol_deploy, K1 and K6 timed at its float32 shapes); (d)
+   gluon.contrib's Conv2DLSTMCell unrolled over 4 steps at phase 10's
+   shapes in a hybridized block (its gradients against the CPU, K1b at
+   the warm-up and the capture: path contrib_convlstm) and one
+   SyncBatchNorm step on NCHW (32, 64, 112, 112) (K6a, K6b: path
+   contrib_sync_batch_norm); the phase's time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -1193,6 +1219,7 @@ def serve(seed, smi):
             net(x8)
 
     fwd = [time_ms(f, iters=5) for f in (eager, replay, replay, eager)]
+    MEASURED["serve_replay_ms"] = min(fwd[1], fwd[2])
     replay()
     logits = graph.static_out[0]
     nbytes = logits.numel() * logits.element_size()
@@ -1598,6 +1625,7 @@ def train(seed, smi):
                       for ev in events[WARMUP_STEPS:]])
     fwd_ms, bwd_ms, opt_ms = split.mean(axis=0)
     step_ms = split.sum(axis=1).mean()
+    MEASURED["train_step_ms"] = float(step_ms)
     log("train: step %.2f ms on %s (mean of %d after %d warmup): forward "
         "%.2f ms, backward %.2f ms, optimizer %.2f ms; %.0f tokens/s; %d "
         "steps in %.2f s wall; peak memory %.2f GB" % (
@@ -7190,6 +7218,609 @@ def gluon_api(seed, smi):
     return launches, dw
 
 
+# ---------------------------------------------- export and deploy (14)
+
+# phase 4's bucket-8 replay and phase 5's eager step, for phase 14's
+# comparisons in the same process
+MEASURED = {}
+# phase 14: the exported model's served and Predictor rows against the
+# Gluon block's own served rows, and the imported ResNet-50 v2's predict
+# logits against the Gluon net's, each within DEPLOY_TOL of the largest
+# magnitude (the served logits: absolute)
+DEPLOY_TOL = 1e-5
+# the fine-tune of the imported TransformerLM: Adam steps at (8, 1024)
+DEPLOY_STEPS = 5
+# 14d: a SyncBatchNorm step at the ResNet-50 stem BatchNorm's NCHW shape
+SYNC_BN_SHAPE = (32, 64, 112, 112)
+
+
+def _export(net, name):
+    """``net`` exported under a new temporary directory: the path prefix
+    of its -symbol.json and -0000.params (:func:`_drop_export` removes
+    them)."""
+    import os
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_export_"), name)
+    net.export(path)
+    return path
+
+
+def _drop_export(path):
+    import os
+    import shutil
+
+    shutil.rmtree(os.path.dirname(path))
+
+
+def _serve_requests(block, requests):
+    """``requests`` submitted at once from one thread each to an
+    InferenceServer over the hybridized ``block`` (buckets 1/2/4/8, built
+    by warmup()): (results, snapshot, wall seconds)."""
+    from mxnet_tpu_torch.serving import InferenceServer
+
+    srv = InferenceServer(block, {"data": (SEQ,)}, buckets=BUCKETS,
+                          device="cuda").start()
+    srv.warmup()
+    results = [None] * len(requests)
+
+    def client(i):
+        results[i] = srv.submit(requests[i]).result(600)[0]
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    srv.stop()
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise AssertionError("not every request was served")
+    return results, srv.snapshot(), wall
+
+
+def _traced_burst(block, xs):
+    """A burst of ``xs`` (bucket-8 requests) served from ``block`` under
+    torch.profiler: (K3 kernels in the trace, batches served)."""
+    from mxnet_tpu_torch.serving import InferenceServer
+
+    srv = InferenceServer(block, {"data": (SEQ,)}, buckets=BUCKETS,
+                          device="cuda").start()
+    srv.warmup()
+    last = []
+
+    def burst():
+        before = srv.snapshot()["batches"]
+        for f in [srv.submit(x) for x in xs]:
+            f.result(600)
+        last[:] = [srv.snapshot()["batches"] - before]
+
+    def k3_count(spans):
+        return sum(1 for _, _, n in spans if "flash_fwd" in n.lower())
+
+    spans, _ = device_spans(
+        burst, expect=lambda spans: k3_count(spans) == LAYERS * last[0])
+    srv.stop()
+    return (k3_count(spans) if spans else None), last[0]
+
+
+def deploy_serve(seed, smi):
+    """Phase 14a: the full-width TransformerLM built, hybridized, called
+    once and exported; its files loaded by SymbolBlock.imports on the card
+    and served (the main path), every served row against the Gluon
+    block's own served row for the same request; the same files through
+    load_checkpoint and a Predictor at batch 8; K3 in a traced burst of
+    the imported block; its bucket-8 replay beside the block's and phase
+    4's.  Returns the Gluon block, the files' path and K3's counts."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops.attention import flash_attention
+    from mxnet_tpu_torch.predictor import Predictor
+
+    rng = np.random.RandomState(seed + 14)
+    requests = [rng.randint(0, VOCAB, size=(n, SEQ)).astype(np.float32)
+                for n in REQUEST_SAMPLES]
+    net = _lm("cuda", seed)
+    net.hybridize()
+    net(torch.from_numpy(requests[0]).cuda())
+    t0 = time.perf_counter()
+    path = _export(net, "transformerlm")
+    sb = gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                   path + "-0000.params", ctx=mx.gpu(0))
+    sb.hybridize()
+    load_s = time.perf_counter() - t0
+    ops = sorted({n.op for n in sb._nodes if not n.is_variable})
+    log("symbol_deploy: TransformerLM exported and loaded by "
+        "SymbolBlock.imports on %s in %.1f s: %d parameters, graph ops %s" % (
+            smi, load_s, len(sb.collect_params()), ", ".join(ops)))
+    if "_contrib_flash_attention" not in ops or \
+            sorted(sb.collect_params()) != sorted(net.collect_params()):
+        raise AssertionError("the exported graph lacks the registered "
+                             "attention or the block's parameters")
+
+    # ---- the main path: the imported block served
+    flash_attention.launches = 0
+    got, snap, wall = _serve_requests(sb, requests)
+    launches = flash_attention.launches
+    # ---- end of the main path
+    want, _, ref_wall = _serve_requests(net, requests)
+    worst, bitwise = 0.0, True
+    for g, w in zip(got, want):
+        gt, wt = torch.from_numpy(g).cuda(), torch.from_numpy(w).cuda()
+        worst = max(worst, float((gt - wt).abs().max()))
+        bitwise = bitwise and torch.equal(gt, wt)
+        del gt, wt
+    i8 = REQUEST_SAMPLES.index(8)
+    ref8 = want[i8]
+    del got, want
+    expected = 2 * LAYERS * len(BUCKETS)
+    log("symbol_deploy: the imported block served %d requests (%d samples) "
+        "in %.3f s (the Gluon block: %.3f s) on %s, %d bucket builds, %d "
+        "batches; every served row against the Gluon block's own served row "
+        "for the same request: max abs err %.3g (tol %.0e), bitwise %s; "
+        "flash_attn_fwd wrapper launches %d, expected %d (layers x buckets x "
+        "(warm-up + capture))" % (
+            len(requests), sum(REQUEST_SAMPLES), wall, ref_wall, smi,
+            snap["bucket_compiles"], snap["batches"], worst, DEPLOY_TOL,
+            bitwise, launches, expected))
+    if not worst <= DEPLOY_TOL:
+        raise AssertionError("the imported block's served rows disagree "
+                             "with the Gluon block's")
+    if launches != expected or snap["bucket_compiles"] != len(BUCKETS):
+        raise AssertionError("the imported block was not served from one "
+                             "captured graph a bucket with K3 in it")
+
+    # the same files through load_checkpoint and a Predictor
+    sym, arg_params, aux_params = mx.model.load_checkpoint(path, 0,
+                                                           ctx=mx.cpu())
+    with open(path + "-0000.params", "rb") as f:
+        pred = Predictor(sym.tojson(), f.read(), {"data": (8, SEQ)})
+    pred.forward(data=requests[i8])
+    p_err = float(np.abs(pred.get_output(0) - ref8).max())
+    log("symbol_deploy: load_checkpoint (%d arg, %d aux params) and a "
+        "Predictor on the card at batch 8: max abs err %.3g to the Gluon "
+        "block's served rows (tol %.0e)" % (len(arg_params), len(aux_params),
+                                             p_err, DEPLOY_TOL))
+    if not p_err <= DEPLOY_TOL:
+        raise AssertionError("the Predictor of the exported files "
+                             "disagrees with the Gluon block")
+    del pred, ref8
+
+    # K3 in the replays of a served burst, and the bucket-8 replay time
+    xs = [rng.randint(0, VOCAB, size=(8, SEQ)).astype(np.float32)
+          for _ in range(SERVE_TRACE_REQUESTS)]
+    k3, batches = _traced_burst(sb, xs)
+    log("symbol_deploy: a traced burst of %d bucket-8 requests from the "
+        "imported block on %s: %d batches, flash_fwd kernels in the trace "
+        "%s (expected %d)" % (len(xs), smi, batches,
+                              "not measured (no device events)" if k3 is None
+                              else k3, LAYERS * batches))
+    if k3 is not None and k3 != LAYERS * batches:
+        raise AssertionError("the imported block's replays did not run K3 "
+                             "once a layer a batch")
+    x8 = torch.from_numpy(xs[0]).cuda()
+    graphs = [_graph_at(b, (8, SEQ)) for b in (sb, net)]
+    replays = [time_ms(lambda g=g: g.replay_forward([x8], clone=False),
+                       iters=5) for g in graphs + graphs[::-1]]
+    same = torch.equal(graphs[0].static_out[0], graphs[1].static_out[0])
+    log("symbol_deploy: bucket 8 on %s, forward as a graph replay: the "
+        "imported block %.3f, %.3f ms, the Gluon block %.3f, %.3f ms (in "
+        "turns), phase 4's %s ms; the two replays' logits bitwise equal %s" % (
+            smi, replays[0], replays[3], replays[1], replays[2],
+            "%.3f" % MEASURED["serve_replay_ms"] if "serve_replay_ms"
+            in MEASURED else "not measured", same))
+    del sb, graphs, x8
+    torch.cuda.empty_cache()
+    return net, path, dict(launches=launches, traced_replays=batches,
+                           launches_in_traced_replays=k3)
+
+
+def _attention_launches():
+    from mxnet_tpu_torch.ops import attention as A
+
+    return {"fwd": A.flash_attention, "dq": A.flash_attention_bwd_dq,
+            "dkv": A.flash_attention_bwd_dkv}
+
+
+def _adam_steps(block, x, y):
+    """DEPLOY_STEPS eager Adam steps (lr 1e-3) of ``block`` through
+    record, backward and Trainer.step: (losses, the weights after by
+    name, the steps' times in ms)."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(block.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DEPLOY_STEPS + 1)]
+    losses = []
+    events[0].record()
+    for ev in events[1:]:
+        with autograd.record():
+            loss = loss_fn(block(x), y)
+        autograd.backward(loss)
+        trainer.step(x.shape[0])
+        ev.record()
+        losses.append(loss.detach().mean())
+    torch.cuda.synchronize()
+    weights = {k: p.data().data_torch.detach().clone()
+               for k, p in block.collect_params().items()}
+    return ([float(v) for v in losses], weights,
+            [a.elapsed_time(b) for a, b in zip(events, events[1:])])
+
+
+def deploy_finetune(net, path, seed, smi):
+    """Phase 14b: the exported TransformerLM loaded again by
+    SymbolBlock.imports and fine-tuned eagerly (the main path: 5 Adam
+    steps at (8, 1024) through record/backward, K3, K4a and K4b once a
+    layer a step), held against the Gluon block taking the same steps
+    from the same weights: losses and every updated weight within
+    GRAD_TOL of its largest magnitude.  Returns the kernels' counts."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    rng = np.random.RandomState(seed + 15)
+    x, y = (torch.from_numpy(rng.randint(0, VOCAB, (TRAIN_BATCH, SEQ))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    sb = gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                   path + "-0000.params", ctx=mx.gpu(0))
+    sb.hybridize(False)
+    counters = _attention_launches()
+    # ---- the main path
+    for c in counters.values():
+        c.launches = 0
+    losses, weights, times = _adam_steps(sb, x, y)
+    launches = {k: c.launches for k, c in counters.items()}
+    # ---- end of the main path
+    del sb
+    torch.cuda.empty_cache()
+    net.hybridize(False)
+    ref_losses, ref_weights, ref_times = _adam_steps(net, x, y)
+    worst, worst_name, bitwise = 0.0, None, True
+    for name, w in ref_weights.items():
+        err = _bn_err(weights[name], w)[1]
+        bitwise = bitwise and torch.equal(weights[name], w)
+        if err > worst:
+            worst, worst_name = err, name
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    step_ms = float(np.mean(times[1:]))
+    log("symbol_deploy: the imported TransformerLM fine-tuned eagerly, %d "
+        "Adam steps at (%d, %d) on %s: losses %s (the Gluon block's %s, "
+        "worst relative difference %.3g); updated weights worst %.3g of "
+        "their largest magnitude (%s; tol %.0e), bitwise %s; K3, K4a, K4b "
+        "launches %s, expected %d each (layers x steps); step %.2f ms (the "
+        "Gluon block's %.2f ms in this phase, phase 5's %s ms)" % (
+            DEPLOY_STEPS, TRAIN_BATCH, SEQ, smi,
+            " ".join("%.5f" % v for v in losses),
+            " ".join("%.5f" % v for v in ref_losses), loss_err, worst,
+            worst_name, GRAD_TOL, bitwise,
+            [launches[k] for k in ("fwd", "dq", "dkv")],
+            LAYERS * DEPLOY_STEPS, step_ms, float(np.mean(ref_times[1:])),
+            "%.2f" % MEASURED["train_step_ms"] if "train_step_ms" in MEASURED
+            else "not measured"))
+    if not (worst <= GRAD_TOL and loss_err <= GRAD_TOL) \
+            or not np.isfinite(losses).all():
+        raise AssertionError("the imported block's fine-tune disagrees with "
+                             "the Gluon block's")
+    if any(n != LAYERS * DEPLOY_STEPS for n in launches.values()):
+        raise AssertionError("the fine-tune did not run K3, K4a and K4b "
+                             "once a layer a step")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bn_step_rows(shapes, gen, tag):
+    """K6a and K6b at each (M, C): count of ``shapes`` in float32 against
+    their plain versions (BN_TOL), bitwise repeatable, timed in graph
+    replays beside aten's native_batch_norm and its backward, with the
+    bound; the numbers summed over the counts."""
+    from mxnet_tpu_torch.ops import batch_norm as B
+
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    library_ms=0.0, bound_by="bytes") for k in ("fwd", "bwd")}
+    for (m, c), (n_fwd, n_bwd) in shapes.items():
+        x = torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5
+        dy = torch.randn(m, c, device="cuda", generator=gen)
+        gamma = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+        beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+
+        def fwd(run=B.batch_norm_fwd):
+            return run(x, gamma, beta, rm.clone(), rv.clone(), BN_EPS,
+                       False, False, BN_MOMENTUM)
+
+        got, again, ref = fwd(), fwd(), fwd(B.batch_norm_fwd_plain)
+        stats = got[3]
+
+        def bwd(run=B.batch_norm_bwd):
+            return run(x, dy, stats, gamma, beta, False, True)
+
+        gotb, againb, refb = bwd(), bwd(), bwd(B.batch_norm_bwd_plain)
+        errs = [_bn_err(got[0], ref[0]), _bn_err(gotb[0], refb[0])]
+        same = torch.equal(got[0], again[0]) and all(
+            torch.equal(a, b) for a, b in zip(gotb, againb))
+        if any(e[1] > BN_TOL[torch.float32] for e in errs) or not same:
+            raise AssertionError("batch_norm at M %d C %d float32 (%s): "
+                                 "errors %s, bitwise repeatable %s"
+                                 % (m, c, tag, errs, same))
+        w32, b32 = gamma.clone(), beta.clone()
+        lrm, lrv = rm.clone(), rv.clone()
+        _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(
+            x, w32, b32, lrm, lrv, True, 1 - BN_MOMENTUM, BN_EPS)
+        times = {
+            "fwd": (graph_ms(lambda: B.batch_norm_fwd(
+                        x, gamma, beta, rm, rv, BN_EPS, False, False,
+                        BN_MOMENTUM)),
+                    time_ms(lambda: fwd(B.batch_norm_fwd_plain), iters=3),
+                    bn_bound_ms(m, c, torch.float32, 2)[0],
+                    graph_ms(lambda: torch.ops.aten.native_batch_norm(
+                        x, w32, b32, lrm, lrv, True, 1 - BN_MOMENTUM,
+                        BN_EPS))),
+            "bwd": (graph_ms(bwd),
+                    time_ms(lambda: bwd(B.batch_norm_bwd_plain), iters=3),
+                    bn_bound_ms(m, c, torch.float32, 3)[0],
+                    graph_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+                        dy, x, w32, lrm, lrv, save_mean, save_invstd, True,
+                        BN_EPS, [True, True, True])))}
+        log("kernel batch_norm [%s: M %d C %d float32, %d K6a and %d K6b a "
+            "step]: errs y %.3g dx %.3g of the largest magnitude; K6a %.4f "
+            "ms, plain %.4f, aten %.4f, bound %.4f; K6b %.4f ms, plain "
+            "%.4f, aten %.4f, bound %.4f" % (
+                tag, m, c, n_fwd, n_bwd, errs[0][1], errs[1][1],
+                times["fwd"][0], times["fwd"][1], times["fwd"][3],
+                times["fwd"][2], times["bwd"][0], times["bwd"][1],
+                times["bwd"][3], times["bwd"][2]))
+        for key, n, err in (("fwd", n_fwd, errs[0][0]),
+                            ("bwd", n_bwd, errs[1][0])):
+            row = rows[key]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            for name, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                               times[key]):
+                row[name] += n * v
+        del x, dy, got, again, ref, gotb, againb, refb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def deploy_resnet(seed, smi, pool_row_f32):
+    """Phase 14c: resnet50_v2(layout="NHWC") exported and loaded by
+    SymbolBlock.imports on the card: its predict logits at batch 128
+    against the Gluon net's (bitwise, or within DEPLOY_TOL of the largest),
+    then the main path, one recorded float32 train step of the imported
+    block, eager, under cuDNN's deterministic algorithms: every gradient
+    within GRAD_TOL of the Gluon net's (the same step), and the wrappers'
+    counts (K1a, K1b per convolution, K2 once, K6a and K6b per BatchNorm:
+    the imported block trains every BatchNorm's gamma and beta, the
+    raw input's too).  Returns the path's launches and rows."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import conv_dw as C
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    x = torch.randn(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3, device="cuda",
+                    generator=gen)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), device="cuda",
+                      generator=gen).float()
+    net = _resnet("cuda", seed, "NHWC", make=_resnet50_v2)
+    net.hybridize()
+    with autograd.predict_mode():
+        want = net(x)
+    t0 = time.perf_counter()
+    path = _export(net, "resnet50_v2")
+    sb = gluon.SymbolBlock.imports(path + "-symbol.json", ["data"],
+                                   path + "-0000.params", ctx=mx.gpu(0))
+    _drop_export(path)
+    with autograd.predict_mode():
+        got = sb(x)
+    torch.cuda.synchronize()
+    err = _bn_err(got, want)
+    bitwise = torch.equal(got, want)
+    log("symbol_deploy: resnet50_v2 (NHWC) exported and loaded by "
+        "SymbolBlock.imports on %s in %.1f s; predict logits at batch %d "
+        "(both blocks' captured graphs): max abs err %.3g, %.3g of the "
+        "largest (tol %.0e), bitwise %s" % (
+            smi, time.perf_counter() - t0, RESNET_BATCH, err[0], err[1],
+            DEPLOY_TOL, bitwise))
+    if not (bitwise or err[1] <= DEPLOY_TOL):
+        raise AssertionError("the imported ResNet-50 v2 disagrees with the "
+                             "Gluon net")
+    del got, want
+    sb.hybridize(False)
+    net.hybridize(False)
+    torch.cuda.empty_cache()
+    convs = resnet_convs(make=_resnet50_v2)
+    n_bn = len(resnet_bns(make=_resnet50_v2))
+    expected = dict(_per_formulation(convs), maxpool=1, batch_norm_fwd=n_bn,
+                    batch_norm_bwd=n_bn)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    counters = _resnet_counters()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # ---- the main path
+        for c in counters.values():
+            c.launches = 0
+        with autograd.record():
+            loss = loss_fn(sb(x), y)
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        # ---- end of the main path
+        with autograd.record():
+            ref_loss = loss_fn(net(x), y)
+        autograd.backward(ref_loss)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    grads = sb.collect_params()
+    pairs = {name: (grads[name].grad().data_torch, p.grad().data_torch)
+             for name, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    largest = max(w.abs().max().item() for _, w in pairs.values())
+    worst, worst_name, bitwise = 0.0, None, True
+    for name, (g, w) in pairs.items():
+        bitwise = bitwise and torch.equal(g, w)
+        # a tensor's scale is at least GRAD_FLOOR of the largest gradient
+        e = _bn_err(g, w)[0] / max(w.abs().max().item(),
+                                   GRAD_FLOOR * largest)
+        if e > worst:
+            worst, worst_name = e, name
+    compared = len(pairs)
+    log("symbol_deploy: one recorded float32 train step of the imported "
+        "resnet50_v2 at (%d, %d, %d, 3), eager, cuDNN deterministic, on %s: "
+        "loss %.5f (the Gluon net's %.5f); %d gradients against the Gluon "
+        "net's: worst %.3g of the largest magnitude (%s; tol %.0e), bitwise "
+        "%s; wrapper launches %s, expected %s" % (
+            RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, smi,
+            float(loss.detach().mean()), float(ref_loss.detach().mean()),
+            compared, worst,
+            worst_name, GRAD_TOL, bitwise, launches, expected))
+    if worst > GRAD_TOL:
+        raise AssertionError("the imported ResNet-50 v2's gradients disagree "
+                             "with the Gluon net's")
+    if launches != expected:
+        raise AssertionError("the imported ResNet-50 v2's step did not launch "
+                             "K1, K2 and K6 once per layer")
+    del sb, net, loss, ref_loss, grads, pairs, x, y
+    torch.cuda.empty_cache()
+    if C.formulation(convs[0][0][3]) != "im2col":
+        raise AssertionError("the stem is not on K1b")
+    dw = step_dw_rows(convs, seed, "symbol_deploy resnet50_v2",
+                      torch.float32)
+    counts = {}
+    for n, h, w, c in resnet_bns(make=_resnet50_v2):
+        k = counts.setdefault((n * h * w, c), [0, 0])
+        k[0] += 1
+        k[1] += 1
+    bn = _bn_step_rows(counts, gen, "resnet50_v2 symbol_deploy")
+    return launches, dict(dw, maxpool=pool_row_f32,
+                          batch_norm_fwd=bn["fwd"], batch_norm_bwd=bn["bwd"])
+
+
+def deploy_contrib(seed, smi):
+    """Phase 14d: gluon.contrib's Conv2DLSTMCell unrolled over 4 steps at
+    phase 10's ConvLSTM shapes inside a hybridized block (one captured
+    forward and backward graph): its gradients on the card against the
+    CPU plain path (GRAD_TOL), K1b's launches over the recorded call (at
+    the warm-up and the capture); and one SyncBatchNorm step on NCHW data
+    (K6a and K6b on its NHWC view) against the CPU.  Returns each path's
+    launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon.contrib.nn import SyncBatchNorm
+    from mxnet_tpu_torch.gluon.contrib.rnn import Conv2DLSTMCell
+
+    cl = CONVLSTM
+
+    class Unrolled(HybridBlock):
+        _port_native = True
+
+        def __init__(self, device):
+            super().__init__(prefix="convlstm_", device=device)
+            with self.name_scope():
+                self.cell = Conv2DLSTMCell(
+                    (cl["channels"], cl["size"], cl["size"]), cl["hidden"],
+                    3, 3, i2h_pad=1, device=device)
+
+        def forward(self, x):
+            out, states = self.cell.unroll(cl["steps"], x, layout="NTC",
+                                           merge_outputs=True)
+            return out.sum() + sum(s.sum() for s in states)
+
+    rng = np.random.RandomState(seed + 17)
+    x = rng.rand(cl["batch"], cl["steps"], cl["channels"], cl["size"],
+                 cl["size"]).astype(np.float32)
+    grads = {}
+    counters = _resnet_counters()
+    for dev in ("cpu", "cuda"):
+        # the same seeded draws on both devices
+        block = Unrolled(dev).initialize(mx.init.Xavier(), seed=seed)
+        if dev == "cuda":
+            block.hybridize()
+            counters["im2col"].launches = 0
+        with autograd.record():
+            loss = block(torch.from_numpy(x).to(dev))
+        autograd.backward(loss)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            cell_launches = counters["im2col"].launches
+        grads[dev] = {k: p.grad.detach().cpu() for k, p in
+                      block._collect_params_with_prefix().items()}
+    worst = max(_bn_err(grads["cuda"][k], g)[1] for k, g in
+                grads["cpu"].items() if k.endswith("weight"))
+    per_call = 2 * cl["steps"]
+    log("symbol_deploy: contrib Conv2DLSTMCell unrolled over %d steps at "
+        "(%d, %d, %d, %d) inside a hybridized block on %s: weight gradients "
+        "against the CPU plain path worst %.3g of their largest magnitude "
+        "(tol %.0e); K1b launches %d, expected %d (%d convolutions at the "
+        "warm-up and the capture)" % (
+            cl["steps"], cl["batch"], cl["channels"], cl["size"], cl["size"],
+            smi, worst, GRAD_TOL, cell_launches, 2 * per_call, per_call))
+    if worst > GRAD_TOL or cell_launches != 2 * per_call:
+        raise AssertionError("the contrib ConvLSTM cell's backward on the "
+                             "card disagrees with the CPU or skipped K1b")
+
+    # one SyncBatchNorm step (NCHW, axis 1) against the CPU
+    n, c, h, w = SYNC_BN_SHAPE
+    xb = rng.randn(n, c, h, w).astype(np.float32)
+    head = rng.randn(n, c, h, w).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        bn = SyncBatchNorm(in_channels=c, num_devices=1, device=dev)
+        bn.initialize()
+        xt = torch.from_numpy(xb).to(dev).requires_grad_()
+        if dev == "cuda":
+            counters["batch_norm_fwd"].launches = 0
+            counters["batch_norm_bwd"].launches = 0
+        with autograd.record():
+            yt = bn(xt)
+        autograd.backward(yt, torch.from_numpy(head).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            bn_launches = {k: counters[k].launches
+                           for k in ("batch_norm_fwd", "batch_norm_bwd")}
+        outs[dev] = [t.detach().cpu() for t in (
+            yt, xt.grad, bn.gamma.grad().data_torch,
+            bn.beta.grad().data_torch, bn.running_mean.data().data_torch,
+            bn.running_var.data().data_torch)]
+    errs = [_bn_err(g, r)[1] for g, r in zip(outs["cuda"], outs["cpu"])]
+    log("symbol_deploy: contrib SyncBatchNorm step on NCHW %s float32 on "
+        "%s: y, dx, dgamma, dbeta and the running statistics against the "
+        "CPU, worst %.3g of the largest magnitude (tol %.0e); K6a and K6b "
+        "launches %s" % (SYNC_BN_SHAPE, smi, max(errs), BN_TOL[torch.float32],
+                         bn_launches))
+    if max(errs) > BN_TOL[torch.float32] or \
+            list(bn_launches.values()) != [1, 1]:
+        raise AssertionError("the contrib SyncBatchNorm step disagrees with "
+                             "the CPU or skipped K6")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    rows = _bn_step_rows({(n * h * w, c): (1, 1)}, gen,
+                         "contrib SyncBatchNorm")
+    return dict(launches=cell_launches), bn_launches, rows
+
+
+def symbol_deploy(seed, smi, pool_row_f32):
+    """Phase 14: export and deploy (14a-14d).  Returns the launches and
+    rows of its paths for the kernels line."""
+    t0 = time.perf_counter()
+    net, path, serve_k3 = deploy_serve(seed, smi)
+    finetune = deploy_finetune(net, path, seed, smi)
+    _drop_export(path)
+    del net
+    torch.cuda.empty_cache()
+    resnet_launches, resnet_rows = deploy_resnet(seed, smi, pool_row_f32)
+    convlstm, sync_bn, sync_rows = deploy_contrib(seed, smi)
+    log("symbol_deploy: phase 14 in %.1f s on %s" % (
+        time.perf_counter() - t0, smi))
+    return dict(serve=serve_k3, finetune=finetune,
+                resnet=(resnet_launches, resnet_rows), convlstm=convlstm,
+                sync_bn=(sync_bn, sync_rows))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7233,6 +7864,8 @@ def main():
     seq_launches = phase("12 module family", module_family, args.seed, smi)
     gluon_launches, gluon_dw = phase("13 gluon api", gluon_api, args.seed,
                                      smi)
+    deploy = phase("14 export and deploy", symbol_deploy, args.seed, smi,
+                   pool_row_f32)
     # one entry per kernel per main path, each with that path's own count;
     # the served buckets are captured graphs, so "launches" is the
     # wrapper's count over the eager warm-up and capture of each bucket,
@@ -7410,6 +8043,52 @@ def main():
             source="mxnet_tpu_torch/csrc/batch_norm.cu",
             replaces="mxnet_tpu/ops/nn.py:462",
             **gluon_launches["batch_norm_" + kern], **bn_rows_f32[kern]))
+    # phase 14: the exported TransformerLM served from its SymbolBlock
+    # (captured buckets: the wrapper's count over their warm-up and
+    # capture, the replays' in a trace), fine-tuned eagerly; ResNet-50 v2
+    # from its export, one eager float32 step; the contrib ConvLSTM cell
+    # (captured) and SyncBatchNorm (eager)
+    entries.append(dict(
+        k3, path="symbol_deploy_serve",
+        launches_counted_over="eager warm-up + capture of each bucket",
+        **deploy["serve"], **fwd_rows["bucket 8"]))
+    for kern, line in (("fwd", 63), ("dq", 163), ("dkv", 206)):
+        entries.append(dict(
+            name="flash_attn_" + ("fwd" if kern == "fwd" else "bwd_" + kern),
+            path="symbol_deploy_finetune", route="cuda",
+            source="mxnet_tpu_torch/csrc/flash_attn_%s.cu"
+                   % ("fwd" if kern == "fwd" else "bwd"),
+            replaces="mxnet_tpu/ops/attention.py:%d" % line,
+            launches=deploy["finetune"][kern],
+            **(fwd_rows["bucket 8"] if kern == "fwd" else bwd_rows[kern])))
+    resnet_deploy, resnet_deploy_rows = deploy["resnet"]
+    for key, name, source, line in (
+            ("pertap", "conv_dw_pertap", "conv_dw", "pallas_conv.py:111"),
+            ("im2col", "conv_dw_im2col", "conv_dw", "pallas_conv.py:133"),
+            ("maxpool", "maxpool_bwd", "maxpool_bwd", "pallas_pool.py:55"),
+            ("batch_norm_fwd", "batch_norm_fwd", "batch_norm", "nn.py:462"),
+            ("batch_norm_bwd", "batch_norm_bwd", "batch_norm", "nn.py:462")):
+        entries.append(dict(
+            name=name, path="resnet_symbol_deploy", route="cuda",
+            dtype="float32", source="mxnet_tpu_torch/csrc/%s.cu" % source,
+            replaces="mxnet_tpu/ops/" + line,
+            launches=resnet_deploy[key], **resnet_deploy_rows[key],
+            **({"plan_route": "tf32x3"} if key in ("pertap", "im2col")
+               else {})))
+    entries.append(dict(
+        name="conv_dw_im2col", path="contrib_convlstm", route="cuda",
+        source="mxnet_tpu_torch/csrc/conv_dw.cu",
+        replaces="mxnet_tpu/ops/pallas_conv.py:133",
+        launches_counted_over="eager warm-up backward + capture",
+        plan_route="tf32x3", **deploy["convlstm"], **dw_convlstm))
+    sync_launches, sync_rows = deploy["sync_bn"]
+    for kern in ("fwd", "bwd"):
+        entries.append(dict(
+            name="batch_norm_" + kern, path="contrib_sync_batch_norm",
+            route="cuda", dtype="float32",
+            source="mxnet_tpu_torch/csrc/batch_norm.cu",
+            replaces="mxnet_tpu/ops/nn.py:462",
+            launches=sync_launches["batch_norm_" + kern], **sync_rows[kern]))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

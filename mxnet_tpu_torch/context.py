@@ -11,7 +11,7 @@ are the host.  A context compares and hashes equal to its
 ``with mx.cpu():`` makes a context the default for the scope
 (:func:`current_context`): new parameters, ``mx.nd`` arrays and
 DataLoader batches are made there.  Outside any scope the default is
-``gpu(0)``: every entry point runs on ``gpu(0)`` unless the caller or a
+``gpu(0)`` (unless a thread sets another, :func:`set_default`): every entry point runs on ``gpu(0)`` unless the caller or a
 scope names a device, and with no CUDA device it raises
 :class:`MXNetError`; it never carries on quietly on the CPU.
 """
@@ -25,7 +25,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "gpu", "cpu", "cpu_pinned", "current_context",
-           "num_gpus", "resolve_device", "as_torch_device"]
+           "set_default", "num_gpus", "resolve_device", "as_torch_device"]
 
 _scope = threading.local()
 
@@ -114,11 +114,21 @@ def _scoped():
 
 
 def current_context():
-    """The default context: the innermost ``with ctx:`` scope's, else
-    ``gpu(0)`` (reference: ``mx.context.current_context``; its default is
-    the card here, whether one is present or not)."""
+    """The default context: the innermost ``with ctx:`` scope's, else the
+    thread's default (:func:`set_default`; ``gpu(0)`` unless set)
+    (reference: ``mx.context.current_context``; its default is the card
+    here, whether one is present or not)."""
     ctx = _scoped()
+    if ctx is None:
+        ctx = getattr(_scope, "default", None)
     return ctx if ctx is not None else gpu(0)
+
+
+def set_default(ctx):
+    """Make ``ctx`` (a :class:`Context`, or None for ``gpu(0)``) this
+    thread's default outside any ``with`` scope (reference:
+    ``test_utils.set_default_context``)."""
+    _scope.default = None if ctx is None else Context(ctx)
 
 
 def as_torch_device(device):

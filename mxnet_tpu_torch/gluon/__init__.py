@@ -1,9 +1,9 @@
 """Gluon of the PyTorch port: blocks as ``torch.nn.Module``s with the
 reference's parameters, names and ``hybrid_forward``; losses, the
-Trainer, the recurrent layers and cells, the data API, the utilities and
-the model zoo."""
+Trainer, the recurrent layers and cells, the data API, the utilities, the
+model zoo and contrib."""
 
-from . import data, loss, model_zoo, nn, rnn, utils
+from . import contrib, data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -12,5 +12,5 @@ from .utils import split_and_load
 
 __all__ = ["Block", "Constant", "DeferredInitializationError",
            "HybridBlock", "Parameter", "ParameterDict", "SymbolBlock",
-           "Trainer", "data", "loss", "model_zoo", "nn", "rnn",
+           "Trainer", "contrib", "data", "loss", "model_zoo", "nn", "rnn",
            "split_and_load", "utils"]

@@ -115,10 +115,6 @@ class BoundOp:
         return getattr(F, self.name)(*inputs, **self.attrs)
 
 
-# where a layer of the port without a Symbol path is to get one
-SYMBOL_PATH_ITEM = "ROADMAP Queue 1 item 15"
-
-
 class _BlockScope:
     """Name scoping for blocks (reference: ``gluon/block.py``
     ``_BlockScope``; ``mxnet_tpu/gluon/block.py:48-100``)."""
@@ -344,9 +340,9 @@ class Block(nn.Module):
                 self, HybridBlock) and type(self).forward
                 is not HybridBlock.forward)
         if not symbolic:
-            raise MXNetError("%s has no Symbol path in the port yet (%s): "
-                             "call it on tensors or NDArrays"
-                             % (type(self).__name__, SYMBOL_PATH_ITEM))
+            raise MXNetError("%s has no Symbol path: the JAX package has "
+                             "none either; call it on tensors or NDArrays"
+                             % type(self).__name__)
         return self.forward(*args, **kwargs)
 
     def _hooked_cached(self, args, kwargs):

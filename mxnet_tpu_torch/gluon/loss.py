@@ -10,15 +10,22 @@ JAX package's arithmetic.  A loss returns the per-sample loss: the mean
 over every axis but ``batch_axis`` (``TripletLoss`` and
 ``CosineEmbeddingLoss``: one value a sample; ``CTCLoss``: one a
 sequence).
+
+``SoftmaxCrossEntropyLoss`` (with sparse labels) and ``KLDivLoss`` have
+the JAX package's Symbol path: ``log_softmax``, ``pick``, ``negative``,
+``log``, ``broadcast_mul`` and scalar nodes, and no mean (a Symbol has no
+``ndim`` there, so the JAX loss leaves the per-element loss as it is).
+The others raise :class:`~mxnet_tpu_torch.base.MXNetError` on a Symbol,
+as the JAX package has no path for them either.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import matrix as _matrix
+from ..base import MXNetError
 from ..ops import nn as _ops
-from .block import HybridBlock
+from .block import BoundOp, HybridBlock, tensor_ops
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
@@ -26,17 +33,26 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss", "CTCLoss"]
 
 
-def _apply_weighting(loss, weight=None, sample_weight=None):
+_BROADCAST_MUL = BoundOp("broadcast_mul")
+_LOG = BoundOp("log")
+
+
+def _apply_weighting(loss, weight=None, sample_weight=None, F=tensor_ops):
     """Weigh the element-wise loss by ``sample_weight`` (broadcast) and
-    the scalar ``weight``."""
+    the scalar ``weight``: on a Symbol (``F``) a ``broadcast_mul`` node
+    and a ``_mul_scalar``."""
     if sample_weight is not None:
-        loss = loss * sample_weight
+        loss = _BROADCAST_MUL(F, loss, sample_weight)
     if weight is not None:
         loss = loss * weight
     return loss
 
 
-def _mean_all_but_batch(loss, batch_axis):
+def _mean_all_but_batch(loss, batch_axis, F=tensor_ops):
+    """The mean over every axis but ``batch_axis``; a Symbol as it is (the
+    JAX package's Symbol has no ``ndim``, so its loss takes no mean)."""
+    if F is not tensor_ops:
+        return loss
     axes = [a for a in range(loss.dim()) if a != batch_axis]
     return loss.mean(dim=axes) if axes else loss
 
@@ -48,7 +64,8 @@ def _softrelu(x):
 class Loss(HybridBlock):
     """Base of the losses: scalar ``weight`` and ``batch_axis``.  A loss
     holds no parameters and runs where its inputs lie, so it takes no
-    device; it takes tensors or NDArrays, and has no Symbol path yet."""
+    device; it takes tensors or NDArrays (and Symbols where the JAX
+    package's loss does)."""
 
     _port_native = True
     _placeless = True
@@ -73,23 +90,34 @@ class SoftmaxCrossEntropyLoss(Loss):
     ``pred``'s shape.  ``from_logits``:
     ``pred`` is already a log-softmax."""
 
+    _symbolic = True
+
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
                  weight=None, batch_axis=0):
         super().__init__(weight, batch_axis)
         self._axis = axis
         self._sparse_label = sparse_label
         self._from_logits = from_logits
+        self._log_softmax = BoundOp("log_softmax", axis=axis)
+        self._pick = BoundOp("pick", axis=axis, keepdims=True)
 
     def forward(self, pred, label, sample_weight=None):
+        return HybridBlock.forward(self, pred, label, sample_weight)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = _ops.log_softmax(pred, axis=self._axis)
+            pred = self._log_softmax(F, pred)
         if self._sparse_label:
-            loss = -_matrix.pick(pred, label, axis=self._axis, keepdims=True)
-        else:
+            loss = -self._pick(F, pred, label)
+        elif F is tensor_ops:
             label = label.reshape(pred.shape)
             loss = -(pred * label).sum(dim=self._axis, keepdim=True)
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_all_but_batch(loss, self._batch_axis)
+        else:
+            raise MXNetError("SoftmaxCrossEntropyLoss(sparse_label=False) "
+                             "has no Symbol path: the JAX package has none "
+                             "either")
+        loss = _apply_weighting(loss, self._weight, sample_weight, F)
+        return _mean_all_but_batch(loss, self._batch_axis, F)
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
@@ -158,17 +186,23 @@ class KLDivLoss(Loss):
     """``label * (log(label + 1e-12) - pred)``, ``pred`` a log-softmax
     (``from_logits``) or logits (reference: loss.py KLDivLoss)."""
 
+    _symbolic = True
+
     def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0):
         super().__init__(weight, batch_axis)
         self._from_logits = from_logits
         self._axis = axis
+        self._log_softmax = BoundOp("log_softmax", axis=axis)
 
     def forward(self, pred, label, sample_weight=None):
+        return HybridBlock.forward(self, pred, label, sample_weight)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = _ops.log_softmax(pred, axis=self._axis)
-        loss = label * (torch.log(label + 1e-12) - pred)
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return _mean_all_but_batch(loss, self._batch_axis)
+            pred = self._log_softmax(F, pred)
+        loss = label * (_LOG(F, label + 1e-12) - pred)
+        loss = _apply_weighting(loss, self._weight, sample_weight, F)
+        return _mean_all_but_batch(loss, self._batch_axis, F)
 
 
 class CTCLoss(Loss):

@@ -16,9 +16,9 @@ weights, the BatchNorm running statistics included.
 Every constructor takes ``prefix`` and ``params`` and opens the JAX
 zoo's name scopes (``mxnet_tpu/gluon/model_zoo/vision/resnet.py:55-278``),
 so ``resnet50_v1(prefix="resnetv10_").collect_params()`` has the JAX
-package's keys (``resnetv10_stage1_conv2d0_weight``, ...).  The v1 blocks
-and nets have a Symbol path (``export``); the v2 blocks and the
-space-to-depth stem run on tensors and NDArrays only.
+package's keys (``resnetv10_stage1_conv2d0_weight``, ...).  The v1 and v2
+blocks and nets have a Symbol path (``export``); the space-to-depth stem
+runs on tensors and NDArrays only, as in the JAX package.
 
 Every constructor takes the JAX package's ``layout``: ``"NCHW"``, the
 default (OIHW weights, NCHW input, BatchNorm over axis 1), or ``"NHWC"``
@@ -44,7 +44,8 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
            "resnet101_v2", "resnet152_v2"]
 
-# the v1 blocks' relu after the residual sum
+# the v1 blocks' relu after the residual sum, the v2 blocks' before each
+# convolution
 _RELU = BoundOp("Activation", act_type="relu")
 
 
@@ -150,13 +151,13 @@ class BasicBlockV2(_Block):
                                  in_channels=in_channels, layout=layout,
                                  device=dev) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
-        x = _ops.activation(self.bn1(x), act_type="relu")
+        x = _RELU(F, self.bn1(x))
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = _ops.activation(self.bn2(x), act_type="relu")
+        x = _RELU(F, self.bn2(x))
         return self.conv2(x) + residual
 
 
@@ -184,15 +185,15 @@ class BottleneckV2(_Block):
                                  in_channels=in_channels, layout=layout,
                                  device=dev) if downsample else None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = x
-        x = _ops.activation(self.bn1(x), act_type="relu")
+        x = _RELU(F, self.bn1(x))
         if self.downsample is not None:
             residual = self.downsample(x)
         x = self.conv1(x)
-        x = _ops.activation(self.bn2(x), act_type="relu")
+        x = _RELU(F, self.bn2(x))
         x = self.conv2(x)
-        x = _ops.activation(self.bn3(x), act_type="relu")
+        x = _RELU(F, self.bn3(x))
         return self.conv3(x) + residual
 
 

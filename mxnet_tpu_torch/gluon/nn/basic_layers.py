@@ -9,9 +9,8 @@ left at 0 (``in_units``, ``in_channels``) is taken from the first input
 (:meth:`~mxnet_tpu_torch.gluon.HybridBlock.infer_shape`), as in the JAX
 package.  Each layer with a ``hybrid_forward`` runs the registered ops
 (``F.FullyConnected``, ``F.Activation``, ``F.Dropout``, ``F.BatchNorm``,
-``F.Flatten``, ``F.InstanceNorm``) on tensors and NDArrays and builds
-their nodes on a Symbol; LayerNorm and Embedding run on tensors and
-NDArrays only.
+``F.Flatten``, ``F.InstanceNorm``, ``F.LayerNorm``, ``F.Embedding``)
+on tensors and NDArrays and builds their nodes on a Symbol.
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ import torch
 from ... import autograd as _autograd
 from ... import ndarray as _nd
 from ...base import MXNetError
-from ...ops import matrix as _matrix
 from ...ops import nn as _ops
 from ..block import Block, BoundOp, HybridBlock, tensor_ops
 from ..block import _dtype as _block_dtype
@@ -299,18 +297,19 @@ class LayerNorm(HybridBlock):
         super().__init__(prefix=prefix, params=params, device=device)
         self._axis = axis
         self._epsilon = epsilon
+        self._norm = BoundOp("LayerNorm", axis=axis, eps=epsilon)
         self._param("gamma", (in_channels,), init=gamma_initializer,
                     grad_req="write" if scale else "null")
         self._param("beta", (in_channels,), init=beta_initializer,
                     grad_req="write" if center else "null")
 
-    def forward(self, x):
-        if self.gamma.shape[0] == 0 or self.beta.shape[0] == 0:
-            c = (x.shape[self._axis],)
-            self._finish_deferred(gamma=c, beta=c)
-        return _ops.layer_norm(x, self._parameters["gamma"],
-                               self._parameters["beta"], axis=self._axis,
-                               eps=self._epsilon)
+    def infer_shape(self, x, *args):
+        c = (x.shape[self._axis],)
+        self.gamma.shape = c
+        self.beta.shape = c
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return self._norm(F, x, gamma, beta)
 
 
 class Embedding(HybridBlock):
@@ -328,11 +327,13 @@ class Embedding(HybridBlock):
         if sparse_grad:
             raise MXNetError("Embedding: sparse_grad (row-sparse gradients) "
                              "is not ported")
+        self._lookup = BoundOp("Embedding", input_dim=input_dim,
+                               output_dim=output_dim, dtype=dtype)
         self._param("weight", (input_dim, output_dim), dtype,
                     weight_initializer)
 
-    def forward(self, x):
-        return _matrix.embedding(x, self._parameters["weight"])
+    def hybrid_forward(self, F, x, weight):
+        return self._lookup(F, x, weight)
 
 
 class Flatten(HybridBlock):

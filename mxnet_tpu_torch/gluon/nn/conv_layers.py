@@ -23,7 +23,6 @@ K1a/K1b, and a 1-D or 2-D max pool's input-gradient kernel K2
 
 from __future__ import annotations
 
-import torch.nn.functional as F
 
 from ...base import MXNetError
 from ...ops import nn as _ops
@@ -367,8 +366,8 @@ class ReflectionPad2D(HybridBlock):
     conv_layers.py ReflectionPad2D over src/operator/pad.cc): ``padding``
     an int (every side of H and W) or the op's 8-entry ``pad_width``
     ((N lo, N hi), (C lo, C hi), (H lo, H hi), (W lo, W hi), flattened;
-    N and C not padded).  It holds no parameters and takes no device; it
-    has no Symbol path yet."""
+    N and C not padded).  It holds no parameters and takes no device; on
+    a Symbol it is a ``Pad`` node, as in the JAX package."""
 
     _port_native = True
     _placeless = True
@@ -381,7 +380,7 @@ class ReflectionPad2D(HybridBlock):
         if len(self._padding) != 8 or any(self._padding[:4]):
             raise MXNetError("ReflectionPad2D pads H and W only: padding %s"
                              % (padding,))
+        self._pad = BoundOp("Pad", mode="reflect", pad_width=self._padding)
 
-    def forward(self, x):
-        p = self._padding
-        return F.pad(x, (p[6], p[7], p[4], p[5]), mode="reflect")
+    def hybrid_forward(self, F, x):
+        return self._pad(F, x)

@@ -9,21 +9,28 @@ computes one time step on tensors; ``unroll`` loops the steps in Python.
 The fused layers of :mod:`.rnn_layer` are the path for long sequences.
 
 The cells take the JAX package's positional arguments, ``prefix`` and
-``params`` (another cell's parameters, shared by name).  Cells with
-parameters live on ``device`` (default: the current context);
-``input_size=0`` takes the input width from the first step.  They run on
-tensors and NDArrays and have no Symbol path yet.
+``params`` (another cell's parameters, shared by name), and are named by
+its aliases (``rnn``, ``lstm``, ``gru``, ``dropout``, ``zoneout``; the
+counter is the one the layers share, so an ``LSTMCell`` made after an
+``LSTM`` layer is ``lstm1_``).  Cells with parameters live on ``device``
+(default: the current context); ``input_size=0`` takes the input width
+from the first step.  They run on tensors and NDArrays; a step of
+``RNNCell``, ``LSTMCell``, ``GRUCell``, ``DropoutCell``, ``ResidualCell``
+or a stack of them on Symbols builds the JAX package's nodes
+(``FullyConnected``, ``SliceChannel``, ``sigmoid``, ``tanh``,
+``elemwise_*``, ``_rminus_scalar``).  ``unroll`` over a Symbol raises
+:class:`MXNetError`: the JAX package has no such path either.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ... import autograd as _autograd
 from ...base import MXNetError
 from ...ops import nn as _ops
-from ..block import Block, HybridBlock, is_deferred
+from ...symbol import Symbol
+from ..block import Block, BoundOp, HybridBlock, _contains
 
 __all__ = ["RecurrentCell", "HybridRecurrentCell", "RNNCell", "LSTMCell",
            "GRUCell", "SequentialRNNCell", "HybridSequentialRNNCell",
@@ -36,6 +43,14 @@ def _cells_state_info(cells, batch_size):
 
 def _cells_begin_state(cells, batch_size=0, **kwargs):
     return sum([c.begin_state(batch_size, **kwargs) for c in cells], [])
+
+
+def _no_symbol(cell, inputs):
+    if isinstance(inputs, Symbol) or (isinstance(inputs, (list, tuple))
+                                      and _contains(inputs, Symbol)):
+        raise MXNetError("%s.unroll has no Symbol path: the JAX package has "
+                         "none either; step the cell on Symbols, or unroll "
+                         "it on tensors or NDArrays" % type(cell).__name__)
 
 
 def _format_sequence(length, inputs, layout, merge):
@@ -124,6 +139,7 @@ class RecurrentCell(Block):
         ``valid_length``, unless it is False), else a list of steps.
         With ``valid_length`` (N,), the outputs past each sequence's
         length are zero and each state is the one at its last step."""
+        _no_symbol(self, inputs)
         self.reset()
         inputs, axis, batch_size, length = _format_sequence(
             length, inputs, layout, False)
@@ -148,11 +164,6 @@ class RecurrentCell(Block):
             outputs = torch.stack(outputs, dim=axis)
         return outputs, states
 
-    def _get_activation(self, inputs, activation):
-        if isinstance(activation, str):
-            return _ops.activation(inputs, act_type=activation)
-        return activation(inputs)
-
 
 class HybridRecurrentCell(RecurrentCell, HybridBlock):
     """A cell that :meth:`hybridize` can capture (reference:
@@ -161,9 +172,12 @@ class HybridRecurrentCell(RecurrentCell, HybridBlock):
 
 class _GatedCell(HybridRecurrentCell):
     """A cell of ``gates`` x ``hidden_size`` rows of ``i2h_weight``,
-    ``h2h_weight``, ``i2h_bias`` and ``h2h_bias``."""
+    ``h2h_weight``, ``i2h_bias`` and ``h2h_bias``; its step's two
+    projections are ``FullyConnected`` nodes."""
 
     _gates = 1
+    _sigmoid = BoundOp("sigmoid")
+    _tanh = BoundOp("tanh")
 
     def __init__(self, hidden_size, i2h_weight_initializer,
                  h2h_weight_initializer, i2h_bias_initializer,
@@ -172,6 +186,9 @@ class _GatedCell(HybridRecurrentCell):
         self._hidden_size = hidden_size
         self._input_size = input_size
         rows = self._gates * hidden_size
+        self._fc = BoundOp("FullyConnected", num_hidden=rows)
+        self._split = BoundOp("SliceChannel", num_outputs=self._gates,
+                              axis=1)
         self._param("i2h_weight", (rows, input_size),
                     init=i2h_weight_initializer)
         self._param("h2h_weight", (rows, hidden_size),
@@ -183,13 +200,14 @@ class _GatedCell(HybridRecurrentCell):
         return [{"shape": (batch_size, self._hidden_size),
                  "__layout__": "NC"}]
 
-    def _projections(self, inputs, h):
-        if is_deferred(self.i2h_weight):
-            self._finish_deferred(i2h_weight=(
-                self._gates * self._hidden_size, inputs.shape[-1]))
-        p = self._parameters
-        return (F.linear(inputs, p["i2h_weight"], p["i2h_bias"]),
-                F.linear(h, p["h2h_weight"], p["h2h_bias"]))
+    def infer_shape(self, x, *args):
+        self.i2h_weight.shape = (self._gates * self._hidden_size,
+                                 x.shape[-1])
+
+    def _projections(self, F, inputs, h, i2h_weight, h2h_weight, i2h_bias,
+                     h2h_bias):
+        return (self._fc(F, inputs, i2h_weight, i2h_bias),
+                self._fc(F, h, h2h_weight, h2h_bias))
 
 
 class RNNCell(_GatedCell):
@@ -205,10 +223,16 @@ class RNNCell(_GatedCell):
                          h2h_bias_initializer, input_size, prefix, params,
                          device)
         self._activation = activation
+        self._act = BoundOp("Activation", act_type=activation) \
+            if isinstance(activation, str) else None
 
-    def forward(self, inputs, states):
-        i2h, h2h = self._projections(inputs, states[0])
-        output = self._get_activation(i2h + h2h, self._activation)
+    def _alias(self):
+        return "rnn"
+
+    def hybrid_forward(self, F, inputs, states, **params):
+        i2h, h2h = self._projections(F, inputs, states[0], **params)
+        output = self._act(F, i2h + h2h) if self._act is not None \
+            else self._activation(i2h + h2h)
         return output, [output]
 
 
@@ -230,12 +254,16 @@ class LSTMCell(_GatedCell):
     def state_info(self, batch_size=0):
         return 2 * super().state_info(batch_size)
 
-    def forward(self, inputs, states):
-        i2h, h2h = self._projections(inputs, states[0])
-        i, f, g, o = (i2h + h2h).chunk(4, dim=1)
-        next_c = torch.sigmoid(f) * states[1] + torch.sigmoid(i) \
-            * torch.tanh(g)
-        next_h = torch.sigmoid(o) * torch.tanh(next_c)
+    def _alias(self):
+        return "lstm"
+
+    def hybrid_forward(self, F, inputs, states, **params):
+        i2h, h2h = self._projections(F, inputs, states[0], **params)
+        i, f, g, o = self._split(F, i2h + h2h)
+        i, f, g, o = (self._sigmoid(F, i), self._sigmoid(F, f),
+                      self._tanh(F, g), self._sigmoid(F, o))
+        next_c = f * states[1] + i * g
+        next_h = o * self._tanh(F, next_c)
         return next_h, [next_h, next_c]
 
 
@@ -254,14 +282,17 @@ class GRUCell(_GatedCell):
                          h2h_bias_initializer, input_size, prefix, params,
                          device)
 
-    def forward(self, inputs, states):
+    def _alias(self):
+        return "gru"
+
+    def hybrid_forward(self, F, inputs, states, **params):
         h = states[0]
-        i2h, h2h = self._projections(inputs, h)
-        i2h_r, i2h_z, i2h_n = i2h.chunk(3, dim=1)
-        h2h_r, h2h_z, h2h_n = h2h.chunk(3, dim=1)
-        reset_gate = torch.sigmoid(i2h_r + h2h_r)
-        update_gate = torch.sigmoid(i2h_z + h2h_z)
-        next_h_tmp = torch.tanh(i2h_n + reset_gate * h2h_n)
+        i2h, h2h = self._projections(F, inputs, h, **params)
+        i2h_r, i2h_z, i2h_n = self._split(F, i2h)
+        h2h_r, h2h_z, h2h_n = self._split(F, h2h)
+        reset_gate = self._sigmoid(F, i2h_r + h2h_r)
+        update_gate = self._sigmoid(F, i2h_z + h2h_z)
+        next_h_tmp = self._tanh(F, i2h_n + reset_gate * h2h_n)
         next_h = (1.0 - update_gate) * next_h_tmp + update_gate * h
         return next_h, [next_h]
 
@@ -300,6 +331,7 @@ class SequentialRNNCell(RecurrentCell):
 
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
+        _no_symbol(self, inputs)
         self.reset()
         cells = list(self.children())
         if begin_state is None:
@@ -353,14 +385,17 @@ class DropoutCell(HybridRecurrentCell):
         super().__init__(prefix=prefix, params=params)
         self._rate = rate
         self._axes = tuple(axes)
+        self._drop = BoundOp("Dropout", p=rate, axes=self._axes)
 
     def state_info(self, batch_size=0):
         return []
 
-    def forward(self, inputs, states):
+    def _alias(self):
+        return "dropout"
+
+    def hybrid_forward(self, F, inputs, states):
         if self._rate > 0:
-            inputs = _ops.dropout(inputs, p=self._rate, axes=self._axes,
-                                  training=_autograd.is_training())
+            inputs = self._drop(F, inputs)
         return inputs, states
 
 
@@ -403,6 +438,9 @@ class ZoneoutCell(_ModifierCell):
         self.zoneout_states = zoneout_states
         self._prev_output = None
 
+    def _alias(self):
+        return "zoneout"
+
     def reset(self):
         super().reset()
         self._prev_output = None
@@ -429,7 +467,9 @@ class ZoneoutCell(_ModifierCell):
 
 class ResidualCell(_ModifierCell):
     """The base cell's output plus its input (reference: rnn_cell.py
-    ResidualCell)."""
+    ResidualCell); a step on Symbols adds an ``elemwise_add`` node."""
+
+    _symbolic = True
 
     def forward(self, inputs, states):
         output, states = self.base_cell(inputs, states)
@@ -437,6 +477,7 @@ class ResidualCell(_ModifierCell):
 
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
+        _no_symbol(self, inputs)
         self.reset()
         self.base_cell._modified = False
         try:
@@ -479,6 +520,7 @@ class BidirectionalCell(HybridRecurrentCell):
 
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
+        _no_symbol(self, inputs)
         self.reset()
         inputs, axis, batch_size, length = _format_sequence(
             length, inputs, layout, False)

@@ -24,17 +24,22 @@ __all__ = ["RNN", "LSTM", "GRU"]
 class _RNNLayer(HybridBlock):
     """The shared layer: ``hidden_size`` units, ``num_layers`` layers,
     ``layout`` "TNC" or "NTC", dropout between layers, and
-    ``input_size=0`` to take the input width from the first input."""
+    ``input_size=0`` to take the input width from the first input.  Named
+    by its mode (``lstm0_``, ``rnn_relu0_``), as in the JAX package, which
+    has no Symbol path for it: on a Symbol it raises."""
+
+    _symbolic = False
 
     def __init__(self, hidden_size, num_layers, layout, dropout,
                  bidirectional, input_size, i2h_weight_initializer,
                  h2h_weight_initializer, i2h_bias_initializer,
-                 h2h_bias_initializer, mode, *, device=None):
-        super().__init__(device=device)
+                 h2h_bias_initializer, mode, *, prefix=None, params=None,
+                 device=None):
+        self._mode = mode  # before Block.__init__, which calls _alias()
+        super().__init__(prefix=prefix, params=params, device=device)
         if layout not in ("TNC", "NTC"):
             raise ValueError("layout must be 'TNC' or 'NTC', not %r"
                              % (layout,))
-        self._mode = mode
         self._hidden_size = hidden_size
         self._num_layers = num_layers
         self._layout = layout
@@ -56,6 +61,9 @@ class _RNNLayer(HybridBlock):
                 self._param(names[3], (ng * nh,), init=h2h_bias_initializer)
                 self._names.append(names)
             ni = nh * self._dir
+
+    def _alias(self):
+        return self._mode
 
     def __repr__(self):
         return "%s(%s, %s layers, hidden=%s%s)" % (
@@ -113,12 +121,12 @@ class RNN(_RNNLayer):
                  layout="TNC", dropout=0, bidirectional=False, input_size=0,
                  i2h_weight_initializer=None, h2h_weight_initializer=None,
                  i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
-                 *, device=None):
+                 *, prefix=None, params=None, device=None):
         super().__init__(hidden_size, num_layers, layout, dropout,
                          bidirectional, input_size, i2h_weight_initializer,
                          h2h_weight_initializer, i2h_bias_initializer,
                          h2h_bias_initializer, "rnn_" + activation,
-                         device=device)
+                         prefix=prefix, params=params, device=device)
 
 
 class LSTM(_RNNLayer):
@@ -129,11 +137,12 @@ class LSTM(_RNNLayer):
                  bidirectional=False, input_size=0,
                  i2h_weight_initializer=None, h2h_weight_initializer=None,
                  i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
-                 *, device=None):
+                 *, prefix=None, params=None, device=None):
         super().__init__(hidden_size, num_layers, layout, dropout,
                          bidirectional, input_size, i2h_weight_initializer,
                          h2h_weight_initializer, i2h_bias_initializer,
-                         h2h_bias_initializer, "lstm", device=device)
+                         h2h_bias_initializer, "lstm", prefix=prefix,
+                         params=params, device=device)
 
 
 class GRU(_RNNLayer):
@@ -144,8 +153,9 @@ class GRU(_RNNLayer):
                  bidirectional=False, input_size=0,
                  i2h_weight_initializer=None, h2h_weight_initializer=None,
                  i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
-                 *, device=None):
+                 *, prefix=None, params=None, device=None):
         super().__init__(hidden_size, num_layers, layout, dropout,
                          bidirectional, input_size, i2h_weight_initializer,
                          h2h_weight_initializer, i2h_bias_initializer,
-                         h2h_bias_initializer, "gru", device=device)
+                         h2h_bias_initializer, "gru", prefix=prefix,
+                         params=params, device=device)

@@ -33,12 +33,13 @@ from typing import NamedTuple
 import torch
 
 from ..base import MXNetError
+from .registry import canonical_attr, register
 
 __all__ = ["mha_reference", "flash_attention", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "head_dim_bucket", "HEAD_DIM_BUCKETS", "MAX_HEAD_DIM",
            "fwd_launch_plan", "FwdLaunchPlan", "bwd_launch_plan",
-           "BwdLaunchPlan"]
+           "BwdLaunchPlan", "flash_attention_op"]
 
 _NEG_INF = -1e30
 # the kernels are built for these head dims; a head dim runs in the
@@ -396,3 +397,67 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, return_lse=False):
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# registered ops (reference: src/operator/contrib/transformer.cc;
+# mxnet_tpu/ops/attention.py:390-450)
+# ---------------------------------------------------------------------------
+
+
+@register("_contrib_flash_attention", aliases=("flash_attention",))
+def flash_attention_op(query, key, value, causal=False, sm_scale=None, **_):
+    """Fused scaled-dot-product attention over (B, H, S, D) q, k, v: the
+    registry face of :func:`flash_attention` (K3 forward, K4a/K4b
+    backward on the card).  The operands may be strided views (a symbol
+    graph slices a transposed qkv): they are made contiguous here.
+    ``causal`` and ``sm_scale`` may come as a symbol file's strings
+    (``"True"``, ``"None"``).  On ``meta`` tensors (shape inference) the
+    result's shape is given without reaching a kernel."""
+    causal, sm_scale = canonical_attr(causal), canonical_attr(sm_scale)
+    if query.device.type == "meta":
+        return torch.empty_like(query)
+    return flash_attention(query.contiguous(), key.contiguous(),
+                           value.contiguous(), causal=bool(causal),
+                           sm_scale=sm_scale)
+
+
+@register("_contrib_div_sqrt_dim", aliases=("div_sqrt_dim",))
+def div_sqrt_dim(data, **_):
+    """``data / sqrt(data.shape[-1])``."""
+    return data / math.sqrt(data.shape[-1])
+
+
+def _interleaved(qkv, heads, which):
+    """Head-major (B*heads, S, d) float32 slices of the interleaved (S, B,
+    3*proj) projection: ``which`` 0 for q, 1 for k, 2 for v."""
+    s, b, p3 = qkv.shape
+    d = p3 // 3 // heads
+    x = qkv.reshape(s, b, heads, 3, d)[:, :, :, which, :]
+    return x.permute(1, 2, 0, 3).reshape(b * heads, s, d).float()
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk",
+          aliases=("interleaved_matmul_selfatt_qk",))
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1, **_):
+    """Scores ``q k^T`` from the interleaved (seq, batch, 3*proj) layout,
+    (batch*heads, seq, seq), summed in float32 and returned in the
+    input's type (the JAX package computes it outside any kernel)."""
+    heads = int(heads)
+    q = _interleaved(queries_keys_values, heads, 0)
+    k = _interleaved(queries_keys_values, heads, 1)
+    return torch.bmm(q, k.transpose(1, 2)).to(queries_keys_values.dtype)
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt",
+          aliases=("interleaved_matmul_selfatt_valatt",))
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads=1, **_):
+    """``attention @ v`` back in the (seq, batch, proj) layout, summed in
+    float32 and returned in the input's type."""
+    heads = int(heads)
+    s, b, p3 = queries_keys_values.shape
+    v = _interleaved(queries_keys_values, heads, 2)
+    out = torch.bmm(attention.float(), v)
+    return out.reshape(b, heads, s, -1).permute(2, 0, 1, 3).reshape(
+        s, b, p3 // 3).to(queries_keys_values.dtype)

@@ -14,7 +14,7 @@ are brought into range before any gather, since on CUDA an index out of
 range is a device-side assert.
 
 Not ported yet: ``linalg_*``, ``Sequence*``, ``gather_nd``/``scatter_nd``,
-``index_*``, ``Crop``, ``Pad``, ``space_to_depth``/``depth_to_space`` and
+``index_*``, ``Crop``, ``space_to_depth``/``depth_to_space`` and
 the other ops of the JAX module.
 """
 
@@ -28,7 +28,7 @@ from ..base import torch_dtype
 from .registry import register
 
 __all__ = ["reshape", "transpose", "swapaxes", "slice_axis", "embedding", "arange_like",
-           "pick", "encode_basic_index", "decode_basic_index"]
+           "pad", "pick", "encode_basic_index", "decode_basic_index"]
 
 
 # ------------------------------------------------------------ reshape etc.
@@ -355,10 +355,59 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
     return torch.where(valid.unsqueeze(-1), out, nan)
 
 
-def arange_like(data, axis):
-    """``0, 1, ..., data.shape[axis] - 1`` in ``data``'s dtype."""
-    return torch.arange(data.shape[axis], dtype=data.dtype,
-                        device=data.device)
+@register("arange_like", aliases=("_contrib_arange_like",))
+def arange_like(data, start=0.0, step=1.0, repeat=1, axis=None, **_):
+    """``start, start + step, ...``, each value ``repeat`` times, shaped
+    like ``data`` (or as long as its ``axis``), made on ``data``'s device
+    (reference: contrib RangeLikeParam; ``mxnet_tpu/ops/contrib.py:417``).
+    Its type is ``data``'s when that is a floating type, else float32, as
+    the JAX op's arithmetic promotes an integer sequence."""
+    r = builtins.max(int(repeat), 1)
+    n = data.numel() if axis is None else data.shape[int(axis)]
+    idx = torch.arange(n, device=data.device)
+    if r > 1:
+        idx = torch.div(idx, r, rounding_mode="floor")
+    out = idx.to(data.dtype if data.is_floating_point() else torch.float32)
+    if step != 1:
+        out = out * step
+    if start != 0:
+        out = out + start
+    return out.reshape(data.shape) if axis is None else out
+
+
+def _pad_index(n, before, after, mode, device):
+    """The source index of each position of an axis of ``n`` padded by
+    ``before`` and ``after``: clamped (``edge``) or mirrored without
+    repeating the edge (``reflect``, numpy's)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+@register("Pad", aliases=("pad",))
+def pad(x, mode="constant", pad_width=(), constant_value=0.0, **_):
+    """Pad with the reference's flat ``(before0, after0, before1, ...)``
+    ``pad_width`` over any axes; modes ``constant`` (``constant_value``),
+    ``edge`` and ``reflect`` (``mxnet_tpu/ops/matrix.py:206``)."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    if mode not in ("constant", "edge", "reflect"):
+        raise ValueError("Pad: mode %r is not one of constant, edge, reflect"
+                         % (mode,))
+    if mode == "constant":
+        flat = []
+        for lo, hi in reversed(pw):
+            flat.extend((lo, hi))
+        return torch.nn.functional.pad(x, flat, value=constant_value)
+    out = x
+    for axis, (lo, hi) in enumerate(pw):
+        if lo or hi:
+            out = out.index_select(axis, _pad_index(
+                x.shape[axis], lo, hi, mode, x.device))
+    return out
 
 
 @register("pick")

@@ -435,6 +435,25 @@ def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out if output_mean_var else out[0]
 
 
+@register("_contrib_SyncBatchNorm", aliases=("SyncBatchNorm",))
+def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                    momentum=0.9, fix_gamma=True, use_global_stats=False,
+                    ndev=1, key="", axis_name=None, **_):
+    """Cross-device BatchNorm over axis 1 (reference:
+    contrib/sync_batch_norm.cc:48; ``mxnet_tpu/ops/contrib.py:440``), on
+    one device: :func:`batch_norm`'s output (K6a/K6b on the card); the
+    running statistics are the caller's to update.  ``ndev`` and ``key``
+    are accepted and unused; ``axis_name`` (statistics across devices)
+    raises."""
+    del momentum, ndev, key
+    if axis_name is not None:
+        raise MXNetError("SyncBatchNorm: axis_name (cross-device statistics) "
+                         "is not ported")
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps=eps,
+                      fix_gamma=fix_gamma, use_global_stats=use_global_stats,
+                      axis=1)[0]
+
+
 class _MaxPool(torch.autograd.Function):
     """NHWC 2-D max pool.  Forward: cuDNN's max pool (the JAX package's is
     XLA's ``reduce_window``); a padding it cannot express goes through an

@@ -1,4 +1,20 @@
-"""Small seeded cases of every registered op, for the port's tests.
+"""MXNet's test API, and small seeded cases of every registered op.
+
+The test API is the JAX package's (``mxnet_tpu/test_utils.py``; reference:
+python/mxnet/test_utils.py), on the port's arrays and executors: the
+default context (:func:`default_context`, :func:`set_default_context`,
+through the port's context scopes: ``gpu(0)`` outside any scope),
+:func:`default_dtype`, the seeded shapes and arrays (``rand_shape_*``,
+:func:`rand_ndarray`, :func:`random_arrays`, from one
+``RandomState(1234)`` as in the JAX package), the comparisons
+(:func:`same`, :func:`almost_equal`, :func:`assert_almost_equal`,
+:func:`find_max_violation`), the symbol checks (:func:`simple_forward`,
+:func:`check_symbolic_forward`, :func:`check_symbolic_backward`,
+:func:`check_numeric_gradient`, :func:`check_consistency`,
+:func:`check_op_consistency`: each registered op imperatively, through an
+executor and, where a card is present, on the card), :class:`DummyIter`,
+:func:`get_mnist` and :func:`get_mnist_iterator` (the synthetic
+``MNISTIter``, no download) and :func:`download`, which raises.
 
 Counterpart, for the port, of ``mxnet_tpu/test_utils.py``'s role: the
 CPU tests hold each op against the JAX package's op of the same name, and
@@ -26,7 +42,14 @@ import numpy as np
 
 __all__ = ["OP_CASES", "RANDOM_OPS", "INPLACE_OPS", "NO_TENSOR_OPS",
            "CUSTOM_CASE", "make_inputs", "op_name", "register_case_op",
-           "updated"]
+           "updated", "default_context", "set_default_context",
+           "default_dtype", "rand_shape_2d", "rand_shape_3d",
+           "rand_shape_nd", "rand_ndarray", "random_arrays",
+           "find_max_violation", "assert_almost_equal", "almost_equal",
+           "same", "check_numeric_gradient", "check_symbolic_forward",
+           "check_symbolic_backward", "check_consistency",
+           "check_op_consistency", "simple_forward", "DummyIter",
+           "get_mnist", "get_mnist_iterator", "download"]
 
 _F = ("f", (3, 4))
 _HALVES = ("v", [[-2.5, -1.5, -0.5, 0.5], [1.5, 2.5, 0.3, -0.7]])
@@ -420,6 +443,34 @@ OP_CASES.update({
                               "state_outputs": True,
                               "lstm_state_clip_min": -0.3,
                               "lstm_state_clip_max": 0.3}),
+    # the transformer's registered ops: K3 (K4a/K4b backward) on the card,
+    # and the interleaved helpers
+    "_contrib_flash_attention": ([("f", (2, 2, 9, 8))] * 3,
+                                 {"causal": True}),
+    "_contrib_flash_attention/cross": ([("f", (2, 3, 5, 8)),
+                                        ("f", (2, 3, 7, 8)),
+                                        ("f", (2, 3, 7, 8))],
+                                       {"sm_scale": 0.25}),
+    "_contrib_div_sqrt_dim": ([("f", (2, 3, 8))], {}),
+    "_contrib_interleaved_matmul_selfatt_qk": ([("f", (5, 2, 12))],
+                                               {"heads": 2}),
+    "_contrib_interleaved_matmul_selfatt_valatt": ([("f", (5, 2, 12)),
+                                                    ("u", (4, 5, 5), 0, 1)],
+                                                   {"heads": 2}),
+    "arange_like": ([("f", (3, 4))], {"axis": 1}),
+    "arange_like/int32-repeat": ([("i", (2, 6), 0, 5)],
+                                 {"start": 1.5, "step": 0.5, "repeat": 2}),
+    "Pad": ([("f", (2, 3, 4, 5))], {"mode": "constant",
+                                    "pad_width": (0, 0, 0, 0, 1, 2, 2, 1),
+                                    "constant_value": 1.5}),
+    "Pad/reflect": ([("f", (2, 3, 4, 5))],
+                    {"mode": "reflect", "pad_width": (0, 0, 0, 0, 2, 1, 3, 4)}),
+    "Pad/edge": ([("f", (2, 3, 4, 5))],
+                 {"mode": "edge", "pad_width": (0, 0, 1, 1, 2, 0, 0, 3)}),
+    "_contrib_SyncBatchNorm": ([("f", (2, 3, 4, 5)), ("f", (3,)),
+                                ("f", (3,)), ("f", (3,)),
+                                ("u", (3,), 0.5, 2.0)],
+                               {"fix_gamma": False}),
     # optimizer updates
     "sgd_update": ([_F, _F], {"lr": 0.1, "wd": 1e-3, "clip_gradient": 0.5}),
     "sgd_mom_update": ([_F, _F, _F], {"lr": 0.1, "momentum": 0.9,
@@ -555,3 +606,367 @@ def register_case_op(operator):
 from . import operator as _operator  # noqa: E402
 
 register_case_op(_operator)
+
+
+# ------------------------------------------------------------ MXNet's API
+
+_rng = np.random.RandomState(1234)
+
+
+def default_context():
+    """The current context (:func:`~mxnet_tpu_torch.context.
+    current_context`: a scope's, else the default, ``gpu(0)``)."""
+    from .context import current_context
+
+    return current_context()
+
+
+def set_default_context(ctx):
+    """Make ``ctx`` this thread's default context outside any scope."""
+    from .context import set_default
+
+    set_default(ctx)
+
+
+def default_dtype():
+    return np.float32
+
+
+def rand_shape_2d(dim0=10, dim1=10):
+    return (_rng.randint(1, dim0 + 1), _rng.randint(1, dim1 + 1))
+
+
+def rand_shape_3d(dim0=10, dim1=10, dim2=10):
+    return tuple(_rng.randint(1, d + 1) for d in (dim0, dim1, dim2))
+
+
+def rand_shape_nd(num_dim, dim=10):
+    return tuple(_rng.randint(1, dim + 1, size=num_dim))
+
+
+def rand_ndarray(shape, stype="default", density=None, dtype=None,
+                 distribution="uniform"):
+    """An NDArray on the default context, uniform in [-1, 1) (or
+    standard normal); sparse storage types are not ported and raise."""
+    from .base import MXNetError
+    from .ndarray import array
+
+    del density
+    if stype != "default":
+        raise MXNetError("rand_ndarray: storage type %r is not ported "
+                         "(dense arrays only)" % (stype,))
+    if distribution == "normal":
+        data = _rng.standard_normal(shape)
+    else:
+        data = _rng.uniform(-1, 1, size=shape)
+    return array(data.astype(dtype or np.float32))
+
+
+def random_arrays(*shapes):
+    arrays = [_rng.standard_normal(size=s).astype(np.float32)
+              for s in shapes]
+    return arrays[0] if len(arrays) == 1 else arrays
+
+
+def _as_np(a):
+    from .ndarray import NDArray
+
+    if isinstance(a, NDArray):
+        return a.asnumpy()
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def find_max_violation(a, b, rtol=None, atol=None):
+    """The index of the largest ``|a - b| / (atol + rtol |b|)`` and that
+    ratio."""
+    a, b = _as_np(a), _as_np(b)
+    rtol = rtol or 1e-5
+    atol = atol or 1e-20
+    violation = np.abs(a - b) / (atol + rtol * np.abs(b) + 1e-37)
+    if not violation.size:
+        return (), 0.0
+    return (np.unravel_index(np.argmax(violation), violation.shape),
+            violation.max())
+
+
+def assert_almost_equal(a, b, rtol=None, atol=None, names=("a", "b"),
+                        equal_nan=False):
+    a_np, b_np = _as_np(a), _as_np(b)
+    rtol = 1e-5 if rtol is None else rtol
+    atol = 1e-20 if atol is None else atol
+    if not np.allclose(a_np, b_np, rtol=rtol, atol=atol,
+                       equal_nan=equal_nan):
+        idx, max_v = find_max_violation(a_np, b_np, rtol, atol)
+        raise AssertionError(
+            "Items are not equal (rtol=%g, atol=%g): max violation %.4g at "
+            "%s\n %s: %s\n %s: %s" % (rtol, atol, max_v, idx, names[0],
+                                       a_np.flat[:10], names[1],
+                                       b_np.flat[:10]))
+
+
+def almost_equal(a, b, rtol=None, atol=None, equal_nan=False):
+    return np.allclose(_as_np(a), _as_np(b), rtol=rtol or 1e-5,
+                       atol=atol or 1e-20, equal_nan=equal_nan)
+
+
+def same(a, b):
+    return np.array_equal(_as_np(a), _as_np(b))
+
+
+def _arrays(location, names, dtype, ctx):
+    from .ndarray import NDArray, array
+
+    if isinstance(location, (list, tuple)):
+        location = dict(zip(names, location))
+    return {k: v.copyto(ctx) if isinstance(v, NDArray)
+            else array(np.asarray(v, dtype=dtype), ctx=ctx)
+            for k, v in location.items()}
+
+
+def check_numeric_gradient(sym, location, aux_states=None, numeric_eps=1e-3,
+                           rtol=1e-2, atol=None, grad_nodes=None,
+                           use_forward_train=True, ctx=None,
+                           dtype=np.float32):
+    """The executor's gradients of ``sum(outputs[0])`` against central
+    differences in float64 arithmetic on the inputs; arguments missing
+    from ``location`` are drawn from ``RandomState(0)`` in [-0.5, 0.5) at
+    their inferred shapes."""
+    from .ndarray import array
+
+    ctx = ctx or default_context()
+    location = _arrays(location, sym.list_arguments(), dtype, ctx)
+    missing = [n for n in sym.list_arguments() if n not in location]
+    if missing:
+        shapes, _, _ = sym.infer_shape_partial(
+            **{k: v.shape for k, v in location.items()})
+        by_name = dict(zip(sym.list_arguments(), shapes))
+        rng = np.random.RandomState(0)
+        for n in missing:
+            if by_name.get(n) is None:
+                raise ValueError("cannot infer shape for %r; pass it in "
+                                 "location" % n)
+            location[n] = array(rng.uniform(-0.5, 0.5, by_name[n])
+                                .astype(dtype), ctx=ctx)
+    if grad_nodes is None:
+        grad_nodes = list(location)
+    ex = sym.bind(ctx, {k: v.copy() for k, v in location.items()},
+                  args_grad={k: array(np.zeros(v.shape, dtype=dtype),
+                                      ctx=ctx)
+                             for k, v in location.items() if k in grad_nodes},
+                  grad_req={k: ("write" if k in grad_nodes else "null")
+                            for k in location},
+                  aux_states=aux_states)
+    ex.forward(is_train=use_forward_train)
+    out = ex.outputs[0]
+    ex.backward([array(np.ones(out.shape, dtype=dtype), ctx=ctx)])
+    sym_grads = {k: ex.grad_dict[k].asnumpy() for k in grad_nodes}
+
+    def loss_at(loc):
+        ex2 = sym.bind(ctx, {k: array(v.astype(dtype), ctx=ctx)
+                             for k, v in loc.items()},
+                       args_grad=None, grad_req={k: "null" for k in loc},
+                       aux_states=aux_states)
+        ex2.forward(is_train=use_forward_train)
+        return ex2.outputs[0].asnumpy().astype(np.float64).sum()
+
+    base = {k: v.asnumpy().astype(np.float64) for k, v in location.items()}
+    for name in grad_nodes:
+        flat = base[name].reshape(-1)
+        num = np.zeros_like(flat)
+        for i in range(flat.size):
+            orig = flat[i]
+            flat[i] = orig + numeric_eps / 2
+            fp = loss_at(base)
+            flat[i] = orig - numeric_eps / 2
+            fm = loss_at(base)
+            flat[i] = orig
+            num[i] = (fp - fm) / numeric_eps
+        assert_almost_equal(sym_grads[name], num.reshape(base[name].shape),
+                            rtol=rtol, atol=atol or 1e-4,
+                            names=("symbolic_grad(%s)" % name,
+                                   "numeric_grad"))
+
+
+def check_symbolic_forward(sym, location, expected, rtol=1e-5, atol=None,
+                           aux_states=None, ctx=None, equal_nan=False,
+                           dtype=np.float32):
+    """The executor's predict-mode outputs against ``expected``; returns
+    them as numpy arrays."""
+    ctx = ctx or default_context()
+    args = _arrays(location, sym.list_arguments(), dtype, ctx)
+    ex = sym.bind(ctx, args, grad_req={k: "null" for k in args},
+                  aux_states=aux_states)
+    outputs = ex.forward(is_train=False)
+    if not isinstance(expected, (list, tuple)):
+        expected = [expected]
+    for out, exp in zip(outputs, expected):
+        assert_almost_equal(out, exp, rtol=rtol, atol=atol,
+                            equal_nan=equal_nan)
+    return [o.asnumpy() for o in outputs]
+
+
+def check_symbolic_backward(sym, location, out_grads, expected, rtol=1e-5,
+                            atol=None, aux_states=None, grad_req="write",
+                            ctx=None, dtype=np.float32):
+    """The executor's gradients (a train-mode forward, then ``out_grads``)
+    against ``expected`` (a list in argument order or a dict); returns
+    every gradient as numpy arrays."""
+    from .ndarray import NDArray, array
+
+    ctx = ctx or default_context()
+    args = _arrays(location, sym.list_arguments(), dtype, ctx)
+    if isinstance(expected, (list, tuple)):
+        expected = dict(zip(sym.list_arguments(), expected))
+    grads = {k: array(np.zeros(v.shape, dtype=dtype), ctx=ctx)
+             for k, v in args.items()}
+    ex = sym.bind(ctx, args, args_grad=grads, grad_req=grad_req,
+                  aux_states=aux_states)
+    ex.forward(is_train=True)
+    heads = out_grads if isinstance(out_grads, (list, tuple)) \
+        else [out_grads]
+    ex.backward([g.copyto(ctx) if isinstance(g, NDArray)
+                 else array(np.asarray(g, dtype=dtype), ctx=ctx)
+                 for g in heads])
+    for name, exp in expected.items():
+        assert_almost_equal(ex.grad_dict[name], exp, rtol=rtol, atol=atol,
+                            names=("grad(%s)" % name, "expected"))
+    return {k: v.asnumpy() for k, v in ex.grad_dict.items()}
+
+
+def _contexts():
+    from .context import cpu, gpu, num_gpus
+
+    return [{"ctx": cpu()}] + ([{"ctx": gpu(0)}] if num_gpus() else [])
+
+
+def check_consistency(sym, ctx_list=None, scale=1.0, rtol=1e-4, atol=1e-4,
+                      arg_params=None, aux_params=None, raise_on_err=True):
+    """The symbol's predict-mode outputs on every context of ``ctx_list``
+    (default: the CPU, and the card where one is present: the reference's
+    cpu-against-gpu check) from the same normal draws (``scale``), each
+    against the first's; returns every context's outputs."""
+    del arg_params, aux_params, raise_on_err
+    ctx_list = ctx_list or _contexts()
+    shapes = {k: v for spec in ctx_list for k, v in spec.items()
+              if k not in ("ctx", "type_dict")}
+    results, base = [], None
+    for spec in ctx_list:
+        ex = sym.simple_bind(ctx=spec["ctx"], grad_req="null", **shapes)
+        if base is None:
+            base = {n: (_rng.standard_normal(ex.arg_dict[n].shape) * scale)
+                    .astype(np.float32) for n in sym.list_arguments()}
+        for name, value in base.items():
+            ex.arg_dict[name][:] = value
+        results.append([o.asnumpy() for o in ex.forward(is_train=False)])
+    for res in results[1:]:
+        for a, b in zip(results[0], res):
+            assert_almost_equal(a, b, rtol=rtol, atol=atol)
+    return results
+
+
+def check_op_consistency(op_name, arrays, attrs=None, rtol=1e-4, atol=1e-4,
+                         shard_axis=0):
+    """The registered op ``op_name`` on the numpy ``arrays`` three ways:
+    imperatively on the CPU, as a graph through an executor on the CPU,
+    and imperatively on the card where one is present (the JAX package's
+    third way, one op over a mesh of devices, is a card here:
+    ``shard_axis`` is accepted and unused); each against the first.
+    Returns the imperative outputs as numpy arrays."""
+    from . import symbol as _symbol
+    from .context import cpu
+    from .ndarray import array, imperative_invoke
+
+    del shard_axis
+    attrs = dict(attrs or {})
+
+    def eager(ctx):
+        return [o.asnumpy() for o in imperative_invoke(
+            op_name, [array(a, ctx=ctx, dtype=a.dtype) for a in arrays],
+            dict(attrs))]
+
+    first = eager(cpu())
+    variables = [_symbol.Variable("in%d" % i) for i in range(len(arrays))]
+    out = getattr(_symbol, op_name)(*variables, **attrs)
+    by_name = {"in%d" % i: array(a, ctx=cpu(), dtype=a.dtype)
+               for i, a in enumerate(arrays)}
+    ex = out.bind(cpu(), {n: by_name[n] for n in out.list_arguments()},
+                  aux_states={n: by_name[n]
+                              for n in out.list_auxiliary_states()})
+    runs = [("staged", [o.asnumpy() for o in ex.forward()])]
+    runs += [("card", eager(spec["ctx"])) for spec in _contexts()[1:]]
+    for name, res in runs:
+        assert len(res) == len(first), (op_name, name)
+        for a, b in zip(first, res):
+            assert_almost_equal(a, b, rtol=rtol, atol=atol,
+                                names=("eager", name))
+    return first
+
+
+def simple_forward(sym, ctx=None, is_train=False, **inputs):
+    from .ndarray import array
+
+    ctx = ctx or default_context()
+    ex = sym.bind(ctx, {k: array(v, ctx=ctx) for k, v in inputs.items()})
+    outputs = [o.asnumpy() for o in ex.forward(is_train=is_train)]
+    return outputs[0] if len(outputs) == 1 else outputs
+
+
+class DummyIter:
+    """One batch of ``real_iter`` repeated forever."""
+
+    def __init__(self, real_iter):
+        self.real_iter = real_iter
+        self.provide_data = real_iter.provide_data
+        self.provide_label = real_iter.provide_label
+        self.batch_size = real_iter.batch_size
+        self.the_batch = next(real_iter)
+
+    def __iter__(self):
+        return self
+
+    def next(self):
+        return self.the_batch
+
+    __next__ = next
+
+
+def get_mnist():
+    """The MNIST arrays (``train_data``, ``train_label``, ``test_data``,
+    ``test_label``) of :class:`~mxnet_tpu_torch.io.MNISTIter`: the idx
+    files where present, else its synthetic digits (no download)."""
+    from .io.io import MNISTIter
+
+    def collect(which):
+        it = MNISTIter(image=which, batch_size=100, shuffle=False)
+        it.reset()
+        data, label = [], []
+        for b in it:
+            data.append(b.data[0].asnumpy())
+            label.append(b.label[0].asnumpy())
+        return np.concatenate(data), np.concatenate(label)
+
+    train_img, train_lbl = collect("train")
+    test_img, test_lbl = collect("val")
+    return {"train_data": train_img, "train_label": train_lbl,
+            "test_data": test_img, "test_label": test_lbl}
+
+
+def get_mnist_iterator(batch_size, input_shape, num_parts=1, part_index=0):
+    """``(train, val)`` :class:`~mxnet_tpu_torch.io.MNISTIter`s, flat when
+    ``input_shape`` has one dimension."""
+    from .io.io import MNISTIter
+
+    flat = len(input_shape) == 1
+    train = MNISTIter(image="train", batch_size=batch_size, shuffle=True,
+                      flat=flat, num_parts=num_parts, part_index=part_index)
+    val = MNISTIter(image="val", batch_size=batch_size, shuffle=False,
+                    flat=flat)
+    return train, val
+
+
+def download(url, fname=None, dirname=None, overwrite=False, retries=5):
+    """Raises: the port downloads nothing; stage files locally."""
+    raise RuntimeError("test_utils.download(%r): the port downloads "
+                       "nothing; stage the file locally instead" % (url,))

@@ -58,6 +58,11 @@ def _resnet(mx, prefix):
                            [8, 8, 16, 16, 32], classes=5, prefix=prefix)
 
 
+def _transformer(mx, prefix):
+    return mx.gluon.nn.TransformerLM(100, units=32, num_layers=2,
+                                     num_heads=2, prefix=prefix)
+
+
 def _names(block):
     out = [(block.prefix, block.name)]
     for child in (block._modules.values() if hasattr(block, "_modules")
@@ -67,7 +72,8 @@ def _names(block):
     return out
 
 
-@pytest.mark.parametrize("make", [_user_net, _resnet], ids=["user", "resnet"])
+@pytest.mark.parametrize("make", [_user_net, _resnet, _transformer],
+                         ids=["user", "resnet", "transformer"])
 def test_prefixes_names_and_collect_params_equal_jax(make):
     with tmx.cpu():
         t = make(tmx, "model_")

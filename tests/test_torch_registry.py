@@ -236,3 +236,75 @@ def test_mixed_dtype_convolution_raises_in_both_packages():
     with pytest.raises(Exception):
         treg.apply_op("Convolution", torch.from_numpy(x), torch.from_numpy(w),
                       kernel=(3, 3), num_filter=4)
+
+
+def test_flash_attention_op_takes_a_symbol_files_strings_views_and_meta():
+    """``_contrib_flash_attention`` as a symbol file hands it: string
+    attributes (``"True"``, ``"None"``), strided views of a transposed
+    qkv; on meta tensors the output's shape, no kernel; its gradients
+    through the backward (the plain versions on the CPU) against JAX's
+    autograd of the JAX op."""
+    from mxnet_tpu_torch.ops import attention
+
+    rng = np.random.RandomState(3)
+    qkv = rng.randn(2, 7, 3 * 2, 8).astype(np.float32)   # (B, S, 3H, d)
+    heads = torch.from_numpy(qkv).permute(0, 2, 1, 3)     # (B, 3H, S, d)
+    q, k, v = (heads[:, i * 2:(i + 1) * 2] for i in range(3))
+    assert not q.is_contiguous()
+    fn = treg.get("_contrib_flash_attention").fn
+    got = fn(q, k, v, causal="True", sm_scale="None")
+    jq, jk, jv = (jax.numpy.asarray(np.ascontiguousarray(t.numpy()))
+                  for t in (q, k, v))
+    want = np.asarray(jreg.get("_contrib_flash_attention").fn(
+        jq, jk, jv, causal=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, fn(q, k, v, causal=True, sm_scale=None))
+    assert not torch.equal(got, fn(q, k, v, causal="False"))
+    before = attention.flash_attention.launches
+    meta = fn(*(torch.empty(2, 3, 5, 8, device="meta") for _ in range(3)),
+              causal="True")
+    assert meta.device.type == "meta" and meta.shape == (2, 3, 5, 8)
+    assert attention.flash_attention.launches == before
+    # gradients of sum(out * w) in both packages
+    w = rng.randn(*want.shape).astype(np.float32)
+    leaves = [t.contiguous().requires_grad_() for t in (q, k, v)]
+    (fn(*leaves, causal=True) * torch.from_numpy(w)).sum().backward()
+    jgrads = jax.grad(lambda a, b, c: (jreg.get(
+        "_contrib_flash_attention").fn(a, b, c, causal=True) * w).sum(),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    for leaf, jg in zip(leaves, jgrads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(jg),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_arange_like_pad_and_sync_batch_norm_through_a_symbol_file():
+    """The new ops as nodes of a graph that crosses from the JAX package:
+    its JSON's string attributes reach each op, and the port's executor
+    gives the JAX executor's outputs (1e-6 of the magnitude)."""
+    from mxnet_tpu.base import NameManager as JaxNameManager
+
+    with JaxNameManager():
+        data = jmx.sym.var("data")
+        pos = jmx.sym.arange_like(data, axis=1, start=2.0, step=0.5)
+        padded = jmx.sym.Pad(data, mode="edge",
+                             pad_width=(0, 0, 0, 0, 1, 2, 0, 1))
+        sbn = jmx.sym.SyncBatchNorm(
+            data, jmx.sym.var("g"), jmx.sym.var("b"), jmx.sym.var("m"),
+            jmx.sym.var("v"), fix_gamma=False, eps=1e-3)
+        graph = jmx.sym.Group([pos, padded, sbn])
+    rng = np.random.RandomState(5)
+    arrays = {"data": rng.randn(2, 3, 4, 5), "g": rng.randn(3),
+              "b": rng.randn(3), "m": rng.randn(3),
+              "v": rng.uniform(0.5, 2.0, 3)}
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    want = [o.asnumpy() for o in graph.bind(
+        jmx.cpu(), {k: jmx.nd.array(v) for k, v in arrays.items()})
+        .forward()]
+    port = tmx.sym.load_json(graph.tojson())
+    got = [o.asnumpy() for o in port.bind(
+        CPU, {k: tmx.nd.array(v, ctx=CPU) for k, v in arrays.items()})
+        .forward()]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-6 * max(1.0, np.abs(w).max()))

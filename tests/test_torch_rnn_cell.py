@@ -219,3 +219,30 @@ def test_cell_errors_and_hybridized_step():
     out2, states = hs(torch.ones(N, C), states)
     assert len(hs._cached_graphs) == 1 and len(states) == 3
     assert tuple(out2.shape) == (N, H) and not torch.equal(out, out2)
+
+
+def _prefixes(pkg):
+    """The prefixes of a sequence of recurrent layers and cells made in a
+    fresh scope (whose counters start at 0, as the process-wide ones do),
+    and of a stack's cells: each named by its alias, one counter per alias
+    shared by the layers and the cells."""
+    g = pkg.gluon.rnn
+    holder = pkg.gluon.Block(prefix="model_")
+    with holder.name_scope():
+        blocks = [g.LSTM(4), g.LSTMCell(4), g.GRUCell(4), g.RNN(3),
+                  g.RNN(3, activation="tanh"), g.RNNCell(3),
+                  g.DropoutCell(0.5)]
+        seq = g.SequentialRNNCell()
+        with seq.name_scope():
+            seq.add(g.LSTMCell(3))
+            seq.add(g.GRUCell(3))
+        blocks += [seq] + list(seq)
+        blocks += [g.ZoneoutCell(g.GRUCell(3)),
+                   g.ResidualCell(g.LSTMCell(3))]
+    return [b.prefix for b in blocks] + list(blocks[1].collect_params())
+
+
+def test_cell_prefixes_equal_jax():
+    with tmx.cpu():
+        got = _prefixes(tmx)
+    assert got == _prefixes(mx)
