@@ -379,7 +379,34 @@ Phases (any failure raises, and the script exits non-zero):
    shapes in a hybridized block (its gradients against the CPU, K1b at
    the warm-up and the capture: path contrib_convlstm) and one
    SyncBatchNorm step on NCHW (32, 64, 112, 112) (K6a, K6b: path
-   contrib_sync_batch_norm); the phase's time.
+   contrib_sync_batch_norm); the phase's time;
+15. image records (the record format, JPEG where cv2 or PIL imports on
+   the machine, else raw float32 records, chosen before the phase and
+   printed): (a) 512 seeded images at 3 x 224 x 224 (common/data.py's
+   row band a class) written as raw float32 records and, with a codec, as
+   JPEG records; mx.io.ImageRecordIter over each at batch 128 on the
+   card: every batch bitwise equal to the records' own pixels (decoded,
+   less the mean for JPEG), the labels equal, the iterator's host ms a
+   batch by part (read, decode, assemble, pinned copy) and its pinned
+   blocks; (b) train_imagenet.py's own code (example/image-classification/
+   common/{fit,data}.py, ``mxnet_tpu`` replaced by ``mxnet_tpu_torch``):
+   fit.get_network("resnet50_v1", 10, (3, 224, 224)) trained by fit.fit
+   at the script's defaults (batch 128, SGD 0.1, momentum 0.9, wd 1e-4)
+   with --kv-store local for 2 epochs of the 512 images, through
+   get_rec_iter (or a raw-record loader passed as fit's data_loader):
+   the Module on gpu(0), its store holding the bound parameters and
+   copying nothing, a one-batch fit's first update (cuDNN's deterministic
+   algorithms) bitwise a second Module's forward_backward and update from
+   the same parameters on the same batch, the losses finite, the
+   wrappers' counts over the main path and K1a 44, K1b 9, K2 1, K6a 53
+   and K6b 53 a step in a trace of its replays; reported: the
+   Speedometer's samples/s, the host ms of each of fit's calls a batch,
+   the device's busy share and the step beside phase 13's (the kernels
+   line's path imagenet_module); (c) ImageDetIter over 96 SSD300 records
+   at (32, 3, 300, 300) written by the phase (rand_crop and rand_pad 0):
+   the labels equal to the records' own, 3 eager steps of phase 11's
+   SSD300 step on its batches (K1a, K1b, K2 counted: path ssd_records),
+   the step beside phase 11's; the phase's time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -5707,23 +5734,25 @@ def ssd_pools(batch=SSD_BATCH, size=SSD_SIZE):
 
 # phase 3c's float32-accuracy check of K1's 3xTF32 route at three SSD300
 # shapes, by NHWC x and O: its error against a float64 dW may be at most
-# DW_F64_RATIO times the plain float32 version's (cuBLAS, TF32 off)
+# DW_F64_RATIO times that of one float32 einsum a tap (cuBLAS, TF32 off;
+# the plain version's formula before it summed in blocks of positions)
 SSD_F64_CHECKS = {"conv4_3": ((SSD_BATCH, 38, 38, 512), 512),
                   "conv1_1": ((SSD_BATCH, SSD_SIZE, SSD_SIZE, 3), 64),
                   "conv4_3's loc head": ((SSD_BATCH, 38, 38, 512), 16)}
 DW_F64_RATIO = 4.0
 
 
-def _dw_f64(x, dy, k, s, p, d):
-    """dW in float64 by conv_dw_reference's formula: one einsum a tap over
-    the padded input's strided, dilated slices."""
+def _dw_einsum(x, dy, k, s, p, d, dtype):
+    """dW in ``dtype`` by one einsum a tap over the padded input's
+    strided, dilated slices: float64 for the true dW, float32 for one
+    cuBLAS product a tap."""
     import torch.nn.functional as F
 
     oh, ow = dy.shape[1], dy.shape[2]
-    xp = F.pad(x.double(), (0, 0, p[1], p[1], p[0], p[0]))
-    dyd = dy.double()
+    xp = F.pad(x.to(dtype), (0, 0, p[1], p[1], p[0], p[0]))
+    dyd = dy.to(dtype)
     out = torch.empty((dy.shape[3],) + tuple(k) + (x.shape[3],),
-                      dtype=torch.float64, device=x.device)
+                      dtype=dtype, device=x.device)
     for r in range(k[0]):
         for c in range(k[1]):
             y0, x0 = r * d[0], c * d[1]
@@ -5733,21 +5762,24 @@ def _dw_f64(x, dy, k, s, p, d):
     return out
 
 
-def dw_f64_check(name, got, plain, want):
-    """K1's float32 dW ``got`` and the plain version's ``plain`` against
-    the float64 ``want``: the kernel's largest error may be at most
-    DW_F64_RATIO times the plain version's."""
+def dw_f64_check(name, got, plain, want, blocked):
+    """K1's float32 dW ``got`` and one float32 einsum a tap's ``plain``
+    against the float64 ``want``: the kernel's largest error may be at
+    most DW_F64_RATIO times the einsum's (the plain version's,
+    ``blocked``, is logged beside them)."""
     e_kernel = (got.double() - want).abs().max().item()
     e_plain = (plain.double() - want).abs().max().item()
+    e_blocked = (blocked.double() - want).abs().max().item()
     log("kernel conv_dw [SSD300 %s, float32]: largest error against a "
-        "float64 dW: kernel %.3g, plain float32 version %.3g (ratio %.2f, "
-        "limit %.0f); largest magnitude %.3g" % (
+        "float64 dW: kernel %.3g, one float32 einsum a tap %.3g (ratio %.2f, "
+        "limit %.0f); the plain version, summed in blocks, %.3g; largest "
+        "magnitude %.3g" % (
             name, e_kernel, e_plain,
             e_kernel / e_plain if e_plain else float("inf"), DW_F64_RATIO,
-            want.abs().max().item()))
+            e_blocked, want.abs().max().item()))
     if not e_kernel <= DW_F64_RATIO * e_plain:
         raise AssertionError("K1's float32 dW at SSD300's %s is not float32-"
-                             "accurate: %.3g against the plain version's "
+                             "accurate: %.3g against a float32 einsum's "
                              "%.3g" % (name, e_kernel, e_plain))
 
 
@@ -5757,7 +5789,8 @@ def ssd_conv_kernels(seed):
     convolution, fc6's dilated one and the heads' odd widths among them,
     within DW_TOL of the plain version's largest magnitude, bitwise equal
     across two launches, beside cuDNN's wgrad, and at SSD_F64_CHECKS no
-    farther from a float64 dW than DW_F64_RATIO times the plain version;
+    farther from a float64 dW than DW_F64_RATIO times one float32 einsum
+    a tap;
     K2 at pool1-pool5, bitwise
     equal to its plain version and across two launches.  Returns the rows
     of K1a, K1b and K2 summed over one SSD300 training step."""
@@ -5794,7 +5827,9 @@ def ssd_conv_kernels(seed):
         f64 = next((name for name, (fx, fo) in SSD_F64_CHECKS.items()
                     if (fx, fo) == (xs, o)), None)
         if f64 is not None:
-            dw_f64_check(f64, got, ref, _dw_f64(x, dy, k, s, p, d))
+            dw_f64_check(f64, got,
+                         _dw_einsum(x, dy, k, s, p, d, torch.float32),
+                         _dw_einsum(x, dy, k, s, p, d, torch.float64), ref)
         del got, again, ref
         ms = time_ms(fn, iters=5)
         plain_ms = time_ms(lambda: C.conv_dw_reference(x, dy, k, s, p, d),
@@ -6361,6 +6396,7 @@ def ssd(seed, smi):
     if launched != want:
         raise AssertionError("ssd: the training path did not launch K1a, "
                              "K1b and K2 once a convolution and pool a step")
+    MEASURED["ssd_step_ms"] = steady
     profile_steps(step, smi, steady, steps=3, groups=SSD_GROUPS, tag="ssd",
                   count=())
     # evaluate(): the held-out scenes through MultiBoxDetection
@@ -7132,6 +7168,7 @@ def gluon_resnet(seed, smi):
             RESNET_BATCH / ms["tensor"] * 1e3, smi,
             " ".join("%.1f" % v for v in step_ms["ndarray"]),
             " ".join("%.1f" % v for v in step_ms["tensor"]), peak))
+    MEASURED["gluon_step_ms"] = ms["ndarray"]
     per_step = {"pertap": RESNET_K1A, "im2col": RESNET_K1B,
                 "maxpool": RESNET_K2, "batch_norm_fwd": RESNET_BN,
                 "batch_norm_bwd": RESNET_BN}
@@ -7821,6 +7858,608 @@ def symbol_deploy(seed, smi, pool_row_f32):
                 sync_bn=(sync_bn, sync_rows))
 
 
+# ---------------------------------------------------- image records (15)
+
+# train_imagenet.py's synthetic set at full width (common/data.py: class k
+# brightens row band k), cut from ImageNet's 1,281,167 images and 90 epochs
+# to 512 images and 2 epochs (8 batches of 128)
+IMG_RECORDS, IMG_CLASSES, IMG_EPOCHS = 512, 10, 2
+IMG_MEAN = (123.68, 116.779, 103.939)  # common/data.py's --rgb-mean
+# phase 13's step as PERF.md records it (gluon_api: H100 80GB HBM3, 700 W),
+# for the report
+GLUON_STEP_RECORDED_MS = 134.52
+# SSD300 records for ImageDetIter: three batches of phase 11's size
+SSD_RECORD_BATCHES = 3
+
+
+def record_format():
+    """Phase 15's record format, from the codecs this machine has (found
+    without importing them): JPEG with cv2 or PIL, else raw float32."""
+    from mxnet_tpu_torch import recordio
+
+    codec = recordio.codec()
+    return ("jpeg" if codec else "raw"), codec
+
+
+def _example_common():
+    """example/image-classification/common/{data,fit}.py with
+    ``mxnet_tpu`` replaced by ``mxnet_tpu_torch`` and nothing else."""
+    import os
+    import types
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "image-classification", "common")
+    mods = []
+    for name in ("data", "fit"):
+        path = os.path.join(root, name + ".py")
+        with open(path) as f:
+            src = f.read().replace("mxnet_tpu", "mxnet_tpu_torch")
+        mod = types.ModuleType("common_" + name)
+        mod.__file__ = path
+        exec(compile(src, path, "exec"), mod.__dict__)
+        mods.append(mod)
+    return mods
+
+
+def write_image_records(seed, fmt, root):
+    """Phase 15a's files: the images as raw float32 CHW records and, for
+    ``fmt`` jpeg, as pack_img's JPEG records (quality 95)."""
+    import os
+
+    from mxnet_tpu_torch import recordio
+
+    rng = np.random.RandomState(seed + 15)
+    hw, band = RESNET_SIZE, RESNET_SIZE // IMG_CLASSES
+    paths = {"raw": os.path.join(root, "train_raw.rec")}
+    writers = {"raw": recordio.MXRecordIO(paths["raw"], "w")}
+    if fmt == "jpeg":
+        paths["jpeg"] = os.path.join(root, "train.rec")
+        writers["jpeg"] = recordio.MXRecordIO(paths["jpeg"], "w")
+    t = time.perf_counter()
+    for i in range(IMG_RECORDS):
+        lab = i % IMG_CLASSES
+        img = (rng.rand(hw, hw, 3) * 80).astype(np.uint8)
+        img[lab * band:(lab + 1) * band] += 120
+        hdr = recordio.IRHeader(0, float(lab), i, 0)
+        writers["raw"].write(recordio.pack(
+            hdr, img.transpose(2, 0, 1).astype(np.float32).tobytes()))
+        if fmt == "jpeg":
+            writers["jpeg"].write(recordio.pack_img(hdr, img))
+    for w in writers.values():
+        w.close()
+    log("image records: %d images at 3 x %d x %d (class k brightens row "
+        "band k) written in %.1f s: %s" % (
+            IMG_RECORDS, hw, hw, time.perf_counter() - t, ", ".join(
+                "%s %s (%.1f MB)" % (k, os.path.basename(v),
+                                     os.path.getsize(v) / 1e6)
+                for k, v in paths.items())))
+    return paths
+
+
+def records_to_batches(paths, smi):
+    """Phase 15a: mx.io.ImageRecordIter over each file at batch 128 on
+    the card, every batch bitwise against the records' own pixels (the
+    JPEG ones decoded by recordio.unpack_img, less the mean), then a
+    second pass timed by part."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recordio
+
+    card = torch.device("cuda", 0)
+    shape = (3, RESNET_SIZE, RESNET_SIZE)
+    mean = np.array(IMG_MEAN, np.float32)
+    for kind, path in sorted(paths.items()):
+        kw = {"raw_records": True} if kind == "raw" else dict(
+            zip(("mean_r", "mean_g", "mean_b"), IMG_MEAN))
+        it = mx.io.ImageRecordIter(path, shape, batch_size=RESNET_BATCH,
+                                   preprocess_threads=4, **kw)
+        r = recordio.MXRecordIO(path, "r")
+        checked = 0
+        for b in it:
+            data, label = b.data[0].data_torch, b.label[0].data_torch
+            if data.device != card or label.device != card:
+                raise AssertionError("image records: a batch is not on "
+                                     "the card")
+            want, labs = [], []
+            for _ in range(RESNET_BATCH - b.pad):
+                if kind == "raw":
+                    hdr, payload = recordio.unpack(r.read())
+                    want.append(np.frombuffer(payload, np.float32)
+                                .reshape(shape))
+                else:
+                    hdr, img = recordio.unpack_img(r.read())
+                    want.append((img.astype(np.float32) - mean)
+                                .transpose(2, 0, 1))
+                labs.append(hdr.label)
+            n = len(want)
+            if not (torch.equal(data[:n], torch.from_numpy(
+                    np.stack(want)).to(card)) and torch.equal(
+                    label[:n], torch.tensor(labs, dtype=torch.float32,
+                                            device=card))):
+                raise AssertionError("image records: a %s batch differs "
+                                     "from its records" % kind)
+            checked += n
+        if checked != IMG_RECORDS:
+            raise AssertionError("image records: %d of %d records checked"
+                                 % (checked, IMG_RECORDS))
+        it.reset()
+        it.host_seconds = dict.fromkeys(it.host_seconds, 0.0)
+        it.batches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in it:
+            pass
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / it.batches
+        log("image records: %s ImageRecordIter at (%d, 3, %d, %d) on the "
+            "card: %d records bitwise equal to their %s; a batch's host ms "
+            "by part (second pass, %d batches, 4 threads) %s, %.2f ms a "
+            "batch of wall to the card's copy done (%.0f images/s); %d "
+            "pinned blocks made (the ring: one a batch signature and slot); "
+            "%s" % (kind, RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, checked,
+                    "raw floats" if kind == "raw" else
+                    "decoded pixels less the mean", it.batches, ", ".join(
+                        "%s %.2f" % (k, v * 1e3 / it.batches)
+                        for k, v in it.host_seconds.items()), wall,
+                    RESNET_BATCH / wall * 1e3, it.pinned_blocks, smi))
+
+
+class _FitFeed:
+    """fit's training iterator as the data loader made it, with the
+    store's parameters read before the first batch and after its update
+    (at the second ``next``), the first batch kept, the host time of
+    each ``next`` and, with ``limit``, that many batches an epoch."""
+
+    def __init__(self, inner, kv, limit=None):
+        self.inner, self.kv, self.limit = inner, kv, limit
+        self.batch_size = inner.batch_size
+        self.first = self.before = self.after = None
+        self.calls, self.in_epoch, self.next_ms = 0, 0, []
+
+    @property
+    def provide_data(self):
+        return self.inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self.inner.provide_label
+
+    def _params(self):
+        return {k: v.data_torch.clone() for k, v in self.kv._store.items()}
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self.in_epoch = 0
+        self.inner.reset()
+
+    def __next__(self):
+        if self.calls == 0:
+            self.before = self._params()
+        elif self.calls == 1:
+            self.after = self._params()
+        self.calls += 1
+        if self.limit is not None and self.in_epoch >= self.limit:
+            raise StopIteration
+        t = time.perf_counter()
+        batch = self.inner.next()
+        self.next_ms.append((time.perf_counter() - t) * 1e3)
+        if self.first is None:
+            self.first = batch
+        self.in_epoch += 1
+        return batch
+
+    next = __next__
+
+
+def _fit_args(fit_mod, data_mod, path, epochs):
+    """train_imagenet.py's arguments and defaults, at the cut (its batch,
+    128, is RESNET_BATCH)."""
+    parser = argparse.ArgumentParser()
+    fit_mod.add_fit_args(parser)
+    data_mod.add_data_args(parser)
+    data_mod.add_data_aug_args(parser)
+    parser.set_defaults(network="resnet50_v1", num_classes=1000,
+                        image_shape="3,224,224", batch_size=128,
+                        num_epochs=90, lr=0.1, lr_step_epochs="30,60,80")
+    return parser.parse_args([
+        "--data-train", path, "--num-examples", str(IMG_RECORDS),
+        "--num-classes", str(IMG_CLASSES), "--num-epochs", str(epochs),
+        "--kv-store", "local", "--disp-batches", "1",
+        "--batch-size", str(RESNET_BATCH)])
+
+
+class _Lines:
+    """Every log record at INFO and above, printed, and the messages that
+    hold ``key``."""
+
+    def __init__(self, key):
+        import logging
+
+        self.key, self.lines = key, []
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+
+    def _emit(self, record):
+        msg = record.getMessage()
+        log("  log: " + msg)
+        if self.key in msg:
+            self.lines.append(msg)
+
+    def __enter__(self):
+        import logging
+
+        root = logging.getLogger()
+        self._level = root.level
+        root.addHandler(self.handler)
+        root.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        root = logging.getLogger()
+        root.removeHandler(self.handler)
+        root.setLevel(self._level)
+
+
+def _softmax_loss(mod):
+    """The mean cross-entropy of a SoftmaxOutput Module's last batch, by
+    mx.metric.CrossEntropy (-log(p + 1e-12)) over its outputs and bound
+    labels; NaN when an output is not finite."""
+    import mxnet_tpu_torch as mx
+
+    out = mod.get_outputs()[0]
+    if not torch.isfinite(out.data_torch).all():
+        return float("nan")
+    ce = mx.metric.CrossEntropy()
+    ce.update([mod._exec_group.execs[0].arg_dict["softmax_label"]], [out])
+    return ce.get()[1]
+
+
+def imagenet_module(seed, smi, paths, fmt):
+    """Phase 15b: train_imagenet.py's resnet50_v1 trained by fit.fit on
+    the card from records.  Returns the wrappers' counts over the main
+    path and their launches in a trace of its replays."""
+    import mxnet_tpu_torch as mx
+
+    data_mod, fit_mod = _example_common()
+    shape = (3, RESNET_SIZE, RESNET_SIZE)
+    path = paths[fmt]
+    feeds = []
+
+    def loader(limit):
+        def load(args, kv):
+            if fmt == "jpeg":
+                train, _ = data_mod.get_rec_iter(args, kv)
+            else:
+                train = mx.io.ImageRecordIter(
+                    path_imgrec=args.data_train, data_shape=shape,
+                    batch_size=args.batch_size, shuffle=True,
+                    raw_records=True, preprocess_threads=args.data_nthreads,
+                    num_parts=kv.num_workers, part_index=kv.rank)
+            feeds.append(_FitFeed(train, kv, limit))
+            return feeds[-1], None
+        return load
+
+    t = time.perf_counter()
+    net = fit_mod.get_network("resnet50_v1", IMG_CLASSES, shape)
+    log("imagenet_module: fit.get_network('resnet50_v1', %d, %s) traced in "
+        "%.1f s: %d arguments, %d aux states; records: %s through %s" % (
+            IMG_CLASSES, shape, time.perf_counter() - t,
+            len(net.list_arguments()), len(net.list_auxiliary_states()), fmt,
+            "common/data.py get_rec_iter" if fmt == "jpeg" else
+            "a raw-record loader passed as fit's data_loader"))
+
+    # 1. a one-batch fit and a second Module from the same parameters on
+    # the same batch, under cuDNN's deterministic algorithms: bitwise
+    args = _fit_args(fit_mod, data_mod, path, 1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mod = fit_mod.fit(args, net, loader(1))
+        feed = feeds[-1]
+        torch.cuda.synchronize()
+        check = mx.mod.Module(symbol=net, context=fit_mod._contexts(),
+                              label_names=("softmax_label",))
+        check.bind(feed.provide_data, feed.provide_label)
+        check.init_params(mx.init.Uniform(0.01), arg_params={
+            k: mx.nd.NDArray(v) for k, v in feed.before.items()},
+            allow_missing=True)
+        kv = mx.kv.create("local")
+        epoch_size = max(args.num_examples // args.batch_size, 1)
+        lr, sched = fit_mod._lr_scheduler(args, kv, epoch_size, 0)
+        opt = {"learning_rate": lr, "wd": args.wd, "momentum": args.mom}
+        if sched is not None:
+            opt["lr_scheduler"] = sched
+        check.init_optimizer(kvstore=kv, optimizer=args.optimizer,
+                             optimizer_params=opt)
+        check.forward_backward(feed.first)
+        check.update()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    mine = {k: v.data_torch for k, v in kv._store.items()}
+    same = [torch.equal(mine[k], feed.after[k]) for k in feed.after]
+    moved = [not torch.equal(feed.before[k], feed.after[k])
+             for k in feed.after]
+    log("imagenet_module: fit's first update (a one-batch fit, cuDNN's "
+        "deterministic algorithms) against a second Module's "
+        "forward_backward + update from the same %d parameters on the same "
+        "batch: %d of %d bitwise equal (%d moved)" % (
+            len(same), sum(same), len(same), sum(moved)))
+    if not (all(same) and sum(moved) > len(moved) // 2):
+        raise AssertionError("imagenet_module: fit's first update differs "
+                             "from the hand-driven Module's")
+    del mod, check, feed, mine
+    feeds.clear()
+    torch.cuda.empty_cache()
+
+    # 2. the main path: fit.fit at the script's defaults, 2 epochs
+    args = _fit_args(fit_mod, data_mod, path, IMG_EPOCHS)
+    counters = _resnet_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with _Lines("samples/sec") as speed:
+        mod = fit_mod.fit(args, net, loader(None))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # ---- end of the main path
+    feed = feeds[-1]
+    kv = mod._kvstore
+    ex = mod._exec_group.execs[0]
+    rates = [float(m.group(1)) for m in (
+        re.search(r"Speed: ([0-9.]+) samples/sec", x) for x in speed.lines)
+        if m]
+    losses = [_softmax_loss(mod)]
+    batches = IMG_EPOCHS * IMG_RECORDS // RESNET_BATCH
+    log("imagenet_module: fit.fit (resnet50_v1 NCHW float32, batch %d at "
+        "%d, SGD lr %g momentum %g wd %g, --kv-store %s) %d epochs of %d "
+        "records (%d batches) on %s in %.1f s wall (the graph's capture "
+        "included); context %s; Speedometer %s samples/s; the last batch's "
+        "cross-entropy %.4f; peak memory %.2f GB" % (
+            RESNET_BATCH, RESNET_SIZE, args.lr, args.mom, args.wd,
+            args.kv_store, IMG_EPOCHS, IMG_RECORDS, batches, smi, wall,
+            mod._context, " ".join("%.1f" % r for r in rates), losses[0],
+            peak))
+    if mod._context != [mx.gpu(0)] or ex.arg_dict["data"].context \
+            != mx.gpu(0):
+        raise AssertionError("imagenet_module: the Module is not on gpu(0)")
+    held = sum(kv._store[n] is ex.arg_dict[n] for n in mod._param_names)
+    log("imagenet_module: the store (%s) holds %d of %d bound parameters "
+        "themselves; bytes its pushes and pulls copied over the %d "
+        "batches: %d" % (kv.type, held, len(mod._param_names), batches,
+                         kv.copied_bytes))
+    if not mod._update_on_kvstore or held != len(mod._param_names) \
+            or kv.copied_bytes:
+        raise AssertionError("imagenet_module: the update through the store "
+                             "copied parameters")
+    per_step = {"pertap": RESNET_K1A, "im2col": RESNET_K1B,
+                "maxpool": RESNET_K2, "batch_norm_fwd": RESNET_BN,
+                "batch_norm_bwd": RESNET_BN}
+    log("imagenet_module: wrapper counts over the main path's %d batches "
+        "(its executor's graph: eager warm-up + capture; the replays launch "
+        "no wrapper) %s; expected 2 x %s" % (batches, launched, per_step))
+    if launched != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError("imagenet_module: the main path did not launch "
+                             "K1a, K1b, K2, K6a and K6b once per layer")
+
+    # 3. a batch's host time by call, the step, the trace of replays
+    metric = mx.metric.create("acc")
+    parts = {"next (the iterator)": [], "forward_backward": [],
+             "update (through the store)": [], "update_metric": []}
+    feed.reset()
+    for _ in range(IMG_RECORDS // RESNET_BATCH):
+        t = [time.perf_counter()]
+        b = feed.next()
+        t.append(time.perf_counter())
+        mod.forward_backward(b)
+        t.append(time.perf_counter())
+        mod.update()
+        t.append(time.perf_counter())
+        mod.update_metric(metric, b.label)
+        t.append(time.perf_counter())
+        for part, a, z in zip(parts, t, t[1:]):
+            parts[part].append((z - a) * 1e3)
+        losses.append(_softmax_loss(mod))
+    torch.cuda.synchronize()
+    log("imagenet_module: cross-entropy (mx.metric.CrossEntropy) of fit's "
+        "last batch and of an epoch more through the same calls: %s"
+        % " ".join(
+            "%.4f" % v for v in losses))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("imagenet_module: a loss is not finite")
+    log("imagenet_module: a batch's host ms by call (median of an epoch's "
+        "%d, no synchronization: the card runs behind): %s" % (
+            IMG_RECORDS // RESNET_BATCH, ", ".join(
+            "%s %.2f" % (k, float(np.median(v))) for k, v in parts.items())))
+
+    def step():
+        mod.forward_backward(b)
+        mod.update()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for i in range(5):
+        ev[i].record()
+        step()
+    ev[5].record()
+    torch.cuda.synchronize()
+    step_ms = float(np.median([a.elapsed_time(z)
+                               for a, z in zip(ev[1:], ev[2:])]))
+    log("imagenet_module: a step (forward_backward + update through the "
+        "store, graph replay) %.2f ms (median of 4 after 1, CUDA events), "
+        "%.1f images/s, beside phase 13's Gluon step %s ms in this run "
+        "(%.2f ms in PERF.md), same net, batch and card (%s)" % (
+            step_ms, RESNET_BATCH / step_ms * 1e3,
+            "%.2f" % MEASURED["gluon_step_ms"] if "gluon_step_ms" in MEASURED
+            else "(not run)", GLUON_STEP_RECORDED_MS, smi))
+    traced = 3
+    seen = profile_steps(step, smi, step_ms, steps=traced,
+                         groups=RESNET_GROUPS, tag="imagenet_module",
+                         count=RESNET_LAUNCH_KERNELS)
+    if seen is not None:
+        want = {k: n * traced for k, _, n in RESNET_LAUNCH_KERNELS}
+        log("imagenet_module: kernel launches in the trace of %d steps: %s; "
+            "expected %s" % (traced, seen, want))
+        if seen != want:
+            raise AssertionError("imagenet_module: a step does not launch "
+                                 "each kernel once per layer")
+    # where update's host time goes: the loop above timed it with the
+    # card behind; here each call starts on an idle card, through the
+    # store (a push and a pull a parameter) and through the same updater
+    # called directly (no store), on the last batch's gradients
+    group = mod._exec_group
+
+    def direct():
+        for name, w, g in zip(group.param_names, group.param_arrays,
+                              group.grad_arrays):
+            if g:
+                mod._updater(name, g[0].data_torch, w[0].data_torch)
+
+    idle = {"through the store": [], "direct": []}
+    for _ in range(2):
+        for name, fn in (("through the store", mod.update),
+                         ("direct", direct)):
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                idle[name].append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    log("imagenet_module: update's host ms from an idle card (median of 10, "
+        "in turns): through the store %.2f, the same updater called "
+        "directly %.2f; with the card behind (the loop above) %.2f; "
+        "%d parameters, %d store calls a step (%s)" % (
+            float(np.median(idle["through the store"])),
+            float(np.median(idle["direct"])),
+            float(np.median(parts["update (through the store)"])),
+            len(group.param_names), 2 * len(group.param_names), smi))
+    del mod, feed, feeds[:]
+    torch.cuda.empty_cache()
+    return {k: dict(launches=n, traced_replays=traced,
+                    launches_in_traced_replays=None if seen is None
+                    else seen[k]) for k, n in launched.items()}
+
+
+def ssd_records(seed, smi, root):
+    """Phase 15c: SSD300 records (the example's packing: a [2, 5,
+    objects...] label) through ImageDetIter at (32, 3, 300, 300), labels
+    held against the records' own, and 3 eager steps of phase 11's step
+    on its batches.  Returns the wrappers' counts over the steps."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, recordio
+    from mxnet_tpu_torch.gluon.model_zoo import ssd as S
+
+    n = SSD_RECORD_BATCHES * SSD_BATCH
+    images, labels = S.synthetic_scenes(np.random.RandomState(seed + 151),
+                                        n, SSD_SIZE, SSD_CLASSES, max_objs=3)
+    path = os.path.join(root, "ssd300.rec")
+    t = time.perf_counter()
+    w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    rows = []
+    for i in range(n):
+        objs = labels[i][labels[i][:, 0] >= 0]
+        rows.append(objs)
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, np.concatenate([[2, 5], objs.ravel()]), i,
+                              0), images[i].transpose(1, 2, 0)))
+    w.close()
+    it = mx.image.ImageDetIter(SSD_BATCH, (3, SSD_SIZE, SSD_SIZE),
+                               path_imgrec=path, rand_crop=0, rand_pad=0)
+    log("ssd_records: %d SSD300 scenes (1-3 boxes of %d classes) packed as "
+        "JPEG records with [2, 5, objects] labels in %.1f s; ImageDetIter "
+        "label shape %s" % (n, SSD_CLASSES, time.perf_counter() - t,
+                            it.label_shape))
+    card = torch.device("cuda", 0)
+    net = S.SSD300(SSD_CLASSES, device=card)
+    net.initialize(mx.init.Xavier(), seed=seed)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": SSD_LR})
+    counters = _ssd_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(SSD_RECORD_BATCHES + 1)]
+    losses, next_ms, k = [], [], 0
+    ev[0].record()
+    t = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        try:
+            b = it.next()
+        except StopIteration:
+            break
+        next_ms.append((time.perf_counter() - t0) * 1e3)
+        data, label = b.data[0].data_torch, b.label[0].data_torch
+        got = label.cpu().numpy()
+        for i in range(SSD_BATCH):
+            want = rows[k * SSD_BATCH + i]
+            if not (np.array_equal(got[i, :len(want)], want)
+                    and (got[i, len(want):] == -1).all()):
+                raise AssertionError("ssd_records: a batch's labels differ "
+                                     "from its records'")
+        loss, lc, ll = _ssd_record(net, S.normalize(data), label)
+        autograd.backward(loss)
+        trainer.step(SSD_BATCH)
+        losses.append(float(lc.detach())
+                      + SSD_LOC_WEIGHT * float(ll.detach().mean()))
+        k += 1
+        ev[k].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = {key: fn.launches for key, fn in counters.items()
+                if key != "box_nms"}
+    step_ms = [a.elapsed_time(z) for a, z in zip(ev, ev[1:])]
+    log("ssd_records: %d ImageDetIter batches, every label equal to its "
+        "record's objects (-1 rows after them); a batch's next() %s host "
+        "ms; 3 eager Adam steps of phase 11's SSD300 step on them: losses "
+        "%s, step %s ms (CUDA events, the iterator's time between steps "
+        "included) beside phase 11's %s ms on %s; %.1f s wall; wrapper "
+        "launches %s" % (
+            k, " ".join("%.1f" % v for v in next_ms),
+            " ".join("%.4f" % v for v in losses),
+            " ".join("%.1f" % v for v in step_ms),
+            "%.2f" % MEASURED["ssd_step_ms"] if "ssd_step_ms" in MEASURED
+            else "(not run)", smi, wall, launched))
+    want = {"pertap": SSD_K1A * k, "im2col": SSD_K1B * k,
+            "maxpool": SSD_K2 * k}
+    if k != SSD_RECORD_BATCHES or launched != want:
+        raise AssertionError("ssd_records: the steps did not launch K1a, "
+                             "K1b and K2 once a convolution and pool")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("ssd_records: the loss is not finite")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return launched
+
+
+def image_records(seed, smi, fmt):
+    """Phase 15: records to batches, train_imagenet.py's Module face and
+    ImageDetIter, in a directory of their own."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    try:
+        paths = write_image_records(seed, fmt, root)
+        records_to_batches(paths, smi)
+        module = imagenet_module(seed, smi, paths, fmt)
+        ssd = ssd_records(seed, smi, root) if fmt == "jpeg" else None
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if ssd is None:
+        log("ssd_records: not run: ImageDetIter decodes images, and this "
+            "machine has neither cv2 nor PIL")
+    return module, ssd
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7866,6 +8505,11 @@ def main():
                                      smi)
     deploy = phase("14 export and deploy", symbol_deploy, args.seed, smi,
                    pool_row_f32)
+    fmt, codec = record_format()
+    log("phase 15: record format %s (image codec on this machine: %s)"
+        % (fmt, codec or "none"))
+    imagenet, ssd_rec = phase("15 image records", image_records, args.seed,
+                              smi, fmt)
     # one entry per kernel per main path, each with that path's own count;
     # the served buckets are captured graphs, so "launches" is the
     # wrapper's count over the eager warm-up and capture of each bucket,
@@ -8089,6 +8733,41 @@ def main():
             source="mxnet_tpu_torch/csrc/batch_norm.cu",
             replaces="mxnet_tpu/ops/nn.py:462",
             launches=sync_launches["batch_norm_" + kern], **sync_rows[kern]))
+    # train_imagenet.py's Module face (phase 15b): the same net, batch and
+    # float32 shapes as phase 13's, so K1's rows are that phase's; the
+    # executor's graph is captured, as ResNet's step
+    common = dict(path="imagenet_module", route="cuda", dtype="float32",
+                  launches_counted_over="eager warm-up step + capture")
+    for form, line in (("pertap", 111), ("im2col", 133)):
+        entries.append(dict(
+            common, name="conv_dw_" + form,
+            source="mxnet_tpu_torch/csrc/conv_dw.cu",
+            replaces="mxnet_tpu/ops/pallas_conv.py:%d" % line,
+            plan_route="tf32x3", **imagenet[form], **gluon_dw[form]))
+    entries.append(dict(
+        common, name="maxpool_bwd",
+        source="mxnet_tpu_torch/csrc/maxpool_bwd.cu",
+        replaces="mxnet_tpu/ops/pallas_pool.py:55",
+        **imagenet["maxpool"], **pool_row_f32))
+    for kern in ("fwd", "bwd"):
+        entries.append(dict(
+            common, name="batch_norm_" + kern,
+            source="mxnet_tpu_torch/csrc/batch_norm.cu",
+            replaces="mxnet_tpu/ops/nn.py:462",
+            **imagenet["batch_norm_" + kern], **bn_rows_f32[kern]))
+    # ImageDetIter feeding phase 11's step (15c): SSD300's rows
+    for key, name, source, line in (
+            ("pertap", "conv_dw_pertap", "conv_dw", "pallas_conv.py:111"),
+            ("im2col", "conv_dw_im2col", "conv_dw", "pallas_conv.py:133"),
+            ("maxpool", "maxpool_bwd", "maxpool_bwd", "pallas_pool.py:55")):
+        if ssd_rec is None:
+            break
+        entries.append(dict(
+            name=name, path="ssd_records", route="cuda",
+            source="mxnet_tpu_torch/csrc/%s.cu" % source,
+            replaces="mxnet_tpu/ops/" + line, launches=ssd_rec[key],
+            **dict(ssd_rows[key], **({} if key == "maxpool"
+                                     else {"plan_route": "tf32x3"}))))
     entries.append(dict(
         name="rtc_cuda_module", path="imperative", route="cuda",
         compiled_by="nvrtc",

@@ -20,15 +20,20 @@ too (``mx.NDArray``, ``mx.Symbol``, ``mx.Module``, ``mx.Executor``,
 ``mx.DataIter``, ``mx.DataBatch``, ``mx.NameManager``,
 ``mx.save_checkpoint``, ``mx.load_checkpoint``, ``mx.do_checkpoint``,
 ``mx.Context``, ``mx.current_context``, ``mx.num_gpus``).  ``with
-mx.cpu():`` makes the host the default device for the scope.
+mx.cpu():`` makes the host the default device for the scope.  The
+image-record data path is here too: ``mx.recordio``, ``mx.image`` (with
+the detection augmenters and ``ImageDetIter``), ``mx.io.ImageRecordIter``
+and a one-device ``mx.kv``; ``mx.tpu()`` is ``mx.gpu()``.
 """
 
 from . import (attribute, autograd, callback, checkpoint, compiled_step,
-               context, convert, executor, gluon, initializer, io, log,
-               lr_scheduler, metric, model, module, monitor, name, ndarray,
-               operator, ops, optimizer, parallel, predictor, random, rnn,
-               rtc, serving, symbol, test_utils)
+               context, contrib, convert, executor, gluon, image,
+               image_detection, initializer, io, kvstore, log, lr_scheduler,
+               metric, model, module, monitor, name, ndarray, operator, ops,
+               optimizer, parallel, predictor, random, recordio, rnn, rtc,
+               serving, symbol, test_utils)
 from . import initializer as init
+from . import kvstore as kv
 from . import module as mod
 from . import monitor as mon
 from . import ndarray as nd
@@ -36,7 +41,8 @@ from . import symbol as sym
 from .attribute import AttrScope
 from .base import MXNetError
 from .callback import do_checkpoint
-from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus, num_tpus, tpu)
 from .executor import Executor
 from .io import DataBatch, DataIter
 from .model import load_checkpoint, save_checkpoint
@@ -49,12 +55,13 @@ __all__ = ["AttrScope", "Context", "DataBatch", "DataIter", "Executor",
            "MXNetError",
            "Module", "NDArray", "NameManager", "Symbol", "attribute",
            "autograd", "callback", "checkpoint", "compiled_step", "context",
-           "convert", "cpu", "cpu_pinned", "current_context",
-           "do_checkpoint", "executor", "gpu", "gluon", "init",
-           "initializer", "io", "load_checkpoint", "log", "lr_scheduler",
-           "metric",
+           "contrib", "convert", "cpu", "cpu_pinned", "current_context",
+           "do_checkpoint", "executor", "gpu", "gluon", "image",
+           "image_detection", "init", "initializer", "io", "kv", "kvstore",
+           "load_checkpoint", "log", "lr_scheduler", "metric",
            "mod", "model", "module", "mon", "monitor", "name", "nd",
-           "num_gpus",
+           "num_gpus", "num_tpus",
            "ndarray", "operator", "ops", "optimizer", "parallel", "predictor",
-           "random", "rnn", "rtc",
-           "save_checkpoint", "serving", "sym", "symbol", "test_utils"]
+           "random", "recordio", "rnn", "rtc",
+           "save_checkpoint", "serving", "sym", "symbol", "test_utils",
+           "tpu"]

@@ -24,8 +24,9 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "gpu", "cpu", "cpu_pinned", "current_context",
-           "set_default", "num_gpus", "resolve_device", "as_torch_device"]
+__all__ = ["Context", "gpu", "tpu", "cpu", "cpu_pinned", "current_context",
+           "set_default", "num_gpus", "num_tpus", "resolve_device",
+           "as_torch_device"]
 
 _scope = threading.local()
 
@@ -92,6 +93,13 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def tpu(device_id=0):
+    """The accelerator ``device_id``: ``gpu(device_id)`` here, so that a
+    script written for the JAX package's ``mx.tpu()`` runs on the card
+    (a deliberate divergence, ROADMAP Queue 3)."""
+    return gpu(device_id)
+
+
 def cpu(device_id=0):
     """The host (reference: ``mx.cpu``)."""
     return Context("cpu", device_id)
@@ -106,6 +114,11 @@ def cpu_pinned(device_id=0):
 def num_gpus():
     """The number of CUDA devices (reference: ``mx.context.num_gpus``)."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus():
+    """The number of accelerators: :func:`num_gpus` (see :func:`tpu`)."""
+    return num_gpus()
 
 
 def _scoped():

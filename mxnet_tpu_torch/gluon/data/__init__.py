@@ -4,9 +4,9 @@ data/; ``mxnet_tpu/gluon/data/``): datasets, samplers, the DataLoader and
 
 from . import vision
 from .dataloader import DataLoader, default_batchify_fn
-from .dataset import ArrayDataset, Dataset, SimpleDataset
+from .dataset import ArrayDataset, Dataset, RecordFileDataset, SimpleDataset
 from .sampler import BatchSampler, RandomSampler, Sampler, SequentialSampler
 
 __all__ = ["ArrayDataset", "BatchSampler", "DataLoader", "Dataset",
-           "RandomSampler", "Sampler", "SequentialSampler", "SimpleDataset",
+           "RandomSampler", "RecordFileDataset", "Sampler", "SequentialSampler", "SimpleDataset",
            "default_batchify_fn", "vision"]

@@ -55,15 +55,20 @@ def _host(arr):
 
 class _PinnedStage:
     """Host-to-card copies through reused page-locked blocks: ``depth``
-    blocks a (shape, dtype), each with the event of its last copy."""
+    blocks a (shape, dtype), each with the event of its last copy.
+    :meth:`copy` stages a host tensor; :meth:`take` hands out a free
+    block to fill in place and :meth:`send` copies it over, so a batch
+    assembled in the block itself crosses with one copy."""
 
     def __init__(self, depth):
         self._depth = depth
         self._rings = {}
         self.blocks = 0  # page-locked blocks made so far
 
-    def copy(self, t, device):
-        key = (tuple(t.shape), t.dtype)
+    def take(self, shape, dtype):
+        """A page-locked block of ``shape`` and ``dtype`` whose last copy
+        is done: ``[tensor, event]``."""
+        key = (tuple(shape), dtype)
         ring = self._rings.setdefault(key, [])
         if len(ring) < self._depth:
             slot = [torch.empty(key[0], dtype=key[1], pin_memory=True), None]
@@ -74,11 +79,20 @@ class _PinnedStage:
             ring.append(slot)
             if slot[1] is not None:
                 slot[1].synchronize()
-        slot[0].copy_(t)
+        return slot
+
+    def send(self, slot, device):
+        """The block's tensor copied to ``device`` on its current stream,
+        asynchronously; the block is free again once the copy is done."""
         out = slot[0].to(device, non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record(torch.cuda.current_stream(device))
         return out
+
+    def copy(self, t, device):
+        slot = self.take(t.shape, t.dtype)
+        slot[0].copy_(t)
+        return self.send(slot, device)
 
 
 class DataLoader:

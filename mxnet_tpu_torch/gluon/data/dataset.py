@@ -2,16 +2,18 @@
 
 Counterpart of ``mxnet_tpu/gluon/data/dataset.py`` (reference:
 python/mxnet/gluon/data/dataset.py): ``Dataset`` (``filter``, ``shard``,
-``take``, ``transform``, ``transform_first``), ``SimpleDataset`` and
-``ArrayDataset``.  ``RecordFileDataset`` needs RecordIO and waits for
-ROADMAP Queue 1 item 12.
+``take``, ``transform``, ``transform_first``), ``SimpleDataset``,
+``ArrayDataset`` and ``RecordFileDataset`` (the records of an indexed
+record file, by position).
 """
 
 from __future__ import annotations
 
-from ... import ndarray
+import os
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+from ... import ndarray, recordio
+
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -120,3 +122,20 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of ``filename`` and its ``.idx``, as bytes, in the
+    index's order."""
+
+    def __init__(self, filename):
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

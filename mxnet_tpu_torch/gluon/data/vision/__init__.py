@@ -3,7 +3,9 @@ datasets."""
 
 from . import transforms
 from .datasets import (CIFAR10, CIFAR100, MNIST, FashionMNIST,
+                       ImageFolderDataset, ImageRecordDataset,
                        SyntheticImageDataset)
 
-__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "MNIST",
-           "SyntheticImageDataset", "transforms"]
+__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "ImageFolderDataset",
+           "ImageRecordDataset", "MNIST", "SyntheticImageDataset",
+           "transforms"]

@@ -6,8 +6,8 @@ python/mxnet/gluon/data/vision/datasets.py): ``MNIST``, ``FashionMNIST``,
 (the reference's names and formats) and raise, naming the path, when
 they are missing: nothing downloads.  ``SyntheticImageDataset`` makes
 seeded images.  Samples are host NDArrays (uint8 images, HWC) and int32
-labels.  ``ImageRecordDataset`` and ``ImageFolderDataset`` need RecordIO
-and a JPEG decoder and wait for ROADMAP Queue 1 item 12.
+labels.  ``ImageRecordDataset`` decodes an image record file's records,
+``ImageFolderDataset`` a folder of class folders (cv2, else PIL).
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ import tarfile
 
 import numpy as np
 
-from .... import ndarray
+from .... import ndarray, recordio
 from ....context import cpu
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
            "SyntheticImageDataset"]
@@ -186,3 +186,59 @@ class SyntheticImageDataset(Dataset):
         if self._transform is not None:
             return self._transform(img, label)
         return img, label
+
+
+class ImageRecordDataset(RecordFileDataset):
+    """``(image, label)`` of each record of an image record file: the
+    image decoded to an HWC uint8 NDArray on the host (``flag`` 0: one
+    gray channel), then ``transform(image, label)`` if given."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from .... import image
+
+        header, img_bytes = recordio.unpack(super().__getitem__(idx))
+        img = image.imdecode(img_bytes, flag=self._flag)
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
+
+
+class ImageFolderDataset(Dataset):
+    """``(image, label)`` of the ``.jpg``, ``.jpeg`` and ``.png`` files
+    under ``root``'s sub-folders, one class a folder in name order
+    (``synsets``), the files of each in name order (``items``)."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png"]
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                if os.path.splitext(filename)[1].lower() in self._exts:
+                    self.items.append((os.path.join(path, filename), label))
+
+    def __getitem__(self, idx):
+        from .... import image
+
+        with open(self.items[idx][0], "rb") as f:
+            img = image.imdecode(f.read(), flag=self._flag)
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

@@ -6,8 +6,12 @@ the optimizer's ``rescale_grad`` to ``1 / batch_size`` and updates every
 parameter whose ``grad_req`` is not ``'null'`` from its ``.grad``;
 ``allreduce_grads`` has nothing to reduce.  ``kvstore`` takes the values
 that mean no store on one device (``"device"``, ``"local"``, None,
-False); a distributed store, a store object and ``update_on_kvstore=True``
-raise until multi-GPU training is ported (ROADMAP Queue 1 item 9).
+False, or a one-device :class:`~mxnet_tpu_torch.kvstore.KVStore`, which
+the JAX package's Trainer also leaves unused with one context:
+``mxnet_tpu/gluon/trainer.py:164-178``), so the step and a compiled
+step's fused update stay as they are; a distributed store, another
+object and ``update_on_kvstore=True`` raise until multi-GPU training is
+ported (ROADMAP Queue 1 item 9).
 ``save_states``/``load_states`` write and read the JAX package's file
 format; :meth:`Trainer.compile` makes the whole step one captured program
 (:mod:`~mxnet_tpu_torch.compiled_step`).
@@ -15,7 +19,6 @@ format; :meth:`Trainer.compile` makes the whole step one captured program
 
 from __future__ import annotations
 
-import pickle
 import time
 
 import torch
@@ -25,6 +28,7 @@ from .. import histogram as _histogram
 from .. import optimizer as _optimizer
 from .. import runtime_stats as _rts
 from ..base import MXNetError
+from ..optimizer.optimizer import read_states
 from .parameter import Parameter, ParameterTensor
 
 __all__ = ["Trainer"]
@@ -53,10 +57,13 @@ class _StepTelemetry:
 
 
 def _one_device_store(kvstore, update_on_kvstore):
-    """Refuse what needs more than one device: a distributed store, a
-    store object, updates on the store."""
+    """Refuse what needs more than one device: a distributed store, an
+    object that is not a KVStore, updates on the store."""
+    from ..kvstore import KVStore
+
     if not (kvstore is None or kvstore is False or (
-            isinstance(kvstore, str) and "dist" not in kvstore)):
+            isinstance(kvstore, (str, KVStore))
+            and "dist" not in getattr(kvstore, "type", kvstore))):
         raise MXNetError("Trainer: kvstore %r is not ported; one device "
                          "takes 'device', 'local', None or False, and "
                          "multi-GPU training is not yet ported (ROADMAP "
@@ -214,7 +221,7 @@ class Trainer:
                                            _ckpt.TRAINER_STATES_VERSION))
             payload = data[len(magic) + 2:]
         else:
-            legacy = pickle.loads(data)
+            legacy = read_states(data)
             payload = legacy if isinstance(legacy, bytes) else data
         scheduler = self._optimizer.lr_scheduler
         for updater in self._updaters:

@@ -9,8 +9,9 @@ Without the idx files, ``MNISTIter`` makes the JAX package's deterministic
 synthetic digits (the same numpy code), so both packages see the same
 data.  ``CSVIter`` reads CSV files into an ``NDArrayIter``
 (``round_batch`` pads the last batch); ``PrefetchingIter`` reads one
-inner iterator ahead on a background thread.  The LibSVM and ImageRecord
-iterators are not ported yet.
+inner iterator ahead on a background thread.  ``ImageRecordIter`` reads
+an image record file into NCHW float32 batches on the current context.
+The LibSVM iterator is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,15 +20,19 @@ import os
 import queue
 import struct
 import threading
+import time
+import warnings
 from collections import namedtuple
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
-from ..context import cpu
+from ..context import cpu, resolve_device
 from ..ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter", "NDArrayIter",
-           "MNISTIter", "CSVIter", "PrefetchingIter"]
+           "MNISTIter", "CSVIter", "PrefetchingIter", "ImageRecordIter"]
 
 DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
 DataDesc.__new__.__defaults__ = (np.float32, "NCHW")
@@ -435,3 +440,234 @@ class PrefetchingIter(DataIter):
 
     def getpad(self):
         return self.current_batch.pad
+
+
+class _BatchStage:
+    """Where an iterator assembles a batch: on the way to the card, a
+    page-locked block of a ring a batch signature (``depth`` blocks,
+    each reused once its last copy is done: ``gluon.data.dataloader.
+    _PinnedStage``), so that a batch crosses with one copy; on the host,
+    a new array a batch."""
+
+    def __init__(self, depth=4):
+        self._depth = depth
+        self._pinned = None
+
+    @property
+    def blocks(self):
+        """The page-locked blocks made so far."""
+        return 0 if self._pinned is None else self._pinned.blocks
+
+    def take(self, shape, dtype, device):
+        """``(numpy view to fill, token for send)``."""
+        dt = torch.from_numpy(np.zeros(0, dtype)).dtype
+        if device.type == "cuda":
+            if self._pinned is None:
+                from ..gluon.data.dataloader import _PinnedStage
+
+                self._pinned = _PinnedStage(self._depth)
+            slot = self._pinned.take(shape, dt)
+            return slot[0].numpy(), slot
+        t = torch.empty(tuple(shape), dtype=dt)
+        return t.numpy(), t
+
+    def send(self, token, device):
+        """The filled block as an NDArray on ``device``."""
+        if isinstance(token, torch.Tensor):
+            return NDArray(token)
+        return NDArray(self._pinned.send(token, device))
+
+
+class ImageRecordIter(DataIter):
+    """Batches of an image record file (reference:
+    src/io/iter_image_recordio_2.cc; JAX ``io.py:566-748``, its Python
+    path): NCHW float32 ``data_shape`` batches and ``(batch,)`` labels
+    (``(batch, label_width)`` when wider) on the current context, read
+    when the iterator is made.
+
+    The records (:func:`~mxnet_tpu_torch.recordio.pack_img`'s, or with
+    ``raw_records`` the raw float32 CHW bytes of each sample) are read
+    into memory at construction, the ``part_index``-th of every
+    ``num_parts``.  Each batch: the records' headers are read on the
+    calling thread, the images decoded by ``preprocess_threads`` host
+    threads (cv2, else PIL; a raw record needs no decode), the random
+    draws made on the calling thread in sample order from numpy's global
+    stream as the JAX package draws them (a crop where the image is
+    larger than ``data_shape`` and ``rand_crop``, else a central fit;
+    a mirror with ``rand_mirror``), and the samples assembled by the
+    threads straight into the batch's block, ``mean_r/g/b`` subtracted;
+    raw records take no augmentation and no mean (a warning says so when
+    they are given, as the JAX package warns).  Every record of the file
+    is held in host memory: a set of ImageNet's size needs the streaming
+    reader of ROADMAP Queue 3.  A short last batch is
+    filled with records from the epoch's start and says so in ``pad``.
+    ``shuffle`` permutes the records at every ``reset`` from numpy's
+    global stream, as the JAX package's Python path does;
+    ``shuffle_buffer``, ``seed`` and ``use_native`` (the JAX package's
+    native pipeline) are accepted and mean nothing here.
+
+    ``host_seconds`` sums the host time of each part (``read``,
+    ``decode``, ``assemble``, ``copy``) over ``batches``;
+    ``pinned_blocks`` counts the page-locked blocks made."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1, label_width=1,
+                 shuffle=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 rand_crop=False, rand_mirror=False, num_parts=1,
+                 part_index=0, preprocess_threads=4, shuffle_buffer=4096,
+                 seed=0, use_native=None, raw_records=False, **kwargs):
+        super().__init__(batch_size)
+        del shuffle_buffer, seed, use_native, kwargs
+        from ..recordio import MXRecordIO
+
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.mean = np.array([mean_r, mean_g, mean_b], dtype=np.float32)
+        self.shuffle = shuffle
+        self._raw_records = raw_records
+        if raw_records and (rand_crop or rand_mirror or mean_r or mean_g
+                            or mean_b):
+            warnings.warn(
+                "ImageRecordIter(raw_records=True): augmentation arguments "
+                "(rand_crop/rand_mirror/mean_*) are ignored on the raw "
+                "memcpy path", stacklevel=2)
+        self._device = resolve_device(None)
+        self._stage = _BatchStage()
+        self._pool = ThreadPoolExecutor(max(1, int(preprocess_threads)))
+        self.host_seconds = dict.fromkeys(("read", "decode", "assemble",
+                                           "copy"), 0.0)
+        self.batches = 0
+        rec = MXRecordIO(path_imgrec, "r")
+        self._records = []
+        while True:
+            item = rec.read()
+            if item is None:
+                break
+            self._records.append(item)
+        rec.close()
+        if num_parts > 1:
+            self._records = self._records[part_index::num_parts]
+        self._order = np.arange(len(self._records))
+        self.cursor = 0
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape,
+                         np.float32)]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self.label_width == 1 else \
+            (self.batch_size, self.label_width)
+        return [DataDesc("softmax_label", shape, np.float32)]
+
+    @property
+    def pinned_blocks(self):
+        return self._stage.blocks
+
+    def reset(self):
+        if self.shuffle:
+            np.random.shuffle(self._order)
+        self.cursor = 0
+
+    def iter_next(self):
+        return self.cursor < len(self._records)
+
+    def _draws(self, shape):
+        """The JAX package's draws for one image of ``shape`` (HWC):
+        ``(crop corner or None, mirror)``."""
+        _, h, w = self.data_shape
+        corner = None
+        if shape[0] != h or shape[1] != w:
+            if self.rand_crop and shape[0] >= h and shape[1] >= w:
+                y = np.random.randint(0, shape[0] - h + 1)
+                x = np.random.randint(0, shape[1] - w + 1)
+                corner = (y, x)
+        return corner, bool(self.rand_mirror and np.random.rand() < 0.5)
+
+    def _assemble(self, out, img, corner, mirror):
+        """One decoded HWC uint8 image into its CHW float32 slot."""
+        _, h, w = self.data_shape
+        if img.ndim == 2:
+            img = img[:, :, None]
+        if corner is not None:
+            img = img[corner[0]:corner[0] + h, corner[1]:corner[1] + w]
+        elif img.shape[0] != h or img.shape[1] != w:
+            img = _center_fit(img, h, w)
+        if mirror:
+            img = img[:, ::-1]
+        chw = img.transpose(2, 0, 1)
+        if self.mean.any():
+            np.subtract(chw, self.mean[:, None, None], out=out,
+                        dtype=np.float32)
+        else:
+            out[...] = chw
+
+    def next(self):
+        from ..recordio import decode_payload, unpack
+
+        if not self.iter_next():
+            raise StopIteration
+        t0 = time.perf_counter()
+        n = len(self._records)
+        count = min(self.batch_size, n - self.cursor)
+        items = [self._records[self._order[(self.cursor + i) % n]]
+                 for i in range(self.batch_size)]
+        self.cursor += self.batch_size
+        data, dtok = self._stage.take((self.batch_size,) + self.data_shape,
+                                      np.float32, self._device)
+        label, ltok = self._stage.take((self.batch_size, self.label_width),
+                                       np.float32, self._device)
+        label[:] = 0.0
+        payloads = []
+        for i, item in enumerate(items):
+            # a view: slicing the record's bytes would copy each payload
+            header, payload = unpack(memoryview(item))
+            lab = np.atleast_1d(np.asarray(header.label, np.float32))
+            lab = lab[:self.label_width]
+            label[i, :lab.size] = lab
+            payloads.append(payload)
+        t1 = time.perf_counter()
+        if self._raw_records:
+            shape = self.data_shape
+            list(self._pool.map(
+                lambda i: data.__setitem__(i, np.frombuffer(
+                    payloads[i], np.float32).reshape(shape)),
+                range(self.batch_size)))
+            t2 = t3 = time.perf_counter()
+        else:
+            imgs = list(self._pool.map(decode_payload, payloads))
+            t2 = time.perf_counter()
+            draws = [self._draws(img.shape) for img in imgs]
+            list(self._pool.map(
+                lambda i: self._assemble(data[i], imgs[i], *draws[i]),
+                range(self.batch_size)))
+            t3 = time.perf_counter()
+        label_nd = self._stage.send(ltok, self._device)
+        if self.label_width == 1:
+            label_nd = label_nd.reshape((self.batch_size,))
+        batch = DataBatch(data=[self._stage.send(dtok, self._device)],
+                          label=[label_nd], pad=self.batch_size - count,
+                          provide_data=self.provide_data,
+                          provide_label=self.provide_label)
+        t4 = time.perf_counter()
+        for part, dt in (("read", t1 - t0), ("decode", t2 - t1),
+                         ("assemble", t3 - t2), ("copy", t4 - t3)):
+            self.host_seconds[part] += dt
+        self.batches += 1
+        return batch
+
+
+def _center_fit(img, h, w):
+    """``img`` cropped or zero-padded about its centre to ``h`` x ``w``."""
+    out = np.zeros((h, w) + img.shape[2:], dtype=img.dtype)
+    sy = max((img.shape[0] - h) // 2, 0)
+    sx = max((img.shape[1] - w) // 2, 0)
+    dy = max((h - img.shape[0]) // 2, 0)
+    dx = max((w - img.shape[1]) // 2, 0)
+    ch = min(h, img.shape[0])
+    cw = min(w, img.shape[1])
+    out[dy:dy + ch, dx:dx + cw] = img[sy:sy + ch, sx:sx + cw]
+    return out

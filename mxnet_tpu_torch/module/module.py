@@ -5,11 +5,15 @@ python/mxnet/module/module.py, bind:364, init_optimizer:474, update:644)
 on one device.  The parameters' host copies (``get_params``) are NDArrays
 on the CPU; the bound ones live on the Module's device, ``gpu(0)`` unless
 ``context`` says otherwise.  With one device a kvstore of ``"local"``,
-``"device"`` or None means no store (``_create_kvstore``); a distributed
-store or a store object raises.  ``update`` applies the optimizer to
-every parameter with a gradient, one updater index a parameter, in
-place; on the card the forward and backward before it are one captured
-CUDA graph (:mod:`..executor`).
+``"device"`` or None means no store (``_create_kvstore``); a
+:class:`~mxnet_tpu_torch.kvstore.KVStore` object means the updates run
+on the store (``update_on_kvstore``, as the JAX package's
+``module.py:25-47``), which holds the bound parameters themselves
+(``KVStore.adopt``), so an update through it copies nothing; a
+distributed store or any other object raises.  ``update`` applies the
+optimizer to every parameter with a gradient, one updater index a
+parameter (its name on a store), in place; on the card the forward and
+backward before it are one captured CUDA graph (:mod:`..executor`).
 
 A Module bound with ``shared_module`` shares that module's parameter
 storage and host copies, as MXNet's does (one bucket of a
@@ -19,6 +23,11 @@ by parameter name, the lender's index for each name.  ``state_names``
 are inputs that ``get_states``/``set_states`` read and write.
 ``reshape`` rebinds at new shapes over the same parameter, gradient and
 optimizer storage; ``install_monitor`` watches the executor's outputs.
+Optimizer-state files: a Module on a store writes the store's (keyed by
+name), one without the updater's (keyed by position), as the JAX
+package's do; ``load_optimizer_states`` reads either package's file of
+either kind (``optimizer.read_states``, which imports nothing of the JAX
+package) and maps its keys to this Module's.
 """
 
 from __future__ import annotations
@@ -39,14 +48,19 @@ __all__ = ["Module"]
 
 
 def _create_kvstore(kvstore):
-    """With one device, no store: ``"local"``, ``"device"`` or None.
-    A distributed store or a store object raises (``module.py:25-47``)."""
-    if kvstore is None:
-        return None
-    if isinstance(kvstore, str) and "dist" not in kvstore:
-        return None
+    """``(store, update_on_kvstore)`` on one device: no store for
+    ``"local"``, ``"device"`` or None; a KVStore object is used, with
+    the updates on it (``module.py:25-47``).  A distributed store or any
+    other object raises."""
+    from ..kvstore import KVStore
+
+    if isinstance(kvstore, KVStore):
+        return kvstore, True
+    if kvstore is None or (isinstance(kvstore, str)
+                           and "dist" not in kvstore):
+        return None, False
     raise MXNetError("Module: kvstore %r is not ported; one device takes "
-                     "'local', 'device' or None" % (kvstore,))
+                     "'local', 'device', None or a KVStore" % (kvstore,))
 
 
 def _norm_shapes(shapes):
@@ -62,7 +76,8 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None, group2ctxs=None, compression_params=None):
         super().__init__(logger=logger)
-        del work_load_list, group2ctxs, compression_params
+        del work_load_list, group2ctxs
+        self._compression_params = compression_params
         self._device = one_device(context)
         self._context = [self._device]
         self._symbol = symbol
@@ -82,6 +97,8 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._preload_opt_states = None
         self._exec_group = None
         self._data_shapes = None
@@ -272,7 +289,7 @@ class Module(BaseModule):
             return
         if self._params_dirty:
             self._sync_params_from_devices()
-        _create_kvstore(kvstore)
+        kvstore, update_on_kvstore = _create_kvstore(kvstore)
         rescale_grad = 1.0 / self._exec_group.batch_size
         idx2name = dict(enumerate(self._exec_group.param_names))
         if isinstance(optimizer, str):
@@ -289,7 +306,19 @@ class Module(BaseModule):
                     "rescale_grad is not normalized to 1.0/batch_size "
                     "(%s vs. %s).", optimizer.rescale_grad, rescale_grad)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        if kvstore is not None:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            kvstore.set_optimizer(optimizer)
+            group = self._exec_group
+            for name, weights in zip(group.param_names, group.param_arrays):
+                kvstore.adopt(name, weights[0])
+            # one updater either way: the store's, keyed by name
+            self._updater = kvstore._updater
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -308,6 +337,8 @@ class Module(BaseModule):
         self._update_keys = [index[n] for n in self._param_names]
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------- running
@@ -326,6 +357,14 @@ class Module(BaseModule):
             self.optimizer_initialized
         self._params_dirty = True
         group = self._exec_group
+        if self._update_on_kvstore:
+            for pos, (name, weights, grads) in enumerate(zip(
+                    group.param_names, group.param_arrays,
+                    group.grad_arrays)):
+                if grads:
+                    self._kvstore.push(name, grads, priority=-pos)
+                    self._kvstore.pull(name, weights, priority=-pos)
+            return
         keys = self._update_keys or range(len(group.param_names))
         for key, weights, grads in zip(keys, group.param_arrays,
                                        group.grad_arrays):
@@ -383,15 +422,33 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        """The updater's states, written to a temporary name and
-        renamed."""
+        """The updater's states, written to a temporary name and renamed:
+        the store's file (keyed by name) on a store, else the updater's
+        (keyed by position), as the JAX package writes them."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         tmp = "%s.%d.tmp" % (fname, os.getpid())
         with open(tmp, "wb") as f:
             f.write(self._updater.get_states())
         os.replace(tmp, fname)
 
     def load_optimizer_states(self, fname):
+        """Read a state file of either package, keyed by name or by
+        position, whichever way this Module updates: a state that
+        matches none of its parameters raises."""
         assert self.optimizer_initialized
         with open(fname, "rb") as f:
-            self._updater.set_states(f.read())
+            self._updater.set_states(f.read(), self._state_keys())
+
+    def _state_keys(self):
+        """Each parameter's name and position, mapped to its key in this
+        Module's updater (the name on a store, else the position or the
+        lender's key)."""
+        names = self._exec_group.param_names
+        own = names if self._update_on_kvstore else (
+            self._update_keys or range(len(names)))
+        keys = dict(zip(names, own))
+        keys.update(zip(range(len(names)), own))
+        return keys

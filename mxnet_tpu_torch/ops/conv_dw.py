@@ -14,9 +14,15 @@ kernels as every other convolution, a tap reading ``x`` ``r*dh`` rows and
 the grid reading its channels of ``x`` and ``dy`` (a depthwise
 convolution, I/G = 1, included).
 
-- :func:`conv_dw_reference` is the plain version: one float32 ``einsum``
-  per tap over strided slices of the padded input, the JAX formula
-  written out.
+- :func:`conv_dw_reference` is the plain version: per tap, the JAX
+  formula written out over strided slices of the padded input, its sum
+  over the positions taken in float32 blocks of :data:`SUM_BLOCK` and
+  the blocks' products then added in one reduction, as XLA blocks its
+  sum.  One float32 product over all positions would be a gemm whose
+  order of additions, and so whose rounding, each host's BLAS chooses:
+  TinySSD's stem dW (16,384 positions, mostly of one sign) came out
+  1.2e-4 from the float64 dW on one host, 12 times XLA's error, and 3e-6
+  when blocked.
 - :func:`conv_dw_pertap` (K1a) and :func:`conv_dw_im2col` (K1b) launch
   the hand-written Hopper kernels of ``csrc/conv_dw.cu`` on CUDA tensors
   (which replace the Pallas ``_dw_kernel_pertap`` and
@@ -58,6 +64,9 @@ _SMS = 132              # streaming multiprocessors of an H100
 # tiles over stages of 64 positions, one resident block per SM (its ring
 # takes 161 KB of shared memory)
 TC_TILE_ROWS, TC_STAGE = 128, 64
+# the plain version's positions a block, and the most float32 partial
+# products a tap it holds at once (a larger block beyond that)
+SUM_BLOCK, SUM_PARTIALS = 256, 1 << 26
 # float32 by 3xTF32 on tf32 wgmma: 128 rows of the register operand (o
 # when O > 64, else rows m) by 128 or the padded O, stages of 32
 # positions, one resident block per SM (a ring of up to 197 KB)
@@ -217,26 +226,37 @@ def _check(x, dy, kernel, stride, pad, dilate, groups):
 
 def conv_dw_reference(x, dy, kernel, stride=(1, 1), pad=(0, 0),
                       dilate=(1, 1), groups=1):
-    """Plain dW: float32 (O, KH, KW, I/G), one einsum per tap and group."""
+    """Plain dW: float32 (O, KH, KW, I/G), per tap and group the blocks'
+    products (``bmm`` over blocks of :data:`SUM_BLOCK` positions, the
+    last one zero-padded) summed in one reduction."""
     kh, kw = kernel
     sy, sx = stride
     py, px = pad
     dh, dw_ = dilate
     oh, ow = dy.shape[1], dy.shape[2]
     cg, og = x.shape[3] // groups, dy.shape[3] // groups
+    rows = dy.shape[0] * oh * ow
+    block = max(SUM_BLOCK, -(-rows * og * cg // SUM_PARTIALS))
+    blocks = -(-rows // block)
+
+    def blocked(t):
+        t = F.pad(t.reshape(rows, t.shape[-1]),
+                  (0, 0, 0, blocks * block - rows))
+        return t.reshape(blocks, block, t.shape[-1])
+
     xp = F.pad(x.float(), (0, 0, px, px, py, py))
     dyf = dy.float()
     dw = torch.empty((dy.shape[3], kh, kw, cg), dtype=torch.float32,
                      device=x.device)
     for g in range(groups):
-        dyg = dyf[..., g * og:(g + 1) * og]
+        dyg = blocked(dyf[..., g * og:(g + 1) * og]).transpose(1, 2)
         for r in range(kh):
             for s in range(kw):
                 y0, x0 = r * dh, s * dw_
                 xs = xp[:, y0:y0 + sy * (oh - 1) + 1:sy,
                         x0:x0 + sx * (ow - 1) + 1:sx, g * cg:(g + 1) * cg]
-                dw[g * og:(g + 1) * og, r, s, :] = torch.einsum(
-                    "nyxi,nyxo->oi", xs, dyg)
+                dw[g * og:(g + 1) * og, r, s, :] = torch.bmm(
+                    dyg, blocked(xs)).sum(0)
     return dw
 
 

@@ -148,18 +148,36 @@ def nchw_call(fn, data, *weights, layout, **kwargs):
                      layout=CHANNEL_LAST[nd], **kwargs))
 
 
+def _widened(*ts):
+    """``ts`` in float32 when they are float16 tensors on the CPU, else as
+    they are, and the dtype to round the result back to (or None).  A
+    float16 convolution on the CPU then sums in float32 and rounds once,
+    as XLA does there and cuDNN does on the card: without it the result
+    hung on the host's float16 vector unit (a float16 dX differed from
+    XLA's by 4 float16 steps on an AVX512-FP16 host)."""
+    if any(t.dtype != torch.float16 or t.device.type != "cpu" for t in ts):
+        return ts, None
+    return tuple(t.float() for t in ts), torch.float16
+
+
+def _rounded(t, dtype):
+    return t if dtype is None else t.to(dtype)
+
+
 class _Convolution(torch.autograd.Function):
     """NHWC/OHWI 2-D convolution of ``groups`` groups.  Forward and
     data-gradient are cuDNN's (``F.conv2d`` and
     ``aten.convolution_backward``) as the JAX package leaves them to XLA;
     the weight-gradient is :func:`~.conv_dw.conv_dw`, cast to the weight's
     dtype (``ops/nn.py:180-181`` of the JAX package), dilated, grouped or
-    not."""
+    not.  On the CPU a float16 forward and dX sum in float32
+    (:func:`_widened`)."""
 
     @staticmethod
     def forward(ctx, x, weight, stride, pad, dilate, groups):
-        out = F.conv2d(_nchw(x), _nchw(weight), None, stride, pad, dilate,
-                       groups)
+        (xw, ww), back = _widened(x, weight)
+        out = _rounded(F.conv2d(_nchw(xw), _nchw(ww), None, stride, pad,
+                                dilate, groups), back)
         ctx.save_for_backward(x, weight)
         ctx.stride, ctx.pad, ctx.dilate = stride, pad, dilate
         ctx.groups = groups
@@ -172,10 +190,11 @@ class _Convolution(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _nhwc(torch.ops.aten.convolution_backward(
-                _nchw(dy), _nchw(x), _nchw(weight), None, ctx.stride,
+            (dyw, xw, ww), back = _widened(dy, x, weight)
+            dx = _nhwc(_rounded(torch.ops.aten.convolution_backward(
+                _nchw(dyw), _nchw(xw), _nchw(ww), None, ctx.stride,
                 ctx.pad, ctx.dilate, False, (0, 0), ctx.groups,
-                (True, False, False))[0])
+                (True, False, False))[0], back))
         if ctx.needs_input_grad[1]:
             dw = conv_dw(x.contiguous(), dy, weight.shape[1:3], ctx.stride,
                          ctx.pad, ctx.dilate, ctx.groups).to(weight.dtype)

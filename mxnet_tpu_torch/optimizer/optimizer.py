@@ -39,6 +39,7 @@ AdaDelta.
 
 from __future__ import annotations
 
+import io
 import math
 import pickle
 import threading
@@ -763,16 +764,99 @@ class Updater:
         return pickle.dumps((states, self.optimizer) if dump_optimizer
                             else states)
 
-    def set_states(self, states):
-        """Restore what :meth:`get_states` gave (adopting its optimizer,
-        if it holds one); each state moves to its weight's device at the
-        index's next update."""
-        states = pickle.loads(states)
+    def set_states(self, states, keys=None):
+        """Restore what :meth:`get_states` gave, or either package's state
+        file (:func:`read_states`), adopting its optimizer if it holds
+        one; each state moves to its weight's device at the index's next
+        update.  ``keys`` maps each key the file may hold to this
+        updater's key for it: a file key it lacks raises (a ``Module``
+        names its parameters on a store and numbers them without one)."""
+        states = read_states(states)
         if isinstance(states, tuple) and len(states) == 2:
-            states, self.optimizer = states
+            states, optimizer = states
+            if isinstance(optimizer, _Stub):
+                raise MXNetError("the state file holds the JAX package's "
+                                 "optimizer, which this package cannot "
+                                 "adopt; save the states without it")
+            self.optimizer = optimizer
+        if keys is not None:
+            unknown = [k for k in states if k not in keys]
+            if unknown:
+                raise MXNetError("optimizer states for %s match no "
+                                 "parameter here (%d states in the file)"
+                                 % (", ".join(map(repr, unknown[:5])),
+                                    len(states)))
+            states = {keys[k]: v for k, v in states.items()}
         self.states = states
         self.states_synced = dict.fromkeys(states, False)
         self.generation += 1
+
+
+# ------------------------------------------------------------ state files
+
+
+class _Stub:
+    """A JAX-package object in a state file: its state kept, unread."""
+
+    def __init__(self, *args):
+        self.args = args
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+def _reconstruct_array(fun, args, arr_state, aval_state):
+    """jax's array pickle (``jax._src.array._reconstruct_array``), read
+    as the numpy array it carries."""
+    del aval_state
+    value = fun(*args)
+    value.__setstate__(arr_state)
+    return value
+
+
+def _array_call(value, *args, **kwargs):
+    return value
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """Reads both packages' state files without importing the JAX
+    package: its NDArrays (and the jax arrays inside them) become numpy
+    arrays, its other objects stubs (:class:`_Stub`)."""
+
+    _MAP = {("jax._src.array", "_reconstruct_array"): _reconstruct_array,
+            ("mxnet_tpu.ndarray.ndarray", "array"): _array_call}
+
+    def find_class(self, module, name):
+        if (module, name) in self._MAP:
+            return self._MAP[(module, name)]
+        if module.split(".")[0] in ("mxnet_tpu", "jax", "jaxlib"):
+            return _Stub
+        return super().find_class(module, name)
+
+
+def _host(state):
+    """A loaded state with the JAX package's NDArrays as numpy arrays."""
+    if isinstance(state, _Stub) and hasattr(state, "state"):
+        slots = state.state[1] if isinstance(state.state, tuple) \
+            else state.state
+        if isinstance(slots, dict) and "_data" in slots:
+            # a copy: the pickle's buffer may be read-only, and an update
+            # writes the state in place
+            return np.array(slots["_data"])
+        return state
+    if isinstance(state, dict):
+        return {k: _host(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(_host(s) for s in state)
+    return state
+
+
+def read_states(data):
+    """The objects of a state file's bytes, as either package wrote them
+    (the port's ``Updater``, ``Trainer`` or ``KVStore``, or the JAX
+    package's), read by the one reader every loader of this package
+    uses: no global of the JAX package is imported."""
+    return _host(_StateUnpickler(io.BytesIO(data)).load())
 
 
 def _to_host(state):

@@ -38,6 +38,8 @@ them).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 __all__ = ["OP_CASES", "RANDOM_OPS", "INPLACE_OPS", "NO_TENSOR_OPS",
@@ -970,3 +972,94 @@ def download(url, fname=None, dirname=None, overwrite=False, retries=5):
     """Raises: the port downloads nothing; stage files locally."""
     raise RuntimeError("test_utils.download(%r): the port downloads "
                        "nothing; stage the file locally instead" % (url,))
+
+
+# ------------------------------------------------- float64 references
+
+
+def _conv_dw_float64(x, dy, kernel, stride=(1, 1), pad=(0, 0),
+                     dilate=(1, 1), groups=1):
+    """A 2-D convolution's NHWC/OHWI dW in ``x``'s dtype by
+    ``aten.convolution_backward`` (the kernels' wrappers take the 16- and
+    32-bit types only)."""
+    import torch
+
+    w = torch.empty((dy.shape[3], x.shape[3] // groups) + tuple(kernel),
+                    dtype=x.dtype)
+    dw = torch.ops.aten.convolution_backward(
+        dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, stride, pad,
+        dilate, False, (0, 0), groups, (False, True, False))[1]
+    return dw.permute(0, 2, 3, 1)
+
+
+def _maxpool_bwd_float64(x, dy, kernel, stride, pad=(0, 0)):
+    """A max pool's NHWC dX in ``dy``'s dtype, routed to the first
+    largest tap of each window as the kernel routes it."""
+    import torch
+
+    from .ops.pool_bwd import _first_argmax, _tap_view
+
+    kh, kw = kernel
+    h, w = x.shape[1], x.shape[2]
+    oh, ow = dy.shape[1], dy.shape[2]
+    idx, xp = _first_argmax(x, dy, kernel, stride, pad)
+    dxp = torch.zeros(xp.shape, dtype=dy.dtype)
+    for t in reversed(range(kh * kw)):
+        view = _tap_view(dxp, t // kw, t % kw, stride, oh, ow)
+        view += torch.where(idx == t, dy, torch.zeros_like(dy))
+    return dxp[:, pad[0]:pad[0] + h, pad[1]:pad[1] + w]
+
+
+def _attention_float64(q, k, v, causal=False, sm_scale=None,
+                       return_lse=False):
+    """Softmax attention as one plain expression in ``q``'s dtype."""
+    import torch
+
+    if return_lse:
+        from .base import MXNetError
+
+        raise MXNetError("the float64 reference gives no lse")
+    s = q @ k.transpose(-1, -2) * (q.shape[-1] ** -0.5 if sm_scale is None
+                                   else sm_scale)
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                     device=s.device).triu(1),
+                          float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+@contextlib.contextmanager
+def float64_reference():
+    """While open, the port's CPU path takes float64 where its kernels'
+    wrappers take the 16- and 32-bit types only: a convolution's
+    weight-gradient, a max pool's dX and attention run as plain float64
+    PyTorch.  A network
+    cast to float64 then gives the float64 result that a test holds both
+    packages' float32 results against, to tell their rounding from a
+    divergence."""
+    from .ops import attention, nn
+
+    saved = nn.conv_dw, nn.maxpool_bwd, attention.flash_attention
+    nn.conv_dw, nn.maxpool_bwd, attention.flash_attention = (
+        _conv_dw_float64, _maxpool_bwd_float64, _attention_float64)
+    try:
+        yield
+    finally:
+        nn.conv_dw, nn.maxpool_bwd, attention.flash_attention = saved
+
+
+def within_float64_rounding(got, jax_got, ref, dtype=np.float32):
+    """The largest errors of the port's result ``got`` and the JAX
+    package's ``jax_got`` against a float64 ``ref`` (arrays, or dicts of
+    arrays taken as one output), and the limit the port's is held to:
+    twice the JAX package's error plus one unit in the last place of
+    ``dtype`` at the output's scale."""
+    if not isinstance(ref, dict):
+        got, jax_got, ref = {0: got}, {0: jax_got}, {0: ref}
+    ref = {k: np.asarray(v, np.float64) for k, v in ref.items()}
+    e_port = max(float(np.abs(np.asarray(got[k], np.float64) - r).max())
+                 for k, r in ref.items())
+    e_jax = max(float(np.abs(np.asarray(jax_got[k], np.float64) - r).max())
+                for k, r in ref.items())
+    scale = max(float(np.abs(r).max()) for r in ref.values())
+    return e_port, e_jax, 2 * e_jax + float(np.spacing(dtype(scale)))

@@ -234,11 +234,154 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_image_record_path_imports_no_jax_and_no_jax_package():
+    """A fresh interpreter writes JPEG and detection records through the
+    port's recordio, reads them through mx.io.ImageRecordIter,
+    mx.image.ImageIter and ImageDetIter and the record datasets, traces
+    a zoo net through contrib.quantization._trace_block and fits a small
+    Module over the record iterator through mx.kv.create("local"), all
+    under ``with mx.cpu():``; no module of JAX or of mxnet_tpu appears."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        before = set(sys.modules)
+        import numpy as np
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import recordio
+        d = tempfile.mkdtemp()
+        path = os.path.join(d, "x.rec")
+        rs = np.random.RandomState(0)
+        w = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+        for i in range(8):
+            img = rs.randint(0, 256, (16, 16, 3), np.uint8)
+            w.write_idx(i, recordio.pack_img(
+                recordio.IRHeader(0, float(i % 2), i, 0), img))
+        w.close()
+        det = os.path.join(d, "det.rec")
+        w = recordio.MXIndexedRecordIO(det[:-4] + ".idx", det, "w")
+        for i in range(4):
+            img = rs.randint(0, 256, (16, 16, 3), np.uint8)
+            label = [2, 5, i % 2, 0.1, 0.1, 0.6, 0.7]
+            w.write_idx(i, recordio.pack_img(
+                recordio.IRHeader(0, label, i, 0), img))
+        w.close()
+        with mx.cpu():
+            it = mx.io.ImageRecordIter(path, (3, 16, 16), batch_size=4,
+                                       rand_mirror=True, mean_r=1.0)
+            assert next(iter(it)).data[0].shape == (4, 3, 16, 16)
+            img_it = mx.image.ImageIter(4, (3, 12, 12), path_imgrec=path,
+                                        rand_crop=True)
+            assert next(iter(img_it)).data[0].shape == (4, 3, 12, 12)
+            det_it = mx.image.ImageDetIter(2, (3, 16, 16), path_imgrec=det,
+                                           rand_crop=1, rand_pad=0.5)
+            assert next(iter(det_it)).label[0].shape == (2, 1, 5)
+            ds = mx.gluon.data.vision.ImageRecordDataset(path)
+            assert ds[0][0].shape == (16, 16, 3)
+            from mxnet_tpu_torch.contrib.quantization import _trace_block
+            from mxnet_tpu_torch.gluon.model_zoo import vision
+            zoo = vision.resnet18_v1(classes=2)
+            zoo.initialize()
+            sym, params = _trace_block(zoo, [mx.sym.Variable("data")],
+                                       [(1, 3, 16, 16)])
+            assert params and sym.list_outputs()
+            net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+                mx.sym.Flatten(mx.sym.Variable("data")), num_hidden=2,
+                name="fc"), name="softmax")
+            mod = mx.mod.Module(net, context=mx.cpu())
+            mod.fit(it, num_epoch=1, kvstore=mx.kv.create("local"),
+                    optimizer_params={"learning_rate": 0.01})
+            assert mod._update_on_kvstore
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new if m.split(".")[0] in
+                     ("jax", "jaxlib", "mxnet_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_state_files_load_with_the_jax_package_unimportable(tmp_path):
+    """A Module through a store saves optimizer states whose arrays name
+    the JAX package's ``ndarray.array``; the JAX package's own Module on a
+    store saves jax arrays.  A fresh interpreter in which importing JAX
+    or mxnet_tpu raises loads both into the port's Module without a store
+    (keyed by position) and with one (keyed by name): every momentum
+    arrives, nonzero, and no module of JAX or of mxnet_tpu appears."""
+    import numpy as np
+
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as tmx
+
+    def train(mod, pkg, ctx):
+        rs = np.random.RandomState(2)
+        for _ in range(2):
+            mod.forward_backward(pkg.io.DataBatch(
+                [pkg.nd.array(rs.normal(size=(4, 5)), ctx=ctx)],
+                [pkg.nd.array(rs.randint(0, 3, 4), ctx=ctx)]))
+            mod.update()
+
+    for pkg, ctx in ((tmx, tmx.cpu()), (jmx, jmx.cpu())):
+        mod = pkg.mod.Module(pkg.sym.SoftmaxOutput(pkg.sym.FullyConnected(
+            pkg.sym.Variable("data"), num_hidden=3, name="fc"),
+            name="softmax"), context=ctx)
+        mod.bind([("data", (4, 5))], [("softmax_label", (4,))])
+        mod.init_params()
+        mod.init_optimizer(kvstore=pkg.kv.create("local"), optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        train(mod, pkg, ctx)
+        mod.save_optimizer_states(str(tmp_path / (pkg.__name__ + ".states")))
+    code = textwrap.dedent("""
+        import sys
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+                    raise ImportError("refused: " + name)
+        sys.meta_path.insert(0, Refuse())
+        before = set(sys.modules)
+        import numpy as np
+        import mxnet_tpu_torch as mx
+        for fname in sys.argv[1:]:
+            for store in ("local", mx.kv.create("local")):
+                mod = mx.mod.Module(mx.sym.SoftmaxOutput(
+                    mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                          num_hidden=3, name="fc"),
+                    name="softmax"), context=mx.cpu())
+                mod.bind([("data", (4, 5))], [("softmax_label", (4,))])
+                mod.init_params()
+                mod.init_optimizer(kvstore=store, optimizer_params={
+                    "learning_rate": 0.1, "momentum": 0.9})
+                mod.load_optimizer_states(fname)
+                want = ["fc_weight", "fc_bias"] if mod._update_on_kvstore \
+                    else [0, 1]
+                states = mod._updater.states
+                assert sorted(states, key=str) == sorted(want, key=str), \
+                    states
+                assert all(np.abs(np.asarray(v)).max() > 0
+                           for v in states.values())
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new if m.split(".")[0] in
+                     ("jax", "jaxlib", "mxnet_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "mxnet_tpu_torch.states"),
+         str(tmp_path / "mxnet_tpu.states")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("entry", ["context", "dense", "lm", "server",
                                    "conv2d", "batchnorm", "resnet50",
                                    "gluon_step", "module_bind",
                                    "simple_bind", "bucketing_bind",
-                                   "dataloader", "user_block"])
+                                   "dataloader", "user_block",
+                                   "image_record_iter", "image_iter"])
 def test_entry_points_refuse_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="device='cpu'"):
@@ -270,6 +413,14 @@ def test_entry_points_refuse_without_cuda(monkeypatch, entry):
             from mxnet_tpu_torch.gluon import data
             next(iter(data.DataLoader(data.ArrayDataset([1.0, 2.0]),
                                       batch_size=2)))
+        elif entry == "image_record_iter":
+            from mxnet_tpu_torch.io import ImageRecordIter
+
+            ImageRecordIter("missing.rec", (3, 8, 8), batch_size=2)
+        elif entry == "image_iter":
+            from mxnet_tpu_torch.image import ImageIter
+
+            ImageIter(2, (3, 8, 8), imglist=[(0.0, "missing.jpg")])
         elif entry == "user_block":
             from mxnet_tpu_torch.gluon import HybridBlock
 

@@ -6,9 +6,19 @@ statistics included), and the logits.
 Tolerances for the logits, of their largest magnitude: 1e-5 in predict
 mode (measured about 1e-6 for ResNet-50 at (1, 32, 32, 3)): dozens of
 float32 convolutions and BatchNorms, each summed in another order by each
-package; 1e-4 in train mode (measured 2e-5), where BatchNorm divides by
-the spread of two samples at the deepest stages and so magnifies those
-differences.  The running statistics: 1e-5.
+package.  In train mode BatchNorm divides by the spread of two samples at
+the deepest stages and so magnifies each package's float32 rounding, by
+an amount that hangs on the host's vector unit: the small bottleneck net
+gave 2e-5 of its largest logit on one host and 3.6e-4 on another.  So
+both packages' train-mode logits are held against the port's own float64
+logits (the JAX package in float64, with its BatchNorm's float32
+``rsqrt`` widened, agrees with them to 1.4e-12): the JAX package's error
+within 5e-4 of the largest logit, so that a port that computed another
+function would show (its error was 2.2e-4 of it, 2.7e-4 of a 1.22
+logit, on an AVX512 host: 5e-4 is about twice that), and
+the port's within twice the JAX package's plus one float32 unit in the
+last place at that scale (``test_utils.within_float64_rounding``).  The
+running statistics: 1e-5.
 """
 
 import numpy as np
@@ -22,6 +32,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch.convert import load_mxnet_tpu_params
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+from mxnet_tpu_torch.test_utils import within_float64_rounding
 
 
 def _jax_net(make, shape, seed=0):
@@ -88,7 +99,13 @@ def test_small_resnets_match_jax_in_predict_and_train_mode(make, shape):
         want = jnet(mx.nd.array(x)).asnumpy()
     with tag.record():
         got = net(torch.from_numpy(x)).detach().numpy()
-    _close(got, want, 1e-4)
+    net64 = load_mxnet_tpu_params(make(_Device(tvision, kwargs)),
+                                  params).double()
+    with tag.record():
+        ref = net64(torch.from_numpy(x).double()).detach().numpy()
+    e_port, e_jax, limit = within_float64_rounding(got, want, ref)
+    assert e_jax <= 5e-4 * float(np.abs(ref).max()), e_jax
+    assert e_port <= limit, (e_port, e_jax)
     jstats = {k: p.data().asnumpy()
               for k, p in jnet._collect_params_with_prefix().items()
               if "running" in k}
