@@ -407,6 +407,25 @@ Phases (any failure raises, and the script exits non-zero):
    the labels equal to the records' own, 3 eager steps of phase 11's
    SSD300 step on its batches (K1a, K1b, K2 counted: path ssd_records),
    the step beside phase 11's; the phase's time.
+16. checkpoint (mxnet_tpu_torch/checkpoint.py): (a) the main path, phase
+   5b's float16 multi_precision LM through trainer.compile with
+   checkpoint.enable(interval 8, keep 2) and asynchronous writes, 24 steps
+   on one (8, 1024) batch, the writer drained: the saves, writes and
+   coalesced saves, each checkpoint's bytes, the staging's bytes and how
+   many times it was allocated (once), K3, K4a and K4b at the warm-up and
+   the capture (2 x 4 each); the run takes steps 25-28, and a new net,
+   Trainer and compiled step auto_resume at step 24 and take steps 25-28
+   bitwise as the run did; a flipped byte in the newest checkpoint's
+   params.npz makes latest() fall back to the one before and quarantine
+   it; (b) the cost: the compiled step off and with a save every 8th step
+   in 3 turns, the median step walls, the capture's host and device time
+   on the training thread, the writer's commit p50/p99 (the
+   checkpoint:write histogram), and whether a capture could have waited
+   on a commit; (c) the LM with Dropout 0.1 in float32 through the eager
+   Trainer.step and through Trainer.compile, saved by the step hook at
+   step 4 and resumed into new objects: steps 5-6 bitwise; (d) phase 8's
+   LeNet through save_checkpoint/load_checkpoint: the manifest written and
+   checked, a corrupted .params refused.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its numbers.  Without a CUDA device the script
@@ -8460,6 +8479,368 @@ def image_records(seed, smi, fmt):
     return module, ssd
 
 
+# ----------------------------------------------------- checkpointing (16)
+
+# phase 16: the auto-checkpoint's interval and retention on the main path,
+# its steps before the resume point and after it; the cost's turns (16b);
+# Dropout's rate, the save point and the steps after it (16c)
+CKPT_INTERVAL, CKPT_KEEP, CKPT_STEPS, CKPT_AFTER = 8, 2, 24, 4
+CKPT_TURNS, CKPT_TURN_STEPS = 3, 16
+CKPT_DROPOUT, CKPT_DROP_AT, CKPT_DROP_AFTER = 0.1, 4, 2
+
+
+def _ckpt_lm(seed, dtype="float16", dropout=0.0):
+    """Phase 5b's LM (float16, Adam with multi_precision; float32 Adam
+    with dtype None), named under one prefix, so that a new net's
+    parameters carry the names its checkpoint keys by."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.nn import TransformerLM
+
+    net = TransformerLM(VOCAB, units=UNITS, num_layers=LAYERS,
+                        num_heads=HEADS, dropout=dropout, prefix="ckptlm_",
+                        device="cuda").initialize(seed=seed)
+    if dtype is not None:
+        net.cast(dtype)
+    return net, gluon.Trainer(net.collect_params(), "adam", {
+        "learning_rate": 1e-3, "multi_precision": dtype == "float16"})
+
+
+def _ckpt_bytes(path):
+    """The bytes of a committed checkpoint's files, from its manifest."""
+    with open("%s/MANIFEST.json" % path) as f:
+        return sum(m["bytes"] for m in json.load(f)["files"].values())
+
+
+def _same(a, b):
+    """The names of the tensors of two ``_trained_state`` dicts (or two
+    lists of losses) that differ in any bit."""
+    if isinstance(a, dict):
+        return [k for k in a if not torch.equal(a[k], b[k])]
+    return [i for i, (u, v) in enumerate(zip(a, b)) if not torch.equal(u, v)]
+
+
+def checkpoint_main(seed, smi, x, y, root):
+    """Phase 16a, the main path: phase 5b's float16 multi_precision LM
+    through ``trainer.compile`` with ``checkpoint.enable(interval 8, keep
+    2)`` and asynchronous writes, 24 steps on one batch, then the writer
+    drained; the run takes steps 25-28; a new net, Trainer and compiled
+    step ``auto_resume`` at step 24 and take steps 25-28 bitwise as the
+    run did; a flipped byte in the newest checkpoint's params.npz makes
+    ``latest()`` fall back to the one before and quarantine it.  Returns
+    the net, Trainer and compiled step (16b's) and the attention
+    kernels' counts over the main path."""
+    import os
+
+    from mxnet_tpu_torch import checkpoint, gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net, trainer = _ckpt_lm(seed)
+    cs = trainer.compile(net, loss_fn)
+    counters = _attention_counters()
+    directory = os.path.join(root, "main")
+    mgr = checkpoint.enable(directory, interval=CKPT_INTERVAL,
+                            keep=CKPT_KEEP, async_write=True)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [cs.step(x, y) for _ in range(CKPT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # ---- end of the main path
+    w0 = time.perf_counter()
+    mgr.wait()
+    drained = time.perf_counter() - w0
+    tot = dict(mgr.totals)
+    committed = sorted(n for n in os.listdir(directory)
+                       if n.startswith("ckpt-"))
+    sizes = {n: _ckpt_bytes(os.path.join(directory, n)) for n in committed}
+    tensors = list(net._collect_params_with_prefix().values())
+    params = sum(p.numel() for p in tensors)
+    log("checkpoint: the main path, float16 TransformerLM (%d parameters "
+        "in %d tensors), Adam multi_precision through trainer.compile, "
+        "checkpoint.enable(interval=%d, keep=%d, async): %d steps in %.2f "
+        "s (losses %.4f -> %.4f), the writer drained %.2f s after; saves "
+        "%d, written %d, coalesced %d, errors %d; committed %s (bytes %s); "
+        "staging %d bytes (two device slots and one pinned buffer), "
+        "allocated %d time(s); wrapper launches over the main path %s" % (
+            params, len(tensors),
+            CKPT_INTERVAL, CKPT_KEEP, CKPT_STEPS, wall,
+            losses[0].float().mean().item(),
+            losses[-1].float().mean().item(), drained, tot["saves"],
+            tot["written"], tot["coalesced"], tot["errors"], committed,
+            sizes, tot["staging_bytes"], tot["staging_allocs"], launches))
+    newest = "ckpt-%08d" % CKPT_STEPS
+    if tot["saves"] != CKPT_STEPS // CKPT_INTERVAL or tot["errors"] \
+            or tot["staging_allocs"] != 1 \
+            or tot["written"] + tot["coalesced"] != tot["saves"] \
+            or committed[-1] != newest or len(committed) != CKPT_KEEP:
+        raise AssertionError("the auto-checkpoint did not save, coalesce "
+                             "and keep as set")
+    if any(n != 2 * LAYERS for n in launches.values()):
+        raise AssertionError("the attention kernels were not in the "
+                             "captured step")
+
+    # the run goes on, then new objects resume from step 24
+    after = [cs.step(x, y) for _ in range(CKPT_AFTER)]
+    final = _trained_state(net, trainer)
+    net2, trainer2 = _ckpt_lm(seed + 1)
+    cs2 = trainer2.compile(net2, loss_fn)
+    r0 = time.perf_counter()
+    mgr2 = checkpoint.enable(directory, interval=CKPT_INTERVAL,
+                             keep=CKPT_KEEP, async_write=True)
+    at = checkpoint.auto_resume(trainer=trainer2)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - r0
+    resumed = [cs2.step(x, y) for _ in range(CKPT_AFTER)]
+    torch.cuda.synchronize()
+    state2 = _trained_state(net2, trainer2)
+    bad_losses, bad = _same(after, resumed), _same(final, state2)
+    log("checkpoint: new net, Trainer and compiled step auto_resume at step "
+        "%s in %.2f s (the newest checkpoint verified and read); steps "
+        "%d-%d loss %s (the run's %s); %d of %d losses and %d of %d tensors "
+        "differ (bitwise expected)" % (
+            at, restore_s, CKPT_STEPS + 1, CKPT_STEPS + CKPT_AFTER,
+            " ".join("%.4f" % v.float().mean().item() for v in resumed),
+            " ".join("%.4f" % v.float().mean().item() for v in after),
+            len(bad_losses), len(after), len(bad), len(final)))
+    if at != CKPT_STEPS or bad_losses or bad:
+        raise AssertionError("the resumed run differs: %s" % bad[:5])
+    del net2, trainer2, cs2, final, state2
+
+    # a torn newest checkpoint: skipped, quarantined, the previous one used
+    torn = os.path.join(directory, newest, "params.npz")
+    with open(torn, "r+b") as f:
+        f.seek(os.path.getsize(torn) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    m = mgr2.latest()
+    quarantined = [n for n in os.listdir(directory) if ".corrupt-" in n]
+    log("checkpoint: one byte of %s/params.npz flipped: latest() is step "
+        "%s, %d skipped, quarantined %s" % (
+            newest, m and m["step"],
+            mgr2.totals["corrupt_skipped"], quarantined))
+    if m is None or m["step"] != int(committed[-2][5:]) \
+            or len(quarantined) != 1:
+        raise AssertionError("the torn checkpoint was not skipped")
+    checkpoint.disable()
+    torch.cuda.empty_cache()
+    return net, trainer, cs, launches
+
+
+def _median(v):
+    return float(np.median(v)) if v else float("nan")
+
+
+def _max(v):
+    return max(v) if v else float("nan")
+
+
+def checkpoint_cost(net, trainer, cs, x, y, smi, root):
+    """Phase 16b: the main path's compiled step with checkpointing off,
+    then with a save at every 8th step, in turns: the step walls (host
+    clock, synchronised), the training thread's time in a save (the
+    capture) and its device time (CUDA events), the writer's commit time
+    (the checkpoint:write histogram), and whether a capture could have
+    waited on a commit (the longest capture against the shortest
+    commit)."""
+    import os
+
+    from mxnet_tpu_torch import checkpoint, histogram
+
+    histogram.enable()
+    histogram.reset()
+    mgr = checkpoint.CheckpointManager(os.path.join(root, "cost"),
+                                       keep=CKPT_KEEP, async_write=True)
+    walls = {"off": [], "on": []}
+    save_walls, capture_ms, capture_dev = [], [], []
+    # the steps (save steps left out) taken while the writer committed,
+    # and those while it was idle
+    during = {True: [], False: []}
+    for turn in range(CKPT_TURNS):
+        for kind in ("off", "on"):
+            for i in range(1, CKPT_TURN_STEPS + 1):
+                torch.cuda.synchronize()
+                busy = mgr.busy
+                t = time.perf_counter()
+                cs.step(x, y)
+                save = kind == "on" and i % CKPT_INTERVAL == 0
+                if save:
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    c0 = time.perf_counter()
+                    mgr.save_trainer(trainer, step=turn * 1000 + i)
+                    capture_ms.append((time.perf_counter() - c0) * 1e3)
+                    ev[1].record()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                (save_walls if save else walls[kind]).append(ms)
+                if save:
+                    capture_dev.append(ev[0].elapsed_time(ev[1]))
+                else:
+                    during[busy].append(ms)
+    mgr.wait()
+    hist = histogram.get("checkpoint:write")
+    commit = (hist.percentile(50) * 1e3, hist.percentile(99) * 1e3,
+              hist.min * 1e3, hist.count)
+    tot = mgr.totals
+    mgr.close()
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log("checkpoint cost on %s, %d turns of %d compiled steps off and with a "
+        "save every %d: median step wall off %.3f ms, on (steps without a "
+        "save) %.3f ms, the save steps %s ms; longest step without a save "
+        "off %.3f, on %.3f ms; the capture on the training thread %s ms "
+        "(host), %s ms (device: the copy into the staging slot); the "
+        "writer's commit p50 %.1f ms, p99 %.1f ms, shortest %.1f ms over "
+        "%d commits; saves %d, written %d, coalesced %d, staging allocated "
+        "%d time(s); a capture waited on a commit: %s; the steps without a "
+        "save while the writer committed: %d, median %.3f ms, longest "
+        "%.3f; while it was idle: %d, median %.3f, longest %.3f" % (
+            smi, CKPT_TURNS, CKPT_TURN_STEPS, CKPT_INTERVAL, med["off"],
+            med["on"], " ".join("%.3f" % v for v in save_walls),
+            max(walls["off"]), max(walls["on"]),
+            " ".join("%.3f" % v for v in capture_ms),
+            " ".join("%.3f" % v for v in capture_dev),
+            commit[0], commit[1], commit[2], commit[3], tot["saves"],
+            tot["written"], tot["coalesced"], tot["staging_allocs"],
+            "no" if max(capture_ms) < commit[2] else "possibly",
+            len(during[True]), _median(during[True]), _max(during[True]),
+            len(during[False]), _median(during[False]),
+            _max(during[False])))
+    if tot["errors"] or tot["staging_allocs"] != 1:
+        raise AssertionError("the checkpoint writes failed or the staging "
+                             "was allocated again")
+    return dict(step_off_ms=med["off"], step_on_ms=med["on"],
+                step_during_commit_ms=_median(during[True]),
+                capture_ms=float(np.median(capture_ms)),
+                capture_device_ms=float(np.median(capture_dev)),
+                commit_p50_ms=commit[0], commit_p99_ms=commit[1])
+
+
+def checkpoint_dropout(seed, smi, x, y, root):
+    """Phase 16c: the LM with Dropout 0.1 in float32, through the eager
+    Trainer.step (phase 5's path, the hook of Trainer.step) and then
+    through Trainer.compile: saved by the hook at step 4, steps 5-6 taken
+    on; new objects resume and take steps 5-6 bitwise as the run did (the
+    generator's state comes back)."""
+    import os
+
+    from mxnet_tpu_torch import checkpoint, gluon
+    from mxnet_tpu_torch import random as _random
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rows = []
+    for compiled in (False, True):
+        runs = []
+        for kind in ("run", "resumed"):
+            _random.seed(seed if kind == "run" else seed + 7)
+            net, trainer = _ckpt_lm(seed if kind == "run" else seed + 1,
+                                    dtype=None, dropout=CKPT_DROPOUT)
+            cs = trainer.compile(net, loss_fn) if compiled else None
+
+            def step():
+                if cs is not None:
+                    return cs.step(x, y).detach().clone()
+                return _train_step(net, loss_fn, trainer, x, y)
+
+            directory = os.path.join(root, "dropout%d" % compiled)
+            checkpoint.enable(directory, interval=CKPT_DROP_AT, keep=1,
+                              async_write=False)
+            if kind == "run":
+                [step() for _ in range(CKPT_DROP_AT)]
+            else:
+                at = checkpoint.auto_resume(trainer=trainer)
+            losses = [step() for _ in range(CKPT_DROP_AFTER)]
+            torch.cuda.synchronize()
+            runs.append((losses, _trained_state(net, trainer)))
+            checkpoint.disable()
+            del net, trainer, cs
+        (la, sa), (lb, sb) = runs
+        bad = _same(sa, sb) + _same(la, lb)
+        rows.append("%s: resumed at step %s, steps %d-%d loss %s (the run's "
+                    "%s), %d differ" % (
+                        "Trainer.compile" if compiled else "eager "
+                        "Trainer.step", at, CKPT_DROP_AT + 1,
+                        CKPT_DROP_AT + CKPT_DROP_AFTER,
+                        " ".join("%.5f" % v.float().mean().item()
+                                 for v in lb),
+                        " ".join("%.5f" % v.float().mean().item()
+                                 for v in la), len(bad)))
+        if at != CKPT_DROP_AT or bad:
+            raise AssertionError("the dropout resume differs: %s" % bad[:5])
+        torch.cuda.empty_cache()
+    log("checkpoint: float32 LM with Dropout %.1f, saved by the step hook at "
+        "step %d, resumed into new objects (bitwise expected): %s" % (
+            CKPT_DROPOUT, CKPT_DROP_AT, "; ".join(rows)))
+
+
+def checkpoint_legacy(root):
+    """Phase 16d: phase 8's LeNet through save_checkpoint and
+    load_checkpoint on the card: the manifest written and checked, the
+    parameters read back bitwise, a corrupt .params refused."""
+    import os
+
+    import mxnet_tpu_torch as mx
+
+    it = _mnist_iter(True, False)
+    mod = mx.mod.Module(_mnist_net("lenet"), context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier())
+    prefix = os.path.join(root, "lenet")
+    mod.save_checkpoint(prefix, 1)
+    with open(prefix + "-0001.manifest.json") as f:
+        files = json.load(f)["files"]
+    _, args, auxs = mx.model.load_checkpoint(prefix, 1)
+    want = mod.get_params()[0]
+    differ = [k for k in want if not torch.equal(
+        args[k].data_torch.cpu(), want[k].data_torch.cpu())]
+    with open(prefix + "-0001.params", "r+b") as f:
+        f.seek(200)
+        b = f.read(1)
+        f.seek(200)
+        f.write(bytes([b[0] ^ 0xFF]))
+    try:
+        mx.model.load_checkpoint(prefix, 1)
+        refused = None
+    except mx.MXNetError as e:
+        refused = str(e).split(":")[0]
+    log("checkpoint: LeNet through save_checkpoint/load_checkpoint on the "
+        "card: manifest %s, %d parameters read back, %d differ; a flipped "
+        "byte in the .params: %s" % (
+            sorted(files), len(args), len(differ),
+            "refused (%s)" % refused if refused else "LOADED"))
+    if differ or refused is None or sorted(files) != [
+            "lenet-0001.params", "lenet-symbol.json"]:
+        raise AssertionError("the legacy checkpoint's manifest failed")
+
+
+def checkpointing(seed, smi):
+    """Phase 16 (16a-16d).  Returns the attention kernels' counts over
+    16a's main path and 16b's figures."""
+    import shutil
+    import tempfile
+
+    rng = np.random.RandomState(seed + 3)
+    x = torch.from_numpy(rng.randint(0, VOCAB, (TRAIN_BATCH, SEQ))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, VOCAB, (TRAIN_BATCH, SEQ))
+                         .astype(np.float32)).cuda()
+    root = tempfile.mkdtemp(prefix="mxnet_ckpt_")
+    try:
+        net, trainer, cs, launches = checkpoint_main(seed, smi, x, y, root)
+        cost = checkpoint_cost(net, trainer, cs, x, y, smi, root)
+        del net, trainer, cs
+        torch.cuda.empty_cache()
+        checkpoint_dropout(seed, smi, x, y, root)
+        checkpoint_legacy(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, cost
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8510,6 +8891,8 @@ def main():
         % (fmt, codec or "none"))
     imagenet, ssd_rec = phase("15 image records", image_records, args.seed,
                               smi, fmt)
+    ckpt_launches, ckpt_cost = phase("16 checkpoint", checkpointing,
+                                     args.seed, smi)
     # one entry per kernel per main path, each with that path's own count;
     # the served buckets are captured graphs, so "launches" is the
     # wrapper's count over the eager warm-up and capture of each bucket,
@@ -8546,6 +8929,19 @@ def main():
             replaces="mxnet_tpu/ops/attention.py:%d" % line,
             launches_counted_over="eager warm-up step + capture",
             **compiled_launches[kern], **row))
+    # phase 16's main path: the same compiled float16 step, auto-
+    # checkpointed (its capture a device copy after the step's replay)
+    for kern, line, row in (("fwd", 63, fwd_rows["f16"]),
+                            ("dq", 163, bwd_rows["f16"]["dq"]),
+                            ("dkv", 206, bwd_rows["f16"]["dkv"])):
+        entries.append(dict(
+            name="flash_attn_" + ("fwd" if kern == "fwd" else "bwd_" + kern),
+            path="lm_checkpoint_train", route="cuda", dtype="float16",
+            source="mxnet_tpu_torch/csrc/flash_attn_%s.cu"
+                   % ("fwd" if kern == "fwd" else "bwd"),
+            replaces="mxnet_tpu/ops/attention.py:%d" % line,
+            launches_counted_over="eager warm-up step + capture",
+            launches=ckpt_launches[kern], checkpoint=ckpt_cost, **row))
     # the ResNet step is captured: "launches" is the wrappers' count over
     # the main path, which launches in the eager warm-up step and into the
     # graph at capture (2 x a step); the replays launch no wrapper, so the

@@ -22,7 +22,8 @@ class MXNetError(RuntimeError):
 _NP_TO_TORCH = {np.dtype(k): v for k, v in (
     (np.float32, torch.float32), (np.float64, torch.float64),
     (np.float16, torch.float16), (np.uint8, torch.uint8),
-    (np.uint32, torch.uint32),
+    (np.uint16, torch.uint16), (np.uint32, torch.uint32),
+    (np.uint64, torch.uint64),
     (np.int8, torch.int8), (np.int16, torch.int16),
     (np.int32, torch.int32), (np.int64, torch.int64),
     (np.bool_, torch.bool))}
@@ -47,7 +48,9 @@ def torch_dtype(dtype):
 
 def np_dtype(dtype):
     """The numpy dtype of a ``torch.dtype`` (or dtype-ish); bfloat16, which
-    numpy lacks, stays ``torch.bfloat16``."""
+    numpy lacks, stays ``torch.bfloat16``.  uint16 and uint64 are numpy
+    types too, though PyTorch keeps them as storage types (creation,
+    copies, casts and ``asnumpy`` work; most arithmetic raises)."""
     dt = torch_dtype(dtype)
     return _TORCH_TO_NP.get(dt, dt)
 

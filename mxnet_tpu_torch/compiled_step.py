@@ -28,7 +28,13 @@ advances the update counts, once a step, and copied into one small device
 buffer that the update reads (``ScalarFeed``), so a schedule never
 recaptures.  A ``Block.cast``, ``Trainer.load_states`` (new state
 tensors, a new optimizer) or any ``Updater.set_states`` drops the
-graphs.  On the CPU the step runs eagerly under the same keys.
+graphs.  A checkpoint's restore (``checkpoint.CheckpointManager.restore``,
+``auto_resume``) copies the parameters into their storage in place and
+hands the states (float32 masters included) to
+``Updater.restore_states``, which drops the graphs the same way; the
+update counts come back with the optimizer's hyper-state, so the next
+step's fed scalars (Adam's bias correction) continue.  On the CPU the
+step runs eagerly under the same keys.
 
 The step updates the parameters and states in place, where the JAX
 package donates their buffers and rebinds new ones; either way a
@@ -221,7 +227,7 @@ class CompiledStep:
         ``trainer:step`` histogram, as ``Trainer.step``."""
         _rts.inc("trainer_steps")
         _rts.inc("compiled_step_steps")
-        with _StepTelemetry():
+        with _StepTelemetry(self.trainer, compiled=True):
             return self._step(x, y)
 
     def _step(self, x, y):

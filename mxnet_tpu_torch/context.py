@@ -61,6 +61,15 @@ class Context:
             return torch.device("cuda", self.device_id)
         return torch.device("cpu")
 
+    def empty_cache(self):
+        """Hand the caching allocator's free blocks on a card back to the
+        driver (``torch.cuda.empty_cache``, on this context's device); a
+        host context has no pool to flush (reference:
+        ``Context.empty_cache``)."""
+        if self.device_type == "gpu" and torch.cuda.is_available():
+            with torch.cuda.device(self.device_id):
+                torch.cuda.empty_cache()
+
     def __hash__(self):
         return hash(self.torch_device)
 

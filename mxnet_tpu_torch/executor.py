@@ -254,6 +254,16 @@ class Executor:
                     raise MXNetError("Found name %r not in %s"
                                      % (name, what))
 
+    def debug_str(self):
+        """The bound graph as text: its outputs, then each node in
+        topological order (the JAX package's ``executor.py:377``)."""
+        lines = ["Symbol outputs: %s"
+                 % ", ".join(self._symbol.list_outputs())]
+        for node in self._nodes:
+            lines.append("Variable:%s" % node.name if node.is_variable
+                         else "Op:%s, Name=%s" % (node.op, node.name))
+        return "\n".join(lines)
+
     def set_monitor_callback(self, callback, monitor_all=False):
         """Call ``callback(name, output)`` for each output whenever the
         outputs are set (reference: MXExecutorSetMonitorCallback; the JAX

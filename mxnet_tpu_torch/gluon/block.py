@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import collections
 import functools
-import os
 import re
 import threading
 import weakref
@@ -509,8 +508,9 @@ class Block(nn.Module):
     # ------------------------------------------------------------ save/load
     def save_parameters(self, filename):
         """Write the parameters by structural name in the npz format the
-        JAX package reads (through a temporary file and a rename, so a
-        crash never leaves a torn file under ``filename``).  Raises
+        JAX package reads, through ``checkpoint.atomic_write`` (a
+        temporary file, fsync and a rename, so a crash never leaves a torn
+        file under ``filename``).  Raises
         :class:`MXNetError` while a parameter's shape is deferred."""
         params = self._collect_params_with_prefix()
         deferred = [k for k, p in params.items() if is_deferred(p)]
@@ -518,9 +518,10 @@ class Block(nn.Module):
             raise MXNetError(
                 "cannot save parameters %s: their shapes wait for the first "
                 "input (run a forward first)" % ", ".join(deferred))
-        tmp = "%s.tmp%d" % (filename, os.getpid())
-        ndarray.save(tmp, {k: v for k, v in params.items()})
-        os.replace(tmp, filename)
+        from .. import checkpoint as _ckpt
+
+        with _ckpt.atomic_write(filename) as tmp:
+            ndarray.save(tmp, dict(params))
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False):

@@ -2,5 +2,6 @@
 ``mxnet_tpu/gluon/model_zoo``)."""
 
 from . import ssd, vision, word_lm
+from .vision import get_model
 
-__all__ = ["ssd", "vision", "word_lm"]
+__all__ = ["ssd", "vision", "word_lm", "get_model"]

@@ -36,23 +36,34 @@ __all__ = ["Trainer"]
 
 class _StepTelemetry:
     """The per-step instrumentation shared by ``Trainer.step`` and
-    ``CompiledStep.step`` (``mxnet_tpu/gluon/trainer.py:34-108``): the
-    ``trainer:step`` histogram of the step's wall time (seconds), when
-    the histograms are on, for a step that did not raise.
+    ``CompiledStep.step`` (``mxnet_tpu/gluon/trainer.py:34-108``), for a
+    step that did not raise: the ``trainer:step`` histogram of the step's
+    wall time (seconds), when the histograms are on, then the
+    auto-checkpoint hook (``checkpoint.enable()`` or ``MXNET_TPU_CKPT``:
+    it advances the manager's step clock and captures a snapshot at its
+    interval; off, one dict read).  ``compiled`` marks the compiled step's
+    calls, as in the JAX package.
 
     The JAX class's other hooks wait for their layers: the profiler span,
     health and its crash dump, device memory, the stepstats window, the
-    metrics timeline and the autopilot (ROADMAP Queue 1 item 10), and the
-    auto-checkpoint (item 5)."""
+    metrics timeline and the autopilot (ROADMAP Queue 1 item 10)."""
+
+    def __init__(self, trainer, compiled=False):
+        self.trainer = trainer
+        self.compiled = compiled
 
     def __enter__(self):
         self._t0 = time.perf_counter() if _histogram._state["on"] else None
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if exc_type is None and self._t0 is not None:
+        if exc_type is not None:
+            return False
+        if self._t0 is not None:
             _histogram.observe("trainer:step",
                                time.perf_counter() - self._t0)
+        if _ckpt._state["on"]:
+            _ckpt.on_step(self.trainer, pin=self.compiled)
         return False
 
 
@@ -157,7 +168,7 @@ class Trainer:
         with ``rescale_grad = 1 / batch_size``; counts ``trainer_steps``
         and times the step into the ``trainer:step`` histogram."""
         _rts.inc("trainer_steps")
-        with _StepTelemetry():
+        with _StepTelemetry(self):
             self._optimizer.rescale_grad = self._scale / batch_size
             self._update(ignore_stale_grad)
 

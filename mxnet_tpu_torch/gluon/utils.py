@@ -16,7 +16,8 @@ import torch
 
 from ..context import resolve_device
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -86,3 +87,23 @@ def check_sha1(filename, sha1_hash):
         for chunk in iter(lambda: f.read(1 << 20), b""):
             sha1.update(chunk)
     return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """The file ``url`` names, where it already lies (``path``, a file or a
+    directory, default the working directory), unless ``overwrite`` or a
+    SHA-1 mismatch asks for a new copy; never fetches: otherwise raises
+    ``RuntimeError`` naming where to place the file (the JAX package's
+    ``gluon/utils.py:129``)."""
+    import os
+
+    del retries, verify_ssl
+    fname = path if path and not os.path.isdir(path) else \
+        os.path.join(path or ".", url.split("/")[-1])
+    if os.path.exists(fname) and not overwrite and \
+            (not sha1_hash or check_sha1(fname, sha1_hash)):
+        return fname
+    raise RuntimeError(
+        "download(%s): this package does not fetch files; place the file "
+        "at %s" % (url, fname))

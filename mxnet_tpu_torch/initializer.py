@@ -72,6 +72,15 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+        self._verbose = False
+        self._print_func = None
+
+    def set_verbosity(self, verbose=False, print_func=None):
+        """Keep MXNet's verbosity switch and printer (the JAX package's
+        ``initializer.py:39``: stored, and printing nothing)."""
+        self._verbose = verbose
+        self._print_func = print_func
+        return self
 
     def dumps(self):
         """``[name, kwargs]`` as JSON; :func:`create` reads it back."""

@@ -2,13 +2,15 @@
 
 Counterpart of ``mxnet_tpu/model.py`` (reference: python/mxnet/model.py):
 
-- ``save_checkpoint`` and ``load_checkpoint``: ``prefix-symbol.json``
-  (the symbol's JSON) and ``prefix-%04d.params`` (an ``nd.save`` dict of
-  ``arg:<name>`` and ``aux:<name>`` arrays, the JAX package's npz
-  container), so a checkpoint written by either package loads in the
-  other.  Each file is written to a temporary name and renamed, so a name
-  only ever holds a whole file.  The JAX package's sidecar checksum
-  manifest is neither written nor read.
+- ``save_checkpoint`` and ``load_checkpoint``: shims over
+  ``checkpoint.save_legacy``/``load_legacy``, as the JAX package's
+  (``mxnet_tpu/model.py:19-34``): ``prefix-symbol.json`` (the symbol's
+  JSON), ``prefix-%04d.params`` (an ``nd.save`` dict of ``arg:<name>`` and
+  ``aux:<name>`` arrays, the JAX package's npz container), each written
+  atomically, and the sidecar ``prefix-%04d.manifest.json`` of their
+  SHA-256 checksums, checked at load (a mismatch raises
+  :class:`MXNetError`), so a checkpoint written by either package loads in
+  the other.
 - ``BatchEndParam``, what a batch-end callback gets (``epoch``,
   ``nbatch``, ``eval_metric``, ``locals``); the JAX package sets
   ``model.BatchEndParam`` to None (``model.py:16``) and keeps its class in
@@ -22,52 +24,29 @@ Counterpart of ``mxnet_tpu/model.py`` (reference: python/mxnet/model.py):
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
+from . import checkpoint as _ckpt
 from . import ndarray as _nd
-from . import symbol as _sym
 
 __all__ = ["save_checkpoint", "load_checkpoint", "BatchEndParam",
            "FeedForward"]
 
 
-def _replace_into(path, write):
-    tmp = "%s.%d.tmp" % (path, os.getpid())
-    try:
-        write(tmp)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-
-
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
                     remove_amp_cast=True):
-    """Write ``prefix-symbol.json`` (unless ``symbol`` is None) and
-    ``prefix-%04d.params``."""
+    """Write ``prefix-symbol.json`` (unless ``symbol`` is None),
+    ``prefix-%04d.params`` and their manifest
+    (``checkpoint.save_legacy``)."""
     del remove_amp_cast
-    if symbol is not None:
-        _replace_into("%s-symbol.json" % prefix, symbol.save)
-    save = {"arg:%s" % k: v for k, v in arg_params.items()}
-    save.update({"aux:%s" % k: v for k, v in aux_params.items()})
-    _replace_into("%s-%04d.params" % (prefix, epoch),
-                  lambda tmp: _nd.save(tmp, save))
+    _ckpt.save_legacy(prefix, epoch, symbol, arg_params, aux_params)
 
 
 def load_checkpoint(prefix, epoch, ctx=None):
     """``(symbol, arg_params, aux_params)``, the arrays on ``ctx``
-    (``gpu(0)`` when None)."""
-    symbol = _sym.load("%s-symbol.json" % prefix)
-    arg_params, aux_params = {}, {}
-    for k, v in _nd.load("%s-%04d.params" % (prefix, epoch), ctx=ctx).items():
-        kind, name = k.split(":", 1)
-        if kind == "arg":
-            arg_params[name] = v
-        elif kind == "aux":
-            aux_params[name] = v
-    return symbol, arg_params, aux_params
+    (``gpu(0)`` when None; the JAX package's takes no ``ctx``), after the
+    manifest's checksums, when there is one (``checkpoint.load_legacy``)."""
+    return _ckpt.load_legacy(prefix, epoch, ctx=ctx)
 
 
 class BatchEndParam:

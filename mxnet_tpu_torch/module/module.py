@@ -33,8 +33,8 @@ package) and maps its keys to this Module's.
 from __future__ import annotations
 
 import logging
-import os
 
+from .. import checkpoint as _ckpt
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import cpu
@@ -422,17 +422,17 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        """The updater's states, written to a temporary name and renamed:
-        the store's file (keyed by name) on a store, else the updater's
-        (keyed by position), as the JAX package writes them."""
+        """The updater's states, written through
+        ``checkpoint.atomic_write`` (a temporary file, fsync and a
+        rename): the store's file (keyed by name) on a store, else the
+        updater's (keyed by position), as the JAX package writes them."""
         assert self.optimizer_initialized
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
-        tmp = "%s.%d.tmp" % (fname, os.getpid())
-        with open(tmp, "wb") as f:
-            f.write(self._updater.get_states())
-        os.replace(tmp, fname)
+        with _ckpt.atomic_write(fname) as tmp:
+            with open(tmp, "wb") as f:
+                f.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """Read a state file of either package, keyed by name or by

@@ -9,10 +9,20 @@ Sparse arrays are not ported yet.
 
 from .. import ops as _ops  # noqa: F401  (registers every op)
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
-                      imperative_invoke, load, maximum, minimum, moveaxis,
-                      ones, read_npz, save, stack_arrays, waitall, zeros)
+                      imperative_invoke, load, load_frombuffer, maximum,
+                      minimum, moveaxis, ones, read_npz, save, stack_arrays,
+                      waitall, zeros)
 from .register import populate as _populate
 
 _populate(globals())
+
+
+def onehot_encode(indices, out):
+    """The legacy helper (reference: ``mx.nd.onehot_encode``): ``out``
+    becomes the one-hot rows of ``indices`` over ``out.shape[1]`` classes,
+    in ``out``'s dtype; returns ``out``."""
+    res = imperative_invoke("one_hot", [indices], {"depth": out.shape[1]})[0]
+    out[:] = res.astype(out.dtype)
+    return out
 
 from . import contrib, random  # noqa: E402,F401

@@ -41,7 +41,8 @@ from ..ops.matrix import encode_basic_index
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "maximum", "minimum", "moveaxis", "stack_arrays",
-           "waitall", "imperative_invoke", "save", "load", "read_npz"]
+           "waitall", "imperative_invoke", "save", "load", "load_frombuffer",
+           "read_npz"]
 
 
 def _grad_mode():
@@ -386,6 +387,21 @@ class NDArray:
     def repeat(self, repeats, axis=None):
         return self._reduce("repeat", repeats=repeats, axis=axis)
 
+    def pad(self, mode="constant", pad_width=(), constant_value=0.0):
+        return imperative_invoke("Pad", [self], {
+            "mode": mode, "pad_width": pad_width,
+            "constant_value": constant_value})[0]
+
+    def diag(self, k=0):
+        return imperative_invoke("diag", [self], {"k": k})[0]
+
+    def to_dlpack_for_read(self):
+        """A DLPack capsule of the array's storage (no copy), through
+        ``torch.utils.dlpack``."""
+        return torch.utils.dlpack.to_dlpack(self._t.detach())
+
+    to_dlpack_for_write = to_dlpack_for_read
+
     def split(self, num_outputs, axis=1, squeeze_axis=False):
         return imperative_invoke("SliceChannel", [self], {
             "num_outputs": num_outputs, "axis": axis,
@@ -609,8 +625,12 @@ def imperative_invoke(op_name, inputs, attrs, out=None):
 def array(source, ctx=None, dtype=None):
     """A new array from an NDArray, a tensor, a numpy array, a list or a
     scalar, on ``ctx`` (default ``gpu(0)``).  Typed sources keep their
-    dtype, but float64 narrows to float32; lists and scalars are float32
-    (reference: python/mxnet/ndarray/utils.py array)."""
+    dtype, int64 included, but float64 narrows to float32 (MXNet's
+    default type for a host source); lists and scalars are float32; an
+    explicit ``dtype`` is kept whatever it is, float64 and int64 included,
+    as in MXNet (the JAX package narrows 64-bit types to 32 bits; ROADMAP
+    "Deliberate divergences") (reference: python/mxnet/ndarray/utils.py
+    array)."""
     dev = resolve_device(ctx)
     if isinstance(source, (NDArray, torch.Tensor)):
         src = source._t if isinstance(source, NDArray) else source
@@ -744,6 +764,14 @@ def read_npz(fname):
     """The arrays of a saved file as numpy, without placing them anywhere."""
     with np.load(fname, allow_pickle=False) as data:
         return _parse_npz(data)[1]
+
+
+def load_frombuffer(buf, ctx=None):
+    """:func:`load` of a saved file's bytes (reference:
+    MXNDArrayLoadFromBuffer, python/mxnet/ndarray/utils.py:185)."""
+    import io
+
+    return load(io.BytesIO(bytes(buf)), ctx=ctx)
 
 
 def load(fname, ctx=None):

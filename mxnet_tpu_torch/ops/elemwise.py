@@ -22,7 +22,13 @@ decides:
   ``bf16 * 2.0`` stays bf16, and an integer scalar keeps an integer
   input's type, wrapping (``uint8 * 3``; torch's scalar promotion is the
   same);
-- ``maximum``/``minimum`` propagate NaN.
+- ``maximum``/``minimum`` propagate NaN;
+- a bool operand gets the ``jnp`` result type: ``abs``, ``ceil``,
+  ``floor``, ``trunc`` and ``fix`` keep it bool; ``relu``, ``square``,
+  ``clip``, ``power`` and ``mod`` of bools are int32; a bool and a
+  Python scalar compute in the scalar's weak type (``a - 3.0`` is
+  float32); ``sign``, ``sigmoid`` and ``rsqrt`` raise on bool, as the JAX
+  ops do (so do ``negative`` and ``sub`` of two bools).
 """
 
 from __future__ import annotations
@@ -45,6 +51,28 @@ def _float(x):
     return x if x.is_floating_point() else x.float()
 
 
+def _keep_bool(f):
+    """``f``, except that a bool tensor comes back as a copy of itself
+    (``jnp.abs``, ``jnp.floor``, ... of bools are bools)."""
+    return lambda x: x.clone() if x.dtype == torch.bool else f(x)
+
+
+def _int32_bool(f):
+    """``f``, with a bool tensor taken as int32 first (``jnp.square`` or
+    ``jax.nn.relu`` of bools are int32)."""
+    return lambda x, *a: f(x.to(torch.int32) if x.dtype == torch.bool
+                           else x, *a)
+
+
+def _no_bool(name, f):
+    """``f``, refusing bool tensors as the JAX op does."""
+    def g(x):
+        if x.dtype == torch.bool:
+            raise TypeError("%s does not accept dtype bool" % name)
+        return f(x)
+    return g
+
+
 def _sign(x):
     """``jnp.sign``: NaN and both zeros map to themselves."""
     if not x.is_floating_point():
@@ -53,17 +81,17 @@ def _sign(x):
 
 
 _UNARY = {
-    "abs": torch.abs,
-    "sign": _sign,
+    "abs": _keep_bool(torch.abs),
+    "sign": _no_bool("sign", _sign),
     "rint": lambda x: torch.round(_float(x)),
-    "ceil": torch.ceil,
-    "floor": torch.floor,
-    "trunc": torch.trunc,
-    "fix": torch.trunc,
+    "ceil": _keep_bool(torch.ceil),
+    "floor": _keep_bool(torch.floor),
+    "trunc": _keep_bool(torch.trunc),
+    "fix": _keep_bool(torch.trunc),
     "round": torch.round,
-    "square": torch.square,
+    "square": _int32_bool(torch.square),
     "sqrt": lambda x: torch.sqrt(_float(x)),
-    "rsqrt": lambda x: torch.rsqrt(_float(x)),
+    "rsqrt": _no_bool("rsqrt", lambda x: torch.rsqrt(_float(x))),
     "cbrt": _cbrt,
     "rcbrt": lambda x: 1.0 / _cbrt(x),
     "exp": lambda x: torch.exp(_float(x)),
@@ -86,9 +114,9 @@ _UNARY = {
     "arctanh": lambda x: torch.arctanh(_float(x)),
     "degrees": lambda x: torch.rad2deg(_float(x)),
     "radians": lambda x: torch.deg2rad(_float(x)),
-    "sigmoid": lambda x: torch.sigmoid(_float(x)),
+    "sigmoid": _no_bool("sigmoid", lambda x: torch.sigmoid(_float(x))),
     "softsign": lambda x: F.softsign(_float(x)),
-    "relu": torch.relu,
+    "relu": _int32_bool(torch.relu),
     "erf": lambda x: torch.erf(_float(x)),
     "erfinv": lambda x: torch.erfinv(_float(x)),
     "gamma": lambda x: torch.exp(torch.lgamma(_float(x))),
@@ -135,6 +163,8 @@ def hard_sigmoid(x, alpha=0.2, beta=0.5, **_):
 def clip(x, a_min=None, a_max=None, **_):
     """Clamp every element into ``[a_min, a_max]`` (a bound of None is
     open)."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
     if a_min is None and a_max is None:
         return x.clone()
     return torch.clamp(x, a_min, a_max)
@@ -177,9 +207,18 @@ def _is_int(dt):
     return not (dt.is_floating_point or dt.is_complex or dt == torch.bool)
 
 
+def _bools_int32(a, b):
+    """Two bool operands as int32 (``jnp.mod``/``jnp.power`` of bools)."""
+    if torch.result_type(a, b) == torch.bool:
+        return a.to(torch.int32), (b.to(torch.int32)
+                                   if isinstance(b, torch.Tensor) else b)
+    return a, b
+
+
 def _mod(a, b):
     """The floored modulo of a tensor by a tensor or a Python number; an
     integer divisor of 0 gives 0."""
+    a, b = _bools_int32(a, b)
     if not _is_int(torch.result_type(a, b)):
         return torch.remainder(a, b)
     if not isinstance(b, torch.Tensor):
@@ -202,6 +241,7 @@ def _int_pow(base, exp):
 
 
 def _power(a, b):
+    a, b = _bools_int32(a, b)
     if _is_int(torch.result_type(a, b)):
         return _int_pow(a, b)
     return torch.pow(a, b)
@@ -305,11 +345,22 @@ def _int_scalar(s):
     return isinstance(s, int) and not isinstance(s, bool)
 
 
+# the scalar ops whose result on a bool tensor stays 0/1 in its dtype
+_SCALAR_KEEPS_BOOL = {n for n in _SCALAR if "equal" in n or "greater" in n
+                      or "lesser" in n or "logical" in n}
+
+
 def _register_scalar(name, f):
+    keeps_bool = name in _SCALAR_KEEPS_BOOL
+
     @register(name)
     def _op(x, scalar=0.0, **_):
         """Tensor-scalar element-wise op, from the _SCALAR table."""
-        return f(x, scalar if _int_scalar(scalar) else float(scalar))
+        s = scalar if _int_scalar(scalar) else float(scalar)
+        if x.dtype == torch.bool and not keeps_bool:
+            # a bool computes in the scalar's weak type, as in jnp
+            x = x.to(torch.int32 if _int_scalar(s) else torch.float32)
+        return f(x, s)
 
     _op.__name__ = name
     _op.__doc__ = ("%s(x, scalar=...) per element; the scalar is a Python "
@@ -326,6 +377,7 @@ for _n, _f in _SCALAR.items():
 def smooth_l1(x, scalar=1.0, **_):
     """Smooth-L1 (Huber) loss with sigma = ``scalar``."""
     s2 = float(scalar) * float(scalar)
+    x = _float(x)
     ax = torch.abs(x)
     return torch.where(ax < 1.0 / s2, 0.5 * s2 * x * x, ax - 0.5 / s2)
 

@@ -223,8 +223,13 @@ def dot(a, b, transpose_a=False, transpose_b=False, **_):
     """MXNet dot: contracts the last axis of ``a`` with the first of ``b``
     (after a full transpose of either, if asked); two vectors give their
     inner product.  Operands of two types are promoted first
-    (:func:`promote`)."""
+    (:func:`promote`); the product of bools is bool (any of the ands, as
+    ``jnp.dot``)."""
     a, b = promote(a, b)
+    if a.dtype == torch.bool:
+        # counted in float32 (exact to 2**24 terms; the card has no
+        # integer matrix product)
+        return dot(a.float(), b.float(), transpose_a, transpose_b) != 0
     if transpose_a:
         a = a.permute(tuple(range(a.dim()))[::-1])
     if transpose_b:
@@ -237,8 +242,11 @@ def dot(a, b, transpose_a=False, transpose_b=False, **_):
 @register("batch_dot")
 def batch_dot(a, b, transpose_a=False, transpose_b=False, **_):
     """Batched product of the trailing two axes, of operands promoted to
-    their common type (:func:`promote`)."""
+    their common type (:func:`promote`); of bools, bool (as :func:`dot`)."""
     a, b = promote(a, b)
+    if a.dtype == torch.bool:
+        return batch_dot(a.float(), b.float(), transpose_a,
+                         transpose_b) != 0
     if transpose_a:
         a = a.transpose(-1, -2)
     if transpose_b:
@@ -385,6 +393,16 @@ def _pad_index(n, before, after, mode, device):
     period = 2 * (n - 1)
     i = i.remainder(period)
     return torch.where(i >= n, period - i, i)
+
+
+@register("diag")
+def diag(x, k=0, **_):
+    """A 1-D input: the matrix with ``x`` on diagonal ``k``; an N-D input:
+    diagonal ``k`` of the trailing 2-D block(s) (``mxnet_tpu/ops/
+    matrix.py:568``, numpy's ``diag``/``diagonal``)."""
+    if x.dim() == 1:
+        return torch.diag(x, int(k))
+    return torch.diagonal(x, offset=int(k), dim1=-2, dim2=-1).contiguous()
 
 
 @register("Pad", aliases=("pad",))

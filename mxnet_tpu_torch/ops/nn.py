@@ -53,6 +53,7 @@ from .. import random as _random
 from ..base import MXNetError
 from .batch_norm import batch_norm
 from .conv_dw import conv_dw
+from . import elemwise as _elemwise
 from .matrix import promote
 from .pool_bwd import maxpool_bwd
 from .registry import register
@@ -368,14 +369,18 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     ``flatten`` folds every axis after the first into one; ``no_bias``
     drops the bias (``num_hidden`` is read from the weight).  Operands of
     two types are promoted first, as ``jnp.matmul`` does (float16 data
-    over float32 weights gives float32)."""
+    over float32 weights gives float32); of bools, bool (as ``dot``)."""
     del num_hidden
     x = data.reshape(data.shape[0], -1) if flatten else data
     x, weight = promote(x, weight)
+    if x.dtype == torch.bool:
+        b = None if no_bias or bias is None else bias.float()
+        return F.linear(x.float(), weight.float(), b) != 0
     return F.linear(x, weight, None if no_bias else bias)
 
 
-_ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+_ACTIVATIONS = {"relu": _elemwise._UNARY["relu"],
+                "sigmoid": _elemwise._UNARY["sigmoid"], "tanh": torch.tanh,
                 "softrelu": F.softplus, "softsign": F.softsign}
 
 
@@ -647,7 +652,9 @@ def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
 def softmax(data, axis=-1, temperature=None, length=None, **_):
     """Softmax along ``axis`` (reference: src/operator/nn/softmax.cc),
     with ``temperature`` and, with ``length``, rows masked past their
-    length (masked places are exactly 0); integer data gives float32."""
+    length (masked places are exactly 0); integer data gives float32, and
+    bool data raises, as in the JAX op."""
+    _refuse_bool("softmax", data)
     ax = int(axis)
     x = data if data.is_floating_point() else data.float()
     if temperature is not None and temperature != 1.0:
@@ -667,12 +674,18 @@ def softmax(data, axis=-1, temperature=None, length=None, **_):
 def log_softmax(data, axis=-1, temperature=None, **_):
     """``log(softmax(data))`` along ``axis``, computed stably (reference:
     src/operator/nn/softmax.cc), with ``temperature``; integer data gives
-    float32."""
+    float32, and bool data raises, as in the JAX op."""
+    _refuse_bool("log_softmax", data)
     if not data.is_floating_point():
         data = data.float()
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return torch.log_softmax(data, dim=int(axis))
+
+
+def _refuse_bool(name, data):
+    if data.dtype == torch.bool:
+        raise TypeError("%s does not accept dtype bool" % name)
 
 
 # ------------------------------------------------------------ loss heads

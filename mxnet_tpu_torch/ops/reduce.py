@@ -151,7 +151,9 @@ def _index_reduce(name, tf):
     @register(name)
     def _op(x, axis=None, keepdims=False, **_):
         """Index of the first extremum along ``axis`` (None flattens
-        first), as float32 indices."""
+        first), as float32 indices; bools compare as 0 and 1."""
+        if x.dtype == torch.bool:
+            x = x.to(torch.int32)
         if axis is None:
             out = tf(x.reshape(-1), dim=0)
             if keepdims:

@@ -748,7 +748,12 @@ class Updater:
                 self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
         elif not self.states_synced.get(index, True):
-            self.states[index] = _to_device(self.states[index], weight)
+            # a restored state: on the weight's device, and a float leaf in
+            # the weight's type unless it is a master (a checkpoint keeps
+            # bf16 widened to float32)
+            self.states[index] = _to_device(
+                self.states[index], weight,
+                None if self.optimizer._mastered(weight) else weight.dtype)
             self.states_synced[index] = True
         return self.states[index]
 
@@ -787,6 +792,13 @@ class Updater:
                                  % (", ".join(map(repr, unknown[:5])),
                                     len(states)))
             states = {keys[k]: v for k, v in states.items()}
+        self.restore_states(states)
+
+    def restore_states(self, states):
+        """Adopt ``states`` (index -> a state tree of numpy arrays or host
+        tensors), each moved to its weight's device at the index's next
+        update; a new :attr:`generation`, so a captured step that holds
+        the old state tensors drops its graphs."""
         self.states = states
         self.states_synced = dict.fromkeys(states, False)
         self.generation += 1
@@ -829,6 +841,11 @@ class _StateUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in self._MAP:
             return self._MAP[(module, name)]
+        if (module, name) == ("mxnet_tpu.checkpoint", "_NDLeaf"):
+            # a checkpoint's trainer.pkl, of either package
+            from ..checkpoint import _NDLeaf
+
+            return _NDLeaf
         if module.split(".")[0] in ("mxnet_tpu", "jax", "jaxlib"):
             return _Stub
         return super().find_class(module, name)
@@ -868,13 +885,17 @@ def _to_host(state):
     return state
 
 
-def _to_device(state, weight):
+def _to_device(state, weight, dtype=None):
+    """``state`` on ``weight``'s device, its float leaves in ``dtype``
+    when given."""
     if isinstance(state, np.ndarray):
         state = torch.from_numpy(state)
     if isinstance(state, torch.Tensor):
+        if dtype is not None and state.is_floating_point():
+            return state.to(weight.device, dtype)
         return state.to(weight.device)
     if isinstance(state, (tuple, list)):
-        return type(state)(_to_device(s, weight) for s in state)
+        return type(state)(_to_device(s, weight, dtype) for s in state)
     return state
 
 

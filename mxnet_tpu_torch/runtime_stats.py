@@ -24,7 +24,7 @@ from . import reqtrace as _reqtrace
 from . import slo as _slo
 from .log import process_identity, reset_rate_limits
 
-__all__ = ["inc", "snapshot", "reset"]
+__all__ = ["inc", "snapshot", "reset", "health_probe"]
 
 # name -> count (trainer_steps, serve_requests, predictor_forwards, ...)
 _COUNTERS: dict = {}
@@ -33,6 +33,27 @@ _COUNTERS: dict = {}
 def inc(name, delta=1):
     """Bump a named counter (int or float delta)."""
     _COUNTERS[name] = _COUNTERS.get(name, 0) + delta
+
+
+def health_probe():
+    """A few dict reads for a checkpoint manifest's probe: the step and
+    checkpoint counters and the card's live and peak allocated bytes (0
+    on a process that never used CUDA; reading them synchronises
+    nothing).  The JAX package's probe also counts compiles and
+    fallbacks, which the port does not track; health itself is ROADMAP
+    Queue 1 item 10."""
+    import torch
+
+    live = peak = 0
+    if torch.cuda.is_initialized():
+        live = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+    probe = {k: _COUNTERS.get(k, 0) for k in (
+        "trainer_steps", "compiled_step_steps", "checkpoint_saves",
+        "checkpoint_writes", "checkpoint_restores",
+        "checkpoint_corrupt_skipped")}
+    probe.update(live_bytes=live, peak_bytes=peak)
+    return probe
 
 
 def snapshot():

@@ -370,6 +370,13 @@ class Symbol:
         """The outputs for the named arrays, in predict mode."""
         return self.bind(ctx, kwargs, grad_req="null").forward()
 
+    def grad(self, wrt):
+        """Deprecated in the reference: raises :class:`MXNetError`, as the
+        JAX package's does (``symbol/symbol.py:418``)."""
+        del wrt
+        raise MXNetError("Symbol.grad is deprecated in the reference; "
+                         "use bind(grad_req=...) + backward")
+
     # ---------------------------------------------------------- serialization
     def tojson(self):
         """nnvm-style JSON, as the JAX package writes it."""

@@ -137,6 +137,9 @@ _CENTER_BOXES = ("v", np.float32(np.concatenate(
 _NANS = ("v", [[0.5, 1.0, float("nan"), 2.0],
                [-1.0, float("nan"), 3.5, 0.25]])
 _ROWS = ("fi", (3, 6), 0, 3)  # ties in every row
+_BOOLS = ("v", [[True, False, True, True], [False, False, True, False],
+                [True, True, False, True]], "bool")
+_BOOL_ROW = ("v", [[True, False, True, False]], "bool")
 
 OP_CASES = {}
 for _n in _UNARY:
@@ -195,6 +198,33 @@ OP_CASES.update({
                                    [3.0, -float("inf"), float("inf"),
                                     -1e-30]])], {}),
     "rint/int32": ([("i", (3, 4), -5, 5)], {}),
+    # bool operands take the JAX ops' result types
+    "abs/bool": ([_BOOLS], {}),
+    "ceil/bool": ([_BOOLS], {}),
+    "floor/bool": ([_BOOLS], {}),
+    "trunc/bool": ([_BOOLS], {}),
+    "fix/bool": ([_BOOLS], {}),
+    "relu/bool": ([_BOOLS], {}),
+    "square/bool": ([_BOOLS], {}),
+    "clip/bool": ([_BOOLS], {"a_min": 0, "a_max": 1}),
+    "smooth_l1/bool": ([_BOOLS], {"scalar": 1.0}),
+    "Activation/bool-relu": ([_BOOLS], {"act_type": "relu"}),
+    "argmax/bool": ([_BOOLS], {"axis": 0}),
+    "argmin/bool": ([_BOOLS], {"axis": 1}),
+    "dot/bool": ([_BOOLS, _BOOLS], {"transpose_b": True}),
+    "batch_dot/bool": ([("v", [[[True, False, True], [False, False, True]]],
+                         "bool"),
+                        ("v", [[[True, False], [False, True], [False, True]]],
+                         "bool")], {}),
+    "FullyConnected/bool": ([_BOOLS, ("v", [[True, False, False, True],
+                                            [False, False, False, False]],
+                                           "bool")],
+                            {"num_hidden": 2, "no_bias": True}),
+    "broadcast_power/bool": ([_BOOLS, _BOOL_ROW], {}),
+    "broadcast_mod/bool": ([_BOOLS, _BOOL_ROW], {}),
+    "_minus_scalar/bool": ([_BOOLS], {"scalar": 3.0}),
+    "_rminus_scalar/bool": ([_BOOLS], {"scalar": 3.0}),
+    "_plus_scalar/bool-int": ([_BOOLS], {"scalar": 2}),
     # reductions
     "sum": ([_X345], {"axis": (0, 2)}),
     "sum/int32": ([("i", (3, 4, 5), -9, 9)], {"axis": 1}),
@@ -462,6 +492,9 @@ OP_CASES.update({
     "arange_like": ([("f", (3, 4))], {"axis": 1}),
     "arange_like/int32-repeat": ([("i", (2, 6), 0, 5)],
                                  {"start": 1.5, "step": 0.5, "repeat": 2}),
+    "diag": ([("f", (3, 4))], {"k": 1}),
+    "diag/1d": ([("f", (4,))], {"k": -1}),
+    "diag/3d": ([("f", (2, 3, 4))], {}),
     "Pad": ([("f", (2, 3, 4, 5))], {"mode": "constant",
                                     "pad_width": (0, 0, 0, 0, 1, 2, 2, 1),
                                     "constant_value": 1.5}),

@@ -376,6 +376,95 @@ def test_state_files_load_with_the_jax_package_unimportable(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_checkpoints_load_with_the_jax_package_unimportable(tmp_path):
+    """The JAX package's CheckpointManager writes a checkpoint of an Adam
+    Trainer (its trainer.pkl names the JAX package's ``_NDLeaf`` and
+    optimizer) and its ``save_checkpoint`` a legacy checkpoint with its
+    manifest.  A fresh interpreter in which importing JAX or mxnet_tpu
+    raises restores the first through the port's ``auto_resume`` (every
+    Adam state and count arrives) and loads the second through
+    ``mx.model.load_checkpoint`` after checking the manifest, and a
+    corrupted copy raises; no module of JAX or of mxnet_tpu appears."""
+    import numpy as np
+
+    import mxnet_tpu as jmx
+    from mxnet_tpu import checkpoint as jckpt
+
+    net = jmx.gluon.nn.Dense(3, in_units=5, prefix="iso_")
+    net.initialize(ctx=jmx.cpu())
+    tr = jmx.gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 0.01})
+    x = jmx.nd.array(np.random.RandomState(0).rand(4, 5))
+    for _ in range(2):
+        with jmx.autograd.record():
+            loss = (net(x) ** 2).sum()
+        loss.backward()
+        tr.step(4)
+    jckpt.CheckpointManager(str(tmp_path / "ck"), async_write=False) \
+        .save_trainer(tr, step=2)
+    want = {p.name: p.data().asnumpy() for p in tr._params}
+    np.savez(str(tmp_path / "want.npz"), **want)
+    sym = jmx.sym.SoftmaxOutput(jmx.sym.FullyConnected(
+        jmx.sym.Variable("data"), num_hidden=3, name="fc"), name="softmax")
+    jmx.model.save_checkpoint(str(tmp_path / "legacy"), 1, sym,
+                              {"fc_weight": jmx.nd.ones((3, 5)),
+                               "fc_bias": jmx.nd.zeros((3,))}, {})
+    code = textwrap.dedent("""
+        import shutil, sys
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+                    raise ImportError("refused: " + name)
+        sys.meta_path.insert(0, Refuse())
+        before = set(sys.modules)
+        import numpy as np
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import checkpoint, gluon
+        d = sys.argv[1]
+        net = gluon.nn.Dense(3, in_units=5, prefix="iso_",
+                             device="cpu").initialize()
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 0.01})
+        checkpoint.enable(d + "/ck", async_write=False)
+        assert checkpoint.auto_resume(trainer=tr) == 2
+        want = np.load(d + "/want.npz")
+        for name, p in net.collect_params().items():
+            assert (p.data().asnumpy() == want[name]).all(), name
+        states = tr._updaters[0].states
+        assert sorted(states) == [0, 1], states
+        assert all(np.abs(s[0]).max() > 0 for s in states.values())
+        assert tr.optimizer._index_update_count == {0: 2, 1: 2}
+        _, arg, _ = mx.model.load_checkpoint(d + "/legacy", 1, ctx="cpu")
+        assert arg["fc_weight"].asnumpy().sum() == 15
+        shutil.copy(d + "/legacy-0001.params", d + "/bad-0001.params")
+        shutil.copy(d + "/legacy-symbol.json", d + "/bad-symbol.json")
+        text = open(d + "/legacy-0001.manifest.json").read()
+        open(d + "/bad-0001.manifest.json", "w").write(
+            text.replace("legacy-", "bad-"))
+        with open(d + "/bad-0001.params", "r+b") as f:
+            f.seek(64)
+            b = f.read(1)
+            f.seek(64)
+            f.write(bytes([b[0] ^ 255]))
+        try:
+            mx.model.load_checkpoint(d + "/bad", 1, ctx="cpu")
+            raise SystemExit("a corrupt file loaded")
+        except mx.MXNetError as e:
+            assert "checksum" in str(e)
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new if m.split(".")[0] in
+                     ("jax", "jaxlib", "mxnet_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("entry", ["context", "dense", "lm", "server",
                                    "conv2d", "batchnorm", "resnet50",
                                    "gluon_step", "module_bind",

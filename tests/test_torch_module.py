@@ -12,7 +12,9 @@ MXNet's optimizer applies the no-decay rule (no weight decay on names
 that end neither in ``_weight`` nor in ``_gamma``) in its constructor,
 which the port does and the JAX package's optimizer does not."""
 
+import json
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -107,7 +109,12 @@ def test_fit_validation_and_checkpoints_cross_both_ways(tmp_path):
              num_epoch=1, optimizer="sgd", optimizer_params=_settings(tmx),
              eval_metric="acc", arg_params=args,
              epoch_end_callback=tmx.callback.do_checkpoint(prefix))
-    # the port's checkpoint in the JAX package
+    # the port's checkpoint, with its checksum manifest, in the JAX
+    # package (whose load checks the manifest)
+
+    manifest = json.load(open(prefix + "-0001.manifest.json"))
+    assert sorted(manifest["files"]) == ["port-0001.params",
+                                         "port-symbol.json"]
     jloaded = jmx.mod.Module.load(prefix, 1, context=jmx.cpu())
     jloaded.bind(jit.provide_data, jit.provide_label, for_training=False)
     want = tmod.predict(tmx.io.NDArrayIter(x, y, batch_size=BATCH))
@@ -127,6 +134,18 @@ def test_fit_validation_and_checkpoints_cross_both_ways(tmp_path):
     sym, a, aux = tmx.model.load_checkpoint(jprefix, 3, ctx=CPU)
     assert sym.tojson() == jmod.symbol.tojson() and aux == {}
     assert sorted(a) == sorted(jmod.get_params()[0])
+    # the JAX package's manifest, checked by the port's load: a corrupt
+    # parameter file raises in both packages
+    assert os.path.exists(jprefix + "-0003.manifest.json")
+    with open(jprefix + "-0003.params", "r+b") as f:
+        f.seek(100)
+        byte = f.read(1)
+        f.seek(100)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    with pytest.raises(tmx.MXNetError, match="checksum"):
+        tmx.model.load_checkpoint(jprefix, 3, ctx=CPU)
+    with pytest.raises(jmx.base.MXNetError, match="checksum"):
+        jmx.model.load_checkpoint(jprefix, 3)
 
 
 def test_optimizer_states_and_module_checkpoint(tmp_path):

@@ -404,3 +404,55 @@ def test_gluon_parameters_cross_into_nd():
     tnd.sgd_update(w, g, lr=0.5)
     torch.testing.assert_close(w.data_torch.detach(),
                                before - 0.5 * g.data_torch)
+
+
+def test_64_bit_types_follow_mxnet(tmp_path):
+    """F3's rule, a deliberate divergence: the port keeps float64 and int64
+    where MXNet does (an explicit ``dtype``, ``astype``, a typed integer
+    source, the promotion ``int32 + int64``), while the JAX package
+    narrows them to 32 bits; a float64 host source becomes float32 in both
+    (MXNet's default type for a host source).  ``nd.load`` reads each
+    array as ``nd.array`` reads it, so a file's float64 narrows and its
+    int64 stays (MXNet's load would keep float64: the port reads files the
+    JAX package writes, which hold no float64, by the creation rule).  The
+    dtype is a numpy type for every storage type, uint16 and uint64
+    included."""
+    ar = np.arange(3)
+    cases = {
+        "int64 source": (jmx.nd.array(ar), tnd.array(ar, ctx=CPU),
+                         np.int32, np.int64),
+        "float64 source": (jmx.nd.array(ar * 1.0),
+                           tnd.array(ar * 1.0, ctx=CPU),
+                           np.float32, np.float32),
+        "dtype=float64": (jmx.nd.array([1, 2], dtype="float64"),
+                          tnd.array([1, 2], ctx=CPU, dtype="float64"),
+                          np.float32, np.float64),
+        "astype float64": (jmx.nd.ones((2,)).astype("float64"),
+                           tnd.ones((2,), ctx=CPU).astype("float64"),
+                           np.float32, np.float64),
+        "astype int64": (jmx.nd.ones((2,)).astype("int64"),
+                         tnd.ones((2,), ctx=CPU).astype("int64"),
+                         np.int32, np.int64),
+        "int32 + int64": (jmx.nd.array(ar, dtype="int32")
+                          + jmx.nd.array(ar, dtype="int64"),
+                          tnd.array(ar, ctx=CPU, dtype="int32")
+                          + tnd.array(ar, ctx=CPU, dtype="int64"),
+                          np.int32, np.int64),
+        "uint16 source": (jmx.nd.array(ar.astype(np.uint16)),
+                          tnd.array(ar.astype(np.uint16), ctx=CPU),
+                          np.uint16, np.uint16),
+        "uint64 source": (jmx.nd.array(ar.astype(np.uint64)),
+                          tnd.array(ar.astype(np.uint64), ctx=CPU),
+                          np.uint32, np.uint64),
+    }
+    fname = str(tmp_path / "x.params")
+    tnd.save(fname, {"f": ar * 1.0, "i": ar})
+    jl, tl = jmx.nd.load(fname), tnd.load(fname, ctx=CPU)
+    cases["load float64"] = (jl["f"], tl["f"], np.float32, np.float32)
+    cases["load int64"] = (jl["i"], tl["i"], np.int32, np.int64)
+    for what, (j, t, jdt, tdt) in cases.items():
+        assert (j.dtype, t.dtype) == (jdt, tdt), what
+        assert isinstance(t.dtype, type(np.dtype(tdt))), what
+        np.testing.assert_array_equal(t.asnumpy(), j.asnumpy(), what)
+    back = tnd.ones((2,), ctx=CPU).astype("uint64").astype("float32")
+    assert back.dtype == np.float32 and back.asnumpy().tolist() == [1, 1]

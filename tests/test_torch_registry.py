@@ -308,3 +308,19 @@ def test_arange_like_pad_and_sync_batch_norm_through_a_symbol_file():
         assert g.shape == w.shape and g.dtype == w.dtype
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=1e-6 * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.parametrize("name", ["sign", "sigmoid", "rsqrt", "softmax",
+                                  "log_softmax", "negative", "elemwise_sub"])
+def test_bool_operands_raise_where_the_jax_ops_raise(name):
+    """The JAX ops refuse bool data here (``sign``, ``logistic``,
+    ``rsqrt``, ``neg`` and ``sub`` do not accept it); so do the port's,
+    with MXNetError in both packages."""
+    a = np.array([[True, False, True], [False, True, True]])
+    args = [a] * (2 if name == "elemwise_sub" else 1)
+    with pytest.raises(jmx.base.MXNetError):
+        jmx.nd.imperative_invoke(name, [jmx.nd.array(x, dtype=bool)
+                                        for x in args], {})
+    with pytest.raises(tmx.MXNetError, match="bool|Bool"):
+        tnd.imperative_invoke(name, [tnd.array(x, dtype=bool, ctx=CPU)
+                                     for x in args], {})
